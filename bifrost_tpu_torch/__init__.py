@@ -1,0 +1,33 @@
+"""bifrost_tpu_torch: the PyTorch/CUDA port of bifrost_tpu.
+
+A stream-processing framework for radio astronomy: blocks connected by
+ring buffers, one thread per block, device work on an NVIDIA H100
+(``cuda`` space: ``torch.Tensor`` in device memory).  This package runs
+beside the JAX package ``bifrost_tpu`` and imports nothing of it.  It
+carries, so far, what the Guppi spectrometer chain needs::
+
+    source -> copy('cuda') -> fused[FftStage -> DetectStage('stokes')
+                                    -> ReduceStage('freq', r)]
+           -> copy('system') -> sink
+
+The device is ``cuda:0`` unless the caller selects another with
+:func:`bifrost_tpu_torch.device.set_device` (``set_device('cpu')`` runs
+everything on the CPU, with each kernel's plain PyTorch version).
+Importing the package touches no device and builds no kernel.
+"""
+
+from . import blocks, device, stages
+from .dtype import DataType
+from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
+                       TransformBlock, SinkBlock, block_scope,
+                       get_default_pipeline, PipelineInitError,
+                       PipelineRuntimeError)
+from .ring import Ring, EndOfDataStop
+
+__version__ = '0.1.0'
+
+__all__ = ['blocks', 'device', 'stages', 'DataType', 'Pipeline',
+           'BlockScope', 'Block', 'SourceBlock', 'TransformBlock',
+           'SinkBlock', 'block_scope', 'get_default_pipeline',
+           'PipelineInitError', 'PipelineRuntimeError', 'Ring',
+           'EndOfDataStop']

@@ -1,0 +1,149 @@
+"""Bifrost data types for the PyTorch/CUDA port.
+
+Same semantics as the reference DataType (reference:
+python/bifrost/DataType.py:62-109): a type is ``kind`` + ``nbits``, where
+kind is one of ``i`` (signed int), ``u`` (unsigned int), ``f`` (float),
+``ci`` (complex signed int, nbits per component) or ``cf`` (complex
+float, nbits per component).  Host storage of complex-integer types uses
+the structured numpy dtypes below, laid out as the reference lays them
+out; their device form is a trailing (re, im) axis (see
+:mod:`bifrost_tpu_torch.devrep`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ['DataType', 'ci8', 'ci16', 'ci32', 'cf16']
+
+ci8 = np.dtype([('re', np.int8), ('im', np.int8)])
+ci16 = np.dtype([('re', np.int16), ('im', np.int16)])
+ci32 = np.dtype([('re', np.int32), ('im', np.int32)])
+cf16 = np.dtype([('re', np.float16), ('im', np.float16)])
+
+_KINDS = ('i', 'u', 'f', 'ci', 'cf')
+
+_FROM_NUMPY = {
+    np.dtype(np.int8): ('i', 8), np.dtype(np.int16): ('i', 16),
+    np.dtype(np.int32): ('i', 32), np.dtype(np.int64): ('i', 64),
+    np.dtype(np.uint8): ('u', 8), np.dtype(np.uint16): ('u', 16),
+    np.dtype(np.uint32): ('u', 32), np.dtype(np.uint64): ('u', 64),
+    np.dtype(np.float16): ('f', 16), np.dtype(np.float32): ('f', 32),
+    np.dtype(np.float64): ('f', 64),
+    np.dtype(np.complex64): ('cf', 32), np.dtype(np.complex128): ('cf', 64),
+    ci8: ('ci', 8), ci16: ('ci', 16), ci32: ('ci', 32), cf16: ('cf', 16),
+}
+
+_TO_NUMPY = {v: k for k, v in _FROM_NUMPY.items()}
+
+
+class DataType(object):
+    """kind + nbits type tag.  Construct from a string ('ci8', 'f32',
+    ...), a numpy dtype, a python scalar type or another DataType."""
+
+    __slots__ = ('kind', 'nbits')
+
+    def __init__(self, t='f32'):
+        if isinstance(t, DataType):
+            self.kind, self.nbits = t.kind, t.nbits
+            return
+        if isinstance(t, str):
+            kind = t.rstrip('0123456789')
+            bits = t[len(kind):]
+            if kind in _KINDS and bits.isdigit():
+                self.kind, self.nbits = kind, int(bits)
+                return
+        try:
+            npt = np.dtype(t)
+        except TypeError:
+            raise TypeError("Unsupported dtype: %r" % (t,))
+        if npt not in _FROM_NUMPY:
+            raise TypeError("Unsupported dtype: %r" % (t,))
+        self.kind, self.nbits = _FROM_NUMPY[npt]
+
+    def __str__(self):
+        return '%s%d' % (self.kind, self.nbits)
+
+    def __repr__(self):
+        return "DataType('%s')" % (self,)
+
+    def __eq__(self, other):
+        try:
+            other = DataType(other)
+        except (TypeError, ValueError):
+            return NotImplemented
+        return (self.kind, self.nbits) == (other.kind, other.nbits)
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash((self.kind, self.nbits))
+
+    @property
+    def is_complex(self):
+        return self.kind in ('ci', 'cf')
+
+    @property
+    def is_real(self):
+        return not self.is_complex
+
+    @property
+    def is_floating_point(self):
+        return self.kind in ('f', 'cf')
+
+    @property
+    def itemsize_bits(self):
+        """Total bits per element (both components of a complex)."""
+        return self.nbits * (2 if self.is_complex else 1)
+
+    @property
+    def itemsize(self):
+        return self.itemsize_bits // 8
+
+    def as_numpy_dtype(self):
+        key = (self.kind, self.nbits)
+        if key not in _TO_NUMPY:
+            raise TypeError("No numpy equivalent for %s" % self)
+        return _TO_NUMPY[key]
+
+    def as_torch_dtype(self):
+        """The torch dtype of this type's device representation: complex
+        integers keep their component type (the (re, im) pair becomes a
+        trailing axis), cf16 widens to complex64."""
+        import torch
+        if self.kind == 'ci':
+            return {8: torch.int8, 16: torch.int16,
+                    32: torch.int32}[self.nbits]
+        if self.kind == 'cf':
+            return torch.complex128 if self.nbits > 32 else torch.complex64
+        if self.kind == 'f':
+            return {16: torch.float16, 32: torch.float32,
+                    64: torch.float64}[self.nbits]
+        if self.kind == 'i':
+            return {8: torch.int8, 16: torch.int16, 32: torch.int32,
+                    64: torch.int64}[self.nbits]
+        if self.kind == 'u':
+            return {8: torch.uint8, 16: torch.uint16, 32: torch.uint32,
+                    64: torch.uint64}[self.nbits]
+        raise TypeError("No torch equivalent for %s" % self)
+
+    def as_floating_point(self):
+        """The smallest floating-point type that holds this type
+        (reference: DataType.as_floating_point)."""
+        if self.is_floating_point:
+            return self
+        nbits = 32 if self.nbits <= 16 else 64
+        return DataType('%s%d' % ('cf' if self.is_complex else 'f', nbits))
+
+    def as_real(self):
+        if not self.is_complex:
+            return self
+        return DataType('%s%d' % (self.kind[1:], self.nbits))
+
+    def as_complex(self):
+        if self.is_complex:
+            return self
+        if self.kind == 'u':
+            raise TypeError("No complex-unsigned types")
+        return DataType('c%s%d' % (self.kind, self.nbits))

@@ -1,0 +1,68 @@
+"""Space-tagged host arrays, as the ring's host storage hands them out.
+
+The reference's ``bf.ndarray`` is a numpy subclass carrying a space and
+a bifrost dtype (reference: python/bifrost/ndarray.py:120-166).  The
+port needs it only for host ring spans: a thin wrapper over a numpy
+view of the ring buffer plus its :class:`~bifrost_tpu_torch.dtype.DataType`.
+Device spans hand out ``torch.Tensor`` directly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .dtype import DataType
+from .space import canonical
+
+__all__ = ['ndarray', 'copy_array', 'memset_array']
+
+
+class ndarray(object):
+    """A numpy array in a host space, with its bifrost dtype."""
+
+    __slots__ = ('_buf', '_space', '_dtype')
+
+    def __init__(self, buf, dtype=None, space='system'):
+        buf = np.asarray(buf)
+        self._buf = buf
+        self._dtype = DataType(dtype if dtype is not None else buf.dtype)
+        self._space = canonical(space)
+
+    @property
+    def space(self):
+        return self._space
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def shape(self):
+        return self._buf.shape
+
+    def as_numpy(self):
+        return self._buf
+
+    def __repr__(self):
+        return "ndarray(space=%r, dtype=%s, shape=%s)" % (
+            self._space, self._dtype, self._buf.shape)
+
+
+def copy_array(dst, src):
+    """Copy host ``src`` (ndarray or numpy) into host ndarray ``dst``."""
+    s = src.as_numpy() if isinstance(src, ndarray) else np.asarray(src)
+    if s.shape != dst.shape:
+        raise ValueError("Shape mismatch: %s vs %s" % (s.shape, dst.shape))
+    dst.as_numpy()[...] = s
+    return dst
+
+
+def memset_array(a, value=0):
+    """Fill host ndarray ``a`` with ``value`` (structured complex types
+    fill every component)."""
+    buf = a.as_numpy()
+    if buf.dtype.names is not None:
+        buf.view(buf.dtype[0])[...] = value
+    else:
+        buf[...] = value
+    return a

@@ -1,0 +1,931 @@
+"""Ring buffer runtime: the Python core of the port.
+
+Semantics of the reference ring (reference: src/ring_impl.{hpp,cpp},
+python/bifrost/ring2.py), as ``bifrost_tpu/ring.py`` implements them:
+
+- absolute monotonic byte offsets; buffer index = offset % size
+- sequences (named data units with a JSON-able header and a time_tag),
+  linked in order
+- guaranteed readers lock the tail at their oldest open span;
+  unguaranteed readers can be overwritten and observe
+  ``nframe_skipped`` / ``nframe_overwritten``
+- blocking acquire with a partial final span at sequence end
+- in-order commit barrier for several outstanding write spans
+- live resize that preserves buffered data
+
+Storage:
+
+- **Host rings** ('system', 'cuda_host'): a byte buffer of ``nringlet``
+  lanes of ``size + ghost`` bytes each; the ghost region makes spans
+  that wrap the end contiguous, and spans are zero-copy numpy views.
+  'cuda_host' buffers are page-locked when the port runs on a card.
+- **Device rings** ('cuda'): a chunk map of committed ``torch.Tensor``
+  gulps keyed by absolute byte offset.  A commit records a CUDA event
+  on the writer's stream, and a reader makes its own stream wait on that
+  event before it touches the tensor, so blocks on different threads
+  (and so possibly different streams) are ordered without a host sync.
+  A committed tensor belongs to the ring: neither side may write into it
+  in place.
+
+Shedding, ringcheck, telemetry, ring views and the native core are not
+part of this core; :meth:`Ring.poison` is kept so that a failing block
+wakes its peers instead of leaving them blocked.
+"""
+
+from __future__ import annotations
+
+import bisect
+import json
+import threading
+from functools import reduce
+
+import numpy as np
+
+from .dtype import DataType
+from .ndarray import ndarray
+from .space import canonical
+
+__all__ = ['Ring', 'RingWriter', 'WriteSequence', 'ReadSequence',
+           'WriteSpan', 'ReadSpan', 'EndOfDataStop', 'WouldBlock',
+           'RingPoisonedError', 'split_shape']
+
+_INF = float('inf')
+
+
+class EndOfDataStop(Exception):
+    """A read reached the end of a ring's data (reference:
+    BF_STATUS_END_OF_DATA)."""
+
+
+class WouldBlock(Exception):
+    """A nonblocking reserve found no space (reference:
+    BF_STATUS_WOULD_BLOCK)."""
+
+
+class RingPoisonedError(RuntimeError):
+    """A blocking ring operation on a ring that :meth:`Ring.poison`
+    marked dead: the stream can never complete."""
+
+    def __init__(self, ring_name, cause=None):
+        msg = "ring %r poisoned" % (ring_name,)
+        if cause is not None:
+            msg += " (cause: %s: %s)" % (type(cause).__name__, cause)
+        super(RingPoisonedError, self).__init__(msg)
+        self.cause = cause
+
+
+def split_shape(shape):
+    """Split a tensor shape at the time axis (-1) into
+    (ringlet_shape, frame_shape): (2,3,-1,4,5) -> ([2,3], [4,5])."""
+    for i, dim in enumerate(shape):
+        if dim == -1:
+            return list(shape[:i]), list(shape[i + 1:])
+    raise ValueError("No time dimension (-1) found in shape %s" % (shape,))
+
+
+def _tensor_info(header):
+    """Per-frame layout from a sequence header's ``_tensor``."""
+    t = header['_tensor']
+    ringlet_shape, frame_shape = split_shape(t['shape'])
+    dtype = DataType(t['dtype'])
+    frame_nbit = reduce(lambda x, y: x * y, frame_shape, 1) * \
+        dtype.itemsize_bits
+    if frame_nbit % 8:
+        raise ValueError("Frame of %s x %s does not span whole bytes"
+                         % (frame_shape, dtype))
+    return {
+        'dtype': dtype,
+        'ringlet_shape': ringlet_shape,
+        'nringlet': reduce(lambda x, y: x * y, ringlet_shape, 1),
+        'frame_shape': frame_shape,
+        'frame_nbyte': frame_nbit // 8,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Storage
+# ---------------------------------------------------------------------------
+
+class _HostStorage(object):
+    """Byte buffer with a ghost region (host spaces)."""
+
+    def __init__(self, pinned=False):
+        self.buf = None          # (nringlet, size + ghost) uint8
+        self.size = 0
+        self.ghost = 0
+        self.nringlet = 1
+        self.pinned = pinned
+
+    def _alloc(self, nringlet, nbyte):
+        if self.pinned:
+            import torch
+            return torch.zeros((nringlet, nbyte), dtype=torch.uint8,
+                               pin_memory=True).numpy()
+        return np.zeros((nringlet, nbyte), dtype=np.uint8)
+
+    def allocate(self, size, ghost, nringlet, tail, head):
+        new = self._alloc(nringlet, size + ghost)
+        if self.buf is not None and head > tail:
+            # preserve [tail, head) across the re-layout; only the
+            # existing lanes carry data when the ringlet count grows
+            nl = min(self.nringlet, nringlet)
+            if head - tail > size:
+                tail = head - size
+            o = tail
+            while o < head:
+                run = min(head - o, self.size - o % self.size,
+                          size - o % size)
+                new[:nl, o % size:o % size + run] = \
+                    self.buf[:nl, o % self.size:o % self.size + run]
+                o += run
+        self.buf, self.size, self.ghost, self.nringlet = \
+            new, size, ghost, nringlet
+
+    def view(self, offset, nbyte):
+        bo = offset % self.size
+        return self.buf[:, bo:bo + nbyte]
+
+    def commit_ghost(self, offset, nbyte):
+        """After a write that ran past the nominal end, mirror the
+        overflow to the buffer start (reference: _ghost_write,
+        ring_impl.cpp:249-288)."""
+        over = offset % self.size + nbyte - self.size
+        if over > 0:
+            self.buf[:, :over] = self.buf[:, self.size:self.size + over]
+
+    def refresh_ghost(self, offset, nbyte):
+        """Before a read that runs past the nominal end, refresh the
+        ghost from the buffer start (reference: _ghost_read)."""
+        over = offset % self.size + nbyte - self.size
+        if over > 0:
+            self.buf[:, self.size:self.size + over] = self.buf[:, :over]
+
+    def discard_before(self, offset):
+        pass
+
+
+class _DeviceStorage(object):
+    """Chunk map of committed tensors keyed by absolute byte offset.
+    Each chunk's logical shape is (*ringlet_shape, nframe, *frame_shape)
+    in the device representation; ``event`` marks the completion of the
+    work that produced it (None on the CPU)."""
+
+    def __init__(self):
+        self.chunks = {}        # offset -> (nbyte, tensor, taxis, event)
+        self._offsets = []      # sorted keys of self.chunks
+        self.size = 0
+        self.ghost = 0
+        self.nringlet = 1
+
+    def allocate(self, size, ghost, nringlet, tail, head):
+        self.size, self.ghost, self.nringlet = size, ghost, nringlet
+
+    def put(self, offset, nbyte, tensor, taxis, event):
+        if offset not in self.chunks:
+            bisect.insort(self._offsets, offset)
+        self.chunks[offset] = (nbyte, tensor, taxis, event)
+
+    def get(self, offset, nbyte, frame_nbyte, zeros_fn):
+        """The tensor covering [offset, offset+nbyte): the committed
+        chunk itself when one covers the request exactly, else a
+        concatenation of chunk slices along the time axis, with zeros
+        for frames no chunk holds (overwritten or never written)."""
+        hit = self.chunks.get(offset)
+        if hit is not None and hit[0] == nbyte:
+            _wait(hit[3])
+            return hit[1]
+        import torch
+        end = offset + nbyte
+        i = max(bisect.bisect_right(self._offsets, offset) - 1, 0)
+        parts, covered, taxis = [], offset, None
+        while covered < end and i < len(self._offsets):
+            o = self._offsets[i]
+            cn, t, ctaxis, ev = self.chunks[o]
+            i += 1
+            if o + cn <= covered:
+                continue
+            if o >= end:
+                break
+            if o > covered:
+                parts.append((o - covered) // frame_nbyte)
+                covered = o
+            f0 = (covered - o) // frame_nbyte
+            f1 = min(cn, end - o) // frame_nbyte
+            _wait(ev)
+            parts.append(t.narrow(ctaxis, f0, f1 - f0))
+            taxis = ctaxis
+            covered = o + f1 * frame_nbyte
+        if covered < end:
+            parts.append((end - covered) // frame_nbyte)
+        if taxis is None:
+            return zeros_fn(nbyte // frame_nbyte)
+        pieces = [zeros_fn(p) if isinstance(p, int) else p
+                  for p in parts]
+        if len(pieces) == 1:
+            return pieces[0]
+        return torch.cat(pieces, dim=taxis)
+
+    def discard_before(self, offset):
+        dead = [o for o, c in self.chunks.items() if o + c[0] <= offset]
+        for o in dead:
+            del self.chunks[o]
+        if dead:
+            self._offsets = sorted(self.chunks)
+
+
+def _wait(event):
+    """Order this thread's current stream after ``event``."""
+    if event is not None:
+        import torch
+        torch.cuda.current_stream().wait_event(event)
+
+
+# ---------------------------------------------------------------------------
+# Ring
+# ---------------------------------------------------------------------------
+
+class _Sequence(object):
+    __slots__ = ('name', 'time_tag', 'header', 'begin', 'end', 'next',
+                 'nringlet')
+
+    def __init__(self, name, time_tag, header, begin, nringlet):
+        self.name = name
+        self.time_tag = time_tag
+        self.header = header
+        self.begin = begin      # absolute byte offset of frame 0
+        self.end = None         # one past the last frame, once ended
+        self.next = None
+        self.nringlet = nringlet
+
+    @property
+    def finished(self):
+        return self.end is not None
+
+
+class Ring(object):
+    """A first-in-first-out multi-reader byte ring with named sequences
+    (reference: python/bifrost/ring2.py:84-148)."""
+
+    instance_count = 0
+
+    def __init__(self, space='system', name=None):
+        self.space = canonical(space)
+        if name is None:
+            name = 'ring_%i' % Ring.instance_count
+            Ring.instance_count += 1
+        self.name = name
+        self._lock = threading.RLock()
+        self._read_cond = threading.Condition(self._lock)
+        self._write_cond = threading.Condition(self._lock)
+        self._seq_cond = threading.Condition(self._lock)
+        self._span_cond = threading.Condition(self._lock)
+        if self.space == 'cuda':
+            self._storage = _DeviceStorage()
+        else:
+            pinned = False
+            if self.space == 'cuda_host':
+                from .device import on_cuda
+                pinned = on_cuda()
+            self._storage = _HostStorage(pinned)
+        self._size = 0
+        self._ghost = 0
+        self._nringlet = 1
+        self._tail = 0
+        self._head = 0
+        self._reserve_head = 0
+        self._sequences = []
+        self._open_wspans = []        # in reserve order
+        self._guarantees = {}         # id(ReadSequence) -> abs offset
+        self._open_reads = {}         # id(ReadSequence) -> open begins
+        self._release_high = {}       # id(ReadSequence) -> max released end
+        self._open_read_ends = {}     # id(ReadSequence) -> {begin: end}
+        self._eod = False
+        self._nwrite_open = 0
+        self._nread_open = 0
+        self._poisoned = None
+
+    @property
+    def is_device(self):
+        return self.space == 'cuda'
+
+    # -- geometry ---------------------------------------------------------
+    def resize(self, contiguous_bytes, total_bytes=None, nringlet=1):
+        """(Re)allocate: max contiguous span + total capacity, preserving
+        live data; the ring only ever grows (reference: bfRingResize,
+        ring_impl.cpp:115-210)."""
+        with self._lock:
+            if total_bytes is None:
+                total_bytes = contiguous_bytes * 4
+            ghost = max(self._ghost, contiguous_bytes)
+            size = max(self._size, total_bytes)
+            nringlet = max(self._nringlet, nringlet)
+            if (size, ghost, nringlet) == (self._size, self._ghost,
+                                           self._nringlet):
+                return
+            # no span may hold a view into the old layout
+            while self._nwrite_open or self._nread_open:
+                self._span_cond.wait()
+            self._storage.allocate(size, ghost, nringlet,
+                                   self._tail, self._head)
+            self._size, self._ghost, self._nringlet = size, ghost, nringlet
+            self._write_cond.notify_all()
+            self._read_cond.notify_all()
+
+    @property
+    def total_span(self):
+        return self._size
+
+    @property
+    def ghost_span(self):
+        return self._ghost
+
+    @property
+    def nringlet(self):
+        return self._nringlet
+
+    # -- failure ----------------------------------------------------------
+    def _check_poison(self):
+        if self._poisoned is not None:
+            raise RingPoisonedError(self.name, self._poisoned)
+
+    def poison(self, exc=None):
+        """Mark the ring dead: every blocked or later reserve, acquire
+        and sequence wait raises :class:`RingPoisonedError`."""
+        with self._lock:
+            if self._poisoned is not None:
+                return
+            self._poisoned = exc if exc is not None else \
+                RuntimeError("ring poisoned")
+            self._eod = True
+            for cond in (self._read_cond, self._write_cond,
+                         self._seq_cond, self._span_cond):
+                cond.notify_all()
+
+    # -- writer side ------------------------------------------------------
+    def begin_writing(self):
+        return RingWriter(self)
+
+    def _begin_writing(self):
+        with self._lock:
+            self._eod = False
+
+    def end_writing(self):
+        with self._lock:
+            self._eod = True
+            self._read_cond.notify_all()
+            self._seq_cond.notify_all()
+
+    def _begin_sequence(self, name, time_tag, header, nringlet):
+        with self._lock:
+            self._check_poison()
+            seq = _Sequence(name, time_tag, header, self._head, nringlet)
+            if self._sequences:
+                prev = self._sequences[-1]
+                if not prev.finished:
+                    raise RuntimeError(
+                        "Cannot begin sequence %r: previous sequence %r "
+                        "is still open" % (name, prev.name))
+                prev.next = seq
+            self._sequences.append(seq)
+            self._seq_cond.notify_all()
+            return seq
+
+    def _end_sequence(self, seq):
+        with self._lock:
+            seq.end = self._head
+            self._read_cond.notify_all()
+            self._seq_cond.notify_all()
+
+    def _min_guarantee(self):
+        return min(self._guarantees.values()) if self._guarantees else _INF
+
+    def _reserve_span(self, span, nonblocking=False):
+        nbyte = span._nbyte
+        with self._lock:
+            self._check_poison()
+            # a queued partial commit truncates reserve_head when it
+            # lands: reserving past it would hand out stale offsets
+            for sp in self._open_wspans:
+                if sp._closed and sp._commit_nbyte < sp._nbyte:
+                    raise RuntimeError(
+                        "Cannot reserve a span while a partial commit "
+                        "is pending")
+            if nbyte > self._ghost:
+                # guaranteed-contiguous window too small: grow it
+                self._lock.release()
+                try:
+                    self.resize(nbyte, max(self._size, nbyte * 4),
+                                self._nringlet)
+                finally:
+                    self._lock.acquire()
+            begin = self._reserve_head
+            new_reserve = begin + nbyte
+            while new_reserve - self._size > min(self._head,
+                                                 self._min_guarantee()):
+                if nonblocking:
+                    raise WouldBlock()
+                self._write_cond.wait()
+                self._check_poison()
+            self._reserve_head = new_reserve
+            if new_reserve - self._size > self._tail:
+                self._advance_tail(new_reserve - self._size)
+            span._begin = begin
+            self._open_wspans.append(span)
+            self._nwrite_open += 1
+
+    def _advance_tail(self, new_tail):
+        # overwrite: pull the tail past unguaranteed readers
+        # (reference: ring_impl.cpp:509-555)
+        self._tail = new_tail
+        self._storage.discard_before(new_tail)
+        while (len(self._sequences) > 1 and self._sequences[0].finished
+               and self._sequences[0].end <= new_tail
+               and self._sequences[0].next is not None):
+            self._sequences.pop(0)
+
+    def _commit_span(self, wspan, commit_nbyte):
+        with self._lock:
+            # a partial commit truncates reserve_head, so it is only
+            # legal on the newest outstanding span
+            if commit_nbyte < wspan._nbyte and self._open_wspans and \
+                    self._open_wspans[-1] is not wspan:
+                raise RuntimeError(
+                    "Partial commit with later spans outstanding")
+            wspan._commit_nbyte = commit_nbyte
+            wspan._closed = True
+            # in-order commit barrier (reference: ring_impl.cpp:591-594)
+            while self._open_wspans and self._open_wspans[0]._closed:
+                sp = self._open_wspans.pop(0)
+                cb = sp._commit_nbyte
+                if cb < sp._nbyte:
+                    self._reserve_head = sp._begin + cb
+                self._head = sp._begin + cb
+                if cb > 0:
+                    sp._finalize_storage(cb)
+                self._nwrite_open -= 1
+            self._read_cond.notify_all()
+            self._span_cond.notify_all()
+
+    # -- reader side ------------------------------------------------------
+    def open_earliest_sequence(self, guarantee=True):
+        """The earliest sequence that still holds unread data."""
+        return ReadSequence(self, guarantee=guarantee)
+
+    def read(self, guarantee=True):
+        """Generator over sequences as they appear, from the earliest
+        (reference: ring2.py:140-148)."""
+        with ReadSequence(self, guarantee=guarantee) as cur:
+            while True:
+                try:
+                    yield cur
+                    cur.increment()
+                except EndOfDataStop:
+                    return
+
+    def _open_earliest(self):
+        with self._lock:
+            while True:
+                for seq in self._sequences:
+                    if not seq.finished or seq.end > self._tail:
+                        return seq
+                if self._sequences:
+                    return self._sequences[-1]
+                self._check_poison()
+                if self._eod:
+                    raise EndOfDataStop("No sequence available")
+                self._seq_cond.wait()
+
+    def _next_seq(self, seq):
+        with self._lock:
+            while seq.next is None:
+                self._check_poison()
+                if self._eod and seq.finished:
+                    raise EndOfDataStop("No next sequence")
+                self._seq_cond.wait()
+            return seq.next
+
+    def _register_reader(self, rseq):
+        if rseq.guarantee:
+            with self._lock:
+                self._guarantees[id(rseq)] = max(rseq._seq.begin,
+                                                 self._tail)
+
+    def _reader_moved(self, rseq, new_seq):
+        if rseq.guarantee:
+            with self._lock:
+                g = max(new_seq.begin, self._tail)
+                opens = self._open_reads.get(id(rseq))
+                if opens:
+                    g = min(g, min(opens))
+                self._guarantees[id(rseq)] = g
+
+    def _acquire_span(self, rseq, offset, nbyte, frame_nbyte):
+        """Block until [seq.begin+offset, +nbyte) is readable; returns
+        (abs_begin, nbyte) with any skip rounded up to whole frames
+        (reference: ring_impl.cpp:633-704)."""
+        seq = rseq._seq
+        with self._lock:
+            self._check_poison()
+            want = seq.begin + offset
+            if rseq.guarantee and not self._open_reads.get(id(rseq)):
+                self._guarantees[id(rseq)] = max(
+                    self._guarantees.get(id(rseq), want),
+                    min(want, self._head))
+            while True:
+                self._check_poison()
+                seq_end = seq.end if seq.finished else None
+                if seq_end is not None and want >= seq_end:
+                    raise EndOfDataStop("Sequence consumed")
+                limit = seq_end if seq_end is not None else \
+                    (self._head if self._eod else None)
+                if self._eod and limit is not None and want >= limit:
+                    raise EndOfDataStop("Ring consumed")
+                if want + nbyte <= self._head:
+                    end = want + nbyte
+                    break
+                if limit is not None and limit <= self._head:
+                    end = min(limit, want + nbyte)
+                    break
+                self._read_cond.wait()
+            begin = want
+            if begin < self._tail:
+                skip = -(-(self._tail - begin) // frame_nbyte) * frame_nbyte
+                begin = min(begin + skip, end)
+            if rseq.guarantee:
+                opens = self._open_reads.setdefault(id(rseq), [])
+                opens.append(begin)
+                ends = self._open_read_ends.setdefault(id(rseq), {})
+                ends[begin] = max(ends.get(begin, 0), end)
+                # the guarantee sits at the oldest open span
+                g = min(opens)
+                if g > self._guarantees.get(id(rseq), g):
+                    self._write_cond.notify_all()
+                self._guarantees[id(rseq)] = g
+            self._nread_open += 1
+            return begin, max(end - begin, 0)
+
+    def _release_span(self, rseq, span_begin):
+        with self._lock:
+            if rseq.guarantee and id(rseq) in self._guarantees:
+                opens = self._open_reads.get(id(rseq), [])
+                if span_begin in opens:
+                    opens.remove(span_begin)
+                ends = self._open_read_ends.get(id(rseq), {})
+                span_end = span_begin if span_begin in opens else \
+                    ends.pop(span_begin, span_begin)
+                rh = max(self._release_high.get(id(rseq), 0), span_end)
+                self._release_high[id(rseq)] = rh
+                # advance to the oldest still-open span, else to the
+                # released high-water mark
+                g = min(opens) if opens else rh
+                self._guarantees[id(rseq)] = max(
+                    self._guarantees[id(rseq)], g)
+            self._nread_open -= 1
+            self._write_cond.notify_all()
+            self._span_cond.notify_all()
+
+    def _close_read_seq(self, rseq):
+        with self._lock:
+            for d in (self._guarantees, self._open_reads,
+                      self._open_read_ends, self._release_high):
+                d.pop(id(rseq), None)
+            self._write_cond.notify_all()
+
+    def _overwritten_in(self, begin, nbyte):
+        with self._lock:
+            return max(0, min(self._tail - begin, nbyte))
+
+
+class RingWriter(object):
+    """Writing session: ``with ring.begin_writing() as w:``
+    (reference: ring2.py:150-162)."""
+
+    def __init__(self, ring):
+        self.ring = ring
+        ring._begin_writing()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self.ring.end_writing()
+
+    def begin_sequence(self, header, gulp_nframe, buf_nframe):
+        return WriteSequence(self.ring, header, gulp_nframe, buf_nframe)
+
+
+class _SequenceAPI(object):
+    @property
+    def ring(self):
+        return self._ring
+
+    @property
+    def name(self):
+        return self._seq.name
+
+    @property
+    def time_tag(self):
+        return self._seq.time_tag
+
+    @property
+    def header(self):
+        return self._seq.header
+
+    @property
+    def tensor(self):
+        if self._tensor is None:
+            self._tensor = _tensor_info(self.header)
+        return self._tensor
+
+
+class WriteSequence(_SequenceAPI):
+    def __init__(self, ring, header, gulp_nframe, buf_nframe):
+        self._ring = ring
+        self._tensor = None
+        header['_tensor']['dtype'] = str(header['_tensor']['dtype'])
+        # round trip through JSON: enforces serializability and
+        # decouples the stored header from the caller's dict
+        self._stored_header = json.loads(json.dumps(header))
+        tensor = _tensor_info(self._stored_header)
+        ring.resize(gulp_nframe * tensor['frame_nbyte'],
+                    buf_nframe * tensor['frame_nbyte'],
+                    tensor['nringlet'])
+        self._seq = ring._begin_sequence(
+            header.get('name', ''), header.get('time_tag', -1),
+            self._stored_header, tensor['nringlet'])
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self.end()
+
+    def end(self):
+        self._ring._end_sequence(self._seq)
+
+    def reserve(self, nframe, nonblocking=False):
+        return WriteSpan(self._ring, self, nframe, nonblocking)
+
+
+class ReadSequence(_SequenceAPI):
+    def __init__(self, ring, guarantee=True):
+        self._ring = ring
+        self._tensor = None
+        self.guarantee = guarantee
+        self._seq = ring._open_earliest()
+        ring._register_reader(self)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self.close()
+
+    def close(self):
+        self._ring._close_read_seq(self)
+
+    def increment(self):
+        """Move to the next sequence (reference: ring2.py:293-298)."""
+        nxt = self._ring._next_seq(self._seq)
+        self._seq = nxt
+        self._tensor = None
+        self._ring._reader_moved(self, nxt)
+
+    def acquire(self, frame_offset, nframe):
+        return ReadSpan(self, frame_offset, nframe)
+
+    def read(self, nframe, stride=None, begin=0):
+        """Generator of gulp-sized spans (reference: ring2.py:301-311).
+
+        An overlapped read (stride < nframe) acquires span N+1 before
+        it releases span N, so the guarantee never passes the history
+        frames the two share.  That is deadlock-free only when the ring
+        also absorbs the writer's reserve granularity on top of both
+        spans; when it is smaller the read releases first."""
+        if stride is None:
+            stride = nframe
+        offset = begin
+        if stride >= nframe:
+            while True:
+                try:
+                    with self.acquire(offset, nframe) as span:
+                        yield span
+                        offset += stride
+                except EndOfDataStop:
+                    return
+        need = (nframe + stride) * self.tensor['frame_nbyte']
+        prev = None
+        try:
+            while True:
+                if prev is not None and \
+                        self._ring.total_span < need + self._ring.ghost_span:
+                    prev.release()
+                    prev = None
+                try:
+                    span = self.acquire(offset, nframe)
+                except EndOfDataStop:
+                    return
+                if prev is not None:
+                    prev.release()
+                prev = span
+                yield span
+                offset += stride
+        finally:
+            if prev is not None:
+                prev.release()
+
+    def resize(self, gulp_nframe, buf_nframe=None, buffer_factor=None):
+        """Reader-side buffering request; the default buffer_factor of 3
+        keeps a gulp in flight on each side (reference: ring2.py:312-319)."""
+        if buf_nframe is None:
+            buf_nframe = int(np.ceil(gulp_nframe * (buffer_factor or 3)))
+        fb = self.tensor['frame_nbyte']
+        return self._ring.resize(gulp_nframe * fb, buf_nframe * fb)
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+class _SpanAPI(object):
+    @property
+    def ring(self):
+        return self._ring
+
+    @property
+    def sequence(self):
+        return self._sequence
+
+    @property
+    def tensor(self):
+        return self._sequence.tensor
+
+    @property
+    def frame_nbyte(self):
+        return self.tensor['frame_nbyte']
+
+    @property
+    def nframe(self):
+        return self._nbyte // self.frame_nbyte
+
+    @property
+    def frame_offset(self):
+        return (self._begin - self._sequence._seq.begin) // self.frame_nbyte
+
+    @property
+    def shape(self):
+        t = self.tensor
+        return t['ringlet_shape'] + [self.nframe] + t['frame_shape']
+
+    @property
+    def dtype(self):
+        return self.tensor['dtype']
+
+    @property
+    def device_shape(self):
+        """Shape of this span's tensor on a device ring."""
+        from .devrep import device_rep_shape
+        return device_rep_shape(self.shape, self.dtype)
+
+    def _host_view(self, writeable):
+        """Zero-copy numpy view of the ring bytes, shaped
+        (*ringlet_shape, nframe, *frame_shape)."""
+        t = self.tensor
+        raw = self._ring._storage.view(self._begin, self._nbyte)
+        view = raw.view(t['dtype'].as_numpy_dtype())
+        view = view.reshape([t['nringlet'], self.nframe] +
+                            t['frame_shape']).reshape(self.shape)
+        view.flags['WRITEABLE'] = writeable
+        return ndarray(view, dtype=t['dtype'], space=self._ring.space)
+
+
+class WriteSpan(_SpanAPI):
+    """Reserved output region (reference: ring2.py:451-476).
+
+    Host rings: ``.data`` is a writable zero-copy view.
+    Device rings: publish a computed tensor with ``span.set(t)``; the
+    tensor then belongs to the ring."""
+
+    def __init__(self, ring, sequence, nframe, nonblocking=False):
+        self._ring = ring
+        self._sequence = sequence
+        self._nbyte = nframe * sequence.tensor['frame_nbyte']
+        self._closed = False
+        self._commit_nbyte = None
+        self._tensor = None
+        self._event = None
+        self._data = None
+        ring._reserve_span(self, nonblocking)     # sets self._begin
+        # commit nothing unless told otherwise, so an exception in the
+        # writer publishes no garbage (reference: ring2.py:463-464)
+        self.commit_nframe = 0
+
+    @property
+    def data(self):
+        if self._ring.is_device:
+            return self._tensor
+        if self._data is None:
+            self._data = self._host_view(writeable=True)
+        return self._data
+
+    def set(self, array):
+        """Publish a gulp into this span: a tensor of the span's device
+        shape on a device ring (kept, not copied), or an array copied
+        into the host view."""
+        if self._ring.is_device:
+            if tuple(array.shape) != tuple(self.device_shape):
+                raise ValueError("span expects shape %s, got %s"
+                                 % (tuple(self.device_shape),
+                                    tuple(array.shape)))
+            self._tensor = array
+        else:
+            src = array.as_numpy() if isinstance(array, ndarray) else array
+            self.data.as_numpy()[...] = src
+        return self
+
+    def commit(self, nframe):
+        if not 0 <= nframe <= self.nframe:
+            raise ValueError("cannot commit %d frames of a %d-frame span"
+                             % (nframe, self.nframe))
+        self.commit_nframe = nframe
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self.close()
+
+    def close(self):
+        commit_nbyte = self.commit_nframe * self.frame_nbyte
+        if self._ring.is_device:
+            if self._tensor is not None:
+                from .device import record_event
+                self._event = record_event()
+        elif commit_nbyte:
+            self._ring._storage.commit_ghost(self._begin, commit_nbyte)
+        self._ring._commit_span(self, commit_nbyte)
+
+    def _finalize_storage(self, commit_nbyte):
+        # called under the ring lock once this commit lands in order
+        if self._ring.is_device and self._tensor is not None:
+            t = self.tensor
+            taxis = len(t['ringlet_shape'])
+            x = self._tensor
+            nframe_c = commit_nbyte // t['frame_nbyte']
+            if nframe_c < self.nframe:
+                x = x.narrow(taxis, 0, nframe_c)
+            self._ring._storage.put(self._begin, commit_nbyte, x, taxis,
+                                    self._event)
+
+
+class ReadSpan(_SpanAPI):
+    """Acquired input region (reference: ring2.py:478-503).  On a device
+    ring ``.data`` is a tensor the reader must not write into."""
+
+    def __init__(self, sequence, frame_offset, nframe):
+        self._ring = sequence.ring
+        self._sequence = sequence
+        fb = sequence.tensor['frame_nbyte']
+        self._begin, self._nbyte = self._ring._acquire_span(
+            sequence, frame_offset * fb, nframe * fb, fb)
+        self.requested_frame_offset = frame_offset
+        self.nframe_skipped = min(self.frame_offset - frame_offset, nframe)
+        if not self._ring.is_device and self._nbyte:
+            self._ring._storage.refresh_ghost(self._begin, self._nbyte)
+        self._data = None
+
+    @property
+    def data(self):
+        if self._data is None:
+            if self._ring.is_device:
+                t = self.tensor
+
+                def zeros_fn(nframe):
+                    from .devrep import device_rep_zeros
+                    return device_rep_zeros(
+                        t['ringlet_shape'] + [nframe] + t['frame_shape'],
+                        t['dtype'])
+
+                self._data = self._ring._storage.get(
+                    self._begin, self._nbyte, t['frame_nbyte'], zeros_fn)
+            else:
+                self._data = self._host_view(writeable=False)
+        return self._data
+
+    @property
+    def nframe_overwritten(self):
+        """Frames of this span overwritten while held (unguaranteed
+        readers; reference: ring2.py:491-497)."""
+        if self._sequence.guarantee:
+            return 0
+        nbyte = self._ring._overwritten_in(self._begin, self._nbyte)
+        return -(-nbyte // self.frame_nbyte) if nbyte else 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, value, tb):
+        self.release()
+
+    def release(self):
+        self._ring._release_span(self._sequence, self._begin)

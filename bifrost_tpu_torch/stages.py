@@ -1,0 +1,367 @@
+"""Fusable device-block stages.
+
+A Stage is the pure core of a device TransformBlock, split in two halves
+(as in ``bifrost_tpu/stages.py``):
+
+- ``transform_header(hdr) -> ohdr``: per-sequence metadata negotiation
+- ``build(in_meta) -> fn``: the function of one gulp, where ``in_meta``
+  describes the device-representation input tensor
+
+:class:`bifrost_tpu_torch.blocks.fused.FusedBlock` composes a chain of
+stages with :func:`compose_stages`, which substitutes a hand-written
+whole-chain CUDA kernel where the chain matches one
+(:func:`match_spectrometer`).  The port carries the stages of the Guppi
+spectrometer chain: FFT, detect (modes 'stokes' and 'scalar') and the
+sum reduce.
+"""
+
+from __future__ import annotations
+
+from copy import deepcopy
+from functools import reduce as _reduce
+
+from .dtype import DataType
+from .units import transform_units
+
+__all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
+           'SpectrometerPlan', 'walk_headers', 'compose_stages',
+           'match_spectrometer']
+
+
+class Stage(object):
+    """Base class; transform_header is called once per sequence, before
+    build."""
+
+    #: (num, den): output_nframe = input_nframe * num // den
+    nframe_ratio = (1, 1)
+
+    def transform_header(self, hdr):
+        return hdr
+
+    def build(self, in_meta):
+        """in_meta: dict(shape=device-rep shape incl. frame axis,
+        dtype=DataType, reim=bool).  Return fn(tensor) -> tensor in
+        device representation."""
+        raise NotImplementedError
+
+    def output_nframe(self, input_nframe):
+        num, den = self.nframe_ratio
+        if (input_nframe * num) % den:
+            raise ValueError("%s: nframe %d not divisible by %d"
+                             % (type(self).__name__, input_nframe, den))
+        return input_nframe * num // den
+
+
+def _complexify_fn(in_meta):
+    """Stage-input helper: ci device rep (int (re, im) pairs) ->
+    complex64."""
+    reim = in_meta.get('reim', False)
+
+    def fn(x):
+        if reim and not x.is_complex():
+            import torch
+            return torch.complex(x[..., 0].float(), x[..., 1].float())
+        return x
+    return fn
+
+
+def _resolve_axis(tensor, axis):
+    if isinstance(axis, str):
+        return tensor['labels'].index(axis)
+    return axis
+
+
+class FftStage(Stage):
+    """Forward c2c FFT over named axes (reference: blocks/fft.py:39-137;
+    src/fft.cu).  The inverse, r2c, c2r and fftshift options of the JAX
+    package are not ported yet."""
+
+    def __init__(self, axes, inverse=False, real_output=False,
+                 axis_labels=None, apply_fftshift=False):
+        if not isinstance(axes, (list, tuple)):
+            axes = [axes]
+        if not isinstance(axis_labels, (list, tuple)):
+            axis_labels = [axis_labels]
+        self.specified_axes = list(axes)
+        self.inverse = inverse
+        self.real_output = real_output
+        self.axis_labels = list(axis_labels)
+        self.apply_fftshift = apply_fftshift
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        itype = DataType(itensor['dtype']).as_floating_point()
+        if self.real_output or itype.is_real or self.inverse or \
+                self.apply_fftshift:
+            raise NotImplementedError("only forward c2c FFTs without "
+                                      "fftshift are ported")
+        self.axes = [_resolve_axis(itensor, ax)
+                     for ax in self.specified_axes]
+        if itensor['shape'].index(-1) in self.axes:
+            raise KeyError("Cannot transform the frame axis")
+        self.mode = 'c2c'
+        self.otype = itype.as_complex()
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        otensor['dtype'] = str(self.otype)
+        for i, ax in enumerate(self.axes):
+            length = itensor['shape'][ax]
+            if 'units' in otensor:
+                otensor['units'][ax] = transform_units(
+                    otensor['units'][ax], -1)
+            if 'scales' in otensor:
+                otensor['scales'][ax][0] = 0
+                otensor['scales'][ax][1] = \
+                    1. / (otensor['scales'][ax][1] * length)
+            if 'labels' in otensor and self.axis_labels != [None]:
+                otensor['labels'][ax] = self.axis_labels[i]
+        return ohdr
+
+    def build(self, in_meta):
+        from .ops.fft import fftn_dispatch
+        pre = _complexify_fn(in_meta)
+        axes = list(self.axes)
+        odt = self.otype.as_torch_dtype()
+
+        def fn(x):
+            return fftn_dispatch(pre(x), axes).to(odt)
+        return fn
+
+
+class DetectStage(Stage):
+    """Square-law detection (reference: blocks/detect.py:40-138), modes
+    'stokes' and 'scalar'.
+
+    Stokes over pol axis 1 of a (time, pol, freq) stream runs the K2
+    kernel (:func:`bifrost_tpu_torch.ops.gpu_kernels.stokes_detect`)
+    whenever the shape matches; the JAX package uses its Pallas kernel
+    there only under ``BF_USE_PALLAS`` (``stages.py:263``).  The other
+    modes of the JAX package are not ported yet."""
+
+    _PORTED = ('scalar', 'stokes')
+
+    def __init__(self, mode, axis=None):
+        self.mode = mode.lower()
+        self.axis = axis
+        if self.mode not in ('scalar', 'jones', 'stokes', 'stokes_i',
+                             'coherence'):
+            raise ValueError("Invalid detect mode: %r" % mode)
+        if self.mode not in self._PORTED:
+            raise NotImplementedError("detect mode %r is not ported"
+                                      % mode)
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        itype = DataType(itensor['dtype'])
+        if not itype.is_complex:
+            raise TypeError("detect requires complex input")
+        axis = self.axis
+        if axis is None and self.mode != 'scalar':
+            axis = 'pol'
+        if isinstance(axis, str):
+            axis = itensor['labels'].index(axis)
+        self.axis_index = axis
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        if axis is not None:
+            self.npol = otensor['shape'][axis]
+            if self.npol not in (1, 2):
+                raise ValueError("Polarization axis must have length 1 or 2")
+            if self.mode == 'stokes' and self.npol == 2:
+                otensor['shape'][axis] = 4
+            if 'labels' in otensor:
+                otensor['labels'][axis] = 'pol'
+        else:
+            self.npol = 1
+        otensor['dtype'] = str(itype.as_real().as_floating_point())
+        self.otype = DataType(otensor['dtype'])
+        return ohdr
+
+    def build(self, in_meta):
+        import torch
+        from .ops import gpu_kernels
+        pre = _complexify_fn(in_meta)
+        mode, axis, npol = self.mode, self.axis_index, self.npol
+        odt = self.otype.as_torch_dtype()
+
+        def mag2(v):
+            return v.real * v.real + v.imag * v.imag
+
+        def fn(x):
+            x = pre(x)
+            if npol == 1:
+                return mag2(x).to(odt)
+            if mode != 'stokes':
+                raise ValueError(mode)
+            if axis == 1 and x.dim() == 3 and odt == torch.float32 \
+                    and x.dtype == torch.complex64:
+                v = torch.view_as_real(x)           # (T, 2, F, 2)
+                return gpu_kernels.stokes_detect(v[:, 0, :, 0],
+                                                 v[:, 0, :, 1],
+                                                 v[:, 1, :, 0],
+                                                 v[:, 1, :, 1])
+            xp, yp = x.select(axis, 0), x.select(axis, 1)
+            xx, yy = mag2(xp), mag2(yp)
+            xyr = xp.real * yp.real + xp.imag * yp.imag
+            xyi = xp.imag * yp.real - xp.real * yp.imag
+            out = torch.stack([xx + yy, xx - yy, 2 * xyr, -2 * xyi],
+                              dim=axis)
+            return out.to(odt)
+        return fn
+
+
+class ReduceStage(Stage):
+    """Sum adjacent elements of an axis in groups of ``factor``
+    (reference: blocks/reduce.py:39-91; src/reduce.cu)."""
+
+    def __init__(self, axis, factor=None, op='sum'):
+        self.specified_axis = axis
+        self.specified_factor = factor
+        self.op = op
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        otensor['dtype'] = 'f32'
+        if itensor['dtype'] in ('cf32', 'cf64') and \
+                not self.op.startswith('pwr'):
+            otensor['dtype'] = 'cf32'
+        if 'labels' in itensor and isinstance(self.specified_axis, str):
+            self.axis = itensor['labels'].index(self.specified_axis)
+        else:
+            self.axis = self.specified_axis
+        self.frame_axis = itensor['shape'].index(-1)
+        self.factor = self.specified_factor
+        if self.axis == self.frame_axis:
+            if self.factor is None:
+                raise ValueError(
+                    "Reduce factor must be specified for frame axis")
+            self.nframe_ratio = (1, self.factor)
+        else:
+            if self.factor is None:
+                self.factor = otensor['shape'][self.axis]
+            elif otensor['shape'][self.axis] % self.factor != 0:
+                raise ValueError("Reduce factor does not divide axis length")
+            otensor['shape'][self.axis] //= self.factor
+        otensor['scales'][self.axis][1] *= self.factor
+        self.otype = DataType(otensor['dtype'])
+        return ohdr
+
+    def build(self, in_meta):
+        from .ops.reduce import _reduce_torch
+        pre = _complexify_fn(in_meta)
+        axis, factor, op = self.axis, self.factor, self.op
+        tgt = self.otype.as_torch_dtype()
+
+        def fn(x):
+            y = _reduce_torch(pre(x), axis, factor, op)
+            if y.is_complex() and not tgt.is_complex:
+                y = y.real
+            return y.to(tgt)
+        return fn
+
+
+def walk_headers(stages, hdr):
+    """Run ``hdr`` through every stage's transform_header; returns the
+    header list (input + one per stage output)."""
+    headers = [hdr]
+    for stage in stages:
+        hdr = stage.transform_header(hdr)
+        headers.append(hdr)
+    return headers
+
+
+def _device_shape(hdr, nframe):
+    t = hdr['_tensor']
+    shape = [nframe if s == -1 else s for s in t['shape']]
+    return shape + ([2] if DataType(t['dtype']).kind == 'ci' else [])
+
+
+def compose_stages(stages, headers, shape, dtype, substitute=True):
+    """The one-gulp function of a stage chain: FusedBlock runs exactly
+    this per gulp.  ``shape`` and ``dtype`` describe the device-rep input
+    tensor.
+
+    Returns ``(fn, info)``: ``info`` records the path ``fn`` runs,
+    ``{'impl': 'cuda-spectrometer', ...}`` when the whole-chain kernel is
+    substituted (``substitute`` True and :func:`match_spectrometer`
+    matches), else ``{'impl': 'torch-fused'}``.  ``substitute=False`` is
+    the only way to keep the per-stage path on a matching chain."""
+    if substitute:
+        plan = match_spectrometer(stages, headers, shape, dtype)
+        if plan is not None:
+            return plan, plan.info
+    taxis = headers[0]['_tensor']['shape'].index(-1)
+    nframe = int(shape[taxis])
+    fns = []
+    cur = list(shape)
+    for stage, ihdr, ohdr in zip(stages, headers[:-1], headers[1:]):
+        idt = DataType(ihdr['_tensor']['dtype'])
+        fns.append(stage.build({'shape': cur, 'dtype': idt,
+                                'reim': idt.kind == 'ci'}))
+        nframe = stage.output_nframe(nframe)
+        cur = _device_shape(ohdr, nframe)
+
+    def composed(x):
+        return _reduce(lambda v, f: f(v), fns, x)
+    return composed, {'impl': 'torch-fused'}
+
+
+class SpectrometerPlan(object):
+    """Callable wrapper around the substituted whole-chain kernel that
+    records its configuration, so the block that runs it can publish
+    what ran (FusedBlock.impl_info)."""
+
+    def __init__(self, fn, info):
+        self.fn = fn
+        self.info = dict(info)
+
+    def __call__(self, x):
+        return self.fn(x)
+
+
+def _is_int8(dtype):
+    return str(dtype) in ('int8', 'torch.int8')
+
+
+def match_spectrometer(stages, headers, shape, dtype):
+    """Recognize the Guppi spectrometer pattern, FftStage (c2c forward,
+    no shift, last axis) -> DetectStage('stokes', pol axis 1) ->
+    ReduceStage(axis 2, r, 'sum') on ci8 dual-pol input, and return K1
+    (:func:`bifrost_tpu_torch.ops.spectrometer.fused_spectrometer`) as a
+    :class:`SpectrometerPlan`; else None.  Unlike the JAX package, the
+    substitution is not gated on a runtime accuracy probe: the kernel's
+    gate is checked on the card by ``chip_smoke.py``."""
+    if len(stages) != 3:
+        return None
+    f, d, r = stages
+    if not (isinstance(f, FftStage) and isinstance(d, DetectStage)
+            and isinstance(r, ReduceStage)):
+        return None
+    if headers[0]['_tensor']['dtype'] != 'ci8':
+        return None
+    if not _is_int8(dtype) or len(shape) != 4:
+        return None
+    from .ops import spectrometer as spec
+    ntime, npol, nfft, two = shape
+    if npol != 2 or two != 2 or nfft < 4 or (nfft & (nfft - 1)) or \
+            nfft > spec.MAX_NFFT:
+        return None
+    if f.mode != 'c2c' or f.inverse or f.apply_fftshift or f.axes != [2]:
+        return None
+    if d.mode != 'stokes' or d.axis_index != 1 or d.npol != 2:
+        return None
+    if r.op != 'sum' or r.axis != 2 or not r.factor or nfft % r.factor:
+        return None
+    from .device import get_device
+    factor = r.factor
+
+    def fn(x):
+        return spec.fused_spectrometer(x, rfactor=factor)
+    return SpectrometerPlan(fn, {
+        'impl': 'cuda-spectrometer',
+        'kernel': 'cuda' if get_device().type == 'cuda' else 'plain',
+        'nfft': nfft,
+        'rfactor': factor,
+    })

@@ -1,0 +1,73 @@
+"""The PyTorch/CUDA port stands alone: it imports nothing of JAX or of
+the JAX package, and it never moves to the CPU on its own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'bifrost_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'bifrost_tpu')
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='')
+    return subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _sources():
+    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files
+                if f.endswith('.py')]
+    return out
+
+
+def _top(name):
+    return name.split('.')[0]
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    p = _run("import sys, bifrost_tpu_torch, bifrost_tpu_torch.stages, "
+             "bifrost_tpu_torch.blocks, bifrost_tpu_torch.ops.spectrometer, "
+             "bifrost_tpu_torch.ops.gpu_kernels, bifrost_tpu_torch._build\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "%r)\nprint(bad)" % (FORBIDDEN,))
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[]'
+
+
+@pytest.mark.parametrize('path', _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        else:
+            continue
+        for name in names:
+            assert _top(name) not in FORBIDDEN, \
+                '%s imports %s' % (os.path.relpath(path, ROOT), name)
+
+
+def test_get_device_raises_without_gpu_or_cpu_request():
+    p = _run("import torch\n"
+             "assert not torch.cuda.is_available()\n"
+             "from bifrost_tpu_torch import device\n"
+             "try:\n"
+             "    device.get_device()\n"
+             "except RuntimeError as e:\n"
+             "    print('raised:', e)\n"
+             "else:\n"
+             "    print('returned')\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.startswith('raised:'), p.stdout
+    assert "set_device('cpu')" in p.stdout
