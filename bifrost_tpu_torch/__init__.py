@@ -4,11 +4,18 @@ A stream-processing framework for radio astronomy: blocks connected by
 ring buffers, one thread per block, device work on an NVIDIA H100
 (``cuda`` space: ``torch.Tensor`` in device memory).  This package runs
 beside the JAX package ``bifrost_tpu`` and imports nothing of it.  It
-carries, so far, what the Guppi spectrometer chain needs::
+carries, so far, what the Guppi spectrometer chain and the quantized
+coherent beamformer chain need::
 
     source -> copy('cuda') -> fused[FftStage -> DetectStage('stokes')
                                     -> ReduceStage('freq', r)]
            -> copy('system') -> sink
+
+    source -> copy('cuda') -> fused[BeamformStage -> DetectStage('stokes')
+                                    -> ReduceStage('time', r)]
+           -> copy('system') -> sink
+
+(or ``beamform(...)`` -> ``fused[DetectStage, ReduceStage]`` unfused).
 
 The device is ``cuda:0`` unless the caller selects another with
 :func:`bifrost_tpu_torch.device.set_device` (``set_device('cpu')`` runs

@@ -10,7 +10,8 @@ into ``bifrost_tpu_torch/_build/`` (listed in ``.gitignore``).  The file
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and never loaded stale.  :func:`build` starts one nvcc per
 missing library, all at once, and waits for them together.  Fast math is
-not used: the spectrometer's 1e-5 accuracy gate needs IEEE arithmetic.
+not used: the spectrometer's 1e-5 accuracy gate needs IEEE arithmetic,
+and the beamform-detect kernel is held bit for bit to its plain version.
 
 The JAX package's capability probe (``pallas_kernels.available``, a
 trivial Pallas kernel) has no counterpart here: a kernel that does not
@@ -36,7 +37,7 @@ CSRC = os.path.join(HERE, 'csrc')
 BUILD_DIR = os.path.join(HERE, '_build')
 
 #: kernel sources, by library name
-SOURCES = ('spectrometer', 'stokes')
+SOURCES = ('spectrometer', 'stokes', 'beamform')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']

@@ -2,5 +2,7 @@
 
 from .copy import CopyBlock, copy
 from .fused import FusedBlock, fused
+from .beamform import BeamformBlock, beamform
 
-__all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused']
+__all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
+           'beamform']

@@ -1,0 +1,51 @@
+"""The single-stage device block (the port of ``_StageBlock`` in
+``bifrost_tpu/blocks/fft.py``).
+
+A :class:`_StageBlock` runs one stage of ``bifrost_tpu_torch.stages`` as
+a TransformBlock on the ``cuda`` space: the stage negotiates the header
+once per sequence and builds one function per gulp shape.  Left out of
+this port: buffer donation, macro-gulp batching and mesh sharding, which
+the port's pipeline does not have yet, and ``FftBlock`` itself, which
+waits for the unfused spectrometer blocks.
+"""
+
+from __future__ import annotations
+
+from ..dtype import DataType
+from ..pipeline import TransformBlock
+
+__all__ = ['_StageBlock']
+
+
+class _StageBlock(TransformBlock):
+    """TransformBlock driven by a single Stage."""
+
+    def __init__(self, iring, stage, *args, **kwargs):
+        super(_StageBlock, self).__init__(iring, *args, **kwargs)
+        self._stage = stage
+        self._plans = {}   # (shape, dtype) -> the stage's gulp function
+
+    def define_valid_input_spaces(self):
+        return ('cuda',)
+
+    def on_sequence(self, iseq):
+        self._ihdr = iseq.header
+        self._plans = {}
+        return self._stage.transform_header(iseq.header)
+
+    def define_output_nframes(self, input_nframe):
+        return self._stage.output_nframe(input_nframe)
+
+    def _plan_for(self, x):
+        key = (tuple(x.shape), x.dtype)
+        fn = self._plans.get(key)
+        if fn is None:
+            idt = DataType(self._ihdr['_tensor']['dtype'])
+            fn = self._plans[key] = self._stage.build(
+                {'shape': list(x.shape), 'dtype': idt,
+                 'reim': idt.kind == 'ci'})
+        return fn
+
+    def on_data(self, ispan, ospan):
+        x = ispan.data
+        ospan.set(self._plan_for(x)(x))

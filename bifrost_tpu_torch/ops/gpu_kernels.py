@@ -1,24 +1,55 @@
 """Hand-written CUDA kernels for single stages, with their plain PyTorch
 versions.  The counterpart of ``bifrost_tpu/ops/pallas_kernels.py``.
 
-K2, :func:`stokes_detect`, replaces ``pallas_kernels.stokes_detect``
-(``pl.pallas_call`` at ``pallas_kernels.py:86``); its source is
-``bifrost_tpu_torch/csrc/stokes.cu``, which states its bound on the H100
-and what its design does about it.  On a CUDA tensor the wrapper
-launches the kernel or raises; on a CPU tensor it runs
-:func:`stokes_detect_plain`, which the CPU tests use and the chip smoke
-run holds the kernel against.
+- K2, :func:`stokes_detect`, replaces ``pallas_kernels.stokes_detect``
+  (``pl.pallas_call`` at ``pallas_kernels.py:86``); its source is
+  ``bifrost_tpu_torch/csrc/stokes.cu``.
+- K4, :func:`beamform_int8`, K5, :func:`beamform_bf16`, and K6,
+  :func:`beamform_detect_int8`, replace the beamformer kernels of the
+  same names (``pl.pallas_call`` at ``pallas_kernels.py:265``, ``:307``
+  and ``:384``); their source is ``bifrost_tpu_torch/csrc/beamform.cu``.
+
+Each source states its kernels' bounds on the H100 and what their design
+does about them.  On a CUDA tensor a wrapper launches its kernel or
+raises; on a CPU tensor it runs the ``*_plain`` version beside it, which
+the CPU tests use and the chip smoke run holds the kernel against.
+:data:`launches` counts each wrapper's kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 
-__all__ = ['stokes_detect', 'stokes_detect_plain', 'launches']
+__all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
+           'beamform_int8_plain', 'beamform_bf16', 'beamform_bf16_plain',
+           'beamform_detect_int8', 'beamform_detect_int8_plain',
+           'MAX_NSTAND', 'launches']
 
-#: K2 kernel launches since import (or since a caller reset it)
-launches = 0
+#: kernel launches per wrapper since import (or since a caller reset them)
+launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
+            'beamform_detect_int8': 0}
 
+#: most stations the int8 beamform kernels take: the int32 sum of
+#: 2 * S products of int8 values, each at most 128 * 128, stays exact
+MAX_NSTAND = (2 ** 31 - 1) // (2 * 128 * 128)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _fn(lib_name, fn_name, argtypes):
+    from .. import _build
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+# ---------------------------------------------------------------------------
+# K2: Stokes detect
+# ---------------------------------------------------------------------------
 
 def stokes_detect_plain(xr, xi, yr, yi):
     """Stokes I, Q, U, V of x = xr + i xi, y = yr + i yi: four (T, F)
@@ -57,11 +88,10 @@ def stokes_detect(xr, xi, yr, yi):
     _check_planes(planes)
     if xr.device.type != 'cuda':
         return stokes_detect_plain(xr, xi, yr, yi)
-    return _launch(planes)
+    return _launch_stokes(planes)
 
 
-def _launch(planes):
-    global launches
+def _launch_stokes(planes):
     import torch
     from .. import _build
     xr = planes[0]
@@ -72,14 +102,230 @@ def _launch(planes):
                          % [p.stride() for p in planes])
     T, F = xr.shape
     out = torch.empty((T, 4, F), dtype=torch.float32, device=xr.device)
-    lib = _build.load('stokes')
-    fn = lib.bf_stokes_detect
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*[ctypes.c_void_p(p.data_ptr()) for p in planes],
-             ctypes.c_void_p(out.data_ptr()), T, F, strides[0], strides[1],
-             _build.stream_ptr(xr.device))
+    lib, fn = _fn('stokes', 'bf_stokes_detect',
+                  [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 +
+                  [ctypes.c_void_p])
+    err = fn(*[_ptr(p) for p in planes], _ptr(out), T, F, strides[0],
+             strides[1], _build.stream_ptr(xr.device))
     _build.check(lib, err, 'stokes_detect')
-    launches += 1
+    launches['stokes_detect'] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4, K5: per-pol beamform of (T, F, S) voltage planes against (B, S)
+# weight planes
+# ---------------------------------------------------------------------------
+
+def _dot(a, w):
+    """(T, F, S) x (B, S) -> (T, F, B) in the dtype of the operands."""
+    import torch
+    return torch.einsum('tfs,bs->tfb', a, w)
+
+
+def beamform_int8_plain(wr, wi, re, im):
+    """The plain version of K4: the four dots in float64, exact while
+    every partial sum stays below 2^53, cast to int32."""
+    import torch
+    d = torch.float64
+    r, i, a, c = re.to(d), im.to(d), wr.to(d), wi.to(d)
+    return ((_dot(r, a) - _dot(i, c)).to(torch.int32),
+            (_dot(r, c) + _dot(i, a)).to(torch.int32))
+
+
+def beamform_bf16_plain(wr, wi, re, im):
+    """The plain version of K5: voltages and weights rounded to bf16
+    (round to nearest even), the four dots in float32 (exact products of
+    bf16 values, float32 sums)."""
+    import torch
+    r, i, a, c = (v.to(torch.bfloat16).float() for v in (re, im, wr, wi))
+    return _dot(r, a) - _dot(i, c), _dot(r, c) + _dot(i, a)
+
+
+def _check_beamform(wr, wi, re, im, wdtypes, vdtypes, what):
+    if wr.dim() != 2 or wi.shape != wr.shape:
+        raise ValueError("%s: weights must be two (B, S) planes, got %s "
+                         "and %s" % (what, tuple(wr.shape),
+                                     tuple(wi.shape)))
+    if re.dim() != 3 or im.shape != re.shape:
+        raise ValueError("%s: voltages must be two (T, F, S) planes, got "
+                         "%s and %s" % (what, tuple(re.shape),
+                                        tuple(im.shape)))
+    if re.shape[2] != wr.shape[1]:
+        raise ValueError("%s: %d stations in the voltages, %d in the "
+                         "weights" % (what, re.shape[2], wr.shape[1]))
+    if wr.dtype not in wdtypes or wi.dtype != wr.dtype:
+        raise ValueError("%s: weights must be %s, got %s and %s"
+                         % (what, wdtypes, wr.dtype, wi.dtype))
+    if re.dtype not in vdtypes or im.dtype != re.dtype:
+        raise ValueError("%s: voltages must be %s, got %s and %s"
+                         % (what, vdtypes, re.dtype, im.dtype))
+    devs = {t.device for t in (wr, wi, re, im)}
+    if len(devs) != 1:
+        raise ValueError("%s: operands on different devices: %s"
+                         % (what, sorted(str(d) for d in devs)))
+
+
+def _voltage_strides(re, im, what):
+    if re.stride() != im.stride() or min(re.stride()) < 1:
+        raise ValueError("%s: the voltage planes must share positive "
+                         "strides, got %s and %s"
+                         % (what, re.stride(), im.stride()))
+    return re.stride()
+
+
+def beamform_int8(wr, wi, re, im):
+    """K4: int8 weights (B, S) and int8 voltage planes (T, F, S) ->
+    (yr, yi), two (T, F, B) int32 planes with yr = re.wr^T - im.wi^T and
+    yi = re.wi^T + im.wr^T per channel, exact.
+
+    The voltage planes may be strided views sharing one set of strides
+    (the per-pol views of a ci8 gulp); they are read in place."""
+    import torch
+    _check_beamform(wr, wi, re, im, (torch.int8,), (torch.int8,),
+                    'beamform_int8')
+    if re.device.type != 'cuda':
+        return beamform_int8_plain(wr, wi, re, im)
+    T, F, S = re.shape
+    B = wr.shape[0]
+    if S > MAX_NSTAND:
+        raise ValueError("beamform_int8: %d stations could overflow the "
+                         "int32 sum (at most %d)" % (S, MAX_NSTAND))
+    st, sf, ss = _voltage_strides(re, im, 'beamform_int8')
+    wr, wi = wr.contiguous(), wi.contiguous()
+    yr = torch.empty((T, F, B), dtype=torch.int32, device=re.device)
+    yi = torch.empty_like(yr)
+    from .. import _build
+    lib, fn = _fn('beamform', 'bf_beamform_int8',
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 +
+                  [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
+             T, F, S, B, st, sf, ss, _build.stream_ptr(re.device))
+    _build.check(lib, err, 'beamform_int8')
+    launches['beamform_int8'] += 1
+    return yr, yi
+
+
+def beamform_bf16(wr, wi, re, im):
+    """K5: float32 weights (B, S) and int8 or float32 voltage planes
+    (T, F, S) -> (yr, yi), two (T, F, B) float32 planes: the four dots
+    of :func:`beamform_int8` on bf16-rounded operands with float32
+    accumulation.  Strided voltage planes are read in place."""
+    import torch
+    _check_beamform(wr, wi, re, im, (torch.float32,),
+                    (torch.int8, torch.float32), 'beamform_bf16')
+    if re.device.type != 'cuda':
+        return beamform_bf16_plain(wr, wi, re, im)
+    T, F, S = re.shape
+    B = wr.shape[0]
+    st, sf, ss = _voltage_strides(re, im, 'beamform_bf16')
+    wr, wi = wr.contiguous(), wi.contiguous()
+    yr = torch.empty((T, F, B), dtype=torch.float32, device=re.device)
+    yi = torch.empty_like(yr)
+    from .. import _build
+    lib, fn = _fn('beamform', 'bf_beamform_bf16',
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+                  [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
+             0 if re.dtype == torch.int8 else 1, T, F, S, B, st, sf, ss,
+             _build.stream_ptr(re.device))
+    _build.check(lib, err, 'beamform_bf16')
+    launches['beamform_bf16'] += 1
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# K6: dual-pol int8 beamform -> Stokes -> sum of R frames
+# ---------------------------------------------------------------------------
+
+def beamform_detect_int8_plain(wxr, wxi, wyr, wyi, x, scale, rfactor):
+    """The plain version of K6, step for step: the exact int32 beams of
+    each pol (:func:`beamform_int8_plain`), to float32, times ``scale``,
+    Stokes I, Q, U, V, and the sum of each group of ``rfactor`` frames
+    taken in frame order."""
+    import torch
+    scale = float(scale)
+
+    def beam(p, wr, wi):
+        yr, yi = beamform_int8_plain(wr, wi, x[:, :, :, p, 0],
+                                     x[:, :, :, p, 1])
+        return yr.float() * scale, yi.float() * scale
+
+    bxr, bxi = beam(0, wxr, wxi)
+    byr, byi = beam(1, wyr, wyi)
+    xx = bxr * bxr + bxi * bxi
+    yy = byr * byr + byi * byi
+    xyr = bxr * byr + bxi * byi           # Re(x conj(y))
+    xyi = bxi * byr - bxr * byi           # Im(x conj(y))
+    st = torch.stack([xx + yy, xx - yy, 2.0 * xyr, -2.0 * xyi], dim=2)
+    T = st.shape[0]
+    st = st.reshape((T // rfactor, rfactor) + st.shape[1:])
+    out = st[:, 0]
+    for r in range(1, rfactor):
+        out = out + st[:, r]
+    return out
+
+
+def _check_detect(weights, x, rfactor):
+    import torch
+    wxr = weights[0]
+    if x.dim() != 5 or tuple(x.shape[3:]) != (2, 2):
+        raise ValueError("beamform_detect_int8: expected a (T, F, S, 2 pol,"
+                         " 2 re/im) gulp, got %s" % (tuple(x.shape),))
+    if x.dtype != torch.int8:
+        raise ValueError("beamform_detect_int8: expected int8 voltages, "
+                         "got %s" % x.dtype)
+    for w in weights:
+        if w.dtype != torch.int8 or w.shape != wxr.shape or w.dim() != 2:
+            raise ValueError("beamform_detect_int8: weights must be four "
+                             "(B, S) int8 planes")
+        if w.device != x.device:
+            raise ValueError("beamform_detect_int8: weights on %s, "
+                             "voltages on %s" % (w.device, x.device))
+    if wxr.shape[1] != x.shape[2]:
+        raise ValueError("beamform_detect_int8: %d stations in the "
+                         "voltages, %d in the weights"
+                         % (x.shape[2], wxr.shape[1]))
+    if rfactor < 1 or x.shape[0] % rfactor:
+        raise ValueError("rfactor %d does not divide T=%d"
+                         % (rfactor, x.shape[0]))
+
+
+def beamform_detect_int8(wxr, wxi, wyr, wyi, x, scale, rfactor):
+    """K6: the ci8 gulp ``x`` (T, F, S, 2 pol, 2 re/im) int8, beamformed
+    per pol against the (B, S) int8 weight planes of X (``wxr``,
+    ``wxi``) and Y (``wyr``, ``wyi``), times ``scale``, Stokes-detected
+    and summed over groups of ``rfactor`` frames -> (T // rfactor, F, 4,
+    B) float32 ordered [I, Q, U, V].  The beam voltages never reach
+    device memory."""
+    import torch
+    weights = (wxr, wxi, wyr, wyi)
+    _check_detect(weights, x, rfactor)
+    if x.device.type != 'cuda':
+        return beamform_detect_int8_plain(wxr, wxi, wyr, wyi, x, scale,
+                                          rfactor)
+    T, F, S = x.shape[:3]
+    B = wxr.shape[0]
+    if S > MAX_NSTAND:
+        raise ValueError("beamform_detect_int8: %d stations could overflow"
+                         " the int32 sum (at most %d)" % (S, MAX_NSTAND))
+    st, sf = x.stride()[:2]
+    if tuple(x.stride()[2:]) != (4, 2, 1) or st % 4 or sf % 4 or \
+            x.data_ptr() % 4:
+        raise ValueError("beamform_detect_int8: the (S, 2, 2) axes must be "
+                         "contiguous and rows 4-byte aligned, got strides "
+                         "%s" % (x.stride(),))
+    weights = [w.contiguous() for w in weights]
+    out = torch.empty((T // rfactor, F, 4, B), dtype=torch.float32,
+                      device=x.device)
+    from .. import _build
+    lib, fn = _fn('beamform', 'bf_beamform_detect_int8',
+                  [ctypes.c_void_p] * 6 + [ctypes.c_float] +
+                  [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 +
+                  [ctypes.c_void_p])
+    err = fn(*[_ptr(w) for w in weights], _ptr(x), _ptr(out),
+             float(scale), T, F, S, B, rfactor, st, sf,
+             _build.stream_ptr(x.device))
+    _build.check(lib, err, 'beamform_detect_int8')
+    launches['beamform_detect_int8'] += 1
     return out

@@ -10,9 +10,10 @@ A Stage is the pure core of a device TransformBlock, split in two halves
 :class:`bifrost_tpu_torch.blocks.fused.FusedBlock` composes a chain of
 stages with :func:`compose_stages`, which substitutes a hand-written
 whole-chain CUDA kernel where the chain matches one
-(:func:`match_spectrometer`).  The port carries the stages of the Guppi
-spectrometer chain: FFT, detect (modes 'stokes' and 'scalar') and the
-sum reduce.
+(:func:`match_spectrometer`, :func:`match_beamformer`).  The port carries
+the stages of the Guppi spectrometer chain (FFT, detect in modes 'stokes'
+and 'scalar', the sum reduce) and of the coherent beamformer chain
+(:class:`BeamformStage`, detect, the frame-axis sum).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ from .dtype import DataType
 from .units import transform_units
 
 __all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
-           'SpectrometerPlan', 'walk_headers', 'compose_stages',
-           'match_spectrometer']
+           'BeamformStage', 'SpectrometerPlan', 'walk_headers',
+           'compose_stages', 'match_spectrometer', 'match_beamformer']
 
 
 class Stage(object):
@@ -262,6 +263,109 @@ class ReduceStage(Stage):
         return fn
 
 
+class BeamformStage(Stage):
+    """Coherent beamform: contract the station (and pol) axes of the
+    voltage stream against a fixed weight set through the quantized
+    beamformer engine (:class:`bifrost_tpu_torch.ops.beamform.Beamformer`:
+    candidates gated and raced per the declared ``accuracy`` class;
+    ``BF_BEAM_IMPL`` forces one).
+
+    Input tensor: ``['time', 'freq', 'station']`` or ``['time', 'freq',
+    'station', 'pol']``, dtype ci8 (the int8 planes feed the int8
+    candidates directly) or complex float.  Weight shapes select the
+    output form:
+
+    - ``(B, S)`` on pol-less input, or ``(B, S*P)`` (pol folded into the
+      contraction) -> ``['time', 'freq', 'beam']`` (modes 'nopol',
+      'fold');
+    - ``(B, S)`` / ``(P, B, S)`` with a pol axis -> per-pol beams,
+      ``['time', 'freq', 'pol', 'beam']`` (mode 'perpol', the form the
+      fused beamform -> Stokes -> integrate substitution recognizes,
+      :func:`match_beamformer`).
+    """
+
+    def __init__(self, weights, accuracy='f32', impl=None):
+        from .ops.beamform import Beamformer
+        self.engine = Beamformer(weights, accuracy=accuracy, impl=impl)
+        self.accuracy = self.engine.accuracy
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        labels = itensor.get('labels')
+        if not labels or labels[:2] != ['time', 'freq']:
+            raise ValueError(
+                "beamform requires ['time', 'freq', ...] input labels, "
+                "got %r" % (labels,))
+        itype = DataType(itensor['dtype'])
+        if not itype.is_complex:
+            raise TypeError('beamform requires complex voltages, got '
+                            '%s' % itensor['dtype'])
+        shape = itensor['shape']
+        eng = self.engine
+        if labels[2:] == ['station', 'pol']:
+            s, p = shape[2], shape[3]
+            if eng.npol_w == 1 and eng.nstand == s * p:
+                self.mode = 'fold'
+            elif eng.nstand == s and eng.npol_w in (1, p):
+                self.mode = 'perpol'
+            else:
+                raise ValueError(
+                    'weights (%d pol sets, %d inputs) match neither '
+                    'per-pol station count %d nor folded %d'
+                    % (eng.npol_w, eng.nstand, s, s * p))
+            self.npol = p
+        elif labels[2:] == ['station']:
+            if eng.npol_w != 1 or eng.nstand != shape[2]:
+                raise ValueError(
+                    'weights expect %d inputs but the stream has %d '
+                    'stations' % (eng.nstand, shape[2]))
+            self.mode = 'nopol'
+            self.npol = 1
+        else:
+            raise ValueError(
+                "beamform requires trailing ['station'[, 'pol']] "
+                "axes, got %r" % (labels[2:],))
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        otensor['dtype'] = 'cf32'
+        for key, fill in (('shape', eng.nbeam), ('labels', 'beam'),
+                          ('scales', [0, 1]), ('units', None)):
+            if key not in otensor:
+                continue
+            vals = otensor[key]
+            if self.mode == 'perpol':
+                # ['time', 'freq', 'pol', 'beam']: the pol entry moves up
+                vals = [deepcopy(vals[0]), deepcopy(vals[1]),
+                        deepcopy(vals[3]), deepcopy(fill)]
+            else:
+                vals = [deepcopy(vals[0]), deepcopy(vals[1]),
+                        deepcopy(fill)]
+            otensor[key] = vals
+        return ohdr
+
+    def build(self, in_meta):
+        reim = in_meta.get('reim', False)
+        mode = self.mode
+        engine = self.engine
+
+        def fn(x):
+            if reim and not x.is_complex():
+                re, im = x[..., 0], x[..., 1]
+            else:
+                re, im = x.real, x.imag
+            if mode == 'nopol':
+                re, im = re[:, :, None, :], im[:, :, None, :]
+            elif mode == 'fold':
+                shp = (re.shape[0], re.shape[1], 1, -1)
+                re, im = re.reshape(shp), im.reshape(shp)
+            else:
+                # (T, F, S, P) -> canonical (T, F, P, S), as a view
+                re, im = re.transpose(2, 3), im.transpose(2, 3)
+            y = engine(re, im)
+            return y if mode == 'perpol' else y[:, :, 0, :]
+        return fn
+
+
 def walk_headers(stages, hdr):
     """Run ``hdr`` through every stage's transform_header; returns the
     header list (input + one per stage output)."""
@@ -284,12 +388,15 @@ def compose_stages(stages, headers, shape, dtype, substitute=True):
     tensor.
 
     Returns ``(fn, info)``: ``info`` records the path ``fn`` runs,
-    ``{'impl': 'cuda-spectrometer', ...}`` when the whole-chain kernel is
-    substituted (``substitute`` True and :func:`match_spectrometer`
-    matches), else ``{'impl': 'torch-fused'}``.  ``substitute=False`` is
+    ``{'impl': 'cuda-spectrometer', ...}`` or ``{'impl':
+    'cuda-beamform-detect', ...}`` when a whole-chain kernel is
+    substituted (``substitute`` True and :func:`match_spectrometer` or
+    :func:`match_beamformer` matches), else ``{'impl': 'torch-fused'}``.  ``substitute=False`` is
     the only way to keep the per-stage path on a matching chain."""
     if substitute:
         plan = match_spectrometer(stages, headers, shape, dtype)
+        if plan is None:
+            plan = match_beamformer(stages, headers, shape, dtype)
         if plan is not None:
             return plan, plan.info
     taxis = headers[0]['_tensor']['shape'].index(-1)
@@ -364,4 +471,65 @@ def match_spectrometer(stages, headers, shape, dtype):
         'kernel': 'cuda' if get_device().type == 'cuda' else 'plain',
         'nfft': nfft,
         'rfactor': factor,
+    })
+
+
+def match_beamformer(stages, headers, shape, dtype):
+    """Recognize the quantized beamform-and-detect pattern, BeamformStage
+    (per pol, dual pol) -> DetectStage('stokes', pol axis 2) ->
+    ReduceStage('sum') over the frame axis on ci8 input, and return K6
+    (:func:`bifrost_tpu_torch.ops.beamform.fused_detect`) as a plan; else
+    None.
+
+    ``BF_BEAM_FUSED`` (:func:`~bifrost_tpu_torch.ops.beamform.fused_mode`):
+    'off' never substitutes; 'auto' substitutes when the engine's
+    accuracy class admits int8 (the kernel's weights are quantized by
+    construction) or ``impl='pallas'`` was forced; 'force' substitutes
+    whenever the chain matches.  As for the spectrometer, the match is
+    not gated on the device (on a CPU tensor the wrapper runs K6's plain
+    version) nor on a runtime compile probe: the shape conditions the
+    kernel needs are checked here, and its wrapper raises on what it does
+    not take."""
+    if len(stages) != 3:
+        return None
+    b, d, r = stages
+    if not (isinstance(b, BeamformStage) and isinstance(d, DetectStage)
+            and isinstance(r, ReduceStage)):
+        return None
+    if headers[0]['_tensor']['dtype'] != 'ci8':
+        return None
+    if not _is_int8(dtype) or len(shape) != 5:
+        return None
+    ntime, nfreq, nstand, npol, two = shape
+    if npol != 2 or two != 2:
+        return None
+    if getattr(b, 'mode', None) != 'perpol':
+        return None
+    if d.mode != 'stokes' or d.axis_index != 2 or d.npol != 2:
+        return None
+    if r.op != 'sum' or r.axis != r.frame_axis or not r.factor:
+        return None
+    from .ops import beamform as _beam
+    from .ops.gpu_kernels import MAX_NSTAND
+    if ntime % r.factor or nstand > MAX_NSTAND:
+        return None
+    mode = _beam.fused_mode()
+    if mode == 'off':
+        return None
+    eng = b.engine
+    if mode != 'force' and eng._force != 'pallas' and \
+            _beam.beam_class_rtol(eng.accuracy) < _beam.BEAM_CLASSES['int8']:
+        return None
+    from .device import get_device
+    factor = r.factor
+
+    def fn(x):
+        return _beam.fused_detect(eng, x, factor)
+    return SpectrometerPlan(fn, {
+        'impl': 'cuda-beamform-detect',
+        'kernel': 'cuda' if get_device().type == 'cuda' else 'plain',
+        'rfactor': factor,
+        'nbeam': eng.nbeam,
+        'accuracy': eng.accuracy,
+        'wscale': float(eng.wscale),
     })

@@ -22,7 +22,25 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    Launch counters are zeroed just before and read just after each run;
    each run must launch its kernel once per gulp.  The two outputs must
    agree within 1e-5, and rows are checked against the oracle;
-6. prints a JSON line of pipeline rates, one JSON line of per-kernel
+6. runs the beamformer kernels at the full-width shapes of BASELINE
+   config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
+   beams, R=8): K4 (int8) bit-identical to its plain version and to the
+   int64 oracle on three channels, K5 (bf16) within 1e-5 of its plain
+   version, K6 (beamform -> Stokes -> integrate) within 1e-6 of its plain
+   version and below 1e-5 against the float64 oracle on a T=64 cut; each
+   timed with CUDA events beside its plain version and a library
+   yardstick;
+7. drives the beamformer chain through the Pipeline at that width (3
+   warm-up and 16 timed gulps) in four arms, K6 (fused substitution),
+   K4 and K5 (beamform block with the kernel forced -> fused Stokes and
+   frame sum) and f32 (the complex64 baseline), zeroing the launch
+   counters just before and reading them just after each; K6 must
+   launch once per gulp, K4 and K5 twice (once per pol).  The K4 and K6
+   arms must agree within 1e-5, each arm must stay inside its accuracy
+   class of the f32 arm, and every output must be finite and
+   (64, 512, 4, 64).  A fifth arm leaves the candidate to the engine's
+   race, in a fresh probe-cache directory, and prints its choice;
+8. prints a JSON line of pipeline rates, one JSON line of per-kernel
    numbers ({"kernels": [...]}), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -45,9 +63,15 @@ ORACLE_NTIME = 64
 GATE = 1e-5              # spectrometer accuracy gate vs the float64 oracle
 STOKES_RTOL = 1e-6
 NRUNS = 20
-# H100 SXM data sheet: HBM3 rate and FP32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, FP32 rate outside the tensor cores,
+# dense bf16 and int8 tensor-core rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+PEAK_INT8_PER_S = 1979e12
+# the beamformer: BASELINE config 4 with config 13's integration
+BT, BF, BS, BP, BB, BR = 512, 512, 256, 2, 64, 8
+BEAM_ORACLE_NTIME = 64
 
 
 def log(*args):
@@ -90,10 +114,11 @@ def cuda_ms(fn, runs=NRUNS, warm=2):
     return float(np.median(times))
 
 
-def bound(nbyte, nflop):
-    """(bound_ms, bound_by) from the bytes moved once and the FP32 ops."""
+def bound(nbyte, nops, peak_ops=PEAK_FP32_PER_S):
+    """(bound_ms, bound_by) from the bytes moved once and the operations
+    at the peak rate of their type (FP32 unless given)."""
     t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
-    t_ops = nflop / PEAK_FP32_PER_S * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -196,20 +221,16 @@ def make_gulps(seed=5, n=2):
                          dtype=np.int8) for _ in range(n)]
 
 
-def run_pipeline(bt, gulps, substitute, ntime=NTIME, nwarm=NWARM,
-                 ntimed=NTIMED):
-    """Drive source -> copy('cuda') -> fused -> copy('system') -> sink.
-    ``gulps`` are (T, 2, nfft, 2) int8 arrays, sent in turn.  Returns
-    (outputs {gulp index: array}, Msamples/s, impl_info, per-block host
+def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED):
+    """Drive source -> copy('cuda') -> chain -> copy('system') -> sink.
+    ``gulps`` are int8 arrays of one gulp's ci8 bytes each, sent in turn
+    (the gulp's frame count is ``gulps[0].shape[0]``); ``chain(h2d)``
+    builds the device blocks and returns [(role, block), ...], the last
+    one feeding the D2H copy.  Returns (outputs {gulp index: array} of
+    gulps 0, 1 and the last, seconds of the timed gulps, per-block host
     milliseconds per gulp)."""
-    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
     ngulp = nwarm + ntimed
-    nfine = gulps[0].shape[2]
-    gulps = [g.reshape(ntime, NPOL, 2 * nfine) for g in gulps]
-    header = {'name': 'guppi', 'time_tag': 0,
-              '_tensor': {'shape': [-1, NPOL, nfine], 'dtype': 'ci8',
-                          'labels': ['time', 'pol', 'fine_time'],
-                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    ntime = gulps[0].shape[0]
 
     class Source(bt.SourceBlock):
         def __init__(self):
@@ -228,8 +249,8 @@ def run_pipeline(bt, gulps, substitute, ntime=NTIME, nwarm=NWARM,
                 return [0]
             # copy as int8: numpy copies structured (ci8) arrays
             # element by element, some 40x slower than a memcpy
-            ospans[0].data.as_numpy().view(np.int8)[...] = \
-                gulps[self.count % len(gulps)]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = gulps[self.count % len(gulps)].reshape(dst.shape)
             self.count += 1
             return [ntime]
 
@@ -259,40 +280,70 @@ def run_pipeline(bt, gulps, substitute, ntime=NTIME, nwarm=NWARM,
     with bt.Pipeline() as p:
         src = Source()
         h2d = bt.blocks.copy(src, space='cuda')
-        fb = bt.blocks.fused(h2d, [FftStage('fine_time',
-                                            axis_labels='freq'),
-                                   DetectStage('stokes', axis='pol'),
-                                   ReduceStage('freq', RFACTOR)],
-                             substitute=substitute)
-        d2h = bt.blocks.copy(fb, space='system')
+        blocks = chain(h2d)
+        d2h = bt.blocks.copy(blocks[-1][1], space='system')
         sink = Sink(d2h)
         p.run()
     require(sink.n == ngulp, 'sink received %d of %d gulps'
             % (sink.n, ngulp))
-    msps = ntimed * ntime * NPOL * nfine / (sink.t1 - sink.t0) / 1e6
     per_gulp = {}
-    for role, blk in (('source', src), ('h2d', h2d), ('fused', fb),
-                      ('d2h', d2h), ('sink', sink)):
+    for role, blk in [('source', src), ('h2d', h2d)] + blocks + \
+            [('d2h', d2h), ('sink', sink)]:
         tot = blk.perf_totals
         per_gulp[role] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
                           for k in ('acquire', 'reserve', 'process')}
-    return sink.out, msps, fb.impl_info, per_gulp
+    return sink.out, sink.t1 - sink.t0, per_gulp
+
+
+def run_pipeline(bt, gulps, substitute):
+    """The spectrometer chain: ``gulps`` are (T, 2, nfft, 2) int8 arrays.
+    Returns (outputs, Msamples/s, impl_info, per-block host ms/gulp)."""
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    nfine = gulps[0].shape[2]
+    header = {'name': 'guppi', 'time_tag': 0,
+              '_tensor': {'shape': [-1, NPOL, nfine], 'dtype': 'ci8',
+                          'labels': ['time', 'pol', 'fine_time'],
+                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    blocks = []
+
+    def chain(h2d):
+        blocks.append(('fused', bt.blocks.fused(
+            h2d, [FftStage('fine_time', axis_labels='freq'),
+                  DetectStage('stokes', axis='pol'),
+                  ReduceStage('freq', RFACTOR)], substitute=substitute)))
+        return blocks
+
+    out, secs, per_gulp = drive(bt, gulps, header, chain)
+    msps = NTIMED * NTIME * NPOL * nfine / secs / 1e6
+    return out, msps, blocks[0][1].impl_info, per_gulp
+
+
+def zero_counts(spec, gpu_kernels):
+    spec.launches = 0
+    for k in gpu_kernels.launches:
+        gpu_kernels.launches[k] = 0
+
+
+def read_counts(spec, gpu_kernels):
+    return dict(gpu_kernels.launches, fused_spectrometer=spec.launches)
+
+
+def log_per_gulp(per_gulp):
+    for role, t in per_gulp.items():
+        log('  %-6s host ms/gulp: acquire %.2f reserve %.2f process %.2f'
+            % (role, t['acquire'], t['reserve'], t['process']))
 
 
 def phase_pipeline(bt, spec, gpu_kernels, smi):
     volts = make_gulps()
     runs = {}
     for substitute in (True, False):
-        spec.launches = 0
-        gpu_kernels.launches = 0
+        zero_counts(spec, gpu_kernels)
         out, msps, info, per_gulp = run_pipeline(bt, volts, substitute)
-        counts = {'fused_spectrometer': spec.launches,
-                  'stokes_detect': gpu_kernels.launches}
+        counts = read_counts(spec, gpu_kernels)
         log('pipeline substitute=%s: impl %s, launches %s, %.1f Msamples/s '
             '(%s)' % (substitute, info, counts, msps, smi))
-        for role, t in per_gulp.items():
-            log('  %-6s host ms/gulp: acquire %.2f reserve %.2f process %.2f'
-                % (role, t['acquire'], t['reserve'], t['process']))
+        log_per_gulp(per_gulp)
         runs[substitute] = (out, msps, info, counts)
     ngulp = NWARM + NTIMED
     out_k1, msps_k1, info_k1, n_k1 = runs[True]
@@ -328,6 +379,286 @@ def phase_pipeline(bt, spec, gpu_kernels, smi):
             'launches_k1_run': n_k1, 'launches_k2_run': n_k2}
 
 
+def beam_weights(seed=21):
+    """Random complex (P, B, S) weights of the beamformer cells."""
+    rng = np.random.RandomState(seed)
+    shape = (BP, BB, BS)
+    return (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
+
+
+def int64_beams(wr, wi, re, im):
+    """int64 oracle of K4 on numpy planes: (T, F, S) x (B, S)."""
+    r, i = re.astype(np.int64), im.astype(np.int64)
+    a, c = wr.astype(np.int64), wi.astype(np.int64)
+    dot = lambda v, w: np.einsum('tfs,bs->tfb', v, w)
+    return dot(r, a) - dot(i, c), dot(r, c) + dot(i, a)
+
+
+def detect_oracle(eng, x, rfactor):
+    """float64 beamform (quantized weights) -> Stokes -> frame sum of a
+    (T, F, S, 2, 2) int8 numpy gulp -> (T / R, F, 4, B)."""
+    wq = (eng.wr8.astype(np.float64) + 1j * eng.wi8.astype(np.float64)) \
+        * eng.wscale
+    volt = x[..., 0].astype(np.float64) + 1j * x[..., 1].astype(np.float64)
+    y = np.einsum('tfsp,pbs->tfpb', volt, wq)
+    bx, by = y[:, :, 0], y[:, :, 1]
+    xx, yy = np.abs(bx) ** 2, np.abs(by) ** 2
+    xy = bx * np.conj(by)
+    st = np.stack([xx + yy, xx - yy, 2 * xy.real, -2 * xy.imag], axis=2)
+    T, F = x.shape[:2]
+    return st.reshape(T // rfactor, rfactor, F, 4, -1).sum(axis=1)
+
+
+def kernel_entry(name, source, line, got, want, ms, plain_ms, nbyte, nops,
+                 peak, library_ms, **extra):
+    abs_err = float((got - want).abs().max())
+    bms, by = bound(nbyte, nops, peak)
+    log('%s kernel %.4f ms, plain %.4f ms, library %s ms, bound %.4f ms '
+        '(%s), max abs err vs plain %.4g'
+        % (name, ms, plain_ms, library_ms, bms, by, abs_err))
+    return dict({'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': 'bifrost_tpu/ops/pallas_kernels.py:%d' % line,
+                 'max_abs_err': abs_err, 'ms': ms, 'kernel_ms': ms,
+                 'plain_ms': plain_ms, 'bound_ms': bms, 'bound_by': by,
+                 'library_ms': library_ms}, **extra)
+
+
+def phase_beamform_kernels(gpu_kernels, beam):
+    """K4, K5 and K6 at the full-width shapes of the beamformer path, each
+    against its plain version (and the oracle), timed with CUDA events."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, F, S, P, B, R = BT, BF, BS, BP, BB, BR
+    src = 'bifrost_tpu_torch/csrc/beamform.cu'
+    eng = beam.Beamformer(beam_weights(), accuracy='int8')
+    g = torch.Generator(device='cuda').manual_seed(7)
+    x = torch.randint(-128, 128, (T, F, S, P, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    # the per-pol views BeamformStage hands the kernels (pol 0)
+    re, im = x[:, :, :, 0, 0], x[:, :, :, 0, 1]
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    wr8, wi8 = cuda(eng.wr8[0]), cuda(eng.wi8[0])
+    wr, wi = cuda(eng.wr[0]), cuda(eng.wi[0])
+    # widened operands of the library yardsticks, built untimed
+    w2 = cuda(beam._wide_weight_block(eng.wr8, eng.wi8)[0])
+    z = torch.cat([re, im], dim=-1).reshape(T * F, 2 * S)
+    out_bytes = 2 * T * F * B * 4
+    in_bytes = 2 * T * F * S + 2 * B * S
+    nops = 8 * T * F * B * S
+
+    # K4: exact int32
+    yr, yi = gpu_kernels.beamform_int8(wr8, wi8, re, im)
+    pr, pi = gpu_kernels.beamform_int8_plain(wr8, wi8, re, im)
+    torch.cuda.synchronize()
+    require(torch.equal(yr, pr) and torch.equal(yi, pi),
+            'K4 is not bit-identical to its plain version')
+    for f in (0, F // 2, F - 1):
+        want_r, want_i = int64_beams(eng.wr8[0], eng.wi8[0],
+                                     re[:, f:f + 1].cpu().numpy(),
+                                     im[:, f:f + 1].cpu().numpy())
+        require(np.array_equal(yr[:, f:f + 1].cpu().numpy(), want_r) and
+                np.array_equal(yi[:, f:f + 1].cpu().numpy(), want_i),
+                'K4 differs from the int64 oracle on channel %d' % f)
+    log('K4 beamform_int8 (%d, %d, %d) x %d beams: bit-identical to its '
+        'plain version and to the int64 oracle on 3 channels' % (T, F, S, B))
+    k4 = kernel_entry(
+        'beamform_int8', src, 265, torch.complex(yr.double(), yi.double()),
+        torch.complex(pr.double(), pi.double()),
+        cuda_ms(lambda: gpu_kernels.beamform_int8(wr8, wi8, re, im)),
+        cuda_ms(lambda: gpu_kernels.beamform_int8_plain(wr8, wi8, re, im),
+                runs=5),
+        in_bytes + out_bytes, nops, PEAK_INT8_PER_S,
+        cuda_ms(lambda: torch._int_mm(z, w2)),
+        shape=[T, F, S, B], per='launch (one pol)', max_rel_err=0.0,
+        library='torch._int_mm of [re | im] (T*F, 2S) x widened (2S, 2B)')
+    del yr, yi, pr, pi
+
+    # K5: bf16 products, float32 sums
+    yr, yi = gpu_kernels.beamform_bf16(wr, wi, re, im)
+    pr, pi = gpu_kernels.beamform_bf16_plain(wr, wi, re, im)
+    torch.cuda.synchronize()
+    got, want = torch.complex(yr, yi), torch.complex(pr, pi)
+    rel5 = float((got - want).abs().max() / want.abs().max())
+    log('K5 beamform_bf16 vs plain: rel %.3g' % rel5)
+    require(rel5 <= 1e-5, 'K5 disagrees with its plain version: %.3g'
+            % rel5)
+    xs = (re[:, :4].double() + 1j * im[:, :4].double())
+    ref = torch.einsum('tfs,bs->tfb', xs, (wr.double() + 1j * wi.double()))
+    rel5o = float((got[:, :4] - ref).abs().max() / ref.abs().max())
+    log('K5 vs float64 oracle (4 channels): rel %.3g' % rel5o)
+    require(rel5o <= beam.BEAM_CLASSES['bf16'],
+            'K5 outside the bf16 class of the oracle: %.3g' % rel5o)
+    w2b = torch.cat([torch.cat([wr.T, wi.T], 1),
+                     torch.cat([-wi.T, wr.T], 1)], 0).bfloat16()
+    zb = z.bfloat16()
+    k5 = kernel_entry(
+        'beamform_bf16', src, 307, got, want,
+        cuda_ms(lambda: gpu_kernels.beamform_bf16(wr, wi, re, im)),
+        cuda_ms(lambda: gpu_kernels.beamform_bf16_plain(wr, wi, re, im),
+                runs=5),
+        in_bytes + out_bytes, nops, PEAK_BF16_PER_S,
+        cuda_ms(lambda: torch.matmul(zb, w2b)),
+        shape=[T, F, S, B], per='launch (one pol)', max_rel_err=rel5,
+        oracle_rel_err=rel5o,
+        library='bf16 torch.matmul of [re | im] x widened f32 block '
+                'rounded to bf16')
+    del yr, yi, pr, pi, got, want, zb, z
+    torch.cuda.empty_cache()
+
+    # K6: beamform -> Stokes -> frame sum, against plain and the oracle
+    small = x[:BEAM_ORACLE_NTIME].cpu().numpy()
+    got = beam.fused_detect(eng, torch.from_numpy(small).cuda(), R)
+    orel = rel_err(got.cpu().numpy(), detect_oracle(eng, small, R))
+    log('K6 beamform_detect_int8 vs float64 oracle (T=%d): rel %.3g'
+        % (BEAM_ORACLE_NTIME, orel))
+    require(orel < 1e-5, 'K6 fails the 1e-5 oracle gate: %.3g' % orel)
+    ws = [cuda(a) for a in (eng.wr8[0], eng.wi8[0], eng.wr8[1],
+                            eng.wi8[1])]
+    got = beam.fused_detect(eng, x, R)
+    want = gpu_kernels.beamform_detect_int8_plain(*ws, x, eng.wscale, R)
+    torch.cuda.synchronize()
+    rel6 = float((got - want).abs().max() / want.abs().max())
+    log('K6 full width vs plain: rel %.3g (bit-identical: %s)'
+        % (rel6, torch.equal(got, want)))
+    require(rel6 <= 1e-6, 'K6 disagrees with its plain version: %.3g'
+            % rel6)
+    chain = eng._fn('int8_wide', P)
+    stages_re, stages_im = x[..., 0].transpose(2, 3), x[..., 1].transpose(2, 3)
+
+    def library_chain6():
+        y = chain(stages_re, stages_im)
+        bx, by = y[:, :, 0], y[:, :, 1]
+        xx, yy = bx.abs().square(), by.abs().square()
+        xy = bx * by.conj()
+        st = torch.stack([xx + yy, xx - yy, 2 * xy.real, -2 * xy.imag], 2)
+        return st.reshape(T // R, R, F, 4, B).sum(1)
+
+    lib6 = library_chain6()
+    lrel = float((lib6 - want).abs().max() / want.abs().max())
+    require(lrel < 1e-5, 'the library chain disagrees with K6: %.3g' % lrel)
+    k6 = kernel_entry(
+        'beamform_detect_int8', src, 384, got, want,
+        cuda_ms(lambda: beam.fused_detect(eng, x, R)),
+        cuda_ms(lambda: gpu_kernels.beamform_detect_int8_plain(
+            *ws, x, eng.wscale, R), runs=5),
+        x.numel() + 4 * B * S + (T // R) * F * 4 * B * 4, 2 * nops,
+        PEAK_INT8_PER_S, cuda_ms(library_chain6, runs=10),
+        shape=[T, F, S, P, 2], rfactor=R, per='launch (one gulp)',
+        max_rel_err=rel6, oracle_rel_err=orel,
+        library='torch chain int8_wide (torch._int_mm) -> Stokes -> '
+                'frame sum')
+    del got, want, lib6, x
+    torch.cuda.empty_cache()
+    return k4, k5, k6
+
+
+def beam_gulps(seed=9, n=2):
+    """``n`` full-width ci8 gulps (T, F, S, P, 2) int8 in host memory."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-64, 64, size=(BT, BF, BS, BP, 2), dtype=np.int8)
+            for _ in range(n)]
+
+
+def run_beam_arm(bt, gulps, w, arm):
+    """One arm of the beamformer pipeline; returns (outputs, seconds of
+    the timed gulps, per-block host ms/gulp, the beam block)."""
+    from bifrost_tpu_torch.stages import (BeamformStage, DetectStage,
+                                          ReduceStage)
+    header = {'name': 'beams', 'time_tag': 0,
+              '_tensor': {'shape': [-1, BF, BS, BP], 'dtype': 'ci8',
+                          'labels': ['time', 'freq', 'station', 'pol'],
+                          'scales': [[0, 1]] * 4, 'units': [None] * 4}}
+    accuracy, impl = {'K6': ('int8', None), 'K4': ('int8', 'pallas'),
+                      'K5': ('bf16', 'pallas_bf16'), 'f32': ('f32', 'xla'),
+                      'race': ('int8', None)}[arm]
+    blocks = []
+
+    def chain(h2d):
+        if arm == 'K6':
+            blocks.append(('beam', bt.blocks.fused(
+                h2d, [BeamformStage(w, accuracy=accuracy),
+                      DetectStage('stokes', axis='pol'),
+                      ReduceStage('time', BR)])))
+        else:
+            b = bt.blocks.beamform(h2d, w, accuracy=accuracy, impl=impl)
+            blocks.append(('beam', b))
+            blocks.append(('detect', bt.blocks.fused(
+                b, [DetectStage('stokes', axis='pol'),
+                    ReduceStage('time', BR)])))
+        return blocks
+
+    out, secs, per_gulp = drive(bt, gulps, header, chain)
+    return out, secs, per_gulp, blocks[0][1]
+
+
+def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
+    import tempfile
+    gulps = beam_gulps()
+    w = beam_weights()
+    ngulp = NWARM + NTIMED
+    nsamp = BT * BF * BS * BP
+    gop = 8 * BT * BF * BP * BB * BS / 1e9
+    runs, rates = {}, {}
+    for arm in ('K6', 'K4', 'K5', 'f32', 'race'):
+        with contextlib.ExitStack() as stack:
+            if arm == 'race':
+                # the engine's own race, from an empty probe cache
+                tmp = stack.enter_context(tempfile.TemporaryDirectory())
+                old = os.environ.get('BF_CACHE_DIR')
+                os.environ['BF_CACHE_DIR'] = tmp
+                stack.callback(lambda: os.environ.pop('BF_CACHE_DIR')
+                               if old is None else
+                               os.environ.__setitem__('BF_CACHE_DIR', old))
+            zero_counts(spec, gpu_kernels)
+            out, secs, per_gulp, blk = run_beam_arm(bt, gulps, w, arm)
+            counts = read_counts(spec, gpu_kernels)
+        rates[arm] = {'msps': NTIMED * nsamp / secs / 1e6,
+                      'gops': NTIMED * gop / secs}
+        info = getattr(blk, 'impl_info', None)
+        if info is None:
+            info = {'chosen': dict(blk.engine.chosen),
+                    'probe_ms': dict(blk.engine.probe_ms)}
+        log('beamformer pipeline arm %s: %s, launches %s, %.1f Msamples/s, '
+            '%.1f GOP/s (%s)' % (arm, info, counts, rates[arm]['msps'],
+                                 rates[arm]['gops'], smi))
+        log_per_gulp(per_gulp)
+        runs[arm] = (out, counts, info)
+        rates[arm]['per_gulp_ms'] = per_gulp
+        rates[arm]['info'] = info
+    info6 = runs['K6'][2]
+    require(info6.get('impl') == 'cuda-beamform-detect' and
+            info6.get('kernel') == 'cuda',
+            'the K6 arm did not plan the CUDA beamform-detect: %s' % info6)
+    for arm, name, per in (('K6', 'beamform_detect_int8', 1),
+                           ('K4', 'beamform_int8', BP),
+                           ('K5', 'beamform_bf16', BP)):
+        n = runs[arm][1][name]
+        require(n >= per * ngulp, '%s launched %d times for %d gulps'
+                % (name, n, ngulp))
+    ref = runs['f32'][0]
+    for k in ref:
+        for arm in ('K6', 'K4', 'K5', 'f32', 'race'):
+            a = runs[arm][0][k]
+            require(a.shape == (BT // BR, BF, 4, BB) and
+                    np.isfinite(a).all(),
+                    'arm %s gulp %d: bad shape %s or non-finite output'
+                    % (arm, k, a.shape))
+        r46 = rel_err(runs['K4'][0][k], runs['K6'][0][k])
+        bounds = {'K6': beam.BEAM_CLASSES['int8'],
+                  'K4': beam.BEAM_CLASSES['int8'],
+                  'K5': beam.BEAM_CLASSES['bf16']}
+        rels = {arm: rel_err(runs[arm][0][k], ref[k]) for arm in bounds}
+        log('gulp %d: K4 vs K6 rel %.3g; vs f32: %s'
+            % (k, r46, ', '.join('%s %.3g' % kv for kv in rels.items())))
+        require(r46 < 1e-5, 'K4 and K6 arms disagree on gulp %d: %.3g'
+                % (k, r46))
+        for arm, b in bounds.items():
+            require(rels[arm] <= b, 'arm %s outside its class on gulp %d: '
+                    '%.3g > %g' % (arm, k, rels[arm], b))
+    return {'rates': rates,
+            'launches': {arm: runs[arm][1] for arm in runs}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -339,6 +670,7 @@ def main():
     from bifrost_tpu_torch import _build
     from bifrost_tpu_torch.ops import gpu_kernels
     from bifrost_tpu_torch.ops import spectrometer as spec
+    from bifrost_tpu_torch.ops import beamform as beam
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -361,9 +693,16 @@ def main():
     k1 = phase_spectrometer(spec)
     torch.cuda.empty_cache()
     pipe = phase_pipeline(bt, spec, gpu_kernels, smi)
+    torch.cuda.empty_cache()
+    k4, k5, k6 = phase_beamform_kernels(gpu_kernels, beam)
+    bpipe = phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
-    for k in (k1, k2):
+    k4['launches'] = bpipe['launches']['K4']['beamform_int8']
+    k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
+    k6['launches'] = bpipe['launches']['K6']['beamform_detect_int8']
+    kernels = [k1, k2, k4, k5, k6]
+    for k in kernels:
         k['launches_per_gulp'] = k['launches'] / float(NWARM + NTIMED)
     log('total %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'pipeline': {
@@ -371,7 +710,10 @@ def main():
         'gulps_timed': NTIMED,
         'msps_cuda_spectrometer': pipe['msps_cuda_spectrometer'],
         'msps_torch_fused': pipe['msps_torch_fused']}, 'card': smi}))
-    log(json.dumps({'kernels': [k1, k2]}))
+    log(json.dumps({'beamformer_pipeline': {
+        'gulp': [BT, BF, BS, BP], 'nbeam': BB, 'rfactor': BR,
+        'gulps_timed': NTIMED, 'arms': bpipe['rates']}, 'card': smi}))
+    log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

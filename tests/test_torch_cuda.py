@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, at shapes beyond the one
 chip_smoke.py runs: K1 against the float64 oracle over nfft and rfactor,
-K2 against its plain version on contiguous and strided planes, and the
-wrappers' checks.  Marked ``cuda``; each test skips without a card.
+K2 against its plain version on contiguous and strided planes, K4, K5
+and K6 (the beamformer) against the int64/float64 oracles and their
+plain versions at ragged and full-width shapes, and the wrappers'
+checks.  Marked ``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -10,7 +12,11 @@ conftest.py imports JAX, which such a machine need not have)::
 
 Tolerances: K1, max|got - oracle| / max|oracle| < 1e-5 (the
 spectrometer gate); K2, bit-identical to its plain version (the kernel
-rounds every multiply and add as the plain version's separate ops do).
+rounds every multiply and add as the plain version's separate ops do);
+K4, bit-identical to the int64 oracle; K5, rel <= 1e-5 of its plain
+version (float32 sums in another order) and <= 8e-3 of the float64
+oracle (the bf16 class); K6, rel <= 1e-6 of its plain version and
+< 1e-5 of the quantized-weights float64 oracle.
 """
 
 import numpy as np
@@ -20,6 +26,7 @@ import torch
 from bifrost_tpu_torch import device
 from bifrost_tpu_torch.ops import gpu_kernels
 from bifrost_tpu_torch.ops import spectrometer as spec
+from bifrost_tpu_torch.ops.beamform import Beamformer, fused_detect
 
 pytestmark = pytest.mark.cuda
 
@@ -77,11 +84,11 @@ def test_stokes_matches_plain(T, F):
     strided = (v[:, 0, :, 0], v[:, 0, :, 1], v[:, 1, :, 0], v[:, 1, :, 1])
     contiguous = tuple(p.contiguous() for p in strided)
     for planes in (strided, contiguous):
-        before = gpu_kernels.launches
+        before = gpu_kernels.launches['stokes_detect']
         got = gpu_kernels.stokes_detect(*planes)
         want = gpu_kernels.stokes_detect_plain(*planes)
         torch.cuda.synchronize()
-        assert gpu_kernels.launches == before + 1
+        assert gpu_kernels.launches['stokes_detect'] == before + 1
         assert torch.equal(got, want)
 
 
@@ -90,3 +97,154 @@ def test_stokes_rejects_planes_with_different_strides():
     b = torch.zeros((8, 128), device='cuda')[:, ::2]
     with pytest.raises(ValueError):
         gpu_kernels.stokes_detect(a, a, a, b)
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K6: the beamformer kernels
+# ---------------------------------------------------------------------------
+
+def _int64_oracle(wr, wi, re, im):
+    r, i = re.astype(np.int64), im.astype(np.int64)
+    a, c = wr.astype(np.int64), wi.astype(np.int64)
+    dot = lambda v, w: np.einsum('tfs,bs->tfb', v, w)
+    return dot(r, a) - dot(i, c), dot(r, c) + dot(i, a)
+
+
+def _i8(rng, shape, lo=-128):
+    return rng.randint(lo, 128, size=shape).astype(np.int8)
+
+
+@pytest.mark.parametrize('T,F,S,B', [(70, 3, 8, 3), (33, 2, 40, 65),
+                                     (8, 2, 8, 4)])
+def test_beamform_int8_matches_int64_oracle(T, F, S, B):
+    """Ragged shapes: T, B and S not multiples of the kernel's tiles;
+    full-range int8 (weights from -127, as quantized)."""
+    rng = np.random.RandomState(T + S + B)
+    wr, wi = _i8(rng, (B, S), -127), _i8(rng, (B, S), -127)
+    re, im = _i8(rng, (T, F, S)), _i8(rng, (T, F, S))
+    before = gpu_kernels.launches['beamform_int8']
+    yr, yi = gpu_kernels.beamform_int8(*[torch.from_numpy(a).cuda()
+                                         for a in (wr, wi, re, im)])
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_int8'] == before + 1
+    assert yr.dtype == torch.int32 and yr.shape == (T, F, B)
+    want_r, want_i = _int64_oracle(wr, wi, re, im)
+    np.testing.assert_array_equal(yr.cpu().numpy(), want_r)
+    np.testing.assert_array_equal(yi.cpu().numpy(), want_i)
+
+
+def test_beamform_int8_full_width_on_gulp_views():
+    """The main path's shape and layout: the strided per-pol views of a
+    (512, 512, 256, 2, 2) ci8 gulp, 64 beams; bit-identical to the plain
+    version everywhere and to the int64 oracle on three channels."""
+    T, F, S, B = 512, 512, 256, 64
+    g = torch.Generator(device='cuda').manual_seed(4)
+    x = torch.randint(-128, 128, (T, F, S, 2, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    rng = np.random.RandomState(4)
+    wr, wi = _i8(rng, (B, S), -127), _i8(rng, (B, S), -127)
+    wrc, wic = torch.from_numpy(wr).cuda(), torch.from_numpy(wi).cuda()
+    for p in range(2):
+        re, im = x[:, :, :, p, 0], x[:, :, :, p, 1]
+        yr, yi = gpu_kernels.beamform_int8(wrc, wic, re, im)
+        pr, pi = gpu_kernels.beamform_int8_plain(wrc, wic, re, im)
+        torch.cuda.synchronize()
+        assert torch.equal(yr, pr) and torch.equal(yi, pi)
+        for f in (0, 255, 511):
+            want_r, want_i = _int64_oracle(
+                wr, wi, re[:, f:f + 1].cpu().numpy(),
+                im[:, f:f + 1].cpu().numpy())
+            np.testing.assert_array_equal(yr[:, f:f + 1].cpu().numpy(),
+                                          want_r)
+            np.testing.assert_array_equal(yi[:, f:f + 1].cpu().numpy(),
+                                          want_i)
+
+
+@pytest.mark.parametrize('vtype', ['int8', 'float32'])
+@pytest.mark.parametrize('T,F,S,B', [(70, 3, 8, 3), (33, 2, 40, 65),
+                                     (128, 4, 256, 64)])
+def test_beamform_bf16_matches_plain_and_oracle(vtype, T, F, S, B):
+    rng = np.random.RandomState(T + S)
+    wr = rng.randn(B, S).astype(np.float32)
+    wi = rng.randn(B, S).astype(np.float32)
+    if vtype == 'int8':
+        re, im = _i8(rng, (T, F, S)), _i8(rng, (T, F, S))
+    else:
+        re = (rng.randn(T, F, S) * 30).astype(np.float32)
+        im = (rng.randn(T, F, S) * 30).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (wr, wi, re, im)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = gpu_kernels.launches['beamform_bf16']
+    yr, yi = gpu_kernels.beamform_bf16(*args)
+    pr, pi = gpu_kernels.beamform_bf16_plain(*args)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_bf16'] == before + 1
+    got = torch.complex(yr, yi).cpu().numpy()
+    assert _rel(got, torch.complex(pr, pi).cpu().numpy()) <= 1e-5
+    x = re.astype(np.float64) + 1j * im.astype(np.float64)
+    ref = np.einsum('tfs,bs->tfb', x, wr.astype(np.float64) +
+                    1j * wi.astype(np.float64))
+    assert _rel(got, ref) <= 8e-3
+
+
+def _detect_oracle(eng, x, R):
+    wq = (eng.wr8.astype(np.float64) + 1j * eng.wi8.astype(np.float64)) \
+        * eng.wscale
+    if wq.shape[0] == 1:
+        wq = np.repeat(wq, 2, axis=0)
+    volt = x[..., 0].astype(np.float64) + 1j * x[..., 1].astype(np.float64)
+    y = np.einsum('tfsp,pbs->tfpb', volt, wq)
+    bx, by = y[:, :, 0], y[:, :, 1]
+    xx, yy = np.abs(bx) ** 2, np.abs(by) ** 2
+    xy = bx * np.conj(by)
+    st = np.stack([xx + yy, xx - yy, 2 * xy.real, -2 * xy.imag], axis=2)
+    T, F = x.shape[:2]
+    return st.reshape(T // R, R, F, 4, -1).sum(axis=1)
+
+
+@pytest.mark.parametrize('R', [1, 8, 'T'])
+@pytest.mark.parametrize('P', [1, 2])
+@pytest.mark.parametrize('T,F,S,B', [(64, 3, 40, 65), (96, 2, 256, 64)])
+def test_beamform_detect_matches_plain_and_oracle(R, P, T, F, S, B):
+    R = T if R == 'T' else R
+    rng = np.random.RandomState(T + R + P)
+    shape = (B, S) if P == 1 else (P, B, S)
+    w = (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
+    eng = Beamformer(w, accuracy='int8')
+    x = _i8(rng, (T, F, S, 2, 2))
+    xc = torch.from_numpy(x).cuda()
+    before = gpu_kernels.launches['beamform_detect_int8']
+    got = fused_detect(eng, xc, R)
+    _, _, wr8, wi8 = eng._pol_weights(2)
+    ws = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+          for a in (wr8[0], wi8[0], wr8[1], wi8[1])]
+    want = gpu_kernels.beamform_detect_int8_plain(*ws, xc, eng.wscale, R)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_detect_int8'] == before + 1
+    assert got.shape == (T // R, F, 4, B) and got.dtype == torch.float32
+    got = got.cpu().numpy()
+    assert _rel(got, want.cpu().numpy()) <= 1e-6
+    assert _rel(got, _detect_oracle(eng, x, R)) < 1e-5
+
+
+def test_beamform_wrappers_reject_bad_operands():
+    w8 = torch.zeros((4, 8), dtype=torch.int8, device='cuda')
+    v8 = torch.zeros((6, 2, 8), dtype=torch.int8, device='cuda')
+    with pytest.raises(ValueError):          # float voltages for K4
+        gpu_kernels.beamform_int8(w8, w8, v8.float(), v8.float())
+    with pytest.raises(ValueError):          # weights on the host
+        gpu_kernels.beamform_int8(w8.cpu(), w8.cpu(), v8, v8)
+    with pytest.raises(ValueError):          # int8 weights for K5
+        gpu_kernels.beamform_bf16(w8, w8, v8, v8)
+    with pytest.raises(ValueError):          # voltages on the host
+        gpu_kernels.beamform_bf16(w8.float(), w8.float(), v8.cpu(),
+                                  v8.cpu())
+    x = torch.zeros((8, 2, 8, 2, 2), dtype=torch.int8, device='cuda')
+    with pytest.raises(ValueError):          # float gulp for K6
+        gpu_kernels.beamform_detect_int8(w8, w8, w8, w8, x.float(), 1.0, 2)
+    with pytest.raises(ValueError):          # weights on the host
+        gpu_kernels.beamform_detect_int8(w8.cpu(), w8, w8, w8, x, 1.0, 2)
+    with pytest.raises(ValueError):          # stations not contiguous
+        gpu_kernels.beamform_detect_int8(
+            w8[:, :4], w8[:, :4], w8[:, :4], w8[:, :4], x[:, :, ::2],
+            1.0, 2)
