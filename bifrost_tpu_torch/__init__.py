@@ -4,8 +4,8 @@ A stream-processing framework for radio astronomy: blocks connected by
 ring buffers, one thread per block, device work on an NVIDIA H100
 (``cuda`` space: ``torch.Tensor`` in device memory).  This package runs
 beside the JAX package ``bifrost_tpu`` and imports nothing of it.  It
-carries, so far, what the Guppi spectrometer chain and the quantized
-coherent beamformer chain need::
+carries, so far, what the Guppi spectrometer chain, the quantized
+coherent beamformer chain and the FX correlator need::
 
     source -> copy('cuda') -> fused[FftStage -> DetectStage('stokes')
                                     -> ReduceStage('freq', r)]
@@ -17,13 +17,19 @@ coherent beamformer chain need::
 
 (or ``beamform(...)`` -> ``fused[DetectStage, ReduceStage]`` unfused).
 
+    source -> copy('cuda') -> fft(fine -> freq) -> quantize('ci8')
+           -> correlate(R, fusable=True) -> accumulate(A, fusable=True)
+           -> copy('system') -> sink
+
+(or the stateful ``correlate(N)`` integrating across gulps).
+
 The device is ``cuda:0`` unless the caller selects another with
 :func:`bifrost_tpu_torch.device.set_device` (``set_device('cpu')`` runs
 everything on the CPU, with each kernel's plain PyTorch version).
 Importing the package touches no device and builds no kernel.
 """
 
-from . import blocks, device, stages
+from . import blocks, device, ops, stages
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
                        TransformBlock, SinkBlock, block_scope,
@@ -33,7 +39,7 @@ from .ring import Ring, EndOfDataStop
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'stages', 'DataType', 'Pipeline',
+__all__ = ['blocks', 'device', 'ops', 'stages', 'DataType', 'Pipeline',
            'BlockScope', 'Block', 'SourceBlock', 'TransformBlock',
            'SinkBlock', 'block_scope', 'get_default_pipeline',
            'PipelineInitError', 'PipelineRuntimeError', 'Ring',

@@ -13,11 +13,13 @@ missing library, all at once, and waits for them together.  Fast math is
 not used: the spectrometer's 1e-5 accuracy gate needs IEEE arithmetic,
 and the beamform-detect kernel is held bit for bit to its plain version.
 
-The JAX package's capability probe (``pallas_kernels.available``, a
-trivial Pallas kernel) has no counterpart here: a kernel that does not
-build raises from :func:`build`, and every C entry returns
-``cudaGetLastError()`` after its launch, which :func:`check` turns into
-an exception.
+A kernel that does not build raises from :func:`build`, and every C
+entry returns ``cudaGetLastError()`` after its launch, which
+:func:`check` turns into an exception.  The JAX package's capability
+probe (``pallas_kernels.available``) is K0 here, ``csrc/probe.cu``
+behind :func:`bifrost_tpu_torch.ops.gpu_kernels.available`, which
+builds and loads every library of :data:`SOURCES` before it runs the
+probe; the engines ask it before they let a kernel race.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ CSRC = os.path.join(HERE, 'csrc')
 BUILD_DIR = os.path.join(HERE, '_build')
 
 #: kernel sources, by library name
-SOURCES = ('spectrometer', 'stokes', 'beamform')
+SOURCES = ('spectrometer', 'stokes', 'beamform', 'probe', 'xcorr')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']

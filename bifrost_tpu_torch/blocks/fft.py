@@ -1,20 +1,22 @@
-"""The single-stage device block (the port of ``_StageBlock`` in
-``bifrost_tpu/blocks/fft.py``).
+"""The FFT block and the single-stage device block (the port of
+``bifrost_tpu/blocks/fft.py``; reference: blocks/fft.py:39-177).
 
 A :class:`_StageBlock` runs one stage of ``bifrost_tpu_torch.stages`` as
 a TransformBlock on the ``cuda`` space: the stage negotiates the header
-once per sequence and builds one function per gulp shape.  Left out of
-this port: buffer donation, macro-gulp batching and mesh sharding, which
-the port's pipeline does not have yet, and ``FftBlock`` itself, which
-waits for the unfused spectrometer blocks.
+once per sequence and builds one function per gulp shape.
+:class:`FftBlock` is the FFT stage as such a block, forward c2c only, as
+:class:`~bifrost_tpu_torch.stages.FftStage` has it (the FX correlator's
+F step).  Left out of this port: buffer donation, macro-gulp batching and
+mesh sharding, which the port's pipeline does not have yet.
 """
 
 from __future__ import annotations
 
 from ..dtype import DataType
 from ..pipeline import TransformBlock
+from ..stages import FftStage
 
-__all__ = ['_StageBlock']
+__all__ = ['_StageBlock', 'FftBlock', 'fft']
 
 
 class _StageBlock(TransformBlock):
@@ -49,3 +51,20 @@ class _StageBlock(TransformBlock):
     def on_data(self, ispan, ospan):
         x = ispan.data
         ospan.set(self._plan_for(x)(x))
+
+
+class FftBlock(_StageBlock):
+    def __init__(self, iring, axes, inverse=False, real_output=False,
+                 axis_labels=None, apply_fftshift=False, *args, **kwargs):
+        super(FftBlock, self).__init__(
+            iring, FftStage(axes, inverse, real_output, axis_labels,
+                            apply_fftshift), *args, **kwargs)
+
+
+def fft(iring, axes, inverse=False, real_output=False, axis_labels=None,
+        apply_fftshift=False, *args, **kwargs):
+    """Block: FFT over non-frame axes (reference docstring:
+    blocks/fft.py:146-177).  Forward complex-to-complex only; the other
+    options raise NotImplementedError at the sequence header."""
+    return FftBlock(iring, axes, inverse, real_output, axis_labels,
+                    apply_fftshift, *args, **kwargs)

@@ -33,10 +33,10 @@ class      rtol      admits
 =========  ========  ==========================================
 
 The kernels race only where they run natively: when the voltages are on
-a CUDA device.  A forced ``impl`` runs anywhere; on the CPU a kernel
-wrapper runs its plain PyTorch version.  ``BF_BEAM_GATE_RTOL`` widens or
-narrows the active class bound, and a non-default bound is part of the
-probe-cache key.
+a CUDA device and the capability probe K0 passes there.  A forced
+``impl`` runs anywhere; on the CPU a kernel wrapper runs its plain
+PyTorch version.  ``BF_BEAM_GATE_RTOL`` widens or narrows the active
+class bound, and a non-default bound is part of the probe-cache key.
 
 :func:`fused_detect` is the whole-chain beamform -> Stokes -> integrate
 function that ``stages.match_beamformer`` substitutes (K6).  The JAX
@@ -53,7 +53,7 @@ import os
 import numpy as np
 
 from .linalg import GATE_RTOL, _force_env, _probe_wanted, _mm_hilo, \
-    _mm_bf16, _split_hilo
+    _mm_bf16, _mm_i32, _split_hilo, _dtype_name, _is_int, full_f32
 
 __all__ = ['Beamformer', 'BEAM_CLASSES', 'beam_class_rtol',
            'quantize_weights', 'fused_mode', 'fused_detect']
@@ -68,6 +68,11 @@ _LOSSY = frozenset(['planar_bf16', 'pallas_bf16', 'int8_wide',
 
 _IMPL_NAMES = ('xla', 'planar', 'planar_bf16', 'pallas_bf16',
                'int8_wide', 'pallas')
+
+#: the hand-written kernels' candidates: they race only where the
+#: capability probe passed, so an error from one raises instead of
+#: dropping it from the race
+_KERNEL_IMPLS = frozenset(['pallas', 'pallas_bf16'])
 
 
 def beam_class_rtol(accuracy):
@@ -101,18 +106,6 @@ def _wide_weight_block(wr8, wi8):
     top = np.concatenate([wrT, wiT], axis=-1)             # re rows
     bot = np.concatenate([-wiT, wrT], axis=-1)            # im rows
     return np.concatenate([top, bot], axis=-2)            # (P, 2S, 2B)
-
-
-def _ceil_to(n, m):
-    return -(-n // m) * m
-
-
-def _dtype_name(t):
-    return str(t.dtype).replace('torch.', '')
-
-
-def _is_int(t):
-    return not (t.is_floating_point() or t.is_complex())
 
 
 class Beamformer(object):
@@ -204,14 +197,15 @@ class Beamformer(object):
         def fn(re, im):
             wc = self._const('wc%d' % npol, build, re.device)
             x = torch.complex(re.float(), im.float())
-            return torch.einsum('tfps,pbs->tfpb', x, wc)
+            with full_f32():
+                return torch.einsum('tfps,pbs->tfpb', x, wc)
         return fn
 
     def _impl_planar(self, npol, mm):
         """The four plane products through ``mm`` (:func:`_mm_hilo`,
         f32 class, or :func:`_mm_bf16`), one matmul per pol and plane
-        pair.  int8 voltages are exact in bf16, so under hi-lo only the
-        weights are split (two products, not three)."""
+        pair, without TF32.  int8 voltages are exact in bf16, so under
+        hi-lo only the weights are split (two products, not three)."""
         import torch
         wr, wi, _, _ = self._pol_weights(npol)
         hilo = mm is _mm_hilo
@@ -235,8 +229,9 @@ class Beamformer(object):
         def fn(re, im):
             wrj = self._const('wr%d' % npol, lambda: wr, re.device)
             wij = self._const('wi%d' % npol, lambda: wi, re.device)
-            yr = prod(re, wrj) - prod(im, wij)
-            yi = prod(re, wij) + prod(im, wrj)
+            with full_f32():
+                yr = prod(re, wrj) - prod(im, wij)
+                yi = prod(re, wij) + prod(im, wrj)
             return torch.complex(yr, yi)
         return fn
 
@@ -291,27 +286,16 @@ class Beamformer(object):
     def int8_planes(re, im, w2, nbeam):
         """The exact integer core of ``int8_wide``: int8 voltage planes
         (T, F, P, S) against the (P, 2S, 2B) widened weight block ->
-        (yr, yi) int32 planes (T, F, P, B), one ``torch._int_mm`` per
-        pol.  ``_int_mm`` on the card wants more than 16 rows and inner
-        and output widths that are multiples of 8: the operands are
-        padded with zeros, which leaves the integer sums exact."""
+        (yr, yi) int32 planes (T, F, P, B): the stacked (P, T*F, 2S)
+        operand ``[re | im]`` through :func:`~.linalg._mm_i32`, one
+        ``torch._int_mm`` per pol, exact."""
         import torch
         T, F, P, S = re.shape
-        k, n = 2 * S, 2 * nbeam
-        m = T * F
-        kp, np_, mp = _ceil_to(k, 8), _ceil_to(n, 8), max(m, 17)
-        out = []
-        for p in range(P):
-            z = torch.zeros((mp, kp), dtype=torch.int8, device=re.device)
-            z[:m, :S] = re[:, :, p].reshape(m, S)
-            z[:m, S:k] = im[:, :, p].reshape(m, S)
-            w = w2[p]
-            if (kp, np_) != (k, n):
-                w = torch.zeros((kp, np_), dtype=torch.int8,
-                                device=re.device)
-                w[:k, :n] = w2[p]
-            out.append(torch._int_mm(z, w)[:m, :n].reshape(T, F, n))
-        y = torch.stack(out, dim=2)
+        z = torch.empty((P, T, F, 2 * S), dtype=torch.int8, device=re.device)
+        z[..., :S] = re.movedim(2, 0)
+        z[..., S:] = im.movedim(2, 0)
+        y = _mm_i32(z.reshape(P, T * F, 2 * S), w2)
+        y = y.reshape(P, T, F, 2 * nbeam).movedim(0, 2)
         return y[..., :nbeam], y[..., nbeam:]
 
     # -- selection -------------------------------------------------------
@@ -359,12 +343,12 @@ class Beamformer(object):
     @staticmethod
     def _pallas_raceable(device=None):
         """The kernels race only where they run natively: voltages on a
-        CUDA device (the process's device when ``device`` is None).  A
+        CUDA device (the process's device when ``device`` is None) on
+        which the capability probe K0
+        (:func:`bifrost_tpu_torch.ops.gpu_kernels.available`) passes.  A
         forced impl runs them anywhere."""
-        if device is None:
-            from ..device import get_device
-            device = get_device()
-        return device.type == 'cuda'
+        from .gpu_kernels import available
+        return available(device)
 
     def _default(self, int_input):
         """Winner when no measurement is available: the baseline, except
@@ -388,10 +372,9 @@ class Beamformer(object):
     def _gate(self, names, npol, make_args):
         """(keep, had_errors): the candidates within the class rtol of
         the ``xla`` baseline at the actual shape, relative to the
-        baseline's maximum.  Float32 products run without TF32, so the
-        baseline is a full float32 one."""
-        import torch
-        torch.backends.cuda.matmul.allow_tf32 = False
+        baseline's maximum.  The float candidates run without TF32
+        (:func:`~.linalg.full_f32`), so the baseline is a full float32
+        one.  An error from a kernel raises."""
         args = make_args()
         outs = {}
         had_errors = False
@@ -399,6 +382,8 @@ class Beamformer(object):
             try:
                 outs[name] = self._fn(name, npol)(*args)
             except Exception:
+                if name in _KERNEL_IMPLS:
+                    raise
                 had_errors = True
         if 'xla' not in outs:
             return [n for n in outs if n not in _LOSSY], had_errors
@@ -433,7 +418,8 @@ class Beamformer(object):
         keep, had_errors = self._gate(names, npol, make_args)
         fns = {n: self._fn(n, npol) for n in keep}
         winner, ms, _err = mprobe.select('beamform', key, fns, make_args,
-                                         persist=not had_errors)
+                                         persist=not had_errors,
+                                         strict=_KERNEL_IMPLS)
         self.chosen[key] = winner or default
         if winner is not None:
             self.probe_ms[key] = ms

@@ -8,6 +8,13 @@ versions.  The counterpart of ``bifrost_tpu/ops/pallas_kernels.py``.
   :func:`beamform_detect_int8`, replace the beamformer kernels of the
   same names (``pl.pallas_call`` at ``pallas_kernels.py:265``, ``:307``
   and ``:384``); their source is ``bifrost_tpu_torch/csrc/beamform.cu``.
+- K0, :func:`probe` behind :func:`available`, replaces the capability
+  probe ``pallas_kernels.available`` (``pl.pallas_call`` at ``:40``);
+  its source is ``bifrost_tpu_torch/csrc/probe.cu``.
+- K7, :func:`xcorr_herm`, and K8, :func:`xcorr_cross`, replace the
+  correlation kernels of the same names (``pl.pallas_call`` at
+  ``pallas_kernels.py:155`` and ``:199``); their source is
+  ``bifrost_tpu_torch/csrc/xcorr.cu``.
 
 Each source states its kernels' bounds on the H100 and what their design
 does about them.  On a CUDA tensor a wrapper launches its kernel or
@@ -19,19 +26,27 @@ the CPU tests use and the chip smoke run holds the kernel against.
 from __future__ import annotations
 
 import ctypes
+import os
 
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_int8_plain', 'beamform_bf16', 'beamform_bf16_plain',
            'beamform_detect_int8', 'beamform_detect_int8_plain',
-           'MAX_NSTAND', 'launches']
+           'probe', 'available', 'enabled', 'xcorr_herm',
+           'xcorr_herm_plain', 'xcorr_cross', 'xcorr_cross_plain',
+           'MAX_NSTAND', 'MAX_NTIME', 'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
 launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
-            'beamform_detect_int8': 0}
+            'beamform_detect_int8': 0, 'probe': 0, 'xcorr_herm': 0,
+            'xcorr_cross': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
 MAX_NSTAND = (2 ** 31 - 1) // (2 * 128 * 128)
+
+#: most frames the correlation kernels sum: re = sum of 2 * T products of
+#: int8 values, each at most 128 * 128, stays exact in int32
+MAX_NTIME = MAX_NSTAND
 
 
 def _ptr(t):
@@ -329,3 +344,176 @@ def beamform_detect_int8(wxr, wxi, wyr, wyi, x, scale, rfactor):
     _build.check(lib, err, 'beamform_detect_int8')
     launches['beamform_detect_int8'] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K0: the capability probe
+# ---------------------------------------------------------------------------
+
+#: devices on which the probe passed (the answer is cached per device)
+_available_on = set()
+
+
+def probe(x):
+    """K0: ``x * 2`` of a float32 tensor, on the card by the probe kernel
+    (its plain version on the CPU)."""
+    import torch
+    if x.dtype != torch.float32:
+        raise ValueError("probe: expected float32, got %s" % x.dtype)
+    if x.device.type != 'cuda':
+        return x * 2
+    from .. import _build
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    lib, fn = _fn('probe', 'bf_probe', [ctypes.c_void_p] * 2 +
+                  [ctypes.c_int, ctypes.c_void_p])
+    err = fn(_ptr(x), _ptr(out), x.numel(), _build.stream_ptr(x.device))
+    _build.check(lib, err, 'probe')
+    launches['probe'] += 1
+    return out
+
+
+def available(device=None):
+    """True when the port's CUDA kernels build and run on ``device`` (the
+    process's device when None): the meaning of
+    ``pallas_kernels.available``.  False off the card.  On the card it
+    builds and loads every library of ``_build.SOURCES``, runs the probe
+    kernel's ``x * 2`` on an (8, 128) float32 tile and checks the sum,
+    once per device; a failed build, load or check raises, and never
+    reads as False, which would quietly drop the kernels from every
+    race."""
+    import torch
+    from .. import _build
+    if device is None:
+        from ..device import get_device
+        device = get_device()
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return False
+    if device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    if device in _available_on:
+        return True
+    _build.build()
+    for name in _build.SOURCES:
+        _build.load(name)
+    x = torch.ones((8, 128), dtype=torch.float32, device=device)
+    total = float(probe(x).sum())
+    if abs(total - 2 * 8 * 128) >= 1e-3:
+        raise RuntimeError("available: the probe kernel on %s summed to %r,"
+                           " not %d" % (device, total, 2 * 8 * 128))
+    _available_on.add(device)
+    return True
+
+
+def enabled(device=None):
+    """``BF_USE_PALLAS`` set and :func:`available` (the JAX rule)."""
+    flag = os.environ.get('BF_USE_PALLAS', '').strip().lower()
+    return flag in ('1', 'true', 'yes', 'on') and available(device)
+
+
+# ---------------------------------------------------------------------------
+# K7, K8: int8 correlation, vis = sum_t x_i conj(x_j), exact int32
+# ---------------------------------------------------------------------------
+
+def xcorr_cross_plain(re_i, im_i, re_j, im_j):
+    """The plain version of K8 (and of K7 with i = j): the four dots
+    over time in int64 on the CPU, in float64 on the card (exact while
+    every partial sum stays below 2^53), then re = rr + ii, im = ir - ri
+    cast to float32 -> complex64 (..., F, n_i, n_j)."""
+    import torch
+    d = torch.int64 if re_i.device.type == 'cpu' else torch.float64
+    ri, ii, rj, ij = (v.to(d) for v in (re_i, im_i, re_j, im_j))
+    dot = lambda x, y: torch.einsum('...tfa,...tfb->...fab', x, y)
+    return torch.complex((dot(ri, rj) + dot(ii, ij)).float(),
+                         (dot(ii, rj) - dot(ri, ij)).float())
+
+
+def xcorr_herm_plain(re, im):
+    """The plain version of K7: :func:`xcorr_cross_plain` of the planes
+    against themselves (im = K - K^T with K = im^T re)."""
+    return xcorr_cross_plain(re, im, re, im)
+
+
+def _check_xcorr(re, im, what):
+    import torch
+    if re.dim() not in (3, 4) or im.shape != re.shape:
+        raise ValueError("%s: voltages must be two (T, F, n) or (g, T, F, n)"
+                         " planes, got %s and %s"
+                         % (what, tuple(re.shape), tuple(im.shape)))
+    if re.dtype != torch.int8 or im.dtype != torch.int8:
+        raise ValueError("%s: voltages must be int8, got %s and %s"
+                         % (what, re.dtype, im.dtype))
+    if re.device != im.device:
+        raise ValueError("%s: planes on %s and %s"
+                         % (what, re.device, im.device))
+    if re.shape[-3] > MAX_NTIME:
+        raise ValueError("%s: %d frames could overflow the int32 sum (at "
+                         "most %d)" % (what, re.shape[-3], MAX_NTIME))
+
+
+def _group_strides(x, what):
+    """(sg, st, sf, sn) of (T, F, n) or (g, T, F, n) planes."""
+    s = x.stride()
+    if min(s) < 1:
+        raise ValueError("%s: the planes must have positive strides, got %s"
+                         % (what, s))
+    return s if x.dim() == 4 else (0,) + s
+
+
+def _launch_xcorr(herm, re_i, im_i, re_j, im_j, what):
+    import torch
+    from .. import _build
+    for a, b in ((re_i, im_i), (re_j, im_j)):
+        if a.stride() != b.stride():
+            raise ValueError("%s: re and im planes must share strides, got "
+                             "%s and %s" % (what, a.stride(), b.stride()))
+    si = _group_strides(re_i, what)
+    sj = _group_strides(re_j, what)
+    lead = re_i.shape[:-3]
+    g = re_i.shape[0] if lead else 1
+    T, F, ni = re_i.shape[-3:]
+    nj = re_j.shape[-1]
+    out = torch.empty(tuple(lead) + (F, ni, nj, 2), dtype=torch.float32,
+                      device=re_i.device)
+    lib, fn = _fn('xcorr', 'bf_xcorr', [ctypes.c_void_p] * 5 +
+                  [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 +
+                  [ctypes.c_void_p])
+    if T == 0:
+        out.zero_()
+    else:
+        err = fn(_ptr(re_i), _ptr(im_i), _ptr(re_j), _ptr(im_j), _ptr(out),
+                 int(herm), g, T, F, ni, nj, *si, *sj,
+                 _build.stream_ptr(re_i.device))
+        _build.check(lib, err, what)
+        launches[what] += 1
+    return torch.view_as_complex(out)
+
+
+def xcorr_herm(re, im):
+    """K7: the Hermitian int8 auto-correlation of voltage planes (T, F, n)
+    -> (F, n, n) complex64, vis[f, a, b] = sum_t x[t, f, a] conj(x[t, f,
+    b]), exact.  Planes (g, T, F, n) give (g, F, n, n) in one launch: the
+    X step's groups of a gulp.  Strided planes (the re and im views of a
+    ci8 gulp) are read in place; the full matrix is written."""
+    _check_xcorr(re, im, 'xcorr_herm')
+    if re.device.type != 'cuda':
+        return xcorr_herm_plain(re, im)
+    return _launch_xcorr(True, re, im, re, im, 'xcorr_herm')
+
+
+def xcorr_cross(re_i, im_i, re_j, im_j):
+    """K8: the int8 cross-correlation of planes (T, F, n_i) against (T, F,
+    n_j) -> (F, n_i, n_j) complex64, vis[f, a, b] = sum_t x_i[t, f, a]
+    conj(x_j[t, f, b]), exact (with a leading group axis, as
+    :func:`xcorr_herm`)."""
+    _check_xcorr(re_i, im_i, 'xcorr_cross')
+    _check_xcorr(re_j, im_j, 'xcorr_cross')
+    if re_i.shape[:-1] != re_j.shape[:-1] or re_i.device != re_j.device:
+        raise ValueError("xcorr_cross: the i planes %s on %s and the j "
+                         "planes %s on %s differ in frames, channels or "
+                         "device" % (tuple(re_i.shape), re_i.device,
+                                     tuple(re_j.shape), re_j.device))
+    if re_i.device.type != 'cuda':
+        return xcorr_cross_plain(re_i, im_i, re_j, im_j)
+    return _launch_xcorr(False, re_i, im_i, re_j, im_j, 'xcorr_cross')

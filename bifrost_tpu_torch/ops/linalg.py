@@ -1,25 +1,46 @@
-"""Linear-algebra helpers of the beamformer engine (a subset of
-``bifrost_tpu/ops/linalg.py``).
+"""Linear algebra of the beamformer engine and the FX correlator's X
+step (a subset of ``bifrost_tpu/ops/linalg.py``).
 
-The port carries what ``ops/beamform.py`` needs: the environment
-switches :func:`_force_env` and :func:`_probe_wanted`, the bf16 plane
-products :func:`_split_hilo`, :func:`_mm_hilo` and :func:`_mm_bf16`, and
-the f32 accuracy-gate bound :data:`GATE_RTOL` (``LinAlg._GATE_RTOL``).
-The ``LinAlg`` class, its GEMM and X-engine candidates and the Pallas
-correlation kernels are not ported yet (the FX-correlator slice).
+The port carries:
+
+- the environment switches :func:`_force_env` and :func:`_probe_wanted`,
+  the bf16 plane products :func:`_split_hilo`, :func:`_mm_hilo` and
+  :func:`_mm_bf16`, and the f32 accuracy-gate bound :data:`GATE_RTOL`
+  (``LinAlg._GATE_RTOL``), which ``ops/beamform.py`` uses;
+- the correlation half: the xcorr candidates and their tables,
+  :func:`xcorr_int8` and :func:`xcorr_prewarm` (mprobe family
+  ``linalg_xcorr``, ``BF_LINALG_XCORR_IMPL``), and the raced,
+  accuracy-classed :class:`XEngine` (mprobe family ``xengine``,
+  ``BF_XCORR_IMPL``, ``BF_XCORR_GATE_RTOL``), with the JAX package's
+  names, keys and classes.
+
+Left out: ``LinAlg``, ``matmul`` and the ``_ab_*`` / ``_aah_*`` GEMM
+candidates (not on the correlator's path), and the jit caches and tracer
+branches of the JAX functions: the port runs eagerly, and probing
+happens at a prewarm or on the first eager call, never inside a gulp
+after ``on_sequence``.
 
 torch has no ``preferred_element_type``: a bf16 product with a float32
 result is taken here as the float32 product of bf16-rounded operands,
 which is exact per term (a bf16 x bf16 product fits float32's mantissa)
 and sums in float32, the semantics of the JAX package's bf16 MXU passes.
+An int8 x int8 -> int32 product is :func:`_mm_i32`, one
+``torch._int_mm`` per batch entry on zero-padded operands: exact at every
+shape.  Every xcorr and X-engine candidate accepts (T, F, n) planes or
+(g, T, F, n) planes with a leading group axis (one visibility matrix per
+group), the form :class:`~bifrost_tpu_torch.stages.CorrelateStage`
+hands the engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
-__all__ = ['GATE_RTOL', '_force_env', '_probe_wanted', '_split_hilo',
-           '_mm_hilo', '_mm_bf16']
+import numpy as np
+
+__all__ = ['GATE_RTOL', 'xcorr_int8', 'xcorr_prewarm', 'XEngine',
+           'XCORR_CLASSES', 'xcorr_class_rtol']
 
 #: a candidate deviating from the baseline by more than this (relative
 #: to the baseline's maximum, at the actual shape) is kept out of a speed
@@ -43,6 +64,21 @@ def _probe_wanted():
         return False
     from ..device import on_cuda
     return on_cuda()
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 and complex64 matmuls without TF32 inside the block: the
+    f32 accuracy class and its gates need full float32 products.  The
+    caller's ``torch.backends.cuda.matmul.allow_tf32`` is restored on
+    exit."""
+    import torch
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _bf16(x):
@@ -74,3 +110,501 @@ def _mm_bf16(a, b):
     forced impl."""
     import torch
     return torch.matmul(_bf16(a.float()), _bf16(b.float()))
+
+
+# ---------------------------------------------------------------------------
+# exact int8 products over the time axis
+# ---------------------------------------------------------------------------
+
+def _ceil_to(n, m):
+    return -(-n // m) * m
+
+
+def _padded(x, shape):
+    """``x`` (B, m, k) int8 as a contiguous tensor of ``shape``, zero
+    past its own extent."""
+    import torch
+    if tuple(x.shape) == tuple(shape):
+        return x.contiguous()
+    out = torch.zeros(shape, dtype=torch.int8, device=x.device)
+    out[:, :x.shape[1], :x.shape[2]] = x
+    return out
+
+
+def _mm_i32(a, b):
+    """(..., m, k) int8 @ (..., k, n) int8 -> (..., m, n) int32, exact:
+    one ``torch._int_mm`` per batch entry.  ``_int_mm`` on the card wants
+    more than 16 rows and inner and output widths that are multiples of
+    8: the operands are padded with zeros, which leaves the integer sums
+    unchanged."""
+    import torch
+    lead = a.shape[:-2]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    a3 = a.reshape((-1, m, k))
+    b3 = b.reshape((-1, k, n))
+    nb = a3.shape[0]
+    kp = _ceil_to(max(k, 1), 8)
+    ap = _padded(a3, (nb, max(m, 17), kp))
+    bp = _padded(b3, (nb, kp, _ceil_to(n, 8)))
+    out = torch.empty((nb, m, n), dtype=torch.int32, device=a.device)
+    for i in range(nb):
+        out[i] = torch._int_mm(ap[i], bp[i])[:m, :n]
+    return out.reshape(tuple(lead) + (m, n))
+
+
+def _t_in(x):
+    """(..., T, F, n) -> (..., F, n, T), contiguous."""
+    return x.movedim(-3, -1).contiguous()
+
+
+def _t_jn(x):
+    """(..., T, F, n) -> (..., F, T, n), contiguous."""
+    return x.transpose(-3, -2).contiguous()
+
+
+def _tdot(x, y):
+    """sum_t x[..., t, f, a] y[..., t, f, b] -> (..., F, n_x, n_y) int32."""
+    return _mm_i32(_t_in(x), _t_jn(y))
+
+
+def _vis(re, im):
+    """Visibilities from int32 real and imaginary sums: each cast to
+    float32 (exact below 2^24), then complex64."""
+    import torch
+    return torch.complex(re.float(), im.float())
+
+
+def _swap(k):
+    return k.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# cross-correlation entry point (FX correlator X step; blocks.correlate
+# routes here)
+# ---------------------------------------------------------------------------
+
+def _xcorr_einsum(re_i, im_i, re_j, im_j):
+    rr = _tdot(re_i, re_j)
+    ii = _tdot(im_i, im_j)
+    ir = _tdot(im_i, re_j)
+    ri = _tdot(re_i, im_j)
+    return _vis(rr + ii, ir - ri)
+
+
+def _xcorr_fmt(re_i, im_i, re_j, im_j):
+    """Pre-transpose to (F, n, T) / (F, T, n) once, so each of the four
+    contractions is a canonical batched GEMM."""
+    a_re, a_im = _t_in(re_i), _t_in(im_i)
+    b_re, b_im = _t_jn(re_j), _t_jn(im_j)
+    rr = _mm_i32(a_re, b_re)
+    ii = _mm_i32(a_im, b_im)
+    ir = _mm_i32(a_im, b_re)
+    ri = _mm_i32(a_re, b_im)
+    return _vis(rr + ii, ir - ri)
+
+
+def _xcorr_einsum3(re_i, im_i, re_j, im_j):
+    """Auto-correlation only: the Hermitian structure makes the cross
+    term one product (K - K^T), 3 contractions instead of 4."""
+    rr = _tdot(re_i, re_i)
+    ii = _tdot(im_i, im_i)
+    k = _tdot(im_i, re_i)
+    return _vis(rr + ii, k - _swap(k))
+
+
+def _xcorr_fmt3(re_i, im_i, re_j, im_j):
+    """Auto-correlation only: the pre-transposed form of the 3-product
+    reduction."""
+    a_re, a_im = _t_in(re_i), _t_in(im_i)
+    b_re, b_im = _t_jn(re_i), _t_jn(im_i)
+    rr = _mm_i32(a_re, b_re)
+    ii = _mm_i32(a_im, b_im)
+    k = _mm_i32(a_im, b_re)
+    return _vis(rr + ii, k - _swap(k))
+
+
+def _xcorr_gram(re_i, im_i, re_j, im_j):
+    """Auto-correlation only (i is j): one widened int8 gram product of
+    the stacked [re | im] planes in the (F, 2n, T) layout."""
+    import torch
+    z = torch.cat([re_i, im_i], dim=-1)             # (..., T, F, 2n)
+    g = _tdot(z, z)                                 # (..., F, 2n, 2n)
+    n = re_i.shape[-1]
+    rr = g[..., :n, :n]
+    ri = g[..., :n, n:]
+    ir = g[..., n:, :n]
+    ii = g[..., n:, n:]
+    return _vis(rr + ii, ir - ri)
+
+
+def _xcorr_pallas(re_i, im_i, re_j, im_j):
+    """Auto-correlation only: K7, the hand-written Hermitian kernel
+    (:func:`bifrost_tpu_torch.ops.gpu_kernels.xcorr_herm`)."""
+    from .gpu_kernels import xcorr_herm
+    return xcorr_herm(re_i, im_i)
+
+
+def _xcorr_pallas_cross(re_i, im_i, re_j, im_j):
+    """Cross blocks (the station-sharded mesh form): K8, the hand-written
+    cross kernel (:func:`bifrost_tpu_torch.ops.gpu_kernels.xcorr_cross`)."""
+    from .gpu_kernels import xcorr_cross
+    return xcorr_cross(re_i, im_i, re_j, im_j)
+
+
+_XCORR_IMPLS = {
+    'einsum': _xcorr_einsum,
+    'fmt': _xcorr_fmt,
+    'pallas': _xcorr_pallas_cross,
+}
+_XCORR_AUTO_IMPLS = dict(_XCORR_IMPLS, einsum3=_xcorr_einsum3,
+                         fmt3=_xcorr_fmt3, gram=_xcorr_gram,
+                         pallas=_xcorr_pallas)
+
+#: per-process winners of xcorr_int8, by shape key
+_xcorr_chosen = {}
+
+#: the hand-written kernels' candidate names: they race only where the
+#: capability probe passed, so an error from one is a fault that raises,
+#: never a reason to race on without it
+_KERNEL_IMPLS = frozenset(['pallas'])
+
+
+def _xcorr_race_impls(impls, device=None):
+    """Candidates eligible for the measured race: the kernel races only
+    where the planes are on the card and the capability probe K0
+    (:func:`bifrost_tpu_torch.ops.gpu_kernels.available`) passes; off
+    the card the list is the JAX package's off the TPU.  A forced
+    ``BF_LINALG_XCORR_IMPL`` or ``impl=`` still dispatches it.  The
+    kernel's errors in the race propagate."""
+    if 'pallas' not in impls:
+        return impls
+    from .gpu_kernels import available
+    if available(device):
+        return impls
+    return {k: v for k, v in impls.items() if k != 'pallas'}
+
+
+def xcorr_int8(re_i, im_i, re_j=None, im_j=None, impl=None):
+    """FX-correlator cross-multiply on int8 planes.
+
+    (T, F, n_i) x (T, F, n_j) -> (F, n_i, n_j) complex64 visibilities
+    integrated over T (vis[f, i, j] = sum_t x_i x_j^*).  When re_j/im_j
+    are omitted the auto-correlation gains the Hermitian candidates
+    (einsum3, fmt3, gram and K7).  Exact int32 accumulation on every
+    path; the winner is measured per shape on the card
+    (``BF_LINALG_XCORR_IMPL`` forces one)."""
+    auto = re_j is None
+    if auto:
+        re_j, im_j = re_i, im_i
+    impls = _XCORR_AUTO_IMPLS if auto else _XCORR_IMPLS
+    # the Hermitian 3-product form is the exact auto-correlation at 3/4
+    # the MACs: the default wherever no measurement is available
+    default = 'einsum3' if auto else 'einsum'
+    name = impl or _force_env('BF_LINALG_XCORR_IMPL', impls)
+    key = 'auto=%s i=%s j=%s' % (auto, tuple(re_i.shape),
+                                 tuple(re_j.shape))
+    if name is None:
+        want = _probe_wanted()
+        if want and key not in _xcorr_chosen:
+            from . import mprobe
+            winner, _ms, _ = mprobe.select(
+                'linalg_xcorr', key,
+                _xcorr_race_impls(impls, re_i.device),
+                lambda: (re_i, im_i, re_j, im_j), strict=_KERNEL_IMPLS)
+            _xcorr_chosen[key] = winner or default
+        name = _xcorr_chosen.get(key, default) if want else default
+    return impls[name](re_i, im_i, re_j, im_j)
+
+
+def xcorr_prewarm(t, f, n_i, n_j=None):
+    """Probe the xcorr winner at (T, F, n) on the process's device now,
+    so the first gulp finds it chosen: the probe cost lands at sequence
+    start.  A no-op when probing is off."""
+    if not _probe_wanted():
+        return
+    import torch
+    from ..device import get_device
+    z = torch.zeros((t, f, n_i), dtype=torch.int8, device=get_device())
+    if n_j is None:
+        xcorr_int8(z, z)
+    else:
+        zj = torch.zeros((t, f, n_j), dtype=torch.int8, device=z.device)
+        xcorr_int8(z, z, zj, zj)
+
+
+# ---------------------------------------------------------------------------
+# XEngine: the raced, accuracy-classed X engine (FX correlator X step;
+# blocks.correlate routes here).  On ci8 voltage planes the int
+# candidates are exact (int32 sums, bit-identical to the int64 oracle), so
+# they race under every accuracy class.
+# ---------------------------------------------------------------------------
+
+#: accuracy class -> gate rtol against the complex64 baseline.  The
+#: classes bound only the float candidates: planar's hi-lo truncation
+#: (~2^-16) passes 'f32'; the one-pass bf16 candidate (~2^-8) needs
+#: 'bf16' or wider.
+XCORR_CLASSES = {'f32': 1e-3, 'bf16': 8e-3, 'int8': 4e-2}
+
+
+def xcorr_class_rtol(accuracy):
+    """Effective gate rtol for an accuracy class, honouring an explicit
+    BF_XCORR_GATE_RTOL override."""
+    try:
+        env = os.environ.get('BF_XCORR_GATE_RTOL', '').strip()
+        if env:
+            return float(env)
+    except ValueError:
+        pass
+    return XCORR_CLASSES[accuracy]
+
+
+def _xe_xla(re, im):
+    """The exactness baseline: complex64 einsum of x @ x^H over the time
+    axis, (..., T, F, n) -> (..., F, n, n), without TF32."""
+    import torch
+    x = torch.complex(re.float(), im.float())
+    with full_f32():
+        return torch.einsum('...tfi,...tfj->...fij', x, x.conj())
+
+
+def _xe_planar_with(mm):
+    """Hermitian 3-product on (re, im) planes in the pre-transposed
+    (F, n, T) @ (F, T, n) layout, with ``mm`` setting the precision:
+    hi-lo (f32 class) or one-pass bf16 (lossy); without TF32."""
+    def fn(re, im):
+        import torch
+        ar = re.float().movedim(-3, -1)             # (..., F, n, T)
+        ai = im.float().movedim(-3, -1)
+        br, bi = _swap(ar), _swap(ai)
+        with full_f32():
+            rr = mm(ar, br)
+            ii = mm(ai, bi)
+            k = mm(ai, br)
+        return torch.complex(rr + ii, k - _swap(k))
+    return fn
+
+
+#: engine candidates over (T, F, n) voltage planes -> (F, n, n) c64.  The
+#: int candidates reuse the xcorr layouts: int8_3mm the Hermitian
+#: 3-product, int8_wide the widened gram product, pallas K7.
+_XENGINE_IMPLS = {
+    'xla': _xe_xla,
+    'planar': _xe_planar_with(_mm_hilo),
+    'planar_bf16': _xe_planar_with(_mm_bf16),
+    'int8_3mm': lambda re, im: _xcorr_einsum3(re, im, re, im),
+    'int8_wide': lambda re, im: _xcorr_gram(re, im, re, im),
+    'pallas': lambda re, im: _xcorr_pallas(re, im, re, im),
+}
+
+#: candidates below the f32 accuracy class by construction: never
+#: admitted without a passing gate measurement.  The int candidates are
+#: not here: exact on int planes.
+_XENGINE_LOSSY = frozenset(['planar_bf16'])
+
+#: candidates that consume the int8 voltage planes directly (exact int32
+#: accumulation)
+_XENGINE_INT_IMPLS = frozenset(['int8_3mm', 'int8_wide', 'pallas'])
+
+
+def _is_int(t):
+    return not (t.is_floating_point() or t.is_complex())
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace('torch.', '')
+
+
+class XEngine(object):
+    """Plan-style raced X engine (the port of the JAX package's).
+
+    ``accuracy``: 'f32' (default) | 'bf16' | 'int8', the class float
+    candidates must stay inside to race; int candidates are exact on ci8
+    planes and race under every class.  ``impl`` (or ``BF_XCORR_IMPL``)
+    forces a candidate, bypassing gate and race; ``BF_XCORR_GATE_RTOL``
+    widens or narrows the class bound and becomes part of the probe-cache
+    key.
+
+    Calls take (re, im) voltage planes shaped (T, F, n), int8 (the ci8
+    ring device rep, n = station * pol) or float, and return (F, n, n)
+    complex64 visibilities integrated over T.  Planes (g, T, F, n) give
+    (g, F, n, n), one matrix per group, chosen by the per-group shape
+    (T, F, n): a prewarm at that shape covers every gulp.
+    """
+
+    def __init__(self, accuracy='f32', impl=None):
+        if accuracy not in XCORR_CLASSES:
+            raise ValueError('accuracy must be one of %s, got %r'
+                             % (sorted(XCORR_CLASSES), accuracy))
+        self.accuracy = accuracy
+        self._force = impl or _force_env('BF_XCORR_IMPL',
+                                         set(_XENGINE_IMPLS))
+        self.chosen = {}
+        self.probe_ms = {}
+
+    # -- selection -------------------------------------------------------
+
+    def _build(self, name):
+        return _XENGINE_IMPLS[name]
+
+    def _candidates(self, int_input, device=None):
+        """Candidate names eligible at this input dtype, accuracy class
+        and device.  Float voltages cannot feed the int8 candidates; on
+        int planes they are exact and race at every class; K7 races only
+        on the card."""
+        rtol = xcorr_class_rtol(self.accuracy)
+        names = ['xla', 'planar']
+        if rtol >= XCORR_CLASSES['bf16']:
+            names.append('planar_bf16')
+        if int_input:
+            names += ['int8_3mm', 'int8_wide']
+            if self._pallas_raceable(device):
+                names.append('pallas')
+        return names
+
+    @staticmethod
+    def _pallas_raceable(device=None):
+        """K7 races only where it runs natively: planes on a CUDA device
+        (the process's device when ``device`` is None) on which the
+        capability probe passes.  A forced impl runs it anywhere."""
+        from .gpu_kernels import available
+        return available(device)
+
+    def _default(self, int_input):
+        """Winner when no measurement is available: on int planes the
+        Hermitian 3-product (exact); the complex64 baseline otherwise."""
+        return 'int8_3mm' if int_input else 'xla'
+
+    def _key(self, shape, dtype, int_input):
+        rtol = xcorr_class_rtol(self.accuracy)
+        key = 'acc=%s v=%s %s' % (self.accuracy, tuple(shape), dtype)
+        if rtol != XCORR_CLASSES[self.accuracy]:
+            key += '|gate_rtol=%g' % rtol
+        return key
+
+    def _gate(self, names, make_args):
+        """(keep, had_errors): the candidates within the class rtol of the
+        ``xla`` baseline at the actual shape, relative to the baseline's
+        maximum.  The float candidates run without TF32 (:func:`full_f32`),
+        so the baseline is a full float32 one.  Each candidate's output is
+        reduced to its deviation at once, so one full output beside the
+        baseline's is held at a time.  K7 is exact on the int planes it
+        takes: an error from it, or a deviation outside the class, raises
+        instead of dropping it from the race."""
+        args = make_args()
+        had_errors = False
+        ref = None
+        if 'xla' in names:
+            try:
+                ref = self._build('xla')(*args)
+            except Exception:
+                had_errors = True
+        rtol = xcorr_class_rtol(self.accuracy)
+        scale = (float(ref.abs().max()) or 1.0) if ref is not None else None
+        keep = []
+        for name in names:
+            if name == 'xla':
+                if ref is not None:
+                    keep.append(name)
+                continue
+            try:
+                y = self._build(name)(*args)
+            except Exception:
+                if name in _KERNEL_IMPLS:
+                    raise
+                had_errors = True
+                continue
+            if ref is None:
+                if name not in _XENGINE_LOSSY:
+                    keep.append(name)
+            else:
+                dev = float((y - ref).abs().max()) / scale
+                if dev <= rtol:
+                    keep.append(name)
+                elif name in _KERNEL_IMPLS:
+                    raise RuntimeError(
+                        "XEngine: the CUDA kernel %r deviates from the xla "
+                        "baseline by %.3g of its maximum (class %s allows "
+                        "%g)" % (name, dev, self.accuracy, rtol))
+            del y
+        return keep, had_errors
+
+    def _select(self, shape, dtype, int_input, make_args, device):
+        key = self._key(shape, dtype, int_input)
+        if self._force:
+            self.chosen[key] = self._force
+            return self._force
+        default = self._default(int_input)
+        names = self._candidates(int_input, device)
+        if key in self.chosen:
+            return self.chosen[key]
+        if not (_probe_wanted() and len(names) > 1):
+            self.chosen[key] = default
+            return default
+        from . import mprobe
+        cached = mprobe.peek('xengine', key)
+        if cached is not None and cached[0] in names:
+            self.chosen[key] = cached[0]
+            self.probe_ms[key] = cached[1]
+            return cached[0]
+        keep, had_errors = self._gate(names, make_args)
+        fns = {n: self._build(n) for n in keep}
+        winner, ms, _err = mprobe.select('xengine', key, fns, make_args,
+                                         persist=not had_errors,
+                                         strict=_KERNEL_IMPLS)
+        self.chosen[key] = winner or default
+        if winner is not None:
+            self.probe_ms[key] = ms
+        return self.chosen[key]
+
+    # -- public API ------------------------------------------------------
+
+    def prewarm(self, t, f, n, int_input=True, seed=11):
+        """Gate and race the candidates at the per-group shape (T, F, n)
+        on random voltages on the process's device, so the first gulp
+        finds the winner chosen: the probe cost lands at on_sequence,
+        never on the first gulp.  Returns the winner (the class default
+        when probing is off)."""
+        import torch
+        from ..device import get_device
+        shape = (t, f, n)
+        dtype = 'int8' if int_input else 'float32'
+        if self._force or not _probe_wanted():
+            name = self._force or self._default(int_input)
+            self.chosen[self._key(shape, dtype, int_input)] = name
+            return name
+        rng = np.random.RandomState(seed)
+        if int_input:
+            re = rng.randint(-64, 64, shape).astype(np.int8)
+            im = rng.randint(-64, 64, shape).astype(np.int8)
+        else:
+            re = rng.randn(*shape).astype(np.float32)
+            im = rng.randn(*shape).astype(np.float32)
+        dev = get_device()
+        rej = torch.from_numpy(re).to(dev)
+        imj = torch.from_numpy(im).to(dev)
+        return self._select(shape, dtype, int_input, lambda: (rej, imj),
+                            dev)
+
+    def __call__(self, re, im):
+        """Correlate (T, F, n) or (g, T, F, n) voltage planes on the
+        selected candidate: the winner of a prewarm at the per-group
+        shape, a race now when probing is on, else the class default."""
+        int_input = _is_int(re)
+        shape = tuple(re.shape[-3:])
+        dtype = _dtype_name(re)
+        key = self._key(shape, dtype, int_input)
+        name = self._force or self.chosen.get(key)
+        if name is None:
+            if _probe_wanted():
+                first = (re, im) if re.dim() == 3 else (re[0], im[0])
+                name = self._select(shape, dtype, int_input,
+                                    lambda: first, re.device)
+            else:
+                name = self._default(int_input)
+        return self._build(name)(re, im)
+
+    def ops_per_frame(self, nfreq, n):
+        """Real ops per time frame of the correlation product (one complex
+        MAC = 8 real ops), the GOP/s accounting unit."""
+        return 8 * nfreq * n * n

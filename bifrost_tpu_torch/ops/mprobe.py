@@ -127,7 +127,7 @@ def _drain():
 
 
 def select(name, key, candidates, make_args, n_reps=3, noise=1.10,
-           n_calls=2, persist=True):
+           n_calls=2, persist=True, strict=()):
     """Measure ``candidates`` and return (winner, ms_per_call, errors).
 
     name        cache-file name (one JSON per op family)
@@ -138,6 +138,9 @@ def select(name, key, candidates, make_args, n_reps=3, noise=1.10,
     persist     False when the caller knows this measurement is
                 incomplete (a candidate errored upstream): the winner is
                 used this session but not written to disk
+    strict      candidate names whose exception propagates instead of
+                dropping the candidate: a hand-written kernel that the
+                capability probe admitted must run, never be passed over
 
     A cached winner (in-process or on disk) is checked against the
     current candidate set: a stale name falls through to a fresh
@@ -183,6 +186,8 @@ def select(name, key, candidates, make_args, n_reps=3, noise=1.10,
                 best = min(best, (time.perf_counter() - t0) / n_calls)
             ms[cname] = round(best * 1e3, 3)
         except Exception as e:
+            if cname in strict:
+                raise
             errors[cname] = '%s: %s' % (type(e).__name__, str(e)[:120])
     if not ms:
         return (None, {}, errors)

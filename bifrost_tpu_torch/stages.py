@@ -12,8 +12,10 @@ stages with :func:`compose_stages`, which substitutes a hand-written
 whole-chain CUDA kernel where the chain matches one
 (:func:`match_spectrometer`, :func:`match_beamformer`).  The port carries
 the stages of the Guppi spectrometer chain (FFT, detect in modes 'stokes'
-and 'scalar', the sum reduce) and of the coherent beamformer chain
-(:class:`BeamformStage`, detect, the frame-axis sum).
+and 'scalar', the sum reduce), of the coherent beamformer chain
+(:class:`BeamformStage`, detect, the frame-axis sum) and of the FX
+correlator (FFT, :class:`QuantizeStage`, :class:`CorrelateStage`,
+:class:`AccumulateStage`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from .dtype import DataType
 from .units import transform_units
 
 __all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
-           'BeamformStage', 'SpectrometerPlan', 'walk_headers',
+           'BeamformStage', 'QuantizeStage', 'CorrelateStage',
+           'AccumulateStage', 'SpectrometerPlan', 'walk_headers',
            'compose_stages', 'match_spectrometer', 'match_beamformer']
 
 
@@ -365,6 +368,129 @@ class BeamformStage(Stage):
             return y if mode == 'perpol' else y[:, :, 0, :]
         return fn
 
+
+
+class QuantizeStage(Stage):
+    """Requantize float data to a narrower (possibly complex-int) dtype
+    inside a chain (the device math of
+    :class:`bifrost_tpu_torch.blocks.quantize.QuantizeBlock` as a stage).
+    In the FX correlator the channelizer's cf32 output requantizes to ci8
+    between the F and X steps, so the X engine consumes int8 planes on
+    its exact int32 path.  Rounds half to even, as the JAX stage does."""
+
+    def __init__(self, dtype, scale=1.):
+        self.dtype = DataType(dtype)
+        self.scale = scale
+
+    def transform_header(self, hdr):
+        ohdr = deepcopy(hdr)
+        ohdr['_tensor']['dtype'] = str(self.dtype)
+        return ohdr
+
+    def build(self, in_meta):
+        from .ops.quantize import quantize_tensor
+        pre = _complexify_fn(in_meta)
+        dt, scale = self.dtype, self.scale
+
+        def fn(x):
+            return quantize_tensor(pre(x), dt, scale)
+        return fn
+
+
+class CorrelateStage(Stage):
+    """FX-correlator X step: one visibility matrix per ``nframe_per_vis``
+    input frames, computed by the raced X engine
+    (:class:`bifrost_tpu_torch.ops.linalg.XEngine`: candidates gated and
+    raced per the declared ``accuracy`` class; ``BF_XCORR_IMPL`` forces
+    one).
+
+    Input tensor: ``['time', 'freq', 'station', 'pol']``, dtype ci8 (the
+    int8 planes feed the exact int32 candidates) or complex float.
+    Output: ``['time', 'freq', 'station_i', 'pol_i', 'station_j',
+    'pol_j']`` cf32, the full visibility matrix (``matrix_fill_mode=
+    'full'``), one output frame per integration.  Unlike the stateful
+    :class:`bifrost_tpu_torch.blocks.correlate.CorrelateBlock`, the stage
+    integrates whole groups within each gulp, so ``nframe_per_vis`` must
+    divide the gulp.  The JAX stage's ``jax.vmap(engine)`` is a leading
+    group axis here: the engine takes the gulp's (g, r, F, n) planes in
+    one call, chosen by the per-group shape (r, F, n).
+    """
+
+    def __init__(self, nframe_per_vis, accuracy='f32', impl=None):
+        from .ops.linalg import XEngine
+        self.nframe_per_vis = int(nframe_per_vis)
+        if self.nframe_per_vis < 1:
+            raise ValueError('nframe_per_vis must be >= 1')
+        self.nframe_ratio = (1, self.nframe_per_vis)
+        self.engine = XEngine(accuracy=accuracy, impl=impl)
+        self.accuracy = self.engine.accuracy
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        labels = itensor.get('labels')
+        if labels != ['time', 'freq', 'station', 'pol']:
+            raise ValueError(
+                "correlate requires ['time', 'freq', 'station', "
+                "'pol'] input labels, got %r" % (labels,))
+        itype = DataType(itensor['dtype'])
+        if not itype.is_complex:
+            raise TypeError('correlate requires complex voltages, '
+                            'got %s' % itensor['dtype'])
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        otensor['dtype'] = 'cf32'
+        for key in ('shape', 'labels', 'scales', 'units'):
+            if key not in itensor:
+                continue
+            tv, fv, sv, pv = (deepcopy(v) for v in itensor[key])
+            otensor[key] = [tv, fv, sv, pv,
+                            deepcopy(sv) if key != 'labels'
+                            else sv + '_j',
+                            deepcopy(pv) if key != 'labels'
+                            else pv + '_j']
+        if 'labels' in otensor:
+            otensor['labels'][2] += '_i'
+            otensor['labels'][3] += '_i'
+        if 'scales' in otensor:
+            otensor['scales'][0][1] *= self.nframe_per_vis
+        ohdr['matrix_fill_mode'] = 'full'
+        return ohdr
+
+    def build(self, in_meta):
+        import torch
+        reim = in_meta.get('reim', False)
+        r = self.nframe_per_vis
+        t = in_meta['shape'][0]
+        if t % r:
+            raise ValueError(
+                'CorrelateStage: gulp nframe %d not divisible by '
+                'nframe_per_vis %d' % (t, r))
+        engine = self.engine
+
+        def fn(x):
+            if reim and not x.is_complex():
+                re, im = x[..., 0], x[..., 1]
+            else:
+                re, im = x.real, x.imag
+            nt, f, s, p = re.shape
+            # views of the gulp: (g, r, F, S*P) strided planes
+            re = re.reshape(nt // r, r, f, s * p)
+            im = im.reshape(nt // r, r, f, s * p)
+            vis = engine(re, im)                    # (g, f, n, n)
+            return vis.reshape(nt // r, f, s, p, s, p) \
+                .to(torch.complex64)
+        return fn
+
+
+class AccumulateStage(ReduceStage):
+    """Frame-axis integration inside a chain, the stateless twin of
+    :class:`bifrost_tpu_torch.blocks.accumulate.AccumulateBlock`: sums
+    whole groups of ``nframe`` frames within a gulp.  The FX chain uses
+    it to integrate visibility matrices after the X step."""
+
+    def __init__(self, nframe, op='sum'):
+        super(AccumulateStage, self).__init__('time', factor=int(nframe),
+                                              op=op)
 
 def walk_headers(stages, hdr):
     """Run ``hdr`` through every stage's transform_header; returns the

@@ -40,7 +40,29 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    class of the f32 arm, and every output must be finite and
    (64, 512, 4, 64).  A fifth arm leaves the candidate to the engine's
    race, in a fresh probe-cache directory, and prints its choice;
-8. prints a JSON line of pipeline rates, one JSON line of per-kernel
+8. checks the capability probe K0: available() is True on the card and
+   launches the probe kernel once (a second call is cached);
+9. runs the correlator kernels at the FX path's shapes: K7 (xcorr_herm)
+   on the (2, 128, 1024, 512) group planes of a (256, 1024, 256, 2) ci8
+   gulp, read in place as strided views, in one launch; K8 (xcorr_cross)
+   on a 128-input station-row block against all 512 inputs, T=128.  Each
+   is bit-identical to its plain version (float64 products on the card)
+   and to the int64 oracle on channels 0, 511 and 1023, K7's imaginary
+   part nonzero and antisymmetric, K8 equal to K7's rows; each timed
+   beside its plain version and the complex64 einsum yardstick;
+10. drives the FX correlator through the Pipeline at BASELINE config 5's
+   width with config 19's chain (256 stations x 2 pols, 1024 channels,
+   256-frame gulps: copy('cuda') -> fft -> quantize('ci8', 1/32) ->
+   correlate(128, fusable) -> accumulate(2, fusable) -> copy('system'))
+   in three arms, K7 forced (one launch per gulp), the engine's race from
+   an empty probe cache (K0 asked afresh), and the complex64 'xla'
+   baseline; all three byte-identical to each other and to an oracle
+   made on the card (torch's FFT and quantize, float64 products).  A
+   fourth arm, BASELINE config 5's X step alone, runs the stateful
+   correlate(256) on 64-frame ci8 gulps (one K7 launch per gulp) against
+   the int64 oracle; the cross family of xcorr_int8 runs K8 on the four
+   station-row blocks of a gulp, as the station-sharded plan calls it;
+11. prints a JSON line of pipeline rates, one JSON line of per-kernel
    numbers ({"kernels": [...]}), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -72,6 +94,20 @@ PEAK_INT8_PER_S = 1979e12
 # the beamformer: BASELINE config 4 with config 13's integration
 BT, BF, BS, BP, BB, BR = 512, 512, 256, 2, 64, 8
 BEAM_ORACLE_NTIME = 64
+# the FX correlator: BASELINE config 5's array (256 stations, 2 pols, 1024
+# channels) through config 19's chain, 256-frame gulps, R = 128 frames
+# per visibility and A = 2 visibilities per output.  A visibility is at
+# most 2 * 128^2 * R * A = 8.4e6 < 2^24, so every int32 sum, its float32
+# cast and the float32 accumulate are exact whatever the summation
+# order: arms and oracles are compared bit for bit.  The quantize scale
+# 1/32 = 1/sqrt(1024) keeps the requantized values spread over int8.
+XT, XF, XS, XP, XR, XA = 256, 1024, 256, 2, 128, 2
+XN = XS * XP
+XSCALE = 1. / 32
+XWARM, XTIMED = 2, 6
+# the stateful X step: 64-frame gulps, 256 frames per integration
+XST, XSINT, XSWARM, XSTIMED = 64, 256, 4, 16
+XCHANNELS = (0, 511, 1023)
 
 
 def log(*args):
@@ -221,15 +257,18 @@ def make_gulps(seed=5, n=2):
                          dtype=np.int8) for _ in range(n)]
 
 
-def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED):
+def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1):
     """Drive source -> copy('cuda') -> chain -> copy('system') -> sink.
     ``gulps`` are int8 arrays of one gulp's ci8 bytes each, sent in turn
     (the gulp's frame count is ``gulps[0].shape[0]``); ``chain(h2d)``
     builds the device blocks and returns [(role, block), ...], the last
-    one feeding the D2H copy.  Returns (outputs {gulp index: array} of
-    gulps 0, 1 and the last, seconds of the timed gulps, per-block host
-    milliseconds per gulp)."""
+    one feeding the D2H copy, which sends one output span per ``per_out``
+    gulps.  Returns (outputs {output index: array} of outputs 0, 1 and
+    the last, seconds of the timed gulps, per-block host milliseconds per
+    gulp)."""
     ngulp = nwarm + ntimed
+    nout = ngulp // per_out
+    first = nwarm // per_out - 1
     ntime = gulps[0].shape[0]
 
     class Source(bt.SourceBlock):
@@ -255,7 +294,7 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED):
             return [ntime]
 
     class Sink(bt.SinkBlock):
-        keep = (0, 1, ngulp - 1)
+        keep = (0, 1, nout - 1)
 
         def __init__(self, iring):
             super(Sink, self).__init__(iring)
@@ -268,9 +307,9 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED):
 
         def on_data(self, ispan):
             # host bytes here mean the device work of this gulp is done
-            if self.n == nwarm - 1:
+            if self.n == first:
                 self.t0 = time.perf_counter()
-            elif self.n == ngulp - 1:
+            elif self.n == nout - 1:
                 self.t1 = time.perf_counter()
             if self.n in self.keep:
                 self.out[self.n] = np.array(ispan.data.as_numpy(),
@@ -284,8 +323,8 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED):
         d2h = bt.blocks.copy(blocks[-1][1], space='system')
         sink = Sink(d2h)
         p.run()
-    require(sink.n == ngulp, 'sink received %d of %d gulps'
-            % (sink.n, ngulp))
+    require(sink.n == nout, 'sink received %d of %d outputs'
+            % (sink.n, nout))
     per_gulp = {}
     for role, blk in [('source', src), ('h2d', h2d)] + blocks + \
             [('d2h', d2h), ('sink', sink)]:
@@ -409,9 +448,22 @@ def detect_oracle(eng, x, rfactor):
     return st.reshape(T // rfactor, rfactor, F, 4, -1).sum(axis=1)
 
 
+def max_abs_err(got, want):
+    """max |got - want|, one slice of the leading axis at a time, so a
+    full-width output needs no full-size temporary."""
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
 def kernel_entry(name, source, line, got, want, ms, plain_ms, nbyte, nops,
                  peak, library_ms, **extra):
-    abs_err = float((got - want).abs().max())
+    """The kernels-line entry of one kernel: the error of its output
+    ``got`` against its plain version's ``want`` (``max_rel_err`` relative
+    to max |want| unless the caller passes its own), its times and its
+    bound."""
+    abs_err = max_abs_err(got, want)
+    if 'max_rel_err' not in extra:
+        scale = max(float(w.abs().max()) for w in want)
+        extra['max_rel_err'] = abs_err / scale if scale else abs_err
     bms, by = bound(nbyte, nops, peak)
     log('%s kernel %.4f ms, plain %.4f ms, library %s ms, bound %.4f ms '
         '(%s), max abs err vs plain %.4g'
@@ -469,7 +521,7 @@ def phase_beamform_kernels(gpu_kernels, beam):
                 runs=5),
         in_bytes + out_bytes, nops, PEAK_INT8_PER_S,
         cuda_ms(lambda: torch._int_mm(z, w2)),
-        shape=[T, F, S, B], per='launch (one pol)', max_rel_err=0.0,
+        shape=[T, F, S, B], per='launch (one pol)',
         library='torch._int_mm of [re | im] (T*F, 2S) x widened (2S, 2B)')
     del yr, yi, pr, pi
 
@@ -659,6 +711,375 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
             'launches': {arm: runs[arm][1] for arm in runs}}
 
 
+def phase_probe(gpu_kernels):
+    """K0: available() builds and runs the probe kernel on the card once,
+    and a second call answers from its cache."""
+    import torch
+    gpu_kernels._available_on.clear()
+    before = gpu_kernels.launches['probe']
+    t0 = time.perf_counter()
+    ok = gpu_kernels.available()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    require(ok is True, 'available() returned %r on the card' % (ok,))
+    require(gpu_kernels.launches['probe'] == before + 1,
+            'available() launched the probe %d times'
+            % (gpu_kernels.launches['probe'] - before))
+    require(gpu_kernels.available() is True and
+            gpu_kernels.launches['probe'] == before + 1,
+            'a second available() did not answer from its cache')
+    x = torch.ones((8, 128), dtype=torch.float32, device='cuda')
+    got = gpu_kernels.probe(x)
+    want = x * 2
+    torch.cuda.synchronize()
+    log('K0 probe: available() True in %.1f ms (first call, one launch, '
+        'library already built)' % first_ms)
+    return kernel_entry(
+        'probe', 'bifrost_tpu_torch/csrc/probe.cu', 40, got, want,
+        cuda_ms(lambda: gpu_kernels.probe(x)), cuda_ms(lambda: x * 2),
+        2 * x.numel() * 4, x.numel(), PEAK_FP32_PER_S,
+        cuda_ms(lambda: torch.mul(x, 2.0)), shape=[8, 128],
+        per='launch', available_first_call_ms=first_ms,
+        library='torch.mul(x, 2.0)')
+
+
+def xcorr_oracle(re_i, im_i, re_j, im_j):
+    """int64 oracle of vis = sum_t x_i conj(x_j) on numpy planes (..., T,
+    F, n), cast to complex64 (exact below 2^24)."""
+    ri, ii, rj, ij = (v.astype(np.int64) for v in (re_i, im_i, re_j, im_j))
+    dot = lambda x, y: np.einsum('...tfa,...tfb->...fab', x, y)
+    return (dot(ri, rj) + dot(ii, ij)).astype(np.complex64) + \
+        1j * (dot(ii, rj) - dot(ri, ij)).astype(np.complex64)
+
+
+def check_channels(name, got, planes):
+    """``got`` (..., F, ni, nj) against the int64 oracle on XCHANNELS."""
+    for f in XCHANNELS:
+        sub = [p[..., f:f + 1, :].cpu().numpy() for p in planes]
+        want = xcorr_oracle(*sub)
+        require(np.array_equal(got[..., f:f + 1, :, :].cpu().numpy(), want),
+                '%s differs from the int64 oracle on channel %d' % (name, f))
+
+
+def phase_xcorr_kernels(gpu_kernels):
+    """K7 and K8 at the FX path's shapes, on the strided views of a ci8
+    gulp, each against its plain version and the int64 oracle, timed
+    beside the plain version and the complex64 einsum yardstick (the
+    'xla' candidate; the int8 -> complex64 conversion is not timed)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device='cuda').manual_seed(12)
+    x = torch.randint(-128, 128, (XT, XF, XS, XP, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    ng = XT // XR
+    re = x[..., 0].reshape(ng, XR, XF, XN)
+    im = x[..., 1].reshape(ng, XR, XF, XN)
+    require(re.data_ptr() == x.data_ptr(), 'the K7 planes are not views')
+    before = gpu_kernels.launches['xcorr_herm']
+    got = gpu_kernels.xcorr_herm(re, im)
+    want = gpu_kernels.xcorr_herm_plain(re, im)
+    torch.cuda.synchronize()
+    require(gpu_kernels.launches['xcorr_herm'] == before + 1,
+            'K7 took more than one launch for the gulp')
+    require(got.shape == (ng, XF, XN, XN) and got.dtype == torch.complex64,
+            'K7 gave %s %s' % (tuple(got.shape), got.dtype))
+    require(torch.equal(got, want), 'K7 is not bit-identical to its plain '
+            'version')
+    check_channels('K7', got, (re, im, re, im))
+    require(bool((got.imag != 0).any()), 'K7 gave no imaginary part')
+    require(torch.equal(got.imag, -got.imag.transpose(-1, -2)),
+            'the imaginary part of K7 is not antisymmetric')
+    log('K7 xcorr_herm (%d, %d, %d, %d) -> (%d, %d, %d, %d): bit-identical '
+        'to its plain version and to the int64 oracle on channels %s, '
+        'imaginary part antisymmetric'
+        % (ng, XR, XF, XN, ng, XF, XN, XN, list(XCHANNELS)))
+    xc = torch.complex(re.float(), im.float())
+    lib = lambda: torch.einsum('...tfi,...tfj->...fij', xc, xc.conj())
+    k7 = kernel_entry(
+        'xcorr_herm', 'bifrost_tpu_torch/csrc/xcorr.cu', 155, got, want,
+        cuda_ms(lambda: gpu_kernels.xcorr_herm(re, im)),
+        cuda_ms(lambda: gpu_kernels.xcorr_herm_plain(re, im), runs=3),
+        2 * XT * XF * XN + 8 * ng * XF * XN * XN, 8 * XT * XF * XN * XN,
+        PEAK_INT8_PER_S, cuda_ms(lib, runs=5),
+        shape=[ng, XR, XF, XN], per='launch (one gulp)',
+        library="complex64 torch.einsum('tfi,tfj->fij', x, x.conj()), the "
+                "'xla' candidate, conversion untimed")
+    del xc, want
+
+    # K8: a 4-way station-row block against all inputs, T = 128
+    sb = XS // 4
+    ri = x[:XR, :, :sb, :, 0].reshape(XR, XF, sb * XP)
+    ii = x[:XR, :, :sb, :, 1].reshape(XR, XF, sb * XP)
+    rj = x[:XR, ..., 0].reshape(XR, XF, XN)
+    ij = x[:XR, ..., 1].reshape(XR, XF, XN)
+    before = gpu_kernels.launches['xcorr_cross']
+    got8 = gpu_kernels.xcorr_cross(ri, ii, rj, ij)
+    want8 = gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij)
+    torch.cuda.synchronize()
+    require(gpu_kernels.launches['xcorr_cross'] == before + 1,
+            'K8 took more than one launch')
+    require(torch.equal(got8, want8), 'K8 is not bit-identical to its '
+            'plain version')
+    require(torch.equal(got8, got[0, :, :sb * XP, :]),
+            "K8's rows differ from K7's")
+    check_channels('K8', got8, (ri, ii, rj, ij))
+    log('K8 xcorr_cross (%d, %d, %d) x (%d, %d, %d): bit-identical to its '
+        'plain version, to the int64 oracle on channels %s and to K7\'s '
+        'rows' % (XR, XF, sb * XP, XR, XF, XN, list(XCHANNELS)))
+    del got
+    xi_c = torch.complex(ri.float(), ii.float())
+    xj_c = torch.complex(rj.float(), ij.float())
+    k8 = kernel_entry(
+        'xcorr_cross', 'bifrost_tpu_torch/csrc/xcorr.cu', 199, got8, want8,
+        cuda_ms(lambda: gpu_kernels.xcorr_cross(ri, ii, rj, ij)),
+        cuda_ms(lambda: gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij),
+                runs=5),
+        2 * XR * XF * (sb * XP + XN) + 8 * XF * sb * XP * XN,
+        8 * XR * XF * sb * XP * XN, PEAK_INT8_PER_S,
+        cuda_ms(lambda: torch.einsum('tfi,tfj->fij', xi_c, xj_c.conj())),
+        shape=[XR, XF, sb * XP, XN], per='launch',
+        library="complex64 torch.einsum('tfi,tfj->fij', x_i, x_j.conj()), "
+                "conversion untimed")
+    del got8, want8, xi_c, xj_c, x
+    torch.cuda.empty_cache()
+    return k7, k8
+
+
+def fx_gulps(seed=13, n=2):
+    """``n`` full-width ci8 station gulps (T, F, S, P, 2) int8 in host
+    memory."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-128, 128, size=(XT, XF, XS, XP, 2), dtype=np.int8)
+            for _ in range(n)]
+
+
+def fx_oracle(gulp):
+    """The FX chain's output for one gulp, made on the card: the port's
+    F step (torch.fft through fftn_dispatch) and quantize, then the X
+    step in float64 products (K7's plain version) and the accumulate.
+    Returns a host array (1, F, S, P, S, P) complex64."""
+    import torch
+    from bifrost_tpu_torch.ops.fft import fftn_dispatch
+    from bifrost_tpu_torch.ops.gpu_kernels import xcorr_herm_plain
+    from bifrost_tpu_torch.ops.quantize import quantize_tensor
+    x = torch.from_numpy(gulp).cuda()
+    xc = torch.complex(x[..., 0].float(), x[..., 1].float())
+    q = quantize_tensor(fftn_dispatch(xc, [1]), 'ci8', XSCALE)
+    del x, xc
+    ng = XT // XR
+    vis = xcorr_herm_plain(q[..., 0].reshape(ng, XR, XF, XN),
+                           q[..., 1].reshape(ng, XR, XF, XN))
+    vis = vis.reshape(ng // XA, XA, XF, XN, XN).sum(dim=1)
+    out = vis.reshape(ng // XA, XF, XS, XP, XS, XP).cpu().numpy()
+    del q, vis
+    torch.cuda.empty_cache()
+    return out
+
+
+def fx_header(labels, nframe):
+    return {'name': 'fx', 'time_tag': 0, 'gulp_nframe': nframe,
+            '_tensor': {'shape': [-1, XF, XS, XP], 'dtype': 'ci8',
+                        'labels': labels, 'scales': [[0, 1]] * 4,
+                        'units': [None] * 4}}
+
+
+def run_fx_arm(bt, gulps, arm):
+    """One arm of the FX correlator pipeline; returns (outputs, seconds
+    of the timed gulps, per-block host ms/gulp, the X engine's choice).
+    The blocks, and the device tensors their rings hold, are released
+    before it returns: the next arm needs the card's memory."""
+    blocks = []
+    if arm == 'x-stateful':
+        header = fx_header(['time', 'freq', 'station', 'pol'], XST)
+
+        def chain(h2d):
+            blocks.append(('correlate', bt.blocks.correlate(
+                h2d, XSINT, impl='pallas')))
+            return blocks
+        out, secs, per_gulp = drive(bt, gulps, header, chain, XSWARM,
+                                    XSTIMED, per_out=XSINT // XST)
+        return out, secs, per_gulp, engine_info(blocks)
+    accuracy, impl = {'fx-K7': ('int8', 'pallas'), 'fx-race': ('int8', None),
+                      'fx-f32': ('f32', 'xla')}[arm]
+    header = fx_header(['time', 'fine', 'station', 'pol'], XT)
+
+    def chain(h2d):
+        b = bt.blocks.fft(h2d, axes='fine', axis_labels='freq')
+        blocks.append(('fft', b))
+        b = bt.blocks.quantize(b, 'ci8', scale=XSCALE)
+        blocks.append(('quantize', b))
+        b = bt.blocks.correlate(b, XR, accuracy=accuracy, impl=impl,
+                                fusable=True)
+        blocks.append(('correlate', b))
+        blocks.append(('accumulate', bt.blocks.accumulate(b, XA,
+                                                          fusable=True)))
+        return blocks
+    out, secs, per_gulp = drive(bt, gulps, header, chain, XWARM, XTIMED)
+    return out, secs, per_gulp, engine_info(blocks)
+
+
+def engine_info(blocks):
+    """The correlate block's engine choice; drops every block."""
+    import gc
+    import torch
+    eng = dict(blocks)['correlate'].engine
+    info = {'chosen': dict(eng.chosen), 'probe_ms': dict(eng.probe_ms)}
+    del blocks[:], eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
+    import tempfile
+    import torch
+    gulps = fx_gulps()
+    oracle = [fx_oracle(gv) for gv in gulps]
+    ngulp = XWARM + XTIMED
+    nsamp = XT * XF * XS * XP
+    gop = 8 * XT * XF * XN * XN / 1e9
+    nbl = XS * (XS + 1) // 2 * XF
+    runs, rates = {}, {}
+    ref = None
+    for arm in ('fx-K7', 'fx-race', 'fx-f32'):
+        with contextlib.ExitStack() as stack:
+            if arm == 'fx-race':
+                # the engine's own gate and race from an empty probe
+                # cache, asking the capability probe K0 afresh
+                tmp = stack.enter_context(tempfile.TemporaryDirectory())
+                old = os.environ.get('BF_CACHE_DIR')
+                os.environ['BF_CACHE_DIR'] = tmp
+                stack.callback(lambda: os.environ.pop('BF_CACHE_DIR')
+                               if old is None else
+                               os.environ.__setitem__('BF_CACHE_DIR', old))
+                gpu_kernels._available_on.clear()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(spec, gpu_kernels)
+            out, secs, per_gulp, info = run_fx_arm(bt, gulps, arm)
+            counts = read_counts(spec, gpu_kernels)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rates[arm] = {'msps': XTIMED * nsamp / secs / 1e6,
+                      'gops': XTIMED * gop / secs,
+                      'baseline_channels_per_s':
+                          XTIMED * (XT // (XR * XA)) * nbl / secs,
+                      'peak_device_gb': peak, 'info': info,
+                      'per_gulp_ms': per_gulp}
+        log('FX pipeline arm %s: %s, launches %s, %.1f Msamples/s, %.1f '
+            'X-step GOP/s, %.4g baseline-channels/s, peak device memory '
+            '%.1f GB (%s)' % (arm, info, counts, rates[arm]['msps'],
+                              rates[arm]['gops'],
+                              rates[arm]['baseline_channels_per_s'], peak,
+                              smi))
+        log_per_gulp(per_gulp)
+        for k, a in out.items():
+            require(a.shape == (1, XF, XS, XP, XS, XP) and
+                    a.dtype == np.complex64 and np.isfinite(a).all(),
+                    'arm %s output %d: bad shape, type or values' % (arm, k))
+            if ref is None:
+                require(np.array_equal(a, oracle[k % len(gulps)]),
+                        'arm %s output %d differs from the oracle' % (arm, k))
+            else:
+                require(np.array_equal(a, ref[k]), 'arm %s output %d is '
+                        'not byte-identical to the fx-K7 arm' % (arm, k))
+        if ref is None:
+            ref = out
+        log('arm %s: outputs %s byte-identical to %s'
+            % (arm, sorted(out), 'the oracle' if arm == 'fx-K7'
+               else 'the fx-K7 arm (and so to the oracle)'))
+        runs[arm] = counts
+        del out
+    require(runs['fx-K7']['xcorr_herm'] == ngulp,
+            'fx-K7: %d K7 launches for %d gulps'
+            % (runs['fx-K7']['xcorr_herm'], ngulp))
+    require(runs['fx-race']['probe'] >= 1, 'fx-race: K0 was not asked')
+    key = [k for k in rates['fx-race']['info']['probe_ms']]
+    require(key and 'pallas' in rates['fx-race']['info']['probe_ms'][key[0]],
+            'fx-race: K7 did not race: %s' % rates['fx-race']['info'])
+    del ref, oracle
+    torch.cuda.empty_cache()
+
+    # BASELINE config 5's X step alone: the stateful block over 64-frame
+    # gulps, one output per 4 gulps, held to the int64 oracle
+    xgulps = [g[i * XST:(i + 1) * XST] for g in gulps
+              for i in range(XT // XST)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(spec, gpu_kernels)
+    out, secs, per_gulp, info = run_fx_arm(bt, xgulps, 'x-stateful')
+    counts = read_counts(spec, gpu_kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    nxg = XSWARM + XSTIMED
+    per_out = XSINT // XST
+    require(counts['xcorr_herm'] == nxg, 'x-stateful: %d K7 launches for %d '
+            'gulps' % (counts['xcorr_herm'], nxg))
+    for k, a in out.items():
+        block = np.concatenate([xgulps[(k * per_out + i) % len(xgulps)]
+                                for i in range(per_out)])
+        re = block[..., 0].reshape(XSINT, XF, XN)
+        im = block[..., 1].reshape(XSINT, XF, XN)
+        rc, ic = torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda()
+        whole = gpu_kernels.xcorr_herm_plain(rc, ic).cpu().numpy()
+        require(np.array_equal(a.reshape(XF, XN, XN), whole),
+                'x-stateful output %d differs from the float64 products'
+                % k)
+        del rc, ic, whole
+        for f in XCHANNELS:
+            want = xcorr_oracle(re[:, f:f + 1], im[:, f:f + 1],
+                                re[:, f:f + 1], im[:, f:f + 1])
+            require(np.array_equal(a[0, f].reshape(XN, XN), want[0]),
+                    'x-stateful output %d channel %d differs from the int64 '
+                    'oracle' % (k, f))
+        require(np.isfinite(a).all() and a.shape == (1, XF, XS, XP, XS, XP),
+                'x-stateful output %d: bad shape or values' % k)
+    samp = XST * XF * XS * XP
+    rates['x-stateful'] = {
+        'msps': XSTIMED * samp / secs / 1e6,
+        'gops': XSTIMED * 8 * XST * XF * XN * XN / 1e9 / secs,
+        'baseline_channels_per_s': XSTIMED // per_out * nbl / secs,
+        'peak_device_gb': peak, 'per_gulp_ms': per_gulp, 'info': info}
+    log('FX pipeline arm x-stateful: launches %s, %.1f Msamples/s, %.1f '
+        'X-step GOP/s, %.4g baseline-channels/s, peak device memory %.1f '
+        'GB; outputs %s equal the float64 products (exact) and the int64 '
+        'oracle on channels %s (%s)'
+        % (counts, rates['x-stateful']['msps'], rates['x-stateful']['gops'],
+           rates['x-stateful']['baseline_channels_per_s'], peak, sorted(out),
+           list(XCHANNELS), smi))
+    log_per_gulp(per_gulp)
+    runs['x-stateful'] = counts
+    del out
+    torch.cuda.empty_cache()
+    return {'rates': rates, 'launches': runs}
+
+
+def phase_xcorr_int8(L, gpu_kernels):
+    """xcorr_int8's cross family through its public entry point, as the
+    station-sharded mesh plan calls it: the four 64-station row blocks of
+    a T=128 ci8 cut against all inputs, K8 forced; the rows stacked equal
+    the auto family's full matrix."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(14)
+    x = torch.randint(-128, 128, (XR, XF, XS, XP, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    rj = x[..., 0].reshape(XR, XF, XN)
+    ij = x[..., 1].reshape(XR, XF, XN)
+    sb = XS // 4
+    gpu_kernels.launches['xcorr_cross'] = 0
+    rows = [L.xcorr_int8(x[:, :, b * sb:(b + 1) * sb, :, 0]
+                         .reshape(XR, XF, sb * XP),
+                         x[:, :, b * sb:(b + 1) * sb, :, 1]
+                         .reshape(XR, XF, sb * XP), rj, ij, impl='pallas')
+            for b in range(4)]
+    n = gpu_kernels.launches['xcorr_cross']
+    full = L.xcorr_int8(rj, ij, impl='pallas')
+    torch.cuda.synchronize()
+    require(n == 4, 'xcorr_int8 cross: %d K8 launches for 4 blocks' % n)
+    require(torch.equal(torch.cat(rows, dim=1), full),
+            'the cross blocks differ from the auto-correlation')
+    log('xcorr_int8 cross family: 4 station-row blocks (K8) equal the auto '
+        'family (K7) at (%d, %d, %d)' % (XR, XF, XN))
+    del rows, full, x
+    torch.cuda.empty_cache()
+    return n
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -671,6 +1092,7 @@ def main():
     from bifrost_tpu_torch.ops import gpu_kernels
     from bifrost_tpu_torch.ops import spectrometer as spec
     from bifrost_tpu_torch.ops import beamform as beam
+    from bifrost_tpu_torch.ops import linalg as L
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -696,14 +1118,26 @@ def main():
     torch.cuda.empty_cache()
     k4, k5, k6 = phase_beamform_kernels(gpu_kernels, beam)
     bpipe = phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi)
+    torch.cuda.empty_cache()
+    k0 = phase_probe(gpu_kernels)
+    k7, k8 = phase_xcorr_kernels(gpu_kernels)
+    fx = phase_fx_pipeline(bt, spec, gpu_kernels, smi)
+    n8 = phase_xcorr_int8(L, gpu_kernels)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
     k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
     k6['launches'] = bpipe['launches']['K6']['beamform_detect_int8']
-    kernels = [k1, k2, k4, k5, k6]
-    for k in kernels:
+    for k in (k1, k2, k4, k5, k6):
         k['launches_per_gulp'] = k['launches'] / float(NWARM + NTIMED)
+    k0['launches'] = fx['launches']['fx-race']['probe']
+    k0['launches_of'] = 'the fx-race arm (one available() per process)'
+    k7['launches'] = fx['launches']['fx-K7']['xcorr_herm']
+    k7['launches_per_gulp'] = k7['launches'] / float(XWARM + XTIMED)
+    k7['launches_x_stateful'] = fx['launches']['x-stateful']['xcorr_herm']
+    k8['launches'] = n8
+    k8['launches_of'] = 'xcorr_int8 cross family, 4 station-row blocks'
+    kernels = [k1, k2, k4, k5, k6, k0, k7, k8]
     log('total %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'pipeline': {
         'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
@@ -713,6 +1147,12 @@ def main():
     log(json.dumps({'beamformer_pipeline': {
         'gulp': [BT, BF, BS, BP], 'nbeam': BB, 'rfactor': BR,
         'gulps_timed': NTIMED, 'arms': bpipe['rates']}, 'card': smi}))
+    log(json.dumps({'fx_pipeline': {
+        'gulp': [XT, XF, XS, XP], 'nframe_per_vis': XR, 'naccumulate': XA,
+        'scale': XSCALE, 'gulps_timed': XTIMED,
+        'x_stateful_gulp': [XST, XF, XS, XP], 'x_stateful_integration': XSINT,
+        'x_stateful_gulps_timed': XSTIMED, 'arms': fx['rates'],
+        'launches': fx['launches']}, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -340,9 +340,11 @@ def test_int8_planes_exact_with_padding():
 # classes, the gate and the overrides
 # ---------------------------------------------------------------------------
 
-def test_candidate_eligibility_per_class():
+def test_candidate_eligibility_per_class(monkeypatch):
     w = _weights(4, 8, 2)
     card = torch.device('cuda', 0)
+    # a card on which the capability probe K0 has passed
+    monkeypatch.setattr(gpu_kernels, '_available_on', {card})
     assert Beamformer(w, accuracy='f32')._candidates(True) == \
         ['xla', 'planar']
     assert Beamformer(w, accuracy='f32')._candidates(True, card) == \
@@ -352,7 +354,8 @@ def test_candidate_eligibility_per_class():
     assert bf16._candidates(True, card) == ['xla', 'planar', 'planar_bf16',
                                             'pallas_bf16']
     i8 = Beamformer(w, accuracy='int8')
-    # the kernels race only where the voltages are on the card
+    # the kernels race only where the voltages are on the card and K0
+    # passed there
     assert i8._candidates(True) == ['xla', 'planar', 'planar_bf16',
                                     'int8_wide']
     assert i8._candidates(True, card) == ['xla', 'planar', 'planar_bf16',
@@ -365,6 +368,20 @@ def test_candidate_eligibility_per_class():
     for acc in ('f32', 'bf16', 'int8'):
         assert Beamformer(w, accuracy=acc)._candidates(True) == \
             jbeam.Beamformer(w, accuracy=acc)._candidates(True)
+
+
+@pytest.mark.parametrize('kernel', ['beamform_int8', 'beamform_bf16'])
+def test_kernel_error_in_race_raises(monkeypatch, kernel):
+    """A kernel that the capability probe admitted and that then fails
+    raises from the gate, instead of the race going on without it."""
+    monkeypatch.setattr(gpu_kernels, 'available', lambda device=None: True)
+    monkeypatch.setenv('BF_LINALG_PROBE', '1')
+
+    def launch_failure(*args):
+        raise RuntimeError('CUDA error 719: unspecified launch failure')
+    monkeypatch.setattr(gpu_kernels, kernel, launch_failure)
+    with pytest.raises(RuntimeError, match='launch failure'):
+        Beamformer(_weights(4, 8, 2), accuracy='int8').prewarm(8, 2)
 
 
 def test_gate_rejects_lossy_candidate_at_default_rtol():

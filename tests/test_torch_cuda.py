@@ -2,8 +2,10 @@
 chip_smoke.py runs: K1 against the float64 oracle over nfft and rfactor,
 K2 against its plain version on contiguous and strided planes, K4, K5
 and K6 (the beamformer) against the int64/float64 oracles and their
-plain versions at ragged and full-width shapes, and the wrappers'
-checks.  Marked ``cuda``; each test skips without a card.
+plain versions at ragged and full-width shapes, K0 (the capability
+probe), K7 and K8 (the correlator) against their plain versions and the
+int64 oracle at ragged shapes and on strided gulp views, and the
+wrappers' checks.  Marked ``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -16,7 +18,8 @@ rounds every multiply and add as the plain version's separate ops do);
 K4, bit-identical to the int64 oracle; K5, rel <= 1e-5 of its plain
 version (float32 sums in another order) and <= 8e-3 of the float64
 oracle (the bf16 class); K6, rel <= 1e-6 of its plain version and
-< 1e-5 of the quantized-weights float64 oracle.
+< 1e-5 of the quantized-weights float64 oracle; K7 and K8, bit-identical
+to their plain versions and to the int64 oracle.
 """
 
 import numpy as np
@@ -248,3 +251,177 @@ def test_beamform_wrappers_reject_bad_operands():
         gpu_kernels.beamform_detect_int8(
             w8[:, :4], w8[:, :4], w8[:, :4], w8[:, :4], x[:, :, ::2],
             1.0, 2)
+
+
+# ---------------------------------------------------------------------------
+# K0, K7, K8: the capability probe and the correlation kernels
+# ---------------------------------------------------------------------------
+
+def _xcorr_oracle(re_i, im_i, re_j, im_j):
+    """int64 oracle of vis = sum_t x_i conj(x_j) over (..., T, F, n)."""
+    ri, ii, rj, ij = (v.astype(np.int64) for v in (re_i, im_i, re_j, im_j))
+    dot = lambda x, y: np.einsum('...tfa,...tfb->...fab', x, y)
+    return (dot(ri, rj) + dot(ii, ij)).astype(np.complex64) + \
+        1j * (dot(ii, rj) - dot(ri, ij)).astype(np.complex64)
+
+
+def test_available_runs_the_probe_kernel():
+    gpu_kernels._available_on.clear()
+    before = gpu_kernels.launches['probe']
+    assert gpu_kernels.available() is True
+    assert gpu_kernels.launches['probe'] == before + 1
+    assert gpu_kernels.available(torch.device('cuda', 0)) is True
+    assert gpu_kernels.launches['probe'] == before + 1      # cached
+    assert gpu_kernels.available(torch.device('cpu')) is False
+    x = torch.arange(1000, dtype=torch.float32, device='cuda')
+    assert torch.equal(gpu_kernels.probe(x), x * 2)
+
+
+def test_available_loads_every_kernel_library():
+    from bifrost_tpu_torch import _build
+    gpu_kernels._available_on.clear()
+    assert gpu_kernels.available() is True
+    assert set(_build.SOURCES) <= set(_build._libs)
+
+
+@pytest.mark.parametrize('entry', ['prewarm', 'auto', 'cross'])
+def test_kernel_that_fails_to_build_raises_from_the_engines(
+        monkeypatch, tmp_path, entry):
+    """A kernel library that does not build (a failing ``_fn``) raises
+    from the X engine's prewarm and from xcorr_int8's race on the card,
+    never leaves them racing on without it."""
+    from bifrost_tpu_torch.ops import linalg as L, mprobe
+    monkeypatch.setenv('BF_CACHE_DIR', str(tmp_path))
+    monkeypatch.delenv('BF_LINALG_PROBE', raising=False)
+    monkeypatch.setattr(mprobe, '_cache', {})
+    monkeypatch.setattr(L, '_xcorr_chosen', {})
+
+    def nvcc_failure(*args):
+        raise RuntimeError('nvcc failed for xcorr')
+    monkeypatch.setattr(gpu_kernels, '_fn', nvcc_failure)
+    rng = np.random.RandomState(21)
+    re = torch.from_numpy(_i8(rng, (16, 2, 40))).cuda()
+    im = torch.from_numpy(_i8(rng, (16, 2, 40))).cuda()
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        if entry == 'prewarm':
+            L.XEngine(accuracy='int8').prewarm(16, 2, 40)
+        elif entry == 'auto':
+            L.xcorr_int8(re, im)
+        else:
+            L.xcorr_int8(re, im, re[..., :8], im[..., :8])
+
+
+@pytest.mark.parametrize('G,T,F,n', [(None, 8, 3, 6), (None, 33, 2, 40),
+                                     (None, 70, 2, 130), (3, 40, 2, 65),
+                                     (None, 1, 1, 1)])
+def test_xcorr_herm_matches_plain_and_oracle(G, T, F, n):
+    """Ragged tiles (n not a multiple of 64, T not of 32), full-range
+    int8, with and without the group axis."""
+    rng = np.random.RandomState(T + n)
+    shape = (T, F, n) if G is None else (G, T, F, n)
+    re, im = _i8(rng, shape), _i8(rng, shape)
+    rec, imc = torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda()
+    before = gpu_kernels.launches['xcorr_herm']
+    got = gpu_kernels.xcorr_herm(rec, imc)
+    want = gpu_kernels.xcorr_herm_plain(rec, imc)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['xcorr_herm'] == before + 1
+    assert got.dtype == torch.complex64
+    assert got.shape == shape[:-3] + (F, n, n)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _xcorr_oracle(re, im, re, im))
+
+
+@pytest.mark.parametrize('T,F,ni,nj', [(8, 3, 6, 40), (33, 2, 130, 6),
+                                       (64, 2, 64, 128), (5, 1, 1, 3)])
+def test_xcorr_cross_matches_plain_and_oracle(T, F, ni, nj):
+    rng = np.random.RandomState(T + ni + nj)
+    re_i, im_i = _i8(rng, (T, F, ni)), _i8(rng, (T, F, ni))
+    re_j, im_j = _i8(rng, (T, F, nj)), _i8(rng, (T, F, nj))
+    args = [torch.from_numpy(a).cuda() for a in (re_i, im_i, re_j, im_j)]
+    before = gpu_kernels.launches['xcorr_cross']
+    got = gpu_kernels.xcorr_cross(*args)
+    want = gpu_kernels.xcorr_cross_plain(*args)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['xcorr_cross'] == before + 1
+    assert got.shape == (F, ni, nj)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _xcorr_oracle(re_i, im_i, re_j, im_j))
+
+
+def test_xcorr_kernels_on_strided_gulp_views():
+    """The FX path's layout: the re and im views of a (T, F, S, P, 2) ci8
+    gulp, grouped (g, r, F, S*P) for K7 in one launch, and a station-row
+    block against all inputs for K8."""
+    T, F, S, P, R = 64, 8, 96, 2, 32
+    g = torch.Generator(device='cuda').manual_seed(8)
+    x = torch.randint(-128, 128, (T, F, S, P, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    re = x[..., 0].reshape(T // R, R, F, S * P)
+    im = x[..., 1].reshape(T // R, R, F, S * P)
+    assert re.data_ptr() == x.data_ptr()          # a view, not a copy
+    before = gpu_kernels.launches['xcorr_herm']
+    got = gpu_kernels.xcorr_herm(re, im)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['xcorr_herm'] == before + 1
+    assert torch.equal(got, gpu_kernels.xcorr_herm_plain(re, im))
+    xh = x.cpu().numpy()
+    rn = xh[..., 0].reshape(T // R, R, F, S * P)
+    inn = xh[..., 1].reshape(T // R, R, F, S * P)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _xcorr_oracle(rn, inn, rn, inn))
+    assert (got.imag != 0).any()
+    assert torch.equal(got.imag, -got.imag.transpose(-1, -2))
+    ri, ii = x[:, :, :32, :, 0].reshape(T, F, 64), \
+        x[:, :, :32, :, 1].reshape(T, F, 64)
+    rj, ij = x[..., 0].reshape(T, F, S * P), x[..., 1].reshape(T, F, S * P)
+    got = gpu_kernels.xcorr_cross(ri, ii, rj, ij)
+    assert torch.equal(got, gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij))
+
+
+def test_xcorr_two_input_sign():
+    """x_0 = 1 + 2j, x_1 = 3 - 1j for one frame: vis[0, 1] = x_0 conj(x_1)
+    = (1 + 2j)(3 + 1j) = 1 + 7j, vis[1, 0] = 1 - 7j."""
+    re = torch.tensor([[[1, 3]]], dtype=torch.int8, device='cuda')
+    im = torch.tensor([[[2, -1]]], dtype=torch.int8, device='cuda')
+    for got in (gpu_kernels.xcorr_herm(re, im)[0],
+                gpu_kernels.xcorr_cross(re, im, re, im)[0]):
+        assert got[0, 1].item() == complex(1, 7)
+        assert got[1, 0].item() == complex(1, -7)
+        assert got[0, 0].item() == complex(5, 0)
+
+
+def test_xcorr_wrappers_reject_bad_operands():
+    v = torch.zeros((4, 2, 8), dtype=torch.int8, device='cuda')
+    with pytest.raises(ValueError):          # float planes
+        gpu_kernels.xcorr_herm(v.float(), v.float())
+    with pytest.raises(ValueError):          # planes on two devices
+        gpu_kernels.xcorr_herm(v, v.cpu())
+    with pytest.raises(ValueError):          # a zero-stride layout
+        gpu_kernels.xcorr_herm(v[:1].expand(4, 2, 8), v[:1].expand(4, 2, 8))
+    with pytest.raises(ValueError):          # re and im strides differ
+        gpu_kernels.xcorr_herm(v, v.transpose(0, 1).contiguous()
+                               .transpose(0, 1))
+    with pytest.raises(ValueError):          # more frames than int32 holds
+        big = torch.zeros((gpu_kernels.MAX_NTIME + 1, 1, 1),
+                          dtype=torch.int8, device='cuda')
+        gpu_kernels.xcorr_herm(big, big)
+    with pytest.raises(ValueError):          # channels differ
+        gpu_kernels.xcorr_cross(v, v, v[:, :1], v[:, :1])
+
+
+def test_to_host_carries_complex64_whole():
+    """The correlator's cf32 output reaches the host as complex64 through
+    pinned staging: one copy of the interleaved pairs, no float planes."""
+    from bifrost_tpu_torch import xfer
+    g = torch.Generator(device='cuda').manual_seed(9)
+    t = torch.randn((3, 64, 65), dtype=torch.complex64, device='cuda',
+                    generator=g)
+    host = xfer.to_host(t)
+    assert host.dtype == np.complex64 and host.shape == (3, 64, 65)
+    np.testing.assert_array_equal(host, t.cpu().numpy())
+    out = np.zeros((3, 64, 65), np.complex64)
+    assert xfer.to_host(t, out) is out
+    np.testing.assert_array_equal(out, host)

@@ -37,7 +37,11 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.ops.gpu_kernels, bifrost_tpu_torch._build, "
              "bifrost_tpu_torch.ops.beamform, bifrost_tpu_torch.ops.linalg, "
              "bifrost_tpu_torch.ops.mprobe, bifrost_tpu_torch.blocks.fft, "
-             "bifrost_tpu_torch.blocks.beamform\n"
+             "bifrost_tpu_torch.blocks.beamform, "
+             "bifrost_tpu_torch.ops.quantize, "
+             "bifrost_tpu_torch.blocks.quantize, "
+             "bifrost_tpu_torch.blocks.correlate, "
+             "bifrost_tpu_torch.blocks.accumulate\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -59,6 +63,23 @@ def test_no_jax_import_in_source(path):
         for name in names:
             assert _top(name) not in FORBIDDEN, \
                 '%s imports %s' % (os.path.relpath(path, ROOT), name)
+
+
+def test_correlator_entry_points_import_without_a_device():
+    """The FX correlator's entry points import, and the capability probe
+    builds no kernel at import: no nvcc is started and no device is
+    touched until a call asks for the card."""
+    p = _run("import sys, bifrost_tpu_torch as bt\n"
+             "assert callable(bt.ops.linalg.XEngine)\n"
+             "assert callable(bt.ops.linalg.xcorr_int8)\n"
+             "assert callable(bt.ops.gpu_kernels.available)\n"
+             "for f in ('correlate', 'accumulate', 'fft', 'quantize'):\n"
+             "    assert callable(getattr(bt.blocks, f))\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), 'probe' in _build.SOURCES, "
+             "'xcorr' in _build.SOURCES)\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[] True True'
 
 
 def test_get_device_raises_without_gpu_or_cpu_request():
