@@ -5,7 +5,8 @@ ring buffers, one thread per block, device work on an NVIDIA H100
 (``cuda`` space: ``torch.Tensor`` in device memory).  This package runs
 beside the JAX package ``bifrost_tpu`` and imports nothing of it.  It
 carries, so far, what the Guppi spectrometer chain, the quantized
-coherent beamformer chain and the FX correlator need::
+coherent beamformer chain, the FX correlator and FDMT dedispersion
+(from a SIGPROC filterbank, and in the FRB search) need::
 
     source -> copy('cuda') -> fused[FftStage -> DetectStage('stokes')
                                     -> ReduceStage('freq', r)]
@@ -23,13 +24,20 @@ coherent beamformer chain and the FX correlator need::
 
 (or the stateful ``correlate(N)`` integrating across gulps).
 
+    read_sigproc -> copy('cuda') -> transpose(['pol', 'freq', 'time'])
+           -> fdmt(max_dm) -> copy('system') -> sink
+
+    source [freq, time] -> copy('cuda') -> fdmt_stage(max_delay)
+           -> matched_filter(ntap) -> threshold(thr) -> copy('system')
+           -> candidate sink
+
 The device is ``cuda:0`` unless the caller selects another with
 :func:`bifrost_tpu_torch.device.set_device` (``set_device('cpu')`` runs
 everything on the CPU, with each kernel's plain PyTorch version).
 Importing the package touches no device and builds no kernel.
 """
 
-from . import blocks, device, ops, stages
+from . import blocks, device, io, ops, stages
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
                        TransformBlock, SinkBlock, block_scope,
@@ -39,7 +47,7 @@ from .ring import Ring, EndOfDataStop
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'ops', 'stages', 'DataType', 'Pipeline',
+__all__ = ['blocks', 'device', 'io', 'ops', 'stages', 'DataType', 'Pipeline',
            'BlockScope', 'Block', 'SourceBlock', 'TransformBlock',
            'SinkBlock', 'block_scope', 'get_default_pipeline',
            'PipelineInitError', 'PipelineRuntimeError', 'Ring',

@@ -39,7 +39,7 @@ CSRC = os.path.join(HERE, 'csrc')
 BUILD_DIR = os.path.join(HERE, '_build')
 
 #: kernel sources, by library name
-SOURCES = ('spectrometer', 'stokes', 'beamform', 'probe', 'xcorr')
+SOURCES = ('spectrometer', 'stokes', 'beamform', 'probe', 'xcorr', 'fdmt')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']

@@ -1,0 +1,181 @@
+"""FDMT dedispersion and the FRB-search blocks (the port of
+``bifrost_tpu/blocks/fdmt.py``; reference:
+python/bifrost/blocks/fdmt.py:38-140).
+
+Input layout ``[..., 'freq', 'time']``: time is the frame axis and is
+last, so 'freq' rides the ring's ringlet dimension.  The blocks overlap
+successive input spans by their lookahead (``max_delay`` frames for
+FDMT, ``ntap - 1`` for the matched filter): each span after the first is
+stitched on the card from two committed chunks, and the block commits
+the frames whose lookahead the span holds.
+
+Left out: the time-sharded mesh path of :class:`FdmtBlock`
+(``_mesh_fn`` over ``parallel.ops.sharded_fdmt``), which waits for the
+multi-GPU slice, and the in-segment halo carry of the stage blocks, which
+waits for the port's segments.
+"""
+
+from __future__ import annotations
+
+import math
+from copy import deepcopy
+
+from ..dtype import DataType
+from ..pipeline import TransformBlock
+from ..units import convert_units
+from ..ops.fdmt import Fdmt, KDM
+from ..stages import FdmtStage, MatchedFilterStage, ThresholdStage
+from .fft import _StageBlock
+
+__all__ = ['FdmtBlock', 'fdmt', 'FdmtStageBlock', 'fdmt_stage',
+           'MatchedFilterBlock', 'matched_filter',
+           'ThresholdBlock', 'threshold']
+
+
+class FdmtBlock(TransformBlock):
+    def __init__(self, iring, max_dm=None, max_delay=None,
+                 max_diagonal=None, exponent=-2.0, negative_delays=False,
+                 *args, **kwargs):
+        super(FdmtBlock, self).__init__(iring, *args, **kwargs)
+        if sum(m is not None
+               for m in (max_dm, max_delay, max_diagonal)) != 1:
+            raise ValueError("Must specify exactly one of: max_dm, "
+                             "max_delay, max_diagonal")
+        self.max_value = max_dm or max_delay or max_diagonal or 0.
+        self.max_mode = ('dm' if max_dm is not None else
+                         'delay' if max_delay is not None else 'diagonal')
+        self.dm_units = 'pc cm^-3'
+        self.exponent = exponent
+        self.negative_delays = negative_delays
+        self.fdmt = Fdmt()
+
+    def define_valid_input_spaces(self):
+        return ('cuda',)
+
+    def on_sequence(self, iseq):
+        ihdr = iseq.header
+        itensor = ihdr['_tensor']
+        labels = itensor['labels']
+        if labels[-1] != 'time' or labels[-2] != 'freq':
+            raise KeyError("Expected axes [..., 'freq', 'time'], got %s"
+                           % labels)
+        nchan = itensor['shape'][-2]
+        f0_, df_ = itensor['scales'][-2]
+        t0_, dt_ = itensor['scales'][-1]
+        f0 = convert_units(f0_, itensor['units'][-2], 'MHz')
+        df = convert_units(df_, itensor['units'][-2], 'MHz')
+        dt = convert_units(dt_, itensor['units'][-1], 's')
+        max_mode, max_value = self.max_mode, self.max_value
+        if max_mode == 'diagonal':
+            max_mode, max_value = 'delay', int(
+                math.ceil(nchan * self.max_value))
+        if max_mode == 'dm':
+            max_dm = max_value
+            rel_delay = (KDM / dt * max_dm *
+                         (f0 ** -2 - (f0 + nchan * df) ** -2))
+            self.max_delay = int(math.ceil(abs(rel_delay)))
+        else:
+            self.max_delay = int(max_value)
+            fac = f0 ** -2 - (f0 + nchan * df) ** -2
+            max_dm = self.max_delay * dt / (KDM * abs(fac))
+        if self.negative_delays:
+            max_dm = -max_dm
+        self.dm_step = max_dm / self.max_delay
+        self.fdmt.init(nchan, self.max_delay, f0, df, self.exponent,
+                       space='cuda')
+        # Pre-warm at sequence start, before any gulp flows: the core
+        # race (its float64 gate included) lands here and not inside the
+        # first on_data.  The expected span is stride + overlap frames; a
+        # shrunk final span reuses the locked winner.  Errors propagate.
+        gulp = self.gulp_nframe or ihdr.get('gulp_nframe')
+        if gulp:
+            shape = tuple(int(s) if s != -1 else int(gulp) + self.max_delay
+                          for s in itensor['shape'])
+            self.fdmt.warmup(shape,
+                             DataType(itensor['dtype']).as_torch_dtype(),
+                             negative_delays=self.negative_delays)
+        ohdr = deepcopy(ihdr)
+        refdm = convert_units(ihdr['refdm'], ihdr['refdm_units'],
+                              self.dm_units) if 'refdm' in ihdr else 0.
+        ohdr['_tensor']['dtype'] = 'f32'
+        ohdr['_tensor']['shape'][-2] = self.max_delay
+        ohdr['_tensor']['labels'][-2] = 'dispersion'
+        ohdr['_tensor']['scales'][-2] = [refdm, self.dm_step]
+        ohdr['_tensor']['units'][-2] = self.dm_units
+        ohdr['max_dm'] = max_dm
+        ohdr['max_dm_units'] = self.dm_units
+        ohdr['cfreq'] = f0_ + 0.5 * (nchan - 1) * df_
+        ohdr['cfreq_units'] = itensor['units'][-2]
+        ohdr['bw'] = nchan * df_
+        ohdr['bw_units'] = itensor['units'][-2]
+        return ohdr
+
+    def define_input_overlap_nframe(self, iseq):
+        """Dispersion needs max_delay frames of lookahead
+        (reference: blocks/fdmt.py define_input_overlap_nframe)."""
+        return self.max_delay
+
+    def on_data(self, ispan, ospan):
+        if ispan.nframe <= self.max_delay:
+            return 0
+        ospan.set(self.fdmt.execute(ispan.data,
+                                    negative_delays=self.negative_delays))
+
+
+def fdmt(iring, max_dm=None, max_delay=None, max_diagonal=None,
+         exponent=-2.0, negative_delays=False, *args, **kwargs):
+    """Block: Fast Dispersion Measure Transform (incoherent dedispersion
+    for pulsar/FRB searches; reference docstring: blocks/fdmt.py:129-178)."""
+    return FdmtBlock(iring, max_dm, max_delay, max_diagonal, exponent,
+                     negative_delays, *args, **kwargs)
+
+
+class FdmtStageBlock(_StageBlock):
+    """Stage-backed FDMT: the transform of :class:`FdmtBlock` driven by
+    :class:`bifrost_tpu_torch.stages.FdmtStage`, with a fixed
+    ``max_delay`` (the FRB-search chain fdmt_stage -> matched_filter ->
+    threshold).  Its core is raced when the stage builds for the first
+    gulp.  :class:`FdmtBlock` keeps the max_dm/max_diagonal sizing modes."""
+
+    def __init__(self, iring, max_delay, exponent=-2.0,
+                 *args, **kwargs):
+        super(FdmtStageBlock, self).__init__(
+            iring, FdmtStage(max_delay, exponent), *args, **kwargs)
+
+
+def fdmt_stage(iring, max_delay, exponent=-2.0, *args, **kwargs):
+    """Block: stage-backed FDMT (fixed ``max_delay`` sizing; see
+    :class:`FdmtStageBlock`)."""
+    return FdmtStageBlock(iring, max_delay, exponent, *args, **kwargs)
+
+
+class MatchedFilterBlock(_StageBlock):
+    """Boxcar matched filter along the time axis: output frame t is the
+    fixed-order sum of input frames [t, t + ntap), the width-matched
+    detection filter of dispersed-pulse searches.  Declares ``ntap - 1``
+    frames of lookahead."""
+
+    def __init__(self, iring, ntap, *args, **kwargs):
+        super(MatchedFilterBlock, self).__init__(
+            iring, MatchedFilterStage(ntap), *args, **kwargs)
+
+
+def matched_filter(iring, ntap, *args, **kwargs):
+    """Block: boxcar matched filter over ``ntap`` time frames (see
+    :class:`MatchedFilterBlock`)."""
+    return MatchedFilterBlock(iring, ntap, *args, **kwargs)
+
+
+class ThresholdBlock(_StageBlock):
+    """Peak detect: zero every sample below ``threshold``, keep the rest;
+    the candidate sink reads the survivors off the ring."""
+
+    def __init__(self, iring, threshold, *args, **kwargs):
+        super(ThresholdBlock, self).__init__(
+            iring, ThresholdStage(threshold), *args, **kwargs)
+
+
+def threshold(iring, threshold, *args, **kwargs):
+    """Block: peak detect against a fixed ``threshold`` (see
+    :class:`ThresholdBlock`)."""
+    return ThresholdBlock(iring, threshold, *args, **kwargs)

@@ -3,7 +3,9 @@
 
 A :class:`_StageBlock` runs one stage of ``bifrost_tpu_torch.stages`` as
 a TransformBlock on the ``cuda`` space: the stage negotiates the header
-once per sequence and builds one function per gulp shape.
+once per sequence and builds one function per gulp shape; a stage's
+lookahead (``overlap_nframe``) becomes the block's input overlap, so
+successive spans share that many frames and the block commits the rest.
 :class:`FftBlock` is the FFT stage as such a block, forward c2c only, as
 :class:`~bifrost_tpu_torch.stages.FftStage` has it (the FX correlator's
 F step).  Left out of this port: buffer donation, macro-gulp batching and
@@ -29,6 +31,11 @@ class _StageBlock(TransformBlock):
 
     def define_valid_input_spaces(self):
         return ('cuda',)
+
+    def define_input_overlap_nframe(self, iseq):
+        """The stage's lookahead (``Stage.overlap_nframe``) as the ring
+        overlap between successive input spans."""
+        return int(getattr(self._stage, 'overlap_nframe', 0) or 0)
 
     def on_sequence(self, iseq):
         self._ihdr = iseq.header

@@ -1,6 +1,6 @@
 """Device ops of the PyTorch/CUDA port.  Modules import torch lazily and
 build no kernel at import time."""
 
-from . import gpu_kernels, linalg, quantize
+from . import fdmt, gpu_kernels, linalg, quantize, transpose
 
-__all__ = ['gpu_kernels', 'linalg', 'quantize']
+__all__ = ['fdmt', 'gpu_kernels', 'linalg', 'quantize', 'transpose']

@@ -15,6 +15,9 @@ versions.  The counterpart of ``bifrost_tpu/ops/pallas_kernels.py``.
   correlation kernels of the same names (``pl.pallas_call`` at
   ``pallas_kernels.py:155`` and ``:199``); their source is
   ``bifrost_tpu_torch/csrc/xcorr.cu``.
+- K3, :func:`fdmt_step`, replaces the FDMT merge-step kernel
+  ``pallas_kernels.fdmt_step`` (``pl.pallas_call`` at ``:459``); its
+  source is ``bifrost_tpu_torch/csrc/fdmt.cu``.
 
 Each source states its kernels' bounds on the H100 and what their design
 does about them.  On a CUDA tensor a wrapper launches its kernel or
@@ -33,12 +36,13 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_detect_int8', 'beamform_detect_int8_plain',
            'probe', 'available', 'enabled', 'xcorr_herm',
            'xcorr_herm_plain', 'xcorr_cross', 'xcorr_cross_plain',
-           'MAX_NSTAND', 'MAX_NTIME', 'launches']
+           'fdmt_step', 'fdmt_step_plain', 'MAX_NSTAND', 'MAX_NTIME',
+           'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
 launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
             'beamform_detect_int8': 0, 'probe': 0, 'xcorr_herm': 0,
-            'xcorr_cross': 0}
+            'xcorr_cross': 0, 'fdmt_step': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
@@ -517,3 +521,102 @@ def xcorr_cross(re_i, im_i, re_j, im_j):
     if re_i.device.type != 'cuda':
         return xcorr_cross_plain(re_i, im_i, re_j, im_j)
     return _launch_xcorr(False, re_i, im_i, re_j, im_j, 'xcorr_cross')
+
+
+# ---------------------------------------------------------------------------
+# K3: one FDMT merge step
+# ---------------------------------------------------------------------------
+
+def fdmt_step_plain(state, d1, d2, passthrough, sgn):
+    """The plain version of K3, the FDMT merge step of the Pallas kernel
+    (``pallas_kernels.fdmt_step``): for output subband s and delay d,
+    ``out[.., s, d, t] = lo[t] + (hi[t + sgn * d1[s, d]] if 0 <= t + sgn *
+    d1[s, d] < T else 0)`` with ``lo = state[.., 2s, d1[s, d]]`` and
+    ``hi = state[.., min(2s + 1, nchan_cur - 1), d2[s, d]]``; a
+    passthrough subband copies ``lo``.  ``state`` is (nchan_cur, nd_cur,
+    T) or (B, nchan_cur, nd_cur, T), any float type; the tables may lie on
+    any device.  One add per element, as the kernel does."""
+    import torch
+    nchan_cur, nd_cur, T = state.shape[-3:]
+    dev = state.device
+    d1 = d1.to(dev, torch.int64)
+    d2 = d2.to(dev, torch.int64)
+    pt = passthrough.to(dev).bool()
+    nout = d1.shape[0]
+    lo_rows = torch.arange(nout, device=dev) * 2
+    hi_rows = torch.clamp(lo_rows + 1, max=nchan_cur - 1)
+    a = state[..., lo_rows[:, None], d1, :]           # (.., nout, nd_out, T)
+    hi = state[..., hi_rows[:, None], d2, :]
+    ts = torch.arange(T, device=dev) + sgn * d1[:, :, None]
+    ok = (ts >= 0) & (ts < T)
+    b = torch.gather(hi, -1, ts.clamp(0, T - 1).expand(hi.shape))
+    b = torch.where(ok, b, b.new_zeros(()))
+    return torch.where(pt[:, None, None], a, a + b)
+
+
+def _check_fdmt(state, d1, d2, passthrough, sgn):
+    import torch
+    if state.dim() not in (3, 4):
+        raise ValueError("fdmt_step: state must be (nchan, nd, T) or (B, "
+                         "nchan, nd, T), got %s" % (tuple(state.shape),))
+    if state.dtype != torch.float32:
+        raise ValueError("fdmt_step: state must be float32, got %s"
+                         % state.dtype)
+    if not state.is_contiguous():
+        raise ValueError("fdmt_step: state must be contiguous, got strides "
+                         "%s" % (state.stride(),))
+    nchan_cur, _, T = state.shape[-3:]
+    if T == 0:
+        raise ValueError("fdmt_step: the state holds no frames (T = 0)")
+    if sgn not in (1, -1):
+        raise ValueError("fdmt_step: sgn must be +1 or -1, got %r" % (sgn,))
+    if d1.dim() != 2 or d2.shape != d1.shape or passthrough.dim() != 1 or \
+            passthrough.shape[0] != d1.shape[0]:
+        raise ValueError("fdmt_step: tables must be d1, d2 (nout, nd_out) "
+                         "and passthrough (nout,), got %s, %s, %s"
+                         % (tuple(d1.shape), tuple(d2.shape),
+                            tuple(passthrough.shape)))
+    if d1.shape[0] != (nchan_cur + 1) // 2:
+        raise ValueError("fdmt_step: %d output subbands for %d input "
+                         "subbands" % (d1.shape[0], nchan_cur))
+    for name, t in (('d1', d1), ('d2', d2), ('passthrough', passthrough)):
+        if t.dtype != torch.int32:
+            raise ValueError("fdmt_step: %s must be int32, got %s"
+                             % (name, t.dtype))
+        if t.device != state.device:
+            raise ValueError("fdmt_step: %s on %s, state on %s"
+                             % (name, t.device, state.device))
+
+
+def fdmt_step(state, d1, d2, passthrough, sgn):
+    """K3: one FDMT merge step of the contiguous float32 state (nchan_cur,
+    nd_cur, T) or (B, nchan_cur, nd_cur, T) -> (.., nout, nd_out, T)
+    float32, as :func:`fdmt_step_plain` defines it.  The int32 tables
+    ``d1``, ``d2`` (nout, nd_out) and ``passthrough`` (nout,) must lie on
+    the state's device (the engine puts them there once per plan).  One
+    launch per call, the batch axis inside it."""
+    import torch
+    _check_fdmt(state, d1, d2, passthrough, sgn)
+    if state.device.type != 'cuda':
+        return fdmt_step_plain(state, d1, d2, passthrough, sgn)
+    from .. import _build
+    nchan_cur, nd_cur, T = state.shape[-3:]
+    batch = state.shape[0] if state.dim() == 4 else 1
+    nout, nd_out = d1.shape
+    if nout * nd_out >= 2 ** 31:
+        raise ValueError("fdmt_step: %d output rows exceed the grid"
+                         % (nout * nd_out))
+    if not (d1.is_contiguous() and d2.is_contiguous() and
+            passthrough.is_contiguous()):
+        raise ValueError("fdmt_step: the tables must be contiguous")
+    out = torch.empty(tuple(state.shape[:-3]) + (nout, nd_out, T),
+                      dtype=torch.float32, device=state.device)
+    lib, fn = _fn('fdmt', 'bf_fdmt_step', [ctypes.c_void_p] * 5 +
+                  [ctypes.c_longlong] + [ctypes.c_int] * 4 +
+                  [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    err = fn(_ptr(state), _ptr(out), _ptr(d1), _ptr(d2), _ptr(passthrough),
+             batch, nchan_cur, nd_cur, nout, nd_out, T, int(sgn),
+             _build.stream_ptr(state.device))
+    _build.check(lib, err, 'fdmt_step')
+    launches['fdmt_step'] += 1
+    return out

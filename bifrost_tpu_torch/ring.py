@@ -168,9 +168,11 @@ class _DeviceStorage(object):
     """Chunk map of committed tensors keyed by absolute byte offset.
     Each chunk's logical shape is (*ringlet_shape, nframe, *frame_shape)
     in the device representation; ``event`` marks the completion of the
-    work that produced it (None on the CPU)."""
+    work that produced it (None on the CPU).  ``lock`` is the ring's
+    lock, under which the writer puts and discards chunks."""
 
-    def __init__(self):
+    def __init__(self, lock=None):
+        self._lock = lock if lock is not None else threading.RLock()
         self.chunks = {}        # offset -> (nbyte, tensor, taxis, event)
         self._offsets = []      # sorted keys of self.chunks
         self.size = 0
@@ -189,34 +191,39 @@ class _DeviceStorage(object):
         """The tensor covering [offset, offset+nbyte): the committed
         chunk itself when one covers the request exactly, else a
         concatenation of chunk slices along the time axis, with zeros
-        for frames no chunk holds (overwritten or never written)."""
-        hit = self.chunks.get(offset)
-        if hit is not None and hit[0] == nbyte:
-            _wait(hit[3])
-            return hit[1]
+        for frames no chunk holds (overwritten or never written).  The
+        chunks are looked up under the ring's lock: the writer puts and
+        discards chunks from its own thread, and a lookup that ran beside
+        a discard could skip a chunk and zero-fill its frames.  The
+        slices are joined after the lock is released."""
+        with self._lock:
+            hit = self.chunks.get(offset)
+            if hit is not None and hit[0] == nbyte:
+                _wait(hit[3])
+                return hit[1]
+            end = offset + nbyte
+            i = max(bisect.bisect_right(self._offsets, offset) - 1, 0)
+            parts, covered, taxis = [], offset, None
+            while covered < end and i < len(self._offsets):
+                o = self._offsets[i]
+                cn, t, ctaxis, ev = self.chunks[o]
+                i += 1
+                if o + cn <= covered:
+                    continue
+                if o >= end:
+                    break
+                if o > covered:
+                    parts.append((o - covered) // frame_nbyte)
+                    covered = o
+                f0 = (covered - o) // frame_nbyte
+                f1 = min(cn, end - o) // frame_nbyte
+                _wait(ev)
+                parts.append(t.narrow(ctaxis, f0, f1 - f0))
+                taxis = ctaxis
+                covered = o + f1 * frame_nbyte
+            if covered < end:
+                parts.append((end - covered) // frame_nbyte)
         import torch
-        end = offset + nbyte
-        i = max(bisect.bisect_right(self._offsets, offset) - 1, 0)
-        parts, covered, taxis = [], offset, None
-        while covered < end and i < len(self._offsets):
-            o = self._offsets[i]
-            cn, t, ctaxis, ev = self.chunks[o]
-            i += 1
-            if o + cn <= covered:
-                continue
-            if o >= end:
-                break
-            if o > covered:
-                parts.append((o - covered) // frame_nbyte)
-                covered = o
-            f0 = (covered - o) // frame_nbyte
-            f1 = min(cn, end - o) // frame_nbyte
-            _wait(ev)
-            parts.append(t.narrow(ctaxis, f0, f1 - f0))
-            taxis = ctaxis
-            covered = o + f1 * frame_nbyte
-        if covered < end:
-            parts.append((end - covered) // frame_nbyte)
         if taxis is None:
             return zeros_fn(nbyte // frame_nbyte)
         pieces = [zeros_fn(p) if isinstance(p, int) else p
@@ -280,7 +287,7 @@ class Ring(object):
         self._seq_cond = threading.Condition(self._lock)
         self._span_cond = threading.Condition(self._lock)
         if self.space == 'cuda':
-            self._storage = _DeviceStorage()
+            self._storage = _DeviceStorage(self._lock)
         else:
             pinned = False
             if self.space == 'cuda_host':

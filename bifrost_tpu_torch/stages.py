@@ -13,9 +13,11 @@ whole-chain CUDA kernel where the chain matches one
 (:func:`match_spectrometer`, :func:`match_beamformer`).  The port carries
 the stages of the Guppi spectrometer chain (FFT, detect in modes 'stokes'
 and 'scalar', the sum reduce), of the coherent beamformer chain
-(:class:`BeamformStage`, detect, the frame-axis sum) and of the FX
+(:class:`BeamformStage`, detect, the frame-axis sum), of the FX
 correlator (FFT, :class:`QuantizeStage`, :class:`CorrelateStage`,
-:class:`AccumulateStage`).
+:class:`AccumulateStage`), the axis permutation (:class:`TransposeStage`)
+and the FRB search (:class:`FdmtStage`, :class:`MatchedFilterStage`,
+:class:`ThresholdStage`, with :func:`chain_overlap_nframe`).
 """
 
 from __future__ import annotations
@@ -24,12 +26,14 @@ from copy import deepcopy
 from functools import reduce as _reduce
 
 from .dtype import DataType
-from .units import transform_units
+from .units import convert_units, transform_units
 
 __all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
-           'BeamformStage', 'QuantizeStage', 'CorrelateStage',
-           'AccumulateStage', 'SpectrometerPlan', 'walk_headers',
-           'compose_stages', 'match_spectrometer', 'match_beamformer']
+           'TransposeStage', 'BeamformStage', 'QuantizeStage',
+           'CorrelateStage', 'AccumulateStage', 'FdmtStage',
+           'MatchedFilterStage', 'ThresholdStage', 'chain_overlap_nframe',
+           'SpectrometerPlan', 'walk_headers', 'compose_stages',
+           'match_spectrometer', 'match_beamformer']
 
 
 class Stage(object):
@@ -38,6 +42,18 @@ class Stage(object):
 
     #: (num, den): output_nframe = input_nframe * num // den
     nframe_ratio = (1, 1)
+
+    #: Time-concat equivariance: applying the stage to K gulps stacked
+    #: along the time axis equals applying it per gulp and concatenating.
+    #: Every ported stage has it; a user-defined stage defaults to False.
+    #: The port keeps the flag for its macro-gulp slice, which reads it.
+    batch_safe = False
+
+    #: Frames of future input (lookahead) each output frame may read:
+    #: output frame t depends on input frames [t, t + overlap_nframe].  A
+    #: wrapping block advertises it as its ring overlap
+    #: (``define_input_overlap_nframe``).
+    overlap_nframe = 0
 
     def transform_header(self, hdr):
         return hdr
@@ -79,6 +95,8 @@ class FftStage(Stage):
     """Forward c2c FFT over named axes (reference: blocks/fft.py:39-137;
     src/fft.cu).  The inverse, r2c, c2r and fftshift options of the JAX
     package are not ported yet."""
+
+    batch_safe = True
 
     def __init__(self, axes, inverse=False, real_output=False,
                  axis_labels=None, apply_fftshift=False):
@@ -141,6 +159,8 @@ class DetectStage(Stage):
     whenever the shape matches; the JAX package uses its Pallas kernel
     there only under ``BF_USE_PALLAS`` (``stages.py:263``).  The other
     modes of the JAX package are not ported yet."""
+
+    batch_safe = True
 
     _PORTED = ('scalar', 'stokes')
 
@@ -218,6 +238,8 @@ class ReduceStage(Stage):
     """Sum adjacent elements of an axis in groups of ``factor``
     (reference: blocks/reduce.py:39-91; src/reduce.cu)."""
 
+    batch_safe = True
+
     def __init__(self, axis, factor=None, op='sum'):
         self.specified_axis = axis
         self.specified_factor = factor
@@ -266,6 +288,42 @@ class ReduceStage(Stage):
         return fn
 
 
+class TransposeStage(Stage):
+    """Axis permutation (reference: blocks/transpose.py:41-83): a
+    ``permute`` and a contiguous copy, so the output gulp is laid out in
+    the new axis order.  A complex-integer stream's trailing (re, im) axis
+    stays last."""
+
+    batch_safe = True
+
+    def __init__(self, axes):
+        self.specified_axes = axes
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        if 'labels' in itensor:
+            self.axes = [_resolve_axis(itensor, ax)
+                         for ax in self.specified_axes]
+        else:
+            self.axes = list(self.specified_axes)
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        for item in ('shape', 'labels', 'scales', 'units'):
+            if item in itensor:
+                otensor[item] = [itensor[item][ax] for ax in self.axes]
+        return ohdr
+
+    def build(self, in_meta):
+        axes = list(self.axes)
+        reim = in_meta.get('reim', False)
+
+        def fn(x):
+            a = axes + [len(axes)] if reim and x.dim() == len(axes) + 1 \
+                else axes
+            return x.permute(a).contiguous()
+        return fn
+
+
 class BeamformStage(Stage):
     """Coherent beamform: contract the station (and pol) axes of the
     voltage stream against a fixed weight set through the quantized
@@ -286,6 +344,8 @@ class BeamformStage(Stage):
       fused beamform -> Stokes -> integrate substitution recognizes,
       :func:`match_beamformer`).
     """
+
+    batch_safe = True
 
     def __init__(self, weights, accuracy='f32', impl=None):
         from .ops.beamform import Beamformer
@@ -378,6 +438,8 @@ class QuantizeStage(Stage):
     between the F and X steps, so the X engine consumes int8 planes on
     its exact int32 path.  Rounds half to even, as the JAX stage does."""
 
+    batch_safe = True
+
     def __init__(self, dtype, scale=1.):
         self.dtype = DataType(dtype)
         self.scale = scale
@@ -415,6 +477,8 @@ class CorrelateStage(Stage):
     group axis here: the engine takes the gulp's (g, r, F, n) planes in
     one call, chosen by the per-group shape (r, F, n).
     """
+
+    batch_safe = True
 
     def __init__(self, nframe_per_vis, accuracy='f32', impl=None):
         from .ops.linalg import XEngine
@@ -491,6 +555,170 @@ class AccumulateStage(ReduceStage):
     def __init__(self, nframe, op='sum'):
         super(AccumulateStage, self).__init__('time', factor=int(nframe),
                                               op=op)
+
+
+def chain_overlap_nframe(stages):
+    """Input-frame lookahead a stage chain needs, or None.
+
+    Walks the chain back from the sink, converting each downstream halo
+    through the stage's frame ratio and adding the stage's own
+    ``overlap_nframe``.  Returns None when a downstream halo does not
+    convert to a whole input-frame count.  The port keeps it, as it keeps
+    ``batch_safe``, for its segment slice, which reads it."""
+    halo = 0
+    for stage in reversed(stages):
+        num, den = getattr(stage, 'nframe_ratio', (1, 1))
+        if halo:
+            if (halo * den) % num:
+                return None
+            halo = halo * den // num
+        halo += int(getattr(stage, 'overlap_nframe', 0) or 0)
+    return halo
+
+
+class FdmtStage(Stage):
+    """Incoherent dedispersion (FDMT) as a stage: the core of
+    :class:`bifrost_tpu_torch.blocks.fdmt.FdmtBlock` with a static
+    ``max_delay``, so the lookahead (``overlap_nframe``) is known before
+    any header flows.
+
+    Input tensor ``[..., 'freq', 'time']`` (time is the frame axis and
+    rides last); the output replaces the freq axis with ``max_delay``
+    dispersion trials.  Output frame t is a fixed-order sum over input
+    frames [t, t + max_delay] (positive delays only, the lookahead the
+    ring overlap implements), so committed frames are the same whatever
+    span computed them.  The per-gulp core is the raced engine
+    (:class:`bifrost_tpu_torch.ops.fdmt.Fdmt`; ``BF_FDMT_IMPL`` forces
+    one); it is chosen when the stage builds for the first gulp shape.
+    The JAX stage's ``jax.vmap`` over leading axes is the engine's batch
+    axis here.
+    """
+
+    batch_safe = True
+
+    def __init__(self, max_delay, exponent=-2.0):
+        from .ops.fdmt import Fdmt
+        self.max_delay = int(max_delay)
+        if self.max_delay < 1:
+            raise ValueError('max_delay must be >= 1')
+        self.exponent = exponent
+        self.overlap_nframe = self.max_delay
+        self.engine = Fdmt()
+
+    def transform_header(self, hdr):
+        from .ops.fdmt import KDM
+        itensor = hdr['_tensor']
+        labels = itensor.get('labels')
+        if not labels or labels[-1] != 'time' or labels[-2] != 'freq':
+            raise KeyError("fdmt requires [..., 'freq', 'time'] input "
+                           "labels, got %r" % (labels,))
+        nchan = itensor['shape'][-2]
+        f0_, df_ = itensor['scales'][-2]
+        dt_ = itensor['scales'][-1][1]
+        units = itensor.get('units')
+        funit = units[-2] if units else 'MHz'
+        tunit = units[-1] if units else 's'
+        f0 = convert_units(f0_, funit, 'MHz')
+        df = convert_units(df_, funit, 'MHz')
+        dt = convert_units(dt_, tunit, 's')
+        fac = f0 ** -2 - (f0 + nchan * df) ** -2
+        max_dm = self.max_delay * dt / (KDM * abs(fac))
+        self.dm_step = max_dm / self.max_delay
+        self.engine.init(nchan, self.max_delay, f0, df, self.exponent,
+                         space='cuda')
+        ohdr = deepcopy(hdr)
+        refdm = convert_units(hdr['refdm'], hdr['refdm_units'],
+                              'pc cm^-3') if 'refdm' in hdr else 0.
+        otensor = ohdr['_tensor']
+        otensor['dtype'] = 'f32'
+        otensor['shape'][-2] = self.max_delay
+        otensor['labels'][-2] = 'dispersion'
+        if 'scales' in otensor:
+            otensor['scales'][-2] = [refdm, self.dm_step]
+        if units:
+            otensor['units'][-2] = 'pc cm^-3'
+        ohdr['max_dm'] = max_dm
+        ohdr['max_dm_units'] = 'pc cm^-3'
+        ohdr['cfreq'] = f0_ + 0.5 * (nchan - 1) * df_
+        ohdr['cfreq_units'] = funit
+        ohdr['bw'] = nchan * df_
+        ohdr['bw_units'] = funit
+        return ohdr
+
+    def build(self, in_meta):
+        shape = in_meta['shape']
+        # probe and lock the core at the actual (nchan, T) of this gulp
+        return self.engine._gulp_fn(self.engine._pick_core(
+            False, shape=(int(shape[-2]), int(shape[-1]))))
+
+
+class MatchedFilterStage(Stage):
+    """Boxcar matched filter along the frame (time) axis: output frame t =
+    sum of input frames [t, t + ntap - 1], summed in a fixed order (ntap
+    shifted adds, never a cumsum difference, whose cancellation would make
+    a frame depend on the span it was computed in).  Declares ``ntap - 1``
+    frames of lookahead."""
+
+    batch_safe = True
+
+    def __init__(self, ntap):
+        self.ntap = int(ntap)
+        if self.ntap < 1:
+            raise ValueError('ntap must be >= 1')
+        self.overlap_nframe = self.ntap - 1
+
+    def transform_header(self, hdr):
+        ohdr = deepcopy(hdr)
+        t = ohdr['_tensor']
+        self.taxis = t['shape'].index(-1)
+        self.otype = DataType(t['dtype']).as_floating_point()
+        if self.otype.is_complex:
+            raise TypeError('matched filter requires real input, got '
+                            '%s' % t['dtype'])
+        t['dtype'] = str(self.otype)
+        return ohdr
+
+    def build(self, in_meta):
+        W, taxis = self.ntap, self.taxis
+        odt = self.otype.as_torch_dtype()
+
+        def fn(x):
+            import torch
+            x = x.to(odt)
+            if W == 1:
+                return x
+            T = x.shape[taxis]
+            pad = list(x.shape)
+            pad[taxis] = W - 1
+            xp = torch.cat([x, x.new_zeros(pad)], dim=taxis)
+            y = xp.narrow(taxis, 0, T)
+            for i in range(1, W):
+                y = y + xp.narrow(taxis, i, T)
+            return y
+        return fn
+
+
+class ThresholdStage(Stage):
+    """Peak detect: zero every sample below ``threshold`` (elementwise and
+    frame-local).  The candidate sink counts the surviving nonzero
+    samples; the zeroed shape keeps the chain static-shaped."""
+
+    batch_safe = True
+
+    def __init__(self, threshold):
+        self.threshold = float(threshold)
+
+    def transform_header(self, hdr):
+        return deepcopy(hdr)
+
+    def build(self, in_meta):
+        thr = self.threshold
+
+        def fn(x):
+            import torch
+            return torch.where(x >= thr, x, x.new_zeros(()))
+        return fn
+
 
 def walk_headers(stages, hdr):
     """Run ``hdr`` through every stage's transform_header; returns the

@@ -62,9 +62,35 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    correlate(256) on 64-frame ci8 gulps (one K7 launch per gulp) against
    the int64 oracle; the cross family of xcorr_int8 runs K8 on the four
    station-row blocks of a gulp, as the station-sharded plan calls it;
-11. prints a JSON line of pipeline rates, one JSON line of per-kernel
-   numbers ({"kernels": [...]}), the nvidia-smi line, and as the last
-   line {"ok": true, "device": {...}}.
+11. runs K3 (the FDMT merge step) over every step of three plans at the
+   full-width span (16384 + 1970 frames): 4096 channels over 1200-1600
+   MHz to max_delay 1970, the same band in 3000 channels (passthrough
+   rows, the rows_hi clamp), and 4096 channels with negative delays.
+   Every step is bit-identical to its plain version, the K3 core to the
+   torch gather core, and both within fdmt_gate_rtol() (1e-4) of a
+   float64 reference (fdmt_numpy on the host for the first plan, the
+   float64 gather core on the card, held to it, for the others).  Times
+   the 12 launches of a gulp, each step, the plain version and the
+   gather core's steps;
+12. drives FDMT through the Pipeline at that width on a seeded noise
+   stream with dispersed pulses injected at known trials and frames (2
+   warm-up and 10 timed 16384-frame gulps) in four arms: fdmt-file
+   (BASELINE config 3: an 8-bit .fil written by write_sigproc ->
+   read_sigproc -> copy('cuda') -> transpose(['pol', 'freq', 'time']) ->
+   fdmt(max_dm=100) -> copy('system'), K3 forced; max_delay must come
+   out as 1970, every span equal to the K3 core on its data), and config
+   22's FRB search ([freq, time] f32 source -> copy('cuda') ->
+   fdmt_stage(1970) -> matched_filter(8) -> threshold(thr) ->
+   copy('system'), thr at a false-alarm rate of 1e-3 on a noise-only
+   realization) with K3 forced (frb-K3, 12 launches per gulp), with the
+   race from an empty probe cache (frb-race) and with the torch gather
+   core (frb-torch).  The frb arms are byte-identical, every arm is
+   within 1e-4 of the float64 oracle chain, the candidates equal the
+   oracle's apart from samples within rtol of the threshold, and every
+   pulse peaks within 1 trial and 1 frame of where it was injected;
+13. prints a JSON line of pipeline rates per chain, one JSON line of
+   per-kernel numbers ({"kernels": [...]}, K0-K8), the nvidia-smi line,
+   and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line; with no
 CUDA device it exits 1 at once.
@@ -108,6 +134,25 @@ XWARM, XTIMED = 2, 6
 # the stateful X step: 64-frame gulps, 256 frames per integration
 XST, XSINT, XSWARM, XSTIMED = 64, 256, 4, 16
 XCHANNELS = (0, 511, 1023)
+# FDMT dedispersion: an L-band filterbank of 4096 channels (1200-1600 MHz,
+# 64 us, one pol) dedispersed to BASELINE config 3's max_dm = 100, which
+# FdmtBlock sizes to a max_delay of 1970 frames; 16384-frame gulps, so the
+# FDMT reads 16384 + 1970 frames per span.  Config 22's matched filter
+# (8 taps) and threshold at a false-alarm rate of 1e-3 on a noise-only
+# realization.  FODD channels over the same band give a plan with
+# passthrough rows (an odd subband count at three of its steps).
+FCH, FF0, FDF, FTSAMP, FMAXDM, FMD = 4096, 1200.0, 400.0 / 4096, 64e-6, \
+    100.0, 1970
+FG, FNTAP, FFAR, FWARM, FTIMED = 16384, 8, 1e-3, 2, 10
+FODD = 3000
+# dispersed pulses injected into the stream: (trial, frame), each FPW
+# frames wide (the matched filter's width) at FAMP per channel-sample, one
+# across the boundary of gulps 4 and 5.  The frame is where the pulse
+# starts in the lowest channel; the FDMT's own per-channel delays put its
+# peak a frame or so off that (see pulse_expect)
+FPULSES = ((100, 5000), (400, 20000), (800, 40000), (1200, 60000),
+           (1500, 81915), (1800, 110000), (1969, 120000), (1000, 180000))
+FAMP, FPW = 3.0, 8
 
 
 def log(*args):
@@ -656,11 +701,7 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
             if arm == 'race':
                 # the engine's own race, from an empty probe cache
                 tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                old = os.environ.get('BF_CACHE_DIR')
-                os.environ['BF_CACHE_DIR'] = tmp
-                stack.callback(lambda: os.environ.pop('BF_CACHE_DIR')
-                               if old is None else
-                               os.environ.__setitem__('BF_CACHE_DIR', old))
+                stack.enter_context(environ(BF_CACHE_DIR=tmp))
             zero_counts(spec, gpu_kernels)
             out, secs, per_gulp, blk = run_beam_arm(bt, gulps, w, arm)
             counts = read_counts(spec, gpu_kernels)
@@ -946,11 +987,7 @@ def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
                 # the engine's own gate and race from an empty probe
                 # cache, asking the capability probe K0 afresh
                 tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                old = os.environ.get('BF_CACHE_DIR')
-                os.environ['BF_CACHE_DIR'] = tmp
-                stack.callback(lambda: os.environ.pop('BF_CACHE_DIR')
-                               if old is None else
-                               os.environ.__setitem__('BF_CACHE_DIR', old))
+                stack.enter_context(environ(BF_CACHE_DIR=tmp))
                 gpu_kernels._available_on.clear()
             torch.cuda.reset_peak_memory_stats()
             zero_counts(spec, gpu_kernels)
@@ -1080,6 +1117,644 @@ def phase_xcorr_int8(L, gpu_kernels):
     return n
 
 
+def fdmt_work(plan, T):
+    """(bytes, adds) of one gulp's merge steps, from the plan's tables.
+    A step reads each (row, delay) of its input state that its tables
+    name once: a lo pair (rows_lo, d1) whole, a hi pair (rows_hi, d2)
+    from the least shift d1 any output row reads it with; rows a table
+    never names (a subband's delays past its own nd) are not read.  It
+    writes its whole output once; one add per output element of a merged
+    (not passthrough) subband."""
+    nbyte = nadd = 0
+    for st in plan._plan['steps']:
+        nout, nd = st.d1.shape
+        nd_in = int(max(st.d1.max(), st.d2.max())) + 1
+        lo = np.unique(st.rows_lo[:, None].astype(np.int64) * nd_in + st.d1)
+        merged = ~st.passthrough
+        hi = (st.rows_hi[merged, None].astype(np.int64) * nd_in +
+              st.d2[merged]).ravel()
+        shift = np.broadcast_to(st.d1[merged], (int(merged.sum()), nd)) \
+            .ravel()
+        key, inv = np.unique(hi, return_inverse=True)
+        least = np.full(len(key), T, np.int64)
+        np.minimum.at(least, inv, shift)
+        nread = len(lo) * T + int(np.maximum(T - least, 0).sum())
+        nbyte += (nread + nout * nd * T) * 4
+        nadd += int(merged.sum()) * nd * T
+    return nbyte, nadd
+
+
+def phase_fdmt_kernel(gpu_kernels, F, dev='cuda'):
+    """K3 over every merge step of three plans at the full-width span
+    (16384 + 1970 frames): the 4096-channel plan, a 3000-channel plan over
+    the same band (passthrough rows and the rows_hi clamp) and the
+    4096-channel plan with negative delays.  Each step is bit-identical to
+    the plain version, the K3 core to the torch gather core, and both are
+    within fdmt_gate_rtol() of a float64 reference: fdmt_numpy on the host
+    for the first plan (which also holds the float64 gather core used as
+    the reference of the other two and of the pipeline arms).  Times K3,
+    the plain version and the gather core per gulp at the first plan."""
+    import torch
+    rtol = F.fdmt_gate_rtol()
+    T = FG + FMD
+    entry = None
+    for label, nchan, sgn in (('full', FCH, 1), ('passthrough', FODD, 1),
+                              ('negative', FCH, -1)):
+        df = 400.0 / nchan
+        neg = sgn < 0
+        plan = F.Fdmt().init(nchan, FMD, FF0, df)
+        g = torch.Generator(device=dev).manual_seed(31 + nchan + sgn)
+        x = torch.randn((1, nchan, T), device=dev, generator=g)
+        tabs = plan._step_tables(x.device)
+        state = F._init_state(x, plan._plan['nd_init'], sgn)
+        states, npass, err = [], 0, 0.0
+        for t, st in zip(tabs, plan._plan['steps']):
+            got = gpu_kernels.fdmt_step(state, t['d1'], t['d2'], t['pt'],
+                                        sgn)
+            want = gpu_kernels.fdmt_step_plain(state, t['d1'], t['d2'],
+                                               t['pt'], sgn)
+            err = max(err, float((got - want).abs().max()))
+            require(torch.equal(got, want), 'K3 (%s plan) differs from its '
+                    'plain version at a step of shape %s'
+                    % (label, tuple(st.d1.shape)))
+            npass += int(st.passthrough.sum())
+            states.append(state)
+            state = got
+        k3 = state[:, 0, :FMD]
+        require(torch.equal(k3, plan._core_jax(neg)(x)),
+                'the K3 core (%s plan) differs from the gather core' % label)
+        ref_s = None
+        ref = plan._core_jax(neg)(x.double())[0]
+        if label == 'full':
+            t0 = time.perf_counter()
+            ref_np = F.fdmt_numpy(nchan, FMD, FF0, df, x[0].cpu().numpy(),
+                                  negative_delays=neg)
+            ref_s = time.perf_counter() - t0
+            gref = rel_err(ref.cpu().numpy(), ref_np)
+            require(gref < 1e-12, 'the float64 gather core differs from '
+                    'fdmt_numpy by %.3g' % gref)
+        rel = float((k3[0].double() - ref).abs().max() / ref.abs().max())
+        require(rel <= rtol, 'K3 (%s plan) is %.3g from the float64 '
+                'reference (gate %g)' % (label, rel, rtol))
+        if label == 'passthrough':
+            require(npass > 0, 'the %d-channel plan has no passthrough rows'
+                    % nchan)
+        log('K3 fdmt_step, %s plan (%d channels, sgn %+d, %d steps, %d '
+            'passthrough rows, T=%d): every step bit-identical to its plain '
+            'version, K3 core bit-identical to the gather core, rel %.3g of '
+            'the float64 reference%s'
+            % (label, nchan, sgn, len(tabs), npass, T, rel,
+               ' (fdmt_numpy on the host in %.1f s; float64 gather core on '
+               'the card %.3g from it)' % (ref_s, gref) if ref_s else ''))
+        if label != 'full':
+            continue
+        steps = list(zip(states, tabs))
+
+        def k3_gulp():
+            for s, t in steps:
+                gpu_kernels.fdmt_step(s, t['d1'], t['d2'], t['pt'], sgn)
+
+        def plain_gulp():
+            for s, t in steps:
+                gpu_kernels.fdmt_step_plain(s, t['d1'], t['d2'], t['pt'],
+                                            sgn)
+
+        def gather_gulp():
+            for s, t in steps:
+                F._torch_merge_step(s, t, sgn, T)
+
+        ms = cuda_ms(k3_gulp)
+        step_ms = [cuda_ms(lambda s=s, t=t: gpu_kernels.fdmt_step(
+            s, t['d1'], t['d2'], t['pt'], sgn)) for s, t in steps]
+        plain_ms = cuda_ms(plain_gulp, runs=5)
+        gather_ms = cuda_ms(gather_gulp, runs=5)
+        core_ms = {'pallas': cuda_ms(lambda: plan._core_pallas(neg)(x),
+                                     runs=5),
+                   'xla': cuda_ms(lambda: plan._core_jax(neg)(x), runs=5)}
+        nbyte, nadd = fdmt_work(plan, T)
+        bms, by = bound(nbyte, nadd)
+        log('K3 per gulp (%d launches): kernel %.4f ms, plain %.4f ms, torch '
+            'gather steps %.4f ms (several calls, no single torch call), '
+            'bound %.4f ms (%s, %.4g GB); per step %s ms; whole cores '
+            '(init + steps) K3 %.4f ms, gather %.4f ms'
+            % (len(steps), ms, plain_ms, gather_ms, bms, by, nbyte / 1e9,
+               ['%.4f' % m for m in step_ms], core_ms['pallas'],
+               core_ms['xla']))
+        entry = {'name': 'fdmt_step', 'route': 'cuda',
+                 'source': 'bifrost_tpu_torch/csrc/fdmt.cu',
+                 'replaces': 'bifrost_tpu/ops/pallas_kernels.py:459',
+                 'max_abs_err': err, 'ms': ms, 'kernel_ms': ms,
+                 'plain_ms': plain_ms, 'bound_ms': bms, 'bound_by': by,
+                 'library_ms': None, 'yardstick_ms': gather_ms,
+                 'yardstick': 'the torch gather core\'s merge steps '
+                              '(several calls, no single torch call)',
+                 'step_ms': step_ms, 'core_ms': core_ms,
+                 'per': 'gulp (%d launches, one per merge step)'
+                        % len(steps),
+                 'shape': [FCH, FMD, T], 'oracle_rel_err': rel,
+                 'numpy_reference_s': ref_s}
+        del steps, states
+    if dev == 'cuda':
+        torch.cuda.empty_cache()
+    return entry
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set (a str) or unset (None) environment variables for a block."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pulse_delays(d):
+    """The injection's delay of each channel for a pulse at trial ``d``:
+    round(d * cff(f0, f_c) / cff(f0, f_top)) with f_c the channel's lower
+    edge (config 22's injection)."""
+    from bifrost_tpu_torch.ops.fdmt import _cff
+    band = _cff(FF0, FF0 + FCH * FDF, -2.0)
+    frac = np.array([_cff(FF0, FF0 + c * FDF, -2.0) / band
+                     for c in range(FCH)])
+    return np.rint(d * frac).astype(np.int64)
+
+
+def fdmt_stream(dev='cuda'):
+    """The seeded [freq, time] f32 noise stream of FWARM + FTIMED gulps on
+    the card, and the same stream with the FPULSES injected: in channel c
+    a pulse at (trial d, frame t0) adds FAMP to frames t0 + delay_c + [0,
+    FPW), delay_c from pulse_delays."""
+    import torch
+    N = (FWARM + FTIMED) * FG
+    g = torch.Generator(device=dev).manual_seed(41)
+    noise = torch.randn((FCH, N), device=dev, generator=g)
+    x = noise.clone()
+    chans = torch.arange(FCH, device=dev)[:, None]
+    for d, t0 in FPULSES:
+        delay = pulse_delays(d)
+        idx = torch.from_numpy(t0 + delay[:, None] +
+                               np.arange(FPW)[None]).to(dev)
+        require(int(idx.max()) < N, 'pulse (%d, %d) runs past the stream'
+                % (d, t0))
+        x[chans, idx] += FAMP
+    return noise, x
+
+
+def fdmt_oracle(plan, window, ntap):
+    """The float64 oracle chain on one [freq, time] window: the FDMT (the
+    float64 gather core, held to fdmt_numpy in phase_fdmt_kernel), then,
+    with ``ntap`` > 1, the fixed-order boxcar.  Returns (max_delay,
+    frames) float64 with the frames whose lookahead the window holds."""
+    dm = plan._core_jax(False)(window[None].double())[0]
+    n = dm.shape[-1] - (ntap - 1)
+    out = dm[:, :n].clone()
+    for i in range(1, ntap):
+        out += dm[:, i:i + n]
+    return out
+
+
+def run_fdmt_arm(bt, source, chain, nout_frames):
+    """Drive source -> chain -> copy('system') -> a sink that writes every
+    output span into one host array of ``nout_frames`` frames on the last
+    axis.  Returns (array, output header, seconds of the FTIMED timed
+    gulps at the sink, seconds from the source's first gulp to the sink's
+    last, per-block host ms/gulp over each block's own gulps after its
+    first FWARM, the chain's blocks).
+
+    Six rings of three gulps lie between source and sink, more than the
+    run's gulps: a block at the head can run a whole run ahead, and the
+    sink's window then times the tail draining.  So each block's own
+    steady ms/gulp is taken as well (a thread snapshots its totals when
+    it has done FWARM gulps); the slowest block's time bounds the chain's
+    rate."""
+    import threading
+    ngulp = FWARM + FTIMED
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.n = self.off = 0
+            self.t0 = self.t1 = self.out = self.header = None
+
+        def on_sequence(self, iseq):
+            self.header = iseq.header
+            shape = [s for s in iseq.header['_tensor']['shape'] if s != -1]
+            self.out = np.empty(shape + [nout_frames], np.float32)
+
+        def on_data(self, ispan):
+            if self.n == FWARM - 1:
+                self.t0 = time.perf_counter()
+            elif self.n == ngulp - 1:
+                self.t1 = time.perf_counter()
+            a = ispan.data.as_numpy()
+            self.out[..., self.off:self.off + a.shape[-1]] = a
+            self.off += a.shape[-1]
+            self.n += 1
+
+    snaps, done = {}, threading.Event()
+
+    def watch(roles):
+        while not done.is_set():
+            for role, blk in roles:
+                if role not in snaps and blk.perf_totals['ngulp'] >= FWARM:
+                    snaps[role] = dict(blk.perf_totals)
+            time.sleep(5e-4)
+
+    with bt.Pipeline() as p:
+        src = source()
+        h2d = bt.blocks.copy(src, space='cuda')
+        blocks = chain(h2d)
+        d2h = bt.blocks.copy(blocks[-1][1], space='system')
+        sink = Sink(d2h)
+        roles = [('source', src), ('h2d', h2d)] + blocks + \
+            [('d2h', d2h), ('sink', sink)]
+        watcher = threading.Thread(target=watch, args=(roles,), daemon=True)
+        watcher.start()
+        t_start = time.perf_counter()
+        try:
+            p.run()
+        finally:
+            done.set()
+            watcher.join()
+    require(sink.n == ngulp and sink.off == nout_frames,
+            'the sink received %d spans and %d frames, not %d and %d'
+            % (sink.n, sink.off, ngulp, nout_frames))
+    per_gulp = {}
+    for role, blk in roles:
+        tot, snap = blk.perf_totals, snaps[role]
+        n = tot['ngulp'] - snap['ngulp']
+        require(n > 0, '%s ran no gulp after its first %d' % (role, FWARM))
+        per_gulp[role] = {k: (tot[k] - snap[k]) / n * 1e3
+                          for k in ('acquire', 'reserve', 'process')}
+    return (sink.out, sink.header, sink.t1 - sink.t0, sink.t1 - t_start,
+            per_gulp, blocks)
+
+
+def freq_time_source(bt, host):
+    """A source of [freq, time] f32 gulps from the host stream ``host``
+    (FCH, N): freq lanes are the ring's ringlets."""
+    header = {'name': 'frb', 'time_tag': 0,
+              '_tensor': {'shape': [FCH, -1], 'dtype': 'f32',
+                          'labels': ['freq', 'time'],
+                          'scales': [[FF0, FDF], [0.0, FTSAMP]],
+                          'units': ['MHz', 's']}}
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['frb'], FG, space='system')
+            self.k = 0
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [json.loads(json.dumps(header))]
+
+        def on_data(self, reader, ospans):
+            if self.k * FG >= host.shape[1]:
+                return [0]
+            ospans[0].data.as_numpy()[...] = \
+                host[:, self.k * FG:(self.k + 1) * FG]
+            self.k += 1
+            return [FG]
+    return Source
+
+
+def write_filterbank(bt, path_dir, u8_tf):
+    """Write the 8-bit stream ``u8_tf`` (N, 1, FCH) to <path_dir>/frb.fil
+    through the port's write_sigproc block (its header code and data
+    writer), from a [time, pol, freq] u8 source."""
+    header = {'name': 'frb.fil', 'time_tag': 0, 'telescope': 'Parkes',
+              'machine': 'FAKE', 'source_name': 'FRB_SIM', 'refdm': 0.0,
+              '_tensor': {'shape': [-1, 1, FCH], 'dtype': 'u8',
+                          'labels': ['time', 'pol', 'freq'],
+                          'scales': [[59000 * 86400.0 - 40587 * 86400.0,
+                                      FTSAMP], None, [FF0, FDF]],
+                          'units': ['s', None, 'MHz']}}
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['u8'], FG, space='system')
+            self.k = 0
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [json.loads(json.dumps(header))]
+
+        def on_data(self, reader, ospans):
+            if self.k * FG >= u8_tf.shape[0]:
+                return [0]
+            ospans[0].data.as_numpy()[...] = \
+                u8_tf[self.k * FG:(self.k + 1) * FG]
+            self.k += 1
+            return [FG]
+
+    with bt.Pipeline() as p:
+        bt.blocks.write_sigproc(Source(), path=path_dir)
+        p.run()
+    return os.path.join(path_dir, 'frb.fil')
+
+
+def pulse_peaks(out, ntap):
+    """For every injected pulse, the (trial, frame) of the largest value of
+    the ``ntap``-frame box sum of ``out`` (max_delay, frames) near it.
+    With ntap 1 the box sum is the boxcar the search's matched filter
+    applies; an FPW-wide pulse peaks where it starts."""
+    found = []
+    for d, t0 in FPULSES:
+        d0, d1 = max(d - 4, 0), min(d + 5, out.shape[0])
+        f0, f1 = t0 - 24, t0 + 24 + ntap
+        w = out[d0:d1, f0:f1].astype(np.float64)
+        if ntap > 1:
+            w = sum(w[:, i:w.shape[1] - ntap + 1 + i] for i in range(ntap))
+        i, j = np.unravel_index(int(np.argmax(w)), w.shape)
+        found.append((d0 + int(i), f0 + int(j)))
+    return found
+
+
+def fdmt_windows(plan, trials):
+    """The frames each channel adds to output frame t of each FDMT trial
+    (positive delays): [t + D[i, c], t + D[i, c] + K[i, c]] for trial
+    ``trials[i]``, walked down the plan's tables from the last step (the
+    lo half keeps the shift, the hi half adds d1; K is the init delay)."""
+    n = len(trials)
+    tr, row = np.arange(n), np.zeros(n, np.int64)
+    dly, sh = np.asarray(trials, np.int64), np.zeros(n, np.int64)
+    for st in reversed(plan._plan['steps']):
+        a, b = st.d1[row, dly], st.d2[row, dly]
+        m = ~st.passthrough[row]
+        tr = np.concatenate([tr, tr[m]])
+        sh = np.concatenate([sh, sh[m] + a[m]])
+        dly = np.concatenate([a, b[m]])
+        row = np.concatenate([st.rows_lo[row], st.rows_hi[row][m]])
+    D = np.zeros((n, plan._plan['nchan']), np.int64)
+    K = np.zeros_like(D)
+    D[tr, row], K[tr, row] = sh, dly
+    return D, K
+
+
+def pulse_expect(plan):
+    """For every injected pulse, {trial: frames} for the trials within 1
+    of its own: the frames where the noiseless FPW-frame box sum of that
+    trial's FDMT row peaks, from the plan's per-channel windows
+    (fdmt_windows) over the injected frames (pulse_delays)."""
+    us = np.arange(-24, 24 + FPW)
+    expect = []
+    for d, t0 in FPULSES:
+        trials = [i for i in (d - 1, d, d + 1) if 0 <= i < FMD]
+        D, K = fdmt_windows(plan, trials)
+        inj = pulse_delays(d)
+        lo = us[None, :, None] + D[:, None, :]
+        hit = np.minimum(lo + K[:, None, :], inj + FPW - 1) - \
+            np.maximum(lo, inj) + 1
+        r = np.maximum(hit, 0).sum(-1)
+        box = sum(r[:, j:r.shape[1] - FPW + 1 + j] for j in range(FPW))
+        expect.append({i: tuple(int(t0 + u) for u in
+                                us[:box.shape[1]][box[k] == box[k].max()])
+                       for k, i in enumerate(trials)})
+    return expect
+
+
+def check_peaks(arm, found, expect):
+    """Each pulse peaks within 1 trial of its own, at the very frame the
+    plan's windows give for that trial (pulse_expect)."""
+    for (d, t0), (fd, ft), want in zip(FPULSES, found, expect):
+        require(fd in want and ft in want[fd],
+                '%s: the pulse injected at trial %d, frame %d peaks at %d, '
+                '%d; expected at a frame of %s' % (arm, d, t0, fd, ft, want))
+    log('%s: all %d injected pulses peak within 1 trial of where they were '
+        'injected, each at the frame the plan gives: %s'
+        % (arm, len(FPULSES), found))
+
+
+def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
+    """The FDMT arms through the port's Pipeline at full width (see the
+    module docstring), each checked against the float64 oracle chain."""
+    import tempfile
+    import torch
+    rtol = F.fdmt_gate_rtol()
+    ngulp = FWARM + FTIMED
+    N = ngulp * FG
+    nsamp = FTIMED * FG * FCH
+    t_setup = time.perf_counter()
+    noise, x = fdmt_stream(dev)
+    plan = F.Fdmt().init(FCH, FMD, FF0, FDF)
+    nsteps = len(plan._plan['steps'])
+    halo = FMD + FNTAP - 1
+    # where the plan's own per-channel delays put each pulse's peak: within
+    # a frame of its injected frame at its own trial
+    expect = pulse_expect(plan)
+    offs = [[f - t0 for f in want[d]]
+            for (d, t0), want in zip(FPULSES, expect)]
+    require(all(abs(o) <= 1 for off in offs for o in off),
+            'the plan puts a pulse more than a frame from where it was '
+            'injected: %s' % offs)
+    log('FDMT pulses: the plan puts each peak, at its own trial, at these '
+        'frames from the injected one: %s' % offs)
+    # the threshold: config 22's false-alarm rule on the noise-only
+    # realization of the first span
+    thr = float(np.quantile(fdmt_oracle(plan, noise[:, :FG + halo], FNTAP)
+                            .cpu().numpy(), 1.0 - FFAR))
+    del noise
+    host = x.cpu().numpy()
+    u8 = (x * 16 + 128).round().clamp(0, 255).to(torch.uint8)
+    rates = {}
+    log('FDMT stream: %d gulps of %d x %d f32 (%.2f GB), %d pulses, '
+        'threshold %.6g at FAR %g; set-up %.1f s'
+        % (ngulp, FCH, FG, host.nbytes / 1e9, len(FPULSES), thr, FFAR,
+           time.perf_counter() - t_setup))
+    # xfer.to_device makes a strided host span contiguous before staging
+    # it: the frb source's span is FCH ringlets of FG frames
+    copies = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.ascontiguousarray(host[:, :FG])
+        copies.append((time.perf_counter() - t0) * 1e3)
+    span_copy_ms = float(np.median(copies))
+    log('contiguous copy of a %d-ringlet host span (%.0f MB), as '
+        'xfer.to_device makes it per frb gulp: %.2f ms (host clock, median '
+        'of 5)' % (FCH, FCH * FG * 4 / 1e6, span_copy_ms))
+
+    def report(arm, secs, secs_run, per_gulp, counts, extra):
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        slow = max(per_gulp, key=lambda r: per_gulp[r]['process'])
+        slow_ms = per_gulp[slow]['process']
+        rates[arm] = dict({
+            'msps': nsamp / secs / 1e6, 'seconds': secs,
+            'msps_run': ngulp * FG * FCH / secs_run / 1e6,
+            'seconds_run': secs_run, 'slowest_block': slow,
+            'slowest_block_ms': slow_ms,
+            'msps_slowest_block': FG * FCH / slow_ms / 1e3,
+            'peak_device_gb': peak, 'per_gulp_ms': per_gulp,
+            'launches': counts}, **extra)
+        log('FDMT arm %s (Msamples/s of channel-samples of input): %.1f at '
+            'the sink over the %d timed gulps, %.1f over the whole run with '
+            'its start (%.2f s), %.1f at the slowest block (%s, %.2f ms of '
+            'process per gulp); launches %s, peak device memory %.1f GB, '
+            '%s (%s)'
+            % (arm, rates[arm]['msps'], FTIMED, rates[arm]['msps_run'],
+               secs_run, rates[arm]['msps_slowest_block'], slow, slow_ms,
+               counts, peak, extra, smi))
+        log_per_gulp(per_gulp)
+
+    # fdmt-file: BASELINE config 3's path from an 8-bit .fil file
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = write_filterbank(bt, tmp, u8.T.contiguous().cpu().numpy()
+                                .reshape(N, 1, FCH))
+        write_s = time.perf_counter() - t0
+        blocks = []
+
+        def file_chain(h2d):
+            b = bt.blocks.transpose(h2d, ['pol', 'freq', 'time'])
+            blocks.append(('transpose', b))
+            blocks.append(('fdmt', bt.blocks.fdmt(b, max_dm=FMAXDM)))
+            return blocks
+
+        with environ(BF_FDMT_IMPL='pallas'):
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(spec, gpu_kernels)
+            out, hdr, secs, secs_run, per_gulp, _ = run_fdmt_arm(
+                bt, lambda: bt.blocks.read_sigproc([path], FG), file_chain,
+                N - FMD)
+            counts = read_counts(spec, gpu_kernels)
+    md = hdr['_tensor']['shape'][-2]
+    require(md == FMD, 'fdmt(max_dm=%g) sized max_delay %d, not %d'
+            % (FMAXDM, md, FMD))
+    # one run of the core per gulp, and one in the block's on_sequence
+    # warm-up
+    require(counts['fdmt_step'] == (ngulp + 1) * nsteps,
+            'fdmt-file: %d K3 launches for %d gulps and the warm-up'
+            % (counts['fdmt_step'], ngulp))
+    report('fdmt-file', secs, secs_run, per_gulp, counts,
+           {'max_delay': md, 'file_gb': N * FCH / 1e9,
+            'file_write_s': write_s, 'core': dict(blocks)['fdmt']
+            .fdmt.chosen_core})
+    del blocks
+    # equal to the kernel phase's path (K3 core on the u8 data as f32) and
+    # within the gate of the float64 oracle, span by span
+    out = out[0]
+    k3core = plan._core_pallas(False)
+    err = scale = 0.0
+    for k in range(ngulp):
+        a, n = k * FG, min(FG, N - FMD - k * FG)
+        win = u8[:, a:min(a + FG + FMD, N)].float()
+        got = torch.from_numpy(np.ascontiguousarray(out[:, a:a + n])).to(dev)
+        require(torch.equal(got, k3core(win[None])[0, :, :n]),
+                'fdmt-file span %d differs from the K3 core on its data' % k)
+        ref = fdmt_oracle(plan, win, 1)[:, :n]
+        err = max(err, float((got.double() - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+    rel = err / scale
+    require(rel <= rtol, 'fdmt-file is %.3g from the float64 oracle' % rel)
+    log('fdmt-file: max_delay %d from max_dm %g; every span equal to the '
+        'K3 core on its data and %.3g of the float64 oracle'
+        % (md, FMAXDM, rel))
+    check_peaks('fdmt-file', pulse_peaks(out, FPW), expect)
+    rates['fdmt-file']['oracle_rel_err'] = rel
+    del out, u8
+
+    # the FRB search (config 22's chain) in three arms
+    nout = N - halo
+    ref_out = None
+    launches = {}
+    for arm, impl in (('frb-K3', 'pallas'), ('frb-race', None),
+                      ('frb-torch', 'xla')):
+        blocks = []
+
+        def frb_chain(h2d):
+            b = bt.blocks.fdmt_stage(h2d, max_delay=FMD)
+            blocks.append(('fdmt_stage', b))
+            b = bt.blocks.matched_filter(b, FNTAP)
+            blocks.append(('matched_filter', b))
+            blocks.append(('threshold', bt.blocks.threshold(b, thr)))
+            return blocks
+
+        with contextlib.ExitStack() as stack:
+            if arm == 'frb-race':
+                tmp = stack.enter_context(tempfile.TemporaryDirectory())
+                stack.enter_context(environ(BF_CACHE_DIR=tmp,
+                                            BF_FDMT_IMPL=None))
+            else:
+                stack.enter_context(environ(BF_FDMT_IMPL=impl))
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(spec, gpu_kernels)
+            out, hdr, secs, secs_run, per_gulp, _ = run_fdmt_arm(
+                bt, freq_time_source(bt, host), frb_chain, nout)
+            counts = read_counts(spec, gpu_kernels)
+        eng = dict(blocks)['fdmt_stage']._stage.engine
+        extra = {'core': eng.chosen_core, 'probe_ms': eng.core_probe_ms,
+                 'gate_ms': eng.gate_ms, 'ncand': int(np.count_nonzero(out))}
+        report(arm, secs, secs_run, per_gulp, counts, extra)
+        launches[arm] = counts
+        if arm == 'frb-K3':
+            require(counts['fdmt_step'] == ngulp * nsteps,
+                    'frb-K3: %d K3 launches for %d gulps of %d steps'
+                    % (counts['fdmt_step'], ngulp, nsteps))
+            ref_out = out
+        else:
+            require(np.array_equal(out.view(np.uint32),
+                                   ref_out.view(np.uint32)),
+                    '%s is not byte-identical to frb-K3' % arm)
+            log('%s: output byte-identical to frb-K3' % arm)
+        if arm == 'frb-race':
+            require(eng.gate_ms is not None and eng.core_probe_ms and
+                    'pallas' in eng.core_probe_ms,
+                    'frb-race: the race did not run with K3: %s' % extra)
+        del out, blocks
+    # the float64 oracle chain, span by span; candidates and pulses
+    err = scale = 0.0
+    ncand = nwant = nmiss = nnear = 0
+    chunks = []
+    for k in range(ngulp):
+        a, n = k * FG, min(FG, nout - k * FG)
+        chunks.append((a, fdmt_oracle(plan, x[:, a:min(a + FG + halo, N)],
+                                      FNTAP)[:, :n]))
+    scale = max(float(r.abs().max()) for _, r in chunks)
+    for a, ref in chunks:
+        n = ref.shape[-1]
+        got = torch.from_numpy(np.ascontiguousarray(ref_out[:, a:a + n])) \
+            .to(dev).double()
+        cand, want = got != 0, ref >= thr
+        both = cand & want
+        if bool(both.any()):
+            err = max(err, float((got - ref)[both].abs().max()))
+        near = (ref - thr).abs() <= rtol * scale
+        miss = cand ^ want
+        require(not bool((miss & ~near).any()), 'a candidate differs from '
+                'the oracle away from the threshold at span from %d' % a)
+        ncand += int(cand.sum())
+        nwant += int(want.sum())
+        nmiss += int(miss.sum())
+        nnear += int(near.sum())
+    del chunks
+    rel = err / scale
+    require(rel <= rtol, 'the FRB arms are %.3g from the float64 oracle' % rel)
+    log('FRB search: %d candidates, oracle %d; %d differ, all among the %d '
+        'samples within rtol*scale of the threshold; candidates %.3g of the '
+        'float64 oracle chain' % (ncand, nwant, nmiss, nnear, rel))
+    check_peaks('frb arms', pulse_peaks(ref_out, 1), expect)
+    del ref_out, x, host
+    torch.cuda.empty_cache()
+    launches['fdmt-file'] = rates['fdmt-file']['launches']
+    return {'rates': rates, 'launches': launches, 'threshold': thr,
+            'candidates': ncand, 'oracle_candidates': nwant,
+            'candidates_differing': nmiss, 'samples_near_threshold': nnear,
+            'oracle_rel_err': rel, 'strided_span_copy_ms': span_copy_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1093,6 +1768,7 @@ def main():
     from bifrost_tpu_torch.ops import spectrometer as spec
     from bifrost_tpu_torch.ops import beamform as beam
     from bifrost_tpu_torch.ops import linalg as L
+    from bifrost_tpu_torch.ops import fdmt as F
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1123,6 +1799,8 @@ def main():
     k7, k8 = phase_xcorr_kernels(gpu_kernels)
     fx = phase_fx_pipeline(bt, spec, gpu_kernels, smi)
     n8 = phase_xcorr_int8(L, gpu_kernels)
+    k3 = phase_fdmt_kernel(gpu_kernels, F)
+    fdmt = phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
@@ -1137,7 +1815,10 @@ def main():
     k7['launches_x_stateful'] = fx['launches']['x-stateful']['xcorr_herm']
     k8['launches'] = n8
     k8['launches_of'] = 'xcorr_int8 cross family, 4 station-row blocks'
-    kernels = [k1, k2, k4, k5, k6, k0, k7, k8]
+    k3['launches'] = fdmt['launches']['frb-K3']['fdmt_step']
+    k3['launches_per_gulp'] = k3['launches'] / float(FWARM + FTIMED)
+    k3['launches_fdmt_file'] = fdmt['launches']['fdmt-file']['fdmt_step']
+    kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8]
     log('total %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'pipeline': {
         'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
@@ -1153,6 +1834,11 @@ def main():
         'x_stateful_gulp': [XST, XF, XS, XP], 'x_stateful_integration': XSINT,
         'x_stateful_gulps_timed': XSTIMED, 'arms': fx['rates'],
         'launches': fx['launches']}, 'card': smi}))
+    log(json.dumps({'fdmt_pipeline': {
+        'nchan': FCH, 'f0_mhz': FF0, 'df_mhz': FDF, 'tsamp_s': FTSAMP,
+        'max_dm': FMAXDM, 'max_delay': FMD, 'gulp': FG, 'ntap': FNTAP,
+        'far': FFAR, 'gulps_timed': FTIMED, 'pulses': FPULSES,
+        **fdmt}, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

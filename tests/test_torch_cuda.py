@@ -4,8 +4,11 @@ K2 against its plain version on contiguous and strided planes, K4, K5
 and K6 (the beamformer) against the int64/float64 oracles and their
 plain versions at ragged and full-width shapes, K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
-int64 oracle at ragged shapes and on strided gulp views, and the
-wrappers' checks.  Marked ``cuda``; each test skips without a card.
+int64 oracle at ragged shapes and on strided gulp views, K3 (the FDMT
+merge step) against its plain version over whole plans (ragged T,
+negative delays, passthrough rows, a batch axis, tables above 256 KB),
+and the wrappers' checks.  Marked ``cuda``; each test skips without a
+card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -19,7 +22,10 @@ K4, bit-identical to the int64 oracle; K5, rel <= 1e-5 of its plain
 version (float32 sums in another order) and <= 8e-3 of the float64
 oracle (the bf16 class); K6, rel <= 1e-6 of its plain version and
 < 1e-5 of the quantized-weights float64 oracle; K7 and K8, bit-identical
-to their plain versions and to the int64 oracle.
+to their plain versions and to the int64 oracle; K3, bit-identical to
+its plain version (one float32 add per element in both) and the K3 core
+to the torch gather core, and within 1e-4 of the float64 numpy oracle
+relative to its largest magnitude.
 """
 
 import numpy as np
@@ -425,3 +431,103 @@ def test_to_host_carries_complex64_whole():
     out = np.zeros((3, 64, 65), np.complex64)
     assert xfer.to_host(t, out) is out
     np.testing.assert_array_equal(out, host)
+
+
+# ---------------------------------------------------------------------------
+# K3: the FDMT merge step
+# ---------------------------------------------------------------------------
+
+def _plan_tables(plan):
+    return [(torch.from_numpy(st.d1).cuda(), torch.from_numpy(st.d2).cuda(),
+             torch.from_numpy(st.passthrough.astype(np.int32)).cuda())
+            for st in plan._plan['steps']]
+
+
+@pytest.mark.parametrize('nchan,md,f0,df,T,sgn,B', [
+    (16, 12, 1400.0, 0.1, 1, 1, None), (13, 7, 1400.0, 0.1, 127, -1, None),
+    (300, 200, 400.0, 0.5, 1000, 1, None), (300, 200, 400.0, 0.5, 1000, -1,
+                                            3),
+    (64, 37, 1400.0, -0.1, 127, 1, 2), (1024, 20000, 100.0, 1.0, 100, 1,
+                                        None)])
+def test_fdmt_step_matches_plain_over_a_plan(nchan, md, f0, df, T, sgn, B):
+    """Every step of the plan, the state carried through K3, each step
+    bit-identical to the plain version on the same input.  300 channels
+    give passthrough rows and the rows_hi clamp; (1024, 20000) has step
+    tables of 3 MB, above the JAX core's 256 KB SMEM budget."""
+    from bifrost_tpu_torch.ops.fdmt import Fdmt, _init_state
+    plan = Fdmt().init(nchan, md, f0, df)
+    rng = np.random.RandomState(nchan + T)
+    shape = (nchan, T) if B is None else (B, nchan, T)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+    state = _init_state(x if B else x[None], plan._plan['nd_init'], sgn)
+    state = state if B else state[0]
+    saw_pass = False
+    for (d1, d2, pt), st in zip(_plan_tables(plan), plan._plan['steps']):
+        saw_pass |= bool(st.passthrough.any())
+        before = gpu_kernels.launches['fdmt_step']
+        got = gpu_kernels.fdmt_step(state, d1, d2, pt, sgn)
+        want = gpu_kernels.fdmt_step_plain(state, d1, d2, pt, sgn)
+        torch.cuda.synchronize()
+        assert gpu_kernels.launches['fdmt_step'] == before + 1
+        assert got.shape == want.shape == state.shape[:-3] + \
+            tuple(st.d1.shape) + (T,)
+        assert torch.equal(got, want)
+        state = got
+    assert saw_pass == (nchan in (13, 300))
+
+
+@pytest.mark.parametrize('neg', [False, True])
+def test_fdmt_k3_core_equals_gather_core_and_oracle(neg, monkeypatch):
+    """The whole engine with K3 forced against the torch gather core (bit
+    for bit) and the float64 numpy oracle (1e-4), on a non-power-of-two
+    plan; the step tables go to the card once per plan."""
+    from bifrost_tpu_torch.ops.fdmt import Fdmt, fdmt_numpy
+    monkeypatch.setenv('BF_FDMT_IMPL', 'pallas')
+    plan = Fdmt().init(300, 200, 400.0, 0.5)
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 300, 700).astype(np.float32)
+    xc = torch.from_numpy(x).cuda()
+    before = gpu_kernels.launches['fdmt_step']
+    for _ in range(3):
+        got = plan.execute(xc, negative_delays=neg)
+    torch.cuda.synchronize()
+    nstep = len(plan._plan['steps'])
+    assert gpu_kernels.launches['fdmt_step'] == before + 3 * nstep
+    assert plan.table_uploads == 1
+    want = plan._core_jax(neg)(xc)
+    assert torch.equal(got, want)
+    ref = fdmt_numpy(300, 200, 400.0, 0.5, x[1], negative_delays=neg)
+    assert _rel(got[1].cpu().numpy(), ref) < 1e-4
+
+
+def test_fdmt_step_rejects_what_the_kernel_cannot_take():
+    from bifrost_tpu_torch.ops.fdmt import Fdmt
+    plan = Fdmt().init(8, 6, 100.0, 1.0)
+    d1, d2, pt = _plan_tables(plan)[0]
+    nd = plan._plan['nd_init']
+    good = torch.zeros((8, nd, 16), device='cuda')
+    gpu_kernels.fdmt_step(good, d1, d2, pt, 1)
+    bad = [(good.double(), d1, d2, pt),                       # dtype
+           (good.cpu(), d1, d2, pt),                          # device
+           (good, d1.cpu(), d2, pt),                          # table device
+           (torch.zeros((8, 16, nd), device='cuda').transpose(1, 2),
+            d1, d2, pt),                                      # layout
+           (torch.zeros((8, nd, 0), device='cuda'), d1, d2, pt),   # T = 0
+           (good, d1.long(), d2, pt)]                         # table type
+    for args in bad:
+        with pytest.raises(ValueError):
+            gpu_kernels.fdmt_step(*args, 1)
+
+
+def test_to_host_fills_a_strided_host_span():
+    """A device gulp reaches a ringlet-layout host span (a strided view
+    into the ring's buffer) in place, as copy('system') writes the FDMT
+    output's dispersion ringlets."""
+    from bifrost_tpu_torch import xfer
+    g = torch.Generator(device='cuda').manual_seed(10)
+    t = torch.randn((37, 100), device='cuda', generator=g)
+    ring = np.zeros((37, 160), np.float32)
+    span = ring[:, 40:140]
+    assert xfer.to_host(t, span) is span
+    np.testing.assert_array_equal(ring[:, 40:140], t.cpu().numpy())
+    assert not ring[:, :40].any() and not ring[:, 140:].any()

@@ -41,7 +41,13 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.ops.quantize, "
              "bifrost_tpu_torch.blocks.quantize, "
              "bifrost_tpu_torch.blocks.correlate, "
-             "bifrost_tpu_torch.blocks.accumulate\n"
+             "bifrost_tpu_torch.blocks.accumulate, "
+             "bifrost_tpu_torch.units, bifrost_tpu_torch.io.sigproc, "
+             "bifrost_tpu_torch.ops.common, bifrost_tpu_torch.ops.fdmt, "
+             "bifrost_tpu_torch.ops.transpose, "
+             "bifrost_tpu_torch.blocks.fdmt, "
+             "bifrost_tpu_torch.blocks.sigproc, "
+             "bifrost_tpu_torch.blocks.transpose\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -80,6 +86,21 @@ def test_correlator_entry_points_import_without_a_device():
              "'xcorr' in _build.SOURCES)\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '[] True True'
+
+
+def test_fdmt_entry_points_import_without_a_device():
+    """The FDMT, SIGPROC and transpose entry points import, building no
+    kernel and touching no device, and K3's source is in the build."""
+    p = _run("import bifrost_tpu_torch as bt\n"
+             "assert callable(bt.ops.fdmt.Fdmt)\n"
+             "assert callable(bt.ops.gpu_kernels.fdmt_step)\n"
+             "for f in ('read_sigproc', 'write_sigproc', 'transpose', "
+             "'fdmt', 'fdmt_stage', 'matched_filter', 'threshold'):\n"
+             "    assert callable(getattr(bt.blocks, f))\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), 'fdmt' in _build.SOURCES)\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[] True'
 
 
 def test_get_device_raises_without_gpu_or_cpu_request():

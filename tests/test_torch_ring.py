@@ -5,6 +5,7 @@ cases are those tests/test_ring_python_core.py runs against the JAX
 package's Python core, parametrised over the storage."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -498,6 +499,64 @@ def test_stress_concurrent_churn(space):
         sys.setswitchinterval(interval)
     assert not t.is_alive()
     np.testing.assert_array_equal(np.stack(got), sent)
+
+
+def test_device_lookup_sees_no_concurrent_discard():
+    """An overlapped read stitches two committed chunks while the writer
+    puts and discards chunks under the ring's lock.  The lookup takes the
+    same lock, so a chunk the reader's guarantee still holds is never
+    skipped and zero-filled (it was, about one read in three, when the
+    lookup ran unlocked beside a discard)."""
+    import sys
+    from bifrost_tpu_torch.ring import _DeviceStorage
+    lock = threading.RLock()
+    cond = threading.Condition(lock)
+    store = _DeviceStorage(lock)
+    frame, chunk = 4, 32                       # 8 frames per chunk
+    for k in range(3):
+        store.put(k * chunk, chunk, torch.full((8,), k + 1.), 0, None)
+    state = {'k': 3, 'guard': 0, 'stop': False, 'bad': 0, 'reads': 0}
+
+    def writer():
+        while not state['stop']:
+            with cond:
+                while state['k'] >= state['guard'] // chunk + 6 and \
+                        not state['stop']:
+                    cond.wait(0.01)
+                k = state['k']
+                store.put(k * chunk, chunk, torch.full((8,), k + 1.), 0,
+                          None)
+                store.discard_before(min((k - 2) * chunk, state['guard']))
+                state['k'] = k + 1
+
+    def reader():
+        while not state['stop']:
+            with cond:
+                k = state['k']
+                state['guard'] = (k - 2) * chunk     # the read guarantee
+                cond.notify_all()
+            x = store.get((k - 2) * chunk + 4 * frame, chunk, frame,
+                          torch.zeros)
+            state['reads'] += 1
+            state['bad'] += int(bool((x == 0).any()))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=f, daemon=True)
+                   for f in (writer, reader)]
+        for t in threads:
+            t.start()
+        deadline = time.time() + 0.5
+        while time.time() < deadline:
+            time.sleep(0.01)
+        state['stop'] = True
+        for t in threads:
+            t.join(10)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert state['reads'] > 100 and state['bad'] == 0
 
 
 def test_poison_wakes_blocked_reader():
