@@ -37,7 +37,7 @@ everything on the CPU, with each kernel's plain PyTorch version).
 Importing the package touches no device and builds no kernel.
 """
 
-from . import blocks, device, io, ops, stages
+from . import blocks, device, io, ops, parallel, stages
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
                        TransformBlock, SinkBlock, block_scope,
@@ -47,7 +47,7 @@ from .ring import Ring, EndOfDataStop
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'io', 'ops', 'stages', 'DataType', 'Pipeline',
+__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages', 'DataType', 'Pipeline',
            'BlockScope', 'Block', 'SourceBlock', 'TransformBlock',
            'SinkBlock', 'block_scope', 'get_default_pipeline',
            'PipelineInitError', 'PipelineRuntimeError', 'Ring',

@@ -39,7 +39,8 @@ CSRC = os.path.join(HERE, 'csrc')
 BUILD_DIR = os.path.join(HERE, '_build')
 
 #: kernel sources, by library name
-SOURCES = ('spectrometer', 'stokes', 'beamform', 'probe', 'xcorr', 'fdmt')
+SOURCES = ('spectrometer', 'stokes', 'beamform', 'probe', 'xcorr', 'fdmt',
+           'ring_permute')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']

@@ -7,12 +7,13 @@ last, so 'freq' rides the ring's ringlet dimension.  The blocks overlap
 successive input spans by their lookahead (``max_delay`` frames for
 FDMT, ``ntap - 1`` for the matched filter): each span after the first is
 stitched on the card from two committed chunks, and the block commits
-the frames whose lookahead the span holds.
+the frames whose lookahead the span holds.  Under a mesh scope
+:class:`FdmtBlock` shards each span's time axis over the mesh
+(``parallel.ops.sharded_fdmt``: a max_delay halo from the neighbour
+rank, the engine's core on every shard).
 
-Left out: the time-sharded mesh path of :class:`FdmtBlock`
-(``_mesh_fn`` over ``parallel.ops.sharded_fdmt``), which waits for the
-multi-GPU slice, and the in-segment halo carry of the stage blocks, which
-waits for the port's segments.
+Left out: the in-segment halo carry of the stage blocks, which waits for
+the port's segments.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ class FdmtBlock(TransformBlock):
         self.exponent = exponent
         self.negative_delays = negative_delays
         self.fdmt = Fdmt()
+        self._mesh_fns = {}
 
     def define_valid_input_spaces(self):
         return ('cuda',)
@@ -83,6 +85,8 @@ class FdmtBlock(TransformBlock):
         self.dm_step = max_dm / self.max_delay
         self.fdmt.init(nchan, self.max_delay, f0, df, self.exponent,
                        space='cuda')
+        # cached mesh fns close over the previous sequence's plan
+        self._mesh_fns = {}
         # Pre-warm at sequence start, before any gulp flows: the core
         # race (its float64 gate included) lands here and not inside the
         # first on_data.  The expected span is stride + overlap frames; a
@@ -91,9 +95,20 @@ class FdmtBlock(TransformBlock):
         if gulp:
             shape = tuple(int(s) if s != -1 else int(gulp) + self.max_delay
                           for s in itensor['shape'])
-            self.fdmt.warmup(shape,
-                             DataType(itensor['dtype']).as_torch_dtype(),
-                             negative_delays=self.negative_delays)
+            mesh_fn = self._mesh_fn(shape)
+            if mesh_fn is not None:
+                # the mesh path serves every full span: warm it (the
+                # single-device warmup would pick a core at a width the
+                # steady state never runs)
+                import torch
+                from ..device import get_device, stream_synchronize
+                mesh_fn(torch.zeros(shape, dtype=torch.float32,
+                                    device=get_device()))
+                stream_synchronize()
+            else:
+                self.fdmt.warmup(shape,
+                                 DataType(itensor['dtype']).as_torch_dtype(),
+                                 negative_delays=self.negative_delays)
         ohdr = deepcopy(ihdr)
         refdm = convert_units(ihdr['refdm'], ihdr['refdm_units'],
                               self.dm_units) if 'refdm' in ihdr else 0.
@@ -115,11 +130,52 @@ class FdmtBlock(TransformBlock):
         (reference: blocks/fdmt.py define_input_overlap_nframe)."""
         return self.max_delay
 
+    def _mesh_fn(self, shape):
+        """Time-sharded transform over the scope mesh when the span
+        admits it (2-D (nchan, T) data, time divisible by the mesh's time
+        axis, per-shard window >= max_delay for the adjacent-neighbour
+        halo).  Bit-identical to the single-device core:
+        parallel.ops.sharded_fdmt fetches a max_delay halo via ppermute,
+        and a shrunk final span falls back.  Built once per shape; None
+        caches negative decisions too."""
+        key = tuple(shape)
+        if key in self._mesh_fns:
+            return self._mesh_fns[key]
+        fn = None
+        mesh = self.mesh
+        if mesh is not None and len(shape) == 2:
+            from ..parallel.scope import time_axis_name
+            tname = time_axis_name(mesh)
+            n = int(mesh.shape[tname])
+            T = int(shape[-1])
+            if n > 1 and T % n == 0 and T // n >= self.max_delay:
+                from ..parallel.ops import sharded_fdmt
+                # per-shard windows are (nchan, T/n + halo): pick the
+                # core (race it on the card) at that width; the winner is
+                # locked, so a ragged later shape reuses it
+                core = self.fdmt._pick_core(
+                    self.negative_delays,
+                    shape=(int(shape[0]), T // n + self.max_delay))
+                sharded = sharded_fdmt(mesh, self.fdmt, tname,
+                                       negative_delays=self.negative_delays,
+                                       core=core)
+
+                def fn(x, _sh=sharded):
+                    # as the JAX mesh path: the input computes (and
+                    # publishes) as f32
+                    return _sh(x.float())
+        self._mesh_fns[key] = fn
+        return fn
+
     def on_data(self, ispan, ospan):
         if ispan.nframe <= self.max_delay:
             return 0
-        ospan.set(self.fdmt.execute(ispan.data,
-                                    negative_delays=self.negative_delays))
+        x = ispan.data
+        fn = self._mesh_fn(tuple(x.shape))
+        if fn is not None:
+            ospan.set(fn(x))
+            return
+        ospan.set(self.fdmt.execute(x, negative_delays=self.negative_delays))
 
 
 def fdmt(iring, max_dm=None, max_delay=None, max_diagonal=None,

@@ -18,6 +18,9 @@ versions.  The counterpart of ``bifrost_tpu/ops/pallas_kernels.py``.
 - K3, :func:`fdmt_step`, replaces the FDMT merge-step kernel
   ``pallas_kernels.fdmt_step`` (``pl.pallas_call`` at ``:459``); its
   source is ``bifrost_tpu_torch/csrc/fdmt.cu``.
+- K9, :func:`ring_permute`, replaces the corner turn's ring hop
+  ``pallas_kernels.ring_permute`` (``pl.pallas_call`` at ``:504``); its
+  source is ``bifrost_tpu_torch/csrc/ring_permute.cu``.
 
 Each source states its kernels' bounds on the H100 and what their design
 does about them.  On a CUDA tensor a wrapper launches its kernel or
@@ -28,6 +31,7 @@ the CPU tests use and the chip smoke run holds the kernel against.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 
@@ -36,13 +40,13 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_detect_int8', 'beamform_detect_int8_plain',
            'probe', 'available', 'enabled', 'xcorr_herm',
            'xcorr_herm_plain', 'xcorr_cross', 'xcorr_cross_plain',
-           'fdmt_step', 'fdmt_step_plain', 'MAX_NSTAND', 'MAX_NTIME',
-           'launches']
+           'fdmt_step', 'fdmt_step_plain', 'ring_permute',
+           'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME', 'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
 launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
             'beamform_detect_int8': 0, 'probe': 0, 'xcorr_herm': 0,
-            'xcorr_cross': 0, 'fdmt_step': 0}
+            'xcorr_cross': 0, 'fdmt_step': 0, 'ring_permute': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
@@ -619,4 +623,110 @@ def fdmt_step(state, d1, d2, passthrough, sgn):
              _build.stream_ptr(state.device))
     _build.check(lib, err, 'fdmt_step')
     launches['fdmt_step'] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9: one ring hop of the corner turn
+# ---------------------------------------------------------------------------
+
+#: most ranks one K9 launch takes (``kMaxRanks`` of ring_permute.cu)
+RING_MAX_RANKS = 64
+
+
+def ring_permute_plain(blocks):
+    """The plain version of K9, the reference ring form: ``dst[(i+1) %
+    D].copy_(src[i])`` for each rank i, each destination a new tensor on
+    its rank's device."""
+    import torch
+    D = len(blocks)
+    out = [torch.empty_like(b) for b in blocks]
+    for i, b in enumerate(blocks):
+        out[(i + 1) % D].copy_(b)
+    return out
+
+
+def _check_ring(blocks):
+    if not blocks:
+        raise ValueError("ring_permute: no blocks")
+    ref = blocks[0]
+    for b in blocks:
+        if b.shape != ref.shape or b.dtype != ref.dtype:
+            raise ValueError("ring_permute: the blocks differ in shape or "
+                             "dtype: %s %s and %s %s"
+                             % (tuple(ref.shape), ref.dtype, tuple(b.shape),
+                                b.dtype))
+    kinds = {b.device.type for b in blocks}
+    if len(kinds) != 1:
+        raise ValueError("ring_permute: blocks on %s"
+                         % sorted(str(b.device) for b in blocks))
+
+
+def _peer_access(lib, src, dst):
+    """Let card ``src`` write to card ``dst``; raises where it cannot."""
+    import torch
+    from .. import _build
+    if not torch.cuda.can_device_access_peer(src.index, dst.index):
+        raise RuntimeError("ring_permute: %s has no peer access to %s, so "
+                           "K9 cannot write the block there" % (src, dst))
+    enable = lib.bf_enable_peer
+    enable.argtypes = [ctypes.c_int, ctypes.c_int]
+    enable.restype = ctypes.c_int
+    _build.check(lib, enable(src.index, dst.index), 'ring_permute')
+
+
+def ring_permute(blocks):
+    """K9: one hop of the corner turn's ring.  ``blocks`` are the D ranks'
+    blocks of one ring in rank order, one shape and dtype, block i on rank
+    i's device; returns the D received blocks, block (i+1) mod D a copy of
+    block i on rank (i+1)'s device.  Any dtype: the kernel copies bytes.
+    One launch per card that holds source blocks (one per hop when every
+    rank is on one card); a destination on another card is written
+    through peer access, and a pair of cards without it raises."""
+    import torch
+    _check_ring(blocks)
+    if blocks[0].device.type != 'cuda':
+        return ring_permute_plain(blocks)
+    from .. import _build
+    if len(blocks) > RING_MAX_RANKS:
+        raise ValueError("ring_permute: %d ranks; one launch takes at most %d"
+                         % (len(blocks), RING_MAX_RANKS))
+    for b in blocks:
+        if not b.is_contiguous():
+            raise ValueError("ring_permute: block of strides %s is not "
+                             "contiguous" % (b.stride(),))
+    D = len(blocks)
+    devices = [b.device for b in blocks]
+    out = [torch.empty_like(b) for b in blocks]
+    nbytes = blocks[0].numel() * blocks[0].element_size()
+    if nbytes == 0:
+        return out
+    lib, fn = _fn('ring_permute', 'bf_ring_permute',
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p])
+    by_src = {}
+    for i in range(D):
+        by_src.setdefault(devices[i], []).append(i)
+    current = torch.cuda.current_device()
+    for src, ranks in by_src.items():
+        dsts = {devices[(i + 1) % D] for i in ranks} - {src}
+        for dst in dsts:
+            _peer_access(lib, src, dst)
+        with contextlib.ExitStack() as stack:
+            if src.index != current:
+                stack.enter_context(torch.cuda.device(src))
+            stream = torch.cuda.current_stream(src)
+            for dst in dsts:
+                # the destination's allocation is ready on its own stream
+                stream.wait_stream(torch.cuda.current_stream(dst))
+            srcp = (ctypes.c_ulonglong * len(ranks))(
+                *[blocks[i].data_ptr() for i in ranks])
+            dstp = (ctypes.c_ulonglong * len(ranks))(
+                *[out[(i + 1) % D].data_ptr() for i in ranks])
+            err = fn(srcp, dstp, len(ranks), nbytes,
+                     ctypes.c_void_p(stream.cuda_stream))
+            _build.check(lib, err, 'ring_permute')
+            launches['ring_permute'] += 1
+            for dst in dsts:
+                torch.cuda.current_stream(dst).wait_stream(stream)
     return out

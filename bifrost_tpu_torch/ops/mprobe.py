@@ -22,7 +22,10 @@ The default cache directory is the port's own, ``~/.bifrost_tpu_torch``
 (``BF_CACHE_DIR`` overrides it, as in the JAX package), and every key
 starts with the backend tag ``torch-cuda:<card>`` or ``torch-cpu:cpu``,
 so a winner measured by the JAX package is never served to the port,
-nor the other way round.
+nor the other way round.  Families (one cache file each): ``beamform``,
+``xengine``, ``linalg_xcorr``, ``fdmt`` and ``corner_turn`` (the
+correlator's mesh plans, keyed as the JAX block keys them:
+``v=<gulp shape> <dtype> ndev=<ranks> acc=<class>``).
 """
 
 from __future__ import annotations

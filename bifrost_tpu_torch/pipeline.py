@@ -92,18 +92,20 @@ class BlockScope(object):
     """Nestable configuration scope; unset tunables inherit from the
     enclosing scope (reference: pipeline.py:84-162).
 
-    Tunables: gulp_nframe, buffer_nframe, buffer_factor and sync_depth
-    (device run-ahead in gulps)."""
+    Tunables: gulp_nframe, buffer_nframe, buffer_factor, sync_depth
+    (device run-ahead in gulps) and mesh (a
+    :class:`bifrost_tpu_torch.parallel.Mesh` for the sharded ops of the
+    blocks within the scope; the correlator and FDMT blocks read it)."""
 
     DEFAULT_SYNC_DEPTH = 4
 
     instance_count = 0
 
     _TUNABLES = ('gulp_nframe', 'buffer_nframe', 'buffer_factor',
-                 'sync_depth')
+                 'sync_depth', 'mesh')
 
     def __init__(self, name=None, gulp_nframe=None, buffer_nframe=None,
-                 buffer_factor=None, sync_depth=None):
+                 buffer_factor=None, sync_depth=None, mesh=None):
         if name is None:
             name = 'BlockScope_%i' % BlockScope.instance_count
             BlockScope.instance_count += 1
@@ -112,6 +114,7 @@ class BlockScope(object):
         self._buffer_nframe = buffer_nframe
         self._buffer_factor = buffer_factor
         self._sync_depth = sync_depth
+        self._mesh = mesh
         self._parent_scope = get_current_block_scope() \
             if not isinstance(self, Pipeline) else None
         if self._parent_scope is not None:

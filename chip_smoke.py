@@ -88,8 +88,30 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    within 1e-4 of the float64 oracle chain, the candidates equal the
    oracle's apart from samples within rtol of the threshold, and every
    pulse peaks within 1 trial and 1 frame of where it was injected;
-13. prints a JSON line of pipeline rates per chain, one JSON line of
-   per-kernel numbers ({"kernels": [...]}, K0-K8), the nvidia-smi line,
+13. runs K9 (the corner turn's ring hop; right after the build, so a
+   broken K9 stops the run early) at the corner turn's shapes on one card: 4 int8 blocks of (64, 1024, 256, 2, 2), 3 such blocks, and 4
+   complex64 blocks whose byte count is not a multiple of 16, each
+   bit-identical to its plain version; the whole corner turn
+   (impl='pallas') of a (256, 1024, 256, 2, 2) gulp over 4 ranks of the
+   card equal to the transpose oracle; K9, its plain version and
+   torch.roll of the stacked blocks timed with CUDA events;
+14. drives BASELINE config 5's array through copy('cuda') ->
+   correlate(256, accuracy='int8') under block_scope(mesh=...) ->
+   copy('system') on 256-frame gulps (1 warm-up and 2 timed), the mesh's
+   ranks all on cuda:0, in six arms: single (no mesh, the reference, held
+   to the float64 products and the int64 oracle), mesh-psum ({'sp': 4},
+   BF_XCORR_CORNER_TURN=off), mesh-corner-xla and mesh-corner-K9 (the
+   corner-turn plan forced with all_to_all or K9 hops), mesh-2d ({'sp':
+   2, 'tp': 2}, station-sharded, K8 forced), each with K7 forced, and
+   mesh-race (the plans and the X engine race from an empty probe
+   cache); every mesh arm byte-identical to the single run, with 4 K7 (or
+   4 K8) launches per gulp and 3 K9 launches per gulp in mesh-corner-K9;
+15. drives config 22's [freq, time] stream through copy('cuda') ->
+   fdmt(max_delay=1970) -> copy('system'), K3 forced, under an {'sp': 2}
+   mesh of the card (spans of 2 x 9177 frames) and without a mesh: every
+   span bit-identical;
+16. prints a JSON line of pipeline rates per chain, one JSON line of
+   per-kernel numbers ({"kernels": [...]}, K0-K9), the nvidia-smi line,
    and as the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line; with no
@@ -130,9 +152,9 @@ BEAM_ORACLE_NTIME = 64
 XT, XF, XS, XP, XR, XA = 256, 1024, 256, 2, 128, 2
 XN = XS * XP
 XSCALE = 1. / 32
-XWARM, XTIMED = 2, 6
+XWARM, XTIMED = 2, 3
 # the stateful X step: 64-frame gulps, 256 frames per integration
-XST, XSINT, XSWARM, XSTIMED = 64, 256, 4, 16
+XST, XSINT, XSWARM, XSTIMED = 64, 256, 4, 8
 XCHANNELS = (0, 511, 1023)
 # FDMT dedispersion: an L-band filterbank of 4096 channels (1200-1600 MHz,
 # 64 us, one pol) dedispersed to BASELINE config 3's max_dm = 100, which
@@ -153,6 +175,15 @@ FODD = 3000
 FPULSES = ((100, 5000), (400, 20000), (800, 40000), (1200, 60000),
            (1500, 81915), (1800, 110000), (1969, 120000), (1000, 180000))
 FAMP, FPW = 3.0, 8
+# the mesh tier: MD ranks that all live on cuda:0 (as the JAX package's
+# tests put their 8-device meshes on one CPU).  K9 at the corner turn's
+# blocks, MD x (XT / MD, XF, XS, XP, 2) int8; the stateful correlate(XT)
+# on XT-frame gulps of BASELINE config 5's array under each mesh plan
+# (1 warm-up and 2 timed gulps, a 2.1 GB output each); config 22's FDMT
+# stream on an {'sp': 2} mesh (spans of 16384 + 1970 = 2 x 9177 frames)
+MD = 4
+MWARM, MTIMED = 1, 2
+MFDMT = 2
 
 
 def log(*args):
@@ -192,6 +223,28 @@ def cuda_ms(fn, runs=NRUNS, warm=2):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def cuda_ms_queued(fn, calls=20, runs=5):
+    """Median device milliseconds per call of ``fn`` over ``runs`` batches
+    of ``calls`` back-to-back calls, each batch bracketed by CUDA events:
+    what a call costs the card when calls queue, the host's preparation
+    of one call hidden behind the device work of the one before."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -1144,7 +1197,7 @@ def fdmt_work(plan, T):
     return nbyte, nadd
 
 
-def phase_fdmt_kernel(gpu_kernels, F, dev='cuda'):
+def phase_fdmt_kernel(gpu_kernels, F):
     """K3 over every merge step of three plans at the full-width span
     (16384 + 1970 frames): the 4096-channel plan, a 3000-channel plan over
     the same band (passthrough rows and the rows_hi clamp) and the
@@ -1163,8 +1216,8 @@ def phase_fdmt_kernel(gpu_kernels, F, dev='cuda'):
         df = 400.0 / nchan
         neg = sgn < 0
         plan = F.Fdmt().init(nchan, FMD, FF0, df)
-        g = torch.Generator(device=dev).manual_seed(31 + nchan + sgn)
-        x = torch.randn((1, nchan, T), device=dev, generator=g)
+        g = torch.Generator(device='cuda').manual_seed(31 + nchan + sgn)
+        x = torch.randn((1, nchan, T), device='cuda', generator=g)
         tabs = plan._step_tables(x.device)
         state = F._init_state(x, plan._plan['nd_init'], sgn)
         states, npass, err = [], 0, 0.0
@@ -1254,8 +1307,7 @@ def phase_fdmt_kernel(gpu_kernels, F, dev='cuda'):
                  'shape': [FCH, FMD, T], 'oracle_rel_err': rel,
                  'numpy_reference_s': ref_s}
         del steps, states
-    if dev == 'cuda':
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -1289,21 +1341,21 @@ def pulse_delays(d):
     return np.rint(d * frac).astype(np.int64)
 
 
-def fdmt_stream(dev='cuda'):
+def fdmt_stream():
     """The seeded [freq, time] f32 noise stream of FWARM + FTIMED gulps on
     the card, and the same stream with the FPULSES injected: in channel c
     a pulse at (trial d, frame t0) adds FAMP to frames t0 + delay_c + [0,
     FPW), delay_c from pulse_delays."""
     import torch
     N = (FWARM + FTIMED) * FG
-    g = torch.Generator(device=dev).manual_seed(41)
-    noise = torch.randn((FCH, N), device=dev, generator=g)
+    g = torch.Generator(device='cuda').manual_seed(41)
+    noise = torch.randn((FCH, N), device='cuda', generator=g)
     x = noise.clone()
-    chans = torch.arange(FCH, device=dev)[:, None]
+    chans = torch.arange(FCH, device='cuda')[:, None]
     for d, t0 in FPULSES:
         delay = pulse_delays(d)
         idx = torch.from_numpy(t0 + delay[:, None] +
-                               np.arange(FPW)[None]).to(dev)
+                               np.arange(FPW)[None]).to('cuda')
         require(int(idx.max()) < N, 'pulse (%d, %d) runs past the stream'
                 % (d, t0))
         x[chans, idx] += FAMP
@@ -1539,7 +1591,7 @@ def check_peaks(arm, found, expect):
         % (arm, len(FPULSES), found))
 
 
-def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
+def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi):
     """The FDMT arms through the port's Pipeline at full width (see the
     module docstring), each checked against the float64 oracle chain."""
     import tempfile
@@ -1549,7 +1601,7 @@ def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
     N = ngulp * FG
     nsamp = FTIMED * FG * FCH
     t_setup = time.perf_counter()
-    noise, x = fdmt_stream(dev)
+    noise, x = fdmt_stream()
     plan = F.Fdmt().init(FCH, FMD, FF0, FDF)
     nsteps = len(plan._plan['steps'])
     halo = FMD + FNTAP - 1
@@ -1651,7 +1703,8 @@ def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
     for k in range(ngulp):
         a, n = k * FG, min(FG, N - FMD - k * FG)
         win = u8[:, a:min(a + FG + FMD, N)].float()
-        got = torch.from_numpy(np.ascontiguousarray(out[:, a:a + n])).to(dev)
+        got = torch.from_numpy(np.ascontiguousarray(out[:, a:a + n])) \
+            .to('cuda')
         require(torch.equal(got, k3core(win[None])[0, :, :n]),
                 'fdmt-file span %d differs from the K3 core on its data' % k)
         ref = fdmt_oracle(plan, win, 1)[:, :n]
@@ -1726,7 +1779,7 @@ def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
     for a, ref in chunks:
         n = ref.shape[-1]
         got = torch.from_numpy(np.ascontiguousarray(ref_out[:, a:a + n])) \
-            .to(dev).double()
+            .to('cuda').double()
         cand, want = got != 0, ref >= thr
         both = cand & want
         if bool(both.any()):
@@ -1755,6 +1808,304 @@ def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi, dev='cuda'):
             'oracle_rel_err': rel, 'strided_span_copy_ms': span_copy_ms}
 
 
+def phase_ring_permute(gpu_kernels, par):
+    """K9 at the corner turn's shapes on one card: MD and 3 int8 blocks of
+    (XT / MD, XF, XS, XP, 2) and MD complex64 blocks whose byte count is
+    not a multiple of 16, each bit-identical to its plain version; the
+    whole corner turn (impl='pallas') over MD ranks of the card equal to
+    the transpose oracle; K9, its plain version and torch.roll timed."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(51)
+    shape = (XT // MD, XF, XS, XP, 2)
+    blocks = [torch.randint(-128, 128, shape, dtype=torch.int8,
+                            device='cuda', generator=g) for _ in range(MD)]
+    cshape = (63, 1023, 3)
+    cblocks = [torch.complex(torch.randn(cshape, device='cuda', generator=g),
+                             torch.randn(cshape, device='cuda', generator=g))
+               for _ in range(MD)]
+    nbytes_c = cblocks[0].numel() * 8
+    require(nbytes_c % 16, 'the complex64 case is a multiple of 16 bytes')
+    for name, bl in (('int8 D=%d' % MD, blocks), ('int8 D=3', blocks[:3]),
+                     ('complex64 D=%d, %d bytes' % (MD, nbytes_c), cblocks)):
+        before = gpu_kernels.launches['ring_permute']
+        got = gpu_kernels.ring_permute(bl)
+        want = gpu_kernels.ring_permute_plain(bl)
+        torch.cuda.synchronize()
+        require(gpu_kernels.launches['ring_permute'] == before + 1,
+                'K9 (%s): %d launches for one hop'
+                % (name, gpu_kernels.launches['ring_permute'] - before))
+        D = len(bl)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)) and
+                all(torch.equal(got[(i + 1) % D], bl[i]) for i in range(D)),
+                'K9 (%s) is not bit-identical to its plain version' % name)
+        log('K9 ring_permute %s of %s: bit-identical to its plain version'
+            % (name, tuple(bl[0].shape)))
+        del got, want
+    # the corner turn of a whole gulp over MD ranks of the card
+    x = torch.randint(-128, 128, (XT, XF, XS, XP, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    mesh = par.create_mesh({'sp': MD}, devices=['cuda'] * MD)
+    before = gpu_kernels.launches['ring_permute']
+    ct = par.corner_turn(mesh, 'sp', impl='pallas', stacked=True)(x)
+    torch.cuda.synchronize()
+    nhop = gpu_kernels.launches['ring_permute'] - before
+    fc = XF // MD
+    require(nhop == MD - 1, 'the K9 corner turn made %d launches, not %d'
+            % (nhop, MD - 1))
+    require(ct.shape == (MD, XT, fc, XS, XP, 2) and
+            all(torch.equal(ct[d], x[:, d * fc:(d + 1) * fc])
+                for d in range(MD)),
+            'the K9 corner turn differs from the transpose oracle')
+    log('corner turn (impl=pallas) of a (%d, %d, %d, %d, 2) gulp over %d '
+        'ranks of one card: %d K9 launches, equal to the transpose oracle'
+        % (XT, XF, XS, XP, MD, nhop))
+    del ct, x
+    got = gpu_kernels.ring_permute(blocks)
+    want = gpu_kernels.ring_permute_plain(blocks)
+    stacked = torch.stack(blocks)
+    # ms brackets one call, as for every kernel; a hop moves 537 MB in some
+    # 0.2 ms, near the host's own cost of one wrapper call, so the device
+    # time per call of queued calls is kept beside it as ms_queued
+    hop = lambda: gpu_kernels.ring_permute(blocks)
+    plain = lambda: gpu_kernels.ring_permute_plain(blocks)
+    roll = lambda: torch.roll(stacked, 1, 0)
+    ms, plain_ms, library_ms = cuda_ms(hop), cuda_ms(plain), cuda_ms(roll)
+    queued = {'kernel': cuda_ms_queued(hop), 'plain': cuda_ms_queued(plain),
+              'library': cuda_ms_queued(roll)}
+    nbyte = 2 * MD * blocks[0].numel()
+    entry = kernel_entry(
+        'ring_permute', 'bifrost_tpu_torch/csrc/ring_permute.cu', 504,
+        [b.view(torch.uint8) for b in got],
+        [b.view(torch.uint8) for b in want], ms, plain_ms, nbyte, 0,
+        PEAK_FP32_PER_S, library_ms, shape=[MD] + list(shape),
+        per='hop (one call bracketed alone)',
+        library='torch.roll(stacked, 1, 0) on the (D, ...) stack',
+        error_unit='bytes', ms_queued=queued,
+        ms_queued_per='hop (median of 5 batches of 20 queued calls)')
+    log('K9 queued (ms per call of 20 back to back): %s' % queued)
+    del got, want, stacked, blocks, cblocks
+    torch.cuda.empty_cache()
+    return entry
+
+
+def mesh_oracle(gulp):
+    """The stateful correlate(XT) output of one gulp: the single-device
+    product in float64 on the card (K7's plain version), held to the int64
+    oracle on XCHANNELS.  Returns a host array (1, XF, XS, XP, XS, XP)."""
+    import torch
+    from bifrost_tpu_torch.ops.gpu_kernels import xcorr_herm_plain
+    re = gulp[..., 0].reshape(XT, XF, XN)
+    im = gulp[..., 1].reshape(XT, XF, XN)
+    whole = xcorr_herm_plain(torch.from_numpy(re).cuda(),
+                             torch.from_numpy(im).cuda()).cpu().numpy()
+    for f in XCHANNELS:
+        sl = slice(f, f + 1)
+        want = xcorr_oracle(re[:, sl], im[:, sl], re[:, sl], im[:, sl])
+        require(np.array_equal(whole[sl], want),
+                'the float64 products differ from the int64 oracle on '
+                'channel %d' % f)
+    torch.cuda.empty_cache()
+    return whole.reshape(1, XF, XS, XP, XS, XP)
+
+
+def run_mesh_arm(bt, par, gulps, axes, impl):
+    """The stateful correlate(XT, accuracy='int8', impl) under
+    block_scope(mesh=...) (no mesh when ``axes`` is None), the mesh's
+    ranks all on cuda:0.  Returns (outputs, seconds of the timed gulps,
+    per-block host ms/gulp, what the block chose)."""
+    import gc
+    import torch
+    mesh = None
+    if axes is not None:
+        n = int(np.prod(list(axes.values())))
+        mesh = par.create_mesh(axes, devices=['cuda'] * n)
+    blocks = []
+
+    def chain(h2d):
+        with bt.block_scope(mesh=mesh):
+            blocks.append(('correlate', bt.blocks.correlate(
+                h2d, XT, accuracy='int8', impl=impl)))
+        return blocks
+
+    out, secs, per_gulp = drive(bt, gulps, fx_header(
+        ['time', 'freq', 'station', 'pol'], XT), chain, MWARM, MTIMED)
+    blk = blocks[0][1]
+    info = {'plan': blk._mesh_plan if mesh is not None else None,
+            'plan_probe_ms': blk.mesh_probe_ms,
+            'chosen': dict(blk.engine.chosen),
+            'probe_ms': dict(blk.engine.probe_ms)}
+    del blocks[:], blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, secs, per_gulp, info
+
+
+#: the mesh correlator's arms: (name, mesh axes, environment, impl); the
+#: first is the single-device run the others are held to
+MESH_ARMS = (
+    ('single', None, {}, 'pallas'),
+    ('mesh-psum', {'sp': MD}, {'BF_XCORR_CORNER_TURN': 'off'}, 'pallas'),
+    ('mesh-corner-xla', {'sp': MD}, {'BF_XCORR_CORNER_TURN': 'xla'},
+     'pallas'),
+    ('mesh-corner-K9', {'sp': MD}, {'BF_XCORR_CORNER_TURN': 'pallas'},
+     'pallas'),
+    ('mesh-2d', {'sp': 2, 'tp': 2}, {'BF_LINALG_XCORR_IMPL': 'pallas'},
+     'pallas'),
+    ('mesh-race', {'sp': MD}, {'BF_XCORR_CORNER_TURN': 'auto'}, None))
+
+
+def phase_mesh_correlator(bt, spec, gpu_kernels, par, smi):
+    """BASELINE config 5's array through copy('cuda') -> correlate(XT)
+    under block_scope(mesh=...) -> copy('system'), in the arms of
+    MESH_ARMS: each byte-identical to the single-device run, which equals
+    the float64 products and the int64 oracle."""
+    import tempfile
+    import torch
+    gulps = fx_gulps(seed=17)
+    oracle = [mesh_oracle(gv) for gv in gulps]
+    ngulp = MWARM + MTIMED
+    nsamp = XT * XF * XS * XP
+    runs, rates, ref = {}, {}, None
+    for arm, axes, env, impl in MESH_ARMS:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(environ(**dict(
+                {'BF_XCORR_CORNER_TURN': None, 'BF_LINALG_XCORR_IMPL': None},
+                **env)))
+            if arm == 'mesh-race':
+                # the plans and the engine race from an empty probe cache
+                tmp = stack.enter_context(tempfile.TemporaryDirectory())
+                stack.enter_context(environ(BF_CACHE_DIR=tmp))
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(spec, gpu_kernels)
+            for k in par.collectives:
+                par.collectives[k] = 0
+            out, secs, per_gulp, info = run_mesh_arm(bt, par, gulps, axes,
+                                                     impl)
+            counts = read_counts(spec, gpu_kernels)
+            coll = dict(par.collectives)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        per = {k: v / float(ngulp) for k, v in counts.items() if v}
+        rates[arm] = {'msps': MTIMED * nsamp / secs / 1e6, 'seconds': secs,
+                      'peak_device_gb': peak, 'launches': counts,
+                      'launches_per_gulp': per, 'collectives': coll,
+                      'info': info, 'per_gulp_ms': per_gulp}
+        log('mesh correlator arm %s (%s): plan %s, %.1f Msamples/s, launches '
+            '%s (per gulp %s), collectives %s, peak device memory %s GB '
+            '(%s)' % (arm, axes, info['plan'], rates[arm]['msps'], counts,
+                      per, coll, peak, smi))
+        if info['plan_probe_ms']:
+            log('  plan race (ms per call): %s' % info['plan_probe_ms'])
+        log_per_gulp(per_gulp)
+        for k, a in out.items():
+            require(a.shape == (1, XF, XS, XP, XS, XP) and
+                    a.dtype == np.complex64 and np.isfinite(a).all(),
+                    'arm %s output %d: bad shape, type or values' % (arm, k))
+            if ref is None:
+                require(np.array_equal(a, oracle[k % len(gulps)]),
+                        'arm %s output %d differs from the float64 products'
+                        % (arm, k))
+            else:
+                require(np.array_equal(a, ref[k]), 'arm %s output %d is not '
+                        'byte-identical to the single-device run' % (arm, k))
+        if ref is None:
+            ref = out
+        log('arm %s: outputs %s byte-identical to %s'
+            % (arm, sorted(out), 'the float64 products and the int64 oracle'
+               if arm == 'single' else 'the single-device run'))
+        runs[arm] = counts
+        del out
+    want = {'single': ('xcorr_herm', ngulp),
+            'mesh-psum': ('xcorr_herm', MD * ngulp),
+            'mesh-corner-xla': ('xcorr_herm', MD * ngulp),
+            'mesh-corner-K9': ('xcorr_herm', MD * ngulp),
+            # one more: xcorr_prewarm's call at on_sequence
+            'mesh-2d': ('xcorr_cross', MD * ngulp + 1)}
+    for arm, (kern, n) in want.items():
+        require(runs[arm][kern] == n, '%s: %d %s launches, not %d'
+                % (arm, runs[arm][kern], kern, n))
+    require(runs['mesh-corner-K9']['ring_permute'] == (MD - 1) * ngulp,
+            'mesh-corner-K9: %d K9 launches for %d gulps'
+            % (runs['mesh-corner-K9']['ring_permute'], ngulp))
+    race = rates['mesh-race']['info']
+    require(race['plan_probe_ms'] and 'corner:pallas' in race['plan_probe_ms'],
+            'mesh-race: K9 did not race: %s' % race)
+    del ref, oracle
+    torch.cuda.empty_cache()
+    return {'rates': rates, 'launches': runs}
+
+
+def phase_fdmt_mesh(bt, spec, gpu_kernels, F, par, smi):
+    """Config 22's [freq, time] stream through copy('cuda') ->
+    fdmt(max_delay=FMD) -> copy('system'), K3 forced, under an {'sp':
+    MFDMT} mesh of the card and without one: every span bit-identical."""
+    import torch
+    ngulp = FWARM + FTIMED
+    N = ngulp * FG
+    _, x = fdmt_stream()
+    host = x.cpu().numpy()
+    del x
+    nsteps = len(F.Fdmt().init(FCH, FMD, FF0, FDF)._plan['steps'])
+    rates, outs = {}, {}
+    for arm, axes in (('fdmt-single', None), ('fdmt-mesh', {'sp': MFDMT})):
+        mesh = None if axes is None else \
+            par.create_mesh(axes, devices=['cuda'] * MFDMT)
+        blocks = []
+
+        def chain(h2d):
+            with bt.block_scope(mesh=mesh):
+                blocks.append(('fdmt', bt.blocks.fdmt(h2d, max_delay=FMD)))
+            return blocks
+
+        with environ(BF_FDMT_IMPL='pallas'):
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(spec, gpu_kernels)
+            for k in par.collectives:
+                par.collectives[k] = 0
+            out, hdr, secs, secs_run, per_gulp, _ = run_fdmt_arm(
+                bt, freq_time_source(bt, host), chain, N - FMD)
+            counts = read_counts(spec, gpu_kernels)
+            coll = dict(par.collectives)
+        blk = dict(blocks)['fdmt']
+        engaged = sorted(str(k) for k, fn in blk._mesh_fns.items()
+                         if fn is not None)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        slow = max(per_gulp, key=lambda r: per_gulp[r]['process'])
+        nshard = 1 if axes is None else MFDMT
+        rates[arm] = {
+            'msps': FTIMED * FG * FCH / secs / 1e6,
+            'msps_run': ngulp * FG * FCH / secs_run / 1e6,
+            'slowest_block': slow,
+            'msps_slowest_block':
+                FG * FCH / per_gulp[slow]['process'] / 1e3,
+            'peak_device_gb': peak, 'launches': counts, 'collectives': coll,
+            'mesh_shapes': engaged, 'core': blk.fdmt.chosen_core,
+            'per_gulp_ms': per_gulp}
+        log('FDMT arm %s (%s): mesh path on spans %s, %.1f Msamples/s at the '
+            'sink, %.1f over the whole run, %.1f at the slowest block (%s); '
+            'launches %s, collectives %s, peak device memory %s GB (%s)'
+            % (arm, axes, engaged, rates[arm]['msps'], rates[arm]['msps_run'],
+               rates[arm]['msps_slowest_block'], slow, counts, coll, peak,
+               smi))
+        log_per_gulp(per_gulp)
+        require(hdr['_tensor']['shape'][-2] == FMD, 'max_delay %s'
+                % hdr['_tensor']['shape'][-2])
+        # one run of the core per shard per gulp, and one in on_sequence
+        require(counts['fdmt_step'] == (ngulp + 1) * nsteps * nshard,
+                '%s: %d K3 launches for %d gulps on %d shards'
+                % (arm, counts['fdmt_step'], ngulp, nshard))
+        if axes is not None:
+            require(engaged, 'fdmt-mesh: the mesh path never engaged')
+        outs[arm] = out
+        del blocks, blk
+    require(np.array_equal(outs['fdmt-mesh'].view(np.uint32),
+                           outs['fdmt-single'].view(np.uint32)),
+            'fdmt-mesh is not bit-identical to the chain without a mesh')
+    log('fdmt-mesh: every span bit-identical to the chain without a mesh')
+    del outs, host
+    torch.cuda.empty_cache()
+    return {'rates': rates}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1769,6 +2120,7 @@ def main():
     from bifrost_tpu_torch.ops import beamform as beam
     from bifrost_tpu_torch.ops import linalg as L
     from bifrost_tpu_torch.ops import fdmt as F
+    from bifrost_tpu_torch import parallel as par
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1786,21 +2138,35 @@ def main():
             if 'registers' in line or 'smem' in line:
                 log('  %s: %s' % (lib, line.strip()))
 
-    k2 = phase_stokes(gpu_kernels)
-    torch.cuda.empty_cache()
-    k1 = phase_spectrometer(spec)
-    torch.cuda.empty_cache()
-    pipe = phase_pipeline(bt, spec, gpu_kernels, smi)
-    torch.cuda.empty_cache()
-    k4, k5, k6 = phase_beamform_kernels(gpu_kernels, beam)
-    bpipe = phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi)
-    torch.cuda.empty_cache()
-    k0 = phase_probe(gpu_kernels)
-    k7, k8 = phase_xcorr_kernels(gpu_kernels)
-    fx = phase_fx_pipeline(bt, spec, gpu_kernels, smi)
-    n8 = phase_xcorr_int8(L, gpu_kernels)
-    k3 = phase_fdmt_kernel(gpu_kernels, F)
-    fdmt = phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi)
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t
+        log('phase %s: %.1f s' % (name, phase_s[name]))
+        return out
+
+    k9 = run('K9', phase_ring_permute, gpu_kernels, par)
+    k2 = run('K2', phase_stokes, gpu_kernels)
+    k1 = run('K1', phase_spectrometer, spec)
+    pipe = run('spectrometer pipeline', phase_pipeline, bt, spec,
+               gpu_kernels, smi)
+    k4, k5, k6 = run('K4-K6', phase_beamform_kernels, gpu_kernels, beam)
+    bpipe = run('beamformer pipeline', phase_beamform_pipeline, bt, spec,
+                gpu_kernels, beam, smi)
+    k0 = run('K0', phase_probe, gpu_kernels)
+    k7, k8 = run('K7, K8', phase_xcorr_kernels, gpu_kernels)
+    fx = run('FX pipeline', phase_fx_pipeline, bt, spec, gpu_kernels, smi)
+    n8 = run('xcorr_int8 cross', phase_xcorr_int8, L, gpu_kernels)
+    k3 = run('K3', phase_fdmt_kernel, gpu_kernels, F)
+    fdmt = run('FDMT pipeline', phase_fdmt_pipeline, bt, spec, gpu_kernels,
+               F, smi)
+    mesh = run('mesh correlator', phase_mesh_correlator, bt, spec,
+               gpu_kernels, par, smi)
+    fmesh = run('FDMT mesh', phase_fdmt_mesh, bt, spec, gpu_kernels, F,
+                par, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
@@ -1818,8 +2184,14 @@ def main():
     k3['launches'] = fdmt['launches']['frb-K3']['fdmt_step']
     k3['launches_per_gulp'] = k3['launches'] / float(FWARM + FTIMED)
     k3['launches_fdmt_file'] = fdmt['launches']['fdmt-file']['fdmt_step']
-    kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8]
-    log('total %.1f s' % (time.perf_counter() - t_start))
+    k9['launches'] = mesh['launches']['mesh-corner-K9']['ring_permute']
+    k9['launches_per_gulp'] = k9['launches'] / float(MWARM + MTIMED)
+    k9['launches_of'] = 'the mesh-corner-K9 arm (%d ranks, %d hops a gulp)' \
+        % (MD, MD - 1)
+    kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
+    log('total %.1f s; by phase %s' % (
+        time.perf_counter() - t_start,
+        json.dumps({k: round(v, 1) for k, v in phase_s.items()})))
     log(json.dumps({'pipeline': {
         'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
         'gulps_timed': NTIMED,
@@ -1839,6 +2211,13 @@ def main():
         'max_dm': FMAXDM, 'max_delay': FMD, 'gulp': FG, 'ntap': FNTAP,
         'far': FFAR, 'gulps_timed': FTIMED, 'pulses': FPULSES,
         **fdmt}, 'card': smi}))
+    log(json.dumps({'mesh_pipeline': {
+        'ranks_on_one_card': MD, 'gulp': [XT, XF, XS, XP],
+        'nframe_per_integration': XT, 'gulps_timed': MTIMED,
+        'arms': mesh['rates'], 'fdmt': {
+            'mesh': {'sp': MFDMT}, 'nchan': FCH, 'gulp': FG,
+            'max_delay': FMD, 'gulps_timed': FTIMED,
+            'arms': fmesh['rates']}}, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

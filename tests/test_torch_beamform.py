@@ -529,11 +529,21 @@ def test_mprobe_coin_flip_is_raced_again(monkeypatch):
     assert calls['a'] > 0 and calls['b'] > 0  # budget spent: re-raced
 
 
+def _decisive_races(monkeypatch):
+    """Every race writes its ranking to disk: with a noise threshold of
+    1.0 no ranking is a coin flip, however close the candidates' times
+    come on a loaded host."""
+    real = mprobe.select
+    monkeypatch.setattr(mprobe, 'select',
+                        lambda *a, **k: real(*a, **dict(k, noise=1.0)))
+
+
 def test_engine_race_gates_then_times_and_caches(monkeypatch):
     """With probing on, prewarm gates the candidates against the
     baseline, races the survivors and caches the winner under the
     port's backend tag; a second engine peeks it without measuring."""
     monkeypatch.setenv('BF_LINALG_PROBE', '1')
+    _decisive_races(monkeypatch)
     w = _weights(4, 8, 2)
     eng = Beamformer(w, accuracy='bf16')
     winner = eng.prewarm(16, 2, npol=2)

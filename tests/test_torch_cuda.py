@@ -7,7 +7,9 @@ probe), K7 and K8 (the correlator) against their plain versions and the
 int64 oracle at ragged shapes and on strided gulp views, K3 (the FDMT
 merge step) against its plain version over whole plans (ragged T,
 negative delays, passthrough rows, a batch axis, tables above 256 KB),
-and the wrappers' checks.  Marked ``cuda``; each test skips without a
+K9 (the corner turn's ring hop) against its plain version for 2 to 4
+ranks on one card and the mesh correlator's three {'sp': 4} plans byte
+for byte, and the wrappers' checks.  Marked ``cuda``; each test skips without a
 card.
 
 Run on a machine with a card from the repository root (the repository's
@@ -25,7 +27,8 @@ oracle (the bf16 class); K6, rel <= 1e-6 of its plain version and
 to their plain versions and to the int64 oracle; K3, bit-identical to
 its plain version (one float32 add per element in both) and the K3 core
 to the torch gather core, and within 1e-4 of the float64 numpy oracle
-relative to its largest magnitude.
+relative to its largest magnitude; K9 and the corner turn, bit-identical
+(a copy of bytes).
 """
 
 import numpy as np
@@ -531,3 +534,106 @@ def test_to_host_fills_a_strided_host_span():
     assert xfer.to_host(t, span) is span
     np.testing.assert_array_equal(ring[:, 40:140], t.cpu().numpy())
     assert not ring[:, :40].any() and not ring[:, 140:].any()
+
+
+# ---------------------------------------------------------------------------
+# K9: the corner turn's ring hop, D ranks on one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('D', [2, 3, 4])
+@pytest.mark.parametrize('shape,dtype', [
+    ((64, 33, 5, 2, 2), torch.int8),         # 16-byte multiple
+    ((7, 3, 5), torch.int8),                 # 105 bytes: a byte tail
+    ((5, 3, 7), torch.complex64),            # 840 bytes, not of 16
+    ((16, 64, 3, 2), torch.complex64)])
+def test_ring_permute_bit_identical_to_plain(D, shape, dtype):
+    g = torch.Generator(device='cuda').manual_seed(D)
+    if dtype == torch.int8:
+        blocks = [torch.randint(-128, 128, shape, dtype=torch.int8,
+                                device='cuda', generator=g)
+                  for _ in range(D)]
+    else:
+        blocks = [torch.complex(torch.randn(shape, device='cuda',
+                                            generator=g),
+                                torch.randn(shape, device='cuda',
+                                            generator=g))
+                  for _ in range(D)]
+    before = gpu_kernels.launches['ring_permute']
+    got = gpu_kernels.ring_permute(blocks)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['ring_permute'] == before + 1
+    want = gpu_kernels.ring_permute_plain(blocks)
+    for i in range(D):
+        assert got[i].is_cuda and got[i].dtype == dtype
+        assert torch.equal(got[i], want[i])
+        assert torch.equal(got[(i + 1) % D], blocks[i])
+
+
+def test_ring_permute_unaligned_views():
+    """Blocks that start off a 16-byte boundary take the byte path."""
+    base = torch.randint(-128, 128, (4 * 1001 + 3,), dtype=torch.int8,
+                         device='cuda')
+    blocks = [base[3 + i * 1001:3 + (i + 1) * 1001] for i in range(4)]
+    got = gpu_kernels.ring_permute(blocks)
+    for i in range(4):
+        assert torch.equal(got[(i + 1) % 4], blocks[i])
+
+
+def test_ring_permute_rejects_what_the_kernel_cannot_take():
+    a = torch.zeros((4, 6), device='cuda')
+    with pytest.raises(ValueError):
+        gpu_kernels.ring_permute([a, a.t()])               # shape
+    with pytest.raises(ValueError):
+        gpu_kernels.ring_permute([a[:, ::2], a[:, 1::2]])  # strides
+    with pytest.raises(ValueError):
+        gpu_kernels.ring_permute([a, a.cpu()])             # devices
+    with pytest.raises(ValueError, match='at most 64'):
+        gpu_kernels.ring_permute([a] * 65)                 # ranks
+
+
+def test_ring_permute_without_peer_access_raises(monkeypatch):
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two cards')
+    monkeypatch.setattr(torch.cuda, 'can_device_access_peer',
+                        lambda a, b: False)
+    blocks = [torch.zeros(16, device='cuda:0'),
+              torch.zeros(16, device='cuda:1')]
+    with pytest.raises(RuntimeError, match='peer access'):
+        gpu_kernels.ring_permute(blocks)
+
+
+def _mesh_block(mesh):
+    """A CorrelateBlock (K7 forced) under ``block_scope(mesh=mesh)``, fed
+    by a device ring."""
+    import contextlib
+    import bifrost_tpu_torch as bt
+
+    class _Src(bt.SourceBlock):
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+    with bt.Pipeline():
+        h2d = bt.blocks.copy(_Src(['x'], 16, space='system'), space='cuda')
+        with bt.block_scope(mesh=mesh):
+            return bt.blocks.correlate(h2d, 64, accuracy='int8',
+                                       impl='pallas')
+
+
+def test_mesh_correlator_plans_byte_equal_on_one_card():
+    """psum (K7 per rank), corner:xla and corner:pallas (K9 hops) on four
+    ranks of cuda:0, each byte-equal to the single-device product."""
+    from bifrost_tpu_torch import parallel as par
+    g = torch.Generator(device='cuda').manual_seed(5)
+    x = torch.randint(-128, 128, (64, 16, 24, 2, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    mesh = par.create_mesh({'sp': 4}, devices=['cuda:0'] * 4)
+    single = _mesh_block(None)._local_vis_fn(True)(x)
+    for plan in ('psum', 'corner:xla', 'corner:pallas'):
+        blk = _mesh_block(mesh)
+        before = dict(gpu_kernels.launches)
+        got = blk._build_mesh(tuple(x.shape), 'int8', True, plan)(x)
+        torch.cuda.synchronize()
+        n = {k: gpu_kernels.launches[k] - before[k] for k in before}
+        assert n['xcorr_herm'] == 4, (plan, n)
+        assert n['ring_permute'] == (3 if plan == 'corner:pallas' else 0)
+        assert torch.equal(got, single), plan

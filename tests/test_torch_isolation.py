@@ -47,7 +47,11 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.ops.transpose, "
              "bifrost_tpu_torch.blocks.fdmt, "
              "bifrost_tpu_torch.blocks.sigproc, "
-             "bifrost_tpu_torch.blocks.transpose\n"
+             "bifrost_tpu_torch.blocks.transpose, "
+             "bifrost_tpu_torch.parallel, bifrost_tpu_torch.parallel.mesh, "
+             "bifrost_tpu_torch.parallel.ops, "
+             "bifrost_tpu_torch.parallel.corner_turn, "
+             "bifrost_tpu_torch.parallel.scope\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -101,6 +105,38 @@ def test_fdmt_entry_points_import_without_a_device():
              "print(sorted(_build._libs), 'fdmt' in _build.SOURCES)\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '[] True'
+
+
+def test_mesh_entry_points_import_without_a_device():
+    """The mesh tier and the corner turn import, building no kernel and
+    touching no device, and K9's source is in the build."""
+    p = _run("import bifrost_tpu_torch as bt\n"
+             "from bifrost_tpu_torch import parallel as par\n"
+             "for f in ('create_mesh', 'local_mesh', 'corner_turn', "
+             "'corner_turn_local', 'sharded_fdmt', 'shard_map', 'psum'):\n"
+             "    assert callable(getattr(par, f))\n"
+             "assert callable(bt.ops.gpu_kernels.ring_permute)\n"
+             "assert 'mesh' in bt.BlockScope._TUNABLES\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), 'ring_permute' in _build.SOURCES)\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[] True'
+
+
+def test_default_mesh_needs_the_card_or_a_cpu_request():
+    """create_mesh() with no devices asks get_device(): without a card
+    and without set_device('cpu') it raises, never builds a CPU mesh on
+    its own."""
+    p = _run("from bifrost_tpu_torch import parallel as par\n"
+             "try:\n"
+             "    par.create_mesh()\n"
+             "except RuntimeError as e:\n"
+             "    print('raised')\n"
+             "from bifrost_tpu_torch import device\n"
+             "device.set_device('cpu')\n"
+             "print(par.create_mesh().size)\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.split() == ['raised', '8']
 
 
 def test_get_device_raises_without_gpu_or_cpu_request():
