@@ -7,15 +7,16 @@
 //   K6 bf_beamform_detect_int8  both pols' int8 beamform -> x scale ->
 //                               Stokes I, Q, U, V -> sum of R frames
 //
-// All three tile one frequency channel per block (with tiles of time and
+// K4 and K6 tile one frequency channel per block (with tiles of time and
 // beams), loop over the stations in chunks staged in shared memory, and
 // compute the four real dots of the complex product
 //   yr = r . wr - i . wi,   yi = r . wi + i . wr
 // with separate accumulators, as the Pallas kernels and the plain PyTorch
-// versions do.  Voltages come with strides, so the per-pol views that
-// BeamformStage takes of a (T, F, S, P, 2) ci8 gulp are read in place.
-// Offsets are 64-bit; ragged edges (T, B, S not multiples of a tile) are
-// zero-filled in shared memory and masked on store.
+// versions do.  K5 computes the same product as one real GEMM over every
+// channel (its note below).  Voltages come with strides, so the per-pol
+// views that BeamformStage takes of a (T, F, S, P, 2) ci8 gulp are read in
+// place.  Offsets are 64-bit; ragged edges (T, B, S not multiples of a
+// tile) are zero-filled in shared memory and masked on store.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -32,10 +33,10 @@ constexpr int kThreads = 256;
 // at :265), candidate 'pallas' of the beamformer engine, one launch per pol.
 //
 // Bound on the H100: memory.  Per pol of the 512 x 512 x 256-station,
-// 64-beam gulp it writes 2 x (T, F, B) int32 = 134 MB and reads its pol's
-// 134 MB of interleaved ci8 rows (the other pol's bytes share the cache
-// lines): about 0.08 ms at 3.35 TB/s, against 0.017 ms for its 34 G int8
-// ops at 1,979 TOP/s.
+// 64-beam gulp it writes 2 x (T, F, B) int32 = 134.2 MB and reads the
+// whole 268.4 MB gulp (the pol's view of interleaved ci8 rows touches
+// every 32-byte sector, the other pol's bytes in each): 0.120 ms at
+// 3.35 TB/s, against 0.017 ms for its 34 G int8 ops at 1,979 TOP/s.
 //
 // Design: one block per (channel, 32 time rows, 32 beams); 256 threads,
 // each owning 4 rows x 1 beam.  Stations are staged 128 at a time, packed
@@ -141,34 +142,104 @@ beamform_int8_kernel(const int8_t* __restrict__ wr,
 // Replaces: bifrost_tpu/ops/pallas_kernels.py:beamform_bf16 (pl.pallas_call
 // at :307), candidate 'pallas_bf16', one launch per pol.
 //
-// Bound on the H100: memory.  Per pol: 2 x (T, F, B) f32 out (134 MB) plus
-// the pol's voltages in (134 MB of int8): about 0.08 ms at 3.35 TB/s,
-// against 0.035 ms for its 34 G operations at the 989 TFLOP/s bf16 rate.
+// Bound on the H100: memory.  The per-pol view x[:, :, :, p, 0] of a
+// (T, F, S, 2, 2) ci8 gulp touches every 32-byte sector of the gulp, so a
+// launch reads all of it: at 512 x 512 x 256 stations and 64 beams,
+// 268.4 MB in and 2 x (T, F, B) f32 = 134.2 MB out, 0.120 ms at
+// 3.35 TB/s, against 0.035 ms for its 34.4 G operations at the 989
+// TFLOP/s bf16 rate (0.05-0.07 ms at mma.sync rates).
 //
-// Design: one block of 4 warps per (channel, 64 time rows, 32 beams); each
-// warp owns 16 rows x 32 beams as four m16n8 tiles and issues
-// mma.sync.m16n8k16 bf16 with f32 accumulation, four products (r.wr, i.wi,
-// r.wi, i.wr) per tile and k-step, kept apart until the end as the plain
-// version keeps its four dots apart.  Voltages (int8, exact in bf16, or
-// f32) and f32 weights are rounded to bf16 with __float2bfloat16_rn
-// (round to nearest even, as torch's .bfloat16() and XLA's convert) while
-// they are staged, 64 stations at a time, in shared-memory rows padded to
-// 36 words so that a fragment load's 32 lanes hit 32 banks.
+// Design: one real GEMM over every channel.  Row m = (t, f) of the view
+// (M = T * F), K = 2S station-interleaved (k = 2s is re_s, k = 2s + 1 is
+// im_s), N = 2B (column b is yr[b], column B + b is yi[b]), against the
+// widened panel W2[2s][b] = wr, W2[2s+1][b] = -wi, W2[2s][B+b] = wi,
+// W2[2s+1][B+b] = wr (bf16 rounding is symmetric: bf16(-w) = -bf16(w)).
+// One f32 accumulator per output replaces the four products.  An A
+// register of mma.sync.m16n8k16 holds two consecutive k, i.e. one
+// (re_s, im_s) pair: two adjacent bytes of the gulp, converted exactly to
+// a bf16x2.
+//
+// - Tiles: 128 rows x 128 columns (64 beams) per block.  Eight consumer
+//   warps each own 32 rows x 64 columns of one plane (warps 0-3 yr, 4-7
+//   yi) and load their fragments with ldmatrix from shared rows of bf16
+//   pairs padded to 68 words (conflict-free).
+// - Warp specialization: two producer groups of four warps stage
+//   alternate K chunks (64 stations) into two shared stages; named
+//   barriers hand a stage to the consumers (full) and back (free), so the
+//   loads, the conversion, the products and the output stores of
+//   different chunks overlap instead of taking turns at a block barrier.
+// - Resident weights, persistent grid: one block per SM; the consumers
+//   convert the f32 weight planes once to the n-major W2 panel in dynamic
+//   shared memory (2S x 128 bf16 plus padding: 130 KB at S = 256) and the
+//   block walks the M tiles (and the N tiles when B > 64, rebuilding the
+//   panel when its N tile changes).  Where the panel does not fit
+//   (S > 256), the producers stage each chunk's part of it from L2 beside
+//   the voltages instead.
+// - 16-byte staging (SS = 4 or 2, the interleaved int8 layout with im one
+//   byte after re): a producer thread loads 16 bytes of a row (4 stations
+//   of both pols, or 8 of one), keeps its pol's pairs, converts them (one
+//   byte_perm and one add a value) and stores 16 bytes of bf16 pairs; its
+//   next chunk's loads go out as soon as the stage is handed over.  Every
+//   other layout (separate planes, f32 voltages, odd strides) goes
+//   through the scalar staging of the same kernel (SS = 0) into the same
+//   shared layout.
+// - Epilogue: a C fragment's pair is two adjacent columns of one row,
+//   stored as a float2 (streaming stores), rows and beams masked.
 // ---------------------------------------------------------------------------
 
-constexpr int kTT5 = 64;           // time rows per tile (K5)
-constexpr int kBT5 = 32;           // beams per tile (K5)
-constexpr int kSC5 = 64;           // stations per staged chunk (K5)
-constexpr int kRow5 = kSC5 + 8;    // padded bf16 per staged row (K5)
-constexpr int kThreads5 = 128;
+constexpr int kCons5 = 256;            // consumer threads: 8 warps of mma
+constexpr int kProd5 = 128;            // threads of one producer group
+constexpr int kThreads5 = kCons5 + 2 * kProd5;
+constexpr int kBM5 = 128;              // rows (t, f) per tile (K5)
+constexpr int kBN5 = 128;              // columns per tile: 64 beams x 2
+constexpr int kSC5 = 64;               // stations per K chunk (K5)
+constexpr int kAW5 = kSC5 + 4;         // padded words per staged row (K5)
+constexpr int kBufA5 = kBM5 * kAW5;    // words of one staged voltage chunk
+constexpr int kBufW5 = kBN5 * kAW5;    // words of one streamed panel chunk
+// named barriers: stage s full (1 + s), stage s free (3 + s), consumers (5)
+constexpr int kBarFull5 = 1, kBarFree5 = 3, kBarCons5 = 5;
 
-template <typename V>
-__device__ __forceinline__ __nv_bfloat16 to_bf16(V v) {
-  return __float2bfloat16_rn((float)v);
+struct K5Args {
+  const float* wr;
+  const float* wi;
+  const char* re;       // scalar path: the re plane; 16-byte path: row base
+  const char* im;
+  float* yr;
+  float* yi;
+  long long st, sf, ss; // element strides of the voltage planes
+  int M, F, S, B;
+  int nchunk;           // K chunks of kSC5 stations
+  int ntile_m, ntiles;
+  int pbyte;            // 16-byte path: byte of re in a station word
+  int resident;         // the whole W2 panel lives in shared memory
+  int pw;               // words per panel row when resident
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  // round to nearest even, lo in the low half (the lower k)
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t ci8_bf16x2(uint32_t w, int b) {
+  // the int8 pair (re, im) at bytes b, b + 1 of w, biased by 0x80 (w is
+  // the gulp's word xor 0x80808080) -> bf16x2 (re low), exact: the byte
+  // u = x + 128 under 0x4b000000 is the float 2^23 + u, minus 2^23 + 128
+  // is x, and an integer of 8 bits is its float's top 16 bits
+  const float r = __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7540 + b)) -
+                  8388736.f;
+  const float i = __uint_as_float(__byte_perm(w, 0x4b000000u, 0x7541 + b)) -
+                  8388736.f;
+  return __byte_perm(__float_as_uint(r), __float_as_uint(i), 0x7632);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const uint32_t* p) {
+  // four 8 x 8 b16 matrices, lane l giving row l % 8 of matrix l / 8
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -181,96 +252,229 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename V>
-__global__ void __launch_bounds__(kThreads5)
-beamform_bf16_kernel(const float* __restrict__ wr,
-                     const float* __restrict__ wi,
-                     const V* __restrict__ re, const V* __restrict__ im,
-                     float* __restrict__ yr, float* __restrict__ yi,
-                     int ntime, int nfreq, int nstand, int nbeam,
-                     int64_t st, int64_t sf, int64_t ss, int ntile_t,
-                     int ntile_b) {
-  __shared__ __align__(16) __nv_bfloat16 s_r[kTT5][kRow5];
-  __shared__ __align__(16) __nv_bfloat16 s_i[kTT5][kRow5];
-  __shared__ __align__(16) __nv_bfloat16 s_wr[kBT5][kRow5];
-  __shared__ __align__(16) __nv_bfloat16 s_wi[kBT5][kRow5];
-  int64_t blk = blockIdx.x;
-  const int tb = (int)(blk % ntile_b);
-  blk /= ntile_b;
-  const int tt = (int)(blk % ntile_t);
-  const int f = (int)(blk / ntile_t);
-  const int t0 = tt * kTT5, b0 = tb * kBT5;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;       // mma groupID, thread in group
-  float acc[4][4][4];                         // [n tile][rr, ii, ri, ir][c]
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][k][c] = 0.f;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int s0 = 0; s0 < nstand; s0 += kSC5) {
-    const int ns = min(kSC5, nstand - s0);
-    for (int i = threadIdx.x; i < kTT5 * kSC5; i += kThreads5) {
-      const int row = i / kSC5, s = i % kSC5, t = t0 + row;
-      __nv_bfloat16 vr = zero, vi = zero;
-      if (t < ntime && s < ns) {
-        const int64_t o = t * st + f * sf + (s0 + s) * ss;
-        vr = to_bf16(re[o]);
-        vi = to_bf16(im[o]);
-      }
-      s_r[row][s] = vr;
-      s_i[row][s] = vi;
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// W2 columns of beams b0 .. b0 + 63 (yr then yi), stations s0 .. s0 + ns - 1,
+// as bf16x2 (k pair) words, n-major with ws words per column, zero past B
+// and S; thread i0 of nthr
+__device__ __forceinline__ void stage_panel(uint32_t* w, int ws,
+                                            const K5Args& a, int b0, int s0,
+                                            int ns, int i0, int nthr) {
+#pragma unroll 4
+  for (int idx = i0; idx < 64 * ns; idx += nthr) {
+    const int n = idx / ns, sl = idx - n * ns;
+    const int b = b0 + n, s = s0 + sl;
+    float c = 0.f, d = 0.f;
+    if (b < a.B && s < a.S) {
+      c = __ldg(a.wr + (int64_t)b * a.S + s);
+      d = __ldg(a.wi + (int64_t)b * a.S + s);
     }
-    for (int i = threadIdx.x; i < kBT5 * kSC5; i += kThreads5) {
-      const int row = i / kSC5, s = i % kSC5, b = b0 + row;
-      __nv_bfloat16 a = zero, c = zero;
-      if (b < nbeam && s < ns) {
-        const int64_t o = (int64_t)b * nstand + s0 + s;
-        a = to_bf16(__ldg(wr + o));
-        c = to_bf16(__ldg(wi + o));
-      }
-      s_wr[row][s] = a;
-      s_wi[row][s] = c;
-    }
-    __syncthreads();
-    const int nk = (ns + 15) / 16;
-    const int r0 = warp * 16 + g;
-    for (int kk = 0; kk < nk; ++kk) {
-      const int k0 = kk * 16 + 2 * q;
-      const uint32_t ar[4] = {ld32(&s_r[r0][k0]), ld32(&s_r[r0 + 8][k0]),
-                              ld32(&s_r[r0][k0 + 8]),
-                              ld32(&s_r[r0 + 8][k0 + 8])};
-      const uint32_t ai[4] = {ld32(&s_i[r0][k0]), ld32(&s_i[r0 + 8][k0]),
-                              ld32(&s_i[r0][k0 + 8]),
-                              ld32(&s_i[r0 + 8][k0 + 8])};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = j * 8 + g;
-        const uint32_t br0 = ld32(&s_wr[n][k0]), br1 = ld32(&s_wr[n][k0 + 8]);
-        const uint32_t bi0 = ld32(&s_wi[n][k0]), bi1 = ld32(&s_wi[n][k0 + 8]);
-        mma_bf16(acc[j][0], ar, br0, br1);
-        mma_bf16(acc[j][1], ai, bi0, bi1);
-        mma_bf16(acc[j][2], ar, bi0, bi1);
-        mma_bf16(acc[j][3], ai, br0, br1);
-      }
-    }
-    __syncthreads();
+    w[n * ws + sl] = pack_bf16x2(c, -d);
+    w[(n + 64) * ws + sl] = pack_bf16x2(d, c);
   }
+}
+
+// scalar staging of chunk c of the rows m0 .. m0 + 127: one pair a thread
+// per (row, station), zero past M and S; thread i0 of nthr
+template <typename V>
+__device__ __forceinline__ void stage_scalar(uint32_t* sa, const K5Args& a,
+                                             int m0, int c, int i0,
+                                             int nthr) {
+  const V* re = reinterpret_cast<const V*>(a.re);
+  const V* im = reinterpret_cast<const V*>(a.im);
+  const int sl = i0 % kSC5, s = c * kSC5 + sl;
+  for (int r = i0 / kSC5; r < kBM5; r += nthr / kSC5) {
+    const int m = m0 + r;
+    uint32_t v = 0u;
+    if (m < a.M && s < a.S) {
+      const int t = m / a.F, f = m - t * a.F;
+      const int64_t o = t * a.st + f * a.sf + s * a.ss;
+      v = pack_bf16x2((float)re[o], (float)im[o]);
+    }
+    sa[r * kAW5 + sl] = v;
+  }
+}
+
+// Producer group G (threads kCons5 + G * kProd5 ...) stages chunks k = G,
+// G + 2, ... of the block's sequence into stage G.
+template <int SS, typename V>
+__device__ __forceinline__ void k5_producer(const K5Args& a, uint32_t* sa,
+                                            uint32_t* sw, int G, int nseq) {
+  constexpr int kVR = SS ? kSC5 * SS / 16 : 1;   // vectors per row, chunk
+  constexpr int kSV = SS ? 16 / SS : 1;          // stations per vector
+  constexpr int kNV = SS ? kBM5 * kVR / kProd5 : 1;
+  constexpr int kRS = kProd5 / kVR;              // row step
+  const int pt = threadIdx.x - kCons5 - G * kProd5;
+  const int vv = pt % kVR, vr = pt / kVR;
+  uint4 pre[kNV];
+  auto load = [&](int k) {
+    const int tile = blockIdx.x + (k / a.nchunk) * gridDim.x;
+    const int c = k % a.nchunk;
+    const int m0 = (tile % a.ntile_m) * kBM5, s = c * kSC5 + vv * kSV;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+    for (int i = 0; i < kNV; ++i) {
+      const int m = m0 + vr + i * kRS;
+      pre[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (m < a.M && s < a.S) {
+        const int t = m / a.F, f = m - t * a.F;
+        pre[i] = __ldcs(reinterpret_cast<const uint4*>(
+            a.re + t * a.st + f * a.sf + (int64_t)s * SS));
+      }
+    }
+  };
+  uint32_t* const A = sa + G * kBufA5;
+  if (SS && G < nseq) load(G);
+  for (int k = G; k < nseq; k += 2) {
+    const int tile = blockIdx.x + (k / a.nchunk) * gridDim.x;
+    const int c = k % a.nchunk;
+    const int nt = tile / a.ntile_m;
+    if (k >= 2) bar_sync(kBarFree5 + G, kCons5 + kProd5);
+    if (SS) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int t = t0 + warp * 16 + g + (c >= 2 ? 8 : 0);
-      const int b = b0 + j * 8 + 2 * q + (c & 1);
-      if (t >= ntime || b >= nbeam) continue;
-      const int64_t o = ((int64_t)t * nfreq + f) * nbeam + b;
-      yr[o] = __fsub_rn(acc[j][0][c], acc[j][1][c]);
-      yi[o] = __fadd_rn(acc[j][2][c], acc[j][3][c]);
+      for (int i = 0; i < kNV; ++i) {
+        uint32_t* p = A + (vr + i * kRS) * kAW5 + vv * kSV;
+        const uint4 w = make_uint4(pre[i].x ^ 0x80808080u,
+                                   pre[i].y ^ 0x80808080u,
+                                   pre[i].z ^ 0x80808080u,
+                                   pre[i].w ^ 0x80808080u);
+        if (SS == 4) {
+          *reinterpret_cast<uint4*>(p) = make_uint4(
+              ci8_bf16x2(w.x, a.pbyte), ci8_bf16x2(w.y, a.pbyte),
+              ci8_bf16x2(w.z, a.pbyte), ci8_bf16x2(w.w, a.pbyte));
+        } else {
+          *reinterpret_cast<uint4*>(p) = make_uint4(
+              ci8_bf16x2(w.x, 0), ci8_bf16x2(w.x, 2), ci8_bf16x2(w.y, 0),
+              ci8_bf16x2(w.y, 2));
+          *reinterpret_cast<uint4*>(p + 4) = make_uint4(
+              ci8_bf16x2(w.z, 0), ci8_bf16x2(w.z, 2), ci8_bf16x2(w.w, 0),
+              ci8_bf16x2(w.w, 2));
+        }
+      }
+    } else {
+      stage_scalar<V>(A, a, (tile - nt * a.ntile_m) * kBM5, c, pt, kProd5);
+    }
+    if (!a.resident)
+      stage_panel(sw + G * kBufW5, kAW5, a, nt * 64, c * kSC5, kSC5, pt,
+                  kProd5);
+    bar_arrive(kBarFull5 + G, kCons5 + kProd5);
+    if (SS && k + 2 < nseq) load(k + 2);
+  }
+  // the consumers' release of this group's last chunk
+  if (G < nseq) bar_sync(kBarFree5 + G, kCons5 + kProd5);
+}
+
+template <int SS, typename V>
+__global__ void __launch_bounds__(kThreads5, 1)
+beamform_bf16_kernel(const K5Args a) {
+  extern __shared__ __align__(16) uint32_t smem5[];
+  uint32_t* const sa = smem5;                // 2 staged voltage chunks
+  uint32_t* const sw = smem5 + 2 * kBufA5;   // panel, or 2 panel chunks
+  // the block's chunks in order: its tiles blockIdx.x + i * gridDim.x,
+  // nchunk chunks each; chunk k lives in stage k % 2
+  const int nseq = ((a.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+                   a.nchunk;
+  if (threadIdx.x >= kCons5) {
+    k5_producer<SS, V>(a, sa, sw, (threadIdx.x - kCons5) / kProd5, nseq);
+    return;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;      // mma groupID, thread in group
+  const int wm = warp & 3, wn = warp >> 2;   // warp's rows, plane
+  // ldmatrix rows: A's four 8 x 8 blocks (rows +0/+8, k +0/+8) give an
+  // m16 fragment, W's (n +0/+8, k +0/+8) the B fragments of two n8 tiles
+  const int l8 = lane & 7, lm = lane >> 3;
+  const int aoff = (wm * 32 + l8 + 8 * (lm & 1)) * kAW5 + 4 * (lm >> 1);
+  const int wrow = wn * 64 + l8 + 8 * (lm >> 1), wcol = 4 * (lm & 1);
+  float acc[2][8][4];
+  int tile = blockIdx.x, c = 0, cur_nt = -1;
+  for (int k = 0; k < nseq; ++k) {
+    const int st = k & 1;
+    const int nt = tile / a.ntile_m;
+    const int m0 = (tile - nt * a.ntile_m) * kBM5, b0 = nt * 64;
+    if (c == 0) {
+      if (a.resident && nt != cur_nt) {
+        bar_sync(kBarCons5, kCons5);         // the old panel is read out
+        stage_panel(sw, a.pw, a, b0, 0, a.nchunk * kSC5, threadIdx.x,
+                    kCons5);
+        bar_sync(kBarCons5, kCons5);
+        cur_nt = nt;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    const uint32_t* ap = sa + st * kBufA5 + aoff;
+    const uint32_t* wp;
+    int ws;
+    if (a.resident) {
+      ws = a.pw;
+      wp = sw + wrow * ws + wcol + c * kSC5;
+    } else {
+      ws = kAW5;
+      wp = sw + st * kBufW5 + wrow * ws + wcol;
+    }
+    bar_sync(kBarFull5 + st, kCons5 + kProd5);
+#pragma unroll
+    for (int ks = 0; ks < kSC5 / 8; ++ks) {
+      uint32_t af[2][4];
+      ldsm_x4(af[0], ap + ks * 8);
+      ldsm_x4(af[1], ap + 16 * kAW5 + ks * 8);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, wp + jj * 16 * ws + ks * 8);
+        mma_bf16(acc[0][2 * jj], af[0], bf[0], bf[1]);
+        mma_bf16(acc[1][2 * jj], af[1], bf[0], bf[1]);
+        mma_bf16(acc[0][2 * jj + 1], af[0], bf[2], bf[3]);
+        mma_bf16(acc[1][2 * jj + 1], af[1], bf[2], bf[3]);
+      }
+    }
+    bar_arrive(kBarFree5 + st, kCons5 + kProd5);
+    if (++c < a.nchunk) continue;
+    c = 0;
+    tile += gridDim.x;
+    float* const out = wn ? a.yi : a.yr;
+    const bool pairs = (a.B & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+        if (m >= a.M) continue;
+        float* row = out + (int64_t)m * a.B;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int b = b0 + j * 8 + 2 * q;
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          if (pairs && b + 1 < a.B) {
+            __stcs(reinterpret_cast<float2*>(row + b), make_float2(v0, v1));
+          } else {
+            if (b < a.B) __stcs(row + b, v0);
+            if (b + 1 < a.B) __stcs(row + b + 1, v1);
+          }
+        }
+      }
     }
   }
 }
+
+constexpr int kMaxDev5 = 64;
+
+struct K5Dev {
+  int sms, smem;  // SM count, shared memory a block may opt in to
+  bool attr[4];   // the dynamic shared-memory attribute is set, per kernel
+};
+
+K5Dev k5_dev[kMaxDev5];
 
 // ---------------------------------------------------------------------------
 // K6: both pols' int8 beamform -> x scale -> Stokes -> sum of R frames.
@@ -460,25 +664,85 @@ int bf_beamform_int8(const void* wr, const void* wi, const void* re,
 // K5.  wr, wi: (nbeam, nstand) float32, contiguous.  re, im: (ntime, nfreq,
 // nstand), int8 (vtype 0) or float32 (vtype 1), element strides st, sf, ss
 // shared by both.  yr, yi: (ntime, nfreq, nbeam) float32, contiguous.
+// vec 4 or 2 takes the 16-byte staging: int8 planes with im one byte after
+// re, ss == vec, re at byte poff (poff + 2 <= vec) of 16-byte aligned rows
+// (st, sf multiples of 16) and nstand * vec a multiple of 16; vec 0 the
+// scalar staging.  Returns a cudaError_t value.
 int bf_beamform_bf16(const void* wr, const void* wi, const void* re,
-                     const void* im, void* yr, void* yi, int vtype,
-                     int ntime, int nfreq, int nstand, int nbeam,
+                     const void* im, void* yr, void* yi, int vtype, int vec,
+                     int poff, int ntime, int nfreq, int nstand, int nbeam,
                      long long st, long long sf, long long ss, void* stream) {
   if (ntime <= 0 || nfreq <= 0 || nbeam <= 0) return 0;
-  const int ntt = (int)cdiv(ntime, kTT5), ntb = (int)cdiv(nbeam, kBT5);
-  const int64_t nblk = (int64_t)nfreq * ntt * ntb;
-  if (nblk > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vtype == 0)
-    beamform_bf16_kernel<int8_t><<<(unsigned)nblk, kThreads5, 0, s>>>(
-        (const float*)wr, (const float*)wi, (const int8_t*)re,
-        (const int8_t*)im, (float*)yr, (float*)yi, ntime, nfreq, nstand,
-        nbeam, st, sf, ss, ntt, ntb);
-  else
-    beamform_bf16_kernel<float><<<(unsigned)nblk, kThreads5, 0, s>>>(
-        (const float*)wr, (const float*)wi, (const float*)re,
-        (const float*)im, (float*)yr, (float*)yi, ntime, nfreq, nstand,
-        nbeam, st, sf, ss, ntt, ntb);
+  const int64_t M = (int64_t)ntime * nfreq;
+  const int64_t ntile_m = cdiv(M, kBM5), ntile_n = cdiv(nbeam, 64);
+  if (M + kBM5 > 0x7fffffff || ntile_m * ntile_n > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (nstand <= 0) {                        // empty sums
+    const size_t n = (size_t)M * nbeam * sizeof(float);
+    err = cudaMemsetAsync(yr, 0, n, (cudaStream_t)stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(yi, 0, n, (cudaStream_t)stream);
+    return (int)err;
+  }
+  const char* base = (const char*)re;
+  if (vec) {
+    base -= poff;
+    if (vtype != 0 || (vec != 2 && vec != 4) || ss != vec || poff < 0 ||
+        poff + 2 > vec || (const char*)im != (const char*)re + 1 ||
+        (uintptr_t)base % 16 || st % 16 || sf % 16 ||
+        ((int64_t)nstand * vec) % 16)
+      return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDev5) return (int)cudaErrorInvalidDevice;
+  K5Dev& d = k5_dev[dev];
+  if (d.sms == 0) {
+    int sms = 0, smem = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    d.smem = smem;
+    d.sms = sms;
+  }
+  const int nchunk = (int)cdiv(nstand, kSC5);
+  const int pw = nchunk * kSC5 + 4;
+  const size_t abytes = 2 * (size_t)kBufA5 * 4;
+  const size_t rbytes = abytes + (size_t)kBN5 * pw * 4;
+  const size_t sbytes = abytes + 2 * (size_t)kBufW5 * 4;
+  const int resident = rbytes <= (size_t)d.smem;
+  const size_t bytes = resident ? rbytes : sbytes;
+  if (bytes > (size_t)d.smem) return (int)cudaErrorInvalidConfiguration;
+  const int ntiles = (int)(ntile_m * ntile_n);
+  K5Args a{(const float*)wr, (const float*)wi, base, (const char*)im,
+           (float*)yr, (float*)yi, st, sf, ss, (int)M, nfreq, nstand, nbeam,
+           nchunk, (int)ntile_m, ntiles, poff, resident, pw};
+  void (*kernel)(const K5Args) = &beamform_bf16_kernel<0, float>;
+  int which = 3;
+  if (vec == 4) {
+    kernel = &beamform_bf16_kernel<4, int8_t>;
+    which = 0;
+  } else if (vec == 2) {
+    kernel = &beamform_bf16_kernel<2, int8_t>;
+    which = 1;
+  } else if (vtype == 0) {
+    kernel = &beamform_bf16_kernel<0, int8_t>;
+    which = 2;
+  }
+  if (!d.attr[which]) {
+    // above 48 KB only after this; a launch without it is refused
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d.smem);
+    if (err != cudaSuccess) return (int)err;
+    d.attr[which] = true;
+  }
+  const int grid = ntiles < d.sms ? ntiles : d.sms;
+  kernel<<<grid, kThreads5, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -37,16 +37,20 @@ import os
 
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_int8_plain', 'beamform_bf16', 'beamform_bf16_plain',
-           'beamform_detect_int8', 'beamform_detect_int8_plain',
-           'probe', 'available', 'enabled', 'xcorr_herm',
-           'xcorr_herm_plain', 'xcorr_cross', 'xcorr_cross_plain',
-           'fdmt_step', 'fdmt_step_plain', 'ring_permute',
-           'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME', 'launches']
+           'bf16_staging', 'beamform_detect_int8',
+           'beamform_detect_int8_plain', 'probe', 'available', 'enabled',
+           'xcorr_herm', 'xcorr_herm_plain', 'xcorr_cross',
+           'xcorr_cross_plain', 'fdmt_step', 'fdmt_step_plain',
+           'ring_permute', 'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME',
+           'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
+#: (``beamform_bf16_vec16`` counts the K5 launches that took the 16-byte
+#: staging path, a subset of ``beamform_bf16``)
 launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
-            'beamform_detect_int8': 0, 'probe': 0, 'xcorr_herm': 0,
-            'xcorr_cross': 0, 'fdmt_step': 0, 'ring_permute': 0}
+            'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0, 'probe': 0,
+            'xcorr_herm': 0, 'xcorr_cross': 0, 'fdmt_step': 0,
+            'ring_permute': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
@@ -229,11 +233,32 @@ def beamform_int8(wr, wi, re, im):
     return yr, yi
 
 
+def bf16_staging(re, im):
+    """``(vec, poff)`` of K5's 16-byte staging for the voltage planes
+    ``re``, ``im``, or ``(0, 0)`` for its scalar staging.  The 16-byte
+    path takes the interleaved int8 layout of a ci8 gulp's per-pol views:
+    ``im`` one byte after ``re``, a station stride ``vec`` of 2 or 4 bytes
+    with the pair at byte ``poff`` of it (pol 1 of a dual-pol gulp starts
+    2 bytes into the row), rows that start on 16 bytes, and ``S * vec`` a
+    multiple of 16."""
+    import torch
+    if re.dtype != torch.int8:
+        return 0, 0
+    st, sf, ss = re.stride()
+    poff = re.data_ptr() % 16
+    if ss not in (2, 4) or im.data_ptr() != re.data_ptr() + 1 or \
+            poff + 2 > ss or st % 16 or sf % 16 or (re.shape[2] * ss) % 16:
+        return 0, 0
+    return ss, poff
+
+
 def beamform_bf16(wr, wi, re, im):
     """K5: float32 weights (B, S) and int8 or float32 voltage planes
     (T, F, S) -> (yr, yi), two (T, F, B) float32 planes: the four dots
     of :func:`beamform_int8` on bf16-rounded operands with float32
-    accumulation.  Strided voltage planes are read in place."""
+    accumulation, as one GEMM over every channel.  Strided voltage planes
+    are read in place; the per-pol views of a ci8 gulp through 16-byte
+    loads (:func:`bf16_staging`)."""
     import torch
     _check_beamform(wr, wi, re, im, (torch.float32,),
                     (torch.int8, torch.float32), 'beamform_bf16')
@@ -242,18 +267,21 @@ def beamform_bf16(wr, wi, re, im):
     T, F, S = re.shape
     B = wr.shape[0]
     st, sf, ss = _voltage_strides(re, im, 'beamform_bf16')
+    vec, poff = bf16_staging(re, im)
     wr, wi = wr.contiguous(), wi.contiguous()
     yr = torch.empty((T, F, B), dtype=torch.float32, device=re.device)
     yi = torch.empty_like(yr)
     from .. import _build
     lib, fn = _fn('beamform', 'bf_beamform_bf16',
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
                   [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
-             0 if re.dtype == torch.int8 else 1, T, F, S, B, st, sf, ss,
-             _build.stream_ptr(re.device))
+             0 if re.dtype == torch.int8 else 1, vec, poff, T, F, S, B,
+             st, sf, ss, _build.stream_ptr(re.device))
     _build.check(lib, err, 'beamform_bf16')
     launches['beamform_bf16'] += 1
+    if vec:
+        launches['beamform_bf16_vec16'] += 1
     return yr, yi
 
 

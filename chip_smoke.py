@@ -25,21 +25,26 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
 6. runs the beamformer kernels at the full-width shapes of BASELINE
    config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
    beams, R=8): K4 (int8) bit-identical to its plain version and to the
-   int64 oracle on three channels, K5 (bf16) within 1e-5 of its plain
-   version, K6 (beamform -> Stokes -> integrate) within 1e-6 of its plain
+   int64 oracle on three channels, K5 (bf16, one GEMM over every
+   channel) within 1e-5 of its plain version and inside the bf16 class of
+   the float64 oracle, its launch on the per-pol view through the 16-byte
+   staging, K6 (beamform -> Stokes -> integrate) within 1e-6 of its plain
    version and below 1e-5 against the float64 oracle on a T=64 cut; each
    timed with CUDA events beside its plain version and a library
-   yardstick;
+   yardstick (K5 also queued, against torch.mm with an f32 output and
+   the bf16-output torch.matmul); K4 and K5 count the whole gulp read by
+   each per-pol launch;
 7. drives the beamformer chain through the Pipeline at that width (3
    warm-up and 16 timed gulps) in four arms, K6 (fused substitution),
    K4 and K5 (beamform block with the kernel forced -> fused Stokes and
    frame sum) and f32 (the complex64 baseline), zeroing the launch
    counters just before and reading them just after each; K6 must
-   launch once per gulp, K4 and K5 twice (once per pol).  The K4 and K6
-   arms must agree within 1e-5, each arm must stay inside its accuracy
-   class of the f32 arm, and every output must be finite and
-   (64, 512, 4, 64).  A fifth arm leaves the candidate to the engine's
-   race, in a fresh probe-cache directory, and prints its choice;
+   launch once per gulp, K4 and K5 twice (once per pol), every K5 launch
+   through the 16-byte staging.  The K4 and K6 arms must agree within
+   1e-5, each arm must stay inside its accuracy class of the f32 arm, and
+   every output must be finite and (64, 512, 4, 64).  A fifth arm leaves
+   the candidate to the engine's race, in a fresh probe-cache directory,
+   prints its choice and stays inside the int8 class;
 8. checks the capability probe K0: available() is True on the card and
    launches the probe kernel once (a second call is cached);
 9. runs the correlator kernels at the FX path's shapes: K7 (xcorr_herm)
@@ -592,8 +597,10 @@ def phase_beamform_kernels(gpu_kernels, beam):
     # widened operands of the library yardsticks, built untimed
     w2 = cuda(beam._wide_weight_block(eng.wr8, eng.wi8)[0])
     z = torch.cat([re, im], dim=-1).reshape(T * F, 2 * S)
+    # a pol's view touches every 32-byte sector of the interleaved gulp, so
+    # each per-pol launch reads the whole gulp
     out_bytes = 2 * T * F * B * 4
-    in_bytes = 2 * T * F * S + 2 * B * S
+    gulp_bytes = x.numel()
     nops = 8 * T * F * B * S
 
     # K4: exact int32
@@ -617,14 +624,21 @@ def phase_beamform_kernels(gpu_kernels, beam):
         cuda_ms(lambda: gpu_kernels.beamform_int8(wr8, wi8, re, im)),
         cuda_ms(lambda: gpu_kernels.beamform_int8_plain(wr8, wi8, re, im),
                 runs=5),
-        in_bytes + out_bytes, nops, PEAK_INT8_PER_S,
+        gulp_bytes + 2 * B * S + out_bytes, nops, PEAK_INT8_PER_S,
         cuda_ms(lambda: torch._int_mm(z, w2)),
         shape=[T, F, S, B], per='launch (one pol)',
         library='torch._int_mm of [re | im] (T*F, 2S) x widened (2S, 2B)')
     del yr, yi, pr, pi
 
-    # K5: bf16 products, float32 sums
+    # K5: bf16 products, float32 sums, one GEMM over every channel; the
+    # main path's launch takes the 16-byte staging
+    n5, v5 = (gpu_kernels.launches[k] for k in ('beamform_bf16',
+                                                 'beamform_bf16_vec16'))
     yr, yi = gpu_kernels.beamform_bf16(wr, wi, re, im)
+    require(gpu_kernels.launches['beamform_bf16'] == n5 + 1 and
+            gpu_kernels.launches['beamform_bf16_vec16'] == v5 + 1,
+            'K5 on the per-pol view did not take the 16-byte staging: %s'
+            % (gpu_kernels.bf16_staging(re, im),))
     pr, pi = gpu_kernels.beamform_bf16_plain(wr, wi, re, im)
     torch.cuda.synchronize()
     got, want = torch.complex(yr, yi), torch.complex(pr, pi)
@@ -638,20 +652,48 @@ def phase_beamform_kernels(gpu_kernels, beam):
     log('K5 vs float64 oracle (4 channels): rel %.3g' % rel5o)
     require(rel5o <= beam.BEAM_CLASSES['bf16'],
             'K5 outside the bf16 class of the oracle: %.3g' % rel5o)
+    # the yardsticks: one bf16 GEMM of [re | im] against the widened block,
+    # with an f32 output (K5's function) and with a bf16 output
     w2b = torch.cat([torch.cat([wr.T, wi.T], 1),
                      torch.cat([-wi.T, wr.T], 1)], 0).bfloat16()
     zb = z.bfloat16()
+    k5_run = lambda: gpu_kernels.beamform_bf16(wr, wi, re, im)
+    plain5 = lambda: gpu_kernels.beamform_bf16_plain(wr, wi, re, im)
+    lib16 = lambda: torch.matmul(zb, w2b)
+    lib32 = lambda: torch.mm(zb, w2b, out_dtype=torch.float32)
+    try:
+        y32 = lib32()
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log('K5 yardstick: torch.mm(..., out_dtype=float32) not available '
+            'on this card (%s)' % e)
+        lib32 = y32 = None
+    if y32 is not None:
+        y32 = torch.complex(y32[:, :B], y32[:, B:]).reshape(T, F, B)
+        lrel = max_abs_err(y32, want) / float(want.abs().max())
+        log('K5 f32-output yardstick vs K5\'s plain version: rel %.3g'
+            % lrel)
+        del y32
+    queued = {'kernel': cuda_ms_queued(k5_run),
+              'plain': cuda_ms_queued(plain5, calls=5, runs=3),
+              'library_bf16': cuda_ms_queued(lib16)}
+    if lib32 is not None:
+        queued['library'] = cuda_ms_queued(lib32)
+    log('K5 queued (ms per call of 20 back to back): %s' % queued)
     k5 = kernel_entry(
-        'beamform_bf16', src, 307, got, want,
-        cuda_ms(lambda: gpu_kernels.beamform_bf16(wr, wi, re, im)),
-        cuda_ms(lambda: gpu_kernels.beamform_bf16_plain(wr, wi, re, im),
-                runs=5),
-        in_bytes + out_bytes, nops, PEAK_BF16_PER_S,
-        cuda_ms(lambda: torch.matmul(zb, w2b)),
-        shape=[T, F, S, B], per='launch (one pol)', max_rel_err=rel5,
-        oracle_rel_err=rel5o,
-        library='bf16 torch.matmul of [re | im] x widened f32 block '
-                'rounded to bf16')
+        'beamform_bf16', src, 307, got, want, cuda_ms(k5_run),
+        cuda_ms(plain5, runs=5),
+        gulp_bytes + 2 * B * S * 4 + out_bytes, nops, PEAK_BF16_PER_S,
+        cuda_ms(lib32) if lib32 is not None else None,
+        shape=[T, F, S, B], per='launch (one pol, one call bracketed)',
+        max_rel_err=rel5, oracle_rel_err=rel5o,
+        staging=gpu_kernels.bf16_staging(re, im),
+        library='torch.mm(out_dtype=float32) of bf16 [re | im] x widened '
+                'f32 block rounded to bf16',
+        library_bf16_ms=cuda_ms(lib16),
+        library_bf16='bf16-output torch.matmul of the same operands',
+        ms_queued=queued,
+        ms_queued_per='launch (median of batches of queued calls: 5 x 20; '
+                      'plain 3 x 5)')
     del yr, yi, pr, pi, got, want, zb, z
     torch.cuda.empty_cache()
 
@@ -781,6 +823,10 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
         n = runs[arm][1][name]
         require(n >= per * ngulp, '%s launched %d times for %d gulps'
                 % (name, n, ngulp))
+    n5 = runs['K5'][1]
+    require(n5['beamform_bf16_vec16'] == n5['beamform_bf16'],
+            'the K5 arm took the 16-byte staging in %d of %d launches'
+            % (n5['beamform_bf16_vec16'], n5['beamform_bf16']))
     ref = runs['f32'][0]
     for k in ref:
         for arm in ('K6', 'K4', 'K5', 'f32', 'race'):
@@ -792,7 +838,8 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
         r46 = rel_err(runs['K4'][0][k], runs['K6'][0][k])
         bounds = {'K6': beam.BEAM_CLASSES['int8'],
                   'K4': beam.BEAM_CLASSES['int8'],
-                  'K5': beam.BEAM_CLASSES['bf16']}
+                  'K5': beam.BEAM_CLASSES['bf16'],
+                  'race': beam.BEAM_CLASSES['int8']}
         rels = {arm: rel_err(runs[arm][0][k], ref[k]) for arm in bounds}
         log('gulp %d: K4 vs K6 rel %.3g; vs f32: %s'
             % (k, r46, ', '.join('%s %.3g' % kv for kv in rels.items())))
@@ -2171,6 +2218,7 @@ def main():
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
     k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
+    k5['launches_vec16'] = bpipe['launches']['K5']['beamform_bf16_vec16']
     k6['launches'] = bpipe['launches']['K6']['beamform_detect_int8']
     for k in (k1, k2, k4, k5, k6):
         k['launches_per_gulp'] = k['launches'] / float(NWARM + NTIMED)

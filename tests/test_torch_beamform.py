@@ -229,6 +229,60 @@ def test_k5_matches_jax_kernel_and_oracle(vtype):
     assert _rel(got, ref) <= BEAM_CLASSES['bf16']
 
 
+@pytest.mark.parametrize('pol', [0, 1])
+def test_k5_reads_the_per_pol_views_of_a_gulp(pol):
+    """The per-pol views of a (T, F, S, 2, 2) ci8 gulp, the layout K5's
+    16-byte staging reads on the card (the pair at byte 2 * pol of each
+    4-byte station word, 16-byte rows), against the JAX kernel on the same
+    views and the float64 oracle."""
+    T, F, S, B = 12, 3, 24, 5
+    rng = np.random.RandomState(11 + pol)
+    x = rng.randint(-128, 128, (T, F, S, 2, 2)).astype(np.int8)
+    wr = rng.randn(B, S).astype(np.float32)
+    wi = rng.randn(B, S).astype(np.float32)
+    xt = _t(x)
+    re, im = xt[:, :, :, pol, 0], xt[:, :, :, pol, 1]
+    assert gpu_kernels.bf16_staging(re, im) == (4, (xt.data_ptr() + 2 * pol)
+                                                % 16)
+    yr, yi = gpu_kernels.beamform_bf16(_t(wr), _t(wi), re, im)
+    got = yr.numpy() + 1j * yi.numpy()
+    jr, ji = pk.beamform_bf16(wr, wi, x[:, :, :, pol, 0], x[:, :, :, pol, 1],
+                              interpret=True)
+    assert _rel(got, np.asarray(jr) + 1j * np.asarray(ji)) <= 1e-5
+    v = x[:, :, :, pol, 0].astype(np.float64) + \
+        1j * x[:, :, :, pol, 1].astype(np.float64)
+    ref = np.einsum('tfs,bs->tfb', v, wr.astype(np.float64) +
+                    1j * wi.astype(np.float64))
+    assert _rel(got, ref) <= BEAM_CLASSES['bf16']
+
+
+def test_k5_staging_path_follows_the_layout():
+    """K5 takes its 16-byte staging only where the int8 pairs sit in
+    16-byte rows: the per-pol views of a dual-pol gulp and the one pol of
+    a (T, F, S, 1, 2) gulp with S a multiple of 8; separate planes, float32
+    voltages, rows off 16 bytes and a pair across a station word take the
+    scalar staging."""
+    x = torch.zeros((4, 2, 8, 2, 2), dtype=torch.int8)
+    base = x.data_ptr() % 16
+    assert gpu_kernels.bf16_staging(x[..., 0, 0], x[..., 0, 1]) == (4, base)
+    assert gpu_kernels.bf16_staging(x[..., 1, 0], x[..., 1, 1]) == \
+        (4, base + 2)
+    one = torch.zeros((4, 2, 8, 1, 2), dtype=torch.int8)
+    assert gpu_kernels.bf16_staging(one[..., 0, 0], one[..., 0, 1])[0] == 2
+    odd = torch.zeros((4, 2, 6, 1, 2), dtype=torch.int8)
+    assert gpu_kernels.bf16_staging(odd[..., 0, 0], odd[..., 0, 1]) == \
+        (0, 0)
+    planes = torch.zeros((2, 4, 2, 8), dtype=torch.int8)
+    assert gpu_kernels.bf16_staging(planes[0], planes[1]) == (0, 0)
+    assert gpu_kernels.bf16_staging(x[..., 0, 0].float(),
+                                    x[..., 0, 1].float()) == (0, 0)
+    flat = torch.zeros(4 + x.numel(), dtype=torch.int8)
+    off = flat[4:].view(x.shape)
+    assert gpu_kernels.bf16_staging(off[..., 0, 0], off[..., 0, 1]) == (0, 0)
+    # re and im swapped: im is not one byte after re
+    assert gpu_kernels.bf16_staging(x[..., 0, 1], x[..., 0, 0]) == (0, 0)
+
+
 @pytest.mark.parametrize('R,P', [(1, None), (4, None), (16, None),
                                  (4, 2)])
 def test_k6_matches_jax_fused_detect_and_oracle(R, P):

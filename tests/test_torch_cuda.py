@@ -2,7 +2,10 @@
 chip_smoke.py runs: K1 against the float64 oracle over nfft and rfactor,
 K2 against its plain version on contiguous and strided planes, K4, K5
 and K6 (the beamformer) against the int64/float64 oracles and their
-plain versions at ragged and full-width shapes, K0 (the capability
+plain versions at ragged and full-width shapes (K5 over every layout its
+wrapper takes: separate planes, float32 voltages and the per-pol views
+of ci8 gulps, through its 16-byte and its scalar staging, with resident
+and streamed weight panels), K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
 int64 oracle at ragged shapes and on strided gulp views, K3 (the FDMT
 merge step) against its plain version over whole plans (ragged T,
@@ -172,28 +175,69 @@ def test_beamform_int8_full_width_on_gulp_views():
                                           want_i)
 
 
-@pytest.mark.parametrize('vtype', ['int8', 'float32'])
-@pytest.mark.parametrize('T,F,S,B', [(70, 3, 8, 3), (33, 2, 40, 65),
-                                     (128, 4, 256, 64)])
-def test_beamform_bf16_matches_plain_and_oracle(vtype, T, F, S, B):
-    rng = np.random.RandomState(T + S)
-    wr = rng.randn(B, S).astype(np.float32)
-    wi = rng.randn(B, S).astype(np.float32)
-    if vtype == 'int8':
-        re, im = _i8(rng, (T, F, S)), _i8(rng, (T, F, S))
-    else:
+def _k5_operands(layout, T, F, S, rng):
+    """The voltage planes of one K5 case on the card, and their numpy
+    values: separate int8 or float32 planes, or the per-pol views of a
+    ci8 gulp (pol 0 or 1 of (T, F, S, 2, 2); pol 1 of a gulp that starts 16
+    bytes into its buffer, viewed from its third frame; pol 0 of a gulp 4
+    bytes into its buffer, off the 16-byte rows; the one pol of a
+    (T, F, S, 1, 2) gulp)."""
+    if layout == 'float32':
         re = (rng.randn(T, F, S) * 30).astype(np.float32)
         im = (rng.randn(T, F, S) * 30).astype(np.float32)
-    args = [torch.from_numpy(a).cuda() for a in (wr, wi, re, im)]
+        return torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda(), \
+            re, im
+    if layout == 'int8':
+        re, im = _i8(rng, (T, F, S)), _i8(rng, (T, F, S))
+        return torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda(), \
+            re, im
+    P = 1 if layout == 'single' else 2
+    skip = 2 if layout == 'offset' else 0
+    lead = {'offset': 16, 'unaligned': 4}.get(layout, 0)
+    pol = 1 if layout in ('pol1', 'offset') else 0
+    g = _i8(rng, (T + skip, F, S, P, 2))
+    buf = torch.zeros(lead + g.size, dtype=torch.int8, device='cuda')
+    buf[lead:] = torch.from_numpy(g.ravel()).cuda()
+    x = buf[lead:].view(g.shape)[skip:]
+    g = g[skip:]
+    return x[:, :, :, pol, 0], x[:, :, :, pol, 1], g[:, :, :, pol, 0], \
+        g[:, :, :, pol, 1]
+
+
+@pytest.mark.parametrize('layout', ['int8', 'float32', 'pol0', 'pol1',
+                                    'offset', 'unaligned', 'single'])
+@pytest.mark.parametrize('T,F,S,B', [(70, 3, 8, 3), (33, 2, 40, 65),
+                                     (128, 4, 256, 64), (9, 5, 300, 130),
+                                     (40, 7, 1024, 64)])
+def test_beamform_bf16_matches_plain_and_oracle(layout, T, F, S, B):
+    """K5 on every layout its wrapper takes: M = T * F rows not a multiple
+    of the 128-row tile, S not a multiple of the 64-station chunk (40,
+    300) and past the resident panel (300, 1024: streamed from L2), B not a
+    multiple of 8 or 64 (3, 65, 130).  The gulp views go through the
+    16-byte staging wherever their rows allow it, the rest through the
+    scalar staging."""
+    rng = np.random.RandomState(T + S + B)
+    wr = rng.randn(B, S).astype(np.float32)
+    wi = rng.randn(B, S).astype(np.float32)
+    re, im, re_np, im_np = _k5_operands(layout, T, F, S, rng)
+    vec16 = layout in ('pol0', 'pol1', 'offset') or \
+        (layout == 'single' and S % 8 == 0)
+    assert (gpu_kernels.bf16_staging(re, im)[0] != 0) == vec16
+    args = [torch.from_numpy(wr).cuda(), torch.from_numpy(wi).cuda(), re, im]
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = gpu_kernels.launches['beamform_bf16']
+    before = {k: gpu_kernels.launches[k]
+              for k in ('beamform_bf16', 'beamform_bf16_vec16')}
     yr, yi = gpu_kernels.beamform_bf16(*args)
     pr, pi = gpu_kernels.beamform_bf16_plain(*args)
     torch.cuda.synchronize()
-    assert gpu_kernels.launches['beamform_bf16'] == before + 1
+    assert gpu_kernels.launches['beamform_bf16'] == \
+        before['beamform_bf16'] + 1
+    assert gpu_kernels.launches['beamform_bf16_vec16'] == \
+        before['beamform_bf16_vec16'] + int(vec16)
+    assert yr.shape == yi.shape == (T, F, B) and yr.dtype == torch.float32
     got = torch.complex(yr, yi).cpu().numpy()
     assert _rel(got, torch.complex(pr, pi).cpu().numpy()) <= 1e-5
-    x = re.astype(np.float64) + 1j * im.astype(np.float64)
+    x = re_np.astype(np.float64) + 1j * im_np.astype(np.float64)
     ref = np.einsum('tfs,bs->tfb', x, wr.astype(np.float64) +
                     1j * wi.astype(np.float64))
     assert _rel(got, ref) <= 8e-3
