@@ -7,16 +7,16 @@
 //   K6 bf_beamform_detect_int8  both pols' int8 beamform -> x scale ->
 //                               Stokes I, Q, U, V -> sum of R frames
 //
-// K4 and K6 tile one frequency channel per block (with tiles of time and
-// beams), loop over the stations in chunks staged in shared memory, and
-// compute the four real dots of the complex product
+// K4 and K5 compute the complex product
 //   yr = r . wr - i . wi,   yi = r . wi + i . wr
-// with separate accumulators, as the Pallas kernels and the plain PyTorch
-// versions do.  K5 computes the same product as one real GEMM over every
-// channel (its note below).  Voltages come with strides, so the per-pol
-// views that BeamformStage takes of a (T, F, S, P, 2) ci8 gulp are read in
-// place.  Offsets are 64-bit; ragged edges (T, B, S not multiples of a
-// tile) are zero-filled in shared memory and masked on store.
+// as one GEMM over every channel on the tensor cores (their notes below).
+// K6 tiles one frequency channel per block (with tiles of time and beams),
+// loops over the stations in chunks staged in shared memory and keeps the
+// four real dots in separate accumulators.  Voltages come with strides, so
+// the per-pol views that BeamformStage takes of a (T, F, S, P, 2) ci8 gulp
+// are read in place.  Offsets are 64-bit; ragged edges (T, B, S not
+// multiples of a tile) are zero-filled in shared memory and masked on
+// store.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -24,116 +24,384 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 // ---------------------------------------------------------------------------
 // K4: int8 beamform, exact int32.
 //
 // Replaces: bifrost_tpu/ops/pallas_kernels.py:beamform_int8 (pl.pallas_call
 // at :265), candidate 'pallas' of the beamformer engine, one launch per pol.
 //
-// Bound on the H100: memory.  Per pol of the 512 x 512 x 256-station,
-// 64-beam gulp it writes 2 x (T, F, B) int32 = 134.2 MB and reads the
-// whole 268.4 MB gulp (the pol's view of interleaved ci8 rows touches
-// every 32-byte sector, the other pol's bytes in each): 0.120 ms at
-// 3.35 TB/s, against 0.017 ms for its 34 G int8 ops at 1,979 TOP/s.
+// Bound on the H100: memory.  The per-pol view x[:, :, :, p, 0] of a
+// (T, F, S, 2, 2) ci8 gulp touches every 32-byte sector of the gulp, so a
+// launch reads all of it: at 512 x 512 x 256 stations and 64 beams,
+// 268.4 MB in and 2 x (T, F, B) int32 = 134.2 MB out, 0.120 ms at
+// 3.35 TB/s, against 0.017 ms for its 34.4 G int8 ops at 1,979 TOP/s.
 //
-// Design: one block per (channel, 32 time rows, 32 beams); 256 threads,
-// each owning 4 rows x 1 beam.  Stations are staged 128 at a time, packed
-// four to a 32-bit word, so the inner loop is __dp4a (4 int8 MACs into an
-// int32) on shared-memory words: the weight row of a thread's beam (rows
-// padded to an odd word count, so the 32 lanes hit 32 banks) against the
-// voltage words of its rows (one address per warp: a broadcast).  Integer
-// accumulation is exact, so the result is bit-identical to the int64
-// oracle while |sum| < 2^31 (the wrapper bounds S).  Simple first: the
-// byte-wise staging of strided voltages and dp4a instead of the int8
-// tensor cores (mma / wgmma) leave it well above its bound.
+// Design: one int8 GEMM over every channel on the tensor cores.  Row
+// m = (t, f) of the view (M = T * F); K = the stations, with re and im
+// staged as separate A operands (de-interleaved K); the weights are the
+// panel [wr | wi] (column b is wr[b], column 64 + b is wi[b]), never
+// negated.  The four products rr, ii, ri, ir would take four accumulators;
+// folding ii into yr's halves that.  mma.sync.m16n8k32 (s8 x s8 -> s32,
+// no .satfinite) gives, per 16 rows x 8 beams x 32 stations, four
+// products into two accumulators:
+//   yr += re . wr  +  (~im) . wi        yi += re . wi  +  im . wr
+// with yr's accumulator started at c_b = sum_s wi[b, s].
+//
+// - Why it is exact for every int8 value, -128 included: ~im = -im - 1 is
+//   an int8 for every int8 im (~(-128) = 127), so no operand leaves int8,
+//   and sum_s (~im_s) wi_s + c_b = -sum_s im_s wi_s.  The s32
+//   accumulators wrap (no .satfinite): every partial sum is the exact one
+//   mod 2^32, and the final yr, yi are exact because |yr|, |yi| <=
+//   2 S 128^2 < 2^31 for S <= MAX_NSTAND (the wrapper's limit).  The
+//   weights go in as they are, so wr, wi = -128 are taken too.
+// - Tiles: 128 rows x 64 beams per block; eight warps each own 16 rows x
+//   64 beams (yr and yi: 64 accumulator registers a thread), so each
+//   staged voltage byte is read from shared memory once.
+// - Resident weights, persistent grid: one block per SM walks the M tiles
+//   (and the beam tiles when B > 64, rebuilding the panel when its beam
+//   tile changes).  The block copies the int8 panel once into dynamic
+//   shared memory (128 columns x S bytes, padded: 36 KB at S = 256); above
+//   kRes4 stations it stages each chunk's part of the panel beside the
+//   voltages instead, from L2.
+// - 16-byte staging (SS = 4 or 2, the interleaved ci8 layout): the raw
+//   rows (both pols' bytes when SS = 4) go from HBM to shared memory by
+//   cp.async, 16 bytes a copy, no registers, into a ring of kStages4
+//   stages of 64 stations (32 KB at SS = 4), kStages4 - 1 of them in
+//   flight while the block multiplies the oldest, across tile boundaries
+//   (3 stages measured as fast as 4 or 5, and 64-row tiles at two blocks
+//   an SM slower: the ring's depth is not what holds K4).
+//   A consumer loads 16 raw bytes (4 or 8 stations) and picks its pol's
+//   re and im bytes out with byte_perm (4 a load), so an A register holds
+//   four stations of one plane.  Station k <-> MMA index: a thread's
+//   registers a0 (k 4q..4q+3) and a2 (k 16 + 4q ..) hold stations 8q..8q+3
+//   and 8q+4..8q+7 of each 32-station group, and the panel keeps stations
+//   in order, so a B fragment is one 8-byte load (b0, b1 = stations 8q..8q+7
+//   of column g).  Rows of the stage are swizzled by their parity, so the
+//   16-byte loads of a quarter-warp hit distinct banks.  Every other layout
+//   (separate planes, rows off 16 bytes, odd strides) goes through a scalar
+//   staging of the same kernel (SS = 0) into the SS = 2 layout.
+// - Epilogue: a C fragment's pair is two adjacent beams of one row, stored
+//   as one int2 (streaming stores), rows and beams masked.
 // ---------------------------------------------------------------------------
 
-constexpr int kTT = 32;            // time rows per tile (K4, K6)
-constexpr int kBT = 32;            // beams per tile (K4, K6)
-constexpr int kSC4 = 128;          // stations per staged chunk (K4)
-constexpr int kW4 = kSC4 / 4 + 1;  // padded words per staged row (K4)
+constexpr int kThreads4 = 256;         // 8 warps of mma.sync
+constexpr int kBM4 = 128;              // rows (t, f) per tile (K4)
+constexpr int kBB4 = 64;               // beams per tile: 128 panel columns
+constexpr int kSC4 = 64;               // stations per K chunk (K4)
+constexpr int kStages4 = 3;            // cp.async ring depth
+constexpr int kRes4 = 256;             // most stations of a resident panel
+constexpr int kPW4 = kSC4 + 32;        // bytes per streamed panel column
 
-__device__ __forceinline__ uint32_t pack4(const int8_t* __restrict__ p,
-                                          int64_t stride, int n) {
-  // up to 4 int8 at p, p + stride, ... packed little-endian; zero past n
-  uint32_t w = 0;
-  for (int k = 0; k < 4 && k < n; ++k)
-    w |= (uint32_t)(uint8_t)__ldg(p + k * stride) << (8 * k);
-  return w;
+struct K4Args {
+  const int8_t* wr;
+  const int8_t* wi;
+  const char* re;       // scalar path: the re plane; 16-byte path: row base
+  const char* im;
+  int* yr;
+  int* yi;
+  long long st, sf, ss; // element strides of the voltage planes
+  int M, F, S, B;
+  int nchunk;           // K chunks of kSC4 stations
+  int ntile_m, ntiles;
+  int pbyte;            // 16-byte path: byte of re in a station word
+  int resident;         // the whole panel lives in shared memory
+  int pw;               // bytes per panel column when resident
+  int wvec;             // weight rows load 16 bytes at a time
+};
+
+template <int SS>
+struct K4Stage {
+  // bytes per staged row of one chunk (the raw layout; SS = 0 stages the
+  // SS = 2 layout) and per stage
+  static constexpr int kRow = kSC4 * (SS == 4 ? 4 : 2);
+  static constexpr int kBytes = kBM4 * kRow;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int nbytes) {
+  // 16 bytes to shared memory, the last 16 - nbytes zero-filled
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(nbytes)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-beamform_int8_kernel(const int8_t* __restrict__ wr,
-                     const int8_t* __restrict__ wi,
-                     const int8_t* __restrict__ re,
-                     const int8_t* __restrict__ im,
-                     int32_t* __restrict__ yr, int32_t* __restrict__ yi,
-                     int ntime, int nfreq, int nstand, int nbeam,
-                     int64_t st, int64_t sf, int64_t ss, int ntile_t,
-                     int ntile_b) {
-  __shared__ int s_r[kTT][kW4], s_i[kTT][kW4];
-  __shared__ int s_wr[kBT][kW4], s_wi[kBT][kW4];
-  int64_t blk = blockIdx.x;
-  const int tb = (int)(blk % ntile_b);
-  blk /= ntile_b;
-  const int tt = (int)(blk % ntile_t);
-  const int f = (int)(blk / ntile_t);
-  const int t0 = tt * kTT, b0 = tb * kBT;
-  const int bx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  int acc_rr[4] = {0, 0, 0, 0}, acc_ii[4] = {0, 0, 0, 0};
-  int acc_im[4] = {0, 0, 0, 0};
-  for (int s0 = 0; s0 < nstand; s0 += kSC4) {
-    const int ns = min(kSC4, nstand - s0);
-    for (int i = threadIdx.x; i < kTT * (kSC4 / 4); i += kThreads) {
-      const int row = i / (kSC4 / 4), w = i % (kSC4 / 4);
-      const int t = t0 + row, n = ns - 4 * w;
-      uint32_t pr = 0, pi = 0;
-      if (t < ntime && n > 0) {
-        const int64_t o = t * st + f * sf + (s0 + 4 * w) * ss;
-        pr = pack4(re + o, ss, n);
-        pi = pack4(im + o, ss, n);
-      }
-      s_r[row][w] = (int)pr;
-      s_i[row][w] = (int)pi;
-    }
-    for (int i = threadIdx.x; i < kBT * (kSC4 / 4); i += kThreads) {
-      const int row = i / (kSC4 / 4), w = i % (kSC4 / 4);
-      const int b = b0 + row, n = ns - 4 * w;
-      uint32_t pr = 0, pi = 0;
-      if (b < nbeam && n > 0) {
-        const int64_t o = (int64_t)b * nstand + s0 + 4 * w;
-        pr = pack4(wr + o, 1, n);
-        pi = pack4(wi + o, 1, n);
-      }
-      s_wr[row][w] = (int)pr;
-      s_wi[row][w] = (int)pi;
-    }
-    __syncthreads();
-    const int nw = (ns + 3) / 4;
-    for (int w = 0; w < nw; ++w) {
-      const int a = s_wr[bx][w], c = s_wi[bx][w];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
+                                       uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// stations s .. s + 15 of a weight row, zero past S
+__device__ __forceinline__ uint4 weights16(const int8_t* row, int s, int S,
+                                           int vec) {
+  if (vec) return s < S ? __ldg(reinterpret_cast<const uint4*>(row + s))
+                        : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = s_r[ty + 8 * j][w], q = s_i[ty + 8 * j][w];
-        acc_rr[j] = __dp4a(r, a, acc_rr[j]);
-        acc_ii[j] = __dp4a(q, c, acc_ii[j]);
-        acc_im[j] = __dp4a(q, a, __dp4a(r, c, acc_im[j]));
+  for (int e = 0; e < 16; ++e)
+    if (s + e < S)
+      w[e / 4] |= (uint32_t)(uint8_t)__ldg(row + s + e) << (8 * (e % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// panel columns of beams b0 .. b0 + 63 (wr, then wi), stations s0 ..
+// s0 + 16 * ngrp - 1, ws bytes per column, zero past B and S
+__device__ __forceinline__ void k4_panel(char* p, int ws, const K4Args& a,
+                                         int b0, int s0, int ngrp) {
+  for (int idx = threadIdx.x; idx < 2 * kBB4 * ngrp; idx += kThreads4) {
+    const int col = idx / ngrp, grp = idx - col * ngrp;
+    const int b = b0 + (col & (kBB4 - 1));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (b < a.B)
+      v = weights16((col < kBB4 ? a.wr : a.wi) + (int64_t)b * a.S,
+                    s0 + 16 * grp, a.S, a.wvec);
+    *reinterpret_cast<uint4*>(p + col * ws + 16 * grp) = v;
+  }
+}
+
+// the sum of the four int8 of w
+__device__ __forceinline__ int byte_sum(uint32_t w) {
+  return (int)(int8_t)w + (int)(int8_t)(w >> 8) + (int)(int8_t)(w >> 16) +
+         (int)(int8_t)(w >> 24);
+}
+
+// c_b = sum_s wi[b, s] of beams b0 .. b0 + 63 (0 past B): warp w sums
+// beams 8w .. 8w + 7, a lane 16 stations at a time
+__device__ __forceinline__ void k4_beam_sums(int* csum, const K4Args& a,
+                                             int b0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = 0; i < kBB4 / (kThreads4 / 32); ++i) {
+    const int bl = warp * (kBB4 / (kThreads4 / 32)) + i, b = b0 + bl;
+    int sum = 0;
+    if (b < a.B) {
+      const int8_t* row = a.wi + (int64_t)b * a.S;
+      for (int s = 16 * lane; s < a.S; s += 16 * 32) {
+        const uint4 v = weights16(row, s, a.S, a.wvec);
+        sum += byte_sum(v.x) + byte_sum(v.y) + byte_sum(v.z) + byte_sum(v.w);
       }
     }
-    __syncthreads();
-  }
-  const int b = b0 + bx;
-  if (b >= nbeam) return;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int t = t0 + ty + 8 * j;
-    if (t >= ntime) continue;
-    const int64_t o = ((int64_t)t * nfreq + f) * nbeam + b;
-    yr[o] = acc_rr[j] - acc_ii[j];
-    yi[o] = acc_im[j];
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
+    if (lane == 0) csum[bl] = sum;
   }
+}
+
+// Stage chunk k of the block's sequence (its tiles blockIdx.x + i *
+// gridDim.x, nchunk chunks each) into ring stage k % kStages4: cp.async
+// of the raw rows (SS = 4, 2) or the scalar staging (SS = 0), and the
+// chunk's panel part when the panel is not resident.
+template <int SS>
+__device__ __forceinline__ void k4_stage_chunk(const K4Args& a,
+                                               char* stages, char* panel,
+                                               int k, int nseq) {
+  if (k >= nseq) return;
+  const int i = k / a.nchunk, c = k - i * a.nchunk;
+  const int tile = blockIdx.x + i * gridDim.x;
+  const int nt = tile / a.ntile_m;
+  const int m0 = (tile - nt * a.ntile_m) * kBM4;
+  char* const A = stages + (k % kStages4) * K4Stage<SS>::kBytes;
+  constexpr int kRow = K4Stage<SS>::kRow;
+  constexpr int kVR = kRow / 16;                 // 16-byte vectors a row
+  constexpr int kNV = kBM4 * kVR / kThreads4;    // vectors a thread
+  constexpr int kRS = kThreads4 / kVR;           // row step
+  constexpr int kSV = SS == 4 ? 4 : 8;           // stations a vector
+  const int v = threadIdx.x % kVR, r0 = threadIdx.x / kVR;
+  const int s = c * kSC4 + v * kSV;
+  // (t, f) of row m0 + r0, then stepped by kRS rows
+  int m = m0 + r0, t = m / a.F, f = m - t * a.F;
+#pragma unroll
+  for (int n = 0; n < kNV; ++n) {
+    const int r = r0 + n * kRS;
+    const int sw = SS == 4 ? (r & 1) : (r & 1) << 2;
+    char* dst = A + r * kRow + 16 * (v ^ sw);
+    const bool ok = m < a.M && s < a.S;
+    if (SS) {
+      const char* src = a.re;
+      if (ok) src += t * a.st + f * a.sf + (int64_t)s * SS;
+      cp_async16(dst, src, ok ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (ok) {
+        const int64_t o = t * a.st + f * a.sf + (int64_t)s * a.ss;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (s + e < a.S) {
+            const uint32_t re = (uint8_t)__ldg(a.re + o + e * a.ss);
+            const uint32_t im = (uint8_t)__ldg(a.im + o + e * a.ss);
+            w[e / 2] |= (re | im << 8) << (16 * (e % 2));
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    m += kRS;
+    f += kRS;
+    while (f >= a.F) {
+      f -= a.F;
+      ++t;
+    }
+  }
+  if (!a.resident)
+    k4_panel(panel + (k % kStages4) * (2 * kBB4 * kPW4), kPW4, a, nt * kBB4,
+             c * kSC4, kSC4 / 16);
+}
+
+// A fragments of rows r and r + 8, 32-station group kg: re and im planes
+template <int SS>
+__device__ __forceinline__ void k4_load_a(const char* A, int r, int kg,
+                                          int q, uint32_t sel, uint32_t* ar,
+                                          uint32_t* ai) {
+  constexpr int kRow = K4Stage<SS>::kRow;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const char* row = A + (r + 8 * h) * kRow;
+    if (SS == 4) {
+      // 4 station words a vector; the pol's (re, im) at bytes sel picks
+      const int j = kg * 8 + 2 * q, sw = r & 1;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint4 w =
+            *reinterpret_cast<const uint4*>(row + 16 * ((j + u) ^ sw));
+        const uint32_t t0 = __byte_perm(w.x, w.y, sel);
+        const uint32_t t1 = __byte_perm(w.z, w.w, sel);
+        ar[h + 2 * u] = __byte_perm(t0, t1, 0x6420);
+        ai[h + 2 * u] = __byte_perm(t0, t1, 0x7531);
+      }
+    } else {
+      // 8 (re, im) pairs a vector
+      const int j = kg * 4 + q, sw = (r & 1) << 2;
+      const uint4 w = *reinterpret_cast<const uint4*>(row + 16 * (j ^ sw));
+      ar[h] = __byte_perm(w.x, w.y, 0x6420);
+      ai[h] = __byte_perm(w.x, w.y, 0x7531);
+      ar[h + 2] = __byte_perm(w.z, w.w, 0x6420);
+      ai[h + 2] = __byte_perm(w.z, w.w, 0x7531);
+    }
+  }
+}
+
+template <int SS>
+__global__ void __launch_bounds__(kThreads4, 1)
+beamform_int8_kernel(const K4Args a) {
+  extern __shared__ __align__(16) char smem4[];
+  char* const stages = smem4;
+  char* const panel = smem4 + kStages4 * K4Stage<SS>::kBytes;
+  int* const csum = reinterpret_cast<int*>(
+      panel + (a.resident ? 2 * kBB4 * a.pw : kStages4 * 2 * kBB4 * kPW4));
+  const int nseq = ((a.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+                   a.nchunk;
+#pragma unroll
+  for (int k = 0; k < kStages4 - 1; ++k) {
+    k4_stage_chunk<SS>(a, stages, panel, k, nseq);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;      // mma groupID, thread in group
+  const int r = warp * 16 + g;               // the thread's rows r, r + 8
+  const uint32_t sel = a.pbyte | (a.pbyte + 1) << 4 | (a.pbyte + 4) << 8 |
+                       (a.pbyte + 5) << 12;
+  int yr[8][4], yi[8][4];
+  int tile = blockIdx.x, c = 0, cur_nt = -1;
+  for (int k = 0; k < nseq; ++k) {
+    cp_async_wait<kStages4 - 2>();
+    __syncthreads();                         // chunk k is in; k - 1 done
+    k4_stage_chunk<SS>(a, stages, panel, k + kStages4 - 1, nseq);
+    cp_async_commit();
+    const int nt = tile / a.ntile_m;
+    const int m0 = (tile - nt * a.ntile_m) * kBM4, b0 = nt * kBB4;
+    if (c == 0) {
+      if (nt != cur_nt) {
+        if (a.resident) k4_panel(panel, a.pw, a, b0, 0, a.nchunk * kSC4 / 16);
+        k4_beam_sums(csum, a, b0);
+        __syncthreads();
+        cur_nt = nt;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c0 = csum[8 * j + 2 * q], c1 = csum[8 * j + 2 * q + 1];
+        yr[j][0] = c0;
+        yr[j][1] = c1;
+        yr[j][2] = c0;
+        yr[j][3] = c1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yi[j][e] = 0;
+      }
+    }
+    const char* A = stages + (k % kStages4) * K4Stage<SS>::kBytes;
+    const char* P;
+    int ws;
+    if (a.resident) {
+      ws = a.pw;
+      P = panel + c * kSC4;
+    } else {
+      ws = kPW4;
+      P = panel + (k % kStages4) * (2 * kBB4 * kPW4);
+    }
+    P += g * ws + 8 * q;
+#pragma unroll
+    for (int kg = 0; kg < kSC4 / 32; ++kg) {
+      uint32_t ar[4], ai[4], an[4];
+      k4_load_a<SS>(A, r, kg, q, sel, ar, ai);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) an[e] = ~ai[e];
+      uint2 bw[8], bv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        bw[j] = *reinterpret_cast<const uint2*>(P + 8 * j * ws + 32 * kg);
+        bv[j] = *reinterpret_cast<const uint2*>(P + (kBB4 + 8 * j) * ws +
+                                                32 * kg);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mma_s8(yr[j], ar, bw[j]);
+        mma_s8(yi[j], ar, bv[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mma_s8(yr[j], an, bv[j]);
+        mma_s8(yi[j], ai, bw[j]);
+      }
+    }
+    if (++c < a.nchunk) continue;
+    c = 0;
+    tile += gridDim.x;
+    const bool pairs = (a.B & 1) == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + r + 8 * h;
+      if (m >= a.M) continue;
+      int* const orow[2] = {a.yr + (int64_t)m * a.B, a.yi + (int64_t)m * a.B};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int b = b0 + 8 * j + 2 * q;
+#pragma unroll
+        for (int pl = 0; pl < 2; ++pl) {
+          const int v0 = pl ? yi[j][2 * h] : yr[j][2 * h];
+          const int v1 = pl ? yi[j][2 * h + 1] : yr[j][2 * h + 1];
+          if (pairs && b + 1 < a.B) {
+            __stcs(reinterpret_cast<int2*>(orow[pl] + b), make_int2(v0, v1));
+          } else {
+            if (b < a.B) __stcs(orow[pl] + b, v0);
+            if (b + 1 < a.B) __stcs(orow[pl] + b + 1, v1);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -467,15 +735,6 @@ beamform_bf16_kernel(const K5Args a) {
   }
 }
 
-constexpr int kMaxDev5 = 64;
-
-struct K5Dev {
-  int sms, smem;  // SM count, shared memory a block may opt in to
-  bool attr[4];   // the dynamic shared-memory attribute is set, per kernel
-};
-
-K5Dev k5_dev[kMaxDev5];
-
 // ---------------------------------------------------------------------------
 // K6: both pols' int8 beamform -> x scale -> Stokes -> sum of R frames.
 //
@@ -504,8 +763,20 @@ K5Dev k5_dev[kMaxDev5];
 // bit-identical to the plain version's int64 -> f32 -> frame-ordered sum.
 // ---------------------------------------------------------------------------
 
+constexpr int kThreads = 256;
+constexpr int kTT = 32;            // time rows per tile (K6)
+constexpr int kBT = 32;            // beams per tile (K6)
 constexpr int kSC6 = 64;           // stations per staged chunk (K6)
 constexpr int kW6 = kSC6 / 4 + 1;  // padded words per staged row (K6)
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* __restrict__ p,
+                                          int64_t stride, int n) {
+  // up to 4 int8 at p, p + stride, ... packed little-endian; zero past n
+  uint32_t w = 0;
+  for (int k = 0; k < 4 && k < n; ++k)
+    w |= (uint32_t)(uint8_t)__ldg(p + k * stride) << (8 * k);
+  return w;
+}
 
 __device__ __forceinline__ uint32_t plane(uint32_t w0, uint32_t w1,
                                           uint32_t w2, uint32_t w3, int k) {
@@ -638,35 +909,127 @@ beamform_detect_kernel(const int8_t* __restrict__ wxr,
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+constexpr int kMaxDev = 64;
+
+struct DevInfo {
+  int sms, smem;  // SM count, shared memory a block may opt in to
+  bool attr[8];   // the dynamic shared-memory attribute is set, per kernel
+};
+
+DevInfo dev_info[kMaxDev];
+
+// the current device's DevInfo, read once per device
+cudaError_t current_dev(DevInfo** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDev) return cudaErrorInvalidDevice;
+  DevInfo& d = dev_info[dev];
+  if (d.sms == 0) {
+    int sms = 0, smem = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    d.smem = smem;
+    d.sms = sms;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+// lets kernel `which` of d's device take all the shared memory a block may
+// opt in to: above 48 KB only after this; a launch without it is refused
+template <typename K>
+cudaError_t opt_in_smem(DevInfo& d, int which, K kernel) {
+  if (d.attr[which]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem);
+  if (err == cudaSuccess) d.attr[which] = true;
+  return err;
+}
+
+// the 16-byte staging's conditions (K4, K5): int8 planes with im one byte
+// after re, station stride ss == vec (4 or 2), re at byte poff (poff + 2 <=
+// vec) of 16-byte aligned rows (st, sf multiples of 16), nstand * vec a
+// multiple of 16
+bool vec16_ok(const void* re, const void* im, int vec, int poff,
+              int nstand, long long st, long long sf, long long ss) {
+  const char* base = (const char*)re - poff;
+  return (vec == 2 || vec == 4) && ss == vec && poff >= 0 &&
+         poff + 2 <= vec && (const char*)im == (const char*)re + 1 &&
+         (uintptr_t)base % 16 == 0 && st % 16 == 0 && sf % 16 == 0 &&
+         ((int64_t)nstand * vec) % 16 == 0;
+}
+
+// zeroes two (M, nbeam) planes of `bytes` bytes each: the empty sums
+int zero_planes(void* yr, void* yi, size_t bytes, void* stream) {
+  cudaError_t err = cudaMemsetAsync(yr, 0, bytes, (cudaStream_t)stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(yi, 0, bytes, (cudaStream_t)stream);
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // K4.  wr, wi: (nbeam, nstand) int8, contiguous.  re, im: (ntime, nfreq,
 // nstand) int8 with element strides st, sf, ss shared by both.  yr, yi:
-// (ntime, nfreq, nbeam) int32, contiguous.  Returns a cudaError_t value.
+// (ntime, nfreq, nbeam) int32, contiguous.  vec 4 or 2 takes the 16-byte
+// staging (vec16_ok), vec 0 the scalar staging.  Returns a cudaError_t
+// value.
 int bf_beamform_int8(const void* wr, const void* wi, const void* re,
-                     const void* im, void* yr, void* yi, int ntime,
-                     int nfreq, int nstand, int nbeam, long long st,
-                     long long sf, long long ss, void* stream) {
+                     const void* im, void* yr, void* yi, int vec, int poff,
+                     int ntime, int nfreq, int nstand, int nbeam,
+                     long long st, long long sf, long long ss, void* stream) {
   if (ntime <= 0 || nfreq <= 0 || nbeam <= 0) return 0;
-  const int ntt = (int)cdiv(ntime, kTT), ntb = (int)cdiv(nbeam, kBT);
-  const int64_t nblk = (int64_t)nfreq * ntt * ntb;
-  if (nblk > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  beamform_int8_kernel<<<(unsigned)nblk, kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int8_t*)wr, (const int8_t*)wi, (const int8_t*)re,
-      (const int8_t*)im, (int32_t*)yr, (int32_t*)yi, ntime, nfreq, nstand,
-      nbeam, st, sf, ss, ntt, ntb);
+  const int64_t M = (int64_t)ntime * nfreq;
+  const int64_t ntile_m = cdiv(M, kBM4), ntile_n = cdiv(nbeam, kBB4);
+  if (M + kBM4 > 0x7fffffff || ntile_m * ntile_n > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (nstand <= 0) return zero_planes(yr, yi, (size_t)M * nbeam * 4, stream);
+  if (vec && !vec16_ok(re, im, vec, poff, nstand, st, sf, ss))
+    return (int)cudaErrorInvalidValue;
+  DevInfo* d = nullptr;
+  cudaError_t err = current_dev(&d);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunk = (int)cdiv(nstand, kSC4);
+  const int resident = nstand <= kRes4;
+  const int pw = nchunk * kSC4 + 32;
+  const size_t bytes =
+      kStages4 * (size_t)(vec == 4 ? K4Stage<4>::kBytes : K4Stage<2>::kBytes) +
+      (resident ? 2 * kBB4 * (size_t)pw : kStages4 * 2 * kBB4 * kPW4) +
+      kBB4 * sizeof(int);
+  if (bytes > (size_t)d->smem) return (int)cudaErrorInvalidConfiguration;
+  const int wvec = nstand % 16 == 0 && (uintptr_t)wr % 16 == 0 &&
+                   (uintptr_t)wi % 16 == 0;
+  const int ntiles = (int)(ntile_m * ntile_n);
+  K4Args a{(const int8_t*)wr, (const int8_t*)wi,
+           (const char*)re - (vec ? poff : 0), (const char*)im, (int*)yr,
+           (int*)yi, st, sf, ss, (int)M, nfreq, nstand, nbeam, nchunk,
+           (int)ntile_m, ntiles, poff, resident, pw, wvec};
+  void (*kernel)(const K4Args) = &beamform_int8_kernel<0>;
+  int which = 6;
+  if (vec == 4) {
+    kernel = &beamform_int8_kernel<4>;
+    which = 4;
+  } else if (vec == 2) {
+    kernel = &beamform_int8_kernel<2>;
+    which = 5;
+  }
+  err = opt_in_smem(*d, which, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = ntiles < d->sms ? ntiles : d->sms;
+  kernel<<<grid, kThreads4, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // K5.  wr, wi: (nbeam, nstand) float32, contiguous.  re, im: (ntime, nfreq,
 // nstand), int8 (vtype 0) or float32 (vtype 1), element strides st, sf, ss
 // shared by both.  yr, yi: (ntime, nfreq, nbeam) float32, contiguous.
-// vec 4 or 2 takes the 16-byte staging: int8 planes with im one byte after
-// re, ss == vec, re at byte poff (poff + 2 <= vec) of 16-byte aligned rows
-// (st, sf multiples of 16) and nstand * vec a multiple of 16; vec 0 the
+// vec 4 or 2 takes the 16-byte staging (int8 planes, vec16_ok); vec 0 the
 // scalar staging.  Returns a cudaError_t value.
 int bf_beamform_bf16(const void* wr, const void* wi, const void* re,
                      const void* im, void* yr, void* yi, int vtype, int vec,
@@ -677,46 +1040,22 @@ int bf_beamform_bf16(const void* wr, const void* wi, const void* re,
   const int64_t ntile_m = cdiv(M, kBM5), ntile_n = cdiv(nbeam, 64);
   if (M + kBM5 > 0x7fffffff || ntile_m * ntile_n > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (nstand <= 0) {                        // empty sums
-    const size_t n = (size_t)M * nbeam * sizeof(float);
-    err = cudaMemsetAsync(yr, 0, n, (cudaStream_t)stream);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(yi, 0, n, (cudaStream_t)stream);
-    return (int)err;
-  }
-  const char* base = (const char*)re;
-  if (vec) {
-    base -= poff;
-    if (vtype != 0 || (vec != 2 && vec != 4) || ss != vec || poff < 0 ||
-        poff + 2 > vec || (const char*)im != (const char*)re + 1 ||
-        (uintptr_t)base % 16 || st % 16 || sf % 16 ||
-        ((int64_t)nstand * vec) % 16)
-      return (int)cudaErrorInvalidValue;
-  }
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  if (nstand <= 0)                          // empty sums
+    return zero_planes(yr, yi, (size_t)M * nbeam * sizeof(float), stream);
+  if (vec && (vtype != 0 || !vec16_ok(re, im, vec, poff, nstand, st, sf, ss)))
+    return (int)cudaErrorInvalidValue;
+  const char* base = (const char*)re - (vec ? poff : 0);
+  DevInfo* d = nullptr;
+  cudaError_t err = current_dev(&d);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDev5) return (int)cudaErrorInvalidDevice;
-  K5Dev& d = k5_dev[dev];
-  if (d.sms == 0) {
-    int sms = 0, smem = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    d.smem = smem;
-    d.sms = sms;
-  }
   const int nchunk = (int)cdiv(nstand, kSC5);
   const int pw = nchunk * kSC5 + 4;
   const size_t abytes = 2 * (size_t)kBufA5 * 4;
   const size_t rbytes = abytes + (size_t)kBN5 * pw * 4;
   const size_t sbytes = abytes + 2 * (size_t)kBufW5 * 4;
-  const int resident = rbytes <= (size_t)d.smem;
+  const int resident = rbytes <= (size_t)d->smem;
   const size_t bytes = resident ? rbytes : sbytes;
-  if (bytes > (size_t)d.smem) return (int)cudaErrorInvalidConfiguration;
+  if (bytes > (size_t)d->smem) return (int)cudaErrorInvalidConfiguration;
   const int ntiles = (int)(ntile_m * ntile_n);
   K5Args a{(const float*)wr, (const float*)wi, base, (const char*)im,
            (float*)yr, (float*)yi, st, sf, ss, (int)M, nfreq, nstand, nbeam,
@@ -733,15 +1072,9 @@ int bf_beamform_bf16(const void* wr, const void* wi, const void* re,
     kernel = &beamform_bf16_kernel<0, int8_t>;
     which = 2;
   }
-  if (!d.attr[which]) {
-    // above 48 KB only after this; a launch without it is refused
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               d.smem);
-    if (err != cudaSuccess) return (int)err;
-    d.attr[which] = true;
-  }
-  const int grid = ntiles < d.sms ? ntiles : d.sms;
+  err = opt_in_smem(*d, which, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = ntiles < d->sms ? ntiles : d->sms;
   kernel<<<grid, kThreads5, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -36,8 +36,8 @@ import ctypes
 import os
 
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
-           'beamform_int8_plain', 'beamform_bf16', 'beamform_bf16_plain',
-           'bf16_staging', 'beamform_detect_int8',
+           'beamform_int8_plain', 'int8_staging', 'beamform_bf16',
+           'beamform_bf16_plain', 'bf16_staging', 'beamform_detect_int8',
            'beamform_detect_int8_plain', 'probe', 'available', 'enabled',
            'xcorr_herm', 'xcorr_herm_plain', 'xcorr_cross',
            'xcorr_cross_plain', 'fdmt_step', 'fdmt_step_plain',
@@ -45,9 +45,11 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
-#: (``beamform_bf16_vec16`` counts the K5 launches that took the 16-byte
-#: staging path, a subset of ``beamform_bf16``)
-launches = {'stokes_detect': 0, 'beamform_int8': 0, 'beamform_bf16': 0,
+#: (``beamform_int8_vec16`` and ``beamform_bf16_vec16`` count the K4 and
+#: K5 launches that took the 16-byte staging path, subsets of
+#: ``beamform_int8`` and ``beamform_bf16``)
+launches = {'stokes_detect': 0, 'beamform_int8': 0,
+            'beamform_int8_vec16': 0, 'beamform_bf16': 0,
             'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0, 'probe': 0,
             'xcorr_herm': 0, 'xcorr_cross': 0, 'fdmt_step': 0,
             'ring_permute': 0}
@@ -204,10 +206,13 @@ def _voltage_strides(re, im, what):
 def beamform_int8(wr, wi, re, im):
     """K4: int8 weights (B, S) and int8 voltage planes (T, F, S) ->
     (yr, yi), two (T, F, B) int32 planes with yr = re.wr^T - im.wi^T and
-    yi = re.wi^T + im.wr^T per channel, exact.
+    yi = re.wi^T + im.wr^T per channel, exact for every int8 value, as one
+    int8 tensor-core GEMM over every channel.
 
     The voltage planes may be strided views sharing one set of strides
-    (the per-pol views of a ci8 gulp); they are read in place."""
+    (the per-pol views of a ci8 gulp); they are read in place, the
+    per-pol views of a ci8 gulp through 16-byte copies
+    (:func:`int8_staging`)."""
     import torch
     _check_beamform(wr, wi, re, im, (torch.int8,), (torch.int8,),
                     'beamform_int8')
@@ -219,37 +224,50 @@ def beamform_int8(wr, wi, re, im):
         raise ValueError("beamform_int8: %d stations could overflow the "
                          "int32 sum (at most %d)" % (S, MAX_NSTAND))
     st, sf, ss = _voltage_strides(re, im, 'beamform_int8')
+    vec, poff = int8_staging(re, im)
     wr, wi = wr.contiguous(), wi.contiguous()
     yr = torch.empty((T, F, B), dtype=torch.int32, device=re.device)
     yi = torch.empty_like(yr)
     from .. import _build
     lib, fn = _fn('beamform', 'bf_beamform_int8',
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 +
+                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
                   [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
-             T, F, S, B, st, sf, ss, _build.stream_ptr(re.device))
+             vec, poff, T, F, S, B, st, sf, ss,
+             _build.stream_ptr(re.device))
     _build.check(lib, err, 'beamform_int8')
     launches['beamform_int8'] += 1
+    if vec:
+        launches['beamform_int8_vec16'] += 1
     return yr, yi
 
 
-def bf16_staging(re, im):
-    """``(vec, poff)`` of K5's 16-byte staging for the voltage planes
-    ``re``, ``im``, or ``(0, 0)`` for its scalar staging.  The 16-byte
-    path takes the interleaved int8 layout of a ci8 gulp's per-pol views:
-    ``im`` one byte after ``re``, a station stride ``vec`` of 2 or 4 bytes
-    with the pair at byte ``poff`` of it (pol 1 of a dual-pol gulp starts
-    2 bytes into the row), rows that start on 16 bytes, and ``S * vec`` a
-    multiple of 16."""
-    import torch
-    if re.dtype != torch.int8:
-        return 0, 0
+def int8_staging(re, im):
+    """``(vec, poff)`` of K4's 16-byte staging for the int8 voltage
+    planes ``re``, ``im``, or ``(0, 0)`` for its scalar staging.  The
+    16-byte path takes the interleaved int8 layout of a ci8 gulp's per-pol
+    views: ``im`` one byte after ``re``, a station stride ``vec`` of 2 or 4
+    bytes with the pair at byte ``poff`` of it (pol 1 of a dual-pol gulp
+    starts 2 bytes into the row), rows that start on 16 bytes, and
+    ``S * vec`` a multiple of 16.  Both paths run the same tensor-core
+    kernel; they differ only in how a chunk reaches shared memory."""
     st, sf, ss = re.stride()
     poff = re.data_ptr() % 16
     if ss not in (2, 4) or im.data_ptr() != re.data_ptr() + 1 or \
             poff + 2 > ss or st % 16 or sf % 16 or (re.shape[2] * ss) % 16:
         return 0, 0
     return ss, poff
+
+
+def bf16_staging(re, im):
+    """``(vec, poff)`` of K5's 16-byte staging for the voltage planes
+    ``re``, ``im``, or ``(0, 0)`` for its scalar staging: the layout rule
+    of :func:`int8_staging`, for int8 voltages only (float32 voltages take
+    the scalar staging)."""
+    import torch
+    if re.dtype != torch.int8:
+        return 0, 0
+    return int8_staging(re, im)
 
 
 def beamform_bf16(wr, wi, re, im):

@@ -24,29 +24,34 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    agree within 1e-5, and rows are checked against the oracle;
 6. runs the beamformer kernels at the full-width shapes of BASELINE
    config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
-   beams, R=8): K4 (int8) bit-identical to its plain version and to the
-   int64 oracle on three channels, K5 (bf16, one GEMM over every
+   beams, R=8): K4 (int8, one int8 tensor-core GEMM over every channel)
+   on both pols' views bit-identical to its plain version and on pol 0
+   to the int64 oracle on three channels, K5 (bf16, one GEMM over every
    channel) within 1e-5 of its plain version and inside the bf16 class of
-   the float64 oracle, its launch on the per-pol view through the 16-byte
-   staging, K6 (beamform -> Stokes -> integrate) within 1e-6 of its plain
-   version and below 1e-5 against the float64 oracle on a T=64 cut; each
-   timed with CUDA events beside its plain version and a library
-   yardstick (K5 also queued, against torch.mm with an f32 output and
-   the bf16-output torch.matmul); K4 and K5 count the whole gulp read by
-   each per-pol launch;
+   the float64 oracle, the K4 and K5 launches on the per-pol views through
+   the 16-byte staging, K6 (beamform -> Stokes -> integrate) within 1e-6
+   of its plain version and below 1e-5 against the float64 oracle on a
+   T=64 cut; each timed with CUDA events beside its plain version and a
+   library yardstick (K4 and K5 also queued: K4 against torch._int_mm of
+   the widened block, K5 against torch.mm with an f32 output and the
+   bf16-output torch.matmul); K4 and K5 count the whole gulp read by each
+   per-pol launch;
 7. drives the beamformer chain through the Pipeline at that width (3
    warm-up and 16 timed gulps) in four arms, K6 (fused substitution),
    K4 and K5 (beamform block with the kernel forced -> fused Stokes and
    frame sum) and f32 (the complex64 baseline), zeroing the launch
    counters just before and reading them just after each; K6 must
-   launch once per gulp, K4 and K5 twice (once per pol), every K5 launch
-   through the 16-byte staging.  The K4 and K6 arms must agree within
-   1e-5, each arm must stay inside its accuracy class of the f32 arm, and
-   every output must be finite and (64, 512, 4, 64).  A fifth arm leaves
-   the candidate to the engine's race, in a fresh probe-cache directory,
-   prints its choice and stays inside the int8 class;
+   launch once per gulp, K4 and K5 twice (once per pol), every K4 and K5
+   launch through the 16-byte staging.  The K4 and K6 arms must agree
+   within 1e-5, each arm must stay inside its accuracy class of the f32
+   arm, and every output must be finite and (64, 512, 4, 64).  A fifth
+   arm leaves the candidate to the engine's race, in a fresh probe-cache
+   directory, prints each candidate's ms and its choice and stays inside
+   the int8 class;
 8. checks the capability probe K0: available() is True on the card and
-   launches the probe kernel once (a second call is cached);
+   launches the probe kernel once (a second call is cached); times it
+   one call bracketed, queued and replayed from a CUDA graph (device time
+   alone) beside torch.mul(x, 2.0);
 9. runs the correlator kernels at the FX path's shapes: K7 (xcorr_herm)
    on the (2, 128, 1024, 512) group planes of a (256, 1024, 256, 2) ci8
    gulp, read in place as strided views, in one launch; K8 (xcorr_cross)
@@ -251,6 +256,25 @@ def cuda_ms_queued(fn, calls=20, runs=5):
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
+
+
+def cuda_ms_graph(fn, calls=20, runs=5):
+    """Median device milliseconds per call of ``fn`` from replays of a
+    CUDA graph that holds ``calls`` calls: the device time of a call with
+    no host time in it (a launch shorter than its host-side preparation
+    keeps the card waiting even when calls queue)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms_queued(graph.replay, calls=1, runs=runs) / calls
 
 
 def bound(nbyte, nops, peak_ops=PEAK_FP32_PER_S):
@@ -603,12 +627,25 @@ def phase_beamform_kernels(gpu_kernels, beam):
     gulp_bytes = x.numel()
     nops = 8 * T * F * B * S
 
-    # K4: exact int32
-    yr, yi = gpu_kernels.beamform_int8(wr8, wi8, re, im)
-    pr, pi = gpu_kernels.beamform_int8_plain(wr8, wi8, re, im)
-    torch.cuda.synchronize()
-    require(torch.equal(yr, pr) and torch.equal(yi, pi),
-            'K4 is not bit-identical to its plain version')
+    # K4: exact int32, one int8 GEMM over every channel; both pols' views
+    # of the gulp through the 16-byte staging
+    k4_run = lambda: gpu_kernels.beamform_int8(wr8, wi8, re, im)
+    plain4 = lambda: gpu_kernels.beamform_int8_plain(wr8, wi8, re, im)
+    for p in (1, 0):
+        rp, ip = x[:, :, :, p, 0], x[:, :, :, p, 1]
+        n4, v4 = (gpu_kernels.launches[k] for k in ('beamform_int8',
+                                                     'beamform_int8_vec16'))
+        yr, yi = gpu_kernels.beamform_int8(wr8, wi8, rp, ip)
+        require(gpu_kernels.launches['beamform_int8'] == n4 + 1 and
+                gpu_kernels.launches['beamform_int8_vec16'] == v4 + 1,
+                'K4 on the pol %d view did not take the 16-byte staging: %s'
+                % (p, gpu_kernels.int8_staging(rp, ip)))
+        pr, pi = gpu_kernels.beamform_int8_plain(wr8, wi8, rp, ip)
+        torch.cuda.synchronize()
+        require(torch.equal(yr, pr) and torch.equal(yi, pi),
+                'K4 on pol %d is not bit-identical to its plain version' % p)
+        if p:
+            del yr, yi, pr, pi
     for f in (0, F // 2, F - 1):
         want_r, want_i = int64_beams(eng.wr8[0], eng.wi8[0],
                                      re[:, f:f + 1].cpu().numpy(),
@@ -616,18 +653,26 @@ def phase_beamform_kernels(gpu_kernels, beam):
         require(np.array_equal(yr[:, f:f + 1].cpu().numpy(), want_r) and
                 np.array_equal(yi[:, f:f + 1].cpu().numpy(), want_i),
                 'K4 differs from the int64 oracle on channel %d' % f)
-    log('K4 beamform_int8 (%d, %d, %d) x %d beams: bit-identical to its '
-        'plain version and to the int64 oracle on 3 channels' % (T, F, S, B))
+    log('K4 beamform_int8 (%d, %d, %d) x %d beams: both pols bit-identical '
+        'to the plain version, pol 0 to the int64 oracle on 3 channels, '
+        'both through the 16-byte staging' % (T, F, S, B))
+    lib4 = lambda: torch._int_mm(z, w2)
+    queued4 = {'kernel': cuda_ms_queued(k4_run),
+               'plain': cuda_ms_queued(plain4, calls=5, runs=3),
+               'library': cuda_ms_queued(lib4)}
+    log('K4 queued (ms per call of 20 back to back): %s' % queued4)
     k4 = kernel_entry(
         'beamform_int8', src, 265, torch.complex(yr.double(), yi.double()),
-        torch.complex(pr.double(), pi.double()),
-        cuda_ms(lambda: gpu_kernels.beamform_int8(wr8, wi8, re, im)),
-        cuda_ms(lambda: gpu_kernels.beamform_int8_plain(wr8, wi8, re, im),
-                runs=5),
+        torch.complex(pr.double(), pi.double()), cuda_ms(k4_run),
+        cuda_ms(plain4, runs=5),
         gulp_bytes + 2 * B * S + out_bytes, nops, PEAK_INT8_PER_S,
-        cuda_ms(lambda: torch._int_mm(z, w2)),
-        shape=[T, F, S, B], per='launch (one pol)',
-        library='torch._int_mm of [re | im] (T*F, 2S) x widened (2S, 2B)')
+        cuda_ms(lib4), shape=[T, F, S, B],
+        per='launch (one pol, one call bracketed)',
+        staging=gpu_kernels.int8_staging(re, im),
+        library='torch._int_mm of [re | im] (T*F, 2S) x widened (2S, 2B)',
+        ms_queued=queued4,
+        ms_queued_per='launch (median of batches of queued calls: 5 x 20; '
+                      'plain 3 x 5)')
     del yr, yi, pr, pi
 
     # K5: bf16 products, float32 sums, one GEMM over every channel; the
@@ -823,10 +868,15 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
         n = runs[arm][1][name]
         require(n >= per * ngulp, '%s launched %d times for %d gulps'
                 % (name, n, ngulp))
-    n5 = runs['K5'][1]
-    require(n5['beamform_bf16_vec16'] == n5['beamform_bf16'],
-            'the K5 arm took the 16-byte staging in %d of %d launches'
-            % (n5['beamform_bf16_vec16'], n5['beamform_bf16']))
+    for arm, name in (('K4', 'beamform_int8'), ('K5', 'beamform_bf16')):
+        n = runs[arm][1]
+        require(n[name + '_vec16'] == n[name],
+                'the %s arm took the 16-byte staging in %d of %d launches'
+                % (arm, n[name + '_vec16'], n[name]))
+    race = runs['race'][2]
+    for key, ms in race.get('probe_ms', {}).items():
+        log('beamformer race (%s): ms per call %s; chose %s'
+            % (key, ms, race['chosen'].get(key)))
     ref = runs['f32'][0]
     for k in ref:
         for arm in ('K6', 'K4', 'K5', 'f32', 'race'):
@@ -874,13 +924,28 @@ def phase_probe(gpu_kernels):
     torch.cuda.synchronize()
     log('K0 probe: available() True in %.1f ms (first call, one launch, '
         'library already built)' % first_ms)
+    # bracketed, one call's time holds the wrapper's host time; queued (20
+    # back to back), what a call costs the card while the host keeps up;
+    # replayed from a CUDA graph, the device time alone
+    k0_run = lambda: gpu_kernels.probe(x)
+    lib0 = lambda: torch.mul(x, 2.0)
+    queued = {'kernel': cuda_ms_queued(k0_run),
+              'plain': cuda_ms_queued(lambda: x * 2),
+              'library': cuda_ms_queued(lib0)}
+    graph = {'kernel': cuda_ms_graph(k0_run), 'library': cuda_ms_graph(lib0)}
+    log('K0 queued (ms per call of 20 back to back): %s; device time from '
+        'CUDA-graph replays: %s' % (queued, graph))
     return kernel_entry(
         'probe', 'bifrost_tpu_torch/csrc/probe.cu', 40, got, want,
-        cuda_ms(lambda: gpu_kernels.probe(x)), cuda_ms(lambda: x * 2),
+        cuda_ms(k0_run), cuda_ms(lambda: x * 2),
         2 * x.numel() * 4, x.numel(), PEAK_FP32_PER_S,
         cuda_ms(lambda: torch.mul(x, 2.0)), shape=[8, 128],
-        per='launch', available_first_call_ms=first_ms,
-        library='torch.mul(x, 2.0)')
+        per='launch (one call bracketed)', available_first_call_ms=first_ms,
+        library='torch.mul(x, 2.0)', ms_queued=queued,
+        ms_queued_per='launch (median of 5 batches of 20 queued calls)',
+        ms_graph=graph,
+        ms_graph_per='launch (median of 5 replays of a CUDA graph of 20 '
+                     'calls)')
 
 
 def xcorr_oracle(re_i, im_i, re_j, im_j):
@@ -2218,6 +2283,7 @@ def main():
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
     k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
+    k4['launches_vec16'] = bpipe['launches']['K4']['beamform_int8_vec16']
     k5['launches_vec16'] = bpipe['launches']['K5']['beamform_bf16_vec16']
     k6['launches'] = bpipe['launches']['K6']['beamform_detect_int8']
     for k in (k1, k2, k4, k5, k6):

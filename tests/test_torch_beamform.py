@@ -206,6 +206,76 @@ def test_k4_reads_the_per_pol_views_of_a_gulp():
         np.testing.assert_array_equal(yi.numpy(), want_i)
 
 
+#: (re, im, wr, wi) patterns at the int8 extremes: every value -128, and
+#: the mixes that drive yr or yi near 2 * S * 128^2
+_K4_EXTREMES = [(-128, -128, -128, -128), (-128, -128, -128, 127),
+                (-128, 127, -128, 127), (127, -128, 127, -128)]
+
+
+@pytest.mark.parametrize('pattern', _K4_EXTREMES + ['mixed'])
+def test_k4_exact_at_minus_128(pattern):
+    """K4 (its plain version here) takes weights and voltages of -128,
+    which int8 cannot negate: equal to the JAX kernel in interpret mode
+    and to the int64 oracle, constant extremes and a random mix of
+    -128, -127 and 127."""
+    T, F, S, B = 8, 2, 24, 5
+    if pattern == 'mixed':
+        rng = np.random.RandomState(17)
+        pick = lambda shape: rng.choice([-128, -127, 127], size=shape) \
+            .astype(np.int8)
+        re, im = pick((T, F, S)), pick((T, F, S))
+        wr, wi = pick((B, S)), pick((B, S))
+    else:
+        full = lambda v, shape: np.full(shape, v, np.int8)
+        re, im = full(pattern[0], (T, F, S)), full(pattern[1], (T, F, S))
+        wr, wi = full(pattern[2], (B, S)), full(pattern[3], (B, S))
+    yr, yi = gpu_kernels.beamform_int8(_t(wr), _t(wi), _t(re), _t(im))
+    jr, ji = pk.beamform_int8(wr, wi, re, im, interpret=True)
+    np.testing.assert_array_equal(yr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(yi.numpy(), np.asarray(ji))
+    want_r, want_i = _int64_oracle(wr, wi, re, im)
+    np.testing.assert_array_equal(yr.numpy().astype(np.int64), want_r)
+    np.testing.assert_array_equal(yi.numpy().astype(np.int64), want_i)
+    if pattern == (-128, -128, -128, -128):
+        assert (want_i == 2 * S * 128 * 128).all() and (want_r == 0).all()
+
+
+def test_k4_staging_path_follows_the_layout():
+    """K4 takes its 16-byte staging only where the int8 pairs sit in
+    16-byte rows: the per-pol views of a dual-pol gulp and the one pol of
+    a (T, F, S, 1, 2) gulp with S a multiple of 8; separate planes, rows
+    off 16 bytes and a pair across a station word take the scalar
+    staging.  K5's rule is the same for int8 voltages."""
+    x = torch.zeros((4, 2, 8, 2, 2), dtype=torch.int8)
+    base = x.data_ptr() % 16
+    assert gpu_kernels.int8_staging(x[..., 0, 0], x[..., 0, 1]) == (4, base)
+    assert gpu_kernels.int8_staging(x[..., 1, 0], x[..., 1, 1]) == \
+        (4, base + 2)
+    one = torch.zeros((4, 2, 8, 1, 2), dtype=torch.int8)
+    assert gpu_kernels.int8_staging(one[..., 0, 0], one[..., 0, 1])[0] == 2
+    odd = torch.zeros((4, 2, 6, 1, 2), dtype=torch.int8)
+    assert gpu_kernels.int8_staging(odd[..., 0, 0], odd[..., 0, 1]) == \
+        (0, 0)
+    planes = torch.zeros((2, 4, 2, 8), dtype=torch.int8)
+    assert gpu_kernels.int8_staging(planes[0], planes[1]) == (0, 0)
+    flat = torch.zeros(4 + x.numel(), dtype=torch.int8)
+    off = flat[4:].view(x.shape)
+    assert gpu_kernels.int8_staging(off[..., 0, 0], off[..., 0, 1]) == (0, 0)
+    # re and im swapped: im is not one byte after re
+    assert gpu_kernels.int8_staging(x[..., 0, 1], x[..., 0, 0]) == (0, 0)
+    # a view from the third frame of a gulp 16 bytes into its buffer
+    lead = torch.zeros(16 + 6 * 2 * 8 * 4, dtype=torch.int8)
+    g = lead[16:].view(6, 2, 8, 2, 2)[2:]
+    assert gpu_kernels.int8_staging(g[..., 1, 0], g[..., 1, 1]) == \
+        (4, (g.data_ptr() + 2) % 16)
+    for re, im in ((x[..., 0, 0], x[..., 0, 1]), (x[..., 1, 0], x[..., 1, 1]),
+                   (one[..., 0, 0], one[..., 0, 1]),
+                   (odd[..., 0, 0], odd[..., 0, 1]), (planes[0], planes[1]),
+                   (off[..., 0, 0], off[..., 0, 1])):
+        assert gpu_kernels.bf16_staging(re, im) == \
+            gpu_kernels.int8_staging(re, im)
+
+
 @pytest.mark.parametrize('vtype', ['int8', 'float32'])
 def test_k5_matches_jax_kernel_and_oracle(vtype):
     T, F, S, B = 16, 2, 16, 4

@@ -2,10 +2,11 @@
 chip_smoke.py runs: K1 against the float64 oracle over nfft and rfactor,
 K2 against its plain version on contiguous and strided planes, K4, K5
 and K6 (the beamformer) against the int64/float64 oracles and their
-plain versions at ragged and full-width shapes (K5 over every layout its
-wrapper takes: separate planes, float32 voltages and the per-pol views
-of ci8 gulps, through its 16-byte and its scalar staging, with resident
-and streamed weight panels), K0 (the capability
+plain versions at ragged and full-width shapes (K4 and K5 over every
+layout their wrappers take: separate planes, float32 voltages for K5 and
+the per-pol views of ci8 gulps, through the 16-byte and the scalar
+staging, with resident and streamed weight panels; K4 also at the int8
+extremes, -128 everywhere, and at the int32 edge S = MAX_NSTAND), K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
 int64 oracle at ragged shapes and on strided gulp views, K3 (the FDMT
 merge step) against its plain version over whole plans (ragged T,
@@ -175,8 +176,8 @@ def test_beamform_int8_full_width_on_gulp_views():
                                           want_i)
 
 
-def _k5_operands(layout, T, F, S, rng):
-    """The voltage planes of one K5 case on the card, and their numpy
+def _beam_operands(layout, T, F, S, rng):
+    """The voltage planes of one K4 or K5 case on the card, and their numpy
     values: separate int8 or float32 planes, or the per-pol views of a
     ci8 gulp (pol 0 or 1 of (T, F, S, 2, 2); pol 1 of a gulp that starts 16
     bytes into its buffer, viewed from its third frame; pol 0 of a gulp 4
@@ -219,7 +220,7 @@ def test_beamform_bf16_matches_plain_and_oracle(layout, T, F, S, B):
     rng = np.random.RandomState(T + S + B)
     wr = rng.randn(B, S).astype(np.float32)
     wi = rng.randn(B, S).astype(np.float32)
-    re, im, re_np, im_np = _k5_operands(layout, T, F, S, rng)
+    re, im, re_np, im_np = _beam_operands(layout, T, F, S, rng)
     vec16 = layout in ('pol0', 'pol1', 'offset') or \
         (layout == 'single' and S % 8 == 0)
     assert (gpu_kernels.bf16_staging(re, im)[0] != 0) == vec16
@@ -241,6 +242,145 @@ def test_beamform_bf16_matches_plain_and_oracle(layout, T, F, S, B):
     ref = np.einsum('tfs,bs->tfb', x, wr.astype(np.float64) +
                     1j * wi.astype(np.float64))
     assert _rel(got, ref) <= 8e-3
+
+
+@pytest.mark.parametrize('layout', ['int8', 'pol0', 'pol1', 'offset',
+                                    'unaligned', 'single'])
+@pytest.mark.parametrize('T,F,S,B', [(70, 3, 8, 3), (33, 2, 40, 65),
+                                     (128, 4, 256, 64), (9, 5, 300, 130),
+                                     (40, 7, 1024, 64)])
+def test_beamform_int8_layouts_match_int64_oracle(layout, T, F, S, B):
+    """K4 on every int8 layout its wrapper takes, full-range weights (-128
+    included): M = T * F rows not a multiple of the 128-row tile, S not a
+    multiple of the 64-station chunk (40, 300) and past the resident panel
+    (300, 1024: streamed from L2), B not a multiple of 8 or 64 (3, 65,
+    130).  Bit-identical to the int64 oracle; the 16-byte counter moves
+    exactly where int8_staging says the 16-byte path runs."""
+    rng = np.random.RandomState(T + S + B)
+    wr, wi = _i8(rng, (B, S)), _i8(rng, (B, S))
+    re, im, re_np, im_np = _beam_operands(layout, T, F, S, rng)
+    vec16 = layout in ('pol0', 'pol1', 'offset') or \
+        (layout == 'single' and S % 8 == 0)
+    assert (gpu_kernels.int8_staging(re, im)[0] != 0) == vec16
+    keys = ('beamform_int8', 'beamform_int8_vec16')
+    before = {k: gpu_kernels.launches[k] for k in keys}
+    yr, yi = gpu_kernels.beamform_int8(torch.from_numpy(wr).cuda(),
+                                       torch.from_numpy(wi).cuda(), re, im)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_int8'] == \
+        before['beamform_int8'] + 1
+    assert gpu_kernels.launches['beamform_int8_vec16'] == \
+        before['beamform_int8_vec16'] + int(vec16)
+    assert yr.shape == yi.shape == (T, F, B) and yr.dtype == torch.int32
+    want_r, want_i = _int64_oracle(wr, wi, re_np, im_np)
+    np.testing.assert_array_equal(yr.cpu().numpy(), want_r)
+    np.testing.assert_array_equal(yi.cpu().numpy(), want_i)
+
+
+#: (re, im, wr, wi) at the int8 extremes: every value -128, and the mixes
+#: that drive yr or yi near 2 * S * 128^2; 'mixed' draws -128, -127, 127
+_K4_EXTREMES = [(-128, -128, -128, -128), (-128, -128, -128, 127),
+                (-128, 127, -128, 127), (127, -128, 127, -128), 'mixed']
+
+
+def _extreme_operands(pattern, layout, T, F, S, B, seed):
+    """Weights (B, S) and voltage planes (T, F, S) of one extremes case:
+    separate int8 planes, or pol 0 or 1 of a (T, F, S, 2, 2) gulp whose
+    other pol holds random bytes; numpy values beside the card tensors."""
+    rng = np.random.RandomState(seed)
+    if pattern == 'mixed':
+        vals = [rng.choice([-128, -127, 127], size=shape).astype(np.int8)
+                for shape in ((T, F, S), (T, F, S), (B, S), (B, S))]
+    else:
+        vals = [np.full(shape, v, np.int8) for v, shape in
+                zip(pattern, ((T, F, S), (T, F, S), (B, S), (B, S)))]
+    re, im, wr, wi = vals
+    if layout == 'int8':
+        rec, imc = torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda()
+    else:
+        p = int(layout[-1])
+        g = _i8(rng, (T, F, S, 2, 2))
+        g[:, :, :, p, 0], g[:, :, :, p, 1] = re, im
+        x = torch.from_numpy(g).cuda()
+        rec, imc = x[:, :, :, p, 0], x[:, :, :, p, 1]
+    return (torch.from_numpy(wr).cuda(), torch.from_numpy(wi).cuda(), rec,
+            imc), (wr, wi, re, im)
+
+
+def _check_k4_exact(args, values, vec16):
+    before = gpu_kernels.launches['beamform_int8_vec16']
+    yr, yi = gpu_kernels.beamform_int8(*args)
+    pr, pi = gpu_kernels.beamform_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_int8_vec16'] == before + int(vec16)
+    assert torch.equal(yr, pr) and torch.equal(yi, pi)
+    want_r, want_i = _int64_oracle(*values)
+    np.testing.assert_array_equal(yr.cpu().numpy(), want_r)
+    np.testing.assert_array_equal(yi.cpu().numpy(), want_i)
+    return want_r, want_i
+
+
+@pytest.mark.parametrize('pattern', _K4_EXTREMES)
+@pytest.mark.parametrize('layout', ['int8', 'pol0', 'pol1'])
+def test_beamform_int8_exact_at_the_int8_extremes(layout, pattern):
+    """Weights and voltages of -128 (which int8 cannot negate) and mixes
+    of -128 and 127, at a ragged shape (resident panel), through the
+    scalar and the 16-byte staging: bit-identical to the plain version and
+    the int64 oracle."""
+    T, F, S, B = 33, 3, 200, 70
+    args, values = _extreme_operands(pattern, layout, T, F, S, B, 31)
+    _check_k4_exact(args, values, layout != 'int8')
+
+
+@pytest.mark.parametrize('pattern', _K4_EXTREMES)
+@pytest.mark.parametrize('layout,S', [('int8', gpu_kernels.MAX_NSTAND),
+                                      ('pol1', gpu_kernels.MAX_NSTAND - 3)])
+def test_beamform_int8_exact_at_the_int32_edge(layout, S, pattern):
+    """S = MAX_NSTAND (and the largest S of the 16-byte path below it),
+    small T * F and B, streamed panel: every -128 gives yi = 2 S 128^2 =
+    2,147,450,880 and the mixes give |yr| or |yi| near it; the s32
+    accumulators wrap, never saturate, so every result is exact."""
+    T, F, B = 3, 2, 3
+    args, values = _extreme_operands(pattern, layout, T, F, S, B, 37)
+    want_r, want_i = _check_k4_exact(args, values, layout != 'int8')
+    if pattern == (-128, -128, -128, -128):
+        assert (want_i == 2 * S * 128 * 128).all() and \
+            want_i.max() > 2 ** 31 - 2 ** 18
+    assert max(np.abs(want_r).max(), np.abs(want_i).max()) < 2 ** 31
+
+
+def test_beamform_int8_build_and_launch_failures_raise(monkeypatch):
+    """K4 raises when its C entry refuses a launch (the 16-byte staging
+    asked of separate planes), and when its library does not build (a
+    failing ``_fn``), from the wrapper and from the engine's forced
+    ``pallas`` candidate alike; nothing falls back."""
+    import ctypes
+    from bifrost_tpu_torch import _build
+    rng = np.random.RandomState(5)
+    T, F, S, B = 8, 2, 32, 4
+    w = torch.from_numpy(_i8(rng, (B, S))).cuda()
+    re = torch.from_numpy(_i8(rng, (T, F, S))).cuda()
+    im = torch.from_numpy(_i8(rng, (T, F, S))).cuda()
+    yr = torch.empty((T, F, B), dtype=torch.int32, device='cuda')
+    lib, fn = gpu_kernels._fn('beamform', 'bf_beamform_int8',
+                              [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
+                              [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = fn(ptr(w), ptr(w), ptr(re), ptr(im), ptr(yr), ptr(yr), 4, 0, T, F,
+             S, B, F * S, S, 1, _build.stream_ptr(re.device))
+    assert err != 0
+    with pytest.raises(RuntimeError, match='beamform_int8: CUDA error'):
+        _build.check(lib, err, 'beamform_int8')
+
+    def nvcc_failure(*args):
+        raise RuntimeError('nvcc failed for beamform')
+    monkeypatch.setattr(gpu_kernels, '_fn', nvcc_failure)
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        gpu_kernels.beamform_int8(w, w, re, im)
+    eng = Beamformer((rng.randn(1, B, S) + 1j * rng.randn(1, B, S))
+                     .astype(np.complex64), accuracy='int8', impl='pallas')
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        eng(re[:, :, None], im[:, :, None])
 
 
 def _detect_oracle(eng, x, R):
