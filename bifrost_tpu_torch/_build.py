@@ -15,7 +15,10 @@ and the beamform-detect kernel is held bit for bit to its plain version.
 
 A kernel that does not build raises from :func:`build`, and every C
 entry returns ``cudaGetLastError()`` after its launch, which
-:func:`check` turns into an exception.  The JAX package's capability
+:func:`check` turns into an exception.  A wrapper binds each C entry
+once (:func:`bind`), passes pointers as plain ints and reads the current
+stream's raw handle (:func:`stream_ptr`), so the host time of a launch
+is little more than the ctypes call.  The JAX package's capability
 probe (``pallas_kernels.available``) is K0 here, ``csrc/probe.cu``
 behind :func:`bifrost_tpu_torch.ops.gpu_kernels.available`, which
 builds and loads every library of :data:`SOURCES` before it runs the
@@ -32,7 +35,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ['SOURCES', 'build', 'load', 'check', 'build_logs']
+__all__ = ['SOURCES', 'build', 'load', 'bind', 'check', 'stream_ptr',
+           'build_logs']
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, 'csrc')
@@ -50,6 +54,8 @@ build_logs = {}
 
 _lock = threading.Lock()
 _libs = {}
+#: C entries bound so far, by (library, function): (library, function)
+_bound = {}
 
 
 def _nvcc():
@@ -110,18 +116,40 @@ def build(names=SOURCES):
 
 
 def load(name):
-    """The ctypes library of kernel source ``name``, built if needed."""
+    """The ctypes library of kernel source ``name``, built if needed,
+    whose functions are called without releasing the GIL."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _libs:
             build([name])
-            lib = ctypes.CDLL(_lib_path(name)[1])
+            # PyDLL: a launch keeps the GIL, as torch's own launches do;
+            # the entries only enqueue work, so none holds it for long
+            lib = ctypes.PyDLL(_lib_path(name)[1])
             lib.bf_error_string.argtypes = [ctypes.c_int]
             lib.bf_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+def bind(name, fn_name, argtypes):
+    """``(lib, fn)``: the C entry ``fn_name`` of kernel library ``name``
+    with its ``argtypes`` and an int ``restype``, bound at its first use
+    and kept, so a launch sets neither again (ctypes rebuilds its argument
+    converters on every assignment)."""
+    key = (name, fn_name)
+    hit = _bound.get(key)
+    if hit is None:
+        lib = load(name)
+        with _lock:
+            hit = _bound.get(key)
+            if hit is None:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                hit = _bound[key] = (lib, fn)
+    return hit
 
 
 def check(lib, err, what):
@@ -131,7 +159,19 @@ def check(lib, err, what):
                            % (what, err, lib.bf_error_string(err).decode()))
 
 
+_raw_stream = None
+
+
 def stream_ptr(device):
-    """The current CUDA stream of ``device`` as a ctypes pointer."""
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The raw handle, an int, of the current CUDA stream of ``device`` (a
+    tensor's device, index included), read on every call (the caller's
+    current stream, never a cached one): through
+    ``torch._C._cuda_getCurrentRawStream`` where the CUDA build of torch
+    has it, which builds no ``torch.cuda.Stream`` object."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+        _raw_stream = raw if raw is not None else (
+            lambda index: torch.cuda.current_stream(index).cuda_stream)
+    return _raw_stream(device.index)

@@ -26,7 +26,9 @@ Each source states its kernels' bounds on the H100 and what their design
 does about them.  On a CUDA tensor a wrapper launches its kernel or
 raises; on a CPU tensor it runs the ``*_plain`` version beside it, which
 the CPU tests use and the chip smoke run holds the kernel against.
-:data:`launches` counts each wrapper's kernel launches.
+:data:`launches` counts each wrapper's kernel launches.  Every wrapper
+calls its C entry through :func:`_fn`, which binds it once
+(``_build.bind``), with pointers and the stream handle as plain ints.
 """
 
 from __future__ import annotations
@@ -35,24 +37,27 @@ import contextlib
 import ctypes
 import os
 
+from .. import _build
+
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_int8_plain', 'int8_staging', 'beamform_bf16',
            'beamform_bf16_plain', 'bf16_staging', 'beamform_detect_int8',
            'beamform_detect_int8_plain', 'probe', 'available', 'enabled',
-           'xcorr_herm', 'xcorr_herm_plain', 'xcorr_cross',
+           'xcorr_herm', 'xcorr_herm_plain', 'xcorr_staging', 'xcorr_cross',
            'xcorr_cross_plain', 'fdmt_step', 'fdmt_step_plain',
            'ring_permute', 'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME',
            'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
-#: (``beamform_int8_vec16`` and ``beamform_bf16_vec16`` count the K4 and
-#: K5 launches that took the 16-byte staging path, subsets of
-#: ``beamform_int8`` and ``beamform_bf16``)
+#: (``beamform_int8_vec16``, ``beamform_bf16_vec16`` and
+#: ``xcorr_herm_vec16`` count the K4, K5 and K7 launches that took the
+#: 16-byte staging path, subsets of ``beamform_int8``, ``beamform_bf16``
+#: and ``xcorr_herm``)
 launches = {'stokes_detect': 0, 'beamform_int8': 0,
             'beamform_int8_vec16': 0, 'beamform_bf16': 0,
             'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0, 'probe': 0,
-            'xcorr_herm': 0, 'xcorr_cross': 0, 'fdmt_step': 0,
-            'ring_permute': 0}
+            'xcorr_herm': 0, 'xcorr_herm_vec16': 0, 'xcorr_cross': 0,
+            'fdmt_step': 0, 'ring_permute': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
@@ -63,17 +68,24 @@ MAX_NSTAND = (2 ** 31 - 1) // (2 * 128 * 128)
 MAX_NTIME = MAX_NSTAND
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _fn(lib_name, fn_name, argtypes):
-    from .. import _build
-    lib = _build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
+    """``(lib, fn)``: the C entry, bound once (``_build.bind``)."""
+    return _build.bind(lib_name, fn_name, argtypes)
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: argument types of each C entry
+_STOKES_ARGS = [_P] * 5 + [_L] * 4 + [_P]
+_INT8_ARGS = [_P] * 6 + [_I] * 6 + [_L] * 3 + [_P]
+_BF16_ARGS = [_P] * 6 + [_I] * 7 + [_L] * 3 + [_P]
+_DETECT_ARGS = [_P] * 6 + [_F] + [_I] * 5 + [_L] * 2 + [_P]
+_PROBE_ARGS = [_P, _P, _I, _P]
+_HERM_ARGS = [_P] * 3 + [_I] * 5 + [_L] * 4 + [_P]
+_CROSS_ARGS = [_P] * 5 + [_I] * 5 + [_L] * 8 + [_P]
+_FDMT_ARGS = [_P] * 5 + [_L] + [_I] * 4 + [_L, _I, _P]
+_RING_ARGS = [_P, _P, _I, _L, _P]
+_PEER_ARGS = [_I, _I]
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +134,6 @@ def stokes_detect(xr, xi, yr, yi):
 
 def _launch_stokes(planes):
     import torch
-    from .. import _build
     xr = planes[0]
     strides = xr.stride()
     if any(p.stride() != strides for p in planes) or min(strides) < 1:
@@ -131,11 +142,9 @@ def _launch_stokes(planes):
                          % [p.stride() for p in planes])
     T, F = xr.shape
     out = torch.empty((T, 4, F), dtype=torch.float32, device=xr.device)
-    lib, fn = _fn('stokes', 'bf_stokes_detect',
-                  [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 +
-                  [ctypes.c_void_p])
-    err = fn(*[_ptr(p) for p in planes], _ptr(out), T, F, strides[0],
-             strides[1], _build.stream_ptr(xr.device))
+    lib, fn = _fn('stokes', 'bf_stokes_detect', _STOKES_ARGS)
+    err = fn(*[p.data_ptr() for p in planes], out.data_ptr(), T, F,
+             strides[0], strides[1], _build.stream_ptr(xr.device))
     _build.check(lib, err, 'stokes_detect')
     launches['stokes_detect'] += 1
     return out
@@ -228,12 +237,9 @@ def beamform_int8(wr, wi, re, im):
     wr, wi = wr.contiguous(), wi.contiguous()
     yr = torch.empty((T, F, B), dtype=torch.int32, device=re.device)
     yi = torch.empty_like(yr)
-    from .. import _build
-    lib, fn = _fn('beamform', 'bf_beamform_int8',
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 +
-                  [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-    err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
-             vec, poff, T, F, S, B, st, sf, ss,
+    lib, fn = _fn('beamform', 'bf_beamform_int8', _INT8_ARGS)
+    err = fn(wr.data_ptr(), wi.data_ptr(), re.data_ptr(), im.data_ptr(),
+             yr.data_ptr(), yi.data_ptr(), vec, poff, T, F, S, B, st, sf, ss,
              _build.stream_ptr(re.device))
     _build.check(lib, err, 'beamform_int8')
     launches['beamform_int8'] += 1
@@ -289,11 +295,9 @@ def beamform_bf16(wr, wi, re, im):
     wr, wi = wr.contiguous(), wi.contiguous()
     yr = torch.empty((T, F, B), dtype=torch.float32, device=re.device)
     yi = torch.empty_like(yr)
-    from .. import _build
-    lib, fn = _fn('beamform', 'bf_beamform_bf16',
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
-                  [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-    err = fn(_ptr(wr), _ptr(wi), _ptr(re), _ptr(im), _ptr(yr), _ptr(yi),
+    lib, fn = _fn('beamform', 'bf_beamform_bf16', _BF16_ARGS)
+    err = fn(wr.data_ptr(), wi.data_ptr(), re.data_ptr(), im.data_ptr(),
+             yr.data_ptr(), yi.data_ptr(),
              0 if re.dtype == torch.int8 else 1, vec, poff, T, F, S, B,
              st, sf, ss, _build.stream_ptr(re.device))
     _build.check(lib, err, 'beamform_bf16')
@@ -387,12 +391,8 @@ def beamform_detect_int8(wxr, wxi, wyr, wyi, x, scale, rfactor):
     weights = [w.contiguous() for w in weights]
     out = torch.empty((T // rfactor, F, 4, B), dtype=torch.float32,
                       device=x.device)
-    from .. import _build
-    lib, fn = _fn('beamform', 'bf_beamform_detect_int8',
-                  [ctypes.c_void_p] * 6 + [ctypes.c_float] +
-                  [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 +
-                  [ctypes.c_void_p])
-    err = fn(*[_ptr(w) for w in weights], _ptr(x), _ptr(out),
+    lib, fn = _fn('beamform', 'bf_beamform_detect_int8', _DETECT_ARGS)
+    err = fn(*[w.data_ptr() for w in weights], x.data_ptr(), out.data_ptr(),
              float(scale), T, F, S, B, rfactor, st, sf,
              _build.stream_ptr(x.device))
     _build.check(lib, err, 'beamform_detect_int8')
@@ -414,14 +414,14 @@ def probe(x):
     import torch
     if x.dtype != torch.float32:
         raise ValueError("probe: expected float32, got %s" % x.dtype)
-    if x.device.type != 'cuda':
+    dev = x.device
+    if dev.type != 'cuda':
         return x * 2
-    from .. import _build
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     out = torch.empty_like(x)
-    lib, fn = _fn('probe', 'bf_probe', [ctypes.c_void_p] * 2 +
-                  [ctypes.c_int, ctypes.c_void_p])
-    err = fn(_ptr(x), _ptr(out), x.numel(), _build.stream_ptr(x.device))
+    lib, fn = _fn('probe', 'bf_probe', _PROBE_ARGS)
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(dev))
     _build.check(lib, err, 'probe')
     launches['probe'] += 1
     return out
@@ -437,7 +437,6 @@ def available(device=None):
     reads as False, which would quietly drop the kernels from every
     race."""
     import torch
-    from .. import _build
     if device is None:
         from ..device import get_device
         device = get_device()
@@ -515,33 +514,32 @@ def _group_strides(x, what):
     return s if x.dim() == 4 else (0,) + s
 
 
-def _launch_xcorr(herm, re_i, im_i, re_j, im_j, what):
+def _share_strides(re, im, what):
+    if re.stride() != im.stride():
+        raise ValueError("%s: re and im planes must share strides, got %s "
+                         "and %s" % (what, re.stride(), im.stride()))
+
+
+def _xcorr_out(re_i, nj):
+    """The (.., F, n_i, n_j, 2) float32 output of a correlation launch."""
     import torch
-    from .. import _build
-    for a, b in ((re_i, im_i), (re_j, im_j)):
-        if a.stride() != b.stride():
-            raise ValueError("%s: re and im planes must share strides, got "
-                             "%s and %s" % (what, a.stride(), b.stride()))
-    si = _group_strides(re_i, what)
-    sj = _group_strides(re_j, what)
-    lead = re_i.shape[:-3]
-    g = re_i.shape[0] if lead else 1
-    T, F, ni = re_i.shape[-3:]
-    nj = re_j.shape[-1]
-    out = torch.empty(tuple(lead) + (F, ni, nj, 2), dtype=torch.float32,
-                      device=re_i.device)
-    lib, fn = _fn('xcorr', 'bf_xcorr', [ctypes.c_void_p] * 5 +
-                  [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 +
-                  [ctypes.c_void_p])
-    if T == 0:
-        out.zero_()
-    else:
-        err = fn(_ptr(re_i), _ptr(im_i), _ptr(re_j), _ptr(im_j), _ptr(out),
-                 int(herm), g, T, F, ni, nj, *si, *sj,
-                 _build.stream_ptr(re_i.device))
-        _build.check(lib, err, what)
-        launches[what] += 1
-    return torch.view_as_complex(out)
+    return torch.empty(tuple(re_i.shape[:-3]) + re_i.shape[-2:] + (nj, 2),
+                       dtype=torch.float32, device=re_i.device)
+
+
+def xcorr_staging(re, im):
+    """1 where K7 stages the planes ``re``, ``im`` through 16-byte copies,
+    else 0 (its scalar staging): the interleaved layout of a ci8 gulp's re
+    and im views, element stride 2 with ``im`` one byte after ``re``, rows
+    (frames, channels and groups) on 16 bytes, and ``n * 2`` a multiple of
+    16.  Both paths run the same tensor-core kernel; they differ only in
+    how a channel reaches shared memory."""
+    s = re.stride()
+    n = re.shape[-1]
+    if s[-1] != 2 or im.data_ptr() != re.data_ptr() + 1 or \
+            re.data_ptr() % 16 or any(v % 16 for v in s[:-1]) or (2 * n) % 16:
+        return 0
+    return 1
 
 
 def xcorr_herm(re, im):
@@ -549,11 +547,28 @@ def xcorr_herm(re, im):
     -> (F, n, n) complex64, vis[f, a, b] = sum_t x[t, f, a] conj(x[t, f,
     b]), exact.  Planes (g, T, F, n) give (g, F, n, n) in one launch: the
     X step's groups of a gulp.  Strided planes (the re and im views of a
-    ci8 gulp) are read in place; the full matrix is written."""
+    ci8 gulp) are read in place, the interleaved views through 16-byte
+    copies (:func:`xcorr_staging`); the full matrix is written."""
+    import torch
     _check_xcorr(re, im, 'xcorr_herm')
     if re.device.type != 'cuda':
         return xcorr_herm_plain(re, im)
-    return _launch_xcorr(True, re, im, re, im, 'xcorr_herm')
+    _share_strides(re, im, 'xcorr_herm')
+    sg, st, sf, sn = _group_strides(re, 'xcorr_herm')
+    g = re.shape[0] if re.dim() == 4 else 1
+    T, F, n = re.shape[-3:]
+    out = _xcorr_out(re, n)
+    if T == 0:
+        return torch.view_as_complex(out.zero_())
+    vec = xcorr_staging(re, im)
+    lib, fn = _fn('xcorr', 'bf_xcorr_herm', _HERM_ARGS)
+    err = fn(re.data_ptr(), im.data_ptr(), out.data_ptr(), vec, g, T, F, n,
+             sg, st, sf, sn, _build.stream_ptr(re.device))
+    _build.check(lib, err, 'xcorr_herm')
+    launches['xcorr_herm'] += 1
+    if vec:
+        launches['xcorr_herm_vec16'] += 1
+    return torch.view_as_complex(out)
 
 
 def xcorr_cross(re_i, im_i, re_j, im_j):
@@ -561,6 +576,7 @@ def xcorr_cross(re_i, im_i, re_j, im_j):
     n_j) -> (F, n_i, n_j) complex64, vis[f, a, b] = sum_t x_i[t, f, a]
     conj(x_j[t, f, b]), exact (with a leading group axis, as
     :func:`xcorr_herm`)."""
+    import torch
     _check_xcorr(re_i, im_i, 'xcorr_cross')
     _check_xcorr(re_j, im_j, 'xcorr_cross')
     if re_i.shape[:-1] != re_j.shape[:-1] or re_i.device != re_j.device:
@@ -570,7 +586,23 @@ def xcorr_cross(re_i, im_i, re_j, im_j):
                                      tuple(re_j.shape), re_j.device))
     if re_i.device.type != 'cuda':
         return xcorr_cross_plain(re_i, im_i, re_j, im_j)
-    return _launch_xcorr(False, re_i, im_i, re_j, im_j, 'xcorr_cross')
+    _share_strides(re_i, im_i, 'xcorr_cross')
+    _share_strides(re_j, im_j, 'xcorr_cross')
+    si = _group_strides(re_i, 'xcorr_cross')
+    sj = _group_strides(re_j, 'xcorr_cross')
+    g = re_i.shape[0] if re_i.dim() == 4 else 1
+    T, F, ni = re_i.shape[-3:]
+    nj = re_j.shape[-1]
+    out = _xcorr_out(re_i, nj)
+    if T == 0:
+        return torch.view_as_complex(out.zero_())
+    lib, fn = _fn('xcorr', 'bf_xcorr_cross', _CROSS_ARGS)
+    err = fn(re_i.data_ptr(), im_i.data_ptr(), re_j.data_ptr(),
+             im_j.data_ptr(), out.data_ptr(), g, T, F, ni, nj, *si, *sj,
+             _build.stream_ptr(re_i.device))
+    _build.check(lib, err, 'xcorr_cross')
+    launches['xcorr_cross'] += 1
+    return torch.view_as_complex(out)
 
 
 # ---------------------------------------------------------------------------
@@ -649,7 +681,6 @@ def fdmt_step(state, d1, d2, passthrough, sgn):
     _check_fdmt(state, d1, d2, passthrough, sgn)
     if state.device.type != 'cuda':
         return fdmt_step_plain(state, d1, d2, passthrough, sgn)
-    from .. import _build
     nchan_cur, nd_cur, T = state.shape[-3:]
     batch = state.shape[0] if state.dim() == 4 else 1
     nout, nd_out = d1.shape
@@ -661,10 +692,9 @@ def fdmt_step(state, d1, d2, passthrough, sgn):
         raise ValueError("fdmt_step: the tables must be contiguous")
     out = torch.empty(tuple(state.shape[:-3]) + (nout, nd_out, T),
                       dtype=torch.float32, device=state.device)
-    lib, fn = _fn('fdmt', 'bf_fdmt_step', [ctypes.c_void_p] * 5 +
-                  [ctypes.c_longlong] + [ctypes.c_int] * 4 +
-                  [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    err = fn(_ptr(state), _ptr(out), _ptr(d1), _ptr(d2), _ptr(passthrough),
+    lib, fn = _fn('fdmt', 'bf_fdmt_step', _FDMT_ARGS)
+    err = fn(state.data_ptr(), out.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+             passthrough.data_ptr(),
              batch, nchan_cur, nd_cur, nout, nd_out, T, int(sgn),
              _build.stream_ptr(state.device))
     _build.check(lib, err, 'fdmt_step')
@@ -711,13 +741,10 @@ def _check_ring(blocks):
 def _peer_access(lib, src, dst):
     """Let card ``src`` write to card ``dst``; raises where it cannot."""
     import torch
-    from .. import _build
     if not torch.cuda.can_device_access_peer(src.index, dst.index):
         raise RuntimeError("ring_permute: %s has no peer access to %s, so "
                            "K9 cannot write the block there" % (src, dst))
-    enable = lib.bf_enable_peer
-    enable.argtypes = [ctypes.c_int, ctypes.c_int]
-    enable.restype = ctypes.c_int
+    _, enable = _fn('ring_permute', 'bf_enable_peer', _PEER_ARGS)
     _build.check(lib, enable(src.index, dst.index), 'ring_permute')
 
 
@@ -733,7 +760,6 @@ def ring_permute(blocks):
     _check_ring(blocks)
     if blocks[0].device.type != 'cuda':
         return ring_permute_plain(blocks)
-    from .. import _build
     if len(blocks) > RING_MAX_RANKS:
         raise ValueError("ring_permute: %d ranks; one launch takes at most %d"
                          % (len(blocks), RING_MAX_RANKS))
@@ -747,9 +773,7 @@ def ring_permute(blocks):
     nbytes = blocks[0].numel() * blocks[0].element_size()
     if nbytes == 0:
         return out
-    lib, fn = _fn('ring_permute', 'bf_ring_permute',
-                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p])
+    lib, fn = _fn('ring_permute', 'bf_ring_permute', _RING_ARGS)
     by_src = {}
     for i in range(D):
         by_src.setdefault(devices[i], []).append(i)
@@ -769,8 +793,7 @@ def ring_permute(blocks):
                 *[blocks[i].data_ptr() for i in ranks])
             dstp = (ctypes.c_ulonglong * len(ranks))(
                 *[out[(i + 1) % D].data_ptr() for i in ranks])
-            err = fn(srcp, dstp, len(ranks), nbytes,
-                     ctypes.c_void_p(stream.cuda_stream))
+            err = fn(srcp, dstp, len(ranks), nbytes, stream.cuda_stream)
             _build.check(lib, err, 'ring_permute')
             launches['ring_permute'] += 1
             for dst in dsts:

@@ -87,6 +87,11 @@ def _twiddle(nfft, device):
     return tw
 
 
+#: argument types of the C entry bf_spectrometer
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+
+
 def _launch(volt, T, nfft, rfactor):
     global launches
     import torch
@@ -100,14 +105,9 @@ def _launch(volt, T, nfft, rfactor):
     out = torch.empty((T, 4, nfft // rfactor), dtype=torch.float32,
                       device=volt.device)
     tw = _twiddle(nfft, volt.device)
-    lib = _build.load('spectrometer')
-    fn = lib.bf_spectrometer
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(ctypes.c_void_p(volt.data_ptr()), ctypes.c_void_p(tw.data_ptr()),
-             ctypes.c_void_p(out.data_ptr()), T, nfft.bit_length() - 1,
-             rfactor, _build.stream_ptr(volt.device))
+    lib, fn = _build.bind('spectrometer', 'bf_spectrometer', _ARGTYPES)
+    err = fn(volt.data_ptr(), tw.data_ptr(), out.data_ptr(), T,
+             nfft.bit_length() - 1, rfactor, _build.stream_ptr(volt.device))
     _build.check(lib, err, 'fused_spectrometer')
     launches += 1
     return out

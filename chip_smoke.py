@@ -902,9 +902,43 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
             'launches': {arm: runs[arm][1] for arm in runs}}
 
 
+_legacy_fn = {}
+
+
+def legacy_probe(x):
+    """K0 launched the way every wrapper launched before its C entry was
+    bound once: the library looked up, argtypes and restype set, each
+    pointer wrapped in a ctypes.c_void_p and a torch.cuda.Stream made, on
+    every call, through a ctypes.CDLL (which releases the GIL for the
+    call).  Same kernel; not counted in the launch counters.  It is timed
+    beside K0 as the launch path's "before" in the same run."""
+    import ctypes
+    import torch
+    from bifrost_tpu_torch import _build
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _build.load('probe')
+    # the library as ctypes.CDLL loads it (a call releases the GIL), with
+    # its own function object: the cached binding of bf_probe stays as is
+    lib = _legacy_fn.get('lib')
+    if lib is None:
+        lib = _legacy_fn['lib'] = ctypes.CDLL(_build._lib_path('probe')[1])
+        lib.bf_error_string.argtypes = [ctypes.c_int]
+        lib.bf_error_string.restype = ctypes.c_char_p
+    fn = lib.bf_probe
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+             x.numel(), ctypes.c_void_p(
+                 torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(lib, err, 'legacy probe')
+    return out
+
+
 def phase_probe(gpu_kernels):
     """K0: available() builds and runs the probe kernel on the card once,
-    and a second call answers from its cache."""
+    and a second call answers from its cache; K0 timed beside torch.mul
+    and beside its launch path before the binding cache."""
     import torch
     gpu_kernels._available_on.clear()
     before = gpu_kernels.launches['probe']
@@ -929,12 +963,18 @@ def phase_probe(gpu_kernels):
     # replayed from a CUDA graph, the device time alone
     k0_run = lambda: gpu_kernels.probe(x)
     lib0 = lambda: torch.mul(x, 2.0)
+    old0 = lambda: legacy_probe(x)
+    require(torch.equal(old0(), want), 'the legacy K0 launch differs')
     queued = {'kernel': cuda_ms_queued(k0_run),
               'plain': cuda_ms_queued(lambda: x * 2),
-              'library': cuda_ms_queued(lib0)}
+              'library': cuda_ms_queued(lib0),
+              'legacy_launch': cuda_ms_queued(old0)}
     graph = {'kernel': cuda_ms_graph(k0_run), 'library': cuda_ms_graph(lib0)}
+    legacy_ms = cuda_ms(old0)
     log('K0 queued (ms per call of 20 back to back): %s; device time from '
-        'CUDA-graph replays: %s' % (queued, graph))
+        'CUDA-graph replays: %s; the legacy launch path bracketed %.4f ms; '
+        'K0 queued / torch.mul queued %.3f'
+        % (queued, graph, legacy_ms, queued['kernel'] / queued['library']))
     return kernel_entry(
         'probe', 'bifrost_tpu_torch/csrc/probe.cu', 40, got, want,
         cuda_ms(k0_run), cuda_ms(lambda: x * 2),
@@ -945,7 +985,11 @@ def phase_probe(gpu_kernels):
         ms_queued_per='launch (median of 5 batches of 20 queued calls)',
         ms_graph=graph,
         ms_graph_per='launch (median of 5 replays of a CUDA graph of 20 '
-                     'calls)')
+                     'calls)', legacy_launch_ms=legacy_ms,
+        legacy_launch='the same kernel through the launch path before the '
+                      'binding cache (argtypes set, pointers wrapped and a '
+                      'torch.cuda.Stream made on every call, the GIL '
+                      'released for the call)')
 
 
 def xcorr_oracle(re_i, im_i, re_j, im_j):
@@ -966,6 +1010,65 @@ def check_channels(name, got, planes):
                 '%s differs from the int64 oracle on channel %d' % (name, f))
 
 
+def xcorr_herm_shapes(gpu_kernels, x):
+    """K7 beyond the FX gulp: x-stateful's 64-frame gulp (XST, XF, XN),
+    the mesh arms' 256-frame gulp (XT, XF, XN), whose channel does not fit
+    in shared memory (staged in time chunks, a tile at a time), and a
+    ragged case (3 groups of 33 frames, 3 channels, 200 inputs: a tail of
+    one frame past a multiple of 32) through the 16-byte and the scalar
+    staging; each bit-identical to the plain version, the first and the
+    ragged ones to the int64 oracle.  Returns the kernels-line fields."""
+    import torch
+    out = {}
+    for name, T in (('x_stateful', XST), ('chunked_T256', XT)):
+        re = x[:T, ..., 0].reshape(T, XF, XN)
+        im = x[:T, ..., 1].reshape(T, XF, XN)
+        v0 = gpu_kernels.launches['xcorr_herm_vec16']
+        got = gpu_kernels.xcorr_herm(re, im)
+        want = gpu_kernels.xcorr_herm_plain(re, im)
+        torch.cuda.synchronize()
+        require(gpu_kernels.launches['xcorr_herm_vec16'] == v0 + 1,
+                'K7 at (%d, %d, %d) did not take the 16-byte staging'
+                % (T, XF, XN))
+        require(torch.equal(got, want), 'K7 at (%d, %d, %d) is not '
+                'bit-identical to its plain version' % (T, XF, XN))
+        if T == XST:
+            check_channels('K7 (x-stateful)', got, (re, im, re, im))
+        del got, want
+        run = lambda: gpu_kernels.xcorr_herm(re, im)
+        nbyte = 2 * T * XF * XN + 8 * XF * XN * XN
+        out[name] = {'shape': [T, XF, XN], 'ms': cuda_ms(run),
+                     'ms_queued': cuda_ms_queued(run),
+                     'bound_ms': bound(nbyte, 8 * T * XF * XN * XN,
+                                       PEAK_INT8_PER_S)[0]}
+        log('K7 at (%d, %d, %d): bit-identical to its plain version; %s'
+            % (T, XF, XN, out[name]))
+    g = torch.Generator(device='cuda').manual_seed(14)
+    gulp = torch.randint(-128, 128, (3 * 33, 3, 100, 2, 2), dtype=torch.int8,
+                         device='cuda', generator=g)
+    re = gulp[..., 0].reshape(3, 33, 3, 200)
+    im = gulp[..., 1].reshape(3, 33, 3, 200)
+    for layout, planes in (('16-byte', (re, im)),
+                           ('scalar', (re.contiguous(), im.contiguous()))):
+        v0 = gpu_kernels.launches['xcorr_herm_vec16']
+        got = gpu_kernels.xcorr_herm(*planes)
+        want = gpu_kernels.xcorr_herm_plain(*planes)
+        torch.cuda.synchronize()
+        require(gpu_kernels.launches['xcorr_herm_vec16'] - v0 ==
+                (layout == '16-byte'), 'K7 (ragged) took the wrong staging')
+        require(torch.equal(got, want), 'K7 (ragged, %s staging) is not '
+                'bit-identical to its plain version' % layout)
+        host = [p.cpu().numpy() for p in planes]
+        require(np.array_equal(got.cpu().numpy(),
+                               xcorr_oracle(host[0], host[1], host[0],
+                                            host[1])),
+                'K7 (ragged, %s staging) differs from the int64 oracle'
+                % layout)
+    log('K7 ragged (3, 33, 3, 200): bit-identical to its plain version and '
+        'the int64 oracle through the 16-byte and the scalar staging')
+    return out
+
+
 def phase_xcorr_kernels(gpu_kernels):
     """K7 and K8 at the FX path's shapes, on the strided views of a ci8
     gulp, each against its plain version and the int64 oracle, timed
@@ -980,12 +1083,15 @@ def phase_xcorr_kernels(gpu_kernels):
     re = x[..., 0].reshape(ng, XR, XF, XN)
     im = x[..., 1].reshape(ng, XR, XF, XN)
     require(re.data_ptr() == x.data_ptr(), 'the K7 planes are not views')
-    before = gpu_kernels.launches['xcorr_herm']
+    before, v0 = (gpu_kernels.launches[k] for k in ('xcorr_herm',
+                                                     'xcorr_herm_vec16'))
     got = gpu_kernels.xcorr_herm(re, im)
     want = gpu_kernels.xcorr_herm_plain(re, im)
     torch.cuda.synchronize()
     require(gpu_kernels.launches['xcorr_herm'] == before + 1,
             'K7 took more than one launch for the gulp')
+    require(gpu_kernels.launches['xcorr_herm_vec16'] == v0 + 1,
+            'K7 on the gulp views did not take the 16-byte staging')
     require(got.shape == (ng, XF, XN, XN) and got.dtype == torch.complex64,
             'K7 gave %s %s' % (tuple(got.shape), got.dtype))
     require(torch.equal(got, want), 'K7 is not bit-identical to its plain '
@@ -1000,16 +1106,30 @@ def phase_xcorr_kernels(gpu_kernels):
         % (ng, XR, XF, XN, ng, XF, XN, XN, list(XCHANNELS)))
     xc = torch.complex(re.float(), im.float())
     lib = lambda: torch.einsum('...tfi,...tfj->...fij', xc, xc.conj())
+    k7_run = lambda: gpu_kernels.xcorr_herm(re, im)
+    queued7 = {'kernel': cuda_ms_queued(k7_run),
+               'library': cuda_ms_queued(lib, calls=5, runs=3)}
+    log('K7 queued (ms per call of 20 back to back; library 3 x 5): %s'
+        % queued7)
     k7 = kernel_entry(
         'xcorr_herm', 'bifrost_tpu_torch/csrc/xcorr.cu', 155, got, want,
-        cuda_ms(lambda: gpu_kernels.xcorr_herm(re, im)),
+        cuda_ms(k7_run),
         cuda_ms(lambda: gpu_kernels.xcorr_herm_plain(re, im), runs=3),
         2 * XT * XF * XN + 8 * ng * XF * XN * XN, 8 * XT * XF * XN * XN,
         PEAK_INT8_PER_S, cuda_ms(lib, runs=5),
-        shape=[ng, XR, XF, XN], per='launch (one gulp)',
+        shape=[ng, XR, XF, XN], per='launch (one gulp, one call bracketed)',
+        staging=gpu_kernels.xcorr_staging(re, im),
         library="complex64 torch.einsum('tfi,tfj->fij', x, x.conj()), the "
-                "'xla' candidate, conversion untimed")
-    del xc, want
+                "'xla' candidate, conversion untimed", ms_queued=queued7,
+        ms_queued_per='launch (median of 5 batches of 20 queued calls; '
+                      'library 3 x 5)')
+    # the card's write rate in practice: zeroing the same 4.29 GB, queued
+    k7['write_ceiling_ms'] = cuda_ms_queued(lambda: got.zero_())
+    k7['write_ceiling'] = "out.zero_() of K7's output, queued"
+    log('K7: zeroing its output (the write ceiling) takes %.4f ms'
+        % k7['write_ceiling_ms'])
+    del xc, want, got
+    k7.update(xcorr_herm_shapes(gpu_kernels, x))
 
     # K8: a 4-way station-row block against all inputs, T = 128
     sb = XS // 4
@@ -1025,13 +1145,14 @@ def phase_xcorr_kernels(gpu_kernels):
             'K8 took more than one launch')
     require(torch.equal(got8, want8), 'K8 is not bit-identical to its '
             'plain version')
-    require(torch.equal(got8, got[0, :, :sb * XP, :]),
+    got7 = gpu_kernels.xcorr_herm(re, im)
+    require(torch.equal(got8, got7[0, :, :sb * XP, :]),
             "K8's rows differ from K7's")
     check_channels('K8', got8, (ri, ii, rj, ij))
     log('K8 xcorr_cross (%d, %d, %d) x (%d, %d, %d): bit-identical to its '
         'plain version, to the int64 oracle on channels %s and to K7\'s '
         'rows' % (XR, XF, sb * XP, XR, XF, XN, list(XCHANNELS)))
-    del got
+    del got7
     xi_c = torch.complex(ri.float(), ii.float())
     xj_c = torch.complex(rj.float(), ij.float())
     k8 = kernel_entry(
@@ -2293,6 +2414,9 @@ def main():
     k7['launches'] = fx['launches']['fx-K7']['xcorr_herm']
     k7['launches_per_gulp'] = k7['launches'] / float(XWARM + XTIMED)
     k7['launches_x_stateful'] = fx['launches']['x-stateful']['xcorr_herm']
+    k7['launches_vec16'] = fx['launches']['fx-K7']['xcorr_herm_vec16']
+    k7['launches_x_stateful_vec16'] = \
+        fx['launches']['x-stateful']['xcorr_herm_vec16']
     k8['launches'] = n8
     k8['launches_of'] = 'xcorr_int8 cross family, 4 station-row blocks'
     k3['launches'] = fdmt['launches']['frb-K3']['fdmt_step']
@@ -2303,6 +2427,12 @@ def main():
     k9['launches_of'] = 'the mesh-corner-K9 arm (%d ranks, %d hops a gulp)' \
         % (MD, MD - 1)
     kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
+    # the wrappers' host time: one call bracketed less a call's share of
+    # 20 queued back to back
+    for k in (k0, k4, k5, k7, k9):
+        k['host_ms'] = k['ms'] - k['ms_queued']['kernel']
+    log('wrapper host time (bracketed less queued, ms): %s' % json.dumps(
+        {k['name']: round(k['host_ms'], 4) for k in (k0, k4, k5, k7, k9)}))
     log('total %.1f s; by phase %s' % (
         time.perf_counter() - t_start,
         json.dumps({k: round(v, 1) for k, v in phase_s.items()})))

@@ -8,7 +8,10 @@ the per-pol views of ci8 gulps, through the 16-byte and the scalar
 staging, with resident and streamed weight panels; K4 also at the int8
 extremes, -128 everywhere, and at the int32 edge S = MAX_NSTAND), K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
-int64 oracle at ragged shapes and on strided gulp views, K3 (the FDMT
+int64 oracle at ragged shapes and on strided gulp views (K7 over every
+layout its wrapper takes, the 16-byte and the scalar staging, resident
+and chunked channels, at the int8 extremes and at T = MAX_NTIME), the
+binding cache of the launch path, K3 (the FDMT
 merge step) against its plain version over whole plans (ragged T,
 negative delays, passthrough rows, a batch axis, tables above 256 KB),
 K9 (the corner turn's ring hop) against its plain version for 2 to 4
@@ -603,6 +606,180 @@ def test_xcorr_wrappers_reject_bad_operands():
         gpu_kernels.xcorr_herm(big, big)
     with pytest.raises(ValueError):          # channels differ
         gpu_kernels.xcorr_cross(v, v, v[:, :1], v[:, :1])
+
+
+#: K7's layouts: the re and im views of a (G T, F, S, P, 2) ci8 gulp with
+#: P = 1 and 2, separate contiguous planes, and planes with odd strides
+_K7_LAYOUTS = ['gulp_p1', 'gulp_p2', 'planes', 'odd']
+
+
+def _k7_planes(layout, G, T, F, n, values):
+    """(re, im) card planes (G, T, F, n') of one K7 layout holding
+    ``values(shape)`` int8 arrays, and their numpy copies; n' = n, or the
+    2 * ceil(n / 2) inputs of a dual-pol gulp."""
+    if layout.startswith('gulp'):
+        P = int(layout[-1])
+        S = -(-n // P)
+        x = values((G * T, F, S, P, 2))
+        xc = torch.from_numpy(x).cuda()
+        shape = (G, T, F, S * P)
+        re = xc[..., 0].reshape(shape)
+        im = xc[..., 1].reshape(shape)
+        assert re.data_ptr() == xc.data_ptr()        # views, not copies
+        return re, im, x[..., 0].reshape(shape), x[..., 1].reshape(shape)
+    re, im = values((G, T, F, n)), values((G, T, F, n))
+    if layout == 'planes':
+        return (torch.from_numpy(re).cuda(), torch.from_numpy(im).cuda(), re,
+                im)
+    # odd strides: every third input of a row of an odd number of bytes
+    width = 3 * n + 2 - (3 * n + 1) % 2
+    big = [np.zeros((G, T, F, width), np.int8) for _ in range(2)]
+    big[0][..., 1:3 * n:3], big[1][..., 1:3 * n:3] = re, im
+    rec, imc = (torch.from_numpy(b).cuda()[..., 1:3 * n:3] for b in big)
+    assert rec.stride()[-1] == 3 and rec.stride()[-2] % 2 == 1
+    return rec, imc, re, im
+
+
+def _check_k7(re, im, re_np, im_np, channels=None):
+    """K7 against its plain version (whole) and the int64 oracle (on
+    ``channels``, all when None), the 16-byte counter where
+    xcorr_staging says, and the Hermitian structure."""
+    vec = gpu_kernels.xcorr_staging(re, im)
+    n0, v0 = (gpu_kernels.launches[k] for k in ('xcorr_herm',
+                                                 'xcorr_herm_vec16'))
+    got = gpu_kernels.xcorr_herm(re, im)
+    want = gpu_kernels.xcorr_herm_plain(re, im)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['xcorr_herm'] == n0 + 1
+    assert gpu_kernels.launches['xcorr_herm_vec16'] == v0 + vec
+    G, T, F, n = re.shape
+    assert got.shape == (G, F, n, n) and got.dtype == torch.complex64
+    assert torch.equal(got, want)
+    host = got.cpu().numpy()
+    for f in range(F) if channels is None else channels:
+        np.testing.assert_array_equal(
+            host[:, f], _xcorr_oracle(re_np[:, :, f:f + 1],
+                                      im_np[:, :, f:f + 1],
+                                      re_np[:, :, f:f + 1],
+                                      im_np[:, :, f:f + 1])[:, 0])
+    assert torch.equal(got.imag, -got.imag.transpose(-1, -2))
+    assert torch.equal(got.real, got.real.transpose(-1, -2))
+    assert not torch.diagonal(got.imag, dim1=-2, dim2=-1).any()
+    return vec
+
+
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 200, 512, 1000])
+@pytest.mark.parametrize('layout', _K7_LAYOUTS)
+def test_xcorr_herm_layouts_match_plain_and_oracle(layout, n):
+    """Every layout at every n, T cycling through 1, 31, 32, 33, 128 and
+    257 and G through 1 and 3 (the resident and the chunked staging both
+    run); the 16-byte path is taken exactly by the aligned gulp views
+    with n' a multiple of 8."""
+    k = _K7_LAYOUTS.index(layout) * 7 + [1, 63, 64, 65, 200, 512,
+                                         1000].index(n)
+    T = (1, 31, 32, 33, 128, 257)[k % 6]
+    G = (1, 3)[k % 2]
+    F = 2 if n < 512 else 1
+    rng = np.random.RandomState(k)
+    re, im, re_np, im_np = _k7_planes(layout, G, T, F, n,
+                                      lambda shape: _i8(rng, shape))
+    vec = _check_k7(re, im, re_np, im_np)
+    assert vec == int(layout.startswith('gulp') and re.shape[-1] % 8 == 0)
+
+
+@pytest.mark.parametrize('T', [1, 31, 32, 33, 128, 257])
+@pytest.mark.parametrize('G', [1, 3])
+def test_xcorr_herm_frames_and_groups(G, T):
+    """Each T of the list with and without groups, through the 16-byte
+    path (a dual-pol gulp of 100 stations) and the scalar path."""
+    rng = np.random.RandomState(T + G)
+    for layout in ('gulp_p2', 'planes'):
+        re, im, re_np, im_np = _k7_planes(layout, G, T, 3, 200,
+                                          lambda shape: _i8(rng, shape))
+        assert _check_k7(re, im, re_np, im_np) == int(layout == 'gulp_p2')
+
+
+#: K7's planes at the int8 extremes: every value -128, and mixes of -128,
+#: -127 and 127
+_K7_EXTREMES = ['-128', 'mixed']
+
+
+def _extreme_values(pattern, rng):
+    if pattern == '-128':
+        return lambda shape: np.full(shape, -128, np.int8)
+    return lambda shape: rng.choice([-128, -127, 127], size=shape) \
+        .astype(np.int8)
+
+
+@pytest.mark.parametrize('pattern', _K7_EXTREMES)
+@pytest.mark.parametrize('layout', _K7_LAYOUTS)
+def test_xcorr_herm_exact_at_the_int8_extremes(layout, pattern):
+    """-128 everywhere (which int8 cannot negate: K7 takes ~im instead)
+    and +-127/-128 mixes, at a ragged shape: bit-identical to the plain
+    version and the int64 oracle."""
+    rng = np.random.RandomState(41)
+    re, im, re_np, im_np = _k7_planes(layout, 3, 33, 2, 200,
+                                      _extreme_values(pattern, rng))
+    _check_k7(re, im, re_np, im_np)
+
+
+@pytest.mark.parametrize('pattern', _K7_EXTREMES)
+@pytest.mark.parametrize('layout', ['gulp_p2', 'planes'])
+def test_xcorr_herm_exact_at_the_int32_edge(layout, pattern):
+    """T = MAX_NTIME frames at small n and F: every -128 gives re = 2 T
+    128^2 = 2,147,450,880 on every output; the s32 accumulators wrap,
+    never saturate, so every result is exact."""
+    T = gpu_kernels.MAX_NTIME
+    rng = np.random.RandomState(43)
+    re, im, re_np, im_np = _k7_planes(layout, 1, T, 2, 8,
+                                      _extreme_values(pattern, rng))
+    _check_k7(re, im, re_np, im_np)
+    if pattern == '-128':
+        got = gpu_kernels.xcorr_herm(re, im)
+        assert (got.real == 2 * T * 128 * 128).all()
+        assert float(got.real.max()) > 2 ** 31 - 2 ** 18
+
+
+def test_xcorr_herm_launch_failure_raises():
+    """K7's C entry refuses the 16-byte staging asked of separate planes,
+    and the wrapper's check turns that into an exception."""
+    from bifrost_tpu_torch import _build
+    re = torch.zeros((1, 8, 2, 16), dtype=torch.int8, device='cuda')
+    im = torch.zeros_like(re)
+    out = torch.empty((1, 2, 16, 16, 2), dtype=torch.float32, device='cuda')
+    lib, fn = gpu_kernels._fn('xcorr', 'bf_xcorr_herm',
+                              gpu_kernels._HERM_ARGS)
+    err = fn(re.data_ptr(), im.data_ptr(), out.data_ptr(), 1, 1, 8, 2, 16,
+             8 * 2 * 16, 2 * 16, 16, 1, _build.stream_ptr(re.device))
+    assert err != 0
+    with pytest.raises(RuntimeError, match='xcorr_herm: CUDA error'):
+        _build.check(lib, err, 'xcorr_herm')
+
+
+def test_binding_cache_sets_argtypes_once_per_entry():
+    """Each C entry is bound once: repeated launches of K0, K7 and K8 find
+    their ctypes function with the argtypes tuple of the first binding
+    (a reassignment would build a new one), distinct entries apart."""
+    from bifrost_tpu_torch import _build
+    x = torch.ones((8, 128), dtype=torch.float32, device='cuda')
+    v = torch.zeros((4, 2, 8), dtype=torch.int8, device='cuda')
+    calls = [lambda: gpu_kernels.probe(x),
+             lambda: gpu_kernels.xcorr_herm(v, v),
+             lambda: gpu_kernels.xcorr_cross(v, v, v, v)]
+    for call in calls:
+        call()
+    keys = [('probe', 'bf_probe'), ('xcorr', 'bf_xcorr_herm'),
+            ('xcorr', 'bf_xcorr_cross')]
+    first = {k: _build._bound[k][1].argtypes for k in keys}
+    fns = {k: _build._bound[k][1] for k in keys}
+    assert len({id(f) for f in fns.values()}) == 3
+    for _ in range(3):
+        for call in calls:
+            call()
+    torch.cuda.synchronize()
+    for k in keys:
+        assert _build._bound[k][1] is fns[k]
+        assert _build._bound[k][1].argtypes is first[k]
 
 
 def test_to_host_carries_complex64_whole():
