@@ -13,6 +13,11 @@ The port computes what the TPU kernel computes, not how: there is no
 radix split ``n1`` (``_choose_split``, a Mosaic layout constraint) does
 not apply; rfactor need only divide nfft.
 
+The wrapper picks one of the source's two kernels by nfft alone: the
+radix-16 Stockham kernel from :data:`RADIX16_MIN_NFFT` (256) to
+:data:`MAX_NFFT`, the in-place radix-2 kernel for nfft 4 to 128.
+:data:`launches_by_path` counts each.  Neither gives way to the other.
+
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`spectrometer_plain` (``torch.fft.fft`` over the
 unpacked samples, then Stokes and a sum), which the CPU tests use and
@@ -28,14 +33,22 @@ import ctypes
 import numpy as np
 
 __all__ = ['fused_spectrometer', 'spectrometer_plain',
-           'spectrometer_oracle', 'MAX_NFFT', 'launches']
+           'spectrometer_oracle', 'MAX_NFFT', 'RADIX16_MIN_NFFT',
+           'launches', 'launches_by_path', 'kernel_path']
 
 #: largest nfft the kernel takes: two pols of float2 in shared memory
 #: (2 x 8192 x 8 B = 128 KB of the 227 KB a block may use)
 MAX_NFFT = 8192
 
+#: smallest nfft of the radix-16 Stockham kernel; nfft 4 to 128 take the
+#: in-place radix-2 kernel
+RADIX16_MIN_NFFT = 256
+
 #: K1 kernel launches since import (or since a caller reset it)
 launches = 0
+
+#: K1 launches by kernel, 'radix16' and 'radix2' (reset in place)
+launches_by_path = {'radix16': 0, 'radix2': 0}
 
 _twiddles = {}
 
@@ -74,14 +87,19 @@ def fused_spectrometer(volt, nfft=None, rfactor=4):
     return _launch(volt, T, nfft, rfactor)
 
 
+def kernel_path(nfft):
+    """The kernel that takes ``nfft``: 'radix16' or 'radix2'."""
+    return 'radix16' if nfft >= RADIX16_MIN_NFFT else 'radix2'
+
+
 def _twiddle(nfft, device):
-    """exp(-2 pi i k / nfft), k < nfft / 2, built in float64 and stored
-    as interleaved float32 on ``device`` (cached)."""
+    """exp(-2 pi i k / nfft), k < nfft, built in float64 and stored as
+    interleaved float32 on ``device`` (cached)."""
     key = (nfft, str(device))
     tw = _twiddles.get(key)
     if tw is None:
         import torch
-        w = np.exp(-2j * np.pi * np.arange(nfft // 2) / nfft)
+        w = np.exp(-2j * np.pi * np.arange(nfft) / nfft)
         host = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
         tw = _twiddles[key] = torch.from_numpy(host).to(device)
     return tw
@@ -89,7 +107,8 @@ def _twiddle(nfft, device):
 
 #: argument types of the C entry bf_spectrometer
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
 
 
 def _launch(volt, T, nfft, rfactor):
@@ -105,11 +124,14 @@ def _launch(volt, T, nfft, rfactor):
     out = torch.empty((T, 4, nfft // rfactor), dtype=torch.float32,
                       device=volt.device)
     tw = _twiddle(nfft, volt.device)
+    path = kernel_path(nfft)
     lib, fn = _build.bind('spectrometer', 'bf_spectrometer', _ARGTYPES)
     err = fn(volt.data_ptr(), tw.data_ptr(), out.data_ptr(), T,
-             nfft.bit_length() - 1, rfactor, _build.stream_ptr(volt.device))
+             nfft.bit_length() - 1, rfactor, int(path == 'radix16'),
+             _build.stream_ptr(volt.device))
     _build.check(lib, err, 'fused_spectrometer')
     launches += 1
+    launches_by_path[path] += 1
     return out
 
 

@@ -12,15 +12,22 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    complex FFT output, as the main path gives it, against its plain
    PyTorch version (rtol 1e-6), and times both with CUDA events;
 4. runs K1 (fused spectrometer) against the float64 oracle at T=64,
-   nfft=4096, r=4 (gate 1e-5 relative to the maximum) and against its
-   plain version at full width, and times the kernel, the plain version
-   and the PyTorch chain fft -> Stokes -> reduce (the library yardstick);
+   nfft=4096, r=4 (gate 1e-5 relative to the maximum), over every
+   power-of-two nfft from 4 to 8192 at small T and r 1, 4 and nfft
+   against the oracle and its plain version (each nfft through the
+   kernel its size picks: radix-16 Stockham from 256, radix-2 below,
+   counted by path), and against its plain version at full width; times
+   the kernel (bracketed and queued), the plain version, the PyTorch
+   chain fft -> Stokes -> reduce (the library yardstick) and cuFFT alone
+   on the unpacked gulp, and the kernel and cuFFT at nfft 1024, 2048 and
+   8192 on gulps of as many samples;
 5. drives the Guppi spectrometer chain through the port's Pipeline at
    full width (16384 x 2 x 4096 ci8 gulps, r=4; 3 warm-up and 16 timed
    gulps): system ring -> copy('cuda') -> FusedBlock -> copy('system') ->
    sink, once with the K1 substitution and once without (K2 path).
    Launch counters are zeroed just before and read just after each run;
-   each run must launch its kernel once per gulp.  The two outputs must
+   each run must launch its kernel once per gulp, and every K1 launch
+   must take the radix-16 kernel.  The two outputs must
    agree within 1e-5, and rows are checked against the oracle;
 6. runs the beamformer kernels at the full-width shapes of BASELINE
    config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
@@ -329,6 +336,81 @@ def library_chain(volt, rfactor):
     return st.reshape(st.shape[0], 4, -1, rfactor).sum(-1)
 
 
+def library_fft(volt):
+    """cuFFT alone (yardstick only): torch.fft.fft of the already
+    unpacked complex64 gulp."""
+    import torch
+    return torch.fft.fft(volt, dim=-1)
+
+
+def spectrometer_bound(T, nfft, rfactor):
+    """K1's bound: 2 B in a complex sample and 16 B / rfactor out; the
+    FFTs' 5 N log2 N flop and Stokes' 20 a bin."""
+    nbyte = 2 * T * NPOL * nfft + 4 * 4 * T * (nfft // rfactor)
+    nflop = T * NPOL * 5 * nfft * int(np.log2(nfft)) + 20 * T * nfft
+    return bound(nbyte, nflop)
+
+
+def spectrometer_sweep(spec):
+    """Every power-of-two nfft from 4 to MAX_NFFT at small T, r 1, 4 and
+    nfft, against the plain version and the float64 oracle, each through
+    the kernel that its nfft picks (the per-path counter)."""
+    import torch
+    worst = {}
+    e = 2
+    while (1 << e) <= spec.MAX_NFFT:
+        nfft = 1 << e
+        T = 5 if nfft >= 1024 else 9
+        rng = np.random.RandomState(100 + e)
+        v = rng.randint(-128, 128, size=(T, NPOL, nfft, 2)).astype(np.int8)
+        volt = torch.from_numpy(v).cuda()
+        path = spec.kernel_path(nfft)
+        for rfactor in sorted({1, min(4, nfft), nfft}):
+            before = spec.launches_by_path[path]
+            got = spec.fused_spectrometer(volt, rfactor=rfactor)
+            plain = spec.spectrometer_plain(volt, rfactor)
+            torch.cuda.synchronize()
+            require(spec.launches_by_path[path] == before + 1,
+                    'K1 at nfft %d did not take the %s kernel' % (nfft, path))
+            got = got.cpu().numpy()
+            r_oracle = rel_err(got, spec.spectrometer_oracle(v, rfactor))
+            r_plain = rel_err(got, plain.cpu().numpy())
+            require(r_oracle < GATE and r_plain < GATE,
+                    'K1 at nfft %d, r %d: rel %.3g of the oracle, %.3g of '
+                    'the plain version' % (nfft, rfactor, r_oracle, r_plain))
+            worst[nfft] = max(worst.get(nfft, 0.0), r_oracle)
+        e += 1
+    log('K1 sweep, nfft 4 to %d at r 1, 4 and nfft, worst rel to the '
+        'oracle by nfft: %s' % (spec.MAX_NFFT, json.dumps(
+            {str(k): float('%.3g' % v) for k, v in worst.items()})))
+    return worst
+
+
+def spectrometer_by_nfft(spec, nffts=(1024, 2048, 8192)):
+    """K1 and cuFFT alone at other nfft, T chosen so a gulp holds the
+    main path's samples."""
+    import torch
+    out = {}
+    for nfft in nffts:
+        T = NTIME * NFINE // nfft
+        g = torch.Generator(device='cuda').manual_seed(nfft)
+        volt = torch.randint(-128, 128, (T, NPOL, nfft, 2), dtype=torch.int8,
+                             device='cuda', generator=g)
+        run = lambda: spec.fused_spectrometer(volt, rfactor=RFACTOR)
+        unpacked = torch.view_as_complex(volt.float())
+        bms, by = spectrometer_bound(T, nfft, RFACTOR)
+        out[nfft] = {'shape': [T, NPOL, nfft, 2], 'ms': cuda_ms(run),
+                     'ms_queued': cuda_ms_queued(run),
+                     'library_fft_ms': cuda_ms_queued(
+                         lambda: library_fft(unpacked)),
+                     'bound_ms': bms, 'bound_by': by}
+        del volt, unpacked
+        torch.cuda.empty_cache()
+    log('K1 by nfft (gulps of %d samples, r %d): %s'
+        % (NTIME * NFINE, RFACTOR, json.dumps(out)))
+    return out
+
+
 def phase_spectrometer(spec):
     import torch
     # the accuracy gate, against the float64 oracle
@@ -342,6 +424,7 @@ def phase_spectrometer(spec):
         % (ORACLE_NTIME, oracle_rel))
     require(oracle_rel < GATE, 'K1 fails the 1e-5 oracle gate: %.3g'
             % oracle_rel)
+    sweep = spectrometer_sweep(spec)
     # full width, against the plain version
     g = torch.Generator(device='cuda').manual_seed(3)
     volt = torch.randint(-64, 64, (NTIME, NPOL, NFINE, 2),
@@ -355,25 +438,42 @@ def phase_spectrometer(spec):
         % (abs_err, rel))
     require(rel < GATE, 'K1 disagrees with its plain version: %.3g' % rel)
     del got, want
-    ms = cuda_ms(lambda: spec.fused_spectrometer(volt, rfactor=RFACTOR))
-    plain_ms = cuda_ms(lambda: spec.spectrometer_plain(volt, RFACTOR))
-    library_ms = cuda_ms(lambda: library_chain(volt, RFACTOR))
-    nsamp = NTIME * NPOL * NFINE
-    nbyte = 2 * nsamp + 4 * 4 * NTIME * (NFINE // RFACTOR)
-    nflop = NTIME * NPOL * 5 * NFINE * int(np.log2(NFINE)) + \
-        20 * NTIME * NFINE
-    bms, by = bound(nbyte, nflop)
-    log('K1 kernel %.4f ms, plain %.4f ms, torch chain %.4f ms, '
-        'bound %.4f ms (%s)' % (ms, plain_ms, library_ms, bms, by))
+    run = lambda: spec.fused_spectrometer(volt, rfactor=RFACTOR)
+    plain = lambda: spec.spectrometer_plain(volt, RFACTOR)
+    chain = lambda: library_chain(volt, RFACTOR)
+    unpacked = torch.view_as_complex(volt.float())
+    fft = lambda: library_fft(unpacked)
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain)
+    library_ms = cuda_ms(chain)
+    queued = {'kernel': cuda_ms_queued(run),
+              'plain': cuda_ms_queued(plain, calls=5, runs=3),
+              'library': cuda_ms_queued(chain, calls=5, runs=3),
+              'library_fft': cuda_ms_queued(fft)}
+    library_fft_ms = cuda_ms(fft)
+    del unpacked
+    bms, by = spectrometer_bound(NTIME, NFINE, RFACTOR)
+    log('K1 kernel %.4f ms (queued %.4f), plain %.4f ms, torch chain %.4f '
+        'ms, cuFFT alone %.4f ms (queued %.4f), bound %.4f ms (%s)'
+        % (ms, queued['kernel'], plain_ms, library_ms, library_fft_ms,
+           queued['library_fft'], bms, by))
     torch.cuda.empty_cache()
+    by_nfft = spectrometer_by_nfft(spec)
     return {'name': 'fused_spectrometer', 'route': 'cuda',
             'source': 'bifrost_tpu_torch/csrc/spectrometer.cu',
             'replaces': 'bifrost_tpu/ops/spectrometer.py:341',
             'shape': [NTIME, NPOL, NFINE, 2], 'rfactor': RFACTOR,
+            'kernel_path': spec.kernel_path(NFINE),
             'oracle_rel_err': oracle_rel, 'max_abs_err': abs_err,
             'max_rel_err': rel, 'ms': ms, 'kernel_ms': ms,
             'plain_ms': plain_ms, 'bound_ms': bms, 'bound_by': by,
-            'library_ms': library_ms}
+            'library_ms': library_ms,
+            'library': 'torch fft -> Stokes -> sum chain',
+            'library_fft_ms': library_fft_ms, 'ms_queued': queued,
+            'ms_queued_per': 'launch (median of batches of queued calls: '
+                             '5 x 20; plain and chain 3 x 5)',
+            'by_nfft': by_nfft,
+            'sweep_oracle_rel_err': {str(k): v for k, v in sweep.items()}}
 
 
 def make_gulps(seed=5, n=2):
@@ -486,12 +586,15 @@ def run_pipeline(bt, gulps, substitute):
 
 def zero_counts(spec, gpu_kernels):
     spec.launches = 0
-    for k in gpu_kernels.launches:
-        gpu_kernels.launches[k] = 0
+    for counts in (spec.launches_by_path, gpu_kernels.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts(spec, gpu_kernels):
-    return dict(gpu_kernels.launches, fused_spectrometer=spec.launches)
+    return dict(gpu_kernels.launches, fused_spectrometer=spec.launches,
+                **{'fused_spectrometer_' + k: n
+                   for k, n in spec.launches_by_path.items()})
 
 
 def log_per_gulp(per_gulp):
@@ -523,6 +626,11 @@ def phase_pipeline(bt, spec, gpu_kernels, smi):
     require(n_k1['fused_spectrometer'] >= ngulp,
             'K1 launched %d times for %d gulps'
             % (n_k1['fused_spectrometer'], ngulp))
+    require(n_k1['fused_spectrometer_radix16'] ==
+            n_k1['fused_spectrometer'],
+            'K1 took the radix-16 kernel in %d of %d launches'
+            % (n_k1['fused_spectrometer_radix16'],
+               n_k1['fused_spectrometer']))
     require(n_k2['stokes_detect'] >= ngulp,
             'K2 launched %d times for %d gulps'
             % (n_k2['stokes_detect'], ngulp))
@@ -2401,6 +2509,8 @@ def main():
     fmesh = run('FDMT mesh', phase_fdmt_mesh, bt, spec, gpu_kernels, F,
                 par, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
+    k1['launches_radix16'] = \
+        pipe['launches_k1_run']['fused_spectrometer_radix16']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
     k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
@@ -2429,10 +2539,11 @@ def main():
     kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
     # the wrappers' host time: one call bracketed less a call's share of
     # 20 queued back to back
-    for k in (k0, k4, k5, k7, k9):
+    for k in (k0, k1, k4, k5, k7, k9):
         k['host_ms'] = k['ms'] - k['ms_queued']['kernel']
     log('wrapper host time (bracketed less queued, ms): %s' % json.dumps(
-        {k['name']: round(k['host_ms'], 4) for k in (k0, k4, k5, k7, k9)}))
+        {k['name']: round(k['host_ms'], 4)
+         for k in (k0, k1, k4, k5, k7, k9)}))
     log('total %.1f s; by phase %s' % (
         time.perf_counter() - t_start,
         json.dumps({k: round(v, 1) for k, v in phase_s.items()})))

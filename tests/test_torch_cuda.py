@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card, at shapes beyond the one
-chip_smoke.py runs: K1 against the float64 oracle over nfft and rfactor,
+chip_smoke.py runs: K1 against the float64 oracle and its plain version
+over every power-of-two nfft from 4 to 8192 at r 1, 4 and nfft, at the
+int8 extremes, and on the kernel that each nfft picks (radix-16 Stockham
+from 256, radix-2 below, by the per-path counter),
 K2 against its plain version on contiguous and strided planes, K4, K5
 and K6 (the beamformer) against the int64/float64 oracles and their
 plain versions at ragged and full-width shapes (K4 and K5 over every
@@ -63,21 +66,67 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))
 
 
-@pytest.mark.parametrize('T,nfft,rfactor', [
-    (3, 4, 2), (8, 256, 4), (4, 1024, 1), (4, 1024, 8), (5, 2048, 32),
-    (64, 4096, 4), (4, 8192, 8)])
-def test_spectrometer_matches_oracle(T, nfft, rfactor):
-    rng = np.random.RandomState(nfft + rfactor)
-    volt = rng.randint(-128, 128, size=(T, 2, nfft, 2)).astype(np.int8)
-    before = spec.launches
+#: every nfft the kernels take: radix-2 from 4 to 128, radix-16 from 256
+SPEC_NFFTS = [2 ** e for e in range(2, 14)]
+
+
+def _spectrometer_run(volt, rfactor):
+    """K1 on ``volt`` (numpy int8): its output after one launch through
+    the kernel that its nfft picks, both counters checked."""
+    nfft = volt.shape[2]
+    path = spec.kernel_path(nfft)
+    before, by_path = spec.launches, dict(spec.launches_by_path)
     got = spec.fused_spectrometer(torch.from_numpy(volt).cuda(),
                                   rfactor=rfactor)
     torch.cuda.synchronize()
     assert spec.launches == before + 1
-    assert got.shape == (T, 4, nfft // rfactor)
+    by_path[path] += 1
+    assert spec.launches_by_path == by_path
+    assert got.shape == (volt.shape[0], 4, nfft // rfactor)
     assert got.dtype == torch.float32 and got.is_cuda
-    assert _rel(got.cpu().numpy(), spec.spectrometer_oracle(volt, rfactor)) \
-        < GATE
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize('rf', ['1', '4', 'nfft'])
+@pytest.mark.parametrize('nfft', SPEC_NFFTS)
+def test_spectrometer_matches_oracle(nfft, rf):
+    rfactor = {'1': 1, '4': min(4, nfft), 'nfft': nfft}[rf]
+    T = 64 if nfft == 4096 else 5
+    rng = np.random.RandomState(nfft + rfactor)
+    volt = rng.randint(-128, 128, size=(T, 2, nfft, 2)).astype(np.int8)
+    got = _spectrometer_run(volt, rfactor)
+    assert _rel(got, spec.spectrometer_oracle(volt, rfactor)) < GATE
+    want = spec.spectrometer_plain(torch.from_numpy(volt).cuda(), rfactor)
+    assert _rel(got, want.cpu().numpy()) < GATE
+
+
+@pytest.mark.parametrize('nfft', SPEC_NFFTS)
+def test_spectrometer_at_int8_extremes(nfft):
+    """-128 in every byte (all power in bin 0), and a mix of -128 and
+    +-127."""
+    volt = np.full((3, 2, nfft, 2), -128, dtype=np.int8)
+    got = _spectrometer_run(volt, 4)
+    assert _rel(got, spec.spectrometer_oracle(volt, 4)) < GATE
+    rng = np.random.RandomState(nfft)
+    mix = rng.choice(np.array([-128, -127, 127], dtype=np.int8),
+                     size=(3, 2, nfft, 2))
+    got = _spectrometer_run(mix, 1)
+    assert _rel(got, spec.spectrometer_oracle(mix, 1)) < GATE
+
+
+def test_spectrometer_path_by_nfft():
+    """nfft 256 to 8192 launch the radix-16 Stockham kernel, 4 to 128 the
+    radix-2 kernel: one launch each, counted on its own path."""
+    for key in spec.launches_by_path:
+        spec.launches_by_path[key] = 0
+    for nfft in SPEC_NFFTS:
+        volt = np.ones((2, 2, nfft, 2), dtype=np.int8)
+        _spectrometer_run(volt, 4)
+    assert spec.launches_by_path == {
+        'radix16': sum(n >= 256 for n in SPEC_NFFTS),
+        'radix2': sum(n < 256 for n in SPEC_NFFTS)}
+    assert [spec.kernel_path(n) for n in SPEC_NFFTS] == \
+        ['radix2'] * 6 + ['radix16'] * 6
 
 
 def test_spectrometer_rejects_what_the_kernel_cannot_take():
