@@ -36,9 +36,11 @@
 // table of W_n^k, k < n, built in float64 on the host: the 1e-5 gate of
 // the float64 oracle needs that accuracy, which __sincosf would lose.
 // The block is nfft / 16 threads (256 at nfft 4096), each one butterfly
-// of each pol a pass; at most 85 registers a thread let three blocks
-// share an SM at nfft 4096.  A pass that is not the last reads all of a
-// pol before it writes any of it (one buffer, a barrier between).
+// of each pol a pass, at up to 128 registers a thread: two blocks share
+// an SM at nfft 4096 (three, at 80 registers, spill and ran slower:
+// chip_k1_variants.py times both).  A pass that is not the last reads
+// all of a pol before it writes any of it (one buffer, a barrier
+// between).
 //
 // spectrometer_kernel, nfft 4 to 128: the in-place radix-2
 // Cooley-Tukey kernel (decimation in time, bit-reversed load), which is
@@ -143,9 +145,9 @@ struct Radix16 {
   static constexpr int kPadded = kN + kN / 16;   // float2 a pol, padded
   static constexpr int kFull = L / 4;            // radix-16 passes
   static constexpr int kLast = 1 << (L % 4);     // last pass's radix; 1: none
-  // three blocks of 256 threads an SM at nfft 4096: at most 85 registers
-  static constexpr int kMinBlocks =
-      768 / kThreads > 32 ? 32 : (768 / kThreads < 1 ? 1 : 768 / kThreads);
+  // at most 128 registers a thread (none spilled): two blocks of 256
+  // threads an SM at nfft 4096 (a block of 16 threads counts as a warp)
+  static constexpr int kMinBlocks = 512 / (kThreads < 32 ? 32 : kThreads);
   static constexpr size_t kSmem = 2 * kPadded * sizeof(float2);
 };
 

@@ -263,3 +263,24 @@ def test_cpu_tensors_launch_nothing():
     volt = torch.zeros((2, 2, 256, 2), dtype=torch.int8)
     spec.fused_spectrometer(volt)
     assert (dict(spec.launches_by_path), spec.launches) == before
+
+
+def test_variant_edits_apply_to_the_source():
+    """chip_k1_variants.py's edits each apply once to the kernel source,
+    and keep its braces balanced."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(SOURCE), os.pardir, os.pardir,
+                        'chip_k1_variants.py')
+    mod_spec = importlib.util.spec_from_file_location('chip_k1_variants',
+                                                      path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    with open(SOURCE) as f:
+        src = f.read()
+    vs = mod.variants(src)
+    assert sorted(vs) == sorted(['kernel', 'three_blocks', 'shared_twiddles',
+                                 'no_twiddles', 'no_load', 'no_epilogue'])
+    assert vs['kernel'] == (src, True)
+    for name, (text, _) in vs.items():
+        assert text.count('{') == text.count('}'), name
+        assert name == 'kernel' or text != src, name
