@@ -35,8 +35,6 @@ import os
 import subprocess
 import sys
 
-import numpy as np
-
 GATE = 1e-5
 RFACTOR = 4
 NSAMPLES = 16384 * 4096
@@ -62,7 +60,8 @@ def variants(src):
     const int k = (t + g * nb) & (NS - 1);
 #pragma unroll
     for (int r = 1; r < R; ++r)
-      if constexpr (!kFirst) w[g * R + r] = __ldg(twiddle + r * k * (n / (NS * R)));
+      if constexpr (!kFirst)
+        w[g * R + r] = __ldg(twiddle + r * k * (n / (NS * R)));
   }
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -75,8 +74,11 @@ def variants(src):
     shared = shared.replace(
         'if (r > 0) x = cmul(x, __ldg(twiddle + r * k * (n / (NS * R))));',
         'if (r > 0) x = cmul(x, w[g * R + r]);')
-    a = src.index('  // Stokes of x = pol 0, y = pol 1, summed over rfactor')
-    b = src.index('template <int L>\nint launch_radix16')
+    epilogue = ('  // Stokes of x = pol 0, y = pol 1, summed over rfactor '
+                'adjacent bins.\n  const int nout = K::kN / rfactor;')
+    end = 'template <int L>\nint launch_radix16'
+    assert src.count(epilogue) == 1 and src.count(end) == 1
+    a, b = src.index(epilogue), src.index(end)
     return {
         'kernel': (src, True),
         'three_blocks': (edit(

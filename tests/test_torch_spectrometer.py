@@ -266,8 +266,8 @@ def test_cpu_tensors_launch_nothing():
 
 
 def test_variant_edits_apply_to_the_source():
-    """chip_k1_variants.py's edits each apply once to the kernel source,
-    and keep its braces balanced."""
+    """chip_k1_variants.py's edits each apply once to the kernel source
+    and keep its braces balanced and both kernels' launches."""
     import importlib.util
     path = os.path.join(os.path.dirname(SOURCE), os.pardir, os.pardir,
                         'chip_k1_variants.py')
@@ -283,4 +283,7 @@ def test_variant_edits_apply_to_the_source():
     assert vs['kernel'] == (src, True)
     for name, (text, _) in vs.items():
         assert text.count('{') == text.count('}'), name
+        assert 'spectrometer_kernel<<<' in text, name
+        assert 'spectrometer_radix16<L><<<' in text, name
+        assert text.count('spectrometer_radix16(') == 1, name
         assert name == 'kernel' or text != src, name
