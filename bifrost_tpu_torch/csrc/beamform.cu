@@ -10,13 +10,14 @@
 // K4 and K5 compute the complex product
 //   yr = r . wr - i . wi,   yi = r . wi + i . wr
 // as one GEMM over every channel on the tensor cores (their notes below).
-// K6 tiles one frequency channel per block (with tiles of time and beams),
-// loops over the stations in chunks staged in shared memory and keeps the
-// four real dots in separate accumulators.  Voltages come with strides, so
-// the per-pol views that BeamformStage takes of a (T, F, S, P, 2) ci8 gulp
-// are read in place.  Offsets are 64-bit; ragged edges (T, B, S not
-// multiples of a tile) are zero-filled in shared memory and masked on
-// store.
+// K6 runs both pols' products of K4's design on one staging of the gulp
+// and keeps Stokes and the frame sum in registers (R dividing 16, rows on
+// 16 bytes); other gulps take its dp4a kernel, which tiles one frequency
+// channel per block and keeps the four real dots in separate accumulators.
+// Voltages come with strides, so the per-pol views that BeamformStage takes
+// of a (T, F, S, P, 2) ci8 gulp are read in place.  Offsets are 64-bit;
+// ragged edges (T, B, S not multiples of a tile) are zero-filled in shared
+// memory and masked on store.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -159,8 +160,10 @@ __device__ __forceinline__ uint4 weights16(const int8_t* row, int s, int S,
 }
 
 // panel columns of beams b0 .. b0 + 63 (wr, then wi), stations s0 ..
-// s0 + 16 * ngrp - 1, ws bytes per column, zero past B and S
-__device__ __forceinline__ void k4_panel(char* p, int ws, const K4Args& a,
+// s0 + 16 * ngrp - 1, ws bytes per column, zero past B and S; W holds
+// the weight planes wr, wi and S, B, wvec (K4Args, or a pol's K6Weights)
+template <typename W>
+__device__ __forceinline__ void k4_panel(char* p, int ws, const W& a,
                                          int b0, int s0, int ngrp) {
   for (int idx = threadIdx.x; idx < 2 * kBB4 * ngrp; idx += kThreads4) {
     const int col = idx / ngrp, grp = idx - col * ngrp;
@@ -181,7 +184,8 @@ __device__ __forceinline__ int byte_sum(uint32_t w) {
 
 // c_b = sum_s wi[b, s] of beams b0 .. b0 + 63 (0 past B): warp w sums
 // beams 8w .. 8w + 7, a lane 16 stations at a time
-__device__ __forceinline__ void k4_beam_sums(int* csum, const K4Args& a,
+template <typename W>
+__device__ __forceinline__ void k4_beam_sums(int* csum, const W& a,
                                              int b0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = 0; i < kBB4 / (kThreads4 / 32); ++i) {
@@ -736,7 +740,10 @@ beamform_bf16_kernel(const K5Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// K6: both pols' int8 beamform -> x scale -> Stokes -> sum of R frames.
+// K6: both pols' int8 beamform -> x scale -> Stokes -> sum of R frames,
+// dp4a path: the gulps that the tensor-core path below does not take (R
+// of 32 or more, or not dividing 16; rows off 16 bytes; S not a multiple
+// of 4, or above what its resident panels hold).
 //
 // Replaces: bifrost_tpu/ops/pallas_kernels.py:beamform_detect_int8
 // (pl.pallas_call at :384), which stages.match_beamformer substitutes for
@@ -905,6 +912,285 @@ beamform_detect_kernel(const int8_t* __restrict__ wxr,
 #pragma unroll
     for (int k = 0; k < 4; ++k) o[k * nbeam] = sum[m][k];
   }
+}
+
+// ---------------------------------------------------------------------------
+// K6, tensor-core path: both pols' int8 beamform on K4's design -> x scale
+// -> Stokes -> sum of R frames, all after the products in registers.
+//
+// Replaces the same Pallas kernel as the dp4a path above, for the gulps
+// that bf_beamform_detect_int8_mma takes: R dividing 16, rows on 16 bytes
+// (base, st and sf multiples of 16 bytes, S a multiple of 4) and two
+// resident weight panels that fit (S <= 576 at 227 KB a block).  Every
+// other gulp keeps the dp4a kernel.
+//
+// Bound on the H100: as the dp4a path, 0.090 ms at 512 x 512 x 256, 64
+// beams, R 8 (the gulp read once, 268.4 MB; 33.5 MB written).
+//
+// Design: K4's exact int8 GEMM, once per pol, on one staging of the raw
+// rows.
+// - Tile: 16 frames x 4 adjacent channels x 64 beams.  Staged row
+//   r = 16 mt + i is channel f0 + mt and frame t0 + 2 (i % 8) + i / 8, so
+//   the thread of groupID g holds frames t0 + 2g (its C row g) and
+//   t0 + 2g + 1 (C row g + 8) of row-tile mt; with R dividing 16 an
+//   R-group lies in one warp's row-tile (no atomics, no shared memory).
+//   A row is 64 stations x (re x, im x, re y, im y), 256 bytes, copied by
+//   cp.async with K4's parity swizzle into a ring of kStages6 stages of
+//   16 KB (kStages6 - 1 in flight); a frame's 4 channels are 4 KB of
+//   contiguous gulp.  Ragged T, F and S are zero-filled, and T, F and B
+//   masked on store.
+// - Warp w owns row-tile w % 4 and beams 32 (w / 4) .. + 31: four n8 tiles
+//   x (yr, yi) x 2 pols, 64 int32 accumulators a thread.  One uint4 load
+//   of 4 station words serves both pols: the byte_perm selectors 0x5410
+//   (pol x) and 0x7632 (pol y) pick a pol's (re, im) pairs, then 0x6420
+//   and 0x7531 split re from im, as k4_load_a<4> does.
+// - Weights: two resident panels [wxr | wxi] and [wyr | wyi] (k4_panel)
+//   and c_b per pol (k4_beam_sums); yr += re.wr + (~im).wi from c_b, yi
+//   += re.wi + im.wr, exact for every int8 value (K4's note).  Persistent
+//   grid, one block an SM; tiles ordered channel quad fastest, then time,
+//   then beam tile (the panels are rebuilt when the beam tile changes).
+// - Epilogue in registers: a thread converts its sums to f32, times scale
+//   (__fmul_rn), forms I, Q, U, V with the _rn intrinsics in the plain
+//   version's order and sums its R-group in frame order: R = 2 inside the
+//   thread, R = 4 .. 16 along a chain of R / 2 threads 4 lanes apart
+//   (__shfl_up_sync), whose last thread stores the group's sums as float2
+//   of its two beams.  Bit-identical to the plain version.
+// ---------------------------------------------------------------------------
+
+constexpr int kTF6 = 16;                 // frames per tile (K6 mma)
+constexpr int kCF6 = 4;                  // channels per tile
+constexpr int kRow6 = kSC4 * 4;          // bytes per staged row
+constexpr int kStage6 = kTF6 * kCF6 * kRow6;  // bytes per ring stage
+constexpr int kStages6 = 4;              // cp.async ring depth
+
+struct K6Weights {                       // one pol's weight planes
+  const int8_t* wr;
+  const int8_t* wi;
+  int S, B;
+  int wvec;                              // rows load 16 bytes at a time
+};
+
+struct K6Args {
+  K6Weights wx, wy;
+  const char* x;         // the gulp (T, F, S, 2, 2) int8
+  float* out;            // (T / R, F, 4, B) float32
+  long long st, sf;      // frame and channel strides (bytes)
+  float scale;
+  int T, F, S, B, R;
+  int nchunk;            // K chunks of kSC4 stations
+  int ntile_f;           // channel quads
+  int ntile_tf;          // tiles of one beam tile (time x channel quads)
+  int ntiles;
+  int pw;                // bytes per panel column
+};
+
+// Stage chunk k of the block's sequence (its tiles blockIdx.x + i *
+// gridDim.x, nchunk chunks each) into ring stage k % kStages6: thread
+// (i, v) copies vector v of MMA row i of each row-tile.
+__device__ __forceinline__ void k6_stage_chunk(const K6Args& a, char* stages,
+                                               int k, int nseq) {
+  if (k >= nseq) return;
+  const int n = k / a.nchunk, c = k - n * a.nchunk;
+  const int tf = (blockIdx.x + n * gridDim.x) % a.ntile_tf;
+  const int tt = tf / a.ntile_f, fq = tf - tt * a.ntile_f;
+  char* const A = stages + (k % kStages6) * kStage6;
+  const int v = threadIdx.x % 16, i = threadIdx.x / 16;
+  const int t = tt * kTF6 + 2 * (i & 7) + (i >> 3);
+  const int s = c * kSC4 + 4 * v;
+#pragma unroll
+  for (int mt = 0; mt < kCF6; ++mt) {
+    const int f = fq * kCF6 + mt;
+    const bool ok = t < a.T && f < a.F && s < a.S;
+    const char* src = a.x;
+    if (ok) src += t * a.st + f * a.sf + (int64_t)s * 4;
+    cp_async16(A + (16 * mt + i) * kRow6 + 16 * (v ^ (i & 1)), src,
+               ok ? 16 : 0);
+  }
+}
+
+// Stokes I, Q, U, V of one frame and beam from both pols' exact sums,
+// each product and sum rounded as the plain version's separate ops
+__device__ __forceinline__ void k6_stokes(int xr, int xi, int yr, int yi,
+                                          float scale, float* s) {
+  const float bxr = __fmul_rn(__int2float_rn(xr), scale);
+  const float bxi = __fmul_rn(__int2float_rn(xi), scale);
+  const float byr = __fmul_rn(__int2float_rn(yr), scale);
+  const float byi = __fmul_rn(__int2float_rn(yi), scale);
+  const float xx = __fadd_rn(__fmul_rn(bxr, bxr), __fmul_rn(bxi, bxi));
+  const float yy = __fadd_rn(__fmul_rn(byr, byr), __fmul_rn(byi, byi));
+  const float xyr = __fadd_rn(__fmul_rn(bxr, byr), __fmul_rn(bxi, byi));
+  const float xyi = __fsub_rn(__fmul_rn(bxi, byr), __fmul_rn(bxr, byi));
+  s[0] = __fadd_rn(xx, yy);
+  s[1] = __fsub_rn(xx, yy);
+  s[2] = __fmul_rn(2.f, xyr);
+  s[3] = __fmul_rn(-2.f, xyi);
+}
+
+// I, Q, U, V of beams b, b + 1 (v[beam][stokes]) into output row `row`,
+// channel f; beams masked
+__device__ __forceinline__ void k6_store(const K6Args& a, int row, int f,
+                                         int b, const float (&v)[2][4]) {
+  float* const o = a.out + ((int64_t)row * a.F + f) * 4 * a.B + b;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if ((a.B & 1) == 0 && b + 1 < a.B) {
+      __stcs(reinterpret_cast<float2*>(o + s * a.B),
+             make_float2(v[0][s], v[1][s]));
+    } else {
+      if (b < a.B) __stcs(o + s * a.B, v[0][s]);
+      if (b + 1 < a.B) __stcs(o + s * a.B + 1, v[1][s]);
+    }
+  }
+}
+
+// The finished tile's outputs: the thread's frames t0 + 2g, t0 + 2g + 1
+// of channel f0 + mt and beams b0 + bw0 + 8j + 2q, + 1 (j < 4).  Every
+// lane reaches every shuffle; only the stores are masked.
+__device__ __forceinline__ void k6_epilogue(const K6Args& a,
+                                            const int (&acc)[2][4][2][4],
+                                            int tile, int mt, int bw0,
+                                            int g, int q) {
+  const int nb = tile / a.ntile_tf, tf = tile - nb * a.ntile_tf;
+  const int tt = tf / a.ntile_f, fq = tf - tt * a.ntile_f;
+  const int f = fq * kCF6 + mt, t = tt * kTF6 + 2 * g;
+  const int n = a.R >> 1;                  // threads an R-group (R >= 2)
+  const int gl = n ? g % n : 0;            // the thread's place in it
+  const bool fin = f < a.F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = nb * kBB4 + bw0 + 8 * j + 2 * q;
+    float v[2][2][4];                      // [frame][beam][I, Q, U, V]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        k6_stokes(acc[0][j][0][2 * h + e], acc[0][j][1][2 * h + e],
+                  acc[1][j][0][2 * h + e], acc[1][j][1][2 * h + e], a.scale,
+                  v[h][e]);
+    if (n == 0) {                          // R = 1: every frame is a row
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (fin && t + h < a.T) k6_store(a, t + h, f, b, v[h]);
+      continue;
+    }
+    float s[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[e][k] = __fadd_rn(v[0][e][k], v[1][e][k]);
+    // the running sum of frames t0 + 2 (g - gl) .. moves one thread on a
+    // step: thread gl adds its two frames at step gl
+    for (int step = 1; step < n; ++step) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float prev = __shfl_up_sync(~0u, s[e][k], 4);
+          if (gl == step)
+            s[e][k] = __fadd_rn(__fadd_rn(prev, v[0][e][k]), v[1][e][k]);
+        }
+    }
+    if (gl == n - 1 && fin && t < a.T) k6_store(a, t / a.R, f, b, s);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads4, 1)
+beamform_detect_mma_kernel(const K6Args a) {
+  extern __shared__ __align__(16) char smem6[];
+  char* const stages = smem6;
+  char* const panel = smem6 + kStages6 * kStage6;  // [wxr | wxi], [wyr | wyi]
+  int* const csum = reinterpret_cast<int*>(panel + 4 * kBB4 * a.pw);
+  const int nseq = ((a.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+                   a.nchunk;
+#pragma unroll
+  for (int k = 0; k < kStages6 - 1; ++k) {
+    k6_stage_chunk(a, stages, k, nseq);
+    cp_async_commit();
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;      // mma groupID, thread in group
+  const int mt = warp & 3, bw0 = 32 * (warp >> 2);  // row-tile, beams
+  const int r = 16 * mt + g;                 // the thread's rows r, r + 8
+  int acc[2][4][2][4];                       // [pol][n8][yr, yi][fragment]
+  int tile = blockIdx.x, c = 0, cur_nb = -1;
+  for (int k = 0; k < nseq; ++k) {
+    cp_async_wait<kStages6 - 2>();
+    __syncthreads();                         // chunk k is in; k - 1 done
+    k6_stage_chunk(a, stages, k + kStages6 - 1, nseq);
+    cp_async_commit();
+    if (c == 0) {
+      const int nb = tile / a.ntile_tf;
+      if (nb != cur_nb) {
+        const int ngrp = a.nchunk * kSC4 / 16;
+        k4_panel(panel, a.pw, a.wx, nb * kBB4, 0, ngrp);
+        k4_panel(panel + 2 * kBB4 * a.pw, a.pw, a.wy, nb * kBB4, 0, ngrp);
+        k4_beam_sums(csum, a.wx, nb * kBB4);
+        k4_beam_sums(csum + kBB4, a.wy, nb * kBB4);
+        __syncthreads();
+        cur_nb = nb;
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int* cb = csum + p * kBB4 + bw0 + 8 * j + 2 * q;
+          acc[p][j][0][0] = acc[p][j][0][2] = cb[0];
+          acc[p][j][0][1] = acc[p][j][0][3] = cb[1];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][j][1][e] = 0;
+        }
+    }
+    const char* A = stages + (k % kStages6) * kStage6;
+    const char* P = panel + (bw0 + g) * a.pw + c * kSC4 + 8 * q;
+#pragma unroll
+    for (int kg = 0; kg < kSC4 / 32; ++kg) {
+      uint4 w[2][2];                         // [row r, r + 8][vector]
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          w[h][u] = *reinterpret_cast<const uint4*>(
+              A + (r + 8 * h) * kRow6 + 16 * ((kg * 8 + 2 * q + u) ^ (g & 1)));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint32_t sel = p ? 0x7632u : 0x5410u;
+        uint32_t ar[4], ai[4], an[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const uint32_t t0 = __byte_perm(w[h][u].x, w[h][u].y, sel);
+            const uint32_t t1 = __byte_perm(w[h][u].z, w[h][u].w, sel);
+            ar[h + 2 * u] = __byte_perm(t0, t1, 0x6420);
+            ai[h + 2 * u] = __byte_perm(t0, t1, 0x7531);
+          }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) an[e] = ~ai[e];
+        const char* Pp = P + p * 2 * kBB4 * a.pw + 32 * kg;
+        uint2 fr[4], fi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          fr[j] = *reinterpret_cast<const uint2*>(Pp + 8 * j * a.pw);
+          fi[j] = *reinterpret_cast<const uint2*>(Pp + (kBB4 + 8 * j) * a.pw);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_s8(acc[p][j][0], ar, fr[j]);
+          mma_s8(acc[p][j][1], ar, fi[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_s8(acc[p][j][0], an, fi[j]);
+          mma_s8(acc[p][j][1], ai, fr[j]);
+        }
+      }
+    }
+    if (++c < a.nchunk) continue;
+    c = 0;
+    k6_epilogue(a, acc, tile, mt, bw0, g, q);
+    tile += gridDim.x;
+  }
+  cp_async_wait<0>();
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
@@ -1083,7 +1369,9 @@ int bf_beamform_bf16(const void* wr, const void* wi, const void* re,
 // nfreq, nstand, 2 pol, 2 re/im) int8 with element strides st, sf for the
 // first two axes (multiples of 4) and the last three contiguous; 4-byte
 // aligned.  out: (ntime / rfactor, nfreq, 4, nbeam) float32, contiguous,
-// ordered I, Q, U, V.  rfactor must divide ntime.
+// ordered I, Q, U, V.  rfactor must divide ntime.  Takes every such input
+// (the dp4a kernel); the wrapper sends it those that
+// bf_beamform_detect_int8_mma does not take.
 int bf_beamform_detect_int8(const void* wxr, const void* wxi,
                             const void* wyr, const void* wyi, const void* x,
                             void* out, float scale, int ntime, int nfreq,
@@ -1101,6 +1389,54 @@ int bf_beamform_detect_int8(const void* wxr, const void* wxi,
       (const int8_t*)wxr, (const int8_t*)wxi, (const int8_t*)wyr,
       (const int8_t*)wyi, (const int8_t*)x, (float*)out, scale, ntime,
       nfreq, nstand, nbeam, rfactor, ngroup, st, sf, ntg, ntb);
+  return (int)cudaGetLastError();
+}
+
+// K6, tensor-core path (beamform_detect_mma_kernel): the arguments of
+// bf_beamform_detect_int8, for the inputs it takes and no others: rfactor
+// dividing 16 and ntime; x on 16 bytes with st, sf multiples of 16; nstand
+// a positive multiple of 4 whose two resident weight panels fit beside the
+// ring (nstand <= 576 at 227 KB a block).  Any other input returns
+// cudaErrorInvalidValue; the wrapper sends those to
+// bf_beamform_detect_int8.
+int bf_beamform_detect_int8_mma(const void* wxr, const void* wxi,
+                                const void* wyr, const void* wyi,
+                                const void* x, void* out, float scale,
+                                int ntime, int nfreq, int nstand, int nbeam,
+                                int rfactor, long long st, long long sf,
+                                void* stream) {
+  if (ntime <= 0 || nfreq <= 0 || nbeam <= 0) return 0;
+  if (rfactor <= 0 || 16 % rfactor || ntime % rfactor || nstand <= 0 ||
+      nstand % 4 || (uintptr_t)x % 16 || st % 16 || sf % 16)
+    return (int)cudaErrorInvalidValue;
+  const int64_t ntile_f = cdiv(nfreq, kCF6);
+  const int64_t ntile_tf = cdiv(ntime, kTF6) * ntile_f;
+  const int64_t ntiles = ntile_tf * cdiv(nbeam, kBB4);
+  if (ntiles > 0x7fffffff - 4096) return (int)cudaErrorInvalidValue;
+  DevInfo* d = nullptr;
+  cudaError_t err = current_dev(&d);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunk = (int)cdiv(nstand, kSC4);
+  const int pw = nchunk * kSC4 + 32;
+  const size_t bytes = kStages6 * (size_t)kStage6 + 4 * kBB4 * (size_t)pw +
+                       2 * kBB4 * sizeof(int);
+  if (bytes > (size_t)d->smem) return (int)cudaErrorInvalidValue;
+  const auto vec = [nstand](const void* wr, const void* wi) {
+    return (int)(nstand % 16 == 0 && (uintptr_t)wr % 16 == 0 &&
+                 (uintptr_t)wi % 16 == 0);
+  };
+  K6Args a{{(const int8_t*)wxr, (const int8_t*)wxi, nstand, nbeam,
+            vec(wxr, wxi)},
+           {(const int8_t*)wyr, (const int8_t*)wyi, nstand, nbeam,
+            vec(wyr, wyi)},
+           (const char*)x, (float*)out, st, sf, scale, ntime, nfreq, nstand,
+           nbeam, rfactor, nchunk, (int)ntile_f, (int)ntile_tf, (int)ntiles,
+           pw};
+  err = opt_in_smem(*d, 7, beamform_detect_mma_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = ntiles < d->sms ? (int)ntiles : d->sms;
+  beamform_detect_mma_kernel<<<grid, kThreads4, bytes,
+                               (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

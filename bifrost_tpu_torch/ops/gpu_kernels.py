@@ -42,7 +42,7 @@ from .. import _build
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_int8_plain', 'int8_staging', 'beamform_bf16',
            'beamform_bf16_plain', 'bf16_staging', 'beamform_detect_int8',
-           'beamform_detect_int8_plain', 'probe', 'available', 'enabled',
+           'beamform_detect_int8_plain', 'detect_path', 'probe', 'available', 'enabled',
            'xcorr_herm', 'xcorr_herm_plain', 'xcorr_staging', 'xcorr_cross',
            'xcorr_cross_plain', 'fdmt_step', 'fdmt_step_plain',
            'ring_permute', 'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME',
@@ -52,16 +52,26 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
 #: (``beamform_int8_vec16``, ``beamform_bf16_vec16`` and
 #: ``xcorr_herm_vec16`` count the K4, K5 and K7 launches that took the
 #: 16-byte staging path, subsets of ``beamform_int8``, ``beamform_bf16``
-#: and ``xcorr_herm``)
+#: and ``xcorr_herm``; ``beamform_detect_int8_mma`` the K6 launches that
+#: took its tensor-core kernel (:func:`detect_path`), a subset of
+#: ``beamform_detect_int8``)
 launches = {'stokes_detect': 0, 'beamform_int8': 0,
             'beamform_int8_vec16': 0, 'beamform_bf16': 0,
-            'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0, 'probe': 0,
+            'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0,
+            'beamform_detect_int8_mma': 0, 'probe': 0,
             'xcorr_herm': 0, 'xcorr_herm_vec16': 0, 'xcorr_cross': 0,
             'fdmt_step': 0, 'ring_permute': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
 MAX_NSTAND = (2 ** 31 - 1) // (2 * 128 * 128)
+
+#: most stations of K6's tensor-core path: its two resident weight
+#: panels (4 x 64 columns of S rounded up to 64 stations, plus 32 bytes)
+#: beside its 64 KB cp.async ring and the beam sums fit the 227 KB of
+#: shared memory a block may take on the H100 (``bytes`` of
+#: ``bf_beamform_detect_int8_mma``)
+DETECT_MMA_MAX_NSTAND = 576
 
 #: most frames the correlation kernels sum: re = sum of 2 * T products of
 #: int8 values, each at most 128 * 128, stays exact in int32
@@ -370,7 +380,8 @@ def beamform_detect_int8(wxr, wxi, wyr, wyi, x, scale, rfactor):
     ``wxi``) and Y (``wyr``, ``wyi``), times ``scale``, Stokes-detected
     and summed over groups of ``rfactor`` frames -> (T // rfactor, F, 4,
     B) float32 ordered [I, Q, U, V].  The beam voltages never reach
-    device memory."""
+    device memory.  One launch, of the kernel :func:`detect_path`
+    names."""
     import torch
     weights = (wxr, wxi, wyr, wyi)
     _check_detect(weights, x, rfactor)
@@ -391,13 +402,33 @@ def beamform_detect_int8(wxr, wxi, wyr, wyi, x, scale, rfactor):
     weights = [w.contiguous() for w in weights]
     out = torch.empty((T // rfactor, F, 4, B), dtype=torch.float32,
                       device=x.device)
-    lib, fn = _fn('beamform', 'bf_beamform_detect_int8', _DETECT_ARGS)
+    path = detect_path(x, rfactor)
+    entry = 'bf_beamform_detect_int8' + ('_mma' if path == 'mma' else '')
+    lib, fn = _fn('beamform', entry, _DETECT_ARGS)
     err = fn(*[w.data_ptr() for w in weights], x.data_ptr(), out.data_ptr(),
              float(scale), T, F, S, B, rfactor, st, sf,
              _build.stream_ptr(x.device))
     _build.check(lib, err, 'beamform_detect_int8')
     launches['beamform_detect_int8'] += 1
+    if path == 'mma':
+        launches['beamform_detect_int8_mma'] += 1
     return out
+
+
+def detect_path(x, rfactor):
+    """The kernel that K6 runs for the ci8 gulp ``x`` (T, F, S, 2, 2) at
+    ``rfactor``: ``'mma'``, its int8 tensor-core kernel, where
+    ``rfactor`` divides 16, the gulp's rows start on 16 bytes (its base
+    and its frame and channel strides), ``S`` is a positive multiple of 4
+    and at most :data:`DETECT_MMA_MAX_NSTAND`; else ``'dp4a'``, its
+    ``__dp4a`` kernel (an ``rfactor`` of 32 or more, or not a divisor of
+    16, an odd layout, too many stations).  Both give the same bits."""
+    S = x.shape[2]
+    st, sf = x.stride()[:2]
+    if 16 % rfactor or x.data_ptr() % 16 or st % 16 or sf % 16 or \
+            S <= 0 or S % 4 or S > DETECT_MMA_MAX_NSTAND:
+        return 'dp4a'
+    return 'mma'
 
 
 # ---------------------------------------------------------------------------

@@ -36,20 +36,26 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    to the int64 oracle on three channels, K5 (bf16, one GEMM over every
    channel) within 1e-5 of its plain version and inside the bf16 class of
    the float64 oracle, the K4 and K5 launches on the per-pol views through
-   the 16-byte staging, K6 (beamform -> Stokes -> integrate) within 1e-6
-   of its plain version and below 1e-5 against the float64 oracle on a
-   T=64 cut; each timed with CUDA events beside its plain version and a
-   library yardstick (K4 and K5 also queued: K4 against torch._int_mm of
-   the widened block, K5 against torch.mm with an f32 output and the
-   bf16-output torch.matmul); K4 and K5 count the whole gulp read by each
+   the 16-byte staging, K6 (beamform -> Stokes -> integrate) on its
+   int8 tensor-core kernel bit-identical to its plain version and below
+   1e-5 against the float64 oracle on a T=64 cut, and over an R sweep
+   at T=96 (R 1, 2, 4, 8, 16 on the tensor-core kernel, bit-identical;
+   R 32, R = T and a gulp 4 bytes off 16 on the dp4a kernel, within
+   1e-6; each launch's kernel by the per-path counter); each timed with
+   CUDA events beside its plain version and a library yardstick, and
+   queued (K4 against torch._int_mm of the widened block, K5 against
+   torch.mm with an f32 output and the bf16-output torch.matmul, K6
+   against the torch chain and twice K4's queued time, the unfused
+   path's products); K4 and K5 count the whole gulp read by each
    per-pol launch;
 7. drives the beamformer chain through the Pipeline at that width (3
    warm-up and 16 timed gulps) in four arms, K6 (fused substitution),
    K4 and K5 (beamform block with the kernel forced -> fused Stokes and
    frame sum) and f32 (the complex64 baseline), zeroing the launch
    counters just before and reading them just after each; K6 must
-   launch once per gulp, K4 and K5 twice (once per pol), every K4 and K5
-   launch through the 16-byte staging.  The K4 and K6 arms must agree
+   launch once per gulp, every launch on its tensor-core kernel, K4 and
+   K5 twice (once per pol), every K4 and K5 launch through the 16-byte
+   staging.  The K4 and K6 arms must agree
    within 1e-5, each arm must stay inside its accuracy class of the f32
    arm, and every output must be finite and (64, 512, 4, 64).  A fifth
    arm leaves the candidate to the engine's race, in a fresh probe-cache
@@ -159,6 +165,7 @@ PEAK_INT8_PER_S = 1979e12
 # the beamformer: BASELINE config 4 with config 13's integration
 BT, BF, BS, BP, BB, BR = 512, 512, 256, 2, 64, 8
 BEAM_ORACLE_NTIME = 64
+BEAM_SWEEP_NTIME = 96     # K6's R sweep: R 1 .. 32 and R = T = 96
 # the FX correlator: BASELINE config 5's array (256 stations, 2 pols, 1024
 # channels) through config 19's chain, 256-frame gulps, R = 128 frames
 # per visibility and A = 2 visibilities per output.  A visibility is at
@@ -710,6 +717,44 @@ def kernel_entry(name, source, line, got, want, ms, plain_ms, nbyte, nops,
                  'library_ms': library_ms}, **extra)
 
 
+def detect_sweep(gpu_kernels, ws, x, scale):
+    """K6 at every R from 1 to 32 and R = T on the frames ``x`` (a cut
+    of the full-width gulp), and once on a copy whose rows start 4 bytes
+    off 16: each launch on the kernel ``detect_path`` names, by the
+    per-path counter; the tensor-core kernel bit-identical to the plain
+    version, the dp4a kernel within 1e-6."""
+    import torch
+    T = x.shape[0]
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device='cuda')
+    off = flat[4:4 + x.numel()].view(x.shape)
+    off.copy_(x)
+    out = {}
+    for R, xv in [(r, x) for r in (1, 2, 4, 8, 16, 32, T)] + [(8, off)]:
+        path = gpu_kernels.detect_path(xv, R)
+        n, m = (gpu_kernels.launches[k] for k in (
+            'beamform_detect_int8', 'beamform_detect_int8_mma'))
+        got = gpu_kernels.beamform_detect_int8(*ws, xv, scale, R)
+        want = gpu_kernels.beamform_detect_int8_plain(*ws, xv, scale, R)
+        torch.cuda.synchronize()
+        require(gpu_kernels.launches['beamform_detect_int8'] == n + 1 and
+                gpu_kernels.launches['beamform_detect_int8_mma'] ==
+                m + (path == 'mma'),
+                'K6 at R %d did not count one launch on its %s kernel'
+                % (R, path))
+        require(path == ('mma' if 16 % R == 0 and xv is x else 'dp4a'),
+                'K6 at R %d took the %s kernel' % (R, path))
+        rel = float((got - want).abs().max() / want.abs().max())
+        same = bool(torch.equal(got, want))
+        key = 'R%d%s' % (R, '' if xv is x else '_off16')
+        out[key] = {'path': path, 'rel': rel, 'bit_identical': same}
+        log('K6 sweep T=%d %s: %s kernel, rel %.3g vs plain (bit-identical:'
+            ' %s)' % (T, key, path, rel, same))
+        require(same if path == 'mma' else rel <= 1e-6,
+                'K6 at R %d (%s kernel) disagrees with its plain version: '
+                '%.3g' % (R, path, rel))
+    return out
+
+
 def phase_beamform_kernels(gpu_kernels, beam):
     """K4, K5 and K6 at the full-width shapes of the beamformer path, each
     against its plain version (and the oracle), timed with CUDA events."""
@@ -859,14 +904,23 @@ def phase_beamform_kernels(gpu_kernels, beam):
     require(orel < 1e-5, 'K6 fails the 1e-5 oracle gate: %.3g' % orel)
     ws = [cuda(a) for a in (eng.wr8[0], eng.wi8[0], eng.wr8[1],
                             eng.wi8[1])]
+    sweep6 = detect_sweep(gpu_kernels, ws, x[:BEAM_SWEEP_NTIME],
+                          eng.wscale)
+    n6, m6 = (gpu_kernels.launches[k] for k in ('beamform_detect_int8',
+                                                 'beamform_detect_int8_mma'))
     got = beam.fused_detect(eng, x, R)
+    require(gpu_kernels.launches['beamform_detect_int8'] == n6 + 1 and
+            gpu_kernels.launches['beamform_detect_int8_mma'] == m6 + 1,
+            'K6 at full width did not take its tensor-core kernel (%s)'
+            % gpu_kernels.detect_path(x, R))
     want = gpu_kernels.beamform_detect_int8_plain(*ws, x, eng.wscale, R)
     torch.cuda.synchronize()
     rel6 = float((got - want).abs().max() / want.abs().max())
+    same6 = bool(torch.equal(got, want))
     log('K6 full width vs plain: rel %.3g (bit-identical: %s)'
-        % (rel6, torch.equal(got, want)))
-    require(rel6 <= 1e-6, 'K6 disagrees with its plain version: %.3g'
-            % rel6)
+        % (rel6, same6))
+    require(same6, 'K6 is not bit-identical to its plain version at full '
+            'width: rel %.3g' % rel6)
     chain = eng._fn('int8_wide', P)
     stages_re, stages_im = x[..., 0].transpose(2, 3), x[..., 1].transpose(2, 3)
 
@@ -881,18 +935,33 @@ def phase_beamform_kernels(gpu_kernels, beam):
     lib6 = library_chain6()
     lrel = float((lib6 - want).abs().max() / want.abs().max())
     require(lrel < 1e-5, 'the library chain disagrees with K6: %.3g' % lrel)
+    del lib6
+    k6_run = lambda: beam.fused_detect(eng, x, R)
+    plain6 = lambda: gpu_kernels.beamform_detect_int8_plain(
+        *ws, x, eng.wscale, R)
+    queued6 = {'kernel': cuda_ms_queued(k6_run),
+               'plain': cuda_ms_queued(plain6, calls=2, runs=3),
+               'library': cuda_ms_queued(library_chain6, calls=5, runs=3),
+               'unfused_2x_k4': 2 * queued4['kernel']}
+    log('K6 queued (ms per call of 20 back to back; the torch chain 3 x 5, '
+        'plain 3 x 2; twice K4 as the unfused yardstick): %s' % queued6)
     k6 = kernel_entry(
-        'beamform_detect_int8', src, 384, got, want,
-        cuda_ms(lambda: beam.fused_detect(eng, x, R)),
-        cuda_ms(lambda: gpu_kernels.beamform_detect_int8_plain(
-            *ws, x, eng.wscale, R), runs=5),
+        'beamform_detect_int8', src, 384, got, want, cuda_ms(k6_run),
+        cuda_ms(plain6, runs=5),
         x.numel() + 4 * B * S + (T // R) * F * 4 * B * 4, 2 * nops,
         PEAK_INT8_PER_S, cuda_ms(library_chain6, runs=10),
         shape=[T, F, S, P, 2], rfactor=R, per='launch (one gulp)',
-        max_rel_err=rel6, oracle_rel_err=orel,
+        max_rel_err=rel6, bit_identical=same6, oracle_rel_err=orel,
+        path=gpu_kernels.detect_path(x, R), r_sweep=sweep6,
         library='torch chain int8_wide (torch._int_mm) -> Stokes -> '
-                'frame sum')
-    del got, want, lib6, x
+                'frame sum',
+        unfused_2x_k4_ms_queued=2 * queued4['kernel'],
+        unfused_2x_k4='two K4 launches (one per pol), before their Stokes '
+                      'and frame sum',
+        ms_queued=queued6,
+        ms_queued_per='launch (median of batches of queued calls: 5 x 20; '
+                      'library 3 x 5, plain 3 x 2)')
+    del got, want, x
     torch.cuda.empty_cache()
     return k4, k5, k6
 
@@ -981,6 +1050,10 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
         require(n[name + '_vec16'] == n[name],
                 'the %s arm took the 16-byte staging in %d of %d launches'
                 % (arm, n[name + '_vec16'], n[name]))
+    n = runs['K6'][1]
+    require(n['beamform_detect_int8_mma'] == n['beamform_detect_int8'],
+            'the K6 arm took the tensor-core kernel in %d of %d launches'
+            % (n['beamform_detect_int8_mma'], n['beamform_detect_int8']))
     race = runs['race'][2]
     for key, ms in race.get('probe_ms', {}).items():
         log('beamformer race (%s): ms per call %s; chose %s'
@@ -2517,6 +2590,7 @@ def main():
     k4['launches_vec16'] = bpipe['launches']['K4']['beamform_int8_vec16']
     k5['launches_vec16'] = bpipe['launches']['K5']['beamform_bf16_vec16']
     k6['launches'] = bpipe['launches']['K6']['beamform_detect_int8']
+    k6['launches_mma'] = bpipe['launches']['K6']['beamform_detect_int8_mma']
     for k in (k1, k2, k4, k5, k6):
         k['launches_per_gulp'] = k['launches'] / float(NWARM + NTIMED)
     k0['launches'] = fx['launches']['fx-race']['probe']
@@ -2539,11 +2613,11 @@ def main():
     kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
     # the wrappers' host time: one call bracketed less a call's share of
     # 20 queued back to back
-    for k in (k0, k1, k4, k5, k7, k9):
+    for k in (k0, k1, k4, k5, k6, k7, k9):
         k['host_ms'] = k['ms'] - k['ms_queued']['kernel']
     log('wrapper host time (bracketed less queued, ms): %s' % json.dumps(
         {k['name']: round(k['host_ms'], 4)
-         for k in (k0, k1, k4, k5, k7, k9)}))
+         for k in (k0, k1, k4, k5, k6, k7, k9)}))
     log('total %.1f s; by phase %s' % (
         time.perf_counter() - t_start,
         json.dumps({k: round(v, 1) for k, v in phase_s.items()})))

@@ -15,8 +15,11 @@ and < 1e-5 against the quantized-weights oracle; the classes of
 BEAM_CLASSES against the float64 oracle.
 """
 
+import collections
 import contextlib
 import json
+import os
+import re
 from copy import deepcopy
 
 import numpy as np
@@ -48,6 +51,8 @@ from bifrost_tpu_torch.stages import (BeamformStage, DetectStage,
                                       walk_headers)
 
 LABELS = ['time', 'freq', 'station', 'pol']
+BEAMFORM_SOURCE = os.path.join(os.path.dirname(gpu_kernels.__file__),
+                               os.pardir, 'csrc', 'beamform.cu')
 
 
 @pytest.fixture(autouse=True)
@@ -395,6 +400,369 @@ def test_k6_plain_is_the_frame_ordered_sum_of_the_unfused_steps():
     for r in range(1, R):
         acc = acc + want[:, r]
     assert torch.equal(got, acc)
+
+
+# ---------------------------------------------------------------------------
+# K6's tensor-core kernel (beamform_detect_mma_kernel in csrc/beamform.cu)
+# modelled in numpy from its source's formulas: the tile -> (frame,
+# channel) row map, the swizzled staging, the m16n8k32 .s8 fragments, the
+# byte_perm selectors, the ~im fold with c_b in wrapping int32, and the
+# float32 epilogue with its shuffle chain
+# ---------------------------------------------------------------------------
+
+#: kTF6, kCF6, kSC4, kBB4 of the source: frames, channels, stations of a
+#: chunk and beams of a tile; bytes of a staged row
+K6_TF, K6_CF, K6_SC, K6_BB = 16, 4, 64, 64
+K6_ROW = 4 * K6_SC
+#: a warp's lanes: mma groupID g and thread in group q
+_G, _Q = np.arange(32) // 4, np.arange(32) % 4
+#: byte_perm selectors: pol x's and pol y's (re, im) pairs of two station
+#: words, then re and im of four stations
+K6_SEL = (0x5410, 0x7632)
+SPLIT_RE, SPLIT_IM = 0x6420, 0x7531
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the eight bytes y:x (x the low four)."""
+    v = np.asarray(x, np.uint64) | (np.asarray(y, np.uint64) << np.uint64(32))
+    out = np.zeros(v.shape, np.uint64)
+    for n in range(4):
+        b = np.uint64(8 * ((sel >> (4 * n)) & 7))
+        out |= ((v >> b) & np.uint64(0xff)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _int8s(w):
+    """The four int8 of each uint32 of ``w``, low byte first."""
+    w = np.ascontiguousarray(w, dtype='<u4')
+    return w.view(np.int8).reshape(w.shape + (4,))
+
+
+def _wrap32(v):
+    return ((np.asarray(v, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31) \
+        .astype(np.int32)
+
+
+#: fragment ownership of m16n8k32 (PTX): A register a of lane (g, q) holds
+#: row g + 8 (a % 2), k 16 (a // 2) + 4q .. + 3; B register b holds k
+#: 16 b + 4q .. + 3 of column g; C register c holds row g + 8 (c // 2),
+#: column 2q + c % 2
+_A_ROW = (_G[:, None] + 8 * (np.arange(4) % 2))[:, :, None]
+_A_COL = (16 * (np.arange(4) // 2))[None, :, None] + \
+    4 * _Q[:, None, None] + np.arange(4)
+_B_ROW = (16 * np.arange(2))[None, :, None] + 4 * _Q[:, None, None] + \
+    np.arange(4)
+_B_COL = np.broadcast_to(_G[:, None, None], _B_ROW.shape)
+_C_ROW = _G[:, None] + 8 * (np.arange(4) // 2)
+_C_COL = 2 * _Q[:, None] + np.arange(4) % 2
+
+
+def _mma_s8(d, a, b):
+    """mma.sync.m16n8k32.row.col.s32.s8.s8.s32 on lanes (..., 32): d
+    (..., 32, 4) int32 plus A (16 x 32) times B (32 x 8), gathered from a
+    (..., 32, 4) and b (..., 32, 2) uint32 registers by the fragment
+    layout; s32 wraps (no .satfinite)."""
+    A = np.zeros(a.shape[:-2] + (16, 32), np.int64)
+    A[..., _A_ROW, _A_COL] = _int8s(a)
+    Bm = np.zeros(b.shape[:-2] + (32, 8), np.int64)
+    Bm[..., _B_ROW, _B_COL] = _int8s(b)
+    D = A @ Bm
+    return _wrap32(d.astype(np.int64) + D[..., _C_ROW, _C_COL])
+
+
+def _k6_tiles(T, F, B):
+    """(nb, tt, fq) of every tile in the kernel's order: channel quad
+    fastest, then time, then the beam tile."""
+    ntile_f = -(-F // K6_CF)
+    ntile_tf = -(-T // K6_TF) * ntile_f
+    tile = np.arange(ntile_tf * -(-B // K6_BB))
+    nb, tf = tile // ntile_tf, tile % ntile_tf
+    return nb, tf // ntile_f, tf % ntile_f
+
+
+def _k6_stage(words, tt, fq, c, S):
+    """Ring stage of chunk c of the tiles (tt, fq): (tiles, 64 rows, 16
+    slots, 4 words), thread (i, v) copying vector v of MMA row i of
+    row-tile mt to row 16 mt + i, slot v ^ (i & 1); zero past T, F, S."""
+    T, F = words.shape[:2]
+    i, v = np.arange(16)[:, None], np.arange(16)[None, :]
+    t = tt[:, None, None] * K6_TF + 2 * (i % 8) + i // 8      # (n, 16, 1)
+    s = c * K6_SC + 4 * v                                     # (1, 16)
+    A = np.zeros((len(tt), 64, 16, 4), np.uint32)
+    for mt in range(K6_CF):
+        f = (fq * K6_CF + mt)[:, None, None]
+        ok = (t < T) & (f < F) & (s < S)
+        src = words[np.minimum(t, T - 1)[..., None],
+                    np.minimum(f, F - 1)[..., None],
+                    np.minimum(s, S - 4)[..., None] + np.arange(4)]
+        A[:, 16 * mt + i, v ^ (i & 1)] = np.where(ok[..., None], src, 0)
+    return A
+
+
+def _k6_panel(wr, wi, nb, nchunk):
+    """The resident panel of beam tile nb: 128 columns (wr of beams nb *
+    64 .., then wi) of nchunk * 64 stations, zero past B and S, as uint32
+    words of 4 stations; and c_b = sum_s wi[b, s] (0 past B)."""
+    B, S = wr.shape
+    bs = np.arange(nb * K6_BB, min(B, nb * K6_BB + K6_BB))
+    P = np.zeros((2 * K6_BB, nchunk * K6_SC), np.int8)
+    P[:len(bs), :S], P[K6_BB:K6_BB + len(bs), :S] = wr[bs], wi[bs]
+    csum = np.zeros(K6_BB, np.int64)
+    csum[:len(bs)] = wi[bs].astype(np.int64).sum(axis=1)
+    return P.view('<u4'), _wrap32(csum)
+
+
+def _shfl_up(v, delta):
+    """__shfl_up_sync over the lane axis (-1): lane l takes lane l -
+    delta's value, lanes below delta keep their own."""
+    out = v.copy()
+    out[..., delta:] = v[..., :-delta]
+    return out
+
+
+def _k6_mma_model(wxr, wxi, wyr, wyi, x, scale, R):
+    """K6's tensor-core kernel on numpy operands -> (T / R, F, 4, B)
+    float32, and how many times each output was stored."""
+    T, F, S = x.shape[:3]
+    B = wxr.shape[0]
+    nchunk = -(-S // K6_SC)
+    words = np.ascontiguousarray(x).reshape(T, F, 4 * S).view('<u4')
+    nb, tt, fq = _k6_tiles(T, F, B)
+    warp = np.arange(8)[:, None]
+    mt, bw0 = warp % 4, 32 * (warp // 4)                      # (8, 1)
+    r = 16 * mt + _G                                          # (8, 32)
+    panels = [[_k6_panel(wr, wi, n, nchunk) for n in range(nb.max() + 1)]
+              for wr, wi in ((wxr, wxi), (wyr, wyi))]
+    # acc[p][j][0 yr, 1 yi]: (tiles, 8 warps, 32 lanes, 4 registers)
+    acc = np.zeros((2, 4, 2, len(nb), 8, 32, 4), np.int32)
+    for p in range(2):
+        for j in range(4):
+            bl = bw0[..., None] + 8 * j + 2 * _Q[:, None] + \
+                np.arange(4) % 2                              # (8, 32, 4)
+            csum = np.stack([panels[p][i][1] for i in nb])    # (tiles, 64)
+            acc[p, j, 0] = csum[:, bl]
+    for c in range(nchunk):
+        A = _k6_stage(words, tt, fq, c, S)
+        for kg in range(K6_SC // 32):
+            w = {(h, u): A[:, r + 8 * h, (kg * 8 + 2 * _Q + u) ^ (_G & 1)]
+                 for h in range(2) for u in range(2)}         # (n, 8, 32, 4)
+            for p in range(2):
+                ar = np.zeros(w[0, 0].shape, np.uint32)
+                ai = np.zeros_like(ar)
+                for (h, u), wv in w.items():
+                    t0 = _byte_perm(wv[..., 0], wv[..., 1], K6_SEL[p])
+                    t1 = _byte_perm(wv[..., 2], wv[..., 3], K6_SEL[p])
+                    ar[..., h + 2 * u] = _byte_perm(t0, t1, SPLIT_RE)
+                    ai[..., h + 2 * u] = _byte_perm(t0, t1, SPLIT_IM)
+                an = ~ai
+                pw = np.stack([panels[p][i][0] for i in nb])  # (n, 128, K/4)
+                widx = (c * K6_SC + 32 * kg + 8 * _Q) // 4
+                for j in range(4):
+                    col = bw0 + _G + 8 * j
+                    fr = np.stack([pw[:, col, widx], pw[:, col, widx + 1]],
+                                  axis=-1)
+                    col = col + K6_BB
+                    fi = np.stack([pw[:, col, widx], pw[:, col, widx + 1]],
+                                  axis=-1)
+                    acc[p, j, 0] = _mma_s8(acc[p, j, 0], ar, fr)
+                    acc[p, j, 1] = _mma_s8(acc[p, j, 1], ar, fi)
+                    acc[p, j, 0] = _mma_s8(acc[p, j, 0], an, fi)
+                    acc[p, j, 1] = _mma_s8(acc[p, j, 1], ai, fr)
+    # the epilogue: (tiles, 8, 32) per value
+    out = np.zeros((T // R, F, 4, B), np.float32)
+    stores = np.zeros(out.shape, np.int64)
+    f = (fq[:, None] * K6_CF + mt[:, 0])[..., None]           # (n, 8, 1)
+    t = (tt[:, None, None] * K6_TF + 2 * _G)                  # (n, 1, 32)
+    n = R // 2
+    gl = _G % n if n else np.zeros(32, np.int64)
+    sc = np.float32(scale)
+
+    def stokes(xr, xi, yr, yi):
+        bxr, bxi, byr, byi = (v.astype(np.float32) * sc
+                              for v in (xr, xi, yr, yi))
+        xx = bxr * bxr + bxi * bxi
+        yy = byr * byr + byi * byi
+        xyr = bxr * byr + bxi * byi
+        xyi = bxi * byr - bxr * byi
+        return [xx + yy, xx - yy, np.float32(2) * xyr, np.float32(-2) * xyi]
+
+    def store(row, ok, b, val):
+        for e in range(2):
+            m = np.broadcast_to(ok & (b + e < B), val[e][0].shape)
+            idx = np.nonzero(m)
+            rr = np.broadcast_to(row, m.shape)[idx]
+            ff = np.broadcast_to(f, m.shape)[idx]
+            bb = np.broadcast_to(b + e, m.shape)[idx]
+            for k in range(4):
+                out[rr, ff, k, bb] = val[e][k][idx]
+                np.add.at(stores, (rr, ff, k, bb), 1)
+
+    for j in range(4):
+        b = (nb[:, None, None] * K6_BB + bw0 + 8 * j + 2 * _Q)  # (n, 8, 32)
+        v = [[stokes(*(acc[p, j, pl][..., 2 * h + e]
+                       for p in range(2) for pl in range(2)))
+              for e in range(2)] for h in range(2)]
+        if n == 0:
+            for h in range(2):
+                store(t + h, (f < F) & (t + h < T), b, v[h])
+            continue
+        s = [[v[0][e][k] + v[1][e][k] for k in range(4)] for e in range(2)]
+        for step in range(1, n):
+            for e in range(2):
+                for k in range(4):
+                    prev = _shfl_up(s[e][k], 4)
+                    s[e][k] = np.where(gl == step,
+                                       (prev + v[0][e][k]) + v[1][e][k],
+                                       s[e][k])
+        store(t // R, (gl == n - 1) & (f < F) & (t < T), b, s)
+    return out, stores
+
+
+def _k6_operands(T, F, S, B, seed, fill=None):
+    rng = np.random.RandomState(seed)
+    if fill is not None:
+        x = np.full((T, F, S, 2, 2), fill, np.int8)
+        ws = [np.full((B, S), fill, np.int8) for _ in range(4)]
+    else:
+        x = rng.randint(-128, 128, (T, F, S, 2, 2)).astype(np.int8)
+        ws = [rng.randint(-128, 128, (B, S)).astype(np.int8)
+              for _ in range(4)]
+    return ws, x
+
+
+@pytest.mark.parametrize('R', [1, 2, 4, 8, 16])
+@pytest.mark.parametrize('case', ['ragged', 'wide', 'minus128'])
+def test_k6_mma_model_is_bit_identical_to_plain(R, case):
+    """The numpy model of K6's tensor-core kernel gives the plain
+    version's bits at every R that divides 16: on ragged T (40 frames, 48
+    at R 16), F (3 channels) and B (65 beams) at S = 40; at S = 256 with
+    two channel quads; and with -128 in every byte (yi = 2 S 128^2 per
+    pol before the scale).  Each output is stored exactly once."""
+    T, F, S, B, fill = {'ragged': (40 if R < 16 else 48, 3, 40, 65, None),
+                        'wide': (32, 5, 256, 64, None),
+                        'minus128': (16, 2, 64, 9, -128)}[case]
+    ws, x = _k6_operands(T, F, S, B, R + S, fill)
+    scale = 0.0123
+    got, stores = _k6_mma_model(*ws, x, scale, R)
+    want = gpu_kernels.beamform_detect_int8_plain(
+        *[_t(w) for w in ws], _t(x), scale, R).numpy()
+    assert (stores == 1).all()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert gpu_kernels.detect_path(_t(x), R) == 'mma'
+
+
+
+def _wavefronts(addrs, nbytes):
+    """Shared-memory wavefronts of one phase of a warp's access: the
+    lanes' ``nbytes``-byte accesses at bytes ``addrs``; 32 banks of 4
+    bytes, the most distinct words that fall in one bank."""
+    words = {int(a) // 4 + k for a in addrs for k in range(nbytes // 4)}
+    return max(collections.Counter(w % 32 for w in words).values())
+
+
+def _phases(addrs, nbytes):
+    """The wavefronts of each phase of one warp access (8 lanes of 16
+    bytes, 16 lanes of 8)."""
+    n = 128 // nbytes
+    return [_wavefronts(addrs[i:i + n], nbytes) for i in range(0, 32, n)]
+
+
+@pytest.mark.parametrize('S', [40, 256, 576])
+def test_k6_mma_shared_memory_accesses_take_one_wavefront(S):
+    """Every phase of the staging's cp.async writes, of the consumers'
+    16-byte A loads (one load serves both pols) and of the 8-byte B loads
+    of both panels takes one wavefront, the fewest; the two selector sets
+    give each pol's re and im of the four stations of a load."""
+    pw = -(-S // K6_SC) * K6_SC + 32
+    lane = np.arange(32)
+    for wp in range(8):
+        tid = 32 * wp + lane
+        i, v = tid // 16, tid % 16
+        for mt in range(K6_CF):
+            addrs = (16 * mt + i) * K6_ROW + 16 * (v ^ (i & 1))
+            assert _phases(addrs, 16) == [1] * 4
+        mt, bw0 = wp % 4, 32 * (wp // 4)
+        for kg in range(K6_SC // 32):
+            for h in range(2):
+                for u in range(2):
+                    addrs = (16 * mt + _G + 8 * h) * K6_ROW + \
+                        16 * ((kg * 8 + 2 * _Q + u) ^ (_G & 1))
+                    assert _phases(addrs, 16) == [1] * 4
+            for c in range(-(-S // K6_SC)):
+                for p in range(2):
+                    for j in range(4):
+                        for plane in range(2):
+                            col = 2 * K6_BB * p + K6_BB * plane + bw0 + _G + \
+                                8 * j
+                            addrs = col * pw + c * K6_SC + 32 * kg + 8 * _Q
+                            assert _phases(addrs, 8) == [1] * 2
+    rng = np.random.RandomState(S)
+    st = rng.randint(-128, 128, (4, 4)).astype(np.int8)   # 4 stations
+    w = st.reshape(-1).view('<u4')
+    for p, sel in enumerate(K6_SEL):
+        t0 = _byte_perm(w[0], w[1], sel)
+        t1 = _byte_perm(w[2], w[3], sel)
+        assert _int8s(_byte_perm(t0, t1, SPLIT_RE)).reshape(4).tolist() \
+            == st[:, 2 * p].tolist()
+        assert _int8s(_byte_perm(t0, t1, SPLIT_IM)).reshape(4).tolist() \
+            == st[:, 2 * p + 1].tolist()
+
+
+def _source_int(name):
+    with open(BEAMFORM_SOURCE) as f:
+        m = re.search(r'constexpr int %s = (\d+);' % name, f.read())
+    return int(m.group(1))
+
+
+def test_k6_mma_model_and_limit_follow_the_source():
+    """The model's tile, chunk and selectors are the source's, and
+    DETECT_MMA_MAX_NSTAND is the most stations (a multiple of 4) whose
+    ring, two resident panels and beam sums fit the H100's 227 KB a
+    block, by the C entry's formula."""
+    assert (_source_int('kTF6'), _source_int('kCF6'), _source_int('kSC4'),
+            _source_int('kBB4')) == (K6_TF, K6_CF, K6_SC, K6_BB)
+    with open(BEAMFORM_SOURCE) as f:
+        text = f.read()
+    assert 'p ? 0x%04xu : 0x%04xu' % (K6_SEL[1], K6_SEL[0]) in text
+    stages = _source_int('kStages6')
+
+    def smem(S):
+        pw = -(-S // K6_SC) * K6_SC + 32
+        return stages * K6_TF * K6_CF * K6_ROW + 4 * K6_BB * pw + \
+            2 * K6_BB * 4
+
+    fits = [S for S in range(4, 2048, 4) if smem(S) <= 232448]
+    assert max(fits) == gpu_kernels.DETECT_MMA_MAX_NSTAND
+
+
+def test_k6_detect_path_follows_the_layout():
+    """R dividing 16 on a gulp whose rows start on 16 bytes with S a
+    positive multiple of 4 up to DETECT_MMA_MAX_NSTAND takes the
+    tensor-core kernel; R of 32 or R = T = 96, a view off 16 bytes, odd
+    station counts and too many stations keep the dp4a kernel.  On the
+    CPU the wrapper runs the plain version and launches nothing."""
+    x = torch.zeros((96, 3, 8, 2, 2), dtype=torch.int8)
+    for R in (1, 2, 4, 8, 16):
+        assert gpu_kernels.detect_path(x, R) == 'mma'
+    assert gpu_kernels.detect_path(x[::2], 4) == 'mma'
+    assert gpu_kernels.detect_path(x[:, 1:], 4) == 'mma'
+    for R in (32, 96, 3):
+        assert gpu_kernels.detect_path(x, R) == 'dp4a'
+    flat = torch.zeros(x.numel() + 16, dtype=torch.int8)
+    off = flat[4:4 + x.numel()].view(x.shape)
+    assert off.data_ptr() % 16 != 0
+    assert gpu_kernels.detect_path(off, 4) == 'dp4a'
+    assert gpu_kernels.detect_path(x[:, :, :6], 4) == 'dp4a'
+    assert gpu_kernels.detect_path(x[:, :, 1:], 4) == 'dp4a'
+    top = gpu_kernels.DETECT_MMA_MAX_NSTAND
+    for S, path in ((top, 'mma'), (top + 4, 'dp4a')):
+        g = torch.zeros((1, 1, S, 2, 2), dtype=torch.int8)
+        assert gpu_kernels.detect_path(g, 1) == path
+    before = dict(gpu_kernels.launches)
+    w = torch.ones((2, 8), dtype=torch.int8)
+    gpu_kernels.beamform_detect_int8(w, w, w, w, x, 1.0, 8)
+    assert gpu_kernels.launches == before
 
 
 def test_wrappers_reject_what_the_kernels_cannot_take():

@@ -9,7 +9,9 @@ plain versions at ragged and full-width shapes (K4 and K5 over every
 layout their wrappers take: separate planes, float32 voltages for K5 and
 the per-pol views of ci8 gulps, through the 16-byte and the scalar
 staging, with resident and streamed weight panels; K4 also at the int8
-extremes, -128 everywhere, and at the int32 edge S = MAX_NSTAND), K0 (the capability
+extremes, -128 everywhere, and at the int32 edge S = MAX_NSTAND; K6
+at every R from 1 to 32 and R = T, -128 everywhere, and which of its
+two kernels each layout takes), K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
 int64 oracle at ragged shapes and on strided gulp views (K7 over every
 layout its wrapper takes, the 16-byte and the scalar staging, resident
@@ -32,8 +34,9 @@ spectrometer gate); K2, bit-identical to its plain version (the kernel
 rounds every multiply and add as the plain version's separate ops do);
 K4, bit-identical to the int64 oracle; K5, rel <= 1e-5 of its plain
 version (float32 sums in another order) and <= 8e-3 of the float64
-oracle (the bf16 class); K6, rel <= 1e-6 of its plain version and
-< 1e-5 of the quantized-weights float64 oracle; K7 and K8, bit-identical
+oracle (the bf16 class); K6, bit-identical to its plain version on its
+tensor-core kernel (R dividing 16, rows on 16 bytes), rel <= 1e-6 on
+its dp4a kernel, and < 1e-5 of the quantized-weights float64 oracle; K7 and K8, bit-identical
 to their plain versions and to the int64 oracle; K3, bit-identical to
 its plain version (one float32 add per element in both) and the K3 core
 to the torch gather core, and within 1e-4 of the float64 numpy oracle
@@ -450,29 +453,134 @@ def _detect_oracle(eng, x, R):
     return st.reshape(T // R, R, F, 4, -1).sum(axis=1)
 
 
-@pytest.mark.parametrize('R', [1, 8, 'T'])
+def _detect_planes_oracle(ws, scale, x, R):
+    """float64 beamform -> Stokes -> R-frame sum with int8 weight planes
+    (wxr, wxi, wyr, wyi) times ``scale``."""
+    wq = np.stack([ws[0] + 1j * ws[1].astype(np.float64),
+                   ws[2] + 1j * ws[3].astype(np.float64)]) * scale
+    volt = x[..., 0].astype(np.float64) + 1j * x[..., 1].astype(np.float64)
+    y = np.einsum('tfsp,pbs->tfpb', volt, wq)
+    bx, by = y[:, :, 0], y[:, :, 1]
+    xx, yy = np.abs(bx) ** 2, np.abs(by) ** 2
+    xy = bx * np.conj(by)
+    st = np.stack([xx + yy, xx - yy, 2 * xy.real, -2 * xy.imag], axis=2)
+    T, F = x.shape[:2]
+    return st.reshape(T // R, R, F, 4, -1).sum(axis=1)
+
+
+def _check_detect(ws, xc, scale, R, path):
+    """One K6 launch on the card: its path by the per-path counter, and
+    on the tensor-core path the plain version's bits (<= 1e-6 on the dp4a
+    path).  Returns the output as numpy."""
+    before = dict(gpu_kernels.launches)
+    got = gpu_kernels.beamform_detect_int8(*ws, xc, scale, R)
+    want = gpu_kernels.beamform_detect_int8_plain(*ws, xc, scale, R)
+    torch.cuda.synchronize()
+    assert gpu_kernels.detect_path(xc, R) == path
+    assert gpu_kernels.launches['beamform_detect_int8'] == \
+        before['beamform_detect_int8'] + 1
+    assert gpu_kernels.launches['beamform_detect_int8_mma'] == \
+        before['beamform_detect_int8_mma'] + (path == 'mma')
+    T, F, S = xc.shape[:3]
+    assert got.shape == (T // R, F, 4, ws[0].shape[0])
+    assert got.dtype == torch.float32
+    if path == 'mma':
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+    return got.cpu().numpy()
+
+
+#: (T, F, S, B) of each K6 shape: 'ragged' has T off the 16-frame tile
+#: where R allows it, F off the channel quad and B off the beam tile;
+#: 'wide' resident panels of 256 stations; 'minus128' -128 in every byte
+#: of the gulp and the weights
+def _detect_shape(shape, R):
+    return {'ragged': (40 if R in (1, 2, 4, 8, 'T') else 3 * R, 3, 40, 65),
+            'wide': (96, 2, 256, 64),
+            'minus128': (32, 5, 64, 9)}[shape]
+
+
+@pytest.mark.parametrize('R', [1, 2, 4, 8, 16, 32, 'T'])
 @pytest.mark.parametrize('P', [1, 2])
-@pytest.mark.parametrize('T,F,S,B', [(64, 3, 40, 65), (96, 2, 256, 64)])
-def test_beamform_detect_matches_plain_and_oracle(R, P, T, F, S, B):
+@pytest.mark.parametrize('shape', ['ragged', 'wide', 'minus128'])
+def test_beamform_detect_matches_plain_and_oracle(R, P, shape):
+    """K6 through ``fused_detect`` (P = 1: one weight set for both pols)
+    at every R: R dividing 16 on the tensor-core kernel, bit-identical
+    to the plain version; R = 32 and R = T on the dp4a kernel, within
+    1e-6; both below 1e-5 of the float64 oracle."""
+    T, F, S, B = _detect_shape(shape, R)
     R = T if R == 'T' else R
+    path = 'mma' if 16 % R == 0 else 'dp4a'
     rng = np.random.RandomState(T + R + P)
-    shape = (B, S) if P == 1 else (P, B, S)
-    w = (rng.randn(*shape) + 1j * rng.randn(*shape)).astype(np.complex64)
+    if shape == 'minus128':
+        x = np.full((T, F, S, 2, 2), -128, np.int8)
+        wn = [np.full((B, S), -128, np.int8)] * 4
+        scale = 0.0123
+        ws = [torch.from_numpy(w).cuda() for w in wn]
+        got = _check_detect(ws, torch.from_numpy(x).cuda(), scale, R, path)
+        assert _rel(got, _detect_planes_oracle(wn, scale, x, R)) < 1e-5
+        return
+    wshape = (B, S) if P == 1 else (P, B, S)
+    w = (rng.randn(*wshape) + 1j * rng.randn(*wshape)).astype(np.complex64)
     eng = Beamformer(w, accuracy='int8')
     x = _i8(rng, (T, F, S, 2, 2))
     xc = torch.from_numpy(x).cuda()
-    before = gpu_kernels.launches['beamform_detect_int8']
+    before = dict(gpu_kernels.launches)
     got = fused_detect(eng, xc, R)
+    torch.cuda.synchronize()
+    assert gpu_kernels.launches['beamform_detect_int8'] == \
+        before['beamform_detect_int8'] + 1
+    assert gpu_kernels.launches['beamform_detect_int8_mma'] == \
+        before['beamform_detect_int8_mma'] + (path == 'mma')
     _, _, wr8, wi8 = eng._pol_weights(2)
     ws = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
           for a in (wr8[0], wi8[0], wr8[1], wi8[1])]
-    want = gpu_kernels.beamform_detect_int8_plain(*ws, xc, eng.wscale, R)
-    torch.cuda.synchronize()
-    assert gpu_kernels.launches['beamform_detect_int8'] == before + 1
-    assert got.shape == (T // R, F, 4, B) and got.dtype == torch.float32
-    got = got.cpu().numpy()
-    assert _rel(got, want.cpu().numpy()) <= 1e-6
-    assert _rel(got, _detect_oracle(eng, x, R)) < 1e-5
+    want = _check_detect(ws, xc, eng.wscale, R, path)
+    assert np.array_equal(got.cpu().numpy(), want) if path == 'mma' else \
+        _rel(got.cpu().numpy(), want) <= 1e-6
+    assert _rel(want, _detect_oracle(eng, x, R)) < 1e-5
+
+
+def test_beamform_detect_path_by_layout():
+    """Which K6 kernel each input takes, from the per-path counter: a
+    contiguous gulp and frame- or channel-strided views of it (rows still
+    on 16 bytes) at R 8 take the tensor-core kernel; R 32, a view off 16
+    bytes, a station-strided view and S above DETECT_MMA_MAX_NSTAND the
+    dp4a kernel.  Each matches the plain version.  The tensor-core C
+    entry refuses an input it does not take, and the wrapper raises."""
+    import ctypes
+    from bifrost_tpu_torch import _build
+    rng = np.random.RandomState(12)
+    T, F, S, B = 64, 6, 64, 40
+    ws = [torch.from_numpy(_i8(rng, (B, S))).cuda() for _ in range(4)]
+    x = torch.from_numpy(_i8(rng, (T, F, S, 2, 2))).cuda()
+    _check_detect(ws, x, 0.5, 8, 'mma')
+    _check_detect(ws, x[::2], 0.5, 8, 'mma')
+    _check_detect(ws, x[:, 1:], 0.5, 8, 'mma')
+    _check_detect(ws, x, 0.5, 32, 'dp4a')
+    flat = torch.empty(x.numel() + 16, dtype=torch.int8, device='cuda')
+    off = flat[4:4 + x.numel()].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    _check_detect(ws, off, 0.5, 8, 'dp4a')
+    _check_detect([w[:, 1:].contiguous() for w in ws], x[:, :, 1:], 0.5, 8,
+                  'dp4a')
+    big = gpu_kernels.DETECT_MMA_MAX_NSTAND + 4
+    wb = [torch.from_numpy(_i8(rng, (B, big))).cuda() for _ in range(4)]
+    xb = torch.from_numpy(_i8(rng, (16, 2, big, 2, 2))).cuda()
+    _check_detect(wb, xb, 0.5, 8, 'dp4a')
+    top = gpu_kernels.DETECT_MMA_MAX_NSTAND
+    _check_detect([w[:, :top].contiguous() for w in wb],
+                  xb[:, :, :top].contiguous(), 0.5, 8, 'mma')
+    out = torch.empty((T // 32, F, 4, B), dtype=torch.float32, device='cuda')
+    lib, fn = gpu_kernels._fn('beamform', 'bf_beamform_detect_int8_mma',
+                              gpu_kernels._DETECT_ARGS)
+    err = fn(*[w.data_ptr() for w in ws], x.data_ptr(), out.data_ptr(), 0.5,
+             T, F, S, B, 32, F * S * 4, S * 4, _build.stream_ptr(x.device))
+    assert err != 0
+    with pytest.raises(RuntimeError, match='beamform_detect_int8: CUDA'):
+        _build.check(lib, err, 'beamform_detect_int8')
 
 
 def test_beamform_wrappers_reject_bad_operands():
