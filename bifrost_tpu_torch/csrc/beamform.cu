@@ -921,7 +921,7 @@ beamform_detect_kernel(const int8_t* __restrict__ wxr,
 // Replaces the same Pallas kernel as the dp4a path above, for the gulps
 // that bf_beamform_detect_int8_mma takes: R dividing 16, rows on 16 bytes
 // (base, st and sf multiples of 16 bytes, S a multiple of 4) and two
-// resident weight panels that fit (S <= 576 at 227 KB a block).  Every
+// resident weight panels that fit (S <= 640 at 227 KB a block).  Every
 // other gulp keeps the dp4a kernel.
 //
 // Bound on the H100: as the dp4a path, 0.090 ms at 512 x 512 x 256, 64
@@ -936,8 +936,9 @@ beamform_detect_kernel(const int8_t* __restrict__ wxr,
 //   R-group lies in one warp's row-tile (no atomics, no shared memory).
 //   A row is 64 stations x (re x, im x, re y, im y), 256 bytes, copied by
 //   cp.async with K4's parity swizzle into a ring of kStages6 stages of
-//   16 KB (kStages6 - 1 in flight); a frame's 4 channels are 4 KB of
-//   contiguous gulp.  Ragged T, F and S are zero-filled, and T, F and B
+//   16 KB (kStages6 - 1 in flight; 4 and 6 stages measured no faster, and
+//   the read is hidden); a frame's 4 channels are 4 KB of contiguous
+//   gulp.  Ragged T, F and S are zero-filled, and T, F and B
 //   masked on store.
 // - Warp w owns row-tile w % 4 and beams 32 (w / 4) .. + 31: four n8 tiles
 //   x (yr, yi) x 2 pols, 64 int32 accumulators a thread.  One uint4 load
@@ -954,14 +955,17 @@ beamform_detect_kernel(const int8_t* __restrict__ wxr,
 //   version's order and sums its R-group in frame order: R = 2 inside the
 //   thread, R = 4 .. 16 along a chain of R / 2 threads 4 lanes apart
 //   (__shfl_up_sync), whose last thread stores the group's sums as float2
-//   of its two beams.  Bit-identical to the plain version.
+//   of its two beams.  Bit-identical to the plain version.  The epilogue
+//   is a third of the kernel's time at R 8: the block's warps reach it
+//   together and the tensor cores wait; the four n8 tiles' chains step
+//   together so that their shuffles overlap.
 // ---------------------------------------------------------------------------
 
 constexpr int kTF6 = 16;                 // frames per tile (K6 mma)
 constexpr int kCF6 = 4;                  // channels per tile
 constexpr int kRow6 = kSC4 * 4;          // bytes per staged row
 constexpr int kStage6 = kTF6 * kCF6 * kRow6;  // bytes per ring stage
-constexpr int kStages6 = 4;              // cp.async ring depth
+constexpr int kStages6 = 3;              // cp.async ring depth
 
 struct K6Weights {                       // one pol's weight planes
   const int8_t* wr;
@@ -1044,7 +1048,8 @@ __device__ __forceinline__ void k6_store(const K6Args& a, int row, int f,
 }
 
 // The finished tile's outputs: the thread's frames t0 + 2g, t0 + 2g + 1
-// of channel f0 + mt and beams b0 + bw0 + 8j + 2q, + 1 (j < 4).  Every
+// of channel f0 + mt and beams b0 + bw0 + 8j + 2q, + 1 (j < 4).  The four
+// n8 tiles' chains step together, 32 independent shuffles a step.  Every
 // lane reaches every shuffle; only the stores are masked.
 __device__ __forceinline__ void k6_epilogue(const K6Args& a,
                                             const int (&acc)[2][4][2][4],
@@ -1053,45 +1058,54 @@ __device__ __forceinline__ void k6_epilogue(const K6Args& a,
   const int nb = tile / a.ntile_tf, tf = tile - nb * a.ntile_tf;
   const int tt = tf / a.ntile_f, fq = tf - tt * a.ntile_f;
   const int f = fq * kCF6 + mt, t = tt * kTF6 + 2 * g;
+  const int b = nb * kBB4 + bw0 + 2 * q;   // + 8j
   const int n = a.R >> 1;                  // threads an R-group (R >= 2)
   const int gl = n ? g % n : 0;            // the thread's place in it
   const bool fin = f < a.F;
+  float v[4][2][2][4];                     // [n8][frame][beam][I, Q, U, V]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int b = nb * kBB4 + bw0 + 8 * j + 2 * q;
-    float v[2][2][4];                      // [frame][beam][I, Q, U, V]
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         k6_stokes(acc[0][j][0][2 * h + e], acc[0][j][1][2 * h + e],
                   acc[1][j][0][2 * h + e], acc[1][j][1][2 * h + e], a.scale,
-                  v[h][e]);
-    if (n == 0) {                          // R = 1: every frame is a row
+                  v[j][h][e]);
+  if (n == 0) {                            // R = 1: every frame is a row
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        if (fin && t + h < a.T) k6_store(a, t + h, f, b, v[h]);
-      continue;
-    }
-    float s[2][4];
+        if (fin && t + h < a.T) k6_store(a, t + h, f, b + 8 * j, v[j][h]);
+    return;
+  }
+  float s[4][2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) s[e][k] = __fadd_rn(v[0][e][k], v[1][e][k]);
-    // the running sum of frames t0 + 2 (g - gl) .. moves one thread on a
-    // step: thread gl adds its two frames at step gl
-    for (int step = 1; step < n; ++step) {
+      for (int k = 0; k < 4; ++k)
+        s[j][e][k] = __fadd_rn(v[j][0][e][k], v[j][1][e][k]);
+  // the running sum of frames t0 + 2 (g - gl) .. moves one thread on a
+  // step: thread gl adds its two frames at step gl
+  for (int step = 1; step < n; ++step) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float prev = __shfl_up_sync(~0u, s[e][k], 4);
+          const float prev = __shfl_up_sync(~0u, s[j][e][k], 4);
           if (gl == step)
-            s[e][k] = __fadd_rn(__fadd_rn(prev, v[0][e][k]), v[1][e][k]);
+            s[j][e][k] = __fadd_rn(__fadd_rn(prev, v[j][0][e][k]),
+                                   v[j][1][e][k]);
         }
-    }
-    if (gl == n - 1 && fin && t < a.T) k6_store(a, t / a.R, f, b, s);
   }
+  if (gl == n - 1 && fin && t < a.T)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) k6_store(a, t / a.R, f, b + 8 * j, s[j]);
 }
 
 __global__ void __launch_bounds__(kThreads4, 1)
@@ -1396,7 +1410,7 @@ int bf_beamform_detect_int8(const void* wxr, const void* wxi,
 // bf_beamform_detect_int8, for the inputs it takes and no others: rfactor
 // dividing 16 and ntime; x on 16 bytes with st, sf multiples of 16; nstand
 // a positive multiple of 4 whose two resident weight panels fit beside the
-// ring (nstand <= 576 at 227 KB a block).  Any other input returns
+// ring (nstand <= 640 at 227 KB a block).  Any other input returns
 // cudaErrorInvalidValue; the wrapper sends those to
 // bf_beamform_detect_int8.
 int bf_beamform_detect_int8_mma(const void* wxr, const void* wxi,

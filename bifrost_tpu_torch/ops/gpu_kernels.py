@@ -68,10 +68,10 @@ MAX_NSTAND = (2 ** 31 - 1) // (2 * 128 * 128)
 
 #: most stations of K6's tensor-core path: its two resident weight
 #: panels (4 x 64 columns of S rounded up to 64 stations, plus 32 bytes)
-#: beside its 64 KB cp.async ring and the beam sums fit the 227 KB of
+#: beside its 48 KB cp.async ring and the beam sums fit the 227 KB of
 #: shared memory a block may take on the H100 (``bytes`` of
 #: ``bf_beamform_detect_int8_mma``)
-DETECT_MMA_MAX_NSTAND = 576
+DETECT_MMA_MAX_NSTAND = 640
 
 #: most frames the correlation kernels sum: re = sum of 2 * T products of
 #: int8 values, each at most 128 * 128, stays exact in int32

@@ -668,7 +668,7 @@ def _phases(addrs, nbytes):
     return [_wavefronts(addrs[i:i + n], nbytes) for i in range(0, 32, n)]
 
 
-@pytest.mark.parametrize('S', [40, 256, 576])
+@pytest.mark.parametrize('S', [40, 256, 640])
 def test_k6_mma_shared_memory_accesses_take_one_wavefront(S):
     """Every phase of the staging's cp.async writes, of the consumers'
     16-byte A loads (one load serves both pols) and of the 8-byte B loads
