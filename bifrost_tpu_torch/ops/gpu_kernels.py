@@ -42,11 +42,11 @@ from .. import _build
 __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_int8_plain', 'int8_staging', 'beamform_bf16',
            'beamform_bf16_plain', 'bf16_staging', 'beamform_detect_int8',
-           'beamform_detect_int8_plain', 'detect_path', 'probe', 'available', 'enabled',
-           'xcorr_herm', 'xcorr_herm_plain', 'xcorr_staging', 'xcorr_cross',
-           'xcorr_cross_plain', 'fdmt_step', 'fdmt_step_plain',
-           'ring_permute', 'ring_permute_plain', 'MAX_NSTAND', 'MAX_NTIME',
-           'launches']
+           'beamform_detect_int8_plain', 'detect_path', 'probe',
+           'available', 'enabled', 'xcorr_herm', 'xcorr_herm_plain',
+           'xcorr_staging', 'xcorr_cross', 'xcorr_cross_plain', 'fdmt_step',
+           'fdmt_step_plain', 'ring_permute', 'ring_permute_plain',
+           'MAX_NSTAND', 'MAX_NTIME', 'launches']
 
 #: kernel launches per wrapper since import (or since a caller reset them)
 #: (``beamform_int8_vec16``, ``beamform_bf16_vec16`` and

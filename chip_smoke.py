@@ -955,9 +955,8 @@ def phase_beamform_kernels(gpu_kernels, beam):
         path=gpu_kernels.detect_path(x, R), r_sweep=sweep6,
         library='torch chain int8_wide (torch._int_mm) -> Stokes -> '
                 'frame sum',
-        unfused_2x_k4_ms_queued=2 * queued4['kernel'],
-        unfused_2x_k4='two K4 launches (one per pol), before their Stokes '
-                      'and frame sum',
+        unfused_2x_k4='ms_queued: two K4 launches (one per pol), before '
+                      'their Stokes and frame sum',
         ms_queued=queued6,
         ms_queued_per='launch (median of batches of queued calls: 5 x 20; '
                       'library 3 x 5, plain 3 x 2)')

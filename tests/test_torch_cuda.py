@@ -36,8 +36,9 @@ K4, bit-identical to the int64 oracle; K5, rel <= 1e-5 of its plain
 version (float32 sums in another order) and <= 8e-3 of the float64
 oracle (the bf16 class); K6, bit-identical to its plain version on its
 tensor-core kernel (R dividing 16, rows on 16 bytes), rel <= 1e-6 on
-its dp4a kernel, and < 1e-5 of the quantized-weights float64 oracle; K7 and K8, bit-identical
-to their plain versions and to the int64 oracle; K3, bit-identical to
+its dp4a kernel, and < 1e-5 of the quantized-weights float64 oracle;
+K7 and K8, bit-identical to their plain versions and to the int64
+oracle; K3, bit-identical to
 its plain version (one float32 add per element in both) and the K3 core
 to the torch gather core, and within 1e-4 of the float64 numpy oracle
 relative to its largest magnitude; K9 and the corner turn, bit-identical
