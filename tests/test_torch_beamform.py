@@ -736,6 +736,32 @@ def test_k6_mma_model_and_limit_follow_the_source():
     assert max(fits) == gpu_kernels.DETECT_MMA_MAX_NSTAND
 
 
+def test_k6_variant_edits_apply_to_the_source():
+    """chip_k6_variants.py's edits each apply to the tensor-core kernel
+    alone and keep the source's braces balanced and both K6 entries."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(BEAMFORM_SOURCE), os.pardir,
+                        os.pardir, 'chip_k6_variants.py')
+    mod_spec = importlib.util.spec_from_file_location('chip_k6_variants',
+                                                      path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    with open(BEAMFORM_SOURCE) as f:
+        src = f.read()
+    vs = mod.variants(src)
+    assert sorted(vs) == sorted([
+        'kernel', 'four_stages', 'six_stages', 'time_fastest',
+        'chains_by_tile', 'i2f_split', 'no_epilogue', 'no_mma', 'no_read'])
+    assert vs['kernel'] == (src, True)
+    k4 = src[:src.index('constexpr int kTF6')]
+    for name, (text, _) in vs.items():
+        assert text.count('{') == text.count('}'), name
+        assert text.startswith(k4), name
+        assert text.count('int bf_beamform_detect_int8(') == 1, name
+        assert text.count('int bf_beamform_detect_int8_mma(') == 1, name
+        assert name == 'kernel' or text != src, name
+
+
 def test_k6_detect_path_follows_the_layout():
     """R dividing 16 on a gulp whose rows start on 16 bytes with S a
     positive multiple of 4 up to DETECT_MMA_MAX_NSTAND takes the

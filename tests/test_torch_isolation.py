@@ -21,7 +21,8 @@ def _run(code):
 
 def _sources():
     out = [os.path.join(ROOT, f) for f in ('chip_smoke.py',
-                                            'chip_k1_variants.py')]
+                                            'chip_k1_variants.py',
+                                            'chip_k6_variants.py')]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
