@@ -16,195 +16,82 @@
 //      station-sharded mesh correlator's row block against the gathered
 //      columns).
 //
+// Both are one kernel, xcorr_kernel<kHerm>: the same staging, tensor-core
+// arithmetic and store warps, walking the lower triangle of tiles and
+// mirroring them for K7, the whole rectangle unmirrored for K8.
+//
 // Every int32 sum is exact while T <= 65,535 (|re| <= 2 * 128^2 * T <
-// 2^31; the wrapper refuses more), and its __int2float_rn cast is the
+// 2^31; the wrappers refuse more), and its __int2float_rn cast is the
 // plain version's int -> float32 cast.
 //
 // ---------------------------------------------------------------------------
-// K7: exact int8 tensor-core correlator.
+// Exact int8 tensor-core correlator.
 //
 // Bound on the H100: the output write.  At the FX path's gulp (2 groups of
 // 128 frames, 1024 channels, 512 inputs) K7 reads 268 MB and writes 4.29 GB
 // of complex64, 1.362 ms at 3.35 TB/s, against 0.28 ms for its 5.5e11
-// operations at the 1,979 TOP/s int8 rate.  The design keeps the write
-// stream running and hides the rest behind it.
+// operations at the 1,979 TOP/s int8 rate.  K8 at the 2-D mesh's block
+// (128 frames, 1024 channels, 128 or 256 rows against 512 columns) reads
+// 168-201 MB and writes 0.54-1.07 GB, 0.210-0.381 ms, against 0.035-0.070
+// ms of operations.  The design keeps the write stream running and hides
+// the rest behind it.
 //
 // Design:
 // - Arithmetic: time is the contraction axis of mma.sync.m16n8k32 (s8 x s8
-//   -> s32, no .satfinite); rows are inputs a, columns inputs b.  Two
-//   accumulators an output, two products each per 32-frame step:
+//   -> s32, no .satfinite); rows are inputs a of x_i, columns inputs b of
+//   x_j.  Two accumulators an output, two products each per 32-frame step:
 //     vr += re_a . re_b + im_a . im_b
 //     vi += im_a . re_b + re_a . (~im_b),   and then vi += R_a = sum_t re_a
 //   ~im = -im - 1 is an int8 for every int8 (~(-128) = 127), so
 //   sum_t re_a (~im_b) + R_a = -sum_t re_a im_b exactly: vi = ir - ri for
 //   every int8 value, -128 included.  R_a is summed on the tensor cores
-//   too (re_a against a column of ones, one more MMA a step).  The s32 sums
-//   wrap; the finals fit.  Padded frames and inputs hold kPad = 0 in both
-//   planes: ~0 = -1 meets re_a = 0 there, and R_a gains nothing.
+//   too (the row operand re_a against a column of ones, one more MMA a
+//   step).  The s32 sums wrap; the finals fit.  Padded frames and inputs
+//   hold kPad = 0 in both planes: ~0 = -1 meets re_a = 0 there, and R_a
+//   gains nothing.
 // - Staging as the data lies: a frame's row of the interleaved ci8 view (n
 //   (re, im) pairs) is copied 16 bytes (8 inputs) at a time by cp.async into
 //   shared memory, piece c of staged frame t at slot c ^ (t & 7), so the 8
 //   rows that an ldmatrix reads fall in 8 distinct bank groups.  Every
 //   other layout (separate planes, odd strides, any n) is gathered by a
-//   scalar path into the same pieces.  Both feed the same tensor-core code.
+//   scalar path into the same pieces.  Rows and columns take their own
+//   path, each by its own planes' layout (in the mesh the row block is a
+//   view of the local gulp, the columns a gathered copy).  Both feed the
+//   same tensor-core code.
 // - Fragments: ldmatrix.x4.trans of 8 frames x 8 inputs of 16-bit (re, im)
 //   pairs gives a lane one input's pairs at frames 2q, 2q + 1; __byte_perm
 //   of two such registers (this 8-frame block and the next) makes the re
 //   word and the im word of four frames, the four K of a fragment register.
 //   A and B take the frames in the same order, so the sums are the sums.
-// - Stage each channel once: where a channel fits in shared memory beside
-//   the output slots (T n 2 bytes: 128 KB at the FX shape, 64 KB at
-//   x-stateful's T = 64), one persistent block an SM walks the (group,
-//   channel) jobs and computes all lower-triangle 64 x 64 tiles of a
-//   channel from one copy of it, so input leaves HBM once.  The channel's
-//   64-input blocks are separate cp.async groups, and the tiles of row
-//   block ti start as soon as blocks 0 .. ti are in.  Where it does not
-//   fit (T = 256 at 512 inputs, the mesh arms), a job is one tile: its 64
-//   rows and 64 columns are staged kChunk7 frames at a time into two
-//   alternating buffers, the next chunk's copies in flight while this one
-//   multiplies (the input then passes through L2 once per tile).
+// - Resident jobs, so that input leaves HBM once a job: one persistent
+//   block an SM walks them, its 64-input blocks staged as cp.async groups
+//   in order, each tile started as soon as the groups it reads are in.
+//   K7: a job is a channel, staged once where it fits beside the output
+//   slots (T n 2 bytes: 128 KB at the FX shape, 64 KB at x-stateful's
+//   T = 64), and row block ti's tiles start once blocks 0 .. ti are in.
+//   K8: a job is one 64-input row block of a channel, staged beside all the
+//   channel's columns (T (64 + 64 ceil(n_j / 64)) 2 bytes: 144 KB at the
+//   mesh's T = 128, n_j = 512; the whole channel would not fit there), and
+//   tile (ti, tj) starts once the row block and column block tj are in;
+//   the columns pass through L2 once per row block.
+// - Chunked jobs where that does not fit (T = 256 at 512 inputs, the mesh
+//   arms): a job is one tile, its 64 rows and 64 columns staged kChunk7
+//   frames at a time into two alternating buffers, the next chunk's copies
+//   in flight while this one multiplies (the input then passes through L2
+//   once per tile).
 // - Output streamed by warp specialization: eight compute warps each own
 //   16 x 32 outputs of a tile and put the finished tile, converted with
 //   __int2float_rn, into one of kSlots7 shared-memory slots (rows padded
-//   to 65 float2); four store warps write each slot's rows and, off the
-//   diagonal, its conjugate transpose's rows, 256 contiguous bytes a
+//   to 65 float2); four store warps write each slot's rows and, for K7 off
+//   the diagonal, its conjugate transpose's rows, 256 contiguous bytes a
 //   streaming store, while the compute warps run the next tile.  Slots are
 //   handed over with named barriers (bar.arrive / bar.sync), so no warp
 //   ever waits on its own stores.
-//
-// ---------------------------------------------------------------------------
-// K8: the first version, kept: one block per (group, channel, 64 x 64 output
-// tile); 256 threads, each owning 4 x 4 outputs.  Time is looped inside the
-// block, 32 frames at a time: each input's 32 samples are staged in shared
-// memory as eight words of four int8 (time is the contraction axis, so four
-// consecutive frames pack into one word), and the inner loop is __dp4a
-// (four int8 MACs into an int32) with three accumulators per output
-// (re_a re_b + im_a im_b, im_a re_b, re_a im_b).  The planes come with
-// strides (group, time, channel, input), read in place.  Ragged tiles are
-// zero-filled in shared memory and masked on store.  The finished tile is
-// converted once (__int2float_rn) into shared memory and written row by
-// row.  Bound at a 128 x 512 block: 168 MB in, 537 MB out, 0.21 ms,
-// against 0.035 ms of operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// K8
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kTile = 64;            // inputs per tile side
-constexpr int kTC = 32;              // frames staged per chunk
-constexpr int kWords = kTC / 4;      // packed words per staged row
-constexpr int kWP = kWords + 1;      // padded: odd, so rows hit distinct banks
-
-__device__ __forceinline__ uint32_t pack4(const int8_t* __restrict__ p,
-                                          int64_t stride, int n) {
-  // up to 4 int8 at p, p + stride, ... packed little-endian; zero past n
-  uint32_t w = 0;
-  for (int k = 0; k < 4 && k < n; ++k)
-    w |= (uint32_t)(uint8_t)__ldg(p + k * stride) << (8 * k);
-  return w;
-}
-
-struct Planes {
-  const int8_t* re;
-  const int8_t* im;
-  int64_t sg, st, sf, sn;            // strides in bytes (= elements)
-  int n;
-};
-
-__device__ __forceinline__ void stage(const Planes& x, int g, int f, int t0,
-                                      int nt, int first, int row, int w,
-                                      int* s_r, int* s_i) {
-  // one staged word of input first + row: frames t0 + 4w .. t0 + 4w + 3
-  const int a = first + row, left = nt - 4 * w;
-  uint32_t pr = 0, pi = 0;
-  if (a < x.n && left > 0) {
-    const int64_t o = g * x.sg + f * x.sf + (int64_t)(t0 + 4 * w) * x.st +
-                      a * x.sn;
-    pr = pack4(x.re + o, x.st, left);
-    pi = pack4(x.im + o, x.st, left);
-  }
-  s_r[row * kWP + w] = (int)pr;
-  s_i[row * kWP + w] = (int)pi;
-}
-
-__global__ void __launch_bounds__(kThreads)
-xcorr_cross_kernel(Planes xi, Planes xj, float2* __restrict__ out, int ntime,
-                   int nfreq, int ntile_j, int ntiles) {
-  __shared__ int s_ra[kTile * kWP], s_ia[kTile * kWP];
-  __shared__ int s_rb[kTile * kWP], s_ib[kTile * kWP];
-  __shared__ float2 s_out[kTile][kTile + 1];
-  int64_t blk = blockIdx.x;
-  const int tile = (int)(blk % ntiles);
-  blk /= ntiles;
-  const int f = (int)(blk % nfreq);
-  const int g = (int)(blk / nfreq);
-  const int ti = tile / ntile_j, tj = tile % ntile_j;
-  const int a0 = ti * kTile, b0 = tj * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  int acc_re[4][4], acc_ir[4][4], acc_ri[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_re[i][j] = acc_ir[i][j] = acc_ri[i][j] = 0;
-
-  for (int t0 = 0; t0 < ntime; t0 += kTC) {
-    const int nt = min(kTC, ntime - t0);
-    // neighbouring threads take neighbouring inputs: coalesced loads
-    for (int k = threadIdx.x; k < kTile * kWords; k += kThreads) {
-      const int row = k % kTile, w = k / kTile;
-      stage(xi, g, f, t0, nt, a0, row, w, s_ra, s_ia);
-      stage(xj, g, f, t0, nt, b0, row, w, s_rb, s_ib);
-    }
-    __syncthreads();
-    const int nw = (nt + 3) / 4;
-    for (int w = 0; w < nw; ++w) {
-      int ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ar[i] = s_ra[(ty + 16 * i) * kWP + w];
-        ai[i] = s_ia[(ty + 16 * i) * kWP + w];
-        br[i] = s_rb[(tx + 16 * i) * kWP + w];
-        bi[i] = s_ib[(tx + 16 * i) * kWP + w];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_re[i][j] = __dp4a(ar[i], br[j],
-                                __dp4a(ai[i], bi[j], acc_re[i][j]));
-          acc_ir[i][j] = __dp4a(ai[i], br[j], acc_ir[i][j]);
-          acc_ri[i][j] = __dp4a(ar[i], bi[j], acc_ri[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      s_out[ty + 16 * i][tx + 16 * j] =
-          make_float2(__int2float_rn(acc_re[i][j]),
-                      __int2float_rn(acc_ir[i][j] - acc_ri[i][j]));
-  __syncthreads();
-  const int ni = xi.n, nj = xj.n;
-  float2* o = out + ((int64_t)g * nfreq + f) * ni * nj;
-  for (int k = threadIdx.x; k < kTile * kTile; k += kThreads) {
-    const int r = k / kTile, c = k % kTile;
-    const int a = a0 + r, b = b0 + c;
-    if (a < ni && b < nj) o[(int64_t)a * nj + b] = s_out[r][c];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K7
-// ---------------------------------------------------------------------------
 
 constexpr int kCompute7 = 256;       // 8 warps of mma.sync
 constexpr int kStore7 = 128;         // 4 warps that write the output
@@ -218,18 +105,26 @@ constexpr int kBarCompute = 1, kBarFull = 2, kBarEmpty = 2 + kSlots7;
 constexpr int kChunk7 = 256;         // frames a chunk when not resident
 constexpr uint32_t kPad = 0u;        // the bytes staged past T and n
 
-struct K7Args {
+// One operand's int8 planes
+struct XPlanes {
   const int8_t* re;     // 16-byte path: byte 0 of each (re, im) pair
   const int8_t* im;
-  float2* out;
   long long sg, st, sf, sn;  // strides in bytes (= elements)
-  int ntime, nfreq, n;
+  int n;                // inputs
   int vec;              // the 16-byte staging
-  int resident;         // a whole channel lives in shared memory
+};
+
+struct XArgs {
+  XPlanes xi, xj;       // rows and columns (K7: the same planes)
+  float2* out;          // (groups, nfreq, xi.n, xj.n)
+  int ntime, nfreq;
+  int resident;         // a job's inputs live in shared memory whole
   int tch;              // frames a chunk, a multiple of 32
   int nch;              // 16-byte pieces a staged frame row
-  int nt, ntri;         // tiles a side, tiles of the lower triangle
-  long long njobs;      // channels (resident) or channel tiles
+  int nti, ntj;         // tiles a side: row blocks, column blocks
+  int ntiles;           // tiles a channel (K7: of the lower triangle)
+  long long njobs;      // resident: channels (K7) or row blocks (K8);
+                        // chunked: tiles
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -276,35 +171,39 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&d)[4], const char* p) {
       : "memory");
 }
 
-// Stage pieces c0 .. c0 + 7 of frames t0 .. t0 + tlen - 1 of the channel
-// at byte offset off: per frame a row of nch 16-byte pieces, piece c
-// holding the (re, im) pairs of inputs in0 .. in0 + 7 (in0 = ia + 8 c for c
-// < split, else ib + 8 (c - split)) at slot c ^ (frame & 7); frames past T
-// and inputs past n hold kPad.  The 16-byte path issues a cp.async a piece
-// (the caller commits and waits); the scalar path gathers it byte by byte.
-__device__ void k7_stage(const K7Args& a, char* stage, int64_t off, int c0,
-                         int ia, int ib, int split, int t0, int tlen) {
-  const int total = tlen * 8;
-  for (int k = threadIdx.x; k < total; k += kCompute7) {
-    const int tt = k >> 3, c = c0 + (k & 7), t = t0 + tt;
-    const int in0 = c < split ? ia + 8 * c : ib + 8 * (c - split);
-    char* dst = stage + (int64_t)tt * (16 * a.nch) + 16 * (c ^ (tt & 7));
-    if (t >= a.ntime || in0 >= a.n) {
+// Stage pieces c0 .. c0 + 7 of frames t0 .. t0 + tlen - 1 of operand x at
+// byte offset off (its group and channel): per frame a row of a.nch
+// 16-byte pieces, piece c0 + p holding the (re, im) pairs of inputs
+// in0 + 8 p .. in0 + 8 p + 7 at slot (c0 + p) ^ (frame & 7); frames past T
+// and inputs past x.n hold kPad.  Thread k stages piece k % 8 of frames
+// k / 8, k / 8 + 32, ...: the 16-byte path issues a cp.async a piece (the
+// caller commits and waits); the scalar path gathers it byte by byte.
+__device__ __forceinline__ void k7_stage(const XArgs& a, const XPlanes& x,
+                                         char* stage, int64_t off, int c0,
+                                         int in0, int t0, int tlen) {
+  const int p = threadIdx.x & 7, in = in0 + 8 * p;
+  const int first = threadIdx.x >> 3;     // frames first + 32 m
+  const int slot = 16 * ((c0 + p) ^ (first & 7));
+  const int64_t row = 16 * (int64_t)a.nch;
+  for (int tt = first; tt < tlen; tt += kCompute7 / 8) {
+    const int t = t0 + tt;
+    char* dst = stage + tt * row + slot;
+    if (t >= a.ntime || in >= x.n) {
       *reinterpret_cast<uint4*>(dst) = make_uint4(kPad, kPad, kPad, kPad);
-    } else if (a.vec) {
-      cp_async16(dst, a.re + off + t * a.st + 2 * (int64_t)in0);
+    } else if (x.vec) {
+      cp_async16(dst, x.re + off + t * x.st + 2 * (int64_t)in);
     } else {
-      const int64_t base = off + t * a.st + (int64_t)in0 * a.sn;
+      const int64_t base = off + t * x.st + (int64_t)in * x.sn;
       uint32_t u[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         u[e] = kPad;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          if (in0 + 2 * e + h < a.n) {
-            const int64_t o = base + (2 * e + h) * a.sn;
-            const uint32_t pair = (uint8_t)__ldg(a.re + o) |
-                                  (uint32_t)(uint8_t)__ldg(a.im + o) << 8;
+          if (in + 2 * e + h < x.n) {
+            const int64_t o = base + (2 * e + h) * x.sn;
+            const uint32_t pair = (uint8_t)__ldg(x.re + o) |
+                                  (uint32_t)(uint8_t)__ldg(x.im + o) << 8;
             u[e] = (u[e] & ~(0xffffu << (16 * h))) | pair << (16 * h);
           }
         }
@@ -330,7 +229,8 @@ __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
 // inputs; the re bytes (0x6420) and im bytes (0x7531) of two such
 // registers make the words of four frames that a fragment register holds
 // (K 4q .. 4q + 3 are frames 2q, 2q + 1 of one 8-frame block and of the
-// next, in A and B alike).  racc += re_a . 1 sums R_a on the tensor cores.
+// next, in A and B alike).  racc += re_a . 1 sums R_a of the rows on the
+// tensor cores.
 __device__ __forceinline__ void k7_tile_chunk(const char* stage, int nch,
                                               int ca, int cb, int nkg,
                                               int lane, int (&vr)[4][4],
@@ -412,45 +312,90 @@ __device__ __forceinline__ void k7_put(float2* slot, int wr, int wc, int g,
 }
 
 // A store warp's share (sw of 4) of a finished tile at rows a0 ..,
-// columns b0 .. of the channel's (n, n) matrix o: 16 of its rows, and off
-// the diagonal 16 rows of its conjugate transpose; a warp writes 256
-// contiguous bytes a store.  0 - v keeps a zero imaginary part +0, as the
-// plain version's cast gives.
-__device__ __forceinline__ void k7_write(float2* o, int n, int a0, int b0,
-                                         bool mirror, const float2* slot,
-                                         int sw, int lane) {
+// columns b0 .. of the channel's (ni, nj) matrix o: 16 of its rows, and
+// with mirror (K7, off the diagonal; ni = nj there) 16 rows of its
+// conjugate transpose; a warp writes 256 contiguous bytes a store.
+// 0 - v keeps a zero imaginary part +0, as the plain version's cast gives.
+__device__ __forceinline__ void k7_write(float2* o, int ni, int nj, int a0,
+                                         int b0, bool mirror,
+                                         const float2* slot, int sw,
+                                         int lane) {
   for (int k = 0; k < kTile7 / 4; ++k) {
     const int r = sw * (kTile7 / 4) + k, a = a0 + r;
-    if (a >= n) break;
+    if (a >= ni) break;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = lane + 32 * h;
-      if (b0 + c < n)
-        __stcs(o + (int64_t)a * n + b0 + c, slot[r * kOutRow7 + c]);
+      if (b0 + c < nj)
+        __stcs(o + (int64_t)a * nj + b0 + c, slot[r * kOutRow7 + c]);
     }
   }
   if (!mirror) return;
   for (int k = 0; k < kTile7 / 4; ++k) {
     const int c = sw * (kTile7 / 4) + k, b = b0 + c;
-    if (b >= n) break;
+    if (b >= nj) break;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = lane + 32 * h;
-      if (a0 + r < n) {
+      if (a0 + r < ni) {
         const float2 v = slot[r * kOutRow7 + c];
-        __stcs(o + (int64_t)b * n + a0 + r,
+        __stcs(o + (int64_t)b * nj + a0 + r,
                make_float2(v.x, __fsub_rn(0.f, v.y)));
       }
     }
   }
 }
 
-// tile k of the lower triangle: k = ti (ti + 1) / 2 + tj, tj <= ti
-__device__ __forceinline__ void k7_tile_of(int k, int& ti, int& tj) {
-  ti = (int)((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
-  while (ti * (ti + 1) / 2 > k) --ti;
-  tj = k - ti * (ti + 1) / 2;
+// Tile k of a channel, at row block ti and column block tj: K7 walks the
+// lower triangle, k = ti (ti + 1) / 2 + tj with tj <= ti; K8 the whole
+// rectangle by rows, k = ti ntj + tj
+template <bool kHerm>
+__device__ __forceinline__ void xc_tile_of(const XArgs& a, int k, int& ti,
+                                           int& tj) {
+  if (kHerm) {
+    ti = (int)((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
+    while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
+    while (ti * (ti + 1) / 2 > k) --ti;
+    tj = k - ti * (ti + 1) / 2;
+  } else {
+    ti = k / a.ntj;
+    tj = k % a.ntj;
+  }
+}
+
+// A job's channel, as group g and channel f, and its tiles k0 .. k1 - 1:
+// chunked, one tile; resident, all of a channel's tiles (K7) or those of
+// its row block ti (K8)
+struct XJob {
+  long long g;
+  int f, k0, k1;
+};
+
+template <bool kHerm>
+__device__ __forceinline__ XJob xc_job(const XArgs& a, long long job) {
+  long long chan;
+  XJob j;
+  if (!a.resident) {
+    chan = job / a.ntiles;
+    j.k0 = (int)(job - chan * a.ntiles);
+    j.k1 = j.k0 + 1;
+  } else if (kHerm) {
+    chan = job;
+    j.k0 = 0;
+    j.k1 = a.ntiles;
+  } else {
+    chan = job / a.nti;
+    j.k0 = (int)(job - chan * a.nti) * a.ntj;
+    j.k1 = j.k0 + a.ntj;
+  }
+  j.g = chan / a.nfreq;
+  j.f = (int)(chan - j.g * a.nfreq);
+  return j;
+}
+
+// byte offset of a job's channel in operand x
+__device__ __forceinline__ int64_t xc_off(const XPlanes& x, const XJob& j) {
+  return j.g * x.sg + (int64_t)j.f * x.sf;
 }
 
 // A finished tile to slot i % kSlots7, once the store warps have emptied it
@@ -467,35 +412,56 @@ __device__ __forceinline__ void k7_hand_over(float2* slots, long long i,
 }
 
 // The compute warps: stage, multiply, and hand each finished tile over.
-// Resident: a channel's 64-input blocks are staged as cp.async groups in
-// order, and the tiles of row block ti start once blocks 0 .. ti are in,
-// while the store warps drain the slots.  Chunked: the steps (tile,
-// frame chunk) alternate between two stage buffers, the next step's
-// copies in flight while this one multiplies.
-__device__ void k7_compute(const K7Args& a, char* stage, float2* slots) {
+// Resident: a job's 64-input blocks are staged as cp.async groups in
+// order (K7: the channel's blocks; K8: the row block, then the column
+// blocks), and each tile starts once the groups it reads are in, while
+// the store warps drain the slots.  Chunked: the steps (tile, frame
+// chunk) alternate between two stage buffers, the next step's copies in
+// flight while this one multiplies.
+template <bool kHerm>
+__device__ void k7_compute(const XArgs& a, char* stage, float2* slots) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;      // mma groupID, thread in group
   const int wr = 16 * (warp % 4), wc = 32 * (warp / 4);
   long long i = 0;                           // the block's tile sequence
   if (a.resident) {
-    for (long long chan = blockIdx.x; chan < a.njobs; chan += gridDim.x) {
-      const int f = (int)(chan % a.nfreq);
-      const int64_t off = (chan / a.nfreq) * a.sg + (int64_t)f * a.sf;
-      bar_sync(kBarCompute, kCompute7);      // the last channel is done
-      for (int blk = 0; blk < a.nt; ++blk) {
-        k7_stage(a, stage, off, 8 * blk, 0, 0, a.nch, 0, a.tch);
-        cp_async_commit();
-      }
-      for (int ti = 0; ti < a.nt; ++ti) {
-        cp_async_wait_upto(a.nt - 1 - ti);
-        bar_sync(kBarCompute, kCompute7);    // blocks 0 .. ti are in
-        for (int tj = 0; tj <= ti; ++tj, ++i) {
-          int vr[4][4] = {}, vi[4][4] = {}, racc[4] = {};
-          k7_tile_chunk(stage, a.nch, (ti * kTile7 + wr) / 8,
-                        (tj * kTile7 + wc) / 8, a.tch / 32, lane, vr, vi,
-                        racc);
-          k7_hand_over(slots, i, wr, wc, g, q, vr, vi, racc);
+    const int ngrp = kHerm ? a.nti : 1 + a.ntj;
+    for (long long job = blockIdx.x; job < a.njobs; job += gridDim.x) {
+      const XJob jb = xc_job<kHerm>(a, job);
+      bar_sync(kBarCompute, kCompute7);      // the last job is done
+      if (kHerm) {
+        const int64_t off = xc_off(a.xi, jb);
+        for (int b = 0; b < a.nti; ++b) {
+          k7_stage(a, a.xi, stage, off, 8 * b, kTile7 * b, 0, a.tch);
+          cp_async_commit();
         }
+      } else {
+        k7_stage(a, a.xi, stage, xc_off(a.xi, jb), 0,
+                 jb.k0 / a.ntj * kTile7, 0, a.tch);
+        cp_async_commit();
+        const int64_t off = xc_off(a.xj, jb);
+        for (int b = 0; b < a.ntj; ++b) {
+          k7_stage(a, a.xj, stage, off, 8 + 8 * b, kTile7 * b, 0, a.tch);
+          cp_async_commit();
+        }
+      }
+      int in = -1;                           // groups 0 .. in are in
+      for (int k = jb.k0; k < jb.k1; ++k, ++i) {
+        int ti, tj;
+        xc_tile_of<kHerm>(a, k, ti, tj);
+        const int need = kHerm ? ti : 1 + tj;  // the last group it reads
+        if (need > in) {
+          cp_async_wait_upto(ngrp - 1 - need);
+          bar_sync(kBarCompute, kCompute7);
+          in = need;
+        }
+        // K8's row block is pieces 0 .. 7, its column block tj 8 + 8 tj ..
+        const int ca = kHerm ? 8 * ti : 0;
+        const int cb = kHerm ? 8 * tj : 8 + 8 * tj;
+        int vr[4][4] = {}, vi[4][4] = {}, racc[4] = {};
+        k7_tile_chunk(stage, a.nch, ca + wr / 8, cb + wc / 8, a.tch / 32,
+                      lane, vr, vi, racc);
+        k7_hand_over(slots, i, wr, wc, g, q, vr, vi, racc);
       }
     }
     return;
@@ -506,17 +472,14 @@ __device__ void k7_compute(const K7Args& a, char* stage, float2* slots) {
       (a.njobs - blockIdx.x + gridDim.x - 1) / gridDim.x * nchunk;
   const int buf = a.tch * a.nch * 16;
   auto issue = [&](long long step) {
-    const long long job = blockIdx.x + step / nchunk * gridDim.x;
-    const long long chan = job / a.ntri;
-    const int t0 = (int)(step % nchunk) * a.tch;
+    const XJob jb = xc_job<kHerm>(a, blockIdx.x + step / nchunk * gridDim.x);
     int ti, tj;
-    k7_tile_of((int)(job % a.ntri), ti, tj);
-    const int64_t off =
-        (chan / a.nfreq) * a.sg + (int64_t)(chan % a.nfreq) * a.sf;
+    xc_tile_of<kHerm>(a, jb.k0, ti, tj);
+    const int t0 = (int)(step % nchunk) * a.tch;
     const int tlen = min(a.tch, (a.ntime - t0 + 31) / 32 * 32);
     char* const dst = stage + (step & 1) * buf;
-    k7_stage(a, dst, off, 0, ti * kTile7, tj * kTile7, 8, t0, tlen);
-    k7_stage(a, dst, off, 8, ti * kTile7, tj * kTile7, 8, t0, tlen);
+    k7_stage(a, a.xi, dst, xc_off(a.xi, jb), 0, ti * kTile7, t0, tlen);
+    k7_stage(a, a.xj, dst, xc_off(a.xj, jb), 8, tj * kTile7, t0, tlen);
     cp_async_commit();
   };
   int vr[4][4], vi[4][4], racc[4];
@@ -546,55 +509,60 @@ __device__ void k7_compute(const K7Args& a, char* stage, float2* slots) {
 
 // The store warps: each finished tile, in the compute warps' order, to
 // the output, then its slot back to them (but for the last kSlots7).
-__device__ void k7_stores(const K7Args& a, const float2* slots) {
+template <bool kHerm>
+__device__ void k7_stores(const XArgs& a, const float2* slots) {
   const int sw = threadIdx.x / 32 - kCompute7 / 32, lane = threadIdx.x % 32;
+  const int per_job = !a.resident ? 1 : kHerm ? a.ntiles : a.ntj;
   const long long ntiles =
-      (a.njobs - blockIdx.x + gridDim.x - 1) / gridDim.x *
-      (a.resident ? a.ntri : 1);
+      (a.njobs - blockIdx.x + gridDim.x - 1) / gridDim.x * per_job;
   long long i = 0;
   for (long long job = blockIdx.x; job < a.njobs; job += gridDim.x) {
-    const long long chan = a.resident ? job : job / a.ntri;
-    float2* const o = a.out + chan * a.n * (int64_t)a.n;
-    const int k0 = a.resident ? 0 : (int)(job % a.ntri);
-    const int k1 = a.resident ? a.ntri : k0 + 1;
-    for (int k = k0; k < k1; ++k, ++i) {
+    const XJob jb = xc_job<kHerm>(a, job);
+    float2* const o =
+        a.out + (jb.g * a.nfreq + jb.f) * a.xi.n * (int64_t)a.xj.n;
+    for (int k = jb.k0; k < jb.k1; ++k, ++i) {
       int ti, tj;
-      k7_tile_of(k, ti, tj);
+      xc_tile_of<kHerm>(a, k, ti, tj);
       const int s = (int)(i % kSlots7);
       bar_sync(kBarFull + s, kThreads7);
-      k7_write(o, a.n, ti * kTile7, tj * kTile7, ti != tj,
-               slots + s * (kSlotBytes7 / 8), sw, lane);
+      k7_write(o, a.xi.n, a.xj.n, ti * kTile7, tj * kTile7,
+               kHerm && ti != tj, slots + s * (kSlotBytes7 / 8), sw, lane);
       if (i + kSlots7 < ntiles) bar_arrive(kBarEmpty + s, kThreads7);
     }
   }
 }
 
+template <bool kHerm>
 __global__ void __launch_bounds__(kThreads7, 1)
-xcorr_herm_kernel(const K7Args a) {
+xcorr_kernel(const XArgs a) {
   extern __shared__ __align__(128) char smem7[];
   float2* const slots = reinterpret_cast<float2*>(smem7);
   char* const stage = smem7 + kSlots7 * kSlotBytes7;
   if (threadIdx.x < kCompute7)
-    k7_compute(a, stage, slots);
+    k7_compute<kHerm>(a, stage, slots);
   else
-    k7_stores(a, slots);
+    k7_stores<kHerm>(a, slots);
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 constexpr int kMaxDev = 64;
 
+// one kernel's state on a device
+struct KernelInfo {
+  bool attr;            // its dynamic shared-memory attribute is set
+  size_t occ_bytes;     // the last launch's shared memory, and the
+  int occ_blocks;       // blocks an SM holds with it
+};
+
 struct DevInfo {
   int sms, smem;  // SM count, shared memory a block may opt in to
-  bool attr;      // K7's dynamic shared-memory attribute is set
-  size_t occ_bytes;  // the last launch's shared memory, and the K7
-  int occ_blocks;    // blocks an SM holds with it
+  KernelInfo herm, cross;  // K7's and K8's
 };
 
 DevInfo dev_info[kMaxDev];
 
-// the current device's DevInfo, read once per device; K7 opted in to all
-// the shared memory a block may take (above 48 KB only after that)
+// the current device's DevInfo, its attributes read once per device
 cudaError_t current_dev(DevInfo** out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -611,15 +579,68 @@ cudaError_t current_dev(DevInfo** out) {
     d.smem = smem;
     d.sms = sms;
   }
-  if (!d.attr) {
-    err = cudaFuncSetAttribute(xcorr_herm_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               d.smem);
-    if (err != cudaSuccess) return err;
-    d.attr = true;
-  }
   *out = &d;
   return cudaSuccess;
+}
+
+// The persistent grid of kernel fn for njobs jobs with bytes of dynamic
+// shared memory: the kernel opts in to all the shared memory a block may
+// take (above 48 KB only after that) once per device, and its occupancy
+// at bytes is kept in k until another size comes
+cudaError_t persistent_grid(const DevInfo& d, KernelInfo& k,
+                            void (*fn)(XArgs), size_t bytes, long long njobs,
+                            long long* grid) {
+  if (bytes > (size_t)d.smem) return cudaErrorInvalidConfiguration;
+  cudaError_t err;
+  if (!k.attr) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d.smem);
+    if (err != cudaSuccess) return err;
+    k.attr = true;
+  }
+  if (k.occ_bytes != bytes || k.occ_blocks == 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kThreads7, bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    k.occ_bytes = bytes;
+    k.occ_blocks = per_sm;
+  }
+  const long long fit = (long long)d.sms * k.occ_blocks;
+  *grid = njobs < fit ? njobs : fit;
+  return cudaSuccess;
+}
+
+// the 16-byte staging's conditions on an operand's planes: (re, im) pairs
+// interleaved (element stride 2, im one byte after re), rows (frames,
+// channels and groups) on 16 bytes, and n * 2 a multiple of 16
+bool vec16_ok(const void* re, const void* im, long long sg, long long st,
+              long long sf, long long sn, int n) {
+  return sn == 2 && (const char*)im == (const char*)re + 1 &&
+         (uintptr_t)re % 16 == 0 && sg % 16 == 0 && st % 16 == 0 &&
+         sf % 16 == 0 && (2 * (int64_t)n) % 16 == 0;
+}
+
+XPlanes planes(const void* re, const void* im, long long sg, long long st,
+               long long sf, long long sn, int n, int vec) {
+  XPlanes x;
+  x.re = (const int8_t*)re;
+  x.im = (const int8_t*)im;
+  x.sg = sg;
+  x.st = st;
+  x.sf = sf;
+  x.sn = sn;
+  x.n = n;
+  x.vec = vec ? 1 : 0;
+  return x;
+}
+
+// the dynamic shared memory of a launch: the output slots and one resident
+// stage or two chunk buffers
+size_t launch_bytes(const XArgs& a) {
+  return kSlots7 * (size_t)kSlotBytes7 +
+         (a.resident ? 1 : 2) * (size_t)a.tch * a.nch * 16;
 }
 
 }  // namespace
@@ -628,85 +649,102 @@ extern "C" {
 
 // K7.  re, im: (ngroup, ntime, nfreq, n) int8 planes with strides sg, st,
 // sf, sn (in elements, shared by both).  out: (ngroup, nfreq, n, n)
-// complex64, contiguous.  vec 1 takes the 16-byte staging (the conditions
-// below), vec 0 the scalar staging.  Returns a cudaError_t value; 0 on
-// success.
+// complex64, contiguous.  vec 1 takes the 16-byte staging (vec16_ok's
+// conditions), vec 0 the scalar staging.  Returns a cudaError_t value; 0
+// on success.
 int bf_xcorr_herm(const void* re, const void* im, void* out, int vec,
                   int ngroup, int ntime, int nfreq, int n, long long sg,
                   long long st, long long sf, long long sn, void* stream) {
   if (ngroup <= 0 || nfreq <= 0 || n <= 0) return 0;
   if (ntime <= 0 || ntime > 65535) return (int)cudaErrorInvalidValue;
-  if (vec && !(sn == 2 && (const char*)im == (const char*)re + 1 &&
-               (uintptr_t)re % 16 == 0 && sg % 16 == 0 && st % 16 == 0 &&
-               sf % 16 == 0 && (2 * (int64_t)n) % 16 == 0))
+  if (vec && !vec16_ok(re, im, sg, st, sf, sn, n))
     return (int)cudaErrorInvalidValue;
   DevInfo* d = nullptr;
   cudaError_t err = current_dev(&d);
   if (err != cudaSuccess) return (int)err;
   const int nt = (int)cdiv(n, kTile7);
-  const int ntri = nt * (nt + 1) / 2;
   const int tall = (int)cdiv(ntime, 32) * 32;
   // a resident channel: tall frames of nt * kTile7 inputs, 2 bytes each
   const size_t res_bytes = (size_t)tall * nt * kTile7 * 2;
-  K7Args a;
-  a.re = (const int8_t*)re;
-  a.im = (const int8_t*)im;
+  XArgs a;
+  a.xi = a.xj = planes(re, im, sg, st, sf, sn, n, vec);
   a.out = (float2*)out;
-  a.sg = sg;
-  a.st = st;
-  a.sf = sf;
-  a.sn = sn;
   a.ntime = ntime;
   a.nfreq = nfreq;
-  a.n = n;
-  a.vec = vec ? 1 : 0;
   a.resident = kSlots7 * (size_t)kSlotBytes7 + res_bytes <= (size_t)d->smem;
   a.tch = a.resident ? tall : (tall < kChunk7 ? tall : kChunk7);
   a.nch = a.resident ? nt * kTile7 / 8 : 2 * kTile7 / 8;
-  a.nt = nt;
-  a.ntri = ntri;
-  a.njobs = (long long)ngroup * nfreq * (a.resident ? 1 : ntri);
-  const size_t bytes = kSlots7 * (size_t)kSlotBytes7 +
-                       (a.resident ? 1 : 2) * (size_t)a.tch * a.nch * 16;
-  if (bytes > (size_t)d->smem) return (int)cudaErrorInvalidConfiguration;
-  if (d->occ_bytes != bytes || d->occ_blocks == 0) {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, xcorr_herm_kernel, kThreads7, bytes);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    d->occ_bytes = bytes;
-    d->occ_blocks = per_sm;
-  }
-  const long long fit = (long long)d->sms * d->occ_blocks;
-  const long long grid = a.njobs < fit ? a.njobs : fit;
-  xcorr_herm_kernel<<<(unsigned)grid, kThreads7, bytes,
-                      (cudaStream_t)stream>>>(a);
+  a.nti = a.ntj = nt;
+  a.ntiles = nt * (nt + 1) / 2;
+  a.njobs = (long long)ngroup * nfreq * (a.resident ? 1 : a.ntiles);
+  const size_t bytes = launch_bytes(a);
+  long long grid = 0;
+  err = persistent_grid(*d, d->herm, xcorr_kernel<true>, bytes, a.njobs,
+                        &grid);
+  if (err != cudaSuccess) return (int)err;
+  xcorr_kernel<true><<<(unsigned)grid, kThreads7, bytes,
+                       (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // K8.  re_i, im_i: (ngroup, ntime, nfreq, ni) int8 planes with strides
 // sg_i, st_i, sf_i, sn_i (in elements, shared by both); re_j, im_j likewise
 // with nj inputs.  out: (ngroup, nfreq, ni, nj) complex64, contiguous.
-// Returns a cudaError_t value; 0 on success.
+// vec_i, vec_j: 1 takes the 16-byte staging for that operand (vec16_ok's
+// conditions), 0 its scalar staging.  rowblock 1: a job is a row block
+// beside all the channel's columns (it must fit in shared memory beside
+// the slots: gpu_kernels.xcorr_cross_plan), 0: a job is one tile, staged
+// in frame chunks.  Returns a cudaError_t value; 0 on success.
 int bf_xcorr_cross(const void* re_i, const void* im_i, const void* re_j,
-                   const void* im_j, void* out, int ngroup, int ntime,
-                   int nfreq, int ni, int nj, long long sg_i, long long st_i,
-                   long long sf_i, long long sn_i, long long sg_j,
-                   long long st_j, long long sf_j, long long sn_j,
-                   void* stream) {
+                   const void* im_j, void* out, int vec_i, int vec_j,
+                   int rowblock, int ngroup, int ntime, int nfreq, int ni,
+                   int nj, long long sg_i, long long st_i, long long sf_i,
+                   long long sn_i, long long sg_j, long long st_j,
+                   long long sf_j, long long sn_j, void* stream) {
   if (ngroup <= 0 || nfreq <= 0 || ni <= 0 || nj <= 0) return 0;
-  const Planes xi = {(const int8_t*)re_i, (const int8_t*)im_i, sg_i, st_i,
-                     sf_i, sn_i, ni};
-  const Planes xj = {(const int8_t*)re_j, (const int8_t*)im_j, sg_j, st_j,
-                     sf_j, sn_j, nj};
-  const int nti = (ni + kTile - 1) / kTile, ntj = (nj + kTile - 1) / kTile;
-  const int ntiles = nti * ntj;
-  const long long nblk = (long long)ntiles * nfreq * ngroup;
-  if (nblk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  xcorr_cross_kernel<<<(unsigned)nblk, kThreads, 0, (cudaStream_t)stream>>>(
-      xi, xj, (float2*)out, ntime, nfreq, ntj, ntiles);
+  if (ntime <= 0 || ntime > 65535) return (int)cudaErrorInvalidValue;
+  if ((vec_i && !vec16_ok(re_i, im_i, sg_i, st_i, sf_i, sn_i, ni)) ||
+      (vec_j && !vec16_ok(re_j, im_j, sg_j, st_j, sf_j, sn_j, nj)))
+    return (int)cudaErrorInvalidValue;
+  DevInfo* d = nullptr;
+  cudaError_t err = current_dev(&d);
+  if (err != cudaSuccess) return (int)err;
+  const int nti = (int)cdiv(ni, kTile7), ntj = (int)cdiv(nj, kTile7);
+  const int tall = (int)cdiv(ntime, 32) * 32;
+  XArgs a;
+  a.xi = planes(re_i, im_i, sg_i, st_i, sf_i, sn_i, ni, vec_i);
+  a.xj = planes(re_j, im_j, sg_j, st_j, sf_j, sn_j, nj, vec_j);
+  a.out = (float2*)out;
+  a.ntime = ntime;
+  a.nfreq = nfreq;
+  a.resident = rowblock ? 1 : 0;
+  a.tch = a.resident ? tall : (tall < kChunk7 ? tall : kChunk7);
+  // resident: the row block's 8 pieces, then 8 for each column block
+  a.nch = a.resident ? 8 + 8 * ntj : 2 * kTile7 / 8;
+  a.nti = nti;
+  a.ntj = ntj;
+  a.ntiles = nti * ntj;
+  a.njobs = (long long)ngroup * nfreq * (a.resident ? nti : a.ntiles);
+  const size_t bytes = launch_bytes(a);
+  if (a.resident && bytes > (size_t)d->smem)
+    return (int)cudaErrorInvalidValue;
+  long long grid = 0;
+  err = persistent_grid(*d, d->cross, xcorr_kernel<false>, bytes, a.njobs,
+                        &grid);
+  if (err != cudaSuccess) return (int)err;
+  xcorr_kernel<false><<<(unsigned)grid, kThreads7, bytes,
+                        (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The shared memory a block may opt in to on device dev (what
+// gpu_kernels.xcorr_cross_plan sizes K8's jobs by), or minus a
+// cudaError_t value.
+int bf_xcorr_smem(int dev) {
+  int smem = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? smem : -(int)err;
 }
 
 const char* bf_error_string(int err) {

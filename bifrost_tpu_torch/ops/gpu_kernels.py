@@ -44,7 +44,8 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
            'beamform_bf16_plain', 'bf16_staging', 'beamform_detect_int8',
            'beamform_detect_int8_plain', 'detect_path', 'probe',
            'available', 'enabled', 'xcorr_herm', 'xcorr_herm_plain',
-           'xcorr_staging', 'xcorr_cross', 'xcorr_cross_plain', 'fdmt_step',
+           'xcorr_staging', 'xcorr_cross', 'xcorr_cross_plain',
+           'xcorr_cross_plan', 'smem_optin', 'fdmt_step',
            'fdmt_step_plain', 'ring_permute', 'ring_permute_plain',
            'MAX_NSTAND', 'MAX_NTIME', 'launches']
 
@@ -52,15 +53,19 @@ __all__ = ['stokes_detect', 'stokes_detect_plain', 'beamform_int8',
 #: (``beamform_int8_vec16``, ``beamform_bf16_vec16`` and
 #: ``xcorr_herm_vec16`` count the K4, K5 and K7 launches that took the
 #: 16-byte staging path, subsets of ``beamform_int8``, ``beamform_bf16``
-#: and ``xcorr_herm``; ``beamform_detect_int8_mma`` the K6 launches that
-#: took its tensor-core kernel (:func:`detect_path`), a subset of
-#: ``beamform_detect_int8``)
+#: and ``xcorr_herm``; ``xcorr_cross_vec16_i`` and ``xcorr_cross_vec16_j``
+#: the K8 launches whose rows, or columns, took it, and
+#: ``xcorr_cross_rowblock`` those whose jobs were row blocks
+#: (:func:`xcorr_cross_plan`), subsets of ``xcorr_cross``;
+#: ``beamform_detect_int8_mma`` the K6 launches that took its tensor-core
+#: kernel (:func:`detect_path`), a subset of ``beamform_detect_int8``)
 launches = {'stokes_detect': 0, 'beamform_int8': 0,
             'beamform_int8_vec16': 0, 'beamform_bf16': 0,
             'beamform_bf16_vec16': 0, 'beamform_detect_int8': 0,
             'beamform_detect_int8_mma': 0, 'probe': 0,
             'xcorr_herm': 0, 'xcorr_herm_vec16': 0, 'xcorr_cross': 0,
-            'fdmt_step': 0, 'ring_permute': 0}
+            'xcorr_cross_vec16_i': 0, 'xcorr_cross_vec16_j': 0,
+            'xcorr_cross_rowblock': 0, 'fdmt_step': 0, 'ring_permute': 0}
 
 #: most stations the int8 beamform kernels take: the int32 sum of
 #: 2 * S products of int8 values, each at most 128 * 128, stays exact
@@ -92,7 +97,8 @@ _BF16_ARGS = [_P] * 6 + [_I] * 7 + [_L] * 3 + [_P]
 _DETECT_ARGS = [_P] * 6 + [_F] + [_I] * 5 + [_L] * 2 + [_P]
 _PROBE_ARGS = [_P, _P, _I, _P]
 _HERM_ARGS = [_P] * 3 + [_I] * 5 + [_L] * 4 + [_P]
-_CROSS_ARGS = [_P] * 5 + [_I] * 5 + [_L] * 8 + [_P]
+_CROSS_ARGS = [_P] * 5 + [_I] * 8 + [_L] * 8 + [_P]
+_SMEM_ARGS = [_I]
 _FDMT_ARGS = [_P] * 5 + [_L] + [_I] * 4 + [_L, _I, _P]
 _RING_ARGS = [_P, _P, _I, _L, _P]
 _PEER_ARGS = [_I, _I]
@@ -559,12 +565,12 @@ def _xcorr_out(re_i, nj):
 
 
 def xcorr_staging(re, im):
-    """1 where K7 stages the planes ``re``, ``im`` through 16-byte copies,
-    else 0 (its scalar staging): the interleaved layout of a ci8 gulp's re
-    and im views, element stride 2 with ``im`` one byte after ``re``, rows
-    (frames, channels and groups) on 16 bytes, and ``n * 2`` a multiple of
-    16.  Both paths run the same tensor-core kernel; they differ only in
-    how a channel reaches shared memory."""
+    """1 where K7 stages the planes ``re``, ``im`` through 16-byte copies
+    (and K8 each operand's), else 0 (the scalar staging): the interleaved
+    layout of a ci8 gulp's re and im views, element stride 2 with ``im``
+    one byte after ``re``, rows (frames, channels and groups) on 16 bytes,
+    and ``n * 2`` a multiple of 16.  Both paths run the same tensor-core
+    kernel; they differ only in how the inputs reach shared memory."""
     s = re.stride()
     n = re.shape[-1]
     if s[-1] != 2 or im.data_ptr() != re.data_ptr() + 1 or \
@@ -602,11 +608,61 @@ def xcorr_herm(re, im):
     return torch.view_as_complex(out)
 
 
+#: K7's and K8's tile side, finished-tile slots (each 64 rows of 65
+#: float2) and frames a chunk, as ``csrc/xcorr.cu`` has them
+XCORR_TILE, XCORR_SLOT_BYTES, XCORR_CHUNK = 64, 2 * 64 * 65 * 8, 256
+
+
+def xcorr_cross_plan(T, n_i, n_j, smem):
+    """``(rowblock, nbytes, njobs)`` of a K8 launch on ``T`` frames of
+    ``n_i`` rows against ``n_j`` columns, on a card whose blocks may opt in
+    to ``smem`` bytes of shared memory: ``rowblock`` 1 where a job, one
+    64-input row block of a channel staged beside all the channel's
+    columns (T rounded up to 32 frames, 2 bytes an input), fits beside the
+    two finished-tile slots, else 0 (a job is one tile, staged in frame
+    chunks of at most 256 into two buffers); ``nbytes`` the launch's
+    dynamic shared memory; ``njobs`` its jobs per (group, channel), one a
+    row block or one a tile.  The C entry sizes its launch the same way
+    and refuses a row-block launch that does not fit."""
+    tall = -(-T // 32) * 32
+    nti, ntj = -(-n_i // XCORR_TILE), -(-n_j // XCORR_TILE)
+    rowblock = XCORR_SLOT_BYTES + tall * XCORR_TILE * (1 + ntj) * 2
+    if rowblock <= smem:
+        return 1, rowblock, nti
+    tch = min(tall, XCORR_CHUNK)
+    return 0, XCORR_SLOT_BYTES + 2 * tch * 2 * XCORR_TILE * 2, nti * ntj
+
+
+#: the shared memory a block may opt in to, by CUDA device index
+_smem_by_device = {}
+
+
+def smem_optin(device):
+    """The shared memory a block may opt in to on CUDA ``device`` (read
+    once per device through ``bf_xcorr_smem``): what
+    :func:`xcorr_cross_plan` sizes K8's jobs by."""
+    import torch
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    got = _smem_by_device.get(index)
+    if got is None:
+        lib, fn = _fn('xcorr', 'bf_xcorr_smem', _SMEM_ARGS)
+        got = fn(index)
+        if got < 0:
+            _build.check(lib, -got, 'xcorr_cross')
+        _smem_by_device[index] = got
+    return got
+
+
 def xcorr_cross(re_i, im_i, re_j, im_j):
     """K8: the int8 cross-correlation of planes (T, F, n_i) against (T, F,
     n_j) -> (F, n_i, n_j) complex64, vis[f, a, b] = sum_t x_i[t, f, a]
     conj(x_j[t, f, b]), exact (with a leading group axis, as
-    :func:`xcorr_herm`)."""
+    :func:`xcorr_herm`).  K7's tensor-core kernel on the rectangle: rows
+    and columns each staged through 16-byte copies where
+    :func:`xcorr_staging` accepts their planes, and a job a row block
+    beside all the channel's columns where :func:`xcorr_cross_plan` says
+    it fits, else a tile."""
     import torch
     _check_xcorr(re_i, im_i, 'xcorr_cross')
     _check_xcorr(re_j, im_j, 'xcorr_cross')
@@ -627,12 +683,17 @@ def xcorr_cross(re_i, im_i, re_j, im_j):
     out = _xcorr_out(re_i, nj)
     if T == 0:
         return torch.view_as_complex(out.zero_())
+    vec_i, vec_j = xcorr_staging(re_i, im_i), xcorr_staging(re_j, im_j)
+    rowblock = xcorr_cross_plan(T, ni, nj, smem_optin(re_i.device))[0]
     lib, fn = _fn('xcorr', 'bf_xcorr_cross', _CROSS_ARGS)
     err = fn(re_i.data_ptr(), im_i.data_ptr(), re_j.data_ptr(),
-             im_j.data_ptr(), out.data_ptr(), g, T, F, ni, nj, *si, *sj,
-             _build.stream_ptr(re_i.device))
+             im_j.data_ptr(), out.data_ptr(), vec_i, vec_j, rowblock, g, T,
+             F, ni, nj, *si, *sj, _build.stream_ptr(re_i.device))
     _build.check(lib, err, 'xcorr_cross')
     launches['xcorr_cross'] += 1
+    launches['xcorr_cross_vec16_i'] += vec_i
+    launches['xcorr_cross_vec16_j'] += vec_j
+    launches['xcorr_cross_rowblock'] += rowblock
     return torch.view_as_complex(out)
 
 

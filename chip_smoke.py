@@ -72,7 +72,12 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    is bit-identical to its plain version (float64 products on the card)
    and to the int64 oracle on channels 0, 511 and 1023, K7's imaginary
    part nonzero and antisymmetric, K8 equal to K7's rows; each timed
-   beside its plain version and the complex64 einsum yardstick;
+   (bracketed and queued) beside its plain version and the complex64
+   einsum yardstick, and beside zero_() of its output (the write
+   ceiling).  K8 also at the 2-D mesh's block (T=128, 256 rows) and at
+   T=256 (128 rows, chunked jobs), bit-identical and timed queued; every
+   K8 launch must take the row-block jobs and the staging that
+   xcorr_cross_plan and xcorr_staging give, by its counters;
 10. drives the FX correlator through the Pipeline at BASELINE config 5's
    width with config 19's chain (256 stations x 2 pols, 1024 channels,
    256-frame gulps: copy('cuda') -> fft -> quantize('ci8', 1/32) ->
@@ -84,7 +89,8 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    fourth arm, BASELINE config 5's X step alone, runs the stateful
    correlate(256) on 64-frame ci8 gulps (one K7 launch per gulp) against
    the int64 oracle; the cross family of xcorr_int8 runs K8 on the four
-   station-row blocks of a gulp, as the station-sharded plan calls it;
+   station-row blocks of a gulp, as the station-sharded plan calls it,
+   each launch on row-block jobs;
 11. runs K3 (the FDMT merge step) over every step of three plans at the
    full-width span (16384 + 1970 frames): 4096 channels over 1200-1600
    MHz to max_delay 1970, the same band in 3000 channels (passthrough
@@ -128,7 +134,8 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    2, 'tp': 2}, station-sharded, K8 forced), each with K7 forced, and
    mesh-race (the plans and the X engine race from an empty probe
    cache); every mesh arm byte-identical to the single run, with 4 K7 (or
-   4 K8) launches per gulp and 3 K9 launches per gulp in mesh-corner-K9;
+   4 K8, on row-block jobs) launches per gulp and 3 K9 launches per gulp
+   in mesh-corner-K9;
 15. drives config 22's [freq, time] stream through copy('cuda') ->
    fdmt(max_delay=1970) -> copy('system'), K3 forced, under an {'sp': 2}
    mesh of the card (spans of 2 x 9177 frames) and without a mesh: every
@@ -1317,38 +1324,116 @@ def phase_xcorr_kernels(gpu_kernels):
     ii = x[:XR, :, :sb, :, 1].reshape(XR, XF, sb * XP)
     rj = x[:XR, ..., 0].reshape(XR, XF, XN)
     ij = x[:XR, ..., 1].reshape(XR, XF, XN)
-    before = gpu_kernels.launches['xcorr_cross']
-    got8 = gpu_kernels.xcorr_cross(ri, ii, rj, ij)
-    want8 = gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij)
-    torch.cuda.synchronize()
-    require(gpu_kernels.launches['xcorr_cross'] == before + 1,
-            'K8 took more than one launch')
-    require(torch.equal(got8, want8), 'K8 is not bit-identical to its '
-            'plain version')
+    got8, want8, path8 = xcorr_cross_checked(gpu_kernels, 'the table shape',
+                                             ri, ii, rj, ij)
+    require(path8['rowblock'] == 1 and path8['vec16_i'] == 1 and
+            path8['vec16_j'] == 1, 'K8 at the table shape did not take the '
+            'row-block jobs and the 16-byte staging: %s' % path8)
     got7 = gpu_kernels.xcorr_herm(re, im)
     require(torch.equal(got8, got7[0, :, :sb * XP, :]),
             "K8's rows differ from K7's")
     check_channels('K8', got8, (ri, ii, rj, ij))
     log('K8 xcorr_cross (%d, %d, %d) x (%d, %d, %d): bit-identical to its '
         'plain version, to the int64 oracle on channels %s and to K7\'s '
-        'rows' % (XR, XF, sb * XP, XR, XF, XN, list(XCHANNELS)))
+        'rows; %s' % (XR, XF, sb * XP, XR, XF, XN, list(XCHANNELS), path8))
     del got7
     xi_c = torch.complex(ri.float(), ii.float())
     xj_c = torch.complex(rj.float(), ij.float())
+    lib8 = lambda: torch.einsum('tfi,tfj->fij', xi_c, xj_c.conj())
+    k8_run = lambda: gpu_kernels.xcorr_cross(ri, ii, rj, ij)
+    queued8 = {'kernel': cuda_ms_queued(k8_run),
+               'library': cuda_ms_queued(lib8, calls=5, runs=3)}
+    log('K8 queued (ms per call of 20 back to back; library 3 x 5): %s'
+        % queued8)
     k8 = kernel_entry(
         'xcorr_cross', 'bifrost_tpu_torch/csrc/xcorr.cu', 199, got8, want8,
-        cuda_ms(lambda: gpu_kernels.xcorr_cross(ri, ii, rj, ij)),
+        cuda_ms(k8_run),
         cuda_ms(lambda: gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij),
                 runs=5),
         2 * XR * XF * (sb * XP + XN) + 8 * XF * sb * XP * XN,
-        8 * XR * XF * sb * XP * XN, PEAK_INT8_PER_S,
-        cuda_ms(lambda: torch.einsum('tfi,tfj->fij', xi_c, xj_c.conj())),
-        shape=[XR, XF, sb * XP, XN], per='launch',
+        8 * XR * XF * sb * XP * XN, PEAK_INT8_PER_S, cuda_ms(lib8),
+        shape=[XR, XF, sb * XP, XN], per='launch', path=path8,
         library="complex64 torch.einsum('tfi,tfj->fij', x_i, x_j.conj()), "
-                "conversion untimed")
-    del got8, want8, xi_c, xj_c, x
+                "conversion untimed", ms_queued=queued8,
+        ms_queued_per='launch (median of 5 batches of 20 queued calls; '
+                      'library 3 x 5)')
+    # the card's write rate in practice: zeroing the same 537 MB, queued
+    k8['write_ceiling_ms'] = cuda_ms_queued(lambda: got8.zero_())
+    k8['write_ceiling'] = "out.zero_() of K8's output, queued"
+    log('K8: zeroing its output (the write ceiling) takes %.4f ms'
+        % k8['write_ceiling_ms'])
+    del got8, want8, xi_c, xj_c
+    k8.update(xcorr_cross_shapes(gpu_kernels, x))
+    del x
     torch.cuda.empty_cache()
     return k7, k8
+
+
+#: K8's launch counters: launches, rows and columns through the 16-byte
+#: staging, row-block jobs
+K8_COUNTERS = ('xcorr_cross', 'xcorr_cross_vec16_i', 'xcorr_cross_vec16_j',
+               'xcorr_cross_rowblock')
+
+
+def xcorr_cross_plan(gpu_kernels, T, ni, nj):
+    """1 where K8's jobs are row blocks at this shape on this card."""
+    import torch
+    return gpu_kernels.xcorr_cross_plan(
+        T, ni, nj, gpu_kernels.smem_optin(torch.device('cuda', 0)))[0]
+
+
+def xcorr_cross_checked(gpu_kernels, what, ri, ii, rj, ij):
+    """One K8 launch, held bit for bit to its plain version, and the path
+    it took by the counters, which must be the one xcorr_staging and
+    xcorr_cross_plan give.  Returns (got, want, path)."""
+    import torch
+    before = [gpu_kernels.launches[k] for k in K8_COUNTERS]
+    got = gpu_kernels.xcorr_cross(ri, ii, rj, ij)
+    want = gpu_kernels.xcorr_cross_plain(ri, ii, rj, ij)
+    torch.cuda.synchronize()
+    n, vi, vj, rb = (gpu_kernels.launches[k] - b
+                     for k, b in zip(K8_COUNTERS, before))
+    require(n == 1, 'K8 at %s took %d launches' % (what, n))
+    path = {'vec16_i': vi, 'vec16_j': vj, 'rowblock': rb}
+    plan = {'vec16_i': gpu_kernels.xcorr_staging(ri, ii),
+            'vec16_j': gpu_kernels.xcorr_staging(rj, ij),
+            'rowblock': xcorr_cross_plan(gpu_kernels, ri.shape[-3],
+                                         ri.shape[-1], rj.shape[-1])}
+    require(path == plan, 'K8 at %s took %s, not the planned %s'
+            % (what, path, plan))
+    require(torch.equal(got, want), 'K8 at %s is not bit-identical to its '
+            'plain version' % what)
+    return got, want, path
+
+
+def xcorr_cross_shapes(gpu_kernels, x):
+    """K8 beyond the table shape: the 2-D mesh's block (128 frames, 256
+    rows against 512 columns; row-block jobs) and 256 frames of 128 rows
+    against 512 columns (chunked jobs), each bit-identical to its plain
+    version on the planned path and timed queued beside its bound.
+    Returns the kernels-line fields."""
+    out = {}
+    for name, T, sr in (('mesh_2d', XR, XS // 2),
+                        ('chunked_T256', XT, XS // 4)):
+        ri = x[:T, :, :sr, :, 0].reshape(T, XF, sr * XP)
+        ii = x[:T, :, :sr, :, 1].reshape(T, XF, sr * XP)
+        rj = x[:T, ..., 0].reshape(T, XF, XN)
+        ij = x[:T, ..., 1].reshape(T, XF, XN)
+        shape = (T, XF, sr * XP, XN)
+        got, want, path = xcorr_cross_checked(gpu_kernels, str(shape), ri,
+                                              ii, rj, ij)
+        require(path['rowblock'] == int(name == 'mesh_2d'),
+                'K8 at %s took the wrong jobs: %s' % (shape, path))
+        del got, want
+        nbyte = 2 * T * XF * (sr * XP + XN) + 8 * XF * sr * XP * XN
+        out[name] = {'shape': list(shape), 'path': path,
+                     'ms_queued': cuda_ms_queued(
+                         lambda: gpu_kernels.xcorr_cross(ri, ii, rj, ij)),
+                     'bound_ms': bound(nbyte, 8 * T * XF * sr * XP * XN,
+                                       PEAK_INT8_PER_S)[0]}
+        log('K8 at %s: bit-identical to its plain version; %s'
+            % (shape, out[name]))
+    return out
 
 
 def fx_gulps(seed=13, n=2):
@@ -1564,23 +1649,28 @@ def phase_xcorr_int8(L, gpu_kernels):
     rj = x[..., 0].reshape(XR, XF, XN)
     ij = x[..., 1].reshape(XR, XF, XN)
     sb = XS // 4
-    gpu_kernels.launches['xcorr_cross'] = 0
+    for k in K8_COUNTERS:
+        gpu_kernels.launches[k] = 0
     rows = [L.xcorr_int8(x[:, :, b * sb:(b + 1) * sb, :, 0]
                          .reshape(XR, XF, sb * XP),
                          x[:, :, b * sb:(b + 1) * sb, :, 1]
                          .reshape(XR, XF, sb * XP), rj, ij, impl='pallas')
             for b in range(4)]
-    n = gpu_kernels.launches['xcorr_cross']
+    counts = {k: gpu_kernels.launches[k] for k in K8_COUNTERS}
+    n = counts['xcorr_cross']
     full = L.xcorr_int8(rj, ij, impl='pallas')
     torch.cuda.synchronize()
     require(n == 4, 'xcorr_int8 cross: %d K8 launches for 4 blocks' % n)
+    require(counts['xcorr_cross_rowblock'] ==
+            4 * xcorr_cross_plan(gpu_kernels, XR, sb * XP, XN),
+            'xcorr_int8 cross: K8 jobs off the plan: %s' % counts)
     require(torch.equal(torch.cat(rows, dim=1), full),
             'the cross blocks differ from the auto-correlation')
     log('xcorr_int8 cross family: 4 station-row blocks (K8) equal the auto '
-        'family (K7) at (%d, %d, %d)' % (XR, XF, XN))
+        'family (K7) at (%d, %d, %d); K8 counters %s' % (XR, XF, XN, counts))
     del rows, full, x
     torch.cuda.empty_cache()
-    return n
+    return counts
 
 
 def fdmt_work(plan, T):
@@ -2436,6 +2526,13 @@ def phase_mesh_correlator(bt, spec, gpu_kernels, par, smi):
     for arm, (kern, n) in want.items():
         require(runs[arm][kern] == n, '%s: %d %s launches, not %d'
                 % (arm, runs[arm][kern], kern, n))
+    # every K8 launch of the 2-D plan (the gulps' station-row blocks and
+    # the prewarm's) on row-block jobs where the plan says so
+    rb = xcorr_cross_plan(gpu_kernels, XT // 2, XN // 2, XN)
+    require(runs['mesh-2d']['xcorr_cross_rowblock'] ==
+            rb * runs['mesh-2d']['xcorr_cross'],
+            'mesh-2d: K8 jobs off the plan: %s'
+            % {k: runs['mesh-2d'][k] for k in K8_COUNTERS})
     require(runs['mesh-corner-K9']['ring_permute'] == (MD - 1) * ngulp,
             'mesh-corner-K9: %d K9 launches for %d gulps'
             % (runs['mesh-corner-K9']['ring_permute'], ngulp))
@@ -2600,8 +2697,13 @@ def main():
     k7['launches_vec16'] = fx['launches']['fx-K7']['xcorr_herm_vec16']
     k7['launches_x_stateful_vec16'] = \
         fx['launches']['x-stateful']['xcorr_herm_vec16']
-    k8['launches'] = n8
+    k8['launches'] = n8['xcorr_cross']
     k8['launches_of'] = 'xcorr_int8 cross family, 4 station-row blocks'
+    k8['launches_rowblock'] = n8['xcorr_cross_rowblock']
+    k8['launches_vec16'] = [n8['xcorr_cross_vec16_i'],
+                            n8['xcorr_cross_vec16_j']]
+    k8['launches_mesh_2d'] = {k: mesh['launches']['mesh-2d'][k]
+                              for k in K8_COUNTERS}
     k3['launches'] = fdmt['launches']['frb-K3']['fdmt_step']
     k3['launches_per_gulp'] = k3['launches'] / float(FWARM + FTIMED)
     k3['launches_fdmt_file'] = fdmt['launches']['fdmt-file']['fdmt_step']
@@ -2612,11 +2714,11 @@ def main():
     kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
     # the wrappers' host time: one call bracketed less a call's share of
     # 20 queued back to back
-    for k in (k0, k1, k4, k5, k6, k7, k9):
+    for k in (k0, k1, k4, k5, k6, k7, k8, k9):
         k['host_ms'] = k['ms'] - k['ms_queued']['kernel']
     log('wrapper host time (bracketed less queued, ms): %s' % json.dumps(
         {k['name']: round(k['host_ms'], 4)
-         for k in (k0, k1, k4, k5, k6, k7, k9)}))
+         for k in (k0, k1, k4, k5, k6, k7, k8, k9)}))
     log('total %.1f s; by phase %s' % (
         time.perf_counter() - t_start,
         json.dumps({k: round(v, 1) for k, v in phase_s.items()})))

@@ -15,7 +15,10 @@ two kernels each layout takes), K0 (the capability
 probe), K7 and K8 (the correlator) against their plain versions and the
 int64 oracle at ragged shapes and on strided gulp views (K7 over every
 layout its wrapper takes, the 16-byte and the scalar staging, resident
-and chunked channels, at the int8 extremes and at T = MAX_NTIME), the
+and chunked channels, at the int8 extremes and at T = MAX_NTIME; K8 with
+its rows and its columns each in every such layout, mixed, on row-block
+and chunked jobs, with groups, ragged n_i and n_j, at the int8 extremes
+and at T = MAX_NTIME, and which path and staging each launch took), the
 binding cache of the launch path, K3 (the FDMT
 merge step) against its plain version over whole plans (ragged T,
 negative delays, passthrough rows, a batch axis, tables above 256 KB),
@@ -912,6 +915,175 @@ def test_xcorr_herm_launch_failure_raises():
     assert err != 0
     with pytest.raises(RuntimeError, match='xcorr_herm: CUDA error'):
         _build.check(lib, err, 'xcorr_herm')
+
+
+#: K8's operand layouts: K7's, for the rows and for the columns apart
+_K8_PAIRS = [(li, lj) for li in _K7_LAYOUTS for lj in _K7_LAYOUTS]
+
+#: the launch counters of K8: launches, rows and columns through the
+#: 16-byte staging, row-block jobs
+_K8_COUNTERS = ('xcorr_cross', 'xcorr_cross_vec16_i', 'xcorr_cross_vec16_j',
+                'xcorr_cross_rowblock')
+
+
+def _k8_operands(li, lj, G, T, F, ni, nj, values):
+    """(card planes, numpy planes) of K8's rows in layout ``li`` and its
+    columns in layout ``lj``, (G, T, F, n') each."""
+    ri, ii, ri_np, ii_np = _k7_planes(li, G, T, F, ni, values)
+    rj, ij, rj_np, ij_np = _k7_planes(lj, G, T, F, nj, values)
+    return (ri, ii, rj, ij), (ri_np, ii_np, rj_np, ij_np)
+
+
+def _check_k8(ops, hosts):
+    """K8 against its plain version and the int64 oracle, the staging
+    counters where xcorr_staging says and the row-block counter where
+    xcorr_cross_plan says.  Returns (vec_i, vec_j, rowblock)."""
+    ri, ii, rj, ij = ops
+    T, F, ni = ri.shape[-3:]
+    nj = rj.shape[-1]
+    path = (gpu_kernels.xcorr_staging(ri, ii),
+            gpu_kernels.xcorr_staging(rj, ij),
+            gpu_kernels.xcorr_cross_plan(T, ni, nj,
+                                         gpu_kernels.smem_optin(ri.device))[0])
+    before = [gpu_kernels.launches[k] for k in _K8_COUNTERS]
+    got = gpu_kernels.xcorr_cross(*ops)
+    want = gpu_kernels.xcorr_cross_plain(*ops)
+    torch.cuda.synchronize()
+    assert tuple(gpu_kernels.launches[k] - n
+                 for k, n in zip(_K8_COUNTERS, before)) == (1,) + path
+    assert got.shape == ri.shape[:-3] + (F, ni, nj)
+    assert got.dtype == torch.complex64
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), _xcorr_oracle(*hosts))
+    return path
+
+
+@pytest.mark.parametrize('li,lj', _K8_PAIRS)
+def test_xcorr_cross_layouts_match_plain_and_oracle(li, lj):
+    """Rows and columns each in every K7 layout (P = 1 and 2 gulp views on
+    the 16-byte path, separate planes and odd strides on the scalar one),
+    mixed, at ragged T, n_i and n_j (1 included) with and without groups,
+    on row-block jobs and, at T = 256 and n_j = 512, on chunked ones; the
+    16-byte staging is taken exactly by the gulp views with n' a multiple
+    of 8."""
+    k = _K8_PAIRS.index((li, lj))
+    T = (1, 31, 33, 128, 64, 256)[k % 6]
+    ni = (1, 63, 65, 130, 200, 256, 100)[k % 7]
+    nj = 512 if T == 256 else (1, 64, 100, 512, 257, 130)[k % 5]
+    G = (1, 3)[k % 2]
+    rng = np.random.RandomState(100 + k)
+    ops, hosts = _k8_operands(li, lj, G, T, 2, ni, nj,
+                              lambda shape: _i8(rng, shape))
+    vec_i, vec_j, rowblock = _check_k8(ops, hosts)
+    assert vec_i == int(li.startswith('gulp') and ops[0].shape[-1] % 8 == 0)
+    assert vec_j == int(lj.startswith('gulp') and ops[2].shape[-1] % 8 == 0)
+    assert rowblock == int(T <= 128)
+
+
+@pytest.mark.parametrize('T', [1, 31, 32, 33, 128, 256, 300])
+@pytest.mark.parametrize('G', [1, 3])
+def test_xcorr_cross_frames_and_groups(G, T):
+    """Each T of the list with and without groups, against 512 columns:
+    row-block jobs up to T = 128, chunked beyond (T = 300 in two chunks),
+    through the 16-byte staging (dual-pol gulps of 100 and 256 stations)
+    and through mixed stagings (rows as planes, columns a one-pol
+    gulp)."""
+    rng = np.random.RandomState(T + G)
+    for li, lj in (('gulp_p2', 'gulp_p2'), ('planes', 'gulp_p1')):
+        ops, hosts = _k8_operands(li, lj, G, T, 3, 200, 512,
+                                  lambda shape: _i8(rng, shape))
+        path = _check_k8(ops, hosts)
+        assert path == (int(li == 'gulp_p2'), 1, int(T <= 128))
+
+
+#: K8's layout pairs at the int8 extremes: each layout with itself and
+#: two mixes
+_K8_EXTREME_PAIRS = [(l, l) for l in _K7_LAYOUTS] + \
+    [('gulp_p2', 'odd'), ('odd', 'gulp_p1')]
+
+
+@pytest.mark.parametrize('pattern', _K7_EXTREMES)
+@pytest.mark.parametrize('li,lj', _K8_EXTREME_PAIRS)
+def test_xcorr_cross_exact_at_the_int8_extremes(li, lj, pattern):
+    """-128 everywhere (which int8 cannot negate: K8 takes ~im instead)
+    and +-127/-128 mixes, at a ragged shape: bit-identical to the plain
+    version and the int64 oracle."""
+    rng = np.random.RandomState(47)
+    ops, hosts = _k8_operands(li, lj, 3, 33, 2, 70, 200,
+                              _extreme_values(pattern, rng))
+    _check_k8(ops, hosts)
+
+
+@pytest.mark.parametrize('pattern', _K7_EXTREMES)
+@pytest.mark.parametrize('li,lj', [('gulp_p2', 'planes'),
+                                   ('planes', 'gulp_p2')])
+def test_xcorr_cross_exact_at_the_int32_edge(li, lj, pattern):
+    """T = MAX_NTIME frames (chunked jobs, 256 chunks) at small n and F:
+    every -128 gives re = 2 T 128^2 = 2,147,450,880 on every output; the
+    s32 accumulators wrap, never saturate, so every result is exact."""
+    T = gpu_kernels.MAX_NTIME
+    rng = np.random.RandomState(53)
+    ops, hosts = _k8_operands(li, lj, 1, T, 2, 8, 12,
+                              _extreme_values(pattern, rng))
+    assert _check_k8(ops, hosts)[2] == 0
+    if pattern == '-128':
+        got = gpu_kernels.xcorr_cross(*ops)
+        assert (got.real == 2 * T * 128 * 128).all()
+        assert float(got.real.max()) > 2 ** 31 - 2 ** 18
+
+
+def _cross_entry(ops, out, vec_i, vec_j, rowblock):
+    """bf_xcorr_cross called directly on (G, T, F, n) planes."""
+    from bifrost_tpu_torch import _build
+    ri, ii, rj, ij = ops
+    G, T, F, ni = ri.shape
+    lib, fn = gpu_kernels._fn('xcorr', 'bf_xcorr_cross',
+                              gpu_kernels._CROSS_ARGS)
+    err = fn(ri.data_ptr(), ii.data_ptr(), rj.data_ptr(), ij.data_ptr(),
+             out.data_ptr(), vec_i, vec_j, rowblock, G, T, F, ni,
+             rj.shape[-1], *ri.stride(), *rj.stride(),
+             _build.stream_ptr(ri.device))
+    return lib, err
+
+
+def test_xcorr_cross_rowblock_and_chunked_jobs_agree():
+    """At a shape whose row blocks fit, the C entry's chunked jobs (asked
+    for with rowblock 0) give the bits of the wrapper's row-block jobs,
+    at the mesh's 2-D block shape cut to 8 channels."""
+    rng = np.random.RandomState(59)
+    ops, hosts = _k8_operands('gulp_p2', 'gulp_p2', 1, 128, 8, 256, 512,
+                              lambda shape: _i8(rng, shape))
+    assert _check_k8(ops, hosts) == (1, 1, 1)
+    out = torch.empty((1, 8, 256, 512, 2), dtype=torch.float32,
+                      device='cuda')
+    lib, err = _cross_entry(ops, out, 1, 1, 0)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_complex(out),
+                       gpu_kernels.xcorr_cross(*ops))
+
+
+def test_xcorr_cross_launch_failure_raises():
+    """K8's C entry refuses the 16-byte staging asked of separate planes
+    (rows or columns) and row-block jobs that do not fit in shared memory
+    (T = 256 at 512 columns), and the wrapper's check turns that into an
+    exception."""
+    from bifrost_tpu_torch import _build
+    rng = np.random.RandomState(61)
+    ops, _ = _k8_operands('planes', 'gulp_p2', 1, 256, 2, 64, 512,
+                          lambda shape: _i8(rng, shape))
+    out = torch.empty((1, 2, 64, 512, 2), dtype=torch.float32,
+                      device='cuda')
+    for vec_i, vec_j, rowblock in ((1, 1, 0), (0, 1, 1)):
+        lib, err = _cross_entry(ops, out, vec_i, vec_j, rowblock)
+        assert err != 0, (vec_i, vec_j, rowblock)
+        with pytest.raises(RuntimeError, match='xcorr_cross: CUDA error'):
+            _build.check(lib, err, 'xcorr_cross')
+    lib, err = _cross_entry(ops, out, 0, 1, 0)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_complex(out)[0],
+                       gpu_kernels.xcorr_cross_plain(*(v[0] for v in ops)))
 
 
 def test_binding_cache_sets_argtypes_once_per_entry():

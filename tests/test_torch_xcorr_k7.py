@@ -266,8 +266,9 @@ def test_argtypes_cover_each_c_entry():
     c = _build.ctypes
     assert gpu_kernels._HERM_ARGS == [c.c_void_p] * 3 + [c.c_int] * 5 + \
         [c.c_longlong] * 4 + [c.c_void_p]
-    assert gpu_kernels._CROSS_ARGS == [c.c_void_p] * 5 + [c.c_int] * 5 + \
+    assert gpu_kernels._CROSS_ARGS == [c.c_void_p] * 5 + [c.c_int] * 8 + \
         [c.c_longlong] * 8 + [c.c_void_p]
+    assert gpu_kernels._SMEM_ARGS == [c.c_int]
     assert gpu_kernels._PROBE_ARGS == [c.c_void_p, c.c_void_p, c.c_int,
                                        c.c_void_p]
 
