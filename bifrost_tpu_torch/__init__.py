@@ -12,6 +12,12 @@ coherent beamformer chain, the FX correlator and FDMT dedispersion
                                     -> ReduceStage('freq', r)]
            -> copy('system') -> sink
 
+(from a Guppi RAW file, the north star's chain, file to file:
+``read_guppi_raw`` -> ``copy('cuda')`` -> ``fused[...]`` ->
+``copy('system')`` -> ``views.merge_axes`` -> ``transpose`` ->
+``write_sigproc``, built by ``BlockChainer`` in
+``examples/gpuspec_simple_torch.py``).
+
     source -> copy('cuda') -> fused[BeamformStage -> DetectStage('stokes')
                                     -> ReduceStage('time', r)]
            -> copy('system') -> sink
@@ -37,18 +43,20 @@ everything on the CPU, with each kernel's plain PyTorch version).
 Importing the package touches no device and builds no kernel.
 """
 
-from . import blocks, device, io, ops, parallel, stages
+from . import blocks, device, io, ops, parallel, stages, views
+from .block_chainer import BlockChainer
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
-                       TransformBlock, SinkBlock, block_scope,
+                       TransformBlock, SinkBlock, block_scope, block_view,
                        get_default_pipeline, PipelineInitError,
                        PipelineRuntimeError)
 from .ring import Ring, EndOfDataStop
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages', 'DataType', 'Pipeline',
-           'BlockScope', 'Block', 'SourceBlock', 'TransformBlock',
-           'SinkBlock', 'block_scope', 'get_default_pipeline',
+__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages', 'views',
+           'BlockChainer', 'DataType', 'Pipeline', 'BlockScope', 'Block',
+           'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
+           'block_view', 'get_default_pipeline',
            'PipelineInitError', 'PipelineRuntimeError', 'Ring',
            'EndOfDataStop']

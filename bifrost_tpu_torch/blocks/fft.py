@@ -6,10 +6,10 @@ a TransformBlock on the ``cuda`` space: the stage negotiates the header
 once per sequence and builds one function per gulp shape; a stage's
 lookahead (``overlap_nframe``) becomes the block's input overlap, so
 successive spans share that many frames and the block commits the rest.
-:class:`FftBlock` is the FFT stage as such a block, forward c2c only, as
-:class:`~bifrost_tpu_torch.stages.FftStage` has it (the FX correlator's
-F step).  Left out of this port: buffer donation, macro-gulp batching and
-mesh sharding, which the port's pipeline does not have yet.
+:class:`FftBlock` is the FFT stage as such a block (c2c forward or
+inverse, r2c, c2r, optionally shifted; the FX correlator's F step).
+Left out of this port: buffer donation, macro-gulp batching and mesh
+sharding, which the port's pipeline does not have yet.
 """
 
 from __future__ import annotations
@@ -70,8 +70,7 @@ class FftBlock(_StageBlock):
 
 def fft(iring, axes, inverse=False, real_output=False, axis_labels=None,
         apply_fftshift=False, *args, **kwargs):
-    """Block: FFT over non-frame axes (reference docstring:
-    blocks/fft.py:146-177).  Forward complex-to-complex only; the other
-    options raise NotImplementedError at the sequence header."""
+    """Block: N-D FFT over any non-frame axes (reference docstring:
+    blocks/fft.py:146-177)."""
     return FftBlock(iring, axes, inverse, real_output, axis_labels,
                     apply_fftshift, *args, **kwargs)

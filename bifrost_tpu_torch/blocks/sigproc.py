@@ -4,10 +4,10 @@ python/bifrost/blocks/sigproc.py:51-390).
 
 Both blocks are host blocks and numpy only: the source writes
 ``['time', 'pol', 'freq']`` spans into a ``system`` ring (8-bit and wider
-samples as stored, 1/2/4-bit samples unpacked to 8 bits), and the sink
-takes only ``system`` rings, as in the JAX package.  Left out: a packed
-1/2/4-bit ring (``read_sigproc(unpack=False)`` of such a file), since the
-port's rings hold no packed sub-byte types; that case raises.
+samples as stored; 1/2/4-bit samples unpacked to 8 bits, or with
+``unpack=False`` kept packed, as a ``u1``/``u2``/``u4`` ring whose spans
+hold the stored bytes), and the sink takes only ``system`` rings, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -59,11 +59,6 @@ class SigprocSourceBlock(SourceBlock):
         nbit = ihdr['nbits']
         if self.unpack:
             nbit = max(nbit, 8)
-        elif nbit < 8:
-            raise NotImplementedError(
-                "read_sigproc(unpack=False) of %d-bit samples: the port's "
-                "rings hold no packed sub-byte types; read with "
-                "unpack=True" % nbit)
         ohdr = {
             '_tensor': {
                 'dtype': ('i' if ihdr.get('signed', 0) else 'u')

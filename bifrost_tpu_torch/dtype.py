@@ -8,14 +8,22 @@ float, nbits per component).  Host storage of complex-integer types uses
 the structured numpy dtypes below, laid out as the reference lays them
 out; their device form is a trailing (re, im) axis (see
 :mod:`bifrost_tpu_torch.devrep`).
+
+Sub-byte types (i1/i2/i4/u1/u2/u4/ci1/ci2) are stored bit-packed, LSB
+first within the byte, as the reference packs them (reference:
+python/bifrost/DataType.py:55-60; src/unpack.cpp): their host storage is
+uint8.  ci4 fills one byte per sample (re in the high nibble, im in the
+low one) and has a structured one-field dtype, as in
+``bifrost_tpu/dtype.py:37``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['DataType', 'ci8', 'ci16', 'ci32', 'cf16']
+__all__ = ['DataType', 'ci4', 'ci8', 'ci16', 'ci32', 'cf16']
 
+ci4 = np.dtype([('re_im', np.uint8)])   # 4-bit re in high nibble, im low
 ci8 = np.dtype([('re', np.int8), ('im', np.int8)])
 ci16 = np.dtype([('re', np.int16), ('im', np.int16)])
 ci32 = np.dtype([('re', np.int32), ('im', np.int32)])
@@ -32,6 +40,7 @@ _FROM_NUMPY = {
     np.dtype(np.float64): ('f', 64),
     np.dtype(np.complex64): ('cf', 32), np.dtype(np.complex128): ('cf', 64),
     ci8: ('ci', 8), ci16: ('ci', 16), ci32: ('ci', 32), cf16: ('cf', 16),
+    ci4: ('ci', 4),
 }
 
 _TO_NUMPY = {v: k for k, v in _FROM_NUMPY.items()}
@@ -99,22 +108,39 @@ class DataType(object):
 
     @property
     def itemsize(self):
+        """Bytes per element; raises for packed sub-byte types."""
+        if self.itemsize_bits % 8:
+            raise ValueError("%s is a packed sub-byte type" % self)
         return self.itemsize_bits // 8
 
+    @property
+    def is_packed(self):
+        """True for types whose element is smaller than one byte
+        (i1/i2/i4/u1/u2/u4/ci1/ci2), stored bit-packed."""
+        return self.itemsize_bits < 8
+
     def as_numpy_dtype(self):
+        """Host storage dtype; packed types report their byte storage,
+        uint8."""
         key = (self.kind, self.nbits)
-        if key not in _TO_NUMPY:
-            raise TypeError("No numpy equivalent for %s" % self)
-        return _TO_NUMPY[key]
+        if key in _TO_NUMPY:
+            return _TO_NUMPY[key]
+        if self.is_packed:
+            return np.dtype(np.uint8)
+        raise TypeError("No numpy equivalent for %s" % self)
 
     def as_torch_dtype(self):
         """The torch dtype of this type's device representation: complex
         integers keep their component type (the (re, im) pair becomes a
-        trailing axis), cf16 widens to complex64."""
+        trailing axis; ci1/ci2/ci4 widen to int8), packed integers widen
+        to int8/uint8, cf16 widens to complex64."""
         import torch
         if self.kind == 'ci':
-            return {8: torch.int8, 16: torch.int16,
-                    32: torch.int32}[self.nbits]
+            if self.nbits <= 8:
+                return torch.int8
+            return {16: torch.int16, 32: torch.int32}[self.nbits]
+        if self.is_packed:
+            return torch.int8 if self.kind == 'i' else torch.uint8
         if self.kind == 'cf':
             return torch.complex128 if self.nbits > 32 else torch.complex64
         if self.kind == 'f':

@@ -18,15 +18,18 @@ __all__ = ['ndarray', 'copy_array', 'memset_array']
 
 
 class ndarray(object):
-    """A numpy array in a host space, with its bifrost dtype."""
+    """A numpy array in a host space, with its bifrost dtype.  A packed
+    sub-byte type's buffer is its uint8 storage; ``shape`` is then the
+    logical shape (the last axis counts samples, not bytes)."""
 
-    __slots__ = ('_buf', '_space', '_dtype')
+    __slots__ = ('_buf', '_space', '_dtype', '_shape')
 
-    def __init__(self, buf, dtype=None, space='system'):
+    def __init__(self, buf, dtype=None, space='system', shape=None):
         buf = np.asarray(buf)
         self._buf = buf
         self._dtype = DataType(dtype if dtype is not None else buf.dtype)
         self._space = canonical(space)
+        self._shape = tuple(shape) if shape is not None else None
 
     @property
     def space(self):
@@ -38,7 +41,7 @@ class ndarray(object):
 
     @property
     def shape(self):
-        return self._buf.shape
+        return self._shape if self._shape is not None else self._buf.shape
 
     def as_numpy(self):
         return self._buf
@@ -51,9 +54,10 @@ class ndarray(object):
 def copy_array(dst, src):
     """Copy host ``src`` (ndarray or numpy) into host ndarray ``dst``."""
     s = src.as_numpy() if isinstance(src, ndarray) else np.asarray(src)
-    if s.shape != dst.shape:
-        raise ValueError("Shape mismatch: %s vs %s" % (s.shape, dst.shape))
-    dst.as_numpy()[...] = s
+    d = dst.as_numpy()
+    if s.shape != d.shape:
+        raise ValueError("Shape mismatch: %s vs %s" % (s.shape, d.shape))
+    d[...] = s
     return dst
 
 

@@ -27,22 +27,26 @@ raises :class:`PipelineRuntimeError` with the original traceback.
 from __future__ import annotations
 
 import queue as queue_mod
+import signal
 import threading
 import time
 import traceback
+import warnings
 from collections import defaultdict, deque
 from contextlib import ExitStack
+from copy import copy
 
 from . import device
 from .ndarray import memset_array
 from .proclog import ProcLog
-from .ring import Ring, EndOfDataStop, RingPoisonedError
+from .ring import Ring, EndOfDataStop, RingPoisonedError, ring_view
 from .space import space_accessible
 
 __all__ = ['Pipeline', 'BlockScope', 'Block', 'SourceBlock',
            'MultiTransformBlock', 'TransformBlock', 'SinkBlock',
            'get_default_pipeline', 'get_current_block_scope',
-           'block_scope', 'get_ring', 'izip', 'PipelineInitError',
+           'block_scope', 'block_view', 'get_ring', 'izip',
+           'PipelineInitError',
            'PipelineRuntimeError', 'resolve_sync_depth']
 
 
@@ -242,6 +246,20 @@ class Pipeline(BlockScope):
         for thread in self.threads:
             thread.join(max(deadline - time.monotonic(), 0))
 
+    def shutdown_on_signals(self, signals=None):
+        """Shut the pipeline down on SIGHUP, SIGINT, SIGQUIT, SIGTERM or
+        SIGTSTP (or the given signals; reference: pipeline.py:282-290)."""
+        if signals is None:
+            signals = [signal.SIGHUP, signal.SIGINT, signal.SIGQUIT,
+                       signal.SIGTERM, signal.SIGTSTP]
+        for sig in signals:
+            signal.signal(sig, self._handle_signal_shutdown)
+
+    def _handle_signal_shutdown(self, signum, frame):
+        warnings.warn("Received signal %d, shutting down pipeline" % signum,
+                      RuntimeWarning)
+        self.shutdown()
+
     def __enter__(self):
         _stacks.pipelines.append(self)
         _stacks.scopes.append(self)
@@ -258,6 +276,17 @@ def get_ring(block_or_ring):
         return block_or_ring.orings[0]
     except AttributeError:
         return block_or_ring
+
+
+def block_view(block, header_transform):
+    """A view of ``block`` whose output headers are transformed on the fly
+    (reference: pipeline.py:305-322; ``bifrost_tpu/pipeline.py:760-766``):
+    a shallow copy whose output rings are ring views.  The copy is not a
+    block of the pipeline; the blocks built on it read the views."""
+    new_block = copy(block)
+    new_block.orings = [ring_view(oring, header_transform)
+                        for oring in new_block.orings]
+    return new_block
 
 
 class Block(BlockScope):

@@ -27,9 +27,15 @@ Storage:
   A committed tensor belongs to the ring: neither side may write into it
   in place.
 
-Shedding, ringcheck, telemetry, ring views and the native core are not
-part of this core; :meth:`Ring.poison` is kept so that a failing block
-wakes its peers instead of leaving them blocked.
+Ring views (:func:`ring_view`, :class:`RingView`) share a base ring's
+buffer, locks and guarantees and present transformed sequence headers;
+they move no data.  A view read from a device ring hands out the
+committed tensor reshaped to the view's layout, so a device view must
+keep each frame's byte count and the ringlet count.
+
+Shedding, ringcheck, telemetry and the native core are not part of this
+core; :meth:`Ring.poison` is kept so that a failing block wakes its
+peers instead of leaving them blocked.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from .space import canonical
 
 __all__ = ['Ring', 'RingWriter', 'WriteSequence', 'ReadSequence',
            'WriteSpan', 'ReadSpan', 'EndOfDataStop', 'WouldBlock',
-           'RingPoisonedError', 'split_shape']
+           'RingPoisonedError', 'split_shape', 'ring_view', 'RingView']
 
 _INF = float('inf')
 
@@ -81,6 +87,19 @@ def split_shape(shape):
         if dim == -1:
             return list(shape[:i]), list(shape[i + 1:])
     raise ValueError("No time dimension (-1) found in shape %s" % (shape,))
+
+
+def ring_view(ring, header_transform):
+    """A view of ``ring`` whose read sequences present transformed headers
+    (reference: ring2.py:75-82; ``bifrost_tpu/ring.py:136-146``).  A view
+    of a view composes the two transforms."""
+    new_ring = ring.view()
+    old = ring.header_transform
+    if old is not None:
+        inner = header_transform
+        header_transform = lambda hdr: inner(old(hdr))
+    new_ring.header_transform = header_transform
+    return new_ring
 
 
 def _tensor_info(header):
@@ -310,10 +329,18 @@ class Ring(object):
         self._nwrite_open = 0
         self._nread_open = 0
         self._poisoned = None
+        self.header_transform = None
+        self.is_view = False
 
     @property
     def is_device(self):
         return self.space == 'cuda'
+
+    def view(self):
+        """A reader-side view of this ring: it shares all ring state
+        (geometry, storage, synchronization) and differs only in its
+        header transform (reference: ring2.py:108-112)."""
+        return RingView(self)
 
     # -- geometry ---------------------------------------------------------
     def resize(self, contiguous_bytes, total_bytes=None, nringlet=1):
@@ -476,18 +503,13 @@ class Ring(object):
     # -- reader side ------------------------------------------------------
     def open_earliest_sequence(self, guarantee=True):
         """The earliest sequence that still holds unread data."""
-        return ReadSequence(self, guarantee=guarantee)
+        return ReadSequence(self, guarantee=guarantee,
+                            header_transform=self.header_transform)
 
     def read(self, guarantee=True):
         """Generator over sequences as they appear, from the earliest
         (reference: ring2.py:140-148)."""
-        with ReadSequence(self, guarantee=guarantee) as cur:
-            while True:
-                try:
-                    yield cur
-                    cur.increment()
-                except EndOfDataStop:
-                    return
+        return _read_sequences(self, self.header_transform, guarantee)
 
     def _open_earliest(self):
         with self._lock:
@@ -603,6 +625,50 @@ class Ring(object):
             return max(0, min(self._tail - begin, nbyte))
 
 
+class RingView(object):
+    """Reader-side view of a Ring: the same buffer and synchronization,
+    another header transform (``bifrost_tpu/ring.py:1338-1390``).  Every
+    attribute but the reading entry points is the base ring's."""
+
+    def __init__(self, base, header_transform=None):
+        if isinstance(base, RingView):
+            base = base._base_ring
+        self._base_ring = base
+        self.header_transform = header_transform
+        self.is_view = True
+
+    @property
+    def base(self):
+        return self._base_ring
+
+    def view(self):
+        return RingView(self._base_ring, self.header_transform)
+
+    def __getattr__(self, name):
+        return getattr(self._base_ring, name)
+
+    def open_earliest_sequence(self, guarantee=True):
+        return ReadSequence(self._base_ring, guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def read(self, guarantee=True):
+        return _read_sequences(self._base_ring, self.header_transform,
+                               guarantee)
+
+
+def _read_sequences(ring, header_transform, guarantee):
+    """The sequences of ``ring`` as they appear, from the earliest, with
+    headers through ``header_transform``."""
+    with ReadSequence(ring, guarantee=guarantee,
+                      header_transform=header_transform) as cur:
+        while True:
+            try:
+                yield cur
+                cur.increment()
+            except EndOfDataStop:
+                return
+
+
 class RingWriter(object):
     """Writing session: ``with ring.begin_writing() as w:``
     (reference: ring2.py:150-162)."""
@@ -675,12 +741,24 @@ class WriteSequence(_SequenceAPI):
 
 
 class ReadSequence(_SequenceAPI):
-    def __init__(self, ring, guarantee=True):
+    def __init__(self, ring, guarantee=True, header_transform=None):
         self._ring = ring
         self._tensor = None
         self.guarantee = guarantee
+        self.header_transform = header_transform
         self._seq = ring._open_earliest()
         ring._register_reader(self)
+
+    @property
+    def header(self):
+        """The sequence header, through the view's transform (applied to
+        a copy) when the sequence was opened on a ring view."""
+        hdr = self._seq.header
+        if self.header_transform is not None:
+            hdr = self.header_transform(json.loads(json.dumps(hdr)))
+            if hdr is None:
+                raise ValueError("Header transform returned None")
+        return hdr
 
     def __enter__(self):
         return self
@@ -754,6 +832,18 @@ class ReadSequence(_SequenceAPI):
 # Spans
 # ---------------------------------------------------------------------------
 
+def _as_view_layout(x, shape, dtype):
+    """A committed device tensor in a ring view's layout: reshaped, and
+    bit-cast where the view changed the element type."""
+    shape = tuple(shape)
+    if tuple(x.shape) == shape:
+        return x
+    tdt = dtype.as_torch_dtype()
+    if x.dtype != tdt:
+        x = x.contiguous().view(tdt)
+    return x.reshape(shape)
+
+
 class _SpanAPI(object):
     @property
     def ring(self):
@@ -796,14 +886,20 @@ class _SpanAPI(object):
 
     def _host_view(self, writeable):
         """Zero-copy numpy view of the ring bytes, shaped
-        (*ringlet_shape, nframe, *frame_shape)."""
+        (*ringlet_shape, nframe, *frame_shape); a packed sub-byte type's
+        view is its uint8 storage, the last axis counted in bytes."""
         t = self.tensor
+        dtype = t['dtype']
         raw = self._ring._storage.view(self._begin, self._nbyte)
-        view = raw.view(t['dtype'].as_numpy_dtype())
-        view = view.reshape([t['nringlet'], self.nframe] +
-                            t['frame_shape']).reshape(self.shape)
+        frame_shape = list(t['frame_shape'])
+        if dtype.is_packed:
+            frame_shape[-1] = frame_shape[-1] * dtype.itemsize_bits // 8
+        view = raw.view(dtype.as_numpy_dtype())
+        view = view.reshape([t['nringlet'], self.nframe] + frame_shape)
+        view = view.reshape(t['ringlet_shape'] + [self.nframe] + frame_shape)
         view.flags['WRITEABLE'] = writeable
-        return ndarray(view, dtype=t['dtype'], space=self._ring.space)
+        return ndarray(view, dtype=dtype, space=self._ring.space,
+                       shape=self.shape)
 
 
 class WriteSpan(_SpanAPI):
@@ -913,8 +1009,11 @@ class ReadSpan(_SpanAPI):
                         t['ringlet_shape'] + [nframe] + t['frame_shape'],
                         t['dtype'])
 
-                self._data = self._ring._storage.get(
+                x = self._ring._storage.get(
                     self._begin, self._nbyte, t['frame_nbyte'], zeros_fn)
+                if self._sequence.header_transform is not None:
+                    x = _as_view_layout(x, self.device_shape, t['dtype'])
+                self._data = x
             else:
                 self._data = self._host_view(writeable=False)
         return self._data

@@ -11,13 +11,15 @@ A Stage is the pure core of a device TransformBlock, split in two halves
 stages with :func:`compose_stages`, which substitutes a hand-written
 whole-chain CUDA kernel where the chain matches one
 (:func:`match_spectrometer`, :func:`match_beamformer`).  The port carries
-the stages of the Guppi spectrometer chain (FFT, detect in modes 'stokes'
-and 'scalar', the sum reduce), of the coherent beamformer chain
-(:class:`BeamformStage`, detect, the frame-axis sum), of the FX
-correlator (FFT, :class:`QuantizeStage`, :class:`CorrelateStage`,
-:class:`AccumulateStage`), the axis permutation (:class:`TransposeStage`)
-and the FRB search (:class:`FdmtStage`, :class:`MatchedFilterStage`,
-:class:`ThresholdStage`, with :func:`chain_overlap_nframe`).
+the stages of the Guppi spectrometer chain (FFT, detect and reduce in
+every mode and op of the JAX package), the data-movement stages
+(:class:`FftShiftStage`, :class:`ReverseStage`, :class:`ScrunchStage`,
+:class:`TransposeStage`), the coherent beamformer chain
+(:class:`BeamformStage`, detect, the frame-axis sum), the FX correlator
+(FFT, :class:`QuantizeStage`, :class:`CorrelateStage`,
+:class:`AccumulateStage`) and the FRB search (:class:`FdmtStage`,
+:class:`MatchedFilterStage`, :class:`ThresholdStage`, with
+:func:`chain_overlap_nframe`).  ``MapStage`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .dtype import DataType
 from .units import convert_units, transform_units
 
 __all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
-           'TransposeStage', 'BeamformStage', 'QuantizeStage',
+           'FftShiftStage', 'ReverseStage', 'ScrunchStage', 'TransposeStage', 'BeamformStage', 'QuantizeStage',
            'CorrelateStage', 'AccumulateStage', 'FdmtStage',
            'MatchedFilterStage', 'ThresholdStage', 'chain_overlap_nframe',
            'SpectrometerPlan', 'walk_headers', 'compose_stages',
@@ -92,9 +94,10 @@ def _resolve_axis(tensor, axis):
 
 
 class FftStage(Stage):
-    """Forward c2c FFT over named axes (reference: blocks/fft.py:39-137;
-    src/fft.cu).  The inverse, r2c, c2r and fftshift options of the JAX
-    package are not ported yet."""
+    """FFT over named axes (reference: blocks/fft.py:39-137; src/fft.cu;
+    ``bifrost_tpu/stages.py:103-193``): c2c forward or inverse, r2c from
+    real input, c2r when ``real_output``, each optionally fftshifted.  The
+    inverse and c2r are unnormalized, as cuFFT's are."""
 
     batch_safe = True
 
@@ -113,21 +116,26 @@ class FftStage(Stage):
     def transform_header(self, hdr):
         itensor = hdr['_tensor']
         itype = DataType(itensor['dtype']).as_floating_point()
-        if self.real_output or itype.is_real or self.inverse or \
-                self.apply_fftshift:
-            raise NotImplementedError("only forward c2c FFTs without "
-                                      "fftshift are ported")
         self.axes = [_resolve_axis(itensor, ax)
                      for ax in self.specified_axes]
-        if itensor['shape'].index(-1) in self.axes:
-            raise KeyError("Cannot transform the frame axis")
-        self.mode = 'c2c'
-        self.otype = itype.as_complex()
+        axes = self.axes
+        shape = [itensor['shape'][ax] for ax in axes]
+        otype = itype.as_real() if self.real_output else itype.as_complex()
         ohdr = deepcopy(hdr)
         otensor = ohdr['_tensor']
-        otensor['dtype'] = str(self.otype)
-        for i, ax in enumerate(self.axes):
-            length = itensor['shape'][ax]
+        otensor['dtype'] = str(otype)
+        self.itype, self.otype = itype, otype
+        self.mode = ('r2c' if itype.is_real and otype.is_complex else
+                     'c2r' if itype.is_complex and otype.is_real else 'c2c')
+        if itensor['shape'].index(-1) in axes:
+            raise KeyError("Cannot transform the frame axis; reshape the "
+                           "stream first (views.split_axis)")
+        if self.mode == 'r2c':
+            otensor['shape'][axes[-1]] = otensor['shape'][axes[-1]] // 2 + 1
+        elif self.mode == 'c2r':
+            otensor['shape'][axes[-1]] = (otensor['shape'][axes[-1]] - 1) * 2
+            shape[-1] = (shape[-1] - 1) * 2
+        for i, (ax, length) in enumerate(zip(axes, shape)):
             if 'units' in otensor:
                 otensor['units'][ax] = transform_units(
                     otensor['units'][ax], -1)
@@ -137,32 +145,55 @@ class FftStage(Stage):
                     1. / (otensor['scales'][ax][1] * length)
             if 'labels' in otensor and self.axis_labels != [None]:
                 otensor['labels'][ax] = self.axis_labels[i]
+        self._oshape_tpl = list(otensor['shape'])
         return ohdr
 
     def build(self, in_meta):
+        import torch
         from .ops.fft import fftn_dispatch
         pre = _complexify_fn(in_meta)
         axes = list(self.axes)
+        mode, shift, inverse = self.mode, self.apply_fftshift, self.inverse
         odt = self.otype.as_torch_dtype()
+        rdt = torch.float64 if self.itype.nbits > 32 else torch.float32
+        oshape_tpl = self._oshape_tpl
 
         def fn(x):
-            return fftn_dispatch(pre(x), axes).to(odt)
+            x = pre(x)
+            if mode == 'r2c':
+                x = (x.real if x.is_complex() else x).to(rdt)
+                y = torch.fft.rfftn(x, dim=axes)
+                if shift:
+                    y = torch.fft.fftshift(y, dim=axes)
+            elif mode == 'c2r':
+                if shift:
+                    x = torch.fft.ifftshift(x, dim=axes)
+                sizes = [oshape_tpl[a] if oshape_tpl[a] != -1
+                         else x.shape[a] for a in axes]
+                y = torch.fft.irfftn(x, s=sizes, dim=axes, norm='forward')
+            elif inverse:
+                if shift:
+                    x = torch.fft.ifftshift(x, dim=axes)
+                y = fftn_dispatch(x, axes, inverse=True)
+            else:
+                y = fftn_dispatch(x, axes)
+                if shift:
+                    y = torch.fft.fftshift(y, dim=axes)
+            return y.to(odt)
         return fn
 
 
 class DetectStage(Stage):
-    """Square-law detection (reference: blocks/detect.py:40-138), modes
-    'stokes' and 'scalar'.
+    """Square-law detection (reference: blocks/detect.py:40-138;
+    ``bifrost_tpu/stages.py:194-284``), modes 'scalar', 'jones',
+    'stokes', 'stokes_i' and 'coherence'.
 
     Stokes over pol axis 1 of a (time, pol, freq) stream runs the K2
     kernel (:func:`bifrost_tpu_torch.ops.gpu_kernels.stokes_detect`)
     whenever the shape matches; the JAX package uses its Pallas kernel
-    there only under ``BF_USE_PALLAS`` (``stages.py:263``).  The other
-    modes of the JAX package are not ported yet."""
+    there only under ``BF_USE_PALLAS`` (``stages.py:263``)."""
 
     batch_safe = True
-
-    _PORTED = ('scalar', 'stokes')
 
     def __init__(self, mode, axis=None):
         self.mode = mode.lower()
@@ -170,9 +201,6 @@ class DetectStage(Stage):
         if self.mode not in ('scalar', 'jones', 'stokes', 'stokes_i',
                              'coherence'):
             raise ValueError("Invalid detect mode: %r" % mode)
-        if self.mode not in self._PORTED:
-            raise NotImplementedError("detect mode %r is not ported"
-                                      % mode)
 
     def transform_header(self, hdr):
         itensor = hdr['_tensor']
@@ -191,13 +219,17 @@ class DetectStage(Stage):
             self.npol = otensor['shape'][axis]
             if self.npol not in (1, 2):
                 raise ValueError("Polarization axis must have length 1 or 2")
-            if self.mode == 'stokes' and self.npol == 2:
+            if self.mode in ('stokes', 'coherence') and self.npol == 2:
                 otensor['shape'][axis] = 4
+            if self.mode == 'stokes_i' and self.npol == 2:
+                otensor['shape'][axis] = 1
             if 'labels' in otensor:
                 otensor['labels'][axis] = 'pol'
         else:
             self.npol = 1
-        otensor['dtype'] = str(itype.as_real().as_floating_point())
+        otype = itype if (self.mode == 'jones' and self.npol == 2) \
+            else itype.as_real()
+        otensor['dtype'] = str(otype.as_floating_point())
         self.otype = DataType(otensor['dtype'])
         return ohdr
 
@@ -215,10 +247,8 @@ class DetectStage(Stage):
             x = pre(x)
             if npol == 1:
                 return mag2(x).to(odt)
-            if mode != 'stokes':
-                raise ValueError(mode)
-            if axis == 1 and x.dim() == 3 and odt == torch.float32 \
-                    and x.dtype == torch.complex64:
+            if mode == 'stokes' and axis == 1 and x.dim() == 3 and \
+                    odt == torch.float32 and x.dtype == torch.complex64:
                 v = torch.view_as_real(x)           # (T, 2, F, 2)
                 return gpu_kernels.stokes_detect(v[:, 0, :, 0],
                                                  v[:, 0, :, 1],
@@ -226,17 +256,28 @@ class DetectStage(Stage):
                                                  v[:, 1, :, 1])
             xp, yp = x.select(axis, 0), x.select(axis, 1)
             xx, yy = mag2(xp), mag2(yp)
-            xyr = xp.real * yp.real + xp.imag * yp.imag
-            xyi = xp.imag * yp.real - xp.real * yp.imag
-            out = torch.stack([xx + yy, xx - yy, 2 * xyr, -2 * xyi],
-                              dim=axis)
-            return out.to(odt)
+            if mode == 'stokes_i':
+                out = [xx + yy]
+            elif mode == 'stokes':
+                xyr = xp.real * yp.real + xp.imag * yp.imag
+                xyi = xp.imag * yp.real - xp.real * yp.imag
+                out = [xx + yy, xx - yy, 2 * xyr, -2 * xyi]
+            elif mode == 'coherence':
+                # conj(x) * y
+                out = [xx, yy, xp.real * yp.real + xp.imag * yp.imag,
+                       xp.real * yp.imag - xp.imag * yp.real]
+            elif mode == 'jones':
+                out = [torch.complex(xx, yy), xp * yp.conj()]
+            else:
+                raise ValueError(mode)
+            return torch.stack(out, dim=axis).to(odt)
         return fn
 
 
 class ReduceStage(Stage):
-    """Sum adjacent elements of an axis in groups of ``factor``
-    (reference: blocks/reduce.py:39-91; src/reduce.cu)."""
+    """Reduce adjacent elements of an axis in groups of ``factor`` with
+    ``op`` (sum, mean, min, max, stderr and their pwr* variants;
+    reference: blocks/reduce.py:39-91; src/reduce.cu)."""
 
     batch_safe = True
 
@@ -285,6 +326,114 @@ class ReduceStage(Stage):
             if y.is_complex() and not tgt.is_complex:
                 y = y.real
             return y.to(tgt)
+        return fn
+
+
+class FftShiftStage(Stage):
+    """Shift the zero-frequency element of each named axis to its center
+    (reference: blocks/fftshift.py:37-81; ``bifrost_tpu/stages.py:
+    341-378``), or back with ``inverse``."""
+
+    batch_safe = True
+
+    def __init__(self, axes, inverse=False):
+        if not isinstance(axes, (list, tuple)):
+            axes = [axes]
+        self.specified_axes = axes
+        self.inverse = inverse
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        self.axes = [_resolve_axis(itensor, ax)
+                     for ax in self.specified_axes]
+        if itensor['shape'].index(-1) in self.axes:
+            raise KeyError("Cannot fftshift the frame axis")
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        if 'scales' in itensor:
+            for ax in self.axes:
+                sgn = +1 if self.inverse else -1
+                step = otensor['scales'][ax][1]
+                otensor['scales'][ax][0] += \
+                    sgn * (otensor['shape'][ax] // 2) * step
+        return ohdr
+
+    def build(self, in_meta):
+        import torch
+        axes, inverse = list(self.axes), self.inverse
+        shift = torch.fft.ifftshift if inverse else torch.fft.fftshift
+
+        def fn(x):
+            return shift(x, dim=axes)
+        return fn
+
+
+class ReverseStage(Stage):
+    """Cyclic reversal b(i) = a(-i) of each named axis: element 0 stays
+    and the rest reverse (reference: blocks/reverse.py:36-75;
+    ``bifrost_tpu/stages.py:381-416``)."""
+
+    batch_safe = True
+
+    def __init__(self, axes):
+        if not isinstance(axes, (list, tuple)):
+            axes = [axes]
+        self.specified_axes = axes
+
+    def transform_header(self, hdr):
+        itensor = hdr['_tensor']
+        self.axes = [_resolve_axis(itensor, ax)
+                     for ax in self.specified_axes]
+        if itensor['shape'].index(-1) in self.axes:
+            raise KeyError("Cannot reverse the frame axis")
+        ohdr = deepcopy(hdr)
+        otensor = ohdr['_tensor']
+        if 'scales' in itensor:
+            for ax in self.axes:
+                step = otensor['scales'][ax][1]
+                otensor['scales'][ax][0] += otensor['shape'][ax] * step
+                otensor['scales'][ax][1] = -step
+        return ohdr
+
+    def build(self, in_meta):
+        import torch
+        axes = list(self.axes)
+
+        def fn(x):
+            for ax in axes:
+                x = torch.roll(torch.flip(x, [ax]), 1, ax)
+            return x
+        return fn
+
+
+class ScrunchStage(Stage):
+    """Average every ``factor`` frames into one (reference:
+    blocks/scrunch.py:38-66; ``bifrost_tpu/stages.py:451-480``); integer
+    data are averaged in float32 and truncated back to their type."""
+
+    batch_safe = True
+
+    def __init__(self, factor):
+        self.factor = factor
+        self.nframe_ratio = (1, factor)
+
+    def transform_header(self, hdr):
+        ohdr = deepcopy(hdr)
+        t = ohdr['_tensor']
+        self.taxis = t['shape'].index(-1)
+        t['scales'][self.taxis][1] *= self.factor
+        return ohdr
+
+    def build(self, in_meta):
+        import torch
+        f, taxis = self.factor, self.taxis
+
+        def fn(x):
+            nf = x.shape[taxis] // f
+            y = x.reshape(x.shape[:taxis] + (nf, f) + x.shape[taxis + 1:])
+            acc = y if (y.is_floating_point() or y.is_complex()) \
+                else y.to(torch.float32)
+            return acc.mean(dim=taxis + 1).to(x.dtype)
         return fn
 
 

@@ -29,6 +29,22 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    each run must launch its kernel once per gulp, and every K1 launch
    must take the radix-16 kernel.  The two outputs must
    agree within 1e-5, and rows are checked against the oracle;
+5a. writes GUPPI RAW files at Breakthrough Listen's GBT recording
+   geometry (64 coarse channels, 2 pols, 128 MiB blocks) to a temporary
+   directory, 4 blocks at NBITS 8 (524288 samples) and 2 at NBITS 4
+   (1048576), each seeded noise plus one tone per channel, and runs the
+   north star's chain over each through examples/gpuspec_simple_torch.py's
+   build() with one block a gulp (read_guppi_raw -> copy('cuda') ->
+   fused[FFT -> Stokes -> reduce(4)] -> copy('system') -> merge_axes ->
+   transpose -> write_sigproc).  The .fil header fields must equal what
+   the Guppi header gives, its data must be within 1e-5 of a float64
+   numpy oracle on the first 2 blocks, and every tone must peak at its
+   bin; the ci4 block's device representation must equal a numpy
+   unpacking bit for bit.  Prints the file-to-file rate (host-bound) and
+   each block's host ms per gulp;
+5b. drives copy('cuda') -> fft -> detect('stokes') (unfused) ->
+   copy('system') on the spectrometer arm's gulps: K2 must launch once
+   per gulp and every output equal stokes_detect_plain;
 6. runs the beamformer kernels at the full-width shapes of BASELINE
    config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
    beams, R=8): K4 (int8, one int8 tensor-core GEMM over every channel)
@@ -215,6 +231,16 @@ FAMP, FPW = 3.0, 8
 MD = 4
 MWARM, MTIMED = 1, 2
 MFDMT = 2
+# the Guppi RAW front end (examples/gpuspec_simple_torch.py): Breakthrough
+# Listen's GBT L-band recording geometry, 64 coarse channels of 2.9296875
+# MHz (-187.5 MHz), 2 pols, 128 MiB blocks (524,288 samples at 8 bits,
+# 1,048,576 at 4), one block a gulp, r 4; 4 ci8 blocks and 2 ci4 blocks,
+# the first GORACLE of each held to the float64 oracle
+GCH, GFREQ, GBW, GBLOCSIZE, GR = 64, 1501.4648, -187.5, 134217728, 4
+GBLOCKS = {8: 4, 4: 2}
+GORACLE = 2
+# the unfused detect('stokes') arm: the spectrometer arm's gulps
+DWARM, DTIMED = 1, 3
 
 
 def log(*args):
@@ -665,6 +691,260 @@ def phase_pipeline(bt, spec, gpu_kernels, smi):
             require(r < GATE, 'gulp %d rows vs oracle: %.3g' % (k, r))
     return {'msps_cuda_spectrometer': msps_k1, 'msps_torch_fused': msps_k2,
             'launches_k1_run': n_k1, 'launches_k2_run': n_k2}
+
+
+# ---------------------------------------------------------------------------
+# the Guppi RAW front end: the north star's chain, file to file
+# ---------------------------------------------------------------------------
+
+def guppi_header(nbits, block, nchan=GCH, blocsize=GBLOCSIZE):
+    """A GUPPI block header at Breakthrough Listen's GBT L-band recording
+    geometry (64 coarse channels of 2.9296875 MHz, negative bandwidth as
+    the GBT writes it)."""
+    return {'BACKEND': 'GUPPI', 'TELESCOP': 'GBT', 'SRC_NAME': 'HIP65057',
+            'OBSFREQ': GFREQ, 'OBSBW': GBW, 'OBSNCHAN': nchan, 'NPOL': 4,
+            'NBITS': nbits, 'BLOCSIZE': blocsize, 'DIRECTIO': 0,
+            'STT_IMJD': 58000, 'STT_SMJD': 43200, 'PKTSIZE': 8192,
+            'PKTIDX': block * (blocsize // 8192), 'RA': 199.9, 'DEC': -1.5,
+            'AZ': 130.5, 'ZA': 40.25, 'CHAN_DM': 0.0}
+
+
+def guppi_tone_bins(nchan, ntime):
+    """One tone per coarse channel, each at its own fine bin."""
+    return (ntime // 7 + 7919 * np.arange(nchan)) % ntime
+
+
+def write_guppi(path, nbits, nblock, nchan=GCH, blocsize=GBLOCSIZE,
+                seed=31):
+    """Write a GUPPI RAW file of ``nblock`` blocks of seeded uniform noise
+    plus, in pol 0, one tone per channel at guppi_tone_bins; returns the
+    (nchan, ntime, 2, 2) int8 samples of the first GORACLE blocks."""
+    from bifrost_tpu_torch.io import guppi as guppi_io
+    ntime = blocsize * 8 // (nchan * NPOL * 2 * nbits)
+    amp, noise = (40, 20) if nbits == 8 else (4, 3)
+    t = np.arange(ntime)
+    ph = 2 * np.pi * np.outer(guppi_tone_bins(nchan, ntime), t) / ntime
+    tone_re = np.round(amp * np.cos(ph)).astype(np.int8)
+    tone_im = np.round(amp * np.sin(ph)).astype(np.int8)
+    del ph
+    rng = np.random.default_rng(seed)
+    kept = []
+    with open(path, 'wb') as f:
+        for b in range(nblock):
+            v = rng.integers(-noise, noise + 1, size=(nchan, ntime, NPOL, 2),
+                             dtype=np.int8)
+            v[:, :, 0, 0] += tone_re
+            v[:, :, 0, 1] += tone_im
+            guppi_io.write_header(f, guppi_header(nbits, b, nchan,
+                                                  blocsize))
+            if nbits == 8:
+                f.write(v.tobytes())
+            else:
+                u = v.view(np.uint8)
+                f.write((((u[..., 0] & 15) << 4) | (u[..., 1] & 15))
+                        .astype(np.uint8).tobytes())
+            if b < GORACLE:
+                kept.append(v)
+    return kept
+
+
+def guppi_oracle(spec, v, rfactor, nthread=8):
+    """float64 numpy oracle of the chain on one block: (nchan, ntime, 2,
+    2) int8 -> the .fil frame (4, nchan * ntime / r), coarse channel
+    major, by ``spectrometer_oracle`` per channel (chunks of channels in
+    a thread pool: numpy's FFT releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    nchan = v.shape[0]
+    chunk = max(nchan // nthread, 1)
+
+    def one(c0):
+        x = np.ascontiguousarray(v[c0:c0 + chunk].transpose(0, 2, 1, 3))
+        return spec.spectrometer_oracle(x, rfactor)
+    with ThreadPoolExecutor(nthread) as pool:
+        st = np.concatenate(list(pool.map(one, range(0, nchan, chunk))))
+    return st.transpose(1, 0, 2).reshape(4, -1)
+
+
+def fil_expect(nbits, nchan=GCH, blocsize=GBLOCSIZE, rfactor=GR):
+    """The .fil header fields that the Guppi header gives."""
+    ntime = blocsize * 8 // (nchan * NPOL * 2 * nbits)
+    df = GBW / nchan
+    return {'nchans': nchan * ntime // rfactor, 'nifs': 4, 'nbits': 32,
+            'fch1': GFREQ - 0.5 * (nchan - 1) * df,
+            'foff': df * rfactor / ntime,
+            'tsamp': ntime / abs(df * 1e6),
+            'tstart': 58000 + 43200 / 86400.}
+
+
+def check_ci4_devrep(bt, path, v):
+    """The device representation of the file's first ci4 block, unpacked
+    on the card, against a numpy unpacking of the same bytes, bit for
+    bit, and packed back to the same bytes."""
+    from bifrost_tpu_torch import devrep
+    from bifrost_tpu_torch.dtype import ci4
+    from bifrost_tpu_torch.io import guppi as guppi_io
+    with open(path, 'rb') as f:
+        h = guppi_io.read_header(f)
+        raw = np.frombuffer(f.read(h['BLOCSIZE']), np.uint8)
+    s = raw.view(np.int8)
+    want = np.stack([s >> 4, (raw << 4).view(np.int8) >> 4], axis=-1)
+    got = devrep.to_device_rep(raw.view(ci4), 'ci4')
+    require(got.device.type == bt.device.get_device().type,
+            'the ci4 block did not reach the device')
+    require(np.array_equal(got.cpu().numpy(), want),
+            'ci4 device representation differs from the numpy unpacking')
+    require(np.array_equal(want.reshape(v.shape), v),
+            'the ci4 file does not hold the samples written')
+    back = np.zeros(raw.shape, np.uint8)
+    devrep.from_device_rep(got, 'ci4', back)
+    require(back.tobytes() == raw.tobytes(),
+            'ci4 bytes do not survive the device round trip')
+    log('guppi-ci4: device representation of block 0 (%d bytes) equal to '
+        'the numpy unpacking, bit for bit, and packs back to the same '
+        'bytes' % raw.size)
+
+
+def run_guppi_arm(bt, spec, gpu_kernels, nbits, nblock, tmp,
+                  nchan=GCH, blocsize=GBLOCSIZE, rfactor=GR):
+    """Write a GUPPI file, run examples/gpuspec_simple_torch.build() over
+    it with gulp_nframe 1 and check the .fil: header fields, the float64
+    oracle on the first GORACLE blocks, every tone at its bin."""
+    import importlib.util
+    from bifrost_tpu_torch.io import sigproc as sigproc_io
+    arm = 'guppi-ci%d' % nbits
+    here = os.path.dirname(os.path.abspath(__file__))
+    mod = importlib.util.spec_from_file_location(
+        'gpuspec_simple_torch',
+        os.path.join(here, 'examples', 'gpuspec_simple_torch.py'))
+    example = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(example)
+    ntime = blocsize * 8 // (nchan * NPOL * 2 * nbits)
+    path = os.path.join(tmp, 'bl%d.raw' % nbits)
+    t0 = time.perf_counter()
+    kept = write_guppi(path, nbits, nblock, nchan, blocsize)
+    t_write = time.perf_counter() - t0
+    if nbits == 4:
+        check_ci4_devrep(bt, path, kept[0])
+    zero_counts(spec, gpu_kernels)
+    with bt.Pipeline() as p:
+        example.build([path], tmp, gulp_nframe=1, rfactor=rfactor)
+        t0 = time.perf_counter()
+        p.run()
+        secs = time.perf_counter() - t0
+    counts = read_counts(spec, gpu_kernels)
+    msps = nblock * nchan * ntime * NPOL / secs / 1e6
+    per_gulp = {}
+    for blk in p.blocks:
+        tot = blk.perf_totals
+        per_gulp[blk.name] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
+                              for k in ('acquire', 'reserve', 'process')}
+    fil = path + '.fil'
+    with sigproc_io.SigprocFile(fil) as f:
+        hdr, hsize = f.header, f.header_size
+    expect = fil_expect(nbits, nchan, blocsize, rfactor)
+    for key, want in expect.items():
+        require(np.isclose(hdr[key], want, rtol=1e-12, atol=0),
+                '%s: .fil %s is %r, the Guppi header gives %r'
+                % (arm, key, hdr[key], want))
+    nf = expect['nchans']
+    data = np.fromfile(fil, np.float32, offset=hsize)
+    require(data.size == nblock * 4 * nf, '%s: .fil holds %d values, not '
+            '%d' % (arm, data.size, nblock * 4 * nf))
+    data = data.reshape(nblock, 4, nf)
+    require(np.isfinite(data).all(), '%s: non-finite output' % arm)
+    t0 = time.perf_counter()
+    errs = []
+    for b, v in enumerate(kept):
+        want = guppi_oracle(spec, v, rfactor)
+        errs.append(float(np.abs(data[b] - want).max() /
+                          np.abs(want).max()))
+        require(errs[-1] < GATE, '%s block %d: %.3g of the oracle '
+                '(gate %g)' % (arm, b, errs[-1], GATE))
+    t_oracle = time.perf_counter() - t0
+    peaks = data[:, 0].reshape(nblock, nchan, -1).argmax(-1)
+    bins = guppi_tone_bins(nchan, ntime) // rfactor
+    require((peaks == bins[None]).all(), '%s: %d of %d tones off their bin'
+            % (arm, int((peaks != bins[None]).sum()), peaks.size))
+    os.remove(path)
+    os.remove(fil)
+    log('%s: %d blocks of %d MiB (%d channels x %d samples x 2 pols), '
+        '.fil header as the Guppi header gives it, oracle rel %s (gate %g, '
+        '%d blocks), all %d tones at their bins; launches %s'
+        % (arm, nblock, blocsize >> 20, nchan, ntime,
+           ['%.3g' % e for e in errs], GATE, len(kept), peaks.size,
+           {k: n for k, n in counts.items() if n}))
+    log('%s: %.1f Msamples/s of input, file to file (host-bound rate, '
+        'not comparable with any bench), %.2f s for %d blocks; writing the '
+        'file %.1f s, oracle %.1f s' % (arm, msps, secs, nblock, t_write,
+                                       t_oracle))
+    log_per_gulp(per_gulp)
+    return {'nbits': nbits, 'blocks': nblock, 'ntime': ntime,
+            'msps_file_to_file': msps, 'seconds': secs,
+            'oracle_rel_err': errs, 'host_ms_per_gulp': per_gulp,
+            'launches': {k: n for k, n in counts.items() if n}}
+
+
+def phase_guppi(bt, spec, gpu_kernels):
+    import tempfile
+    import torch
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for nbits in (8, 4):
+            out['ci%d' % nbits] = run_guppi_arm(bt, spec, gpu_kernels,
+                                                nbits, GBLOCKS[nbits], tmp)
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_detect_block(bt, spec, gpu_kernels, smi):
+    """The unfused detect('stokes') block on the (time, pol, freq)
+    complex64 ring that an fft block makes of the spectrometer arm's
+    gulps: K2 once per gulp, every output equal to stokes_detect_plain of
+    the same FFT on the card."""
+    import torch
+    volts = make_gulps(seed=7)
+    header = {'name': 'guppi', 'time_tag': 0,
+              '_tensor': {'shape': [-1, NPOL, NFINE], 'dtype': 'ci8',
+                          'labels': ['time', 'pol', 'fine_time'],
+                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    blocks = []
+
+    def chain(h2d):
+        b = bt.blocks.fft(h2d, 'fine_time', axis_labels='freq')
+        blocks.append(('fft', b))
+        blocks.append(('detect', bt.blocks.detect(b, 'stokes')))
+        return blocks
+
+    ngulp = DWARM + DTIMED
+    zero_counts(spec, gpu_kernels)
+    out, secs, per_gulp = drive(bt, volts, header, chain, nwarm=DWARM,
+                                ntimed=DTIMED)
+    counts = read_counts(spec, gpu_kernels)
+    require(counts['stokes_detect'] == ngulp,
+            'detect-K2: K2 launched %d times for %d gulps'
+            % (counts['stokes_detect'], ngulp))
+    worst = 0.0
+    dev = bt.device.get_device()
+    for k, got in out.items():
+        x = torch.fft.fft(torch.view_as_complex(
+            torch.from_numpy(volts[k % len(volts)]).to(dev).float()), dim=-1)
+        v = torch.view_as_real(x)
+        want = gpu_kernels.stokes_detect_plain(
+            v[:, 0, :, 0], v[:, 0, :, 1], v[:, 1, :, 0],
+            v[:, 1, :, 1]).cpu().numpy()
+        require(got.shape == (NTIME, 4, NFINE) and np.isfinite(got).all(),
+                'detect-K2 gulp %d: bad shape or non-finite output' % k)
+        worst = max(worst, rel_err(got, want))
+    require(worst <= STOKES_RTOL, 'detect-K2 differs from '
+            'stokes_detect_plain: rel %.3g' % worst)
+    msps = DTIMED * NTIME * NPOL * NFINE / secs / 1e6
+    log('detect-K2: fft -> detect(stokes) blocks, K2 launched %d times for '
+        '%d gulps, outputs %s within %.3g of stokes_detect_plain; %.1f '
+        'Msamples/s (%s)' % (counts['stokes_detect'], ngulp,
+                             sorted(out), worst, msps, smi))
+    log_per_gulp(per_gulp)
+    return {'launches': counts['stokes_detect'], 'gulps': ngulp,
+            'max_rel_err': worst, 'msps': msps}
 
 
 def beam_weights(seed=21):
@@ -2663,6 +2943,8 @@ def main():
     k1 = run('K1', phase_spectrometer, spec)
     pipe = run('spectrometer pipeline', phase_pipeline, bt, spec,
                gpu_kernels, smi)
+    guppi = run('guppi', phase_guppi, bt, spec, gpu_kernels)
+    dk2 = run('detect-K2', phase_detect_block, bt, spec, gpu_kernels, smi)
     k4, k5, k6 = run('K4-K6', phase_beamform_kernels, gpu_kernels, beam)
     bpipe = run('beamformer pipeline', phase_beamform_pipeline, bt, spec,
                 gpu_kernels, beam, smi)
@@ -2681,6 +2963,9 @@ def main():
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
+    k2['launches_detect_block'] = dk2['launches']
+    k2['launches_detect_block_of'] = \
+        'the detect-K2 arm (%d gulps, unfused detect block)' % dk2['gulps']
     k4['launches'] = bpipe['launches']['K4']['beamform_int8']
     k5['launches'] = bpipe['launches']['K5']['beamform_bf16']
     k4['launches_vec16'] = bpipe['launches']['K4']['beamform_int8_vec16']
@@ -2727,6 +3012,11 @@ def main():
         'gulps_timed': NTIMED,
         'msps_cuda_spectrometer': pipe['msps_cuda_spectrometer'],
         'msps_torch_fused': pipe['msps_torch_fused']}, 'card': smi}))
+    log(json.dumps({'guppi_pipeline': {
+        'nchan': GCH, 'blocsize': GBLOCSIZE, 'rfactor': GR,
+        'obsfreq_mhz': GFREQ, 'obsbw_mhz': GBW, 'gulp_nframe': 1,
+        'rate': 'Msamples/s of input, file to file, host clock (host-bound)',
+        'arms': guppi, 'detect_k2': dk2}, 'card': smi}))
     log(json.dumps({'beamformer_pipeline': {
         'gulp': [BT, BF, BS, BP], 'nbeam': BB, 'rfactor': BR,
         'gulps_timed': NTIMED, 'arms': bpipe['rates']}, 'card': smi}))

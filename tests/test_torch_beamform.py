@@ -49,6 +49,7 @@ from bifrost_tpu_torch.stages import (BeamformStage, DetectStage,
                                       ReduceStage, SpectrometerPlan,
                                       compose_stages, match_beamformer,
                                       walk_headers)
+from tests.test_torch_bounded import run_bounded
 
 LABELS = ['time', 'freq', 'station', 'pol']
 BEAMFORM_SOURCE = os.path.join(os.path.dirname(gpu_kernels.__file__),
@@ -1293,7 +1294,7 @@ def _port_pipeline(gulps, w, fused_chain, accuracy='int8', impl=None):
                                       ReduceStage('time', R_)])
         b = bt.blocks.copy(b, space='system')
         sink = _Gather(b)
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps), sink.headers[0], blk
 
 
@@ -1311,7 +1312,7 @@ def _jax_pipeline(gulps, w, fused_chain, accuracy='int8', impl=None):
                                     JReduce('time', R_)])
         b = bf.blocks.copy(b, space='system')
         sink = GatherSink(b)
-        p.run()
+        run_bounded(p)
     return sink.result(), sink.headers[0]
 
 

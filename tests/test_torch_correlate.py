@@ -40,6 +40,7 @@ from bifrost_tpu_torch.ops import quantize as Q
 from bifrost_tpu_torch.ops.fft import fftn_dispatch
 from bifrost_tpu_torch.stages import (QuantizeStage, CorrelateStage,
                                       AccumulateStage)
+from tests.test_torch_bounded import run_bounded
 
 
 @pytest.fixture(autouse=True)
@@ -657,7 +658,7 @@ def _run_port_chain(gulps, accuracy='int8', impl=None):
                                 fusable=True)
         b = bt.blocks.accumulate(b, CA, fusable=True)
         sink = _Gather(bt.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps), sink.headers
 
 
@@ -670,7 +671,7 @@ def _run_jax_chain(gulps, accuracy='int8'):
         b = bf.blocks.correlate(b, CR, accuracy=accuracy, fusable=True)
         b = bf.blocks.accumulate(b, CA, fusable=True)
         sink = GatherSink(bf.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     return sink.result(), sink.headers
 
 
@@ -741,7 +742,7 @@ def test_correlate_block_integrates_across_gulps_like_jax(impl):
         b = bt.blocks.copy(src, space='cuda')
         corr = bt.blocks.correlate(b, 64, accuracy='int8', impl=impl)
         sink = _Gather(bt.blocks.copy(corr, space='system'))
-        p.run()
+        run_bounded(p)
     got = np.concatenate(sink.gulps)
     assert corr._gemm_ops == 8 * 16 * 8 * 6 ** 2
     with bf.Pipeline() as p:
@@ -749,7 +750,7 @@ def test_correlate_block_integrates_across_gulps_like_jax(impl):
         b = bf.blocks.copy(src, space='tpu')
         b = bf.blocks.correlate(b, 64, accuracy='int8')
         jsink = GatherSink(bf.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     np.testing.assert_array_equal(got, jsink.result())
     assert sink.headers[0]['_tensor'] == jsink.headers[0]['_tensor']
     raw = np.concatenate(gulps)
@@ -764,9 +765,7 @@ def test_correlate_block_refuses_gulp_not_dividing_integration():
             src = _Source(gulps, _corr_hdr(8, 3, 2, gulp=16), 16)
             b = bt.blocks.copy(src, space='cuda')
             _Gather(bt.blocks.correlate(b, 24))
-            p.run()
-
-
+            run_bounded(p)
 @pytest.mark.parametrize('space', ['cuda', 'system'])
 def test_accumulate_block_matches_jax(space):
     rng = np.random.RandomState(21)
@@ -778,14 +777,14 @@ def test_accumulate_block_matches_jax(space):
         b = bt.blocks.copy(src, space=space)
         b = bt.blocks.accumulate(b, 4)
         sink = _Gather(bt.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     jspace = 'tpu' if space == 'cuda' else 'system'
     with bf.Pipeline() as p:
         src = NumpySourceBlock(gulps, hdr, gulp_nframe=4)
         b = bf.blocks.copy(src, space=jspace)
         b = bf.blocks.accumulate(b, 4)
         jsink = GatherSink(bf.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     got = np.concatenate(sink.gulps)
     assert got.shape == (2, 5)
     np.testing.assert_array_equal(got, jsink.result())

@@ -36,6 +36,7 @@ from bifrost_tpu_torch import device
 from bifrost_tpu_torch import stages as TS
 from bifrost_tpu_torch.ops import fdmt as TF
 from bifrost_tpu_torch.ops import gpu_kernels, mprobe
+from tests.test_torch_bounded import run_bounded
 
 RTOL = 1e-4
 
@@ -570,7 +571,7 @@ def _run_fdmt_block(pkg, gulps, hdr, gulp, **kw):
         b = pkg.blocks.copy(src, space=space)
         b = pkg.blocks.fdmt(b, **kw)
         sink = sink_cls(pkg.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps, axis=-1), sink.headers
 
 
@@ -698,7 +699,7 @@ def _run_frb(pkg, gulps, thr):
         b = pkg.blocks.matched_filter(b, NTAP)
         b = pkg.blocks.threshold(b, thr)
         sink = sink_cls(pkg.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps, axis=-1), sink.headers
 
 

@@ -23,7 +23,9 @@ def _sources():
     out = [os.path.join(ROOT, f) for f in ('chip_smoke.py',
                                             'chip_k1_variants.py',
                                             'chip_k6_variants.py',
-                                            'chip_k8_variants.py')]
+                                            'chip_k8_variants.py',
+                                            'examples/'
+                                            'gpuspec_simple_torch.py')]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
@@ -54,7 +56,18 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.parallel, bifrost_tpu_torch.parallel.mesh, "
              "bifrost_tpu_torch.parallel.ops, "
              "bifrost_tpu_torch.parallel.corner_turn, "
-             "bifrost_tpu_torch.parallel.scope\n"
+             "bifrost_tpu_torch.parallel.scope, bifrost_tpu_torch.views, "
+             "bifrost_tpu_torch.views.basic_views, "
+             "bifrost_tpu_torch.block_chainer, bifrost_tpu_torch.io.guppi, "
+             "bifrost_tpu_torch.blocks.guppi_raw, "
+             "bifrost_tpu_torch.blocks.unpack, "
+             "bifrost_tpu_torch.blocks.detect, "
+             "bifrost_tpu_torch.blocks.reduce, "
+             "bifrost_tpu_torch.blocks.fftshift, "
+             "bifrost_tpu_torch.blocks.reverse, "
+             "bifrost_tpu_torch.blocks.scrunch, "
+             "bifrost_tpu_torch.blocks.print_header, "
+             "bifrost_tpu_torch.ops.fft, bifrost_tpu_torch.ops.reduce\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr

@@ -31,6 +31,7 @@ from bifrost_tpu_torch.blocks.correlate import CorrelateBlock
 from bifrost_tpu_torch.ops import gpu_kernels, mprobe
 from bifrost_tpu_torch.ops import linalg as L
 from bifrost_tpu_torch.parallel import ops as pops
+from tests.test_torch_bounded import run_bounded
 
 from tests.util import NumpySourceBlock, GatherSink, simple_header
 
@@ -251,7 +252,7 @@ def _run(pkg, mesh, gulps, hdr, nint, accuracy='int8', blocks=None):
         if blocks is not None:
             blocks.append(b)
         sink = sink_cls(pkg.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     if pkg is bt:
         return np.concatenate(sink.gulps)
     return sink.result()
@@ -498,7 +499,7 @@ def _run_port_fdmt(mesh, x, gulp, md, **kw):
         with bt.block_scope(mesh=mesh):
             blk = bt.blocks.fdmt(b, max_delay=md, **kw)
         sink = _Gather(bt.blocks.copy(blk, space='system'))
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps, axis=-1), blk
 
 

@@ -32,6 +32,7 @@ from bifrost_tpu_torch.ops import spectrometer as spec
 from bifrost_tpu_torch.stages import (FftStage, DetectStage, ReduceStage,
                                       SpectrometerPlan, compose_stages,
                                       walk_headers)
+from tests.test_torch_bounded import run_bounded
 
 NT, NPOL, NFINE, RF, NGULP = 16, 2, 256, 4, 3
 GATE = 1e-5
@@ -108,7 +109,7 @@ def _run_port(gulps, substitute):
                              substitute=substitute)
         b = bt.blocks.copy(fb, space='system')
         sink = _Gather(b)
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps), sink.headers[0], fb.impl_info
 
 
@@ -121,7 +122,7 @@ def _run_jax(gulps):
                                 JReduce('freq', RF)])
         b = bf.blocks.copy(b, space='system')
         sink = GatherSink(b)
-        p.run()
+        run_bounded(p)
     return sink.result(), sink.headers[0]
 
 
@@ -227,4 +228,4 @@ def test_failing_block_raises_from_run():
         b = Boom(src)
         _Gather(b)
         with pytest.raises(bt.PipelineRuntimeError, match='boom'):
-            p.run()
+            run_bounded(p)

@@ -14,6 +14,8 @@ import torch
 from bifrost_tpu_torch import device
 from bifrost_tpu_torch.ring import Ring, WouldBlock
 
+from tests.test_torch_bounded import join_bounded
+
 SPACES = ['system', 'cuda']
 
 
@@ -76,7 +78,7 @@ def test_write_read_simple(space):
         seq.resize(gulp_nframe=8)
         for span in seq.read(8):
             received.append(_get(span))
-    t.join()
+    join_bounded(t)
     assert len(received) == 4
     np.testing.assert_array_equal(received[2],
                                   np.arange(32).reshape(8, 4) + 200)
@@ -105,7 +107,7 @@ def test_partial_final_span(space):
         for span in seq.read(8):
             sizes.append(span.nframe)
             last = _get(span)
-    t.join()
+    join_bounded(t)
     assert sizes == [8, 3]
     np.testing.assert_array_equal(last, np.full((3, 2), 2.0, np.float32))
 
@@ -131,7 +133,7 @@ def test_multiple_sequences(space):
         seq.resize(gulp_nframe=4)
         for span in seq.read(4):
             names.append((seq.header['name'], float(_get(span).ravel()[0])))
-    t.join()
+    join_bounded(t)
     assert names == [('seq0', 0.0), ('seq1', 1.0), ('seq2', 2.0)]
 
 
@@ -157,7 +159,7 @@ def test_overlap_read(space):
         seq.resize(gulp_nframe=8, buffer_factor=4)
         for span in seq.read(8, stride=6):
             got.append(_get(span)[:, 0])
-    t.join()
+    join_bounded(t)
     np.testing.assert_array_equal(got[0], np.arange(8))
     np.testing.assert_array_equal(got[1], np.arange(6, 14))
     # the last span runs into the end of the sequence
@@ -226,7 +228,7 @@ def test_ringlets(space):
             d = _get(span)
             assert d.shape == (2, 4, 3)
             assert np.all(d[0] == 1.0) and np.all(d[1] == 2.0)
-    t.join()
+    join_bounded(t)
 
 
 def test_host_ghost_region_wrap():
@@ -255,7 +257,7 @@ def test_host_ghost_region_wrap():
         attached.set()
         for span in seq.read(6):
             got.append(_get(span)[:, 0])
-    t.join()
+    join_bounded(t)
     assert ring.total_span == 16 * 4
     np.testing.assert_array_equal(np.concatenate(got), np.arange(30))
 
@@ -280,7 +282,7 @@ def test_unguaranteed_overwrite_skip(space):
 
     t = _run_writer(writer)
     start_reading.wait()
-    t.join()     # let the writer lap the reader completely
+    join_bounded(t)     # let the writer lap the reader completely
     skipped_total = frames = 0
     for seq in ring.read(guarantee=False):
         seq.resize(gulp_nframe=4, buffer_factor=2)
@@ -358,7 +360,7 @@ def test_partial_commit_on_newest_span_ok(space):
         seq.resize(gulp_nframe=8)
         for span in seq.read(8):
             got.append(_get(span).shape[0])
-    t.join()
+    join_bounded(t)
     assert got == [3]
 
 

