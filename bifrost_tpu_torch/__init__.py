@@ -6,7 +6,10 @@ ring buffers, one thread per block, device work on an NVIDIA H100
 beside the JAX package ``bifrost_tpu`` and imports nothing of it.  It
 carries, so far, what the Guppi spectrometer chain, the quantized
 coherent beamformer chain, the FX correlator and FDMT dedispersion
-(from a SIGPROC filterbank, and in the FRB search) need::
+(from a SIGPROC filterbank, and in the FRB search) need, and the rest of
+the DSP library (``map`` and ``stages.MapStage``, FIR, Romein gridding,
+packed quantize outputs, ``convert_visibilities``, the serialize, binary
+and WAV file blocks, the DFT-matmul FFT)::
 
     source -> copy('cuda') -> fused[FftStage -> DetectStage('stokes')
                                     -> ReduceStage('freq', r)]
@@ -26,7 +29,7 @@ coherent beamformer chain, the FX correlator and FDMT dedispersion
 
     source -> copy('cuda') -> fft(fine -> freq) -> quantize('ci8')
            -> correlate(R, fusable=True) -> accumulate(A, fusable=True)
-           -> copy('system') -> sink
+           -> convert_visibilities('storage') -> copy('system') -> sink
 
 (or the stateful ``correlate(N)`` integrating across gulps).
 
@@ -51,6 +54,7 @@ from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
                        get_default_pipeline, PipelineInitError,
                        PipelineRuntimeError)
 from .ring import Ring, EndOfDataStop
+from .ops.map import map, clear_map_cache, list_map_cache
 
 __version__ = '0.1.0'
 
@@ -59,4 +63,4 @@ __all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages', 'views',
            'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
            'block_view', 'get_default_pipeline',
            'PipelineInitError', 'PipelineRuntimeError', 'Ring',
-           'EndOfDataStop']
+           'EndOfDataStop', 'map', 'clear_map_cache', 'list_map_cache']

@@ -21,6 +21,14 @@ from .sigproc import (SigprocSourceBlock, SigprocSinkBlock, read_sigproc,
 from .fdmt import (FdmtBlock, fdmt, FdmtStageBlock, fdmt_stage,
                    MatchedFilterBlock, matched_filter, ThresholdBlock,
                    threshold)
+from .fir import FirBlock, fir
+from .binary_io import (BinaryFileReadBlock, BinaryFileWriteBlock,
+                        binary_read, binary_write)
+from .serialize import (SerializeBlock, DeserializeBlock, serialize,
+                        deserialize)
+from .wav import WavSourceBlock, WavSinkBlock, read_wav, write_wav
+from .convert_visibilities import (ConvertVisibilitiesBlock,
+                                   convert_visibilities)
 
 __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'beamform', 'FftBlock', 'fft', 'DetectBlock', 'detect',
@@ -35,4 +43,8 @@ __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'SigprocSinkBlock', 'read_sigproc', 'write_sigproc',
            'FdmtBlock', 'fdmt', 'FdmtStageBlock', 'fdmt_stage',
            'MatchedFilterBlock', 'matched_filter', 'ThresholdBlock',
-           'threshold']
+           'threshold', 'FirBlock', 'fir', 'BinaryFileReadBlock',
+           'BinaryFileWriteBlock', 'binary_read', 'binary_write',
+           'SerializeBlock', 'DeserializeBlock', 'serialize', 'deserialize',
+           'WavSourceBlock', 'WavSinkBlock', 'read_wav', 'write_wav',
+           'ConvertVisibilitiesBlock', 'convert_visibilities']

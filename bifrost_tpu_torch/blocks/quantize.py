@@ -1,12 +1,12 @@
-"""Quantization block: float -> int with scale (the port of
+"""Quantization block: float -> (packed) int with scale (the port of
 ``bifrost_tpu/blocks/quantize.py``; reference:
 python/bifrost/blocks/quantize.py).
 
 The device math lives in :class:`bifrost_tpu_torch.stages.QuantizeStage`:
 in the FX-correlator chain the channelizer's cf32 spectra requantize to
 ci8 between the F and X steps.  Host rings use
-:func:`bifrost_tpu_torch.ops.quantize.quantize` (whole-byte types only:
-packed outputs are not ported yet).
+:func:`bifrost_tpu_torch.ops.quantize.quantize`, packed 1/2/4-bit and
+ci1/ci2/ci4 outputs included.
 """
 
 from __future__ import annotations
@@ -41,5 +41,5 @@ class QuantizeBlock(_StageBlock):
 
 
 def quantize(iring, dtype, scale=1., *args, **kwargs):
-    """Block: quantize data to a smaller dtype."""
+    """Block: quantize data to a smaller (possibly packed) dtype."""
     return QuantizeBlock(iring, dtype, scale, *args, **kwargs)

@@ -6,10 +6,11 @@ dst = clip(round(src * scale)) at the limits of dst's integer type.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.  The port
 carries :func:`_clip_limits`, the device math :func:`quantize_tensor`
 that :class:`~bifrost_tpu_torch.stages.QuantizeStage` runs,
-:func:`quantize` into host arrays of whole-byte types, and
-:func:`unpack`, which expands packed or complex-integer data into a
-wider type.  Packed 1/2/4-bit outputs (``_pack_into``) are not ported
-yet.
+:func:`quantize` into tensors and host arrays of every type, packed
+1/2/4-bit and ci1/ci2/ci4 included (packed on the device by
+``devrep.pack_tensor``; :func:`_pack_into` is the host packer, LSB-first
+fields), and :func:`unpack`, which expands packed or complex-integer data
+into a wider type.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..dtype import DataType
-from .common import as_logical_numpy, from_logical_numpy
+from .common import as_logical, as_logical_numpy, from_logical_numpy
+from .map import _from_logical
 
 __all__ = ['quantize', 'quantize_tensor', 'unpack']
 
@@ -53,30 +55,32 @@ def quantize_tensor(x, dtype, scale=1.):
 
 
 def quantize(src, dst, scale=1.):
-    """dst = clip(round(src * scale)) in dst's dtype: ``src`` a tensor, a
-    numpy array or a host ndarray; ``dst`` a host ndarray (its buffer is
-    filled) (reference: python/bifrost/quantize.py)."""
+    """dst = clip(round(src * scale)) in dst's (possibly packed) dtype
+    (reference: python/bifrost/quantize.py).  ``src`` is a tensor, a
+    numpy array or a host ndarray, moved to the process's device; ``dst``
+    is a tensor in the device representation of its type (written in
+    place) or a host ndarray (its storage is filled; packed types are
+    packed on the device)."""
     import torch
+    from ..devrep import from_device_rep
     from ..ndarray import ndarray
-    if dst.dtype.nbits < 8:
-        raise NotImplementedError("quantize: packed %s output is not "
-                                  "ported yet" % dst.dtype)
-    if isinstance(src, ndarray):
-        buf = src.as_numpy()
-        if buf.dtype.names is not None:            # ci host storage
-            comp = buf.view(buf.dtype[0]).reshape(buf.shape + (2,))
-            src = np.empty(buf.shape, np.complex64)
-            src.real, src.imag = comp[..., 0], comp[..., 1]
-        else:
-            src = buf
-    if not isinstance(src, torch.Tensor):
-        src = torch.from_numpy(np.ascontiguousarray(src))
-    y = quantize_tensor(src, dst.dtype, scale).cpu().numpy()
-    out = dst.as_numpy()
-    if out.dtype.names is not None:
-        out = out.view(out.dtype[0]).reshape(out.shape + (2,))
-    out[...] = y.reshape(out.shape)
+    x = as_logical(src)
+    if isinstance(dst, torch.Tensor):
+        ddt = DataType(torch.empty(0, dtype=dst.dtype).numpy().dtype)
+        dst.copy_(quantize_tensor(x, ddt, scale))
+        return dst
+    ddt = dst.dtype if isinstance(dst, ndarray) else DataType(dst.dtype)
+    buf = dst.as_numpy() if isinstance(dst, ndarray) else dst
+    from_device_rep(quantize_tensor(x, ddt, scale).contiguous(), ddt, buf)
     return dst
+
+
+def _pack_into(vals, dtype, out_buf):
+    """Pack integer-valued logical values into (possibly sub-byte) host
+    storage, as the JAX package does (``bifrost_tpu/ops/quantize.py:77``):
+    sample k of a byte in bits [k*nbits, (k+1)*nbits); ci1/ci2/ci4 as
+    one 2*nbits field a sample, re in its high half."""
+    _from_logical(np.asarray(vals), DataType(dtype), out_buf=out_buf)
 
 
 def unpack(src, dst):

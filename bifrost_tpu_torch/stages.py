@@ -19,7 +19,8 @@ every mode and op of the JAX package), the data-movement stages
 (FFT, :class:`QuantizeStage`, :class:`CorrelateStage`,
 :class:`AccumulateStage`) and the FRB search (:class:`FdmtStage`,
 :class:`MatchedFilterStage`, :class:`ThresholdStage`, with
-:func:`chain_overlap_nframe`).  ``MapStage`` is not ported yet.
+:func:`chain_overlap_nframe`) and :class:`MapStage`, a user's bf.map
+expression as a stage.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .units import convert_units, transform_units
 
 __all__ = ['Stage', 'FftStage', 'DetectStage', 'ReduceStage',
            'FftShiftStage', 'ReverseStage', 'ScrunchStage', 'TransposeStage', 'BeamformStage', 'QuantizeStage',
-           'CorrelateStage', 'AccumulateStage', 'FdmtStage',
+           'CorrelateStage', 'AccumulateStage', 'MapStage', 'FdmtStage',
            'MatchedFilterStage', 'ThresholdStage', 'chain_overlap_nframe',
            'SpectrometerPlan', 'walk_headers', 'compose_stages',
            'match_spectrometer', 'match_beamformer']
@@ -704,6 +705,60 @@ class AccumulateStage(ReduceStage):
     def __init__(self, nframe, op='sum'):
         super(AccumulateStage, self).__init__('time', factor=int(nframe),
                                               op=op)
+
+
+class MapStage(Stage):
+    """User-defined elementwise stage: a bf.map expression reading 'a'
+    (the input) and writing 'b' (the output), evaluated with torch ops on
+    the input's device (``bifrost_tpu/stages.py:747-788``).  ``dtype``
+    sets the output type (the input's by default); ``scalars`` names
+    constants the expression reads.  Composes with its neighbours in
+    :func:`compose_stages` and ``fused(...)``."""
+
+    batch_safe = True
+
+    def __init__(self, func_string, dtype=None, scalars=None):
+        self.func_string = func_string
+        self.dtype = dtype
+        self.scalars = dict(scalars or {})
+
+    def transform_header(self, hdr):
+        ohdr = deepcopy(hdr)
+        if self.dtype is not None:
+            ohdr['_tensor']['dtype'] = str(DataType(self.dtype))
+        self.otype = DataType(ohdr['_tensor']['dtype'])
+        return ohdr
+
+    def build(self, in_meta):
+        from .ops.map import _Eval, _logical_dtype, _to_device_rep, _Unsigned
+        from .ops.map_lang import compile_map
+        pre = _complexify_fn(in_meta)
+        body = compile_map(self.func_string, ['a', 'b'] +
+                           list(self.scalars))
+        otype = self.otype
+        idt = in_meta['dtype']
+        # a_type is the input's logical type after complexification
+        atype = idt.as_floating_point() if idt.kind == 'ci' else idt
+        scalars = dict(self.scalars)
+        lshape = tuple(in_meta['shape'][:len(in_meta['shape']) -
+                                        (1 if in_meta.get('reim') else 0)])
+        ldt = _logical_dtype(otype)
+        unsigned = {'b': ldt} if isinstance(ldt, _Unsigned) else {}
+
+        def fn(x):
+            import torch
+            x = pre(x)
+            ev = _Eval(lshape, None, {'a': x}, scalars,
+                       {'a': atype, 'b': otype}, {}, device=x.device,
+                       unsigned=unsigned)
+            ev.out = {'b': torch.zeros(
+                x.shape, dtype=torch.int64 if unsigned else ldt,
+                device=x.device)}
+            ev.writable.add('b')
+            ev.run(body)
+            return _to_device_rep(ev.out['b'], otype).to(
+                otype.as_torch_dtype())
+        return fn
 
 
 def chain_overlap_nframe(stages):

@@ -45,6 +45,17 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
 5b. drives copy('cuda') -> fft -> detect('stokes') (unfused) ->
    copy('system') on the spectrometer arm's gulps: K2 must launch once
    per gulp and every output equal stokes_detect_plain;
+5c. runs bf.map (bifrost_tpu_torch.map) on a spectrometer gulp: the
+   polarisation products of tests/test_map.py on its complex64
+   voltages (equal to torch's products and to numpy on 64 rows: every
+   product of these integers is exact), the fftshift index vector along
+   the 4096 axis (equal to torch.fft.fftshift) and the ci8 expression on
+   the raw gulp from host memory (equal to the unpacked gulp), each
+   timed; dft_matmul_fft on the gulp's 4096-point rows within 1e-4 of
+   torch.fft.fft, timed beside it; and fused([FftStage, MapStage('b =
+   a.mag2()', dtype='f32'), ReduceStage('freq', 4)]) through the
+   pipeline (1 warm-up and 3 timed gulps) within 1e-5 of a float64
+   |FFT|^2 summed by 4 on 64 rows;
 6. runs the beamformer kernels at the full-width shapes of BASELINE
    config 4 (512 frames x 512 channels x 256 stations x 2 pols ci8, 64
    beams, R=8): K4 (int8, one int8 tensor-core GEMM over every channel)
@@ -77,6 +88,10 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    arm leaves the candidate to the engine's race, in a fresh probe-cache
    directory, prints each candidate's ms and its choice and stays inside
    the int8 class;
+7a. drives a 16-tap FIR block over 3 ci8 gulps of that shape, taps per
+   (channel, station, pol) at decim 1 and then shared taps at decim 4,
+   each within 1e-5 of a float64 oracle over the concatenated stream on
+   4 channels, across the gulp boundaries; times Fir.execute on a gulp;
 8. checks the capability probe K0: available() is True on the card and
    launches the probe kernel once (a second call is cached); times it
    one call bracketed, queued and replayed from a CUDA graph (device time
@@ -107,6 +122,18 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    the int64 oracle; the cross family of xcorr_int8 runs K8 on the four
    station-row blocks of a gulp, as the station-sharded plan calls it,
    each launch on row-block jobs;
+10a. drives the fx-K7 arm's chain followed by
+   convert_visibilities('storage'), as examples/fx_correlator.py builds
+   it (1 warm-up and 2 timed gulps, 1.08 GB of storage each): one K7
+   launch per gulp, every storage output equal value for value to the
+   numpy conversion of the FX oracle's visibilities, a storage -> matrix
+   round trip on the card equal to the oracle's full matrix; prints the
+   D2H ms per gulp beside fx-K7's;
+10b. grids 64 channels of 32,896 points (config 5's baselines with the
+   autos) through 7 x 7 complex64 kernels onto a 1024 x 1024 grid with
+   ops.romein.Romein (537 MB of grid), within 1e-5 of a float64
+   scatter on 2 channels, and again with accumulate=True (the grid
+   doubles); each execute timed;
 11. runs K3 (the FDMT merge step) over every step of three plans at the
    full-width span (16384 + 1970 frames): 4096 channels over 1200-1600
    MHz to max_delay 1970, the same band in 3000 channels (passthrough
@@ -156,9 +183,10 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    fdmt(max_delay=1970) -> copy('system'), K3 forced, under an {'sp': 2}
    mesh of the card (spans of 2 x 9177 frames) and without a mesh: every
    span bit-identical;
-16. prints a JSON line of pipeline rates per chain, one JSON line of
-   per-kernel numbers ({"kernels": [...]}, K0-K9), the nvidia-smi line,
-   and as the last line {"ok": true, "device": {...}}.
+16. prints a JSON line of pipeline rates per chain, one of the DSP
+   library phases' numbers, one JSON line of per-kernel numbers
+   ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
+   line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line; with no
 CUDA device it exits 1 at once.
@@ -241,6 +269,20 @@ GBLOCKS = {8: 4, 4: 2}
 GORACLE = 2
 # the unfused detect('stokes') arm: the spectrometer arm's gulps
 DWARM, DTIMED = 1, 3
+# the DSP library: map and MapStage on the spectrometer arm's gulps (the
+# fused map arm 1 warm-up and 3 timed gulps); the FX chain ending in
+# convert_visibilities('storage') (1 warm-up and 2 timed gulps, 1.08 GB
+# of storage each); a 16-tap FIR over 3 beamformer gulps, held to the
+# float64 oracle on FIR_CHANNELS; Romein gridding of config 5's 32,896
+# baselines (autos included) with 7 x 7 kernels onto a 1024 x 1024 grid
+# for 64 channels at once (537 MB of grid), held to a float64 scatter on
+# ROMEIN_ORACLE channels
+PWARM, PTIMED = 1, 3
+SWARM, STIMED = 1, 2
+FIR_TAPS, FIR_DECIM, FIR_CHANNELS = 16, 4, (0, 171, 340, 511)
+RNPTS, RKSIZE, RNGRID, RNCHAN, ROMEIN_ORACLE = XS * (XS + 1) // 2, 7, \
+    1024, 64, 2
+DFT_GATE = 1e-4
 
 
 def log(*args):
@@ -1771,7 +1813,8 @@ def run_fx_arm(bt, gulps, arm):
                                     XSTIMED, per_out=XSINT // XST)
         return out, secs, per_gulp, engine_info(blocks)
     accuracy, impl = {'fx-K7': ('int8', 'pallas'), 'fx-race': ('int8', None),
-                      'fx-f32': ('f32', 'xla')}[arm]
+                      'fx-f32': ('f32', 'xla'),
+                      'fx-storage': ('int8', 'pallas')}[arm]
     header = fx_header(['time', 'fine', 'station', 'pol'], XT)
 
     def chain(h2d):
@@ -1782,10 +1825,16 @@ def run_fx_arm(bt, gulps, arm):
         b = bt.blocks.correlate(b, XR, accuracy=accuracy, impl=impl,
                                 fusable=True)
         blocks.append(('correlate', b))
-        blocks.append(('accumulate', bt.blocks.accumulate(b, XA,
-                                                          fusable=True)))
+        b = bt.blocks.accumulate(b, XA, fusable=True)
+        blocks.append(('accumulate', b))
+        if arm == 'fx-storage':
+            # examples/fx_correlator.py's chain ends in the storage format
+            blocks.append(('convert', bt.blocks.convert_visibilities(
+                b, 'storage')))
         return blocks
-    out, secs, per_gulp = drive(bt, gulps, header, chain, XWARM, XTIMED)
+    nwarm, ntimed = (SWARM, STIMED) if arm == 'fx-storage' else \
+        (XWARM, XTIMED)
+    out, secs, per_gulp = drive(bt, gulps, header, chain, nwarm, ntimed)
     return out, secs, per_gulp, engine_info(blocks)
 
 
@@ -1862,7 +1911,7 @@ def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
     key = [k for k in rates['fx-race']['info']['probe_ms']]
     require(key and 'pallas' in rates['fx-race']['info']['probe_ms'][key[0]],
             'fx-race: K7 did not race: %s' % rates['fx-race']['info'])
-    del ref, oracle
+    del ref
     torch.cuda.empty_cache()
 
     # BASELINE config 5's X step alone: the stateful block over 64-frame
@@ -1914,7 +1963,8 @@ def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
     runs['x-stateful'] = counts
     del out
     torch.cuda.empty_cache()
-    return {'rates': rates, 'launches': runs}
+    return {'rates': rates, 'launches': runs, 'gulps': gulps,
+            'oracle': oracle}
 
 
 def phase_xcorr_int8(L, gpu_kernels):
@@ -2896,6 +2946,355 @@ def phase_fdmt_mesh(bt, spec, gpu_kernels, F, par, smi):
     return {'rates': rates}
 
 
+# ---------------------------------------------------------------------------
+# the DSP library: map, the FX chain's storage format, FIR, Romein
+# ---------------------------------------------------------------------------
+
+def event_ms(fn):
+    """(result, milliseconds) of one call of ``fn`` bracketed by CUDA
+    events."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+POL_PRODUCTS = """
+    auto x = a(_,0);
+    auto y = a(_,1);
+    b(_,0).assign(x.mag2(), y.mag2());
+    b(_,1) = x*y.conj();
+    """
+
+
+def phase_map(bt, smi):
+    """bf.map on the spectrometer arm's gulp (16384 x 2 x 4096 ci8): the
+    polarisation products of tests/test_map.py on its complex64 voltages,
+    the fftshift index vector along the 4096 axis, and the ci8 expression
+    on the raw gulp from host memory; then fused([FFT, MapStage('b =
+    a.mag2()'), reduce(freq, 4)]) through the pipeline against a float64
+    oracle, and dft_matmul_fft against torch.fft.fft on the gulp's rows."""
+    import torch
+    from bifrost_tpu_torch.ndarray import ndarray
+    from bifrost_tpu_torch.ops import map as M
+    from bifrost_tpu_torch.ops.fft import dft_matmul_fft
+    from bifrost_tpu_torch.stages import FftStage, MapStage, ReduceStage
+    dev = bt.device.get_device()
+    volts = make_gulps(seed=17)
+    raw = volts[0]
+    v = torch.view_as_complex(torch.from_numpy(raw).to(dev).float())
+    ms = {}
+    # the polarisation products, pol last: (T, F, 2)
+    a = v.permute(0, 2, 1).contiguous()
+    b = torch.empty_like(a)
+    ms['pol_products'] = cuda_ms(lambda: M.map(
+        POL_PRODUCTS, {'a': a, 'b': b}, shape=a.shape[:2]), runs=3, warm=1)
+    x, y = a[..., 0], a[..., 1]
+    require(torch.equal(b[..., 0], torch.complex(x.real ** 2 + x.imag ** 2,
+                                                 y.real ** 2 + y.imag ** 2))
+            and torch.equal(b[..., 1], x * y.conj()),
+            'map: polarisation products differ from the torch products')
+    h = a[:ORACLE_NTIME].cpu().numpy()
+    m2 = lambda z: z.real ** 2 + z.imag ** 2
+    want = np.stack([m2(h[..., 0]) + 1j * m2(h[..., 1]),
+                     h[..., 0] * h[..., 1].conj()], -1)
+    require(np.array_equal(b[:ORACLE_NTIME].cpu().numpy(), want),
+            'map: polarisation products differ from numpy')
+    del a, b, x, y
+    # the fftshift index vector along the 4096 axis
+    out = torch.empty_like(v)
+    ms['fftshift'] = cuda_ms(lambda: M.map(
+        'b(t,p,f) = a(t,p,f-a.shape(2)/2)', {'a': v, 'b': out},
+        shape=v.shape, axis_names=('t', 'p', 'f')), runs=3, warm=1)
+    require(torch.equal(out, torch.fft.fftshift(v, dim=2)),
+            'map: the fftshift index vector differs from torch.fft.fftshift')
+    del out
+    # the ci8 expression on the raw gulp, from host memory
+    flat = raw.view(np.dtype([('re', 'i1'), ('im', 'i1')])).reshape(-1)
+    c = torch.empty(flat.shape[0], dtype=torch.complex64, device=dev)
+    ms['ci8'] = cuda_ms(lambda: M.map(
+        'b(i) = a(i)', {'a': ndarray(flat, dtype='ci8'), 'b': c},
+        shape=flat.shape, axis_names=('i',)), runs=3, warm=1)
+    require(torch.equal(c, v.reshape(-1)),
+            'map: the ci8 expression differs from the unpacked gulp')
+    del c
+    log('map (16384 x 2 x 4096; medians of 3 after a warm-up): polarisation '
+        'products %.2f ms, equal to torch and to numpy on %d rows; fftshift '
+        'along 4096 %.2f ms, equal to torch.fft.fftshift; ci8 from host '
+        '%.2f ms, equal to the unpacked gulp (%s)' % (ms['pol_products'], ORACLE_NTIME,
+                                ms['fftshift'], ms['ci8'], smi))
+    # DFT-matmul FFT on the gulp's 4096-point rows
+    ref = torch.fft.fft(v, dim=-1)
+    got = dft_matmul_fft(v, -1)
+    dft_rel = float((got - ref).abs().max() / ref.abs().max())
+    del got, ref
+    require(dft_rel < DFT_GATE, 'dft_matmul_fft differs from torch.fft.fft: '
+            'rel %.3g' % dft_rel)
+    ms['dft_matmul_fft'] = cuda_ms(lambda: dft_matmul_fft(v, -1), runs=5)
+    ms['cufft'] = cuda_ms(lambda: torch.fft.fft(v, dim=-1), runs=5)
+    log('dft_matmul_fft (4096 = 64 x 64) on 32768 rows: rel %.3g of '
+        'torch.fft.fft, %.3f ms against cuFFT %.3f ms (%s)'
+        % (dft_rel, ms['dft_matmul_fft'], ms['cufft'], smi))
+    del v
+    torch.cuda.empty_cache()
+    # MapStage fused between the FFT and the reduce, through the pipeline
+    header = {'name': 'guppi', 'time_tag': 0,
+              '_tensor': {'shape': [-1, NPOL, NFINE], 'dtype': 'ci8',
+                          'labels': ['time', 'pol', 'fine_time'],
+                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    blocks = []
+
+    def chain(h2d):
+        blocks.append(('fused', bt.blocks.fused(
+            h2d, [FftStage('fine_time', axis_labels='freq'),
+                  MapStage('b = a.mag2()', dtype='f32'),
+                  ReduceStage('freq', RFACTOR)])))
+        return blocks
+    outs, secs, per_gulp = drive(bt, volts, header, chain, PWARM, PTIMED)
+    info = blocks[0][1].impl_info
+    require(info.get('impl') == 'torch-fused', 'map arm planned %s' % info)
+    worst = 0.0
+    for k, o in outs.items():
+        require(o.shape == (NTIME, NPOL, NFINE // RFACTOR) and
+                o.dtype == np.float32 and np.isfinite(o).all(),
+                'map arm output %d: bad shape, type or values' % k)
+        g = volts[k % len(volts)][:ORACLE_NTIME].astype(np.float64)
+        spec64 = np.fft.fft(g[..., 0] + 1j * g[..., 1], axis=-1)
+        want = (np.abs(spec64) ** 2).reshape(
+            ORACLE_NTIME, NPOL, NFINE // RFACTOR, RFACTOR).sum(-1)
+        worst = max(worst, rel_err(o[:ORACLE_NTIME], want))
+    require(worst < GATE, 'map arm differs from the float64 oracle: %.3g'
+            % worst)
+    msps = PTIMED * NTIME * NPOL * NFINE / secs / 1e6
+    log('map arm fused[FFT -> MapStage(mag2) -> reduce(freq, 4)]: impl %s, '
+        'outputs %s within %.3g of the float64 oracle on %d rows, %.1f '
+        'Msamples/s (%s)' % (info, sorted(outs), worst, ORACLE_NTIME, msps,
+                             smi))
+    log_per_gulp(per_gulp)
+    del blocks
+    return {'ms': ms, 'dft_rel_err': dft_rel, 'map_arm_rel_err': worst,
+            'map_arm_msps': msps, 'map_arm_per_gulp_ms': per_gulp}
+
+
+def storage_numpy(full, b_i, b_j):
+    """numpy matrix -> storage conversion of a full Hermitian
+    (t, f, S, 2, S, 2) visibility: Stokes I, Q, U, V of each baseline,
+    four (t, f, nbl) arrays (a storage output's [..., k] swapped on its
+    last two axes)."""
+    t, f, nstand = full.shape[:3]
+    n = 2 * nstand
+    p = np.arange(2)
+    idx = ((2 * b_i[:, None, None] + p[None, :, None]) * n +
+           2 * b_j[:, None, None] + p[None, None, :]).ravel()
+    v = np.take(full.reshape(t, f, n * n), idx, axis=2) \
+        .reshape(t, f, len(b_i), 2, 2)
+    xx, xy, yx, yy = v[..., 0, 0], v[..., 0, 1], v[..., 1, 0], v[..., 1, 1]
+    return [xx + yy, xx - yy, xy + yx, (xy - yx) * 1j]
+
+
+def phase_fx_storage(bt, spec, gpu_kernels, fx, smi):
+    """The fx-K7 arm's chain followed by convert_visibilities('storage'),
+    as examples/fx_correlator.py builds it: every K7 launch counted, each
+    storage output equal value for value to the numpy conversion of the
+    oracle's visibilities (the FX phase's, made on the card in float64
+    products), a storage -> matrix round trip equal to the oracle's full
+    Hermitian matrix."""
+    import torch
+    from bifrost_tpu_torch.blocks.convert_visibilities import (
+        baseline_indices, storage_to_matrix)
+    gulps, oracle = fx.pop('gulps'), fx.pop('oracle')
+    ngulp = SWARM + STIMED
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(spec, gpu_kernels)
+    out, secs, per_gulp, info = run_fx_arm(bt, gulps, 'fx-storage')
+    counts = read_counts(spec, gpu_kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(counts['xcorr_herm'] == ngulp, 'fx-storage: %d K7 launches for '
+            '%d gulps' % (counts['xcorr_herm'], ngulp))
+    dev = bt.device.get_device()
+    bi, bj, _ = baseline_indices(XS, dev)
+    b_i, b_j = bi.cpu().numpy(), bj.cpu().numpy()
+    nbl = len(b_i)
+    t0 = time.perf_counter()
+    want = [storage_numpy(o, b_i, b_j) for o in oracle]
+    numpy_s = time.perf_counter() - t0
+    for k, a in out.items():
+        require(a.shape == (1, nbl, XF, 4) and a.dtype == np.complex64 and
+                np.isfinite(a).all(),
+                'fx-storage output %d: bad shape, type or values' % k)
+        require(all(np.array_equal(a[..., j], w.swapaxes(1, 2))
+                    for j, w in enumerate(want[k % len(gulps)])),
+                'fx-storage output %d differs from the numpy storage '
+                'conversion of the oracle' % k)
+    del want
+    back, rt_ms = event_ms(lambda: storage_to_matrix(
+        torch.from_numpy(out[0]).to(dev), bi, bj, XS))
+    require(np.array_equal(back.cpu().numpy(), oracle[0]),
+            'fx-storage: the storage -> matrix round trip differs from the '
+            "oracle's full matrix")
+    del back, oracle
+    d2h = per_gulp['d2h']['process']
+    d2h_k7 = fx['rates']['fx-K7']['per_gulp_ms']['d2h']['process']
+    rate = {'msps': STIMED * XT * XF * XS * XP / secs / 1e6,
+            'baseline_channels_per_s':
+                STIMED * (XT // (XR * XA)) * nbl * XF / secs,
+            'd2h_ms_per_gulp': d2h, 'fx_k7_d2h_ms_per_gulp': d2h_k7,
+            'storage_gb_per_gulp': nbl * XF * 4 * 8 / 1e9,
+            'round_trip_ms': rt_ms, 'numpy_conversion_s': numpy_s,
+            'peak_device_gb': peak, 'launches': counts, 'info': info,
+            'per_gulp_ms': per_gulp}
+    log('fx-storage: fx-K7 chain -> convert_visibilities(storage), %d K7 '
+        'launches for %d gulps; outputs %s (%d baselines x %d x 4, %.2f GB) '
+        'equal the numpy conversion of the oracle; storage -> matrix round '
+        'trip %.1f ms equals the oracle (numpy conversions %.1f s); %.1f '
+        'Msamples/s, %.4g baseline-channels/s, D2H %.1f ms a gulp against '
+        'fx-K7\'s %.1f, peak device memory %.1f GB (%s)'
+        % (counts['xcorr_herm'], ngulp, sorted(out), nbl, XF,
+           rate['storage_gb_per_gulp'], rt_ms, numpy_s, rate['msps'],
+           rate['baseline_channels_per_s'], d2h, d2h_k7, peak, smi))
+    log_per_gulp(per_gulp)
+    del out
+    torch.cuda.empty_cache()
+    return rate
+
+
+def fir_oracle(coeffs, x):
+    """Causal FIR of complex128 ``x`` along axis 0 with zero history,
+    float64 taps ``coeffs`` (ntap,) or (ntap, *x.shape[1:])."""
+    ntap = coeffs.shape[0]
+    xp = np.concatenate([np.zeros((ntap - 1,) + x.shape[1:], x.dtype), x])
+    out = np.zeros_like(x)
+    for t in range(ntap):
+        out += coeffs[t] * xp[ntap - 1 - t: xp.shape[0] - t]
+    return out
+
+
+def phase_fir(bt, smi):
+    """FirBlock on 3 ci8 gulps of BASELINE config 4's shape (512 x 512 x
+    256 x 2): a 16-tap filter with real taps per (channel, station, pol),
+    decim 1, as fir.cu filters across ant-pols; then shared (16,) taps
+    and decim 4.  Both within 1e-5 (of the largest magnitude) of a
+    float64 oracle over the concatenated stream, on FIR_CHANNELS, across
+    the gulp boundaries."""
+    import torch
+    from bifrost_tpu_torch.ops.fir import Fir
+    gulps = beam_gulps(seed=23, n=3)
+    header = {'name': 'fir', 'time_tag': 0, 'gulp_nframe': BT,
+              '_tensor': {'shape': [-1, BF, BS, BP], 'dtype': 'ci8',
+                          'labels': ['time', 'freq', 'station', 'pol'],
+                          'scales': [[0, 1e-3]] + [[0, 1]] * 3,
+                          'units': ['s'] + [None] * 3}}
+    rng = np.random.default_rng(29)
+    taps = {'fir-perchan': (rng.standard_normal(
+                (FIR_TAPS, BF, BS, BP), dtype=np.float32), 1),
+            'fir-shared': (rng.standard_normal(FIR_TAPS, dtype=np.float32),
+                           FIR_DECIM)}
+    chans = list(FIR_CHANNELS)
+    stream = np.concatenate([g[:, chans] for g in gulps]).astype(np.float64)
+    xc = stream[..., 0] + 1j * stream[..., 1]
+    del stream
+    res = {}
+    for arm, (coeffs, decim) in taps.items():
+        blocks = []
+
+        def chain(h2d):
+            blocks.append(('fir', bt.blocks.fir(h2d, coeffs, decim)))
+            return blocks
+        outs, secs, per_gulp = drive(bt, gulps, header, chain, 1, 2)
+        require(sorted(outs) == [0, 1, 2], '%s: outputs %s' % (arm,
+                                                               sorted(outs)))
+        for k, o in outs.items():
+            require(o.shape == (BT // decim, BF, BS, BP) and
+                    o.dtype == np.complex64 and np.isfinite(o).all(),
+                    '%s output %d: bad shape, type or values' % (arm, k))
+        got = np.concatenate([outs[k][:, chans] for k in range(3)])
+        c = coeffs[:, chans].astype(np.float64) if coeffs.ndim > 1 \
+            else coeffs.astype(np.float64)
+        want = fir_oracle(c, xc)[::decim]
+        rel = rel_err(got, want)
+        require(rel < GATE, '%s differs from the float64 oracle: %.3g'
+                % (arm, rel))
+        del outs, got, want, blocks
+        # one gulp's FIR on the card, state carried
+        x = torch.view_as_complex(torch.from_numpy(gulps[0]).to(
+            bt.device.get_device()).float())
+        fir = Fir().init(coeffs, decim=decim)
+        ms = cuda_ms(lambda: fir.execute(x), runs=5)
+        del x, fir
+        torch.cuda.empty_cache()
+        res[arm] = {'rel_err': rel, 'execute_ms': ms,
+                    'msps': 2 * BT * BF * BS * BP / secs / 1e6,
+                    'per_gulp_ms': per_gulp}
+        log('%s: 16 taps %s, decim %d, 3 gulps; within %.3g of the float64 '
+            'oracle on channels %s across the gulp boundaries; Fir.execute '
+            '%.3f ms a gulp on the card, %.1f Msamples/s through the '
+            'pipeline (%s)' % (arm, 'per (channel, station, pol)'
+                               if coeffs.ndim > 1 else 'shared', decim, rel,
+                               chans, ms, res[arm]['msps'], smi))
+        log_per_gulp(per_gulp)
+    return res
+
+
+def phase_romein(bt, smi):
+    """Romein gridding at imaging size: RNPTS points (config 5's
+    baselines, autos included) with 7 x 7 complex64 kernels onto a 1024 x
+    1024 grid, 64 channels at once; within 1e-5 (of the largest
+    magnitude) of a float64 scatter on ROMEIN_ORACLE channels, and a
+    second call with accumulate=True doubles the grid to the same
+    tolerance.  Each execute timed."""
+    import torch
+    from bifrost_tpu_torch.ops.romein import Romein
+    rng = np.random.default_rng(31)
+    pos = rng.integers(0, RNGRID, size=(RNPTS, 2)).astype(np.int32)
+    cplx = lambda *shape: (rng.standard_normal(shape) + 1j *
+                           rng.standard_normal(shape)).astype(np.complex64)
+    kern = cplx(RNPTS, RKSIZE, RKSIZE)
+    data = cplx(RNCHAN, RNPTS)
+    rom = Romein().init(pos, kern, RNGRID)
+    x = torch.from_numpy(data).to(bt.device.get_device())
+    grid, ms1 = event_ms(lambda: rom.execute(x))
+    require(tuple(grid.shape) == (RNCHAN, RNGRID, RNGRID) and
+            grid.dtype == torch.complex64, 'romein: grid %s %s'
+            % (tuple(grid.shape), grid.dtype))
+    d = np.arange(RKSIZE)
+    gy = (pos[:, 1, None, None] + d[None, :, None]) % RNGRID
+    gx = (pos[:, 0, None, None] + d[None, None, :]) % RNGRID
+    lin = np.broadcast_to(gy * RNGRID + gx, kern.shape).reshape(-1)
+    want = []
+    for c in range(ROMEIN_ORACLE):
+        w = (data[c, :, None, None].astype(np.complex128) * kern).reshape(-1)
+        want.append((np.bincount(lin, w.real, RNGRID * RNGRID) + 1j *
+                     np.bincount(lin, w.imag, RNGRID * RNGRID))
+                    .reshape(RNGRID, RNGRID))
+    want = np.stack(want)
+    got = grid[:ROMEIN_ORACLE].cpu().numpy()
+    rel1 = rel_err(got, want)
+    require(np.isfinite(got).all() and rel1 < GATE,
+            'romein differs from the float64 scatter: %.3g' % rel1)
+    _, ms2 = event_ms(lambda: rom.execute(x, odata=grid, accumulate=True))
+    rel2 = rel_err(grid[:ROMEIN_ORACLE].cpu().numpy(), 2 * want)
+    require(rel2 < GATE, 'romein accumulate=True does not double the grid: '
+            '%.3g' % rel2)
+    ms_steady = cuda_ms(lambda: rom.execute(x), runs=5)
+    del grid, x
+    torch.cuda.empty_cache()
+    log('romein: %d points x %d channels, %dx%d kernels onto %d^2 '
+        '(%.0f MB of grid): execute %.2f ms (first), accumulate %.2f ms, '
+        'median of 5 %.2f ms; within %.3g / %.3g (accumulated) of the '
+        'float64 scatter on %d channels (%s)'
+        % (RNPTS, RNCHAN, RKSIZE, RKSIZE, RNGRID,
+           RNCHAN * RNGRID * RNGRID * 8 / 1e6, ms1, ms2, ms_steady, rel1,
+           rel2, ROMEIN_ORACLE, smi))
+    return {'execute_ms': ms1, 'accumulate_ms': ms2,
+            'median_ms': ms_steady, 'rel_err': rel1,
+            'rel_err_accumulated': rel2}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2945,12 +3344,17 @@ def main():
                gpu_kernels, smi)
     guppi = run('guppi', phase_guppi, bt, spec, gpu_kernels)
     dk2 = run('detect-K2', phase_detect_block, bt, spec, gpu_kernels, smi)
+    dsp = {'map': run('map', phase_map, bt, smi)}
     k4, k5, k6 = run('K4-K6', phase_beamform_kernels, gpu_kernels, beam)
     bpipe = run('beamformer pipeline', phase_beamform_pipeline, bt, spec,
                 gpu_kernels, beam, smi)
+    dsp['fir'] = run('fir', phase_fir, bt, smi)
     k0 = run('K0', phase_probe, gpu_kernels)
     k7, k8 = run('K7, K8', phase_xcorr_kernels, gpu_kernels)
     fx = run('FX pipeline', phase_fx_pipeline, bt, spec, gpu_kernels, smi)
+    dsp['fx_storage'] = run('fx-storage', phase_fx_storage, bt, spec,
+                            gpu_kernels, fx, smi)
+    dsp['romein'] = run('romein', phase_romein, bt, smi)
     n8 = run('xcorr_int8 cross', phase_xcorr_int8, L, gpu_kernels)
     k3 = run('K3', phase_fdmt_kernel, gpu_kernels, F)
     fdmt = run('FDMT pipeline', phase_fdmt_pipeline, bt, spec, gpu_kernels,
@@ -3038,6 +3442,9 @@ def main():
             'mesh': {'sp': MFDMT}, 'nchan': FCH, 'gulp': FG,
             'max_delay': FMD, 'gulps_timed': FTIMED,
             'arms': fmesh['rates']}}, 'card': smi}))
+    log(json.dumps({'dsp_library': dict(dsp, phase_s={
+        k: phase_s[k] for k in ('map', 'fx-storage', 'fir', 'romein')}),
+        'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

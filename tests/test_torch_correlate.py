@@ -522,8 +522,15 @@ def test_quantize_into_host_array_matches_jax():
     jdst = bf.ndarray(np.zeros(x.shape, bf.dtype.ci8), dtype='ci8')
     bf.ops.quantize(x, jdst, scale=2.)
     np.testing.assert_array_equal(dst.as_numpy(), np.asarray(jdst))
-    with pytest.raises(NotImplementedError):
-        Q.quantize(x, ndarray(np.zeros((4, 8), np.uint8), dtype='ci4'))
+    # packed outputs: ci4 (one byte a sample) and i4 of the real part
+    # (two samples a byte), byte-identical to the JAX package's
+    for dt, nbyte in (('ci4', x.shape[-1]), ('i4', x.shape[-1] // 2)):
+        dst = ndarray(np.zeros(x.shape[:-1] + (nbyte,), np.uint8), dtype=dt,
+                      shape=x.shape)
+        Q.quantize(x, dst, scale=0.05)
+        jdst = bf.empty(x.shape, dt, 'system')
+        bf.ops.quantize(x, jdst, scale=0.05)
+        assert dst.as_numpy().tobytes() == jdst.as_numpy().tobytes()
 
 
 # ---------------------------------------------------------------------------

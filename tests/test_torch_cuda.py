@@ -24,8 +24,11 @@ merge step) against its plain version over whole plans (ragged T,
 negative delays, passthrough rows, a batch axis, tables above 256 KB),
 K9 (the corner turn's ring hop) against its plain version for 2 to 4
 ranks on one card and the mesh correlator's three {'sp': 4} plans byte
-for byte, and the wrappers' checks.  Marked ``cuda``; each test skips without a
-card.
+for byte, and the wrappers' checks; and the DSP library's torch paths
+on the card: ``map`` (a masked if/else, a wrapping gather, out-of-range
+gathers and stores, a host ci8 input unpacked on the card), FIR state
+across gulps, Romein's atomic scatter with wrap and accumulate, and the
+visibility storage round trip.  Marked ``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -45,7 +48,8 @@ oracle; K3, bit-identical to
 its plain version (one float32 add per element in both) and the K3 core
 to the torch gather core, and within 1e-4 of the float64 numpy oracle
 relative to its largest magnitude; K9 and the corner turn, bit-identical
-(a copy of bytes).
+(a copy of bytes); map and the storage round trip exact, FIR and Romein
+< 1e-5 of the float64 oracle.
 """
 
 import numpy as np
@@ -1328,3 +1332,124 @@ def test_mesh_correlator_plans_byte_equal_on_one_card():
         assert n['xcorr_herm'] == 4, (plan, n)
         assert n['ring_permute'] == (3 if plan == 'corner:pallas' else 0)
         assert torch.equal(got, single), plan
+
+
+# ---------------------------------------------------------------------------
+# the DSP library on the card: map, FIR, Romein, convert_visibilities
+# ---------------------------------------------------------------------------
+
+def test_map_masked_if_and_negative_wrap_on_the_card():
+    """bf.map's SIMT if/else under a mask and a gather whose negative
+    indices wrap, evaluated on cuda tensors, equal numpy; the output
+    tensor is written in place."""
+    from bifrost_tpu_torch.ops import map as tmap
+    n = 64
+    a = np.arange(n * n, dtype=np.float32).reshape(n, n)
+    ta = torch.from_numpy(a).cuda()
+    tb = torch.zeros(n, n, device='cuda')
+    ptr = tb.data_ptr()
+    tmap.map('if (i > j) { b(i,j) = a(i,j); } else { b(i,j) = -a(j,i); }',
+             {'a': ta, 'b': tb}, shape=(n, n), axis_names=('i', 'j'))
+    assert tb.data_ptr() == ptr
+    want = np.where(np.arange(n)[:, None] > np.arange(n)[None, :], a, -a.T)
+    np.testing.assert_array_equal(tb.cpu().numpy(), want)
+    x = torch.randint(-1000, 1000, (8, 4096), dtype=torch.int32,
+                      device='cuda')
+    y = torch.empty_like(x)
+    tmap.map('y(t,f) = x(t,f-x.shape(1)/2)', {'x': x, 'y': y},
+             shape=x.shape, axis_names=('t', 'f'))
+    assert torch.equal(y, torch.fft.fftshift(x, dim=1))
+
+
+def test_map_out_of_range_gather_clamps_and_store_drops_on_the_card():
+    """Past the end of an axis, a gather clamps and a store is dropped,
+    as jnp does, on cuda tensors."""
+    from bifrost_tpu_torch.ops import map as tmap
+    a = torch.arange(1, 9, dtype=torch.int32, device='cuda')
+    b = torch.full((8,), -5, dtype=torch.int32, device='cuda')
+    tmap.map('b(i+1) = a(i+3)', {'a': a, 'b': b}, shape=(8,),
+             axis_names=('i',))
+    assert b.tolist() == [-5, 4, 5, 6, 7, 8, 8, 8]
+
+
+def test_map_ci8_host_input_unpacks_on_the_card():
+    """A host ci8 array crosses as its bytes and is unpacked on the card;
+    the cf32 output tensor equals the integers exactly."""
+    from bifrost_tpu_torch.ndarray import ndarray
+    from bifrost_tpu_torch.ops import map as tmap
+    rng = np.random.RandomState(3)
+    buf = np.zeros(4096, np.dtype([('re', 'i1'), ('im', 'i1')]))
+    buf['re'] = rng.randint(-128, 128, 4096)
+    buf['im'] = rng.randint(-128, 128, 4096)
+    out = torch.zeros(4096, dtype=torch.complex64, device='cuda')
+    tmap.map('b(i) = a(i)', {'a': ndarray(buf, dtype='ci8'), 'b': out},
+             shape=(4096,), axis_names=('i',))
+    want = buf['re'].astype(np.float32) + 1j * buf['im']
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+def test_fir_state_across_gulps_on_the_card():
+    """Per-channel 16-tap FIR over three gulps (the last partial) on
+    cuda equals the float64 oracle over the stream within 1e-5."""
+    from bifrost_tpu_torch.ops.fir import Fir
+    rng = np.random.RandomState(4)
+    x = (rng.randn(40, 8, 3) + 1j * rng.randn(40, 8, 3)).astype(np.complex64)
+    c = rng.randn(16, 8, 3).astype(np.float32)
+    fir = Fir().init(c)
+    out = np.concatenate([fir.execute(torch.from_numpy(x[a:b]).cuda())
+                          .cpu().numpy() for a, b in ((0, 16), (16, 32),
+                                                      (32, 40))])
+    xp = np.concatenate([np.zeros((15, 8, 3)), x.astype(np.complex128)])
+    want = sum(c[k] * xp[15 - k:15 - k + 40] for k in range(16))
+    assert _rel(out, want) < GATE
+
+
+def test_romein_accumulate_and_wrap_on_the_card():
+    """Romein's atomic scatter on cuda, positions that wrap past both
+    edges, within 1e-5 of a float64 np.add.at oracle; accumulate=True
+    into the same grid doubles it."""
+    from bifrost_tpu_torch.ops.romein import Romein
+    rng = np.random.RandomState(5)
+    npts, k, ngrid, nb = 500, 7, 64, 3
+    pos = rng.randint(-k, ngrid, size=(npts, 2)).astype(np.int32)
+    kern = (rng.randn(npts, k, k) + 1j * rng.randn(npts, k, k)) \
+        .astype(np.complex64)
+    data = (rng.randn(nb, npts) + 1j * rng.randn(nb, npts)) \
+        .astype(np.complex64)
+    rom = Romein().init(pos, kern, ngrid)
+    grid = rom.execute(torch.from_numpy(data).cuda())
+    want = np.zeros((nb, ngrid, ngrid), np.complex128)
+    d = np.arange(k)
+    gy = (pos[:, 1, None, None] + d[None, :, None]) % ngrid
+    gx = (pos[:, 0, None, None] + d[None, None, :]) % ngrid
+    for b in range(nb):
+        np.add.at(want[b], (np.broadcast_to(gy, kern.shape),
+                            np.broadcast_to(gx, kern.shape)),
+                  data[b, :, None, None].astype(np.complex128) * kern)
+    assert _rel(grid.cpu().numpy(), want) < GATE
+    rom.execute(torch.from_numpy(data).cuda(), odata=grid, accumulate=True)
+    assert _rel(grid.cpu().numpy(), 2 * want) < GATE
+
+
+def test_convert_visibilities_storage_round_trip_on_the_card():
+    """matrix -> storage -> matrix of integer-valued Hermitian
+    visibilities on cuda recovers the full matrix exactly, and the
+    storage equals the numpy conversion."""
+    from bifrost_tpu_torch.blocks.convert_visibilities import (
+        _tri_indices, baseline_indices, matrix_to_storage,
+        storage_to_matrix)
+    rng = np.random.RandomState(6)
+    T, F, S = 2, 16, 24
+    full = rng.randint(-99, 99, (T, F, S, 2, S, 2)) + \
+        1j * rng.randint(-99, 99, (T, F, S, 2, S, 2))
+    full = (full + np.conj(full.transpose(0, 1, 4, 5, 2, 3))) \
+        .astype(np.complex64)
+    b_i, b_j = _tri_indices(S)
+    bi, bj, diag = baseline_indices(S, 'cuda')
+    st = matrix_to_storage(torch.from_numpy(full).cuda(), bi, bj, diag)
+    v = np.moveaxis(full[:, :, b_i, :, b_j, :], 0, 1)
+    xx, xy, yx, yy = v[..., 0, 0], v[..., 0, 1], v[..., 1, 0], v[..., 1, 1]
+    want = np.stack([xx + yy, xx - yy, xy + yx, (xy - yx) * 1j], -1)
+    np.testing.assert_array_equal(st.cpu().numpy(), want)
+    back = storage_to_matrix(st, bi, bj, S)
+    np.testing.assert_array_equal(back.cpu().numpy(), full)

@@ -1,10 +1,21 @@
-"""``examples/gpuspec_simple_torch.py``, the north star's chain through
-the PyTorch/CUDA port, against ``examples/gpuspec_simple.py`` through the
-JAX package on the same 4-channel, 256-sample demo ``.raw``: both write a
-``.fil``; the two headers are byte-identical and the two data sections
-agree within 1e-5 of the float64 oracle's largest magnitude.  The port's
-example imports no jax and runs on the card by default: here its tests
-call ``device.set_device('cpu')`` before ``build()``.
+"""The port's examples against the JAX package's on the CPU:
+
+- ``examples/gpuspec_simple_torch.py``, the north star's chain, against
+  ``examples/gpuspec_simple.py`` on the same 4-channel, 256-sample demo
+  ``.raw``: both write a ``.fil``; the two headers are byte-identical and
+  the two data sections agree within 1e-5 of the float64 oracle's
+  largest magnitude;
+- ``examples/fx_correlator_torch.py`` against ``examples/fx_correlator.py``:
+  the storage-format visibilities equal value for value (the int8 X
+  engine is exact), and equal the numpy storage conversion of the int64
+  oracle's visibilities;
+- ``examples/romein_grid_torch.py`` against ``examples/romein_grid.py``:
+  the accumulated grids agree within 1e-5 of the largest magnitude and
+  the dirty image peaks at the injected source.
+
+Each example imports no jax and runs on the card by default; without a
+card it stops with the device error.  Here the tests call
+``device.set_device('cpu')`` first.
 """
 
 import ast
@@ -28,6 +39,8 @@ from tests.test_torch_bounded import run_bounded
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(ROOT, 'examples', 'gpuspec_simple_torch.py')
+EXAMPLES = [os.path.join(ROOT, 'examples', n + '_torch.py')
+            for n in ('gpuspec_simple', 'fx_correlator', 'romein_grid')]
 GATE = 1e-5
 
 
@@ -104,8 +117,8 @@ def test_data_within_oracle_gate(outputs):
     assert (peaks == 19 // r).all()
 
 
-def test_example_imports_no_jax():
-    with open(EXAMPLE) as f:
+def _imports(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -113,6 +126,19 @@ def test_example_imports_no_jax():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or '')
+    return names
+
+
+@pytest.mark.parametrize('path', EXAMPLES[1:], ids=os.path.basename)
+def test_new_example_imports_no_jax(path):
+    names = _imports(path)
+    assert 'bifrost_tpu_torch' in names
+    assert not [n for n in names
+                if n.split('.')[0] in ('jax', 'jaxlib', 'bifrost_tpu')]
+
+
+def test_example_imports_no_jax():
+    names = _imports(EXAMPLE)
     assert 'bifrost_tpu_torch' in names
     assert not [n for n in names
                 if n.split('.')[0] in ('jax', 'jaxlib', 'bifrost_tpu')]
@@ -133,3 +159,87 @@ def test_demo_without_a_card_stops_instead_of_using_the_cpu(tmp_path):
         with TIO.SigprocFile(str(fil)) as f:
             assert fil.stat().st_size == f.header_size
     assert 'import jax' not in p.stderr
+
+
+@pytest.mark.parametrize('path', EXAMPLES[1:], ids=os.path.basename)
+def test_new_examples_stop_without_a_card(path, tmp_path):
+    """The FX correlator and Romein examples run on cuda:0: with no card
+    they exit non-zero with the device error and print no result."""
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES='')
+    p = subprocess.run([sys.executable, path], cwd=str(tmp_path), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0
+    assert "set_device('cpu')" in p.stderr
+    assert 'integration:' not in p.stdout and 'peak at' not in p.stdout
+    assert 'import jax' not in p.stderr
+
+
+def _storage_of(full):
+    """numpy matrix -> storage conversion of full Hermitian visibilities
+    (t, f, S, 2, S, 2)."""
+    S = full.shape[2]
+    bi = np.concatenate([np.full(i + 1, i) for i in range(S)])
+    bj = np.concatenate([np.arange(i + 1) for i in range(S)])
+    v = np.moveaxis(full[:, :, bi, :, bj, :], 0, 1)
+    xx, xy, yx, yy = v[..., 0, 0], v[..., 0, 1], v[..., 1, 0], v[..., 1, 1]
+    return np.stack([xx + yy, xx - yy, xy + yx, (xy - yx) * 1j], -1)
+
+
+def test_fx_correlator_example_equals_jax_and_the_oracle():
+    """The port's FX example's storage visibilities equal the JAX
+    example's chain's, value for value, and the numpy storage conversion
+    of the int64 oracle on the quantized spectra."""
+    device.set_device('cpu')
+    tex, jex = _load('fx_correlator_torch'), _load('fx_correlator')
+    p, sink = tex.build_single(quiet=True)
+    run_bounded(p)
+    got = np.concatenate(sink.visibilities)
+
+    class Keep(bf.SinkBlock):
+        def on_sequence(self, iseq):
+            self.out = []
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    with bf.Pipeline() as p:
+        keep = Keep(jex.build_xchain(jex.StationSource()))
+    run_bounded(p)
+    want = np.concatenate(keep.out)
+    nbl = tex.NS * (tex.NS + 1) // 2
+    ngroup = tex.NGULP * tex.NT // (tex.R * tex.A)
+    assert got.shape == (ngroup, nbl, tex.NW, 4)
+    np.testing.assert_array_equal(got, want)
+    # the oracle: F step and requantize in float64, int64 products
+    g = tex.StationSource().gulp
+    v = g['re'].astype(np.float64) + 1j * g['im']
+    spec = np.fft.fft(v, axis=1) / tex.NW
+    q = np.clip(np.round(spec.real), -128, 127) + \
+        1j * np.clip(np.round(spec.imag), -128, 127)
+    q = q.reshape(tex.NT // (tex.R * tex.A), tex.R * tex.A, tex.NW,
+                  tex.NS * tex.NP)
+    vis = np.einsum('gtfi,gtfj->gfij', q, np.conj(q))
+    full = vis.reshape(-1, tex.NW, tex.NS, tex.NP, tex.NS, tex.NP)
+    oracle = _storage_of(full).astype(np.complex64)
+    for k in range(tex.NGULP):
+        np.testing.assert_array_equal(got[k * len(oracle):
+                                          (k + 1) * len(oracle)], oracle)
+    peak = np.abs(got[0, 0, :, 0]).argmax()
+    assert peak == tex.TONE_BIN
+
+
+def test_romein_example_equals_jax_and_finds_the_source():
+    device.set_device('cpu')
+    tex, jex = _load('romein_grid_torch'), _load('romein_grid')
+    p, imager = tex.build()
+    run_bounded(p)
+    with bf.Pipeline() as p:
+        src = jex.SnapshotSource(['snapshots'], gulp_nframe=jex.GULP)
+        b = bf.blocks.copy(src, space='tpu')
+        b = bf.blocks.copy(jex.RomeinGridder(b), space='system')
+        jimager = jex.DirtyImager(b)
+    run_bounded(p)
+    assert imager.nsnap == jimager.nsnap == tex.NTIME
+    scale = np.abs(jimager.grid).max()
+    assert np.abs(imager.grid - jimager.grid).max() / scale < GATE
+    assert tex.peak_lm(imager.image()) == tex.SRC_LM

@@ -25,7 +25,11 @@ def _sources():
                                             'chip_k6_variants.py',
                                             'chip_k8_variants.py',
                                             'examples/'
-                                            'gpuspec_simple_torch.py')]
+                                            'gpuspec_simple_torch.py',
+                                            'examples/'
+                                            'fx_correlator_torch.py',
+                                            'examples/'
+                                            'romein_grid_torch.py')]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
@@ -67,7 +71,14 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.blocks.reverse, "
              "bifrost_tpu_torch.blocks.scrunch, "
              "bifrost_tpu_torch.blocks.print_header, "
-             "bifrost_tpu_torch.ops.fft, bifrost_tpu_torch.ops.reduce\n"
+             "bifrost_tpu_torch.ops.fft, bifrost_tpu_torch.ops.reduce, "
+             "bifrost_tpu_torch.utils, bifrost_tpu_torch.ops.map, "
+             "bifrost_tpu_torch.ops.map_lang, bifrost_tpu_torch.ops.fir, "
+             "bifrost_tpu_torch.ops.romein, bifrost_tpu_torch.blocks.fir, "
+             "bifrost_tpu_torch.blocks.convert_visibilities, "
+             "bifrost_tpu_torch.blocks.binary_io, "
+             "bifrost_tpu_torch.blocks.serialize, "
+             "bifrost_tpu_torch.blocks.wav\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
