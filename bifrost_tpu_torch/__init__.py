@@ -43,10 +43,16 @@ and WAV file blocks, the DFT-matmul FFT)::
 The device is ``cuda:0`` unless the caller selects another with
 :func:`bifrost_tpu_torch.device.set_device` (``set_device('cpu')`` runs
 everything on the CPU, with each kernel's plain PyTorch version).
+Host <-> device transfers go through the transfer engine
+(:mod:`bifrost_tpu_torch.xfer`: pinned staging, copy streams, deferred
+ring fills), which reports into :mod:`bifrost_tpu_torch.telemetry`; the
+ring and transfer seams of :mod:`bifrost_tpu_torch.testing.faults` and
+the ``BF_TRACE`` scopes of :mod:`bifrost_tpu_torch.trace` sit beside it.
 Importing the package touches no device and builds no kernel.
 """
 
-from . import blocks, device, io, ops, parallel, stages, views
+from . import (blocks, device, io, ops, parallel, stages, telemetry,
+               testing, trace, views, xfer)
 from .block_chainer import BlockChainer
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
@@ -58,7 +64,8 @@ from .ops.map import map, clear_map_cache, list_map_cache
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages', 'views',
+__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages',
+           'telemetry', 'testing', 'trace', 'views', 'xfer',
            'BlockChainer', 'DataType', 'Pipeline', 'BlockScope', 'Block',
            'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
            'block_view', 'get_default_pipeline',

@@ -1,20 +1,37 @@
 """Space <-> space mover: the host-to-device and device-to-host block
-(reference: python/bifrost/blocks/copy.py:45-71).
+(reference: python/bifrost/blocks/copy.py:45-71; the JAX package's
+``bifrost_tpu/blocks/copy.py``).
 
-Host to device stages the gulp through pinned memory and copies it with
-a ``non_blocking`` transfer (:func:`bifrost_tpu_torch.xfer.to_device`).
-Device to host copies into pinned memory and waits on the copy's event
-before the host ring commits the span (:func:`xfer.to_host`): the bytes
-a downstream reader sees are complete.  A device-to-device copy
-republishes the same tensor, which is safe because no block writes into
-a tensor it has put in a ring.
+Both directions ride the transfer engine (:mod:`bifrost_tpu_torch.xfer`):
+
+- host to device: the gulp's device representation is staged once into
+  a pinned slot and copied on the engine's H2D stream.  From a pinned
+  ``cuda_host`` ring the copy reads the span itself, with no staging
+  copy, and the span is held until that copy completes (a released span
+  may be overwritten by the writer).
+- device to host: the output span is committed as a deferred fill
+  (``xfer.HostFill``): the copy runs on the engine's D2H stream, and
+  readers of the output ring land the bytes when they first touch them,
+  so this block never waits on the transfer.  Into a contiguous span of
+  a pinned ``cuda_host`` ring the copy lands directly; into a pageable
+  ``system`` ring it lands in a pinned slot, and one host copy moves it
+  into the span when the fill completes.
+
+``sync_strict=True`` (scope tunable) or ``BF_SYNC_STRICT=1`` makes every
+D2H complete before its span commits.
+
+A device-to-device copy republishes the same tensor, which is safe
+because no block writes into a tensor it has put in a ring.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
 
-from ..devrep import to_device_rep, from_device_rep
+import numpy as np
+
+from .. import xfer
+from ..devrep import from_device_rep, to_device_plan
 from ..ndarray import copy_array
 from ..pipeline import TransformBlock
 
@@ -33,13 +50,37 @@ class CopyBlock(TransformBlock):
     def on_sequence(self, iseq):
         return deepcopy(iseq.header)
 
+    def _d2h_strict(self):
+        """Synchronous D2H required?  The scope's ``sync_strict`` wins;
+        else the engine's switch (``BF_SYNC_STRICT`` / ``BF_XFER_ASYNC``)."""
+        if self.sync_strict is not None:
+            return bool(self.sync_strict)
+        return not xfer.async_enabled()
+
+    def _h2d(self, ispan):
+        buf = ispan.data.as_numpy()
+        arr, post = to_device_plan(buf, ispan.dtype)
+        eng = xfer.engine()
+        if ispan.ring._storage.pinned and arr.flags.c_contiguous and \
+                np.may_share_memory(arr, buf):
+            t, ev = eng.to_device_direct(arr)
+            ispan.hold(ev)
+        else:
+            t = eng.to_device(arr)
+        return t if post is None else post(t)
+
     def on_data(self, ispan, ospan):
         idev = ispan.ring.is_device
         odev = ospan.ring.is_device
         if odev and not idev:
-            ospan.set(to_device_rep(ispan.data.as_numpy(), ispan.dtype))
+            ospan.set(self._h2d(ispan))
         elif idev and not odev:
-            from_device_rep(ispan.data, ospan.dtype, ospan.data.as_numpy())
+            out = ospan.data.as_numpy()
+            if self._d2h_strict():
+                from_device_rep(ispan.data, ospan.dtype, out)
+            else:
+                ospan.set_fill(xfer.engine().host_fill(ispan.data,
+                                                       ospan.dtype, out))
         elif idev and odev:
             ospan.set(ispan.data)
         else:

@@ -23,16 +23,22 @@ from __future__ import annotations
 import numpy as np
 
 from .dtype import DataType
-from .xfer import to_device, to_host
+from .xfer import engine
 
 __all__ = ['to_device_rep', 'from_device_rep', 'device_rep_zeros',
-           'device_rep_shape', 'unpack_tensor', 'pack_tensor']
+           'device_rep_shape', 'unpack_tensor', 'pack_tensor',
+           'to_device_plan', 'from_device_plan']
 
 
 def _host_component_view(buf, dtype):
-    """Structured ci*/cf16 host storage as a plain (..., 2) array."""
-    buf = np.ascontiguousarray(buf)
-    return buf.view(buf.dtype[0]).reshape(buf.shape + (2,))
+    """Structured ci*/cf16 host storage as a plain (..., 2) array: a
+    view, whatever the strides of ``buf`` (a span of a ringlet ring
+    included), so the transfer engine's one staging copy is the only
+    copy."""
+    try:
+        return buf[..., None].view(buf.dtype[0])
+    except ValueError:       # a numpy that refuses the strided view
+        return np.stack([buf[n] for n in buf.dtype.names], axis=-1)
 
 
 def _field_width(dtype):
@@ -104,35 +110,57 @@ def _is_packed_storage(dtype):
     return dtype.is_packed or (dtype.kind == 'ci' and dtype.nbits == 4)
 
 
-def to_device_rep(buf, dtype, device=None):
-    """numpy host storage -> device-representation tensor."""
+def to_device_plan(buf, dtype):
+    """(host array to ship, device-side conversion or None) for numpy
+    host storage ``buf`` of bifrost dtype ``dtype``: the array is a view
+    of ``buf`` (packed bytes, ci (re, im) components) except for cf16,
+    whose components are widened on the host."""
     dtype = DataType(dtype)
     if _is_packed_storage(dtype):
-        b = np.ascontiguousarray(buf).view(np.uint8)
-        return unpack_tensor(to_device(b, device), dtype)
+        return buf.view(np.uint8), lambda t: unpack_tensor(t, dtype)
     if dtype.kind == 'ci':
-        return to_device(_host_component_view(buf, dtype), device)
+        return _host_component_view(buf, dtype), None
     if dtype.kind == 'cf' and dtype.nbits == 16:
         comp = _host_component_view(buf, dtype).astype(np.float32)
-        return to_device(comp[..., 0] + 1j * comp[..., 1], device)
-    return to_device(buf, device)
+        return comp[..., 0] + 1j * comp[..., 1], None
+    return buf, None
+
+
+def to_device_rep(buf, dtype, device=None):
+    """numpy host storage -> device-representation tensor (one host
+    copy, into the transfer engine's staging)."""
+    arr, post = to_device_plan(buf, dtype)
+    t = engine().to_device(arr, device)
+    return t if post is None else post(t)
+
+
+def from_device_plan(t, dtype, out_buf):
+    """(tensor to copy, numpy target of its bytes or None, host-side
+    conversion or None) that move device-representation tensor ``t`` into
+    numpy host storage ``out_buf``.  Packed types are packed on the
+    device first; cf16 lands as complex64 and is narrowed on the host."""
+    dtype = DataType(dtype)
+    if _is_packed_storage(dtype):
+        return pack_tensor(t, dtype), out_buf.view(np.uint8), None
+    if dtype.kind == 'ci':
+        return t, out_buf.view(out_buf.dtype[0]).reshape(
+            out_buf.shape + (2,)), None
+    if dtype.kind == 'cf' and dtype.nbits == 16:
+        def post(arr):
+            out_buf['re'] = arr.real
+            out_buf['im'] = arr.imag
+        return t, None, post
+    return t, out_buf, None
 
 
 def from_device_rep(t, dtype, out_buf):
     """device-representation tensor -> numpy host storage ``out_buf``
-    (bit-exact inverse of :func:`to_device_rep`)."""
-    dtype = DataType(dtype)
-    if _is_packed_storage(dtype):
-        to_host(pack_tensor(t, dtype), out_buf.view(np.uint8))
-    elif dtype.kind == 'ci':
-        to_host(t, out_buf.view(out_buf.dtype[0]).reshape(
-            out_buf.shape + (2,)))
-    elif dtype.kind == 'cf' and dtype.nbits == 16:
-        arr = to_host(t)
-        out_buf['re'] = arr.real
-        out_buf['im'] = arr.imag
-    else:
-        to_host(t, out_buf)
+    (bit-exact inverse of :func:`to_device_rep`); blocks until the bytes
+    are there."""
+    t, target, post = from_device_plan(t, dtype, out_buf)
+    arr = engine().to_host(t, target)
+    if post is not None:
+        post(arr)
     return out_buf
 
 

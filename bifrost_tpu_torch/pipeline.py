@@ -16,12 +16,24 @@ gulps are outstanding the block waits on the newest of the older ones
 run-ahead the reference gets from one ``cudaStreamSynchronize`` per gulp
 (reference: pipeline.py:628).
 
-The JAX package's supervision policies, telemetry, compiled segments,
-auto-tuner and static verifier are not part of this runtime yet.  Their
-places are kept as no-op seams (:meth:`Pipeline._prepare_graph`,
-:meth:`Block._observe_gulp`); a failing block always aborts the
-pipeline: its output rings are poisoned so peers wake up, and ``run()``
-raises :class:`PipelineRuntimeError` with the original traceback.
+Each gulp of each block counts into ``pipeline.gulps`` (and
+``pipeline.gulps_device``, ``pipeline.sync_waits``), its block's
+``block.<name>.dispatches`` / ``.gulps`` counters and ``gulp_s`` /
+``ring_wait_s`` / ``batch_gulps`` histograms, and, when span recording
+is on (``BF_TRACE_FILE``), a ``<name>.on_data`` compute span carrying
+(seq, gulp); under ``BF_TRACE=1`` the dispatch is also an NVTX range on
+the card.  Once a gulp the block retires the transfer engine's completed
+D2H transfers (``xfer.engine().drain()``), so a failed transfer fails the
+block that drained it.  ``run()`` arms ``BF_FAULTS``, re-reads the span
+configuration, and before it returns completes every transfer still in
+flight and writes the trace file.
+
+The JAX package's supervision policies, SLOs, compiled segments,
+auto-tuner and static verifier are not part of this runtime yet; their
+place is kept as a no-op seam (:meth:`Pipeline._prepare_graph`).  A
+failing block always aborts the pipeline: its output rings are poisoned
+so peers wake up, and ``run()`` raises :class:`PipelineRuntimeError`
+with the original traceback.
 """
 
 from __future__ import annotations
@@ -36,11 +48,16 @@ from collections import defaultdict, deque
 from contextlib import ExitStack
 from copy import copy
 
-from . import device
+from . import device, xfer
 from .ndarray import memset_array
 from .proclog import ProcLog
 from .ring import Ring, EndOfDataStop, RingPoisonedError, ring_view
 from .space import space_accessible
+from .telemetry import counters as _counters
+from .telemetry import histograms as _histograms
+from .telemetry import spans as _spans
+from .testing import faults
+from .trace import ScopedTracer, tracing_enabled as _tracing
 
 __all__ = ['Pipeline', 'BlockScope', 'Block', 'SourceBlock',
            'MultiTransformBlock', 'TransformBlock', 'SinkBlock',
@@ -97,8 +114,9 @@ class BlockScope(object):
     enclosing scope (reference: pipeline.py:84-162).
 
     Tunables: gulp_nframe, buffer_nframe, buffer_factor, sync_depth
-    (device run-ahead in gulps) and mesh (a
-    :class:`bifrost_tpu_torch.parallel.Mesh` for the sharded ops of the
+    (device run-ahead in gulps), sync_strict (True: every D2H completes
+    before its span commits, as ``BF_SYNC_STRICT=1`` makes it) and mesh
+    (a :class:`bifrost_tpu_torch.parallel.Mesh` for the sharded ops of the
     blocks within the scope; the correlator and FDMT blocks read it)."""
 
     DEFAULT_SYNC_DEPTH = 4
@@ -106,10 +124,11 @@ class BlockScope(object):
     instance_count = 0
 
     _TUNABLES = ('gulp_nframe', 'buffer_nframe', 'buffer_factor',
-                 'sync_depth', 'mesh')
+                 'sync_depth', 'sync_strict', 'mesh')
 
     def __init__(self, name=None, gulp_nframe=None, buffer_nframe=None,
-                 buffer_factor=None, sync_depth=None, mesh=None):
+                 buffer_factor=None, sync_depth=None, sync_strict=None,
+                 mesh=None):
         if name is None:
             name = 'BlockScope_%i' % BlockScope.instance_count
             BlockScope.instance_count += 1
@@ -118,6 +137,7 @@ class BlockScope(object):
         self._buffer_nframe = buffer_nframe
         self._buffer_factor = buffer_factor
         self._sync_depth = sync_depth
+        self._sync_strict = sync_strict
         self._mesh = mesh
         self._parent_scope = get_current_block_scope() \
             if not isinstance(self, Pipeline) else None
@@ -212,24 +232,40 @@ class Pipeline(BlockScope):
         auto-tuner).  The port has none of them yet."""
 
     def run(self):
-        """Start every block thread, wait for all of them, and raise
-        :class:`PipelineRuntimeError` if any block failed."""
+        """Start every block thread, wait for all of them, complete the
+        transfers still in flight, and raise :class:`PipelineRuntimeError`
+        if any block failed (or, with none failed, the error of a
+        transfer that failed after its block finished)."""
         self._prepare_graph()
+        faults.arm_from_env()
+        # honour BF_TRACE_FILE / BF_SPAN_BUFFER changes since the last
+        # run, and keep earlier runs' dead threads out of this trace
+        _spans.reconfigure()
+        _spans.prune_dead_buffers()
         self._failures = []
         self.all_blocks_finished_initializing_event.clear()
         self.threads = [threading.Thread(target=block.run, name=block.name,
                                          daemon=True)
                         for block in self.blocks]
-        for thread in self.threads:
-            thread.start()
         try:
-            self.synchronize_block_initializations()
             for thread in self.threads:
-                while thread.is_alive():
-                    thread.join(timeout=0.2)
-        except KeyboardInterrupt:
-            self.shutdown()
-            raise
+                thread.start()
+            try:
+                self.synchronize_block_initializations()
+                for thread in self.threads:
+                    while thread.is_alive():
+                        thread.join(timeout=0.2)
+            except KeyboardInterrupt:
+                self.shutdown()
+                raise
+            # no deferred fill outlives its pipeline
+            try:
+                xfer.engine().drain(block=True)
+            except Exception:
+                if not self._failures:
+                    raise
+        finally:
+            _spans.export_if_configured()
         if self._failures:
             raise PipelineRuntimeError(self._failures)
 
@@ -317,6 +353,7 @@ class Block(BlockScope):
         self.perf_totals = {'acquire': 0.0, 'reserve': 0.0,
                             'process': 0.0, 'ngulp': 0}
         self._pending_events = deque()
+        self._h_gulp = self._h_wait = self._h_batch = None
 
     def create_ring(self, *args, **kwargs):
         return Ring(*args, **kwargs)
@@ -350,10 +387,13 @@ class Block(BlockScope):
             oring.poison(exc)
 
     def _observe_gulp(self, acquire, reserve, process):
-        """Seam for per-gulp telemetry (the JAX package's histograms and
-        spans): the port sums the three host-clock times in
-        ``perf_totals`` and publishes the last gulp's to the perf
-        proclog.  ``acquire`` is -1 for sources."""
+        """Per-gulp telemetry: the three host-clock times summed in
+        ``perf_totals`` and the last gulp's in the perf proclog
+        (``acquire`` is -1 for sources), the ``block.<name>.gulp_s`` and
+        ``.ring_wait_s`` histograms, and one dispatch of one gulp on the
+        ``block.<name>.dispatches`` / ``.gulps`` counters and the
+        ``.batch_gulps`` histogram (the JAX package's
+        ``_observe_gulp`` and ``_observe_dispatch``)."""
         tot = self.perf_totals
         tot['acquire'] += max(acquire, 0.0)
         tot['reserve'] += reserve
@@ -362,6 +402,31 @@ class Block(BlockScope):
         self.perf_proclog.update({'acquire_time': acquire,
                                   'reserve_time': reserve,
                                   'process_time': process})
+        if self._h_gulp is None:
+            self._h_gulp = _histograms.get_or_create(
+                'block.%s.gulp_s' % self.name, unit='s')
+            self._h_wait = _histograms.get_or_create(
+                'block.%s.ring_wait_s' % self.name, unit='s')
+            self._h_batch = _histograms.get_or_create(
+                'block.%s.batch_gulps' % self.name, unit='gulps')
+        wait = max(acquire, 0.0) + reserve
+        self._h_gulp.record(wait + process)
+        self._h_wait.record(wait)
+        _counters.inc('block.%s.dispatches' % self.name)
+        _counters.inc('block.%s.gulps' % self.name)
+        self._h_batch.record(1)
+
+    def _dispatch(self, fn, seq, gulp, *args):
+        """``fn(*args)`` inside the gulp's compute span (seq, gulp)
+        when span recording is on, and an NVTX range under
+        ``BF_TRACE=1``."""
+        with ExitStack() as scopes:
+            if _spans.enabled():
+                scopes.enter_context(_spans.span(
+                    self.name + '.on_data', 'compute', seq=seq, gulp=gulp))
+            if _tracing():
+                scopes.enter_context(ScopedTracer(self.name + '/on_data'))
+            return fn(*args)
 
     def begin_sequences(self, exit_stack, orings, oheaders,
                         igulp_nframes, istride_nframes):
@@ -400,20 +465,22 @@ class Block(BlockScope):
         """Bound device run-ahead: record an event behind each gulp that
         committed device tensors and, once more than ``sync_depth`` are
         outstanding, wait on the newest of the older ones (the stream
-        runs in order, so that implies all of them).  No-op on the CPU
-        and for host-only gulps."""
-        if not any(s.ring.is_device and s.data is not None
-                   for s in ospans):
-            return
-        ev = device.record_event()
-        if ev is None:
-            return
-        pend = self._pending_events
-        pend.append(ev)
-        if len(pend) > resolve_sync_depth(self):
-            while len(pend) > 1:
-                last = pend.popleft()
-            device.stream_synchronize(last)
+        runs in order, so that implies all of them; counted in
+        ``pipeline.sync_waits``).  Then retire the transfer engine's
+        completed D2H transfers without blocking."""
+        _counters.inc('pipeline.gulps')
+        if any(s.ring.is_device and s.data is not None for s in ospans):
+            _counters.inc('pipeline.gulps_device')
+            ev = device.record_event()
+            if ev is not None:
+                pend = self._pending_events
+                pend.append(ev)
+                if len(pend) > resolve_sync_depth(self):
+                    while len(pend) > 1:
+                        last = pend.popleft()
+                    _counters.inc('pipeline.sync_waits')
+                    device.stream_synchronize(last)
+        xfer.engine().drain()
 
     def _define_output_nframes(self, input_nframes):
         return self.define_output_nframes(input_nframes)
@@ -454,6 +521,8 @@ class SourceBlock(Block):
                 ohdr.setdefault('name',
                                 'unnamed-sequence-%i' % self._seq_count)
             self._seq_count += 1
+            seq_id = self._seq_count - 1
+            gulp = 0
             with ExitStack() as oseq_stack:
                 oseqs, ogulp_overlaps = self.begin_sequences(
                     oseq_stack, orings, oheaders, [], [])
@@ -462,7 +531,9 @@ class SourceBlock(Block):
                     with ExitStack() as ospan_stack:
                         ospans = self.reserve_spans(ospan_stack, oseqs)
                         t1 = time.time()
-                        ostrides = self.on_data(ireader, ospans)
+                        ostrides = self._dispatch(self.on_data, seq_id,
+                                                  gulp, ireader, ospans)
+                        gulp += 1
                         self._sync_gulp(ospans)
                         self.commit_spans(ospans, ostrides, ogulp_overlaps)
                         if any(o == 0 for o in ostrides):
@@ -515,6 +586,8 @@ class MultiTransformBlock(Block):
         for ohdr in oheaders:
             ohdr.setdefault('time_tag', self._seq_count)
         self._seq_count += 1
+        seq_id = self._seq_count - 1
+        gulp = 0
 
         istride_nframes = [self.gulp_nframe or iseq.header['gulp_nframe']
                            for iseq in iseqs]
@@ -564,7 +637,9 @@ class MultiTransformBlock(Block):
                     cur_time = time.time()
                     reserve_time = cur_time - prev_time
                     prev_time = cur_time
-                    ostrides = self._on_data(ispans, ospans)
+                    ostrides = self._dispatch(self._on_data, seq_id, gulp,
+                                              ispans, ospans)
+                    gulp += 1
                     if any(ispan.nframe_overwritten for ispan in ispans):
                         # the input changed under us: publish zeros
                         # (reference: pipeline.py:630-644)

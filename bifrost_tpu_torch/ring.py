@@ -33,9 +33,16 @@ they move no data.  A view read from a device ring hands out the
 committed tensor reshaped to the view's layout, so a device view must
 keep each frame's byte count and the ringlet count.
 
-Shedding, ringcheck, telemetry and the native core are not part of this
-core; :meth:`Ring.poison` is kept so that a failing block wakes its
-peers instead of leaving them blocked.
+A host span may be committed before its bytes arrive: a block sets a
+deferred D2H fill on it (:meth:`WriteSpan.set_fill`, an
+``xfer.HostFill``), and readers of any overlapping span, a writer whose
+reservation wraps onto it, and ``resize`` complete the fill first.  A
+fill that fails poisons the ring.
+
+Shedding, ringcheck, deferred resize and the native core are not part of
+this core; :meth:`Ring.poison` wakes a failing block's peers instead of
+leaving them blocked.  The ``ring.reserve`` and ``ring.acquire`` fault
+seams (``testing.faults``) sit where the JAX ring has them.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import numpy as np
 from .dtype import DataType
 from .ndarray import ndarray
 from .space import canonical
+from .testing import faults
 
 __all__ = ['Ring', 'RingWriter', 'WriteSequence', 'ReadSequence',
            'WriteSpan', 'ReadSpan', 'EndOfDataStop', 'WouldBlock',
@@ -181,6 +189,11 @@ class _HostStorage(object):
 
     def discard_before(self, offset):
         pass
+
+    def fill_ghost_mirror(self, offset, nbyte):
+        """Ghost maintenance for a deferred fill (``xfer.HostFill``) that
+        landed after its span's commit."""
+        self.commit_ghost(offset, nbyte)
 
 
 class _DeviceStorage(object):
@@ -329,6 +342,7 @@ class Ring(object):
         self._nwrite_open = 0
         self._nread_open = 0
         self._poisoned = None
+        self._pending_fills = []      # xfer.HostFill, committed spans
         self.header_transform = None
         self.is_view = False
 
@@ -356,9 +370,21 @@ class Ring(object):
             if (size, ghost, nringlet) == (self._size, self._ghost,
                                            self._nringlet):
                 return
-            # no span may hold a view into the old layout
-            while self._nwrite_open or self._nread_open:
-                self._span_cond.wait()
+            # no span may hold a view into the old layout, and no
+            # deferred fill may still target the old buffer: waiting on a
+            # fill drops the lock, so check both until they hold together
+            while True:
+                while self._nwrite_open or self._nread_open:
+                    self._span_cond.wait()
+                fills = [f for f in self._pending_fills if not f.done]
+                if not fills:
+                    break
+                self._lock.release()
+                try:
+                    for f in fills:
+                        f.wait()
+                finally:
+                    self._lock.acquire()
             self._storage.allocate(size, ghost, nringlet,
                                    self._tail, self._head)
             self._size, self._ghost, self._nringlet = size, ghost, nringlet
@@ -377,7 +403,21 @@ class Ring(object):
     def nringlet(self):
         return self._nringlet
 
+    def occupancy(self):
+        """``{'tail', 'head', 'size', 'fill'}``: absolute byte offsets of
+        the oldest and newest committed bytes, the capacity, and the
+        share of it the committed bytes hold."""
+        with self._lock:
+            size = self._size
+            return {'tail': self._tail, 'head': self._head, 'size': size,
+                    'fill': min(self._head - self._tail, size) / size
+                    if size else 0.0}
+
     # -- failure ----------------------------------------------------------
+    @property
+    def poisoned(self):
+        return self._poisoned is not None
+
     def _check_poison(self):
         if self._poisoned is not None:
             raise RingPoisonedError(self.name, self._poisoned)
@@ -394,6 +434,8 @@ class Ring(object):
             for cond in (self._read_cond, self._write_cond,
                          self._seq_cond, self._span_cond):
                 cond.notify_all()
+        from .telemetry import counters
+        counters.inc('ring_poisoned')
 
     # -- writer side ------------------------------------------------------
     def begin_writing(self):
@@ -623,6 +665,33 @@ class Ring(object):
     def _overwritten_in(self, begin, nbyte):
         with self._lock:
             return max(0, min(self._tail - begin, nbyte))
+
+    # -- deferred D2H fills (xfer.HostFill) -------------------------------
+    def _register_fill(self, fill):
+        with self._lock:
+            self._pending_fills.append(fill)
+
+    def _fills_overlapping(self, begin, nbyte):
+        """Incomplete fills overlapping [begin, begin+nbyte) in absolute
+        offsets (completed ones are pruned).  Callers wait on them outside
+        the ring lock."""
+        with self._lock:
+            self._pending_fills = [f for f in self._pending_fills
+                                   if not f.done]
+            return [f for f in self._pending_fills
+                    if f.begin is not None
+                    and f.begin < begin + nbyte
+                    and begin < f.begin + f.nbyte]
+
+    def _fills_before(self, limit):
+        """Incomplete fills whose bytes a reservation ending past
+        ``limit + size`` is about to overwrite (the same buffer region one
+        lap later): the writer completes these before new bytes land."""
+        with self._lock:
+            self._pending_fills = [f for f in self._pending_fills
+                                   if not f.done]
+            return [f for f in self._pending_fills
+                    if f.begin is not None and f.begin < limit]
 
 
 class RingView(object):
@@ -910,6 +979,7 @@ class WriteSpan(_SpanAPI):
     tensor then belongs to the ring."""
 
     def __init__(self, ring, sequence, nframe, nonblocking=False):
+        faults.fire('ring.reserve', ring.name)
         self._ring = ring
         self._sequence = sequence
         self._nbyte = nframe * sequence.tensor['frame_nbyte']
@@ -918,10 +988,17 @@ class WriteSpan(_SpanAPI):
         self._tensor = None
         self._event = None
         self._data = None
+        self._fill = None
         ring._reserve_span(self, nonblocking)     # sets self._begin
         # commit nothing unless told otherwise, so an exception in the
         # writer publishes no garbage (reference: ring2.py:463-464)
         self.commit_nframe = 0
+        if not ring.is_device and ring._pending_fills:
+            # a wrapped reservation reuses bytes that a pending deferred
+            # fill still targets: complete those before writing
+            for f in ring._fills_before(self._begin + self._nbyte -
+                                        ring.total_span):
+                f.wait()
 
     @property
     def data(self):
@@ -946,6 +1023,16 @@ class WriteSpan(_SpanAPI):
             self.data.as_numpy()[...] = src
         return self
 
+    def set_fill(self, fill):
+        """Publish this host span's bytes as a deferred D2H fill (an
+        ``xfer.HostFill`` targeting a view of this span): the span commits
+        at once and readers wait on the fill, so the writer never waits
+        on the transfer."""
+        if self._ring.is_device:
+            raise ValueError("set_fill is for host-space rings")
+        self._fill = fill
+        return self
+
     def commit(self, nframe):
         if not 0 <= nframe <= self.nframe:
             raise ValueError("cannot commit %d frames of a %d-frame span"
@@ -964,6 +1051,23 @@ class WriteSpan(_SpanAPI):
             if self._tensor is not None:
                 from .device import record_event
                 self._event = record_event()
+        elif self._fill is not None:
+            if commit_nbyte == self._nbyte:
+                # commit now, bytes later: the fill redoes the ghost
+                # mirror once they land; readers wait on it
+                self._fill.attach(self._ring, self._begin, commit_nbyte)
+                self._ring._register_fill(self._fill)
+            elif commit_nbyte:
+                # partial commit: the truncated tail rolls back and may
+                # be re-reserved the moment this commit lands, so the
+                # fill (which targets the whole span) completes now,
+                # while the whole reservation is still ours
+                self._fill.attach(self._ring, self._begin, commit_nbyte)
+                self._fill.wait()
+            else:
+                # nothing published: a late write would land in bytes
+                # that may be re-reserved
+                self._fill.cancel()
         elif commit_nbyte:
             self._ring._storage.commit_ghost(self._begin, commit_nbyte)
         self._ring._commit_span(self, commit_nbyte)
@@ -986,6 +1090,7 @@ class ReadSpan(_SpanAPI):
     ring ``.data`` is a tensor the reader must not write into."""
 
     def __init__(self, sequence, frame_offset, nframe):
+        faults.fire('ring.acquire', sequence.ring.name)
         self._ring = sequence.ring
         self._sequence = sequence
         fb = sequence.tensor['frame_nbyte']
@@ -993,8 +1098,20 @@ class ReadSpan(_SpanAPI):
             sequence, frame_offset * fb, nframe * fb, fb)
         self.requested_frame_offset = frame_offset
         self.nframe_skipped = min(self.frame_offset - frame_offset, nframe)
+        self._holds = []
         if not self._ring.is_device and self._nbyte:
-            self._ring._storage.refresh_ghost(self._begin, self._nbyte)
+            # land any in-flight D2H fill overlapping this span before
+            # exposing its bytes (outside the ring lock).  A failed fill
+            # raises here: release the span first, so the ring's open
+            # span count stays balanced while the error propagates
+            try:
+                for f in self._ring._fills_overlapping(self._begin,
+                                                       self._nbyte):
+                    f.wait()
+                self._ring._storage.refresh_ghost(self._begin, self._nbyte)
+            except BaseException:
+                self._ring._release_span(sequence, self._begin)
+                raise
         self._data = None
 
     @property
@@ -1027,6 +1144,13 @@ class ReadSpan(_SpanAPI):
         nbyte = self._ring._overwritten_in(self._begin, self._nbyte)
         return -(-nbyte // self.frame_nbyte) if nbyte else 0
 
+    def hold(self, event):
+        """Keep this span until ``event`` completes: a copy issued from
+        its bytes (``xfer.TransferEngine.to_device_direct``) still reads
+        them, and a released span may be overwritten."""
+        if event is not None:
+            self._holds.append(event)
+
     def __enter__(self):
         return self
 
@@ -1034,4 +1158,9 @@ class ReadSpan(_SpanAPI):
         self.release()
 
     def release(self):
-        self._ring._release_span(self._sequence, self._begin)
+        holds, self._holds = self._holds, []
+        try:
+            for ev in holds:
+                ev.synchronize()
+        finally:
+            self._ring._release_span(self._sequence, self._begin)

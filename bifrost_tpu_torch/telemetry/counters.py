@@ -1,0 +1,85 @@
+"""In-process performance counters for the transfer engine, the ring and
+the pipeline gulp loop (the JAX package's
+``bifrost_tpu/telemetry/counters.py``, same API and the same names).
+
+Always-on, process-local integers with no persistence and no I/O: the
+hot paths increment them under a lock, and tests, ``chip_smoke.py`` and
+operators read a snapshot.
+
+Counter names used by the port:
+
+- ``xfer.h2d_issued`` / ``xfer.h2d_bytes``  host->device transfers
+- ``xfer.h2d_staged``                      H2D through a reused pinned
+                                           staging slot
+- ``xfer.h2d_unstaged``                    H2D through a fresh buffer
+                                           (small gulp, strict mode, or
+                                           every slot of its key busy)
+- ``xfer.h2d_direct``                      H2D straight from a pinned
+                                           ``cuda_host`` span, no copy
+- ``xfer.h2d_batched``                     host gulps shipped through
+                                           ``to_device_batch``
+- ``xfer.d2h_issued`` / ``xfer.d2h_bytes``  device->host transfers
+- ``xfer.d2h_async``                       D2H issued non-blocking (the
+                                           future / fill queue)
+- ``xfer.d2h_staged``                      D2H into a pinned slot, then
+                                           one host copy into the target
+- ``xfer.d2h_direct``                      D2H straight into a pinned
+                                           target (a ``cuda_host`` span)
+- ``xfer.sync_waits``                      hard host waits inside a
+                                           transfer (result not ready)
+- ``xfer.depth_waits``                     waits forced by the in-flight
+                                           bound before the transfer
+                                           finished on its own
+- ``xfer.errors`` / ``xfer.fill_errors``    failed D2H transfers /
+                                           deferred ring fills
+- ``ring_poisoned``                        rings marked dead by
+                                           ``Ring.poison``
+- ``pipeline.gulps``                       gulps through
+                                           ``Block._sync_gulp``
+- ``pipeline.gulps_device``                those that committed device
+                                           tensors
+- ``pipeline.sync_waits``                  run-ahead drain waits in
+                                           ``Block._sync_gulp``
+- ``block.<name>.dispatches`` /
+  ``block.<name>.gulps``                   ``on_data`` dispatches of a
+                                           block and the gulps they
+                                           covered (1:1 until macro-gulp
+                                           execution is ported)
+- ``trace.dropped_spans``                  spans evicted by per-thread
+                                           span-buffer overflow (added by
+                                           ``telemetry.snapshot()``)
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import defaultdict
+
+__all__ = ['inc', 'get', 'snapshot', 'reset']
+
+_lock = threading.Lock()
+_counts = defaultdict(int)
+
+
+def inc(name, n=1):
+    """Add ``n`` to counter ``name`` (thread-safe)."""
+    with _lock:
+        _counts[name] += n
+
+
+def get(name):
+    """Current value of counter ``name`` (0 if never incremented)."""
+    with _lock:
+        return _counts.get(name, 0)
+
+
+def snapshot():
+    """Copy of all counters as a plain dict."""
+    with _lock:
+        return dict(_counts)
+
+
+def reset():
+    """Zero all counters (tests/benchmarks)."""
+    with _lock:
+        _counts.clear()

@@ -122,6 +122,23 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    the int64 oracle; the cross family of xcorr_int8 runs K8 on the four
    station-row blocks of a gulp, as the station-sharded plan calls it,
    each launch on row-block jobs;
+10x. runs the transfer engine's phase (xfer): an H2D source overwritten
+   while its copy is still queued, pinned-slot recycling by the
+   xfer.h2d_staged / xfer.h2d_unstaged counters, futures read out of
+   order, and 32 fills issued right behind a producer kernel with no
+   synchronize, all byte for byte; a fault at xfer.result that must
+   poison the D2H ring and make run() raise; fx-K7 (1 + 2 gulps), fir
+   decim 1 (1 + 2) and guppi-ci8 (4 blocks) each async and under
+   sync_strict, with a sink that keeps only a CRC-32 of each output: the
+   same bytes in both modes (fx-K7's also the oracle's), and each mode's
+   host ms a gulp of source, h2d, d2h and sink beside the counters
+   xfer.d2h_async, depth_waits, sync_waits and pipeline.sync_waits and
+   the pinned bytes the engine holds; and a first-touch probe, one 2 GiB
+   complex64 D2H into a fresh 'system' buffer, the same buffer again, a
+   pinned 'cuda_host' buffer and a page-locked (cudaHostRegister)
+   pageable one, the copy's wait and the host copy apart.  Every arm
+   logs the CRC-32 of its outputs, so that a run under BF_SYNC_STRICT=1
+   can be held to the same bytes;
 10a. drives the fx-K7 arm's chain followed by
    convert_visibilities('storage'), as examples/fx_correlator.py builds
    it (1 warm-up and 2 timed gulps, 1.08 GB of storage each): one K7
@@ -184,7 +201,8 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    mesh of the card (spans of 2 x 9177 frames) and without a mesh: every
    span bit-identical;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
-   library phases' numbers, one JSON line of per-kernel numbers
+   library phases' numbers, one of the xfer phase's, one JSON line of
+   per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -198,6 +216,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -292,6 +311,18 @@ def log(*args):
 def require(cond, what):
     if not cond:
         raise RuntimeError('chip_smoke check failed: ' + what)
+
+
+def crc32(a):
+    """CRC-32 of an array's bytes (C order)."""
+    return zlib.crc32(memoryview(np.ascontiguousarray(a).reshape(-1)
+                                 .view(np.uint8)))
+
+
+def log_crc(what, outputs):
+    """Log the CRC-32 of each output, so that two runs of the script (say
+    one under BF_SYNC_STRICT=1) can be held to the same bytes."""
+    log('crc32 %s: %s' % (what, json.dumps(outputs)))
 
 
 def rel_err(got, want):
@@ -566,15 +597,19 @@ def make_gulps(seed=5, n=2):
                          dtype=np.int8) for _ in range(n)]
 
 
-def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1):
+def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1,
+          scope=None, digest=False):
     """Drive source -> copy('cuda') -> chain -> copy('system') -> sink.
     ``gulps`` are int8 arrays of one gulp's ci8 bytes each, sent in turn
     (the gulp's frame count is ``gulps[0].shape[0]``); ``chain(h2d)``
     builds the device blocks and returns [(role, block), ...], the last
     one feeding the D2H copy, which sends one output span per ``per_out``
-    gulps.  Returns (outputs {output index: array} of outputs 0, 1 and
-    the last, seconds of the timed gulps, per-block host milliseconds per
-    gulp)."""
+    gulps.  ``scope`` holds Pipeline tunables (``sync_strict``).  Returns
+    (outputs {output index: array} of outputs 0, 1 and the last, seconds
+    of the timed gulps, per-block host milliseconds per gulp).  With
+    ``digest`` the sink keeps no copy: the outputs are the CRC-32 of
+    every output's bytes, and the sink's ``process`` excludes the time
+    of the CRC (kept as ``digest``)."""
     ngulp = nwarm + ntimed
     nout = ngulp // per_out
     first = nwarm // per_out - 1
@@ -610,6 +645,7 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1):
             self.n = 0
             self.t0 = self.t1 = None
             self.out = {}
+            self.digest_s = 0.0
 
         def on_sequence(self, iseq):
             pass
@@ -620,12 +656,17 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1):
                 self.t0 = time.perf_counter()
             elif self.n == nout - 1:
                 self.t1 = time.perf_counter()
-            if self.n in self.keep:
+            if digest:
+                t = time.perf_counter()
+                self.out[self.n] = zlib.crc32(memoryview(
+                    ispan.data.as_numpy().reshape(-1).view(np.uint8)))
+                self.digest_s += time.perf_counter() - t
+            elif self.n in self.keep:
                 self.out[self.n] = np.array(ispan.data.as_numpy(),
                                             copy=True)
             self.n += 1
 
-    with bt.Pipeline() as p:
+    with bt.Pipeline(**(scope or {})) as p:
         src = Source()
         h2d = bt.blocks.copy(src, space='cuda')
         blocks = chain(h2d)
@@ -640,6 +681,11 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1):
         tot = blk.perf_totals
         per_gulp[role] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
                           for k in ('acquire', 'reserve', 'process')}
+    if digest:
+        per_gulp['sink']['digest'] = sink.digest_s / max(sink.n, 1) * 1e3
+        per_gulp['sink']['process'] -= per_gulp['sink']['digest']
+    else:
+        log_crc('drive outputs', {k: crc32(a) for k, a in sink.out.items()})
     return sink.out, sink.t1 - sink.t0, per_gulp
 
 
@@ -881,6 +927,8 @@ def run_guppi_arm(bt, spec, gpu_kernels, nbits, nblock, tmp,
         per_gulp[blk.name] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
                               for k in ('acquire', 'reserve', 'process')}
     fil = path + '.fil'
+    with open(fil, 'rb') as f:
+        log_crc('%s .fil' % arm, zlib.crc32(f.read()))
     with sigproc_io.SigprocFile(fil) as f:
         hdr, hsize = f.header, f.header_size
     expect = fil_expect(nbits, nchan, blocsize, rfactor)
@@ -1796,11 +1844,12 @@ def fx_header(labels, nframe):
                         'units': [None] * 4}}
 
 
-def run_fx_arm(bt, gulps, arm):
+def run_fx_arm(bt, gulps, arm, **kw):
     """One arm of the FX correlator pipeline; returns (outputs, seconds
     of the timed gulps, per-block host ms/gulp, the X engine's choice).
-    The blocks, and the device tensors their rings hold, are released
-    before it returns: the next arm needs the card's memory."""
+    ``kw`` may set ``nwarm``, ``ntimed`` and drive()'s ``scope`` and
+    ``digest``.  The blocks, and the device tensors their rings hold, are
+    released before it returns: the next arm needs the card's memory."""
     blocks = []
     if arm == 'x-stateful':
         header = fx_header(['time', 'freq', 'station', 'pol'], XST)
@@ -1834,7 +1883,9 @@ def run_fx_arm(bt, gulps, arm):
         return blocks
     nwarm, ntimed = (SWARM, STIMED) if arm == 'fx-storage' else \
         (XWARM, XTIMED)
-    out, secs, per_gulp = drive(bt, gulps, header, chain, nwarm, ntimed)
+    nwarm, ntimed = kw.pop('nwarm', nwarm), kw.pop('ntimed', ntimed)
+    out, secs, per_gulp = drive(bt, gulps, header, chain, nwarm, ntimed,
+                                **kw)
     return out, secs, per_gulp, engine_info(blocks)
 
 
@@ -2274,6 +2325,7 @@ def run_fdmt_arm(bt, source, chain, nout_frames):
     require(sink.n == ngulp and sink.off == nout_frames,
             'the sink received %d spans and %d frames, not %d and %d'
             % (sink.n, sink.off, ngulp, nout_frames))
+    log_crc('fdmt outputs', crc32(sink.out))
     per_gulp = {}
     for role, blk in roles:
         tot, snap = blk.perf_totals, snaps[role]
@@ -3240,6 +3292,374 @@ def phase_fir(bt, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the transfer engine: copy streams, pinned slots, deferred fills
+# ---------------------------------------------------------------------------
+
+XFER_COUNTERS = ('xfer.d2h_async', 'xfer.depth_waits', 'xfer.sync_waits',
+                 'pipeline.sync_waits', 'xfer.d2h_staged',
+                 'xfer.d2h_direct', 'xfer.h2d_staged', 'xfer.h2d_unstaged')
+XFER_ROLES = ('source', 'h2d', 'd2h', 'sink')
+
+
+def hold_h2d_stream(eng, ms=50):
+    """Queue ``ms`` of spinning on the current stream and make the
+    engine's H2D stream wait for it: its next copies stay queued."""
+    import torch
+    dev = torch.device('cuda:0')
+    torch.cuda._sleep(int(ms * 1.5e6))
+    eng._stream('h2d', dev).wait_stream(torch.cuda.current_stream(dev))
+
+
+def run_with_timeout(p, secs=300):
+    """``p.run()`` on a daemon thread; raises if it has not ended within
+    ``secs`` (after shutting the pipeline down), re-raises its error."""
+    import threading
+    box = {}
+
+    def target():
+        try:
+            p.run()
+        except BaseException as exc:
+            box['exc'] = exc
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(secs)
+    if t.is_alive():
+        p.shutdown()
+        raise RuntimeError('chip_smoke check failed: pipeline still '
+                           'running after %d s' % secs)
+    if 'exc' in box:
+        raise box['exc']
+
+
+def xfer_engine_checks():
+    """The engine on the card: H2D alias safety with the copy still
+    queued, pinned-slot recycling by the counters, out-of-order futures,
+    and 32 fills issued right behind a producer kernel with no explicit
+    synchronize, byte for byte."""
+    import torch
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    rng = np.random.default_rng(41)
+    eng = xfer.TransferEngine()
+    src = rng.standard_normal(1 << 24, dtype=np.float32)
+    want = src.copy()
+    hold_h2d_stream(eng)
+    d = eng.to_device(src)
+    src[...] = -1.0
+    require(np.array_equal(d.cpu().numpy(), want),
+            'xfer: overwriting an H2D source changed the device copy')
+    del d
+    eng = xfer.TransferEngine(staging=1)
+    arrs = [rng.standard_normal((1024, 1024), dtype=np.float32)
+            for _ in range(3)]
+    # the key's one slot exists before the copy stream is held (a pinned
+    # allocation may wait for the card)
+    warm = eng.to_device(arrs[2])
+    torch.cuda.synchronize()
+    counters.reset()
+    hold_h2d_stream(eng, 200)
+    outs = [eng.to_device(arrs[0])]
+    slot = [sl for sl in eng._pool._busy if sl.ref() is outs[0]][0]
+    require(not slot.event.query(), 'xfer: the held H2D copy already ran')
+    outs.append(eng.to_device(arrs[1]))
+    busy = [counters.get('xfer.h2d_staged'),
+            counters.get('xfer.h2d_unstaged')]
+    torch.cuda.synchronize()
+    outs.append(eng.to_device(arrs[2]))
+    done = [counters.get('xfer.h2d_staged'),
+            counters.get('xfer.h2d_unstaged')]
+    require(busy == [1, 1] and done == [2, 1],
+            'xfer: slot recycling: staged/unstaged %s while busy, %s after '
+            '(want [1, 1], [2, 1])' % (busy, done))
+    del warm
+    for a, o in zip(arrs, outs):
+        require(np.array_equal(o.cpu().numpy(), a),
+                'xfer: a staged H2D gave wrong bytes')
+    eng = xfer.TransferEngine(depth=16)
+    xs = [torch.full((1 << 20,), float(i), device='cuda') for i in range(8)]
+    futs = [eng.to_host_async(x) for x in xs]
+    for i in (5, 1, 6, 2, 7, 0, 3, 4):
+        require((futs[i].result() == i).all(),
+                'xfer: future %d out of order gave wrong bytes' % i)
+    require(eng.outstanding == 0, 'xfer: futures left outstanding')
+    eng = xfer.TransferEngine()
+    host = np.zeros((32, 1024, 1024), np.int32)
+    g = torch.Generator(device='cuda').manual_seed(42)
+    wants, fills = [], []
+    for i in range(32):
+        x = torch.randint(-1000, 1000, (1024, 1024), device='cuda',
+                          generator=g, dtype=torch.int32)
+        wants.append(x.cpu().numpy() * 3 + i)
+        torch.cuda._sleep(int(2e6))
+        fills.append(eng.host_fill(x * 3 + i, 'i32', host[i]))
+        del x
+    eng.drain(block=True)
+    for f in fills:
+        f.wait()
+    bad = [i for i in range(32) if not np.array_equal(host[i], wants[i])]
+    require(not bad, 'xfer: fills behind a producer kernel differ at gulps '
+            '%s' % bad)
+    log('xfer: H2D source recycled at once, slots %s busy -> %s after '
+        '(staged, unstaged), 8 futures out of order, 32 fills behind a '
+        'producer kernel with no synchronize: all byte for byte'
+        % (busy, done))
+    return {'slots_busy': busy, 'slots_after_sync': done,
+            'fills_behind_producer': 32}
+
+
+def xfer_fault_check(bt):
+    """A fault at ``xfer.result`` poisons the D2H ring, and run() raises."""
+    from bifrost_tpu_torch.testing import faults
+    from bifrost_tpu_torch.telemetry import counters
+    header = {'name': 'f', 'time_tag': 0, 'gulp_nframe': 64,
+              '_tensor': {'shape': [-1, 4096], 'dtype': 'f32',
+                          'labels': ['time', 'chan'], 'scales': [[0, 1]] * 2,
+                          'units': [None] * 2}}
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['x'], 64, space='system')
+            self.n = 0
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [json.loads(json.dumps(header))]
+
+        def on_data(self, reader, ospans):
+            if self.n == 8:
+                return [0]
+            ospans[0].data.as_numpy()[...] = self.n
+            self.n += 1
+            return [64]
+
+    class Sink(bt.SinkBlock):
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            pass
+
+    counters.reset()
+    with bt.Pipeline() as p:
+        d2h = bt.blocks.copy(bt.blocks.copy(Source(), space='cuda'),
+                             space='system')
+        Sink(d2h)
+    raised = None
+    with faults.injected('xfer.result', count=1, after=2) as f:
+        try:
+            run_with_timeout(p, 120)
+        except Exception as exc:
+            raised = exc
+    require(raised is not None and f.fired == 1 and
+            'injected fault at xfer.result' in str(raised),
+            'xfer.result fault: run() did not raise it (fired %d, %r)'
+            % (f.fired, raised))
+    require(d2h.orings[0].poisoned,
+            'xfer.result fault: the D2H ring was not poisoned')
+    log('xfer: a fault at xfer.result poisoned the D2H ring and run() raised '
+        '(%s); xfer.fill_errors %d'
+        % (str(raised).splitlines()[0][:120],
+           counters.get('xfer.fill_errors')))
+    return {'raised': True, 'fill_errors': counters.get('xfer.fill_errors')}
+
+
+def first_touch_probe():
+    """One 2 GiB complex64 D2H (an FX visibility) into a fresh 'system'
+    buffer (pages never touched), into the same buffer again (pages now
+    mapped), and into a pinned 'cuda_host' buffer (no slot, no host
+    copy): the DMA's wait and the host copy out of the slot apart."""
+    import torch
+    from bifrost_tpu_torch import xfer
+    n = 1 << 28
+    t = torch.randn(n, dtype=torch.complex64, device='cuda')
+    eng = xfer.TransferEngine()
+    t0 = time.perf_counter()
+    pinned = torch.empty(n * 8, dtype=torch.uint8,
+                         pin_memory=True).numpy().view(np.complex64)
+    pin_alloc = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    slot = eng._pool.acquire((n,), np.complex64, kind='d2h',
+                             cap=eng._bound(t.numel() * 8) + 1)
+    eng._pool.release_unused(slot)
+    slot_alloc = (time.perf_counter() - t0) * 1e3
+
+    def one(target):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fill = eng.host_fill(t, 'cf32', target)
+        fill.future._event.synchronize()
+        t1 = time.perf_counter()
+        fill.wait()
+        t2 = time.perf_counter()
+        return {'dma_ms': (t1 - t0) * 1e3, 'host_copy_ms': (t2 - t1) * 1e3,
+                'total_ms': (t2 - t0) * 1e3}
+
+    fresh = np.zeros(n, np.complex64)
+    res = {'cuda_host': one(pinned), 'system_fresh': one(fresh),
+           'system_touched': one(fresh),
+           'pinned_alloc_ms': pin_alloc, 'slot_alloc_ms': slot_alloc}
+    # the other way to a pageable ring: page-lock its buffer in place
+    # (cudaHostRegister), after which the copy lands there directly
+    reg = np.empty(n, np.complex64)
+    cudart = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    err = int(cudart.cudaHostRegister(reg.ctypes.data, reg.nbytes, 0))
+    res['register_ms'] = (time.perf_counter() - t0) * 1e3
+    res['register_error'] = err
+    if err == 0:
+        try:
+            res['system_registered'] = one(reg)
+            require(np.array_equal(reg, pinned), 'first-touch probe: the '
+                    'registered copy differs')
+        finally:
+            cudart.cudaHostUnregister(reg.ctypes.data)
+    del reg
+    require(np.array_equal(fresh, pinned),
+            'first-touch probe: the system and cuda_host copies differ')
+    require(np.array_equal(pinned[:1 << 20], t[:1 << 20].cpu().numpy()),
+            'first-touch probe: the D2H bytes differ from the tensor')
+    del t, pinned, fresh
+    log('first-touch probe, 2 GiB complex64 D2H (ms; dma = issue to the '
+        "copy's event, host_copy = slot to target): cuda_host %s, system "
+        'fresh %s, system touched %s, system registered %s; 2 GiB pinned '
+        'alloc %.1f, the slot %.1f, cudaHostRegister %.1f (error %d)'
+        % tuple([json.dumps({k: round(v, 1) for k, v in
+                             res.get(a, {}).items()})
+                 for a in ('cuda_host', 'system_fresh', 'system_touched',
+                           'system_registered')] +
+                [pin_alloc, slot_alloc, res['register_ms'], err]))
+    return res
+
+
+def xfer_report(arm, mode, per_gulp, secs, smi):
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    snap = counters.snapshot()
+    rec = {'per_gulp_ms': per_gulp, 'seconds': secs,
+           'counters': {k: snap.get(k, 0) for k in XFER_COUNTERS},
+           'pinned_bytes': xfer.engine().pinned_bytes()}
+    log('xfer arm %s %s: %s; counters %s; engine pinned %.2f GB (%s)'
+        % (arm, mode, ', '.join(
+            '%s %s' % (r, '/'.join('%.1f' % per_gulp[r][k] for k in
+                                   ('acquire', 'reserve', 'process')))
+            for r in XFER_ROLES),
+           json.dumps(rec['counters']), rec['pinned_bytes'] / 1e9, smi))
+    return rec
+
+
+def xfer_drive_arm(bt, arm, run, smi):
+    """``run(scope)`` -> (CRC-32 list, seconds, per-block ms/gulp) in
+    async and in strict mode: the same bytes required."""
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    res = {}
+    crcs = {}
+    for mode, scope in (('async', {}), ('strict', {'sync_strict': True})):
+        xfer.reset_engine()
+        counters.reset()
+        crcs[mode], secs, per_gulp = run(scope)
+        res[mode] = xfer_report(arm, mode, per_gulp, secs, smi)
+    require(crcs['async'] == crcs['strict'], '%s: async outputs %s differ '
+            'from strict %s' % (arm, crcs['async'], crcs['strict']))
+    res['crc32'] = crcs['async']
+    return res
+
+
+def phase_xfer(bt, fx, smi):
+    """The engine checks, the xfer.result fault, fx-K7, fir decim 1 and
+    guppi-ci8 async and strict, and the first-touch probe; async is the
+    engine's default mode whatever BF_SYNC_STRICT says for the rest of
+    the script."""
+    with environ(BF_SYNC_STRICT=None, BF_XFER_ASYNC=None):
+        return xfer_phase(bt, fx, smi)
+
+
+def xfer_phase(bt, fx, smi):
+    import tempfile
+    import importlib.util
+    import torch
+    from bifrost_tpu_torch import xfer
+    free_before = subprocess.run(['free', '-g'], capture_output=True,
+                                 text=True).stdout
+    res = {'engine': xfer_engine_checks(), 'fault': xfer_fault_check(bt)}
+    torch.cuda.empty_cache()
+
+    def fx_run(scope):
+        out, secs, per_gulp, _ = run_fx_arm(bt, fx['gulps'], 'fx-K7',
+                                            nwarm=1, ntimed=2, scope=scope,
+                                            digest=True)
+        return [out[k] for k in sorted(out)], secs, per_gulp
+    res['fx-K7'] = xfer_drive_arm(bt, 'fx-K7', fx_run, smi)
+    want = [crc32(fx['oracle'][k % len(fx['gulps'])]) for k in range(3)]
+    require(res['fx-K7']['crc32'] == want,
+            'fx-K7 (xfer phase): outputs differ from the oracle')
+    free_fx = subprocess.run(['free', '-g'], capture_output=True,
+                             text=True).stdout
+    torch.cuda.empty_cache()
+
+    fgulps = beam_gulps(seed=23, n=3)
+    fheader = {'name': 'fir', 'time_tag': 0, 'gulp_nframe': BT,
+               '_tensor': {'shape': [-1, BF, BS, BP], 'dtype': 'ci8',
+                           'labels': ['time', 'freq', 'station', 'pol'],
+                           'scales': [[0, 1e-3]] + [[0, 1]] * 3,
+                           'units': ['s'] + [None] * 3}}
+    coeffs = np.random.default_rng(29).standard_normal(
+        (FIR_TAPS, BF, BS, BP), dtype=np.float32)
+
+    def fir_run(scope):
+        def chain(h2d):
+            return [('fir', bt.blocks.fir(h2d, coeffs, 1))]
+        out, secs, per_gulp = drive(bt, fgulps, fheader, chain, 1, 2,
+                                    scope=scope, digest=True)
+        return [out[k] for k in sorted(out)], secs, per_gulp
+    res['fir'] = xfer_drive_arm(bt, 'fir decim 1', fir_run, smi)
+    del fgulps
+    torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    mod = importlib.util.spec_from_file_location(
+        'gpuspec_simple_torch',
+        os.path.join(here, 'examples', 'gpuspec_simple_torch.py'))
+    example = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(example)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'bl8.raw')
+        write_guppi(path, 8, GBLOCKS[8])
+
+        def guppi_run(scope):
+            with bt.Pipeline(**scope) as p:
+                example.build([path], tmp, gulp_nframe=1, rfactor=GR)
+            t0 = time.perf_counter()
+            run_with_timeout(p, 300)
+            secs = time.perf_counter() - t0
+            copies = [b for b in p.blocks if type(b).__name__ == 'CopyBlock']
+            roles = dict(zip(XFER_ROLES, [p.blocks[0], copies[0], copies[1],
+                                          p.blocks[-1]]))
+            per_gulp = {}
+            for role, blk in roles.items():
+                tot = blk.perf_totals
+                per_gulp[role] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
+                                  for k in ('acquire', 'reserve',
+                                            'process')}
+            with open(path + '.fil', 'rb') as f:
+                crc = zlib.crc32(f.read())
+            os.remove(path + '.fil')
+            return [crc], secs, per_gulp
+        res['guppi-ci8'] = xfer_drive_arm(bt, 'guppi-ci8', guppi_run, smi)
+    torch.cuda.empty_cache()
+    res['first_touch'] = first_touch_probe()
+    xfer.reset_engine()
+    res['free_g'] = {'before': free_before, 'after_fx': free_fx}
+    log('free -g before the xfer phase:\n%s\nafter its fx-K7 arms:\n%s'
+        % (free_before.strip(), free_fx.strip()))
+    return res
+
+
 def phase_romein(bt, smi):
     """Romein gridding at imaging size: RNPTS points (config 5's
     baselines, autos included) with 7 x 7 complex64 kernels onto a 1024 x
@@ -3352,6 +3772,7 @@ def main():
     k0 = run('K0', phase_probe, gpu_kernels)
     k7, k8 = run('K7, K8', phase_xcorr_kernels, gpu_kernels)
     fx = run('FX pipeline', phase_fx_pipeline, bt, spec, gpu_kernels, smi)
+    xf = run('xfer', phase_xfer, bt, fx, smi)
     dsp['fx_storage'] = run('fx-storage', phase_fx_storage, bt, spec,
                             gpu_kernels, fx, smi)
     dsp['romein'] = run('romein', phase_romein, bt, smi)
@@ -3445,6 +3866,7 @@ def main():
     log(json.dumps({'dsp_library': dict(dsp, phase_s={
         k: phase_s[k] for k in ('map', 'fx-storage', 'fir', 'romein')}),
         'card': smi}))
+    log(json.dumps({'xfer': xf, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -28,7 +28,11 @@ for byte, and the wrappers' checks; and the DSP library's torch paths
 on the card: ``map`` (a masked if/else, a wrapping gather, out-of-range
 gathers and stores, a host ci8 input unpacked on the card), FIR state
 across gulps, Romein's atomic scatter with wrap and accumulate, and the
-visibility storage round trip.  Marked ``cuda``; each test skips without a card.
+visibility storage round trip; and the transfer engine (pinned slots
+that recycle only after their copy's event, H2D alias safety, D2H on
+the copy stream after a producer kernel with no synchronize, fills into
+pageable and pinned targets, the ``cuda_host`` direct paths).  Marked
+``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -1229,6 +1233,197 @@ def test_to_host_fills_a_strided_host_span():
     assert xfer.to_host(t, span) is span
     np.testing.assert_array_equal(ring[:, 40:140], t.cpu().numpy())
     assert not ring[:, :40].any() and not ring[:, 140:].any()
+
+
+# ---------------------------------------------------------------------------
+# the transfer engine on the card: copy streams, pinned slots, fills
+# ---------------------------------------------------------------------------
+
+def _xfer_engine(**kw):
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    counters.reset()
+    return xfer, xfer.TransferEngine(**kw), counters
+
+
+def _hold_h2d_stream(eng, ms=50):
+    """Queue ``ms`` of spinning on the current stream and make the
+    engine's H2D stream wait for it: the next copies stay pending."""
+    dev = torch.device('cuda:0')
+    torch.cuda._sleep(int(ms * 1.5e6))
+    eng._stream('h2d', dev).wait_stream(torch.cuda.current_stream(dev))
+
+
+def test_pinned_pool_recycles_only_after_the_event():
+    """An H2D slot is not reused while its copy is pending: with the copy
+    stream held, a second gulp of the key takes a fresh pinned buffer;
+    once the copies are done, the slot recycles.  Values stay right."""
+    xfer, eng, counters = _xfer_engine(staging=1)
+    rng = np.random.RandomState(31)
+    arrs = [rng.randn(1024, 1024).astype(np.float32) for _ in range(3)]
+    # the key's one slot exists before the stream is held: a pinned
+    # allocation may wait for the card
+    warm = eng.to_device(arrs[2])
+    torch.cuda.synchronize()
+    counters.reset()
+    _hold_h2d_stream(eng, 200)
+    d0 = eng.to_device(arrs[0])
+    slot = [s for s in eng._pool._busy if s.ref() is d0][0]
+    assert not slot.event.query()
+    d1 = eng.to_device(arrs[1])
+    assert counters.get('xfer.h2d_staged') == 1
+    assert counters.get('xfer.h2d_unstaged') == 1
+    torch.cuda.synchronize()
+    d2 = eng.to_device(arrs[2])
+    assert counters.get('xfer.h2d_staged') == 2
+    assert eng._pool._nalloc[((1024, 1024), 'float32')] == 1
+    for a, d in zip(arrs + [arrs[2]], (d0, d1, d2, warm)):
+        np.testing.assert_array_equal(d.cpu().numpy(), a)
+    assert eng.pinned_bytes() == arrs[0].nbytes
+
+
+def test_h2d_source_can_be_recycled_at_once():
+    """The caller overwrites its host buffer straight after to_device,
+    while the copy is still queued: the tensor keeps the old bytes."""
+    xfer, eng, counters = _xfer_engine()
+    src = np.arange(1 << 22, dtype=np.float32)
+    want = src.copy()
+    _hold_h2d_stream(eng)
+    d = eng.to_device(src)
+    src[...] = -1.0
+    np.testing.assert_array_equal(d.cpu().numpy(), want)
+
+
+def test_d2h_after_producer_kernel_without_synchronize():
+    """A D2H issued on the engine's copy stream right after a kernel on
+    the caller's stream (held back by a spin) waits for that kernel: 32
+    gulps, byte for byte, in order and out of order, with no explicit
+    synchronize."""
+    xfer, eng, counters = _xfer_engine(depth=8)
+    g = torch.Generator(device='cuda').manual_seed(32)
+    futs, want = [], []
+    for i in range(32):
+        x = torch.randint(-1000, 1000, (256, 1024), device='cuda',
+                          generator=g, dtype=torch.int32)
+        want.append(x.cpu().numpy() * 3 + i)
+        torch.cuda._sleep(int(2e6))
+        y = x * 3 + i              # the producer, queued behind the spin
+        futs.append(eng.to_host_async(y))
+        del x, y
+    for i in list(range(1, 32, 2)) + list(range(0, 32, 2)):
+        np.testing.assert_array_equal(futs[i].result(), want[i])
+    assert counters.get('xfer.d2h_async') == 32
+    assert eng.outstanding == 0
+
+
+def test_host_fill_into_pageable_and_pinned_targets():
+    """A fill lands in a pageable target through a pinned slot and in a
+    contiguous pinned target directly; a strided pinned target takes the
+    slot.  Bytes equal the tensor's."""
+    xfer, eng, counters = _xfer_engine(depth=8)
+    t = torch.randn((64, 512), device='cuda')
+    want = t.cpu().numpy()
+    pageable = np.zeros((64, 512), np.float32)
+    pinned = torch.zeros((64, 512), pin_memory=True).numpy()
+    pinned_wide = torch.zeros((64, 600), pin_memory=True).numpy()
+    for out in (pageable, pinned, pinned_wide[:, 40:552]):
+        fill = eng.host_fill(t, 'f32', out)
+        fill.wait()
+        np.testing.assert_array_equal(out, want)
+    assert counters.get('xfer.d2h_direct') == 1
+    assert counters.get('xfer.d2h_staged') == 2
+
+
+def _cuda_host_chain(first, last, gulps):
+    import contextlib
+    import bifrost_tpu_torch as bt
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['x'], 64, space=first)
+            self.it = iter(gulps)
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'x', 'time_tag': 0, '_tensor': {
+                'shape': [-1, 2, 512], 'dtype': 'ci8',
+                'labels': ['time', 'pol', 'chan'], 'scales': [[0, 1]] * 3,
+                'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(self.it, None)
+            if g is None:
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                g.reshape(64, 2, 1024)
+            return [64]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy().view(np.int8),
+                                     copy=True))
+
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(Source(), space='cuda')
+        sink = Sink(bt.blocks.copy(b, space=last))
+    _run_bounded(p)
+    return np.concatenate(sink.out)
+
+
+def _run_bounded(p, timeout=120):
+    """``p.run()`` on a daemon thread, failing the test (after shutting
+    the pipeline down) if it has not ended within ``timeout`` seconds."""
+    import threading
+    box = {}
+
+    def target():
+        try:
+            p.run()
+        except BaseException as exc:
+            box['exc'] = exc
+
+    t = threading.Thread(target=target, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        p.shutdown()
+        pytest.fail('pipeline still running after %g s' % timeout)
+    if 'exc' in box:
+        raise box['exc']
+
+
+def test_cuda_host_direct_paths():
+    """cuda_host -> copy('cuda') -> copy('cuda_host'): the H2D reads the
+    pinned span itself and the D2H lands in the pinned span, with no
+    staging copy, and the bytes equal the system-ring chain's."""
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    rng = np.random.RandomState(33)
+    gulps = [rng.randint(-128, 128, (64, 2, 512, 2)).astype(np.int8)
+             for _ in range(6)]
+    xfer.reset_engine()
+    counters.reset()
+    got = _cuda_host_chain('cuda_host', 'cuda_host', gulps)
+    assert counters.get('xfer.h2d_direct') == 6
+    assert counters.get('xfer.d2h_direct') == 6
+    assert counters.get('xfer.h2d_staged') + \
+        counters.get('xfer.h2d_unstaged') == 0
+    counters.reset()
+    want = _cuda_host_chain('system', 'system', gulps)
+    assert counters.get('xfer.h2d_direct') == 0
+    assert counters.get('xfer.d2h_staged') == 6
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.concatenate(gulps).reshape(
+        got.shape))
 
 
 # ---------------------------------------------------------------------------

@@ -78,7 +78,9 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.blocks.convert_visibilities, "
              "bifrost_tpu_torch.blocks.binary_io, "
              "bifrost_tpu_torch.blocks.serialize, "
-             "bifrost_tpu_torch.blocks.wav\n"
+             "bifrost_tpu_torch.blocks.wav, bifrost_tpu_torch.xfer, "
+             "bifrost_tpu_torch.telemetry, bifrost_tpu_torch.trace, "
+             "bifrost_tpu_torch.testing.faults\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
