@@ -51,23 +51,25 @@ the ``BF_TRACE`` scopes of :mod:`bifrost_tpu_torch.trace` sit beside it.
 Importing the package touches no device and builds no kernel.
 """
 
-from . import (blocks, device, io, ops, parallel, stages, telemetry,
-               testing, trace, views, xfer)
+from . import (affinity, blocks, device, io, ops, parallel, stages,
+               supervision, telemetry, testing, trace, views, xfer)
 from .block_chainer import BlockChainer
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
                        TransformBlock, SinkBlock, block_scope, block_view,
                        get_default_pipeline, PipelineInitError,
-                       PipelineRuntimeError)
+                       PipelineRuntimeError, PipelineStallError)
 from .ring import Ring, EndOfDataStop
 from .ops.map import map, clear_map_cache, list_map_cache
 
 __version__ = '0.1.0'
 
-__all__ = ['blocks', 'device', 'io', 'ops', 'parallel', 'stages',
-           'telemetry', 'testing', 'trace', 'views', 'xfer',
+__all__ = ['affinity', 'blocks', 'device', 'io', 'ops', 'parallel',
+           'stages', 'supervision', 'telemetry', 'testing', 'trace',
+           'views', 'xfer',
            'BlockChainer', 'DataType', 'Pipeline', 'BlockScope', 'Block',
            'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
            'block_view', 'get_default_pipeline',
-           'PipelineInitError', 'PipelineRuntimeError', 'Ring',
+           'PipelineInitError', 'PipelineRuntimeError',
+           'PipelineStallError', 'Ring',
            'EndOfDataStop', 'map', 'clear_map_cache', 'list_map_cache']

@@ -1,14 +1,30 @@
 """Standard sequence-header fields and validation
-(reference: python/bifrost/header_standard.py).
+(reference: python/bifrost/header_standard.py), and the stream's trace
+context (``bifrost_tpu/header_standard.py:84-145``).
 
 A sequence header is a JSON-able dict with at minimum a ``_tensor``
 block; this module documents and validates the recommended observation
 fields so blocks can interoperate.
+
+The trace context is a small dict under :data:`TRACE_CONTEXT_KEY`
+(``_trace``): a stream-unique id, the wall-clock nanoseconds of the
+stream's first commit and the origin host.  Source blocks stamp it
+(:func:`ensure_trace_context`), transforms and sinks copy it to their
+outputs (:func:`propagate_trace_context`), compute spans carry its id,
+and ``telemetry.slo`` ages each commit against its origin.
 """
 
 from __future__ import annotations
 
-__all__ = ['STANDARD_HEADER_FIELDS', 'enforce_header_standard']
+import os
+import socket
+import time
+import uuid
+
+__all__ = ['STANDARD_HEADER_FIELDS', 'enforce_header_standard',
+           'TRACE_CONTEXT_KEY', 'trace_context_enabled',
+           'new_trace_context', 'trace_context', 'ensure_trace_context',
+           'propagate_trace_context']
 
 # field -> accepted type(s)
 STANDARD_HEADER_FIELDS = {
@@ -20,6 +36,64 @@ STANDARD_HEADER_FIELDS = {
     'tstart': (int, float),
     'tsamp': (int, float),
 }
+
+#: header key carrying the stream's trace context (a plain JSON dict)
+TRACE_CONTEXT_KEY = '_trace'
+
+
+def trace_context_enabled():
+    """Whether new streams get a trace context stamped
+    (``BF_TRACE_CONTEXT`` != '0'; on by default: one small dict per
+    sequence, not per gulp)."""
+    return os.environ.get('BF_TRACE_CONTEXT', '1') != '0'
+
+
+def new_trace_context():
+    """A fresh trace context: ``{'id'``: 16 hex digits unique to the
+    stream, ``'origin_ns'``: wall-clock nanoseconds of the stream's first
+    commit (the instant SLO ages are measured from), ``'host'``: the
+    origin host name}."""
+    return {'id': uuid.uuid4().hex[:16],
+            'origin_ns': time.time_ns(),
+            'host': socket.gethostname()}
+
+
+def trace_context(header):
+    """The header's trace context dict, or None (absent or malformed)."""
+    if not isinstance(header, dict):
+        return None
+    ctx = header.get(TRACE_CONTEXT_KEY)
+    if isinstance(ctx, dict) and ctx.get('id'):
+        return ctx
+    return None
+
+
+def ensure_trace_context(header):
+    """Stamp a fresh trace context into ``header`` if it has none and
+    stamping is enabled; returns the context in effect, or None.  Stream
+    origins (source blocks) call it at first commit; transforms
+    propagate instead."""
+    ctx = trace_context(header)
+    if ctx is not None:
+        return ctx
+    if not trace_context_enabled():
+        return None
+    ctx = new_trace_context()
+    header[TRACE_CONTEXT_KEY] = ctx
+    return ctx
+
+
+def propagate_trace_context(iheader, oheaders):
+    """Copy the input sequence's trace context into every output header
+    that lacks one (the stream identity follows the data); returns the
+    context, or None."""
+    ctx = trace_context(iheader)
+    if ctx is None:
+        return None
+    for ohdr in oheaders:
+        if isinstance(ohdr, dict) and trace_context(ohdr) is None:
+            ohdr[TRACE_CONTEXT_KEY] = dict(ctx)
+    return ctx
 
 
 def enforce_header_standard(header):

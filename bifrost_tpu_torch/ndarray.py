@@ -14,7 +14,7 @@ import numpy as np
 from .dtype import DataType
 from .space import canonical
 
-__all__ = ['ndarray', 'copy_array', 'memset_array']
+__all__ = ['ndarray', 'copy_array', 'memset_array', 'empty']
 
 
 class ndarray(object):
@@ -70,3 +70,26 @@ def memset_array(a, value=0):
     else:
         buf[...] = value
     return a
+
+
+def empty(shape, dtype='f32', space='system'):
+    """An uninitialised array of logical ``shape``: a host
+    :class:`ndarray` (a packed type's buffer is its bytes) in a host
+    space, a tensor in the device representation on the process's device
+    for ``'cuda'``."""
+    dtype = DataType(dtype)
+    space = canonical(space)
+    if space == 'cuda':
+        import torch
+        from .device import get_device
+        from .devrep import device_rep_shape
+        return torch.empty(device_rep_shape(list(shape), dtype),
+                           dtype=dtype.as_torch_dtype(),
+                           device=get_device())
+    if dtype.is_packed:
+        nbit = dtype.itemsize_bits
+        store = tuple(shape[:-1]) + (-(-shape[-1] * nbit // 8),)
+        buf = np.empty(store, dtype=np.uint8)
+    else:
+        buf = np.empty(tuple(shape), dtype=dtype.as_numpy_dtype())
+    return ndarray(buf, dtype=dtype, space=space, shape=tuple(shape))

@@ -1,8 +1,20 @@
-"""Linear algebra of the beamformer engine and the FX correlator's X
-step (a subset of ``bifrost_tpu/ops/linalg.py``).
+"""Batched linear algebra (the port of ``bifrost_tpu/ops/linalg.py``;
+reference: src/linalg.cu:877-904, python/bifrost/linalg.py).
 
-The port carries:
-
+- :class:`LinAlg` and :func:`matmul`, the reference's ``bfLinAlgMatMul``:
+  ``c = alpha * a @ b + beta * c`` (the beamforming GEMM) and
+  ``c = alpha * a @ a^H + beta * c`` when ``b`` is None (correlation).
+  Three candidate families with the JAX package's names: ``_AB_IMPLS``
+  and ``_AAH_IMPLS`` (``xla``, ``planar`` Karatsuba 3-product on (re, im)
+  planes, ``planar_hilo`` with the bf16 hi-lo split, the lossy
+  ``planar_bf16``) and ``_I8_IMPLS`` for ci8 ``a @ a^H`` (``i8_3mm``,
+  ``i8_gram``, exact int32 sums).  A cf16 operand stays as two f16 planes
+  end to end.  The float candidates are gated against ``xla`` (TF32 off)
+  at ``_GATE_RTOL`` (``BF_LINALG_GATE_RTOL``) before the race, which runs
+  through ``ops/mprobe.py`` on the card unless ``BF_LINALG_PROBE=0``;
+  ``BF_LINALG_AB_IMPL`` / ``BF_LINALG_AAH_IMPL`` / ``BF_LINALG_I8_IMPL``
+  force a candidate.  The JAX LinAlg reaches no Pallas kernel, and this
+  one launches no hand-written kernel either.
 - the environment switches :func:`_force_env` and :func:`_probe_wanted`,
   the bf16 plane products :func:`_split_hilo`, :func:`_mm_hilo` and
   :func:`_mm_bf16`, and the f32 accuracy-gate bound :data:`GATE_RTOL`
@@ -14,11 +26,9 @@ The port carries:
   ``BF_XCORR_IMPL``, ``BF_XCORR_GATE_RTOL``), with the JAX package's
   names, keys and classes.
 
-Left out: ``LinAlg``, ``matmul`` and the ``_ab_*`` / ``_aah_*`` GEMM
-candidates (not on the correlator's path), and the jit caches and tracer
-branches of the JAX functions: the port runs eagerly, and probing
-happens at a prewarm or on the first eager call, never inside a gulp
-after ``on_sequence``.
+Left out: the jit caches and tracer branches of the JAX functions: the
+port runs eagerly, and probing happens at a prewarm or on the first
+eager call, never inside a gulp after ``on_sequence``.
 
 torch has no ``preferred_element_type``: a bf16 product with a float32
 result is taken here as the float32 product of bf16-rounded operands,
@@ -39,8 +49,8 @@ import os
 
 import numpy as np
 
-__all__ = ['GATE_RTOL', 'xcorr_int8', 'xcorr_prewarm', 'XEngine',
-           'XCORR_CLASSES', 'xcorr_class_rtol']
+__all__ = ['GATE_RTOL', 'LinAlg', 'matmul', 'xcorr_int8', 'xcorr_prewarm',
+           'XEngine', 'XCORR_CLASSES', 'xcorr_class_rtol']
 
 #: a candidate deviating from the baseline by more than this (relative
 #: to the baseline's maximum, at the actual shape) is kept out of a speed
@@ -177,6 +187,399 @@ def _vis(re, im):
 
 def _swap(k):
     return k.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# LinAlg operands: (re, im) planes of narrow complex types
+# ---------------------------------------------------------------------------
+
+def _reim_planes(x, kind, nbits):
+    """(re, im) planes of a host array of the given complex type on the
+    process's device, or None: never promoted to a wider complex type,
+    so the device holds and reads the narrow width."""
+    import torch
+    from ..device import get_device
+    from ..ndarray import ndarray
+    if isinstance(x, ndarray) and x.dtype.kind == kind \
+            and x.dtype.nbits == nbits:
+        buf = x.as_numpy()
+        dev = get_device()
+        return tuple(torch.from_numpy(np.ascontiguousarray(buf[f])).to(dev)
+                     for f in ('re', 'im'))
+    return None
+
+
+def _int8_reim(x):
+    """The int8 planes of a ci8 array (the exact int path)."""
+    return _reim_planes(x, 'ci', 8)
+
+
+def _cf16_reim(x):
+    """The f16 planes of a cf16 array: half-width reads straight into the
+    planar products (the reference's Cherk3mEx cf16 design point,
+    src/linalg.cu:210-226)."""
+    return _reim_planes(x, 'cf', 16)
+
+
+def _mm_f32(a, b):
+    """float32 product (f16 planes widened first, which is exact)."""
+    import torch
+    return torch.matmul(a.float(), b.float())
+
+
+def _cmm_planar(ar, ai, br, bi, mm):
+    """Complex product on planes, Karatsuba 3-multiply.  The m3 addends
+    are widened to float32 first: for f16 planes re + im can leave the
+    f16 range for values that are each inside it."""
+    def wide(x):
+        return x.float() if x.element_size() < 4 else x
+
+    m1 = mm(ar, br)
+    m2 = mm(ai, bi)
+    m3 = mm(wide(ar) + wide(ai), wide(br) + wide(bi))
+    return m1 - m2, m3 - m1 - m2
+
+
+def _planes(x):
+    """(re, im) planes of an operand: a plane tuple as it is, a complex
+    tensor split, a real one with no imaginary plane."""
+    if isinstance(x, tuple):
+        return x
+    if x.is_complex():
+        return x.real, x.imag
+    return x, None
+
+
+def _as_complex(x):
+    """An operand as one tensor for the ``xla`` baselines: plane tuples
+    combined into complex64."""
+    import torch
+    if isinstance(x, tuple):
+        return torch.complex(x[0].float(), x[1].float())
+    return x
+
+
+def _accumulate(y, c, beta):
+    if beta != 0 and c is not None:
+        y = y + beta * c
+    return y
+
+
+# ---------------------------------------------------------------------------
+# a @ b candidates (complex-capable GEMM)
+# ---------------------------------------------------------------------------
+
+def _ab_xla(a, b, c, alpha, beta):
+    import torch
+    a, b = _as_complex(a), _as_complex(b)
+    if a.is_complex() or b.is_complex():
+        a, b = a.to(torch.complex64), b.to(torch.complex64)
+    else:
+        a, b = a.float(), b.float()
+    return _accumulate(alpha * torch.matmul(a, b), c, beta)
+
+
+def _ab_planar_with(mm):
+    def impl(a, b, c, alpha, beta):
+        import torch
+        ar, ai = _planes(a)
+        br, bi = _planes(b)
+        if ai is None and bi is None:
+            y = alpha * mm(ar, br).float()
+        else:
+            if ai is None:
+                yr, yi = mm(ar, br), mm(ar, bi)
+            elif bi is None:
+                yr, yi = mm(ar, br), mm(ai, br)
+            else:
+                yr, yi = _cmm_planar(ar, ai, br, bi, mm)
+            y = alpha * torch.complex(yr.float(), yi.float())
+        return _accumulate(y, c, beta)
+    return impl
+
+
+_AB_IMPLS = {
+    'xla': _ab_xla,
+    'planar': _ab_planar_with(_mm_f32),
+    'planar_hilo': _ab_planar_with(_mm_hilo),
+    'planar_bf16': _ab_planar_with(_mm_bf16),
+}
+
+
+# ---------------------------------------------------------------------------
+# a @ a^H candidates (complex float)
+# ---------------------------------------------------------------------------
+
+def _aah_xla(a, c, alpha, beta):
+    import torch
+    a = _as_complex(a).to(torch.complex64)
+    return _accumulate(alpha * torch.matmul(a, a.transpose(-1, -2).conj()),
+                       c, beta)
+
+
+def _aah_planar_with(mm):
+    def impl(a, c, alpha, beta):
+        import torch
+        ar, ai = _planes(a)
+        arT = _swap(ar)
+        if ai is None:
+            y = (alpha * mm(ar, arT)).to(torch.complex64)
+        else:
+            aiT = _swap(ai)
+            rr = mm(ar, arT)
+            ii = mm(ai, aiT)
+            k = mm(ai, arT)
+            y = alpha * torch.complex((rr + ii).float(),
+                                      (k - _swap(k)).float())
+        return _accumulate(y, c, beta)
+    return impl
+
+
+_AAH_IMPLS = {
+    'xla': _aah_xla,
+    'planar': _aah_planar_with(_mm_f32),
+    'planar_hilo': _aah_planar_with(_mm_hilo),
+    'planar_bf16': _aah_planar_with(_mm_bf16),
+}
+
+
+# ---------------------------------------------------------------------------
+# int8 a @ a^H candidates (ci8 correlation)
+# ---------------------------------------------------------------------------
+
+def _aah_i8_3mm(re, im, c, alpha, beta):
+    """Three int8 products with int32 sums:
+    A A^H = (re re^T + im im^T) + i (K - K^T), K = im re^T
+    (the Cherk3mEx reduction; reference: src/linalg.cu:130-148)."""
+    reT, imT = _swap(re), _swap(im)
+    rr = _mm_i32(re, reT)
+    ii = _mm_i32(im, imT)
+    k = _mm_i32(im, reT)
+    return _accumulate(alpha * _vis(rr + ii, k - _swap(k)), c, beta)
+
+
+def _aah_i8_gram(re, im, c, alpha, beta):
+    """One widened int8 product: z = [re; im] stacked on the row axis and
+    z z^T, whose four blocks hold rr, ri, ir and ii (4/3 the MACs of the
+    3-multiply in one product; exact int32 sums)."""
+    import torch
+    n = re.shape[-2]
+    z = torch.cat([re, im], dim=-2)
+    g = _mm_i32(z, _swap(z))
+    rr = g[..., :n, :n]
+    ri = g[..., :n, n:]     # re im^T == K^T
+    ir = g[..., n:, :n]     # im re^T == K
+    ii = g[..., n:, n:]
+    return _accumulate(alpha * _vis(rr + ii, ir - ri), c, beta)
+
+
+_I8_IMPLS = {
+    'i8_3mm': _aah_i8_3mm,
+    'i8_gram': _aah_i8_gram,
+}
+
+#: (family, shapes_key) -> the fallback frozen after a probe in which
+#: every candidate failed or was gated out (in-process only)
+_NEG_PROBE_CACHE = {}
+
+_IMPLS = {'ab': _AB_IMPLS, 'aah': _AAH_IMPLS, 'i8': _I8_IMPLS}
+
+
+class LinAlg(object):
+    """Plan-style wrapper (reference: python/bifrost/linalg.py; the JAX
+    package's ``LinAlg``).
+
+    The candidate of each call family is forced by the constructor
+    argument or ``BF_LINALG_AB_IMPL`` / ``BF_LINALG_AAH_IMPL`` /
+    ``BF_LINALG_I8_IMPL``; otherwise, where probing is on (on the card
+    unless ``BF_LINALG_PROBE=0``, anywhere under ``=1``), the candidates
+    are gated and raced at the actual shape and the winner cached
+    (``ops/mprobe.py`` families ``linalg_ab`` / ``linalg_aah`` /
+    ``linalg_i8``); elsewhere the defaults run (``xla``, ``i8_3mm``).
+    Float candidates deviating from the ``xla`` baseline by more than
+    :attr:`_GATE_RTOL` of its maximum at the actual shape are excluded
+    before any timing.  Float candidates run without TF32."""
+
+    def __init__(self, ab_impl=None, aah_impl=None, i8_impl=None):
+        self._force = {
+            'ab': ab_impl or _force_env('BF_LINALG_AB_IMPL', _AB_IMPLS),
+            'aah': aah_impl or _force_env('BF_LINALG_AAH_IMPL',
+                                          _AAH_IMPLS),
+            'i8': i8_impl or _force_env('BF_LINALG_I8_IMPL', _I8_IMPLS),
+        }
+        self.chosen = {}
+        self.probe_ms = {}
+
+    @staticmethod
+    def _impl(family, name):
+        """Candidate ``name`` of ``family`` as ``fn(*operands, c, alpha=,
+        beta=)``; the float ones run with TF32 off."""
+        fn = _IMPLS[family][name]
+        if family == 'i8':
+            return fn
+
+        def call(*args, alpha, beta):
+            with full_f32():
+                return fn(*args, alpha, beta)
+        return call
+
+    def _pick(self, family, shapes_key, candidates, make_args,
+              gate=False):
+        """Winner for this call family at this shape.  ``make_args``
+        returns the operands without c, alpha and beta: the probe times
+        the alpha=1, beta=0 form.  With ``gate`` the candidates are
+        accuracy-gated first; gate and race run at most once per (family,
+        shape), and a probe in which every candidate failed freezes the
+        default for the shape in-process (``_NEG_PROBE_CACHE``)."""
+        if self._force[family]:
+            self.chosen[family] = self._force[family]
+            return self._force[family]
+        default = {'ab': 'xla', 'aah': 'xla', 'i8': 'i8_3mm'}[family]
+        if gate:
+            # a winner admitted under a widened gate must never serve a
+            # default-gate session from the shared cache
+            rtol = self._gate_rtol()
+            if rtol != LinAlg._GATE_RTOL:
+                shapes_key = '%s|gate_rtol=%g' % (shapes_key, rtol)
+        if _probe_wanted() and len(candidates) > 1:
+            neg = _NEG_PROBE_CACHE.get((family, shapes_key))
+            if neg is not None:
+                self.chosen[family] = neg
+                return neg
+            from . import mprobe
+            cached = mprobe.peek('linalg_%s' % family, shapes_key)
+            if cached is not None and cached[0] in candidates:
+                self.chosen[family] = cached[0]
+                self.probe_ms[family] = cached[1]
+                return cached[0]
+            probe_fns = {
+                n: (lambda f: lambda *a: f(*a, None, alpha=1.0,
+                                           beta=0.0))(
+                    self._impl(family, n))
+                for n in candidates}
+            persist = True
+            if gate:
+                keep, had_errors = self._accuracy_gate(probe_fns,
+                                                       make_args)
+                probe_fns = {n: probe_fns[n] for n in keep}
+                persist = not had_errors
+            winner, ms, _err = mprobe.select(
+                'linalg_%s' % family, shapes_key, probe_fns, make_args,
+                persist=persist)
+            if winner is not None:
+                self.chosen[family] = winner
+                self.probe_ms[family] = ms
+                return winner
+            _NEG_PROBE_CACHE[(family, shapes_key)] = default
+        self.chosen[family] = default
+        return default
+
+    #: a candidate deviating from the ``xla`` baseline by more than this
+    #: (relative to its maximum, at the actual shape) stays out of the
+    #: race: it admits the hi-lo split's ~2^-16 truncation and catches a
+    #: broken candidate; the one-pass bf16 candidate (~2^-8) needs a
+    #: widened ``BF_LINALG_GATE_RTOL`` or a force
+    _GATE_RTOL = GATE_RTOL
+    #: candidates below the f32 class by construction: never admitted
+    #: without a passing gate measurement
+    _LOSSY = frozenset(['planar_bf16'])
+
+    @staticmethod
+    def _gate_rtol():
+        try:
+            return float(os.environ.get('BF_LINALG_GATE_RTOL', '')
+                         or LinAlg._GATE_RTOL)
+        except ValueError:
+            return LinAlg._GATE_RTOL
+
+    @staticmethod
+    def _accuracy_gate(impls, make_args, base='xla'):
+        """(keep, had_errors): the candidates within _gate_rtol() of the
+        ``xla`` baseline at the actual shape.  ``had_errors`` says a
+        candidate raised, so a winner from the reduced field is not
+        written to disk.  Without a baseline no lossy candidate is
+        admitted."""
+        args = make_args()
+        outs = {}
+        had_errors = False
+        for name, fn in impls.items():
+            try:
+                outs[name] = fn(*args)
+            except Exception:
+                had_errors = True
+        if base not in outs:
+            return [n for n in outs if n not in LinAlg._LOSSY], \
+                had_errors
+        ref = outs[base]
+        scale = float(ref.abs().max()) or 1.0
+        rtol = LinAlg._gate_rtol()
+        keep = [name for name, y in outs.items()
+                if float((y - ref).abs().max()) / scale <= rtol]
+        return keep, had_errors
+
+    # -- public API ---------------------------------------------------------
+
+    def matmul(self, alpha, a, b, beta, c):
+        """c = alpha * a @ b + beta * c, or a @ a^H when b is None
+        (reference: bfLinAlgMatMul, src/linalg.cu:877).  Operands are
+        tensors, numpy arrays or the port's host ndarrays (ci8 and cf16
+        included); with ``c`` the result is written into it in its
+        logical type (a real ``c`` takes the real part) and ``c`` is
+        returned, else the result tensor."""
+        from .common import as_logical, astype, logical_dtype, writeback
+        alpha = complex(alpha) if np.iscomplexobj(np.asarray(alpha)) \
+            else float(alpha)
+        beta = complex(beta) if np.iscomplexobj(np.asarray(beta)) \
+            else float(beta)
+        cj = as_logical(c) if (c is not None and beta != 0) else None
+
+        def operand(x):
+            """(tensor or (re, im) f16 plane tuple, key fragment); the
+            dtype is part of the key: a winner measured for f32 is not
+            one for c64 or cf16 at the same shape."""
+            cf = _cf16_reim(x)
+            if cf is not None:
+                return cf, '%s cf16' % (tuple(cf[0].shape),)
+            xj = as_logical(x)
+            return xj, '%s %s' % (tuple(xj.shape), _dtype_name(xj))
+
+        if b is None:
+            reim = _int8_reim(a)
+            if reim is not None:
+                re, im = reim
+                name = self._pick('i8', 'shape=%s' % (tuple(re.shape),),
+                                  _I8_IMPLS, lambda: (re, im))
+                y = self._impl('i8', name)(re, im, cj, alpha=alpha,
+                                           beta=beta)
+            else:
+                aj, akey = operand(a)
+                name = self._pick('aah', 'a=%s' % akey, _AAH_IMPLS,
+                                  lambda: (aj,), gate=True)
+                y = self._impl('aah', name)(aj, cj, alpha=alpha,
+                                            beta=beta)
+        else:
+            aj, akey = operand(a)
+            bj, bkey = operand(b)
+            name = self._pick('ab', 'a=%s b=%s' % (akey, bkey), _AB_IMPLS,
+                              lambda: (aj, bj), gate=True)
+            y = self._impl('ab', name)(aj, bj, cj, alpha=alpha, beta=beta)
+        if c is not None:
+            odt = logical_dtype(c)
+            if y.is_complex() and odt.kind not in ('cf', 'ci'):
+                y = y.real
+            return writeback(astype(y, odt), c)
+        return y
+
+
+_default = None
+
+
+def matmul(alpha, a, b, beta, c):
+    """:meth:`LinAlg.matmul` on a process-wide default plan."""
+    global _default
+    if _default is None:
+        _default = LinAlg()
+    return _default.matmul(alpha, a, b, beta, c)
 
 
 # ---------------------------------------------------------------------------

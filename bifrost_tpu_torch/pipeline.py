@@ -28,18 +28,37 @@ block that drained it.  ``run()`` arms ``BF_FAULTS``, re-reads the span
 configuration, and before it returns completes every transfer still in
 flight and writes the trace file.
 
-The JAX package's supervision policies, SLOs, compiled segments,
-auto-tuner and static verifier are not part of this runtime yet; their
-place is kept as a no-op seam (:meth:`Pipeline._prepare_graph`).  A
-failing block always aborts the pipeline: its output rings are poisoned
-so peers wake up, and ``run()`` raises :class:`PipelineRuntimeError`
-with the original traceback.
+Supervision (:mod:`bifrost_tpu_torch.supervision`,
+``bifrost_tpu/pipeline.py:537-1068``): a block that raises is handled by
+its ``on_failure`` tunable.  ``abort`` (the default) poisons every ring
+and ``run()`` raises :class:`PipelineRuntimeError` with the original
+traceback; ``restart`` re-enters the block's main loop with backoff,
+its writing session held open; ``skip_sequence`` abandons the sequence
+at hand.  ``run()`` arms the stall watchdog (``watchdog_secs`` /
+``BF_WATCHDOG_SECS``), the health monitor (:meth:`Pipeline.health`) and
+the metrics publisher (``telemetry.exporter``) after the init barrier,
+and stops them when it returns.  The fault seams ``block.run``,
+``block.on_sequence`` and ``block.on_data`` sit where the JAX pipeline
+has them.
+
+Source blocks stamp a trace context into each sequence header
+(``header_standard``), transforms and sinks propagate it, compute spans
+carry its id, rings age commits against it and sinks record the
+capture -> exit age (``telemetry.slo``).  A block's ``overload_policy``
+tunable (or ``BF_OVERLOAD_POLICY``) sets its output rings' policy at
+start; its ``core`` tunable pins its thread (``affinity``).
+
+The JAX package's compiled segments, auto-tuner and static verifier are
+not part of this runtime yet; their place is kept as a no-op seam
+(:meth:`Pipeline._prepare_graph`).
 """
 
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import signal
+import sys
 import threading
 import time
 import traceback
@@ -48,14 +67,20 @@ from collections import defaultdict, deque
 from contextlib import ExitStack
 from copy import copy
 
-from . import device, xfer
+from . import affinity, device, xfer
+from .header_standard import (TRACE_CONTEXT_KEY, ensure_trace_context,
+                              propagate_trace_context)
 from .ndarray import memset_array
 from .proclog import ProcLog
 from .ring import Ring, EndOfDataStop, RingPoisonedError, ring_view
 from .space import space_accessible
+from .supervision import PipelineRuntimeError, PipelineStallError
 from .telemetry import counters as _counters
+from .telemetry import exporter as _metrics_exporter
 from .telemetry import histograms as _histograms
+from .telemetry import slo as _slo
 from .telemetry import spans as _spans
+from .temp_storage import TempStorage
 from .testing import faults
 from .trace import ScopedTracer, tracing_enabled as _tracing
 
@@ -63,8 +88,9 @@ __all__ = ['Pipeline', 'BlockScope', 'Block', 'SourceBlock',
            'MultiTransformBlock', 'TransformBlock', 'SinkBlock',
            'get_default_pipeline', 'get_current_block_scope',
            'block_scope', 'block_view', 'get_ring', 'izip',
-           'PipelineInitError',
-           'PipelineRuntimeError', 'resolve_sync_depth']
+           'PipelineInitError', 'PipelineRuntimeError',
+           'PipelineStallError', 'resolve_sync_depth',
+           'resolve_overload_policy']
 
 
 def izip(*iterables):
@@ -109,26 +135,55 @@ def resolve_sync_depth(scope):
     return BlockScope.DEFAULT_SYNC_DEPTH if d is None else max(int(d), 0)
 
 
+def resolve_overload_policy(scope):
+    """The overload policy of ``scope``'s output rings: the
+    ``overload_policy`` tunable where set in the scope chain, else
+    ``BF_OVERLOAD_POLICY``, else None (the ring keeps its own, 'block'
+    unless set directly).  A bad value raises here."""
+    p = scope.overload_policy
+    if p is None:
+        p = os.environ.get('BF_OVERLOAD_POLICY', '').strip() or None
+    if p is not None and p not in Ring.OVERLOAD_POLICIES:
+        raise ValueError(
+            "Unknown overload policy %r (BF_OVERLOAD_POLICY / "
+            "overload_policy scope tunable); expected one of %s"
+            % (p, ', '.join(Ring.OVERLOAD_POLICIES)))
+    return p
+
+
 class BlockScope(object):
     """Nestable configuration scope; unset tunables inherit from the
     enclosing scope (reference: pipeline.py:84-162).
 
     Tunables: gulp_nframe, buffer_nframe, buffer_factor, sync_depth
     (device run-ahead in gulps), sync_strict (True: every D2H completes
-    before its span commits, as ``BF_SYNC_STRICT=1`` makes it) and mesh
-    (a :class:`bifrost_tpu_torch.parallel.Mesh` for the sharded ops of the
-    blocks within the scope; the correlator and FDMT blocks read it)."""
+    before its span commits, as ``BF_SYNC_STRICT=1`` makes it), mesh (a
+    :class:`bifrost_tpu_torch.parallel.Mesh` for the sharded ops of the
+    blocks within the scope; the correlator and FDMT blocks read it),
+    core (the host core a block's thread is pinned to),
+    share_temp_storage (blocks under the scope share one
+    :class:`~bifrost_tpu_torch.temp_storage.TempStorage` a space),
+    on_failure ('abort' | 'restart' | 'skip_sequence'), max_restarts and
+    restart_backoff (defaults ``BF_RESTART_MAX`` 3 and
+    ``BF_RESTART_BACKOFF`` 0.1 s), overload_policy ('block' |
+    'drop_oldest' | 'drop_newest', for the block's output rings) and
+    shed_tolerant (a consumer's declaration that it accepts gapped input
+    from a drop-policy ring)."""
 
     DEFAULT_SYNC_DEPTH = 4
 
     instance_count = 0
 
     _TUNABLES = ('gulp_nframe', 'buffer_nframe', 'buffer_factor',
-                 'sync_depth', 'sync_strict', 'mesh')
+                 'sync_depth', 'sync_strict', 'mesh', 'core',
+                 'share_temp_storage', 'on_failure', 'max_restarts',
+                 'restart_backoff', 'overload_policy', 'shed_tolerant')
 
     def __init__(self, name=None, gulp_nframe=None, buffer_nframe=None,
                  buffer_factor=None, sync_depth=None, sync_strict=None,
-                 mesh=None):
+                 mesh=None, core=None, share_temp_storage=False,
+                 on_failure=None, max_restarts=None, restart_backoff=None,
+                 overload_policy=None, shed_tolerant=None):
         if name is None:
             name = 'BlockScope_%i' % BlockScope.instance_count
             BlockScope.instance_count += 1
@@ -139,6 +194,14 @@ class BlockScope(object):
         self._sync_depth = sync_depth
         self._sync_strict = sync_strict
         self._mesh = mesh
+        self._core = core
+        self._share_temp_storage = share_temp_storage
+        self._on_failure = on_failure
+        self._max_restarts = max_restarts
+        self._restart_backoff = restart_backoff
+        self._overload_policy = overload_policy
+        self._shed_tolerant = shed_tolerant
+        self._temp_storage = {}
         self._parent_scope = get_current_block_scope() \
             if not isinstance(self, Pipeline) else None
         if self._parent_scope is not None:
@@ -163,21 +226,31 @@ class BlockScope(object):
         parent = self.__dict__.get('_parent_scope')
         return getattr(parent, name) if parent is not None else None
 
+    def _scope_hierarchy(self):
+        """The enclosing scopes, outermost first."""
+        out, parent = [], self._parent_scope
+        while parent is not None:
+            out.append(parent)
+            parent = parent._parent_scope
+        return list(reversed(out))
+
+    def _own_temp_storage(self, space):
+        if space not in self._temp_storage:
+            self._temp_storage[space] = TempStorage(space)
+        return self._temp_storage[space]
+
+    def get_temp_storage(self, space):
+        """Scratch storage for ``space``: that of the outermost enclosing
+        scope with ``share_temp_storage`` set, else this scope's own
+        (``bifrost_tpu/pipeline.py:277-286``)."""
+        for scope in self._scope_hierarchy():
+            if scope.share_temp_storage:
+                return scope._own_temp_storage(space)
+        return self._own_temp_storage(space)
+
 
 class PipelineInitError(Exception):
     pass
-
-
-class PipelineRuntimeError(RuntimeError):
-    """A block failed while the pipeline ran; carries each failure as
-    (block name, exception, formatted traceback)."""
-
-    def __init__(self, failures):
-        self.failures = list(failures)
-        name, exc, tb = self.failures[0]
-        super(PipelineRuntimeError, self).__init__(
-            "block %s failed: %s: %s\n%s"
-            % (name, type(exc).__name__, exc, tb))
 
 
 class Pipeline(BlockScope):
@@ -186,18 +259,22 @@ class Pipeline(BlockScope):
 
     instance_count = 0
 
-    def __init__(self, name=None, **kwargs):
+    def __init__(self, name=None, watchdog_secs=None, **kwargs):
         if name is None:
             name = 'Pipeline_%i' % Pipeline.instance_count
             Pipeline.instance_count += 1
         super(Pipeline, self).__init__(name=name, **kwargs)
+        #: stall-watchdog window in seconds (None: BF_WATCHDOG_SECS or
+        #: off)
+        self.watchdog_secs = watchdog_secs
         self.blocks = []
         self.threads = []
         self.shutdown_timeout = 5.
+        #: the failure-policy engine; created by run()
+        self.supervisor = None
+        self._shutting_down = False
         self.all_blocks_finished_initializing_event = threading.Event()
         self.block_init_queue = queue_mod.Queue()
-        self._failures = []
-        self._failure_lock = threading.Lock()
 
     def synchronize_block_initializations(self):
         """Init barrier: every block opens its output sequences before
@@ -209,22 +286,15 @@ class Pipeline(BlockScope):
             uninitialized.discard(block)
             if not ok:
                 self.shutdown()
+                detail = ''
+                if self.supervisor is not None:
+                    recorded = self.supervisor.failures_for(block.name)
+                    if recorded:
+                        detail = '\n' + recorded[-1].traceback.rstrip()
                 raise PipelineInitError(
                     "The following block failed to initialize: %s%s"
-                    % (block.name, self._failure_detail(block)))
+                    % (block.name, detail))
         self.all_blocks_finished_initializing_event.set()
-
-    def _failure_detail(self, block):
-        with self._failure_lock:
-            for name, _exc, tb in self._failures:
-                if name == block.name:
-                    return '\n' + tb.rstrip()
-        return ''
-
-    def _record_failure(self, block, exc):
-        with self._failure_lock:
-            self._failures.append((block.name, exc,
-                                   traceback.format_exc()))
 
     def _prepare_graph(self):
         """Seam where the JAX package rewrites and checks the block
@@ -232,55 +302,123 @@ class Pipeline(BlockScope):
         auto-tuner).  The port has none of them yet."""
 
     def run(self):
-        """Start every block thread, wait for all of them, complete the
-        transfers still in flight, and raise :class:`PipelineRuntimeError`
-        if any block failed (or, with none failed, the error of a
-        transfer that failed after its block finished)."""
+        """Start every block thread and supervise them to the end
+        (``bifrost_tpu/pipeline.py:537-676``).
+
+        A block that raises is handled by its ``on_failure`` policy; a
+        fatal failure poisons every ring, the wind-down waits at most
+        ``shutdown_timeout``, and the failure re-raises here as
+        :class:`PipelineRuntimeError` with its traceback.  The watchdog,
+        health monitor and metrics publisher run between the init
+        barrier and the end.  Before it returns, ``run()`` completes the
+        transfers still in flight (after an abort, the deferred fills
+        into poisoned rings are cancelled instead) and raises, with no
+        block failed, the error of a transfer that failed after its
+        block finished."""
+        from .supervision import Supervisor
         self._prepare_graph()
         faults.arm_from_env()
-        # honour BF_TRACE_FILE / BF_SPAN_BUFFER changes since the last
-        # run, and keep earlier runs' dead threads out of this trace
+        # honour BF_TRACE_FILE / BF_SPAN_BUFFER / BF_SLO_MS changes since
+        # the last run, and keep earlier runs' dead threads out of this
+        # trace
         _spans.reconfigure()
         _spans.prune_dead_buffers()
-        self._failures = []
+        _slo.reset_budget()
+        self._shutting_down = False
+        self.supervisor = Supervisor(self)
         self.all_blocks_finished_initializing_event.clear()
-        self.threads = [threading.Thread(target=block.run, name=block.name,
-                                         daemon=True)
-                        for block in self.blocks]
+        metrics = None
         try:
-            for thread in self.threads:
+            self.threads = [threading.Thread(target=block.run,
+                                             name=block.name, daemon=True)
+                            for block in self.blocks]
+            for block, thread in zip(self.blocks, self.threads):
+                block._thread = thread
                 thread.start()
             try:
                 self.synchronize_block_initializations()
-                for thread in self.threads:
-                    while thread.is_alive():
-                        thread.join(timeout=0.2)
+                self.supervisor.start_watchdog(self.watchdog_secs)
+                self.supervisor.start_health()
+                metrics = _metrics_exporter.MetricsPublisher(self)
+                metrics.start()
+                self._join_supervised()
             except KeyboardInterrupt:
                 self.shutdown()
                 raise
-            # no deferred fill outlives its pipeline
-            try:
-                xfer.engine().drain(block=True)
-            except Exception:
-                if not self._failures:
-                    raise
+            finally:
+                self.supervisor.stop_watchdog()
+                self.supervisor.stop_health()
+                if metrics is not None:
+                    metrics.stop()       # publishes one last snapshot
+            self._complete_transfers()
         finally:
             _spans.export_if_configured()
-        if self._failures:
-            raise PipelineRuntimeError(self._failures)
+        self.supervisor.raise_if_failed()
+
+    def _join_supervised(self):
+        """Join the block threads in 0.2 s slices; after an abort, wait
+        at most ``shutdown_timeout`` for the rest."""
+        abort_deadline = None
+        alive = list(self.threads)
+        while alive:
+            alive[0].join(timeout=0.2)
+            alive = [t for t in alive if t.is_alive()]
+            if alive and self.supervisor.abort_event.is_set():
+                if abort_deadline is None:
+                    abort_deadline = time.monotonic() + \
+                        self.shutdown_timeout
+                elif time.monotonic() >= abort_deadline:
+                    for t in alive:
+                        warnings.warn(
+                            "Thread %s did not shut down in time after "
+                            "pipeline abort" % t.name, RuntimeWarning)
+                    break
+
+    def _complete_transfers(self):
+        """No deferred fill outlives its pipeline: after an abort the
+        fills into poisoned rings are cancelled (nobody will read them);
+        the rest complete.  A transfer error raises when no block
+        failed."""
+        eng = xfer.engine()
+        if self.supervisor.abort_event.is_set():
+            eng.cancel_fills(lambda ring: ring is not None and
+                             ring.poisoned)
+        try:
+            eng.drain(block=True)
+        except Exception:
+            if not any(f.fatal for f in self.supervisor.failures):
+                raise
+
+    def health(self):
+        """The pipeline's health (``bifrost_tpu/pipeline.py:691-708``):
+        ``{'state': 'OK' | 'DEGRADED' | 'SHEDDING' | 'STALLED' |
+        'FAILED', 'since': unix time, 'blocks': {name: state},
+        'transitions': [...]}``, kept current by the health monitor while
+        ``run()`` is live and evaluated on demand otherwise."""
+        supervisor = self.supervisor
+        if supervisor is None:
+            return {'state': 'OK', 'since': None,
+                    'blocks': {b.name: 'OK' for b in self.blocks},
+                    'transitions': []}
+        return supervisor.health_snapshot()
 
     def shutdown(self):
         """Stop every block: set their shutdown events and poison their
         rings so that threads blocked in ring waits wake up."""
+        self._shutting_down = True
         cause = RuntimeError("pipeline shutdown")
         for block in self.blocks:
-            block.shutdown_event.set()
+            block.shutdown()
             for ring in list(block.orings) + list(block.irings):
                 ring.poison(cause)
         self.all_blocks_finished_initializing_event.set()
         deadline = time.monotonic() + self.shutdown_timeout
         for thread in self.threads:
             thread.join(max(deadline - time.monotonic(), 0))
+        for thread in self.threads:
+            if thread.is_alive():
+                warnings.warn("Thread %s did not shut down in time"
+                              % thread.name, RuntimeWarning)
 
     def shutdown_on_signals(self, signals=None):
         """Shut the pipeline down on SIGHUP, SIGINT, SIGQUIT, SIGTERM or
@@ -349,42 +487,147 @@ class Block(BlockScope):
         self.orings = []   # set by subclasses
         self.shutdown_event = threading.Event()
         self.perf_proclog = ProcLog(self.name + '/perf')
+        self.bind_proclog = ProcLog(self.name + '/bind')
         #: seconds spent per phase over all gulps, and the gulp count
         self.perf_totals = {'acquire': 0.0, 'reserve': 0.0,
                             'process': 0.0, 'ngulp': 0}
         self._pending_events = deque()
         self._h_gulp = self._h_wait = self._h_batch = None
+        #: supervision: the thread running this block (set by
+        #: Pipeline.run) and the heartbeat the watchdog reads
+        self._thread = None
+        self._hb_time = None
+        self._hb_gulps = 0
+        #: trace context of the sequence at hand
+        self._trace_ctx = None
+        #: kept current by the health monitor (see :meth:`on_health`)
+        self.health_state = 'OK'
+        self.init_trace = ''.join(traceback.format_stack()[:-1])
 
     def create_ring(self, *args, **kwargs):
-        return Ring(*args, **kwargs)
+        return Ring(*args, owner=self, **kwargs)
+
+    def shutdown(self):
+        self.shutdown_event.set()
+
+    def heartbeat(self):
+        """Record progress for the watchdog (once a gulp through
+        ``_sync_gulp``, and at sequence boundaries)."""
+        self._hb_time = time.monotonic()
+        self._hb_gulps += 1
+
+    def on_health(self, state, prev):
+        """Called by the health monitor when this block's health state
+        changes (OK -> DEGRADED under SLO pressure, -> SHEDDING when its
+        rings drop): override to cheapen work under pressure and restore
+        it on the way back.  Runs on the monitor's thread; must be quick
+        and must not raise (errors count on ``health.hook_errors``)."""
 
     def run(self):
-        try:
-            with ExitStack() as oring_stack:
-                orings = [oring_stack.enter_context(oring.begin_writing())
-                          for oring in self.orings]
+        if self.core is not None:
+            affinity.set_core(self.core if isinstance(self.core, int)
+                              else self.core[0])
+        self.bind_proclog.update({'ncore': 1, 'core0': affinity.get_core()},
+                                 force=True)
+        # the output rings take the block's overload policy
+        policy = resolve_overload_policy(self)
+        if policy is not None:
+            for oring in self.orings:
+                getattr(oring, '_base_ring', oring) \
+                    .set_overload_policy(policy)
+        self._hb_time = time.monotonic()
+        with ExitStack() as oring_stack:
+            # the writing session stays open across restarts: ending it
+            # between attempts would hand downstream an end of data
+            orings = [oring_stack.enter_context(oring.begin_writing())
+                      for oring in self.orings]
+            self._supervised_main(orings)
+
+    def _supervised_main(self, orings):
+        """``main`` under the pipeline's failure policies
+        (``bifrost_tpu/pipeline.py:990-1055``): a clean return ends the
+        block; a poisoned ring (a peer failed, or shutdown) poisons the
+        outputs and ends it; any other error goes to the supervisor,
+        which restarts the block after a backoff or aborts the pipeline.
+        Before a restart the device events of the failed attempt are
+        waited on and dropped, so the new attempt's run-ahead bound
+        starts empty."""
+        supervisor = self.pipeline.supervisor
+        restarts = 0
+        while True:
+            try:
+                faults.fire('block.run', self.name)
                 self.main(orings)
-            # a block can finish without opening a sequence (empty
-            # input): release the init barrier anyway
-            self.pipeline.block_init_queue.put((self, True))
-        except RingPoisonedError as exc:
-            # a peer failed or shutdown is winding us down
-            self._poison_orings(exc)
-            if not self.pipeline.all_blocks_finished_initializing_event \
-                    .is_set():
+                # a block can finish without opening a sequence (empty
+                # input, every sequence skipped): release the barrier
+                self.pipeline.block_init_queue.put((self, True))
+                if supervisor is not None:
+                    supervisor.block_finished(self)
+                return
+            except RingPoisonedError as exc:
+                if supervisor is not None:
+                    supervisor.block_poisoned(self, exc)
+                self._poison_orings(exc)
+                if (not self.pipeline
+                        .all_blocks_finished_initializing_event.is_set()
+                        and not self.pipeline._shutting_down):
+                    self.pipeline.block_init_queue.put((self, False))
+                return
+            except Exception as exc:
+                if supervisor is not None and \
+                        not self.shutdown_event.is_set():
+                    decision, delay = supervisor.block_failed(
+                        self, exc, restarts)
+                    if decision == 'restart':
+                        restarts += 1
+                        self._drop_pending_events()
+                        # shutdown cancels the backoff
+                        if not self.shutdown_event.wait(delay):
+                            continue
+                        return
                 self.pipeline.block_init_queue.put((self, False))
-        except Exception as exc:
-            if not self.shutdown_event.is_set():
-                self.pipeline._record_failure(self, exc)
-            self.pipeline.block_init_queue.put((self, False))
-            # abort: wake the consumers and stop the producers too
-            self._poison_orings(exc)
-            for iring in self.irings:
-                iring.poison(exc)
+                self._poison_orings(exc)
+                sys.stderr.write("From block instantiated here:\n")
+                sys.stderr.write(self.init_trace)
+                if supervisor is None:
+                    raise
+                traceback.print_exc()
+                return
+
+    def _drop_pending_events(self):
+        """Wait on the device events a failed attempt left and forget
+        them."""
+        pend, self._pending_events = self._pending_events, deque()
+        if pend:
+            try:
+                device.stream_synchronize(pend[-1])
+            except Exception:
+                pass     # the failed attempt's own error is recorded
 
     def _poison_orings(self, exc):
         for oring in self.orings:
-            oring.poison(exc)
+            try:
+                oring.poison(exc)
+            except Exception:
+                pass
+
+    def _failure_policy(self):
+        return self.on_failure or 'abort'
+
+    def _may_skip(self):
+        """Whether skip_sequence can absorb a failure here: only once the
+        init barrier is released (skipping a block's first sequence would
+        leave downstream blocks with no sequence to open)."""
+        return (self._failure_policy() == 'skip_sequence' and
+                self.pipeline.all_blocks_finished_initializing_event
+                .is_set())
+
+    def _observe_exit_age(self, iheader, frame_end):
+        """Capture -> pipeline-exit age of a sink's gulp; a no-op without
+        a trace context in the input header."""
+        age = _slo.capture_age_s(iheader, frame_end)
+        if age is not None:
+            _slo.observe_exit(self.name, age)
 
     def _observe_gulp(self, acquire, reserve, process):
         """Per-gulp telemetry: the three host-clock times summed in
@@ -417,13 +660,18 @@ class Block(BlockScope):
         self._h_batch.record(1)
 
     def _dispatch(self, fn, seq, gulp, *args):
-        """``fn(*args)`` inside the gulp's compute span (seq, gulp)
+        """``fn(*args)`` after the ``block.on_data`` fault seam, inside
+        the gulp's compute span (seq, gulp and the stream's trace id)
         when span recording is on, and an NVTX range under
         ``BF_TRACE=1``."""
+        faults.fire('block.on_data', self.name)
         with ExitStack() as scopes:
             if _spans.enabled():
+                kwargs = {'seq': seq, 'gulp': gulp}
+                if self._trace_ctx is not None:
+                    kwargs['trace'] = self._trace_ctx.get('id')
                 scopes.enter_context(_spans.span(
-                    self.name + '.on_data', 'compute', seq=seq, gulp=gulp))
+                    self.name + '.on_data', 'compute', **kwargs))
             if _tracing():
                 scopes.enter_context(ScopedTracer(self.name + '/on_data'))
             return fn(*args)
@@ -444,6 +692,7 @@ class Block(BlockScope):
         # init barrier (reference: pipeline.py:401-403)
         self.pipeline.block_init_queue.put((self, True))
         self.pipeline.all_blocks_finished_initializing_event.wait()
+        self.heartbeat()     # a sequence boundary counts as progress
         ogulp_overlaps = [g - s for g, s
                           in zip(ogulp_nframes, ostride_nframes)]
         return oseqs, ogulp_overlaps
@@ -469,6 +718,7 @@ class Block(BlockScope):
         ``pipeline.sync_waits``).  Then retire the transfer engine's
         completed D2H transfers without blocking."""
         _counters.inc('pipeline.gulps')
+        self.heartbeat()
         if any(s.ring.is_device and s.data is not None for s in ospans):
             _counters.inc('pipeline.gulps_device')
             ev = device.record_event()
@@ -508,18 +758,45 @@ class SourceBlock(Block):
         self._seq_count = 0
 
     def main(self, orings):
-        for sourcename in self.sourcenames:
+        # a restarted main resumes at the source that failed
+        sourcenames = list(self.sourcenames)
+        if not hasattr(self, '_source_index'):
+            self._source_index = 0
+        while self._source_index < len(sourcenames):
+            sourcename = sourcenames[self._source_index]
             if self.shutdown_event.is_set():
                 break
-            self._read_source(orings, sourcename)
+            try:
+                self._read_source(orings, sourcename)
+            except (EndOfDataStop, RingPoisonedError):
+                raise
+            except Exception as exc:
+                if not self._may_skip():
+                    raise
+                # skip_sequence: the failed source's output sequence has
+                # ended; record it and go on with the next source
+                supervisor = self.pipeline.supervisor
+                if supervisor is not None:
+                    supervisor.block_skipped(self, exc)
+                _slo.reset_block_ages(self.name)
+            self._source_index += 1
 
     def _read_source(self, orings, sourcename):
         with self.create_reader(sourcename) as ireader:
+            faults.fire('block.on_sequence', self.name)
             oheaders = self.on_sequence(ireader, sourcename)
+            ctx = None
             for ohdr in oheaders:
                 ohdr.setdefault('time_tag', self._seq_count)
                 ohdr.setdefault('name',
                                 'unnamed-sequence-%i' % self._seq_count)
+                # the stream's origin: one trace context a source
+                # sequence, shared by every output
+                if ctx is None:
+                    ctx = ensure_trace_context(ohdr)
+                elif isinstance(ohdr, dict):
+                    ohdr.setdefault(TRACE_CONTEXT_KEY, dict(ctx))
+            self._trace_ctx = ctx
             self._seq_count += 1
             seq_id = self._seq_count - 1
             gulp = 0
@@ -578,13 +855,42 @@ class MultiTransformBlock(Block):
                             for iring in self.irings]):
             if self.shutdown_event.is_set():
                 break
-            if not self._process_sequence(orings, iseqs):
-                break
+            try:
+                if not self._process_sequence(orings, iseqs):
+                    break
+            except (EndOfDataStop, RingPoisonedError):
+                raise
+            except Exception as exc:
+                if not self._may_skip():
+                    raise
+                # skip_sequence: the failed sequence's output has ended;
+                # read the rest of its input and go on with the next
+                supervisor = self.pipeline.supervisor
+                if supervisor is not None:
+                    supervisor.block_skipped(self, exc)
+                _slo.reset_block_ages(self.name)
+                self._drain_sequences(iseqs)
+
+    def _drain_sequences(self, iseqs):
+        """Read and discard the rest of the input sequences
+        (skip_sequence): a reader that merely stopped would hold its
+        guarantee and block the producer."""
+        for iseq in iseqs:
+            gulp = self.gulp_nframe or \
+                iseq.header.get('gulp_nframe', 1) or 1
+            for _span in iseq.read(gulp):
+                self.heartbeat()
+                if self.shutdown_event.is_set():
+                    return
 
     def _process_sequence(self, orings, iseqs):
+        faults.fire('block.on_sequence', self.name)
         oheaders = self._on_sequence(iseqs)
         for ohdr in oheaders:
             ohdr.setdefault('time_tag', self._seq_count)
+        # the stream identity follows the data
+        self._trace_ctx = propagate_trace_context(iseqs[0].header,
+                                                  oheaders)
         self._seq_count += 1
         seq_id = self._seq_count - 1
         gulp = 0
@@ -650,6 +956,11 @@ class MultiTransformBlock(Block):
                 self._observe_gulp(acquire_time, reserve_time,
                                    cur_time - prev_time)
                 prev_time = cur_time
+                if not self.orings and self._trace_ctx is not None:
+                    # a sink: the gulp leaves the pipeline here
+                    self._observe_exit_age(
+                        iseqs[0].header,
+                        ispans[0].frame_offset + ispans[0].nframe)
         self._on_sequence_end(iseqs)
         return True
 

@@ -39,10 +39,33 @@ deferred D2H fill on it (:meth:`WriteSpan.set_fill`, an
 reservation wraps onto it, and ``resize`` complete the fill first.  A
 fill that fails poisons the ring.
 
-Shedding, ringcheck, deferred resize and the native core are not part of
-this core; :meth:`Ring.poison` wakes a failing block's peers instead of
-leaving them blocked.  The ``ring.reserve`` and ``ring.acquire`` fault
-seams (``testing.faults``) sit where the JAX ring has them.
+Overload policies (``bifrost_tpu/ring.py:749-980``): a ring's reserve
+path blocks behind its slowest guaranteed reader by default
+(``'block'``).  Under ``'drop_oldest'`` the writer advances guaranteed
+readers past unread whole frames instead (never past a span a reader
+holds open); the skipped frames surface downstream as
+``nframe_skipped``, and on a device ring their chunks are released with
+the tail.  Under ``'drop_newest'`` a reserve that would block is shed
+instead: the writer computes into a scratch span (a device tensor of the
+span's shape on a ``cuda`` ring, allocated once per shape) and its
+commit is counted, not published.  Every shed counts on
+``ring.<name>.shed_gulps`` / ``.shed_bytes``, the ring's
+:meth:`Ring.shed_stats` and, for a traced stream, the
+``slo.shed_age_s`` histogram; each new sequence on a drop-policy ring
+carries the cumulative ledger in its ``_overload`` header.
+
+:meth:`Ring.request_resize` grows the ring without blocking: at once
+when no span is open and no deferred fill targets the buffer, else at
+the next span release or commit that leaves the ring quiescent.
+
+Each commit counts on ``ring.<name>.gulps`` and records the capture ->
+commit age of a traced stream (``telemetry.slo``); reserves and acquires
+record their flow-control wait on ``ring.<name>.reserve_s`` /
+``.acquire_s`` and as ``ring`` spans.  :meth:`Ring.poison` wakes a
+failing block's peers instead of leaving them blocked.  The
+``ring.reserve`` and ``ring.acquire`` fault seams (``testing.faults``)
+sit where the JAX ring has them.  The ringcheck shadow checker, its
+``ring.corrupt.*`` seams and the native core are not part of this core.
 """
 
 from __future__ import annotations
@@ -50,6 +73,8 @@ from __future__ import annotations
 import bisect
 import json
 import threading
+import time
+import weakref
 from functools import reduce
 
 import numpy as np
@@ -61,9 +86,31 @@ from .testing import faults
 
 __all__ = ['Ring', 'RingWriter', 'WriteSequence', 'ReadSequence',
            'WriteSpan', 'ReadSpan', 'EndOfDataStop', 'WouldBlock',
-           'RingPoisonedError', 'split_shape', 'ring_view', 'RingView']
+           'RingPoisonedError', 'split_shape', 'ring_view', 'RingView',
+           'live_rings']
 
 _INF = float('inf')
+
+# the telemetry modules, looked up once (they import nothing of the ring)
+_obs = None
+
+
+def _observability():
+    global _obs
+    if _obs is None:
+        from .telemetry import counters, histograms, slo, spans
+        _obs = (counters, histograms, spans, slo)
+    return _obs
+
+
+#: every Ring alive in this process (the exporter's ring section when no
+#: pipeline is named)
+_live_rings = weakref.WeakSet()
+
+
+def live_rings():
+    """The rings alive in this process."""
+    return list(_live_rings)
 
 
 class EndOfDataStop(Exception):
@@ -307,12 +354,17 @@ class Ring(object):
 
     instance_count = 0
 
-    def __init__(self, space='system', name=None):
+    #: reserve-path overload policies (module docstring)
+    OVERLOAD_POLICIES = ('block', 'drop_oldest', 'drop_newest')
+
+    def __init__(self, space='system', name=None, owner=None):
         self.space = canonical(space)
         if name is None:
             name = 'ring_%i' % Ring.instance_count
             Ring.instance_count += 1
         self.name = name
+        #: the block writing this ring (commit ages are named after it)
+        self.owner = owner
         self._lock = threading.RLock()
         self._read_cond = threading.Condition(self._lock)
         self._write_cond = threading.Condition(self._lock)
@@ -343,8 +395,16 @@ class Ring(object):
         self._nread_open = 0
         self._poisoned = None
         self._pending_fills = []      # xfer.HostFill, committed spans
+        self._pending_resize = None   # (contiguous, total, nringlet)
+        self.overload_policy = 'block'
+        self._shed_gulps = 0
+        self._shed_bytes = 0
+        self._scratch = {}            # drop_newest scratch, by shape
+        self._h_reserve = None
+        self._h_acquire = None
         self.header_transform = None
         self.is_view = False
+        _live_rings.add(self)
 
     @property
     def is_device(self):
@@ -364,6 +424,14 @@ class Ring(object):
         with self._lock:
             if total_bytes is None:
                 total_bytes = contiguous_bytes * 4
+            # a pending request_resize lands here too: this path waits
+            # for quiescence anyway
+            if self._pending_resize is not None:
+                pc, pt, pn = self._pending_resize
+                contiguous_bytes = max(contiguous_bytes, pc)
+                total_bytes = max(total_bytes, pt)
+                nringlet = max(nringlet, pn)
+                self._pending_resize = None
             ghost = max(self._ghost, contiguous_bytes)
             size = max(self._size, total_bytes)
             nringlet = max(self._nringlet, nringlet)
@@ -385,11 +453,65 @@ class Ring(object):
                         f.wait()
                 finally:
                     self._lock.acquire()
-            self._storage.allocate(size, ghost, nringlet,
-                                   self._tail, self._head)
-            self._size, self._ghost, self._nringlet = size, ghost, nringlet
-            self._write_cond.notify_all()
-            self._read_cond.notify_all()
+            self._apply_geometry_locked(size, ghost, nringlet)
+
+    def _apply_geometry_locked(self, size, ghost, nringlet):
+        """Re-lay the storage out; under the lock, on a quiescent ring
+        (no open span, no incomplete fill into the buffer)."""
+        self._storage.allocate(size, ghost, nringlet,
+                               self._tail, self._head)
+        self._size, self._ghost, self._nringlet = size, ghost, nringlet
+        self._write_cond.notify_all()
+        self._read_cond.notify_all()
+
+    def request_resize(self, contiguous_bytes, total_bytes=None,
+                       nringlet=1):
+        """Grow the ring without blocking (``bifrost_tpu/ring.py:626``):
+        at once when the ring is quiescent, else recorded and applied by
+        the span release or commit that leaves no span open and no fill
+        pending.  The geometry only grows, as in :meth:`resize`.  True
+        when the new geometry is live on return, False while pending."""
+        with self._lock:
+            if total_bytes is None:
+                total_bytes = contiguous_bytes * 4
+            ghost = max(self._ghost, contiguous_bytes)
+            size = max(self._size, total_bytes)
+            nringlet = max(self._nringlet, nringlet)
+            if (size, ghost, nringlet) == (self._size, self._ghost,
+                                           self._nringlet):
+                return True
+            if self._pending_resize is not None:
+                pc, pt, pn = self._pending_resize
+                contiguous_bytes = max(contiguous_bytes, pc)
+                total_bytes = max(total_bytes, pt)
+                nringlet = max(nringlet, pn)
+            self._pending_resize = (contiguous_bytes, total_bytes,
+                                    nringlet)
+            return self._maybe_apply_pending_locked()
+
+    @property
+    def resize_pending(self):
+        """Whether a request_resize has not applied yet."""
+        return self._pending_resize is not None
+
+    def _maybe_apply_pending_locked(self):
+        """Apply a pending request_resize if the ring is quiescent now
+        (under the lock); True when no request is left pending."""
+        if self._pending_resize is None:
+            return True
+        if self._nwrite_open or self._nread_open:
+            return False
+        if any(not f.done for f in self._pending_fills):
+            return False
+        contig, total, nringlet = self._pending_resize
+        self._pending_resize = None
+        ghost = max(self._ghost, contig)
+        size = max(self._size, total)
+        nringlet = max(self._nringlet, nringlet)
+        if (size, ghost, nringlet) != (self._size, self._ghost,
+                                       self._nringlet):
+            self._apply_geometry_locked(size, ghost, nringlet)
+        return True
 
     @property
     def total_span(self):
@@ -404,14 +526,84 @@ class Ring(object):
         return self._nringlet
 
     def occupancy(self):
-        """``{'tail', 'head', 'size', 'fill'}``: absolute byte offsets of
-        the oldest and newest committed bytes, the capacity, and the
-        share of it the committed bytes hold."""
+        """Flow-control state: absolute byte offsets of the oldest and
+        newest committed bytes and of the reserve head, the capacity, the
+        share of it the committed bytes hold (``fill``), the open span
+        counts, end of data and poisoning (the watchdog's dump reads
+        it)."""
         with self._lock:
             size = self._size
-            return {'tail': self._tail, 'head': self._head, 'size': size,
+            return {'tail': self._tail, 'head': self._head,
+                    'reserve_head': self._reserve_head, 'size': size,
                     'fill': min(self._head - self._tail, size) / size
-                    if size else 0.0}
+                    if size else 0.0,
+                    'nwrite_open': self._nwrite_open,
+                    'nread_open': self._nread_open, 'eod': self._eod,
+                    'poisoned': self._poisoned is not None}
+
+    # -- overload policy and counted shedding -----------------------------
+    def set_overload_policy(self, policy):
+        """Set the reserve path's policy ('block' | 'drop_oldest' |
+        'drop_newest'); a misspelled one raises here."""
+        if policy not in self.OVERLOAD_POLICIES:
+            raise ValueError(
+                "Unknown overload policy %r on ring %s (expected one "
+                "of %s)" % (policy, self.name,
+                            ', '.join(self.OVERLOAD_POLICIES)))
+        self.overload_policy = policy
+        return policy
+
+    def shed_stats(self):
+        """The ring's cumulative shed ledger (equal to its
+        ``ring.<name>.shed_gulps`` / ``.shed_bytes`` counters)."""
+        with self._lock:
+            return {'policy': self.overload_policy,
+                    'shed_gulps': self._shed_gulps,
+                    'shed_bytes': self._shed_bytes}
+
+    def _note_shed(self, nbyte, ngulps, header=None, frame_end=None):
+        """Count one shed: the ledger, the counters and, for a traced
+        stream, the age of the dropped data on ``slo.shed_age_s``."""
+        if nbyte <= 0:
+            return
+        with self._lock:
+            self._shed_gulps += ngulps
+            self._shed_bytes += nbyte
+        c, _h, _s, slo = _observability()
+        c.inc('ring.%s.shed_gulps' % self.name, ngulps)
+        c.inc('ring.%s.shed_bytes' % self.name, nbyte)
+        if header is not None:
+            try:
+                age = slo.capture_age_s(header, frame_end)
+                if age is not None:
+                    slo.observe_shed(age)
+            except Exception:
+                pass            # the SLO feed never breaks shedding
+
+    def _scratch_tensor(self, shape, dtype):
+        """The drop_newest scratch tensor of a device ring, in the device
+        representation of logical ``shape``: one per (shape, dtype),
+        reused by every shed gulp of that shape."""
+        key = (tuple(shape), str(dtype))
+        with self._lock:
+            t = self._scratch.get(key)
+        if t is None:
+            from .devrep import device_rep_zeros
+            t = device_rep_zeros(list(shape), dtype)
+            with self._lock:
+                t = self._scratch.setdefault(key, t)
+        return t
+
+    def _scratch_host(self, nringlet, nbyte):
+        """The drop_newest scratch bytes of a host ring, one buffer per
+        geometry."""
+        key = (nringlet, nbyte)
+        with self._lock:
+            buf = self._scratch.get(key)
+            if buf is None:
+                buf = self._scratch[key] = np.zeros((nringlet, nbyte),
+                                                    dtype=np.uint8)
+            return buf
 
     # -- failure ----------------------------------------------------------
     @property
@@ -475,25 +667,40 @@ class Ring(object):
     def _min_guarantee(self):
         return min(self._guarantees.values()) if self._guarantees else _INF
 
+    def _reserve_prologue_locked(self, nbyte):
+        """Checks before a reserve (under the lock): poison, a pending
+        partial commit, and a contiguous window too small for ``nbyte``
+        (grown here)."""
+        self._check_poison()
+        # a queued partial commit truncates reserve_head when it
+        # lands: reserving past it would hand out stale offsets
+        for sp in self._open_wspans:
+            if sp._closed and sp._commit_nbyte < sp._nbyte:
+                raise RuntimeError(
+                    "Cannot reserve a span while a partial commit "
+                    "is pending")
+        if nbyte > self._ghost:
+            # guaranteed-contiguous window too small: grow it
+            self._lock.release()
+            try:
+                self.resize(nbyte, max(self._size, nbyte * 4),
+                            self._nringlet)
+            finally:
+                self._lock.acquire()
+
+    def _grant_locked(self, span, begin, nbyte):
+        new_reserve = begin + nbyte
+        self._reserve_head = new_reserve
+        if new_reserve - self._size > self._tail:
+            self._advance_tail(new_reserve - self._size)
+        span._begin = begin
+        self._open_wspans.append(span)
+        self._nwrite_open += 1
+
     def _reserve_span(self, span, nonblocking=False):
         nbyte = span._nbyte
         with self._lock:
-            self._check_poison()
-            # a queued partial commit truncates reserve_head when it
-            # lands: reserving past it would hand out stale offsets
-            for sp in self._open_wspans:
-                if sp._closed and sp._commit_nbyte < sp._nbyte:
-                    raise RuntimeError(
-                        "Cannot reserve a span while a partial commit "
-                        "is pending")
-            if nbyte > self._ghost:
-                # guaranteed-contiguous window too small: grow it
-                self._lock.release()
-                try:
-                    self.resize(nbyte, max(self._size, nbyte * 4),
-                                self._nringlet)
-                finally:
-                    self._lock.acquire()
+            self._reserve_prologue_locked(nbyte)
             begin = self._reserve_head
             new_reserve = begin + nbyte
             while new_reserve - self._size > min(self._head,
@@ -502,12 +709,50 @@ class Ring(object):
                     raise WouldBlock()
                 self._write_cond.wait()
                 self._check_poison()
-            self._reserve_head = new_reserve
-            if new_reserve - self._size > self._tail:
-                self._advance_tail(new_reserve - self._size)
-            span._begin = begin
-            self._open_wspans.append(span)
-            self._nwrite_open += 1
+            self._grant_locked(span, begin, nbyte)
+
+    def _reserve_span_shed(self, span, frame_nbyte):
+        """Blocking reserve under ``drop_oldest``
+        (``bifrost_tpu/ring.py:799-870``): where flow control would wait
+        on a guaranteed reader, advance that reader's guarantee past the
+        bytes needed in whole frames, never past its oldest open span,
+        and count the advance of the minimum guarantee as shed bytes.
+        It still waits on the committed head and on readers pinned by
+        open spans.  Returns the shed bytes."""
+        nbyte = span._nbyte
+        frame_nbyte = max(int(frame_nbyte or 1), 1)
+        shed = 0
+        with self._lock:
+            self._reserve_prologue_locked(nbyte)
+            begin = self._reserve_head
+            new_reserve = begin + nbyte
+            while True:
+                new_tail = new_reserve - self._size
+                if new_tail <= min(self._head, self._min_guarantee()):
+                    break
+                advanced = False
+                if new_tail <= self._head and self._guarantees:
+                    old_min = self._min_guarantee()
+                    for key, g in list(self._guarantees.items()):
+                        if g >= new_tail:
+                            continue
+                        target = g + -(-(new_tail - g) //
+                                       frame_nbyte) * frame_nbyte
+                        opens = self._open_reads.get(key)
+                        if opens:
+                            target = min(target, min(opens))
+                        if target > g:
+                            self._guarantees[key] = target
+                            advanced = True
+                    if advanced:
+                        new_min = self._min_guarantee()
+                        if old_min != _INF and new_min > old_min:
+                            shed += new_min - old_min
+                        continue        # re-check the limit
+                self._write_cond.wait()
+                self._check_poison()
+            self._grant_locked(span, begin, nbyte)
+        return shed
 
     def _advance_tail(self, new_tail):
         # overwrite: pull the tail past unguaranteed readers
@@ -539,8 +784,32 @@ class Ring(object):
                 if cb > 0:
                     sp._finalize_storage(cb)
                 self._nwrite_open -= 1
+            # quiescence point: a pending request_resize may land now
+            if self._pending_resize is not None:
+                self._maybe_apply_pending_locked()
             self._read_cond.notify_all()
             self._span_cond.notify_all()
+        if commit_nbyte:
+            self._note_commit(wspan, commit_nbyte)
+
+    def _note_commit(self, wspan, commit_nbyte):
+        """Per-commit telemetry: one gulp on ``ring.<name>.gulps`` and,
+        for a traced stream, the capture -> commit age named after the
+        ring's owner (``telemetry.slo``)."""
+        c, _h, _s, slo = _observability()
+        c.inc('ring.%s.gulps' % self.name)
+        try:
+            header = wspan._sequence.header
+            if header.get('_trace') is not None:
+                name = self.owner.name if self.owner is not None \
+                    else self.name
+                frame_end = wspan.frame_offset + \
+                    commit_nbyte // wspan.frame_nbyte
+                age = slo.capture_age_s(header, frame_end)
+                if age is not None:
+                    slo.observe_commit(name, age)
+        except Exception:
+            pass                     # the SLO feed never breaks commits
 
     # -- reader side ------------------------------------------------------
     def open_earliest_sequence(self, guarantee=True):
@@ -648,10 +917,14 @@ class Ring(object):
                 self._release_high[id(rseq)] = rh
                 # advance to the oldest still-open span, else to the
                 # released high-water mark
+                # the reader consumed up to rh: a drop_oldest shed
+                # racing this window must not count those bytes again
                 g = min(opens) if opens else rh
                 self._guarantees[id(rseq)] = max(
                     self._guarantees[id(rseq)], g)
             self._nread_open -= 1
+            if self._pending_resize is not None:
+                self._maybe_apply_pending_locked()
             self._write_cond.notify_all()
             self._span_cond.notify_all()
 
@@ -788,6 +1061,16 @@ class WriteSequence(_SequenceAPI):
         # round trip through JSON: enforces serializability and
         # decouples the stored header from the caller's dict
         self._stored_header = json.loads(json.dumps(header))
+        # a drop-policy ring stamps its cumulative shed ledger into every
+        # new sequence header, merged with any stamp already there
+        policy = getattr(ring, 'overload_policy', 'block')
+        if policy != 'block':
+            stats = ring.shed_stats()
+            stamp = dict(self._stored_header.get('_overload') or {})
+            stamp.update({'policy': policy,
+                          'shed_gulps': stats['shed_gulps'],
+                          'shed_bytes': stats['shed_bytes']})
+            self._stored_header['_overload'] = stamp
         tensor = _tensor_info(self._stored_header)
         ring.resize(gulp_nframe * tensor['frame_nbyte'],
                     buf_nframe * tensor['frame_nbyte'],
@@ -867,14 +1150,21 @@ class ReadSequence(_SequenceAPI):
                         offset += stride
                 except EndOfDataStop:
                     return
-        need = (nframe + stride) * self.tensor['frame_nbyte']
+        hold_nbyte = (nframe + stride) * self.tensor['frame_nbyte']
         prev = None
         try:
             while True:
-                if prev is not None and \
-                        self._ring.total_span < need + self._ring.ghost_span:
-                    prev.release()
-                    prev = None
+                if prev is not None:
+                    # too small to hold ahead: ask the ring to grow (it
+                    # does at the next quiescent moment) and release first
+                    # until it has
+                    ring = self._ring
+                    ghost = ring.ghost_span
+                    need = hold_nbyte + ghost
+                    if ring.total_span < need and \
+                            not ring.request_resize(ghost, need):
+                        prev.release()
+                        prev = None
                 try:
                     span = self.acquire(offset, nframe)
                 except EndOfDataStop:
@@ -957,9 +1247,13 @@ class _SpanAPI(object):
         """Zero-copy numpy view of the ring bytes, shaped
         (*ringlet_shape, nframe, *frame_shape); a packed sub-byte type's
         view is its uint8 storage, the last axis counted in bytes."""
+        return self._typed_view(
+            self._ring._storage.view(self._begin, self._nbyte), writeable)
+
+    def _typed_view(self, raw, writeable):
+        """``raw`` (nringlet, nbyte) uint8 as this span's typed array."""
         t = self.tensor
         dtype = t['dtype']
-        raw = self._ring._storage.view(self._begin, self._nbyte)
         frame_shape = list(t['frame_shape'])
         if dtype.is_packed:
             frame_shape[-1] = frame_shape[-1] * dtype.itemsize_bits // 8
@@ -976,23 +1270,66 @@ class WriteSpan(_SpanAPI):
 
     Host rings: ``.data`` is a writable zero-copy view.
     Device rings: publish a computed tensor with ``span.set(t)``; the
-    tensor then belongs to the ring."""
+    tensor then belongs to the ring.
+
+    A span that a ``drop_newest`` ring shed (``_shed``) holds no ring
+    bytes: ``.data`` is scratch of the span's shape and its commit is
+    counted as shed, not published."""
 
     def __init__(self, ring, sequence, nframe, nonblocking=False):
         faults.fire('ring.reserve', ring.name)
         self._ring = ring
         self._sequence = sequence
-        self._nbyte = nframe * sequence.tensor['frame_nbyte']
+        fb = sequence.tensor['frame_nbyte']
+        self._nbyte = nframe * fb
         self._closed = False
         self._commit_nbyte = None
         self._tensor = None
         self._event = None
         self._data = None
         self._fill = None
-        ring._reserve_span(self, nonblocking)     # sets self._begin
+        self._shed = False
         # commit nothing unless told otherwise, so an exception in the
         # writer publishes no garbage (reference: ring2.py:463-464)
         self.commit_nframe = 0
+        _c, hist, spans, _slo = _observability()
+        # an explicit nonblocking reserve keeps its WouldBlock contract
+        policy = 'block' if nonblocking else ring.overload_policy
+        t0 = time.perf_counter()
+        shed_nbyte = 0
+        if policy == 'drop_oldest':
+            shed_nbyte = ring._reserve_span_shed(self, fb)
+        elif policy == 'drop_newest':
+            try:
+                ring._reserve_span(self, True)
+            except WouldBlock:
+                # shed this gulp: the writer fills scratch and the
+                # commit is counted instead of published; its logical
+                # place is the committed head
+                self._shed = True
+                self._begin = ring.occupancy()['head']
+                return
+        else:
+            ring._reserve_span(self, nonblocking)     # sets self._begin
+        dt = time.perf_counter() - t0
+        if shed_nbyte:
+            # whole frames of the live sequence, in gulps of the header's
+            # logical gulp
+            try:
+                gulp = int(sequence.header.get('gulp_nframe', 0) or 0)
+            except (TypeError, ValueError):
+                gulp = 0
+            gulp_nbyte = gulp * fb if gulp > 0 else self._nbyte
+            ring._note_shed(
+                shed_nbyte, max(1, -(-shed_nbyte // max(gulp_nbyte, 1))),
+                header=sequence.header,
+                frame_end=max((self._begin + self._nbyte - ring.total_span
+                               - sequence._seq.begin) // fb, 0))
+        if ring._h_reserve is None:
+            ring._h_reserve = hist.get_or_create(
+                'ring.%s.reserve_s' % ring.name, unit='s')
+        ring._h_reserve.record(dt)
+        spans.record_elapsed('%s.reserve' % ring.name, 'ring', dt)
         if not ring.is_device and ring._pending_fills:
             # a wrapped reservation reuses bytes that a pending deferred
             # fill still targets: complete those before writing
@@ -1003,9 +1340,16 @@ class WriteSpan(_SpanAPI):
     @property
     def data(self):
         if self._ring.is_device:
+            if self._shed and self._tensor is None:
+                return self._ring._scratch_tensor(self.shape, self.dtype)
             return self._tensor
         if self._data is None:
-            self._data = self._host_view(writeable=True)
+            if self._shed:
+                raw = self._ring._scratch_host(self.tensor['nringlet'],
+                                               self._nbyte)
+                self._data = self._typed_view(raw, writeable=True)
+            else:
+                self._data = self._host_view(writeable=True)
         return self._data
 
     def set(self, array):
@@ -1047,6 +1391,17 @@ class WriteSpan(_SpanAPI):
 
     def close(self):
         commit_nbyte = self.commit_nframe * self.frame_nbyte
+        if self._shed:
+            # drop_newest: nothing entered the ring; count what the
+            # writer would have published (nothing on the error path)
+            self._tensor = None
+            if commit_nbyte:
+                self._ring._note_shed(
+                    commit_nbyte, 1, header=self._sequence.header,
+                    frame_end=self.frame_offset + self.commit_nframe)
+            if self._fill is not None:
+                self._fill.cancel()
+            return
         if self._ring.is_device:
             if self._tensor is not None:
                 from .device import record_event
@@ -1091,11 +1446,19 @@ class ReadSpan(_SpanAPI):
 
     def __init__(self, sequence, frame_offset, nframe):
         faults.fire('ring.acquire', sequence.ring.name)
-        self._ring = sequence.ring
+        self._ring = ring = sequence.ring
         self._sequence = sequence
         fb = sequence.tensor['frame_nbyte']
-        self._begin, self._nbyte = self._ring._acquire_span(
+        _c, hist, spans, _slo = _observability()
+        t0 = time.perf_counter()
+        self._begin, self._nbyte = ring._acquire_span(
             sequence, frame_offset * fb, nframe * fb, fb)
+        dt = time.perf_counter() - t0
+        if ring._h_acquire is None:
+            ring._h_acquire = hist.get_or_create(
+                'ring.%s.acquire_s' % ring.name, unit='s')
+        ring._h_acquire.record(dt)
+        spans.record_elapsed('%s.acquire' % ring.name, 'ring', dt)
         self.requested_frame_offset = frame_offset
         self.nframe_skipped = min(self.frame_offset - frame_offset, nframe)
         self._holds = []

@@ -1,10 +1,11 @@
-"""Telemetry of the port: always-on counters, log2 histograms and gulp
-spans (the JAX package's ``bifrost_tpu/telemetry``).
+"""Telemetry of the port: always-on counters, log2 histograms, gulp
+spans, capture-to-commit SLO ages and the metrics exporter (the JAX
+package's ``bifrost_tpu/telemetry``).
 
-:func:`snapshot` merges the counters, the histograms and, for a given
-pipeline, its rings' occupancy into one plain dict.  The JAX package's
-``slo``, ``profiling``, ``fleet`` and ``exporter`` modules and its local
-usage tracker are not ported yet.
+:func:`snapshot` is :func:`exporter.snapshot`: counters, histograms,
+ring occupancy, card memory and the mesh counters in one plain dict,
+with per-second rates on request.  The JAX package's ``profiling`` and
+``fleet`` modules and its local usage tracker are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,25 +13,24 @@ from __future__ import annotations
 from . import counters  # noqa: F401  (always-on perf counters)
 from . import histograms  # noqa: F401  (log2 latency/size histograms)
 from . import spans  # noqa: F401  (gulp-span tracing / flight recorder)
+from . import slo  # noqa: F401  (capture-to-commit SLO ages)
+from . import exporter  # noqa: F401  (snapshot, Prometheus, publisher)
 
-__all__ = ['snapshot', 'counters', 'histograms', 'spans']
+__all__ = ['snapshot', 'flush', 'counters', 'histograms', 'spans', 'slo',
+           'exporter']
 
 
-def snapshot(pipeline=None):
-    """``{'counters': {name: int}, 'histograms': {name: {count, sum, min,
-    max, p50, p90, p99, buckets}}, 'rings': {name: {tail, head, size,
-    fill}}}``.  The counters include the live ``trace.dropped_spans``
-    total; ``rings`` lists the output rings of ``pipeline``'s blocks and
-    is empty without one."""
-    counts = counters.snapshot()
-    dropped = spans.dropped_spans()
-    if dropped:
-        counts['trace.dropped_spans'] = \
-            counts.get('trace.dropped_spans', 0) + dropped
-    rings = {}
-    if pipeline is not None:
-        for block in pipeline.blocks:
-            for ring in block.orings:
-                rings[ring.name] = ring.occupancy()
-    return {'counters': counts, 'histograms': histograms.snapshot(),
-            'rings': rings}
+def snapshot(pipeline=None, rates=False):
+    """The unified metrics snapshot (:func:`exporter.snapshot`):
+    ``pipeline`` narrows the ring section to its rings; ``rates=True``
+    (or an :class:`exporter.RateTracker`) adds per-second rates since the
+    tracker's previous snapshot."""
+    return exporter.snapshot(pipeline, rates=rates)
+
+
+def flush():
+    """The counters' snapshot (``block_failures``, ``block_restarts``,
+    ``ring_poisoned``, ``watchdog_stalls`` among them).  The JAX package
+    also merges them into its local usage file, which the port has not
+    ported."""
+    return counters.snapshot()

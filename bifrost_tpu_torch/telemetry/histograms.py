@@ -31,7 +31,7 @@ import math
 import threading
 
 __all__ = ['Histogram', 'observe', 'get', 'get_or_create', 'snapshot',
-           'reset', 'NBUCKET', 'EXP_MIN']
+           'clear', 'reset', 'NBUCKET', 'EXP_MIN']
 
 #: number of power-of-two buckets per histogram
 NBUCKET = 64
@@ -168,6 +168,23 @@ def snapshot():
     with _lock:
         items = list(_registry.items())
     return {name: h.snapshot() for name, h in items}
+
+
+def clear(name):
+    """Zero one histogram in place (hot-path caches holding the object
+    keep recording into it); False when no such histogram exists.  The
+    SLO age reset uses it so a skipped sequence's stale ages leave the
+    p99."""
+    h = _registry.get(name)
+    if h is None:
+        return False
+    with h._lock:
+        h.count = 0
+        h.total = 0.0
+        h.vmin = float('inf')
+        h.vmax = 0.0
+        h.buckets = [0] * NBUCKET
+    return True
 
 
 def reset():

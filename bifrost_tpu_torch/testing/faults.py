@@ -22,12 +22,13 @@ Seams wired into the port (site names are stable API):
 - ``xfer.d2h``         device->host readback issue
 - ``xfer.result``      transfer-future completion (deferred D2H fills
                        fail here, exercising the ring-poison path)
+- ``block.run``        each (re)entry of a block's main loop (block name)
+- ``block.on_sequence`` before a block's ``on_sequence`` (block name)
+- ``block.on_data``    before each gulp's ``on_data`` (block name)
 
-The JAX package's ``block.run``, ``block.on_sequence`` and
-``block.on_data`` seams come with the supervision layer, and its
-protocol-corruption seams (``ring.corrupt.*``, consumed through
-:func:`armed`) with the ring-protocol checker; :func:`armed` is here for
-them.
+The JAX package's protocol-corruption seams (``ring.corrupt.*``,
+consumed through :func:`armed`) come with the ring-protocol checker;
+:func:`armed` is here for them.
 
 A fault fires ``count`` times after skipping its first ``after``
 matching calls; ``delay`` seconds of sleep are injected before the

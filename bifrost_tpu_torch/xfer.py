@@ -835,6 +835,23 @@ class TransferEngine(object):
             raise error
         return n
 
+    def cancel_fills(self, pred):
+        """Cancel the incomplete deferred fills whose target ring
+        satisfies ``pred(ring)`` (``Pipeline.run`` after an abort: fills
+        into poisoned rings that nobody will read); their staging slots
+        go back to the pool and nothing lands in the ring.  Returns the
+        number cancelled."""
+        with self._lock:
+            fills = [f for f in self._fills if not f.done]
+        n = 0
+        for fill in fills:
+            if pred(fill._ring):
+                fill.cancel()
+                n += 1
+        if n:
+            _counters().inc('xfer.fills_cancelled', n)
+        return n
+
     @property
     def outstanding(self):
         with self._lock:

@@ -139,6 +139,28 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    pageable one, the copy's wait and the host copy apart.  Every arm
    logs the CRC-32 of its outputs, so that a run under BF_SYNC_STRICT=1
    can be held to the same bytes;
+10y. races LinAlg.matmul (the linalg phase) from an empty probe cache at
+   BASELINE config 4's beamforming GEMM (complex64 weights (512, 64,
+   256) @ data (512, 256, 512)) and config 5's array a @ a^H ((1024,
+   256, 256) in complex64 and in ci8): the chosen candidate and its
+   probe ms, every candidate timed queued with its torch._int_mm calls
+   beside the complex64 torch.matmul of the same product and the bound,
+   each held to a float64 oracle made on the card (the ci8 family bit
+   for bit, the float families within 1e-3, planar_bf16 8e-3);
+10z. drills the supervised runtime (the supervision phase) on the K1
+   chain at the flagship's width, 2048 frames a gulp: a reference run,
+   then a source that fails once and restarts (1 restart, every output
+   the reference's bytes), K1's block failing under the default policy
+   (run() raises naming it within its shutdown_timeout, no thread left,
+   no transfer outstanding, card memory back within a gulp),
+   skip_sequence (the second sequence whole), drop_oldest on the H2D
+   ring behind a sink that runs K1 and idles (the shed ledger equals the
+   gulps it lost, health passes through SHEDDING, every delivered output
+   the reference's bytes) with BF_METRICS_FILE parsed (xfer and shed
+   counters, the card's bytes in use, slo.exit_age_s), and a wedged sink
+   under BF_WATCHDOG_SECS=2 with escalation (PipelineStallError 2-6 s
+   after the wedge); then guppi-ci8 with that tier quiet and armed, in
+   turns (the tier's overhead);
 10a. drives the fx-K7 arm's chain followed by
    convert_visibilities('storage'), as examples/fx_correlator.py builds
    it (1 warm-up and 2 timed gulps, 1.08 GB of storage each): one K7
@@ -3715,6 +3737,621 @@ def phase_romein(bt, smi):
             'rel_err_accumulated': rel2}
 
 
+# ---------------------------------------------------------------------------
+# linalg: LinAlg.matmul at the reference's shapes
+# ---------------------------------------------------------------------------
+
+#: beamformer config 4: c64 weights (channel, beam, station) @ data
+#: (channel, station, frame); the FX array: (channel, input, frame) for
+#: a @ a^H, in complex64 and in ci8
+LA_AB = ((512, 64, 256), (512, 256, 512))
+LA_AAH = (1024, 256, 256)
+LA_GATE = 1e-3
+LA_GATE_BF16 = 8e-3
+
+
+def count_int_mm(fn):
+    """(result of ``fn()``, torch._int_mm calls it made)."""
+    import torch
+    real = torch._int_mm
+    n = [0]
+
+    def counted(a, b):
+        n[0] += 1
+        return real(a, b)
+    torch._int_mm = counted
+    try:
+        return fn(), n[0]
+    finally:
+        torch._int_mm = real
+
+
+def la_rel(y, want):
+    """max |y - want| / max |want| against the complex128 oracle."""
+    import torch
+    return float((y.to(torch.complex128) - want).abs().max() /
+                 want.abs().max())
+
+
+def la_case(L, name, family, la, result, args, want, nbyte, ncmac, peak,
+            library, exact=False, calls=4, runs=3):
+    """Time and check every candidate of ``family`` on ``args`` and the
+    chosen one's ``result`` against the oracle ``want``: the i8 family bit
+    for bit, the float ones within LA_GATE (planar_bf16 LA_GATE_BF16).
+    Returns the case's record."""
+    import torch
+    import bifrost_tpu_torch.ops.linalg as LM
+    out = {'chosen': la.chosen.get(family), 'probe_ms': la.probe_ms.get(
+        family), 'candidates': {}}
+    bms, by = bound(nbyte, 8 * ncmac, peak)
+    out.update(bound_ms=bms, bound_by=by)
+    if exact:
+        require(bool(torch.equal(result, want.to(torch.complex64))),
+                'linalg %s: the chosen %s differs from the int64 oracle'
+                % (name, out['chosen']))
+        out['chosen_err'] = 0.0
+    else:
+        out['chosen_err'] = la_rel(result, want)
+        require(out['chosen_err'] <= LA_GATE, 'linalg %s: the chosen %s is '
+                '%.3g of the float64 oracle (limit %g)'
+                % (name, out['chosen'], out['chosen_err'], LA_GATE))
+    del result
+    for cand in LM._IMPLS[family]:
+        fn = LM.LinAlg._impl(family, cand)
+        y, nmm = count_int_mm(lambda: fn(*args, None, alpha=1.0, beta=0.0))
+        if exact:
+            ok = bool(torch.equal(y, want.to(torch.complex64)))
+            err = 0.0 if ok else la_rel(y, want)
+            require(ok, 'linalg %s: %s differs from the int64 oracle '
+                    '(%.3g)' % (name, cand, err))
+        else:
+            err = la_rel(y, want)
+            lim = LA_GATE_BF16 if cand in LM.LinAlg._LOSSY else LA_GATE
+            require(err <= lim, 'linalg %s: %s is %.3g of the float64 '
+                    'oracle (limit %g)' % (name, cand, err, lim))
+        del y
+        ms = cuda_ms_queued(lambda: fn(*args, None, alpha=1.0, beta=0.0),
+                            calls=calls, runs=runs)
+        out['candidates'][cand] = {'ms': ms, 'rel_err': err,
+                                   'int_mm_calls': nmm}
+        torch.cuda.empty_cache()
+    out['library_ms'] = cuda_ms_queued(library, calls=calls, runs=runs)
+    out['library'] = 'complex64 torch.matmul'
+    log('linalg %s: chosen %s (probe ms %s), chosen rel err %.3g; '
+        'candidates %s; %s %.4f ms; bound %.4f ms (%s)'
+        % (name, out['chosen'], json.dumps(out['probe_ms']),
+           out['chosen_err'], json.dumps(out['candidates']), out['library'],
+           out['library_ms'], bms, by))
+    return out
+
+
+def phase_linalg(bt, L, ab=LA_AB, aah=LA_AAH, calls=4, runs=3, seed=37):
+    """LinAlg.matmul on the card at the beamformer's a @ b and the FX
+    array's a @ a^H (complex64 and ci8), each raced from an empty probe
+    cache and held to a float64 oracle made on the card; every candidate
+    timed queued beside the complex64 torch.matmul of the same product."""
+    import tempfile
+    import torch
+    from bifrost_tpu_torch.dtype import DataType
+    from bifrost_tpu_torch.ndarray import ndarray
+    dev = bt.device.get_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def crandn(shape):
+        return torch.randn(tuple(shape), dtype=torch.complex64, device=dev,
+                           generator=gen)
+
+    c128 = torch.complex128
+    res = {}
+    unset = dict.fromkeys(('BF_LINALG_PROBE', 'BF_LINALG_AB_IMPL',
+                           'BF_LINALG_AAH_IMPL', 'BF_LINALG_I8_IMPL',
+                           'BF_LINALG_GATE_RTOL'))
+    with tempfile.TemporaryDirectory() as cache, \
+            environ(BF_CACHE_DIR=cache, **unset):
+        # a @ b: weights @ data
+        w, x = crandn(ab[0]), crandn(ab[1])
+        want = torch.matmul(w.to(c128), x.to(c128))
+        la = L.LinAlg()
+        y = la.matmul(1.0, w, x, 0.0, None)
+        b_, m, k = ab[0]
+        n = ab[1][2]
+        res['ab'] = la_case(
+            L, 'ab c64 %s @ %s' % (ab[0], ab[1]), 'ab', la, y, (w, x), want,
+            w.nbytes + x.nbytes + y.nbytes, b_ * m * n * k, PEAK_FP32_PER_S,
+            lambda: torch.matmul(w, x), calls=calls, runs=runs)
+        del w, x, y, want
+        torch.cuda.empty_cache()
+        # a @ a^H, complex64
+        a = crandn(aah)
+        want = torch.matmul(a.to(c128), a.to(c128).transpose(-1, -2).conj())
+        la = L.LinAlg()
+        y = la.matmul(1.0, a, None, 0.0, None)
+        b_, n, k = aah
+        ah = a.transpose(-1, -2).conj()
+        res['aah_c64'] = la_case(
+            L, 'aah c64 %s' % (aah,), 'aah', la, y, (a,), want,
+            a.nbytes + y.nbytes, b_ * n * n * k, PEAK_FP32_PER_S,
+            lambda: torch.matmul(a, ah), calls=calls, runs=runs)
+        del a, ah, y, want
+        torch.cuda.empty_cache()
+        # a @ a^H, ci8: the host array LinAlg takes, its planes on the card
+        rng = np.random.default_rng(seed)
+        host = np.empty(aah, dtype=DataType('ci8').as_numpy_dtype())
+        host['re'] = rng.integers(-128, 128, aah, dtype=np.int8)
+        host['im'] = rng.integers(-128, 128, aah, dtype=np.int8)
+        re = torch.from_numpy(np.ascontiguousarray(host['re'])).to(dev)
+        im = torch.from_numpy(np.ascontiguousarray(host['im'])).to(dev)
+        z = torch.complex(re.double(), im.double())
+        # exact: every sum stays below 2**53 (and below 2**24)
+        want = torch.matmul(z, z.transpose(-1, -2).conj())
+        del z
+        la = L.LinAlg()
+        y = la.matmul(1.0, ndarray(host, dtype='ci8'), None, 0.0, None)
+        zc = torch.complex(re.float(), im.float())
+        zh = zc.transpose(-1, -2).conj()
+        res['aah_ci8'] = la_case(
+            L, 'aah ci8 %s' % (aah,), 'i8', la, y, (re, im), want,
+            re.nbytes + im.nbytes + y.nbytes, b_ * n * n * k,
+            PEAK_INT8_PER_S, lambda: torch.matmul(zc, zh), exact=True,
+            calls=calls, runs=runs)
+        del re, im, zc, zh, y, want
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# supervision: the K1 chain under each failure policy, shedding, the
+# watchdog and the exporter
+# ---------------------------------------------------------------------------
+
+#: the drills' gulp: the flagship's width (2 pols x 4096 channels, r 4)
+#: at 2048 frames a gulp (the depth cut: each gulp's output is CRC'd)
+DT = 2048
+DRILL_TIMEOUT = 120
+
+
+def drill_header(ntime=DT, nfine=NFINE):
+    return {'name': 'drill', 'time_tag': 0, 'gulp_nframe': ntime,
+            '_tensor': {'shape': [-1, NPOL, nfine], 'dtype': 'ci8',
+                        'labels': ['time', 'pol', 'fine_time'],
+                        'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+
+
+def drill_blocks(bt):
+    """The drills' source, K1 chain and sinks, as classes of the port."""
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+
+    class Source(bt.SourceBlock):
+        """``ngulp`` gulps a sequence, cycling over ``gulps``, one every
+        ``pace`` seconds at most; a (re)opened reader starts at gulp 0."""
+
+        def __init__(self, gulps, ngulp, names=('a',), pace=0.0, **kw):
+            super(Source, self).__init__(list(names), gulps[0].shape[0],
+                                         space='system', **kw)
+            self.gulps, self.ngulp, self.pace = gulps, ngulp, pace
+
+        def create_reader(self, name):
+            return contextlib.nullcontext([0])
+
+        def on_sequence(self, reader, name):
+            hdr = drill_header(self.gulps[0].shape[0],
+                               self.gulps[0].shape[2])
+            hdr['name'] = 'drill-%s' % name
+            return [hdr]
+
+        def on_data(self, reader, ospans):
+            if reader[0] == self.ngulp:
+                return [0]
+            if self.pace:
+                time.sleep(self.pace)
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = self.gulps[reader[0] % len(self.gulps)].reshape(
+                dst.shape)
+            reader[0] += 1
+            return [self.gulps[0].shape[0]]
+
+    class CrcSink(bt.SinkBlock):
+        """Keeps (sequence, input gulp, CRC-32, all zero) of each output
+        gulp; ``block`` (an Event) wedges it at ``block_at``."""
+
+        def __init__(self, iring, block=None, block_at=1, **kw):
+            super(CrcSink, self).__init__(iring, **kw)
+            self.seen, self.nseq = [], 0
+            self.block, self.block_at, self.blocked_at = block, block_at, \
+                None
+
+        def on_sequence(self, iseq):
+            self.nseq += 1
+
+        def on_data(self, ispan):
+            if self.block is not None and len(self.seen) == self.block_at:
+                self.blocked_at = time.monotonic()
+                self.block.wait()
+            a = ispan.data.as_numpy()
+            self.seen.append((self.nseq - 1, ispan.frame_offset //
+                              ispan.nframe, crc32(a), not a.any()))
+
+    class SlowK1Sink(bt.SinkBlock):
+        """A guaranteed reader that runs the K1 chain on each span (the
+        function FusedBlock runs, ``stages.compose_stages``), copies the
+        result to the host, releases the span, then idles: the backlog it
+        leaves is what a drop_oldest writer sheds.  Keeps (gulp index,
+        CRC-32 of the K1 output) and the frames it was skipped past."""
+
+        def __init__(self, iring, idle, **kw):
+            super(SlowK1Sink, self).__init__(iring, **kw)
+            self.idle, self.seen, self.skipped = idle, [], 0
+
+        def main(self, orings):
+            from bifrost_tpu_torch.header_standard import trace_context
+            from bifrost_tpu_torch.stages import compose_stages, walk_headers
+            stages = k1_stages()
+            for seq in self.iring.read(guarantee=True):
+                # no output sequence to open: release the init barrier
+                self.begin_sequences(None, [], [], [], [])
+                hdrs = walk_headers(stages, seq.header)
+                self._trace_ctx = trace_context(seq.header)
+                nframe = seq.header['gulp_nframe']
+                off, fn = 0, None
+                while True:
+                    try:
+                        span = seq.acquire(off, nframe)
+                    except bt.EndOfDataStop:
+                        break
+                    self.skipped += span.frame_offset - off
+                    got = span.nframe
+                    if got:
+                        x = span.data
+                        if fn is None:
+                            fn = compose_stages(stages, hdrs, x.shape,
+                                                x.dtype)[0]
+                        self.seen.append(
+                            (span.frame_offset // nframe,
+                             crc32(fn(x).cpu().numpy())))
+                        self._observe_exit_age(seq.header,
+                                               span.frame_offset + got)
+                    nxt = span.frame_offset + got
+                    span.release()
+                    self.heartbeat()
+                    if not got and nxt <= off:
+                        break
+                    off = nxt
+                    if got:
+                        time.sleep(self.idle)
+
+    def k1_stages():
+        return [FftStage('fine_time', axis_labels='freq'),
+                DetectStage('stokes', axis='pol'),
+                ReduceStage('freq', RFACTOR)]
+
+    def k1(h2d, **kw):
+        return bt.blocks.fused(h2d, k1_stages(), **kw)
+
+    return Source, CrcSink, SlowK1Sink, k1
+
+
+def drill_chain(bt, blocks, gulps, ngulp, src_kw=None, h2d_kw=None,
+                k1_kw=None, sink_kw=None, names=('a',)):
+    """source -> copy('cuda') -> fused K1 -> copy('system') -> CRC sink in
+    a new pipeline; returns (pipeline, {role: block})."""
+    Source, CrcSink, _tap, k1 = blocks
+    with bt.Pipeline() as p:
+        src = Source(gulps, ngulp, names, **(src_kw or {}))
+        h2d = bt.blocks.copy(src, space='cuda', **(h2d_kw or {}))
+        fused = k1(h2d, **(k1_kw or {}))
+        d2h = bt.blocks.copy(fused, space='system')
+        sink = CrcSink(d2h, **(sink_kw or {}))
+    return p, {'source': src, 'h2d': h2d, 'fused': fused, 'd2h': d2h,
+               'sink': sink}
+
+
+def check_delivered(what, seen, expect):
+    """Every non-zero output gulp equals the reference CRC of its input
+    gulp; returns the count of zero-filled ones."""
+    zeros = 0
+    for seq, g, crc, zero in seen:
+        if zero:
+            zeros += 1
+            continue
+        require(crc == expect[g % len(expect)], '%s: output gulp %d of '
+                'sequence %d differs from the K1 arm\'s bytes'
+                % (what, g, seq))
+    return zeros
+
+
+def drill_run(p, expect_exc=None):
+    """``run_with_timeout`` of a drill: (seconds, exception raised); the
+    monotonic time it returned is left in ``p.drill_end``."""
+    t0 = time.monotonic()
+    try:
+        run_with_timeout(p, DRILL_TIMEOUT)
+        exc = None
+    except Exception as e:
+        if expect_exc is None or not isinstance(e, expect_exc):
+            raise
+        exc = e
+    p.drill_end = time.monotonic()
+    return p.drill_end - t0, exc
+
+
+def parse_prometheus(path):
+    """{(metric, labels string): value} of a Prometheus textfile."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith('#') or not line.strip():
+                continue
+            key, _, val = line.rpartition(' ')
+            name, _, labels = key.partition('{')
+            out[(name, labels.rstrip('}'))] = float(val)
+    return out
+
+
+def phase_supervision(bt, spec, gpu_kernels, ngulp=12, tap_gulps=48,
+                      tap_idle=0.1, gulps=None):
+    """The K1 chain under the supervised runtime: a reference run, then
+    the restart, abort, skip_sequence, drop_oldest, watchdog and exporter
+    drills, each held to the reference's bytes and the runtime's
+    counters; and the guppi-ci8 arm plain and with the watchdog, health
+    monitor and metrics exporter armed."""
+    import gc
+    import tempfile
+    import threading
+    import torch
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters, histograms
+    from bifrost_tpu_torch.testing import faults
+    gulps = gulps if gulps is not None else [
+        g[:DT] for g in make_gulps(seed=41, n=2)]
+    blocks = drill_blocks(bt)
+    res = {}
+    gulp_bytes = gulps[0].nbytes
+
+    # reference: each distinct gulp through the chain, no fault
+    zero_counts(spec, gpu_kernels)
+    p, b = drill_chain(bt, blocks, gulps, len(gulps))
+    secs, _ = drill_run(p)
+    seen = b['sink'].seen
+    require(len(seen) == len(gulps) and not any(z for *_x, z in seen),
+            'drill reference: %d outputs' % len(seen))
+    expect = [crc for _s, _g, crc, _z in seen]
+    launches = spec.launches
+    # (the CPU rehearsal runs K1's plain version, which counts nothing)
+    require(launches == len(gulps) or not bt.device.on_cuda(),
+            'drill reference: %d K1 launches for %d gulps'
+            % (launches, len(gulps)))
+    res['reference'] = {'seconds': secs, 'k1_launches': launches}
+    del p, b
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+
+    # restart: the source fails once at its third gulp and restarts
+    counters.reset()
+    zero_counts(spec, gpu_kernels)
+    p, b = drill_chain(bt, blocks, gulps, ngulp,
+                       src_kw={'on_failure': 'restart',
+                               'restart_backoff': 0.05})
+    with faults.injected('block.on_data', match=b['source'].name, count=1,
+                         after=2):
+        secs, _ = drill_run(p)
+    seen = b['sink'].seen
+    require(counters.get('block_restarts') == 1 and
+            counters.get('block_failures') == 1,
+            'restart drill: restarts %d, failures %d'
+            % (counters.get('block_restarts'),
+               counters.get('block_failures')))
+    require(len(seen) == 2 + ngulp, 'restart drill: %d outputs, not %d'
+            % (len(seen), 2 + ngulp))
+    require(check_delivered('restart drill', seen, expect) == 0,
+            'restart drill: zero-filled outputs')
+    res['restart'] = {'seconds': secs, 'outputs': len(seen),
+                      'sequences': b['sink'].nseq,
+                      'block_restarts': counters.get('block_restarts'),
+                      'k1_launches': spec.launches}
+    log('supervision restart: %s' % json.dumps(res['restart']))
+    del p, b
+
+    # abort: K1's block fails at its third gulp under the default policy
+    counters.reset()
+    p, b = drill_chain(bt, blocks, gulps, ngulp)
+    p.shutdown_timeout = 10.0
+    with faults.injected('block.on_data', match=b['fused'].name, count=1,
+                         after=2):
+        secs, exc = drill_run(p, bt.PipelineRuntimeError)
+    require(exc is not None, 'abort drill: run() did not raise')
+    require(exc.primary.block_name == b['fused'].name and
+            b['fused'].name in str(exc), 'abort drill: the error names %s'
+            % exc.primary.block_name)
+    require(secs < p.shutdown_timeout, 'abort drill: run() took %.2f s'
+            % secs)
+    alive = [t.name for t in p.threads if t.is_alive()]
+    require(not alive, 'abort drill: threads alive %s' % alive)
+    outstanding = xfer.engine().outstanding
+    require(outstanding == 0, 'abort drill: %d transfers outstanding'
+            % outstanding)
+    res['abort'] = {'seconds': secs, 'health': p.health()['state'],
+                    'cancelled_fills': counters.get('xfer.fills_cancelled'),
+                    'ring_poisoned': counters.get('ring_poisoned')}
+    del p, b, exc
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    require(mem1 <= mem0 + gulp_bytes, 'abort drill: %d bytes allocated '
+            'after the run, %d before' % (mem1, mem0))
+    res['abort'].update(mem_before=mem0, mem_after=mem1)
+    log('supervision abort: %s' % json.dumps(res['abort']))
+
+    # skip_sequence: two sequences, the first one's second gulp fails
+    counters.reset()
+    p, b = drill_chain(bt, blocks, gulps, 4, names=('a', 'b'),
+                       k1_kw={'on_failure': 'skip_sequence'})
+    with faults.injected('block.on_data', match=b['fused'].name, count=1,
+                         after=1):
+        secs, _ = drill_run(p)
+    seen = b['sink'].seen
+    second = [s for s in seen if s[0] == 1]
+    require(counters.get('block_failures') == 1,
+            'skip drill: %d failures' % counters.get('block_failures'))
+    require([g for _s, g, _c, _z in second] == [0, 1, 2, 3],
+            'skip drill: the second sequence delivered gulps %s'
+            % [g for _s, g, _c, _z in second])
+    require(len(seen) == 5 and check_delivered('skip drill', seen,
+                                               expect) == 0,
+            'skip drill: %d outputs' % len(seen))
+    res['skip_sequence'] = {'seconds': secs, 'outputs': len(seen),
+                            'sequences': b['sink'].nseq}
+    log('supervision skip_sequence: %s' % json.dumps(res['skip_sequence']))
+    del p, b
+
+    # drop_oldest + exporter: the H2D ring sheds behind a sink that
+    # runs K1 and sleeps between gulps
+    Source, _c, SlowK1Sink, _k = blocks
+    counters.reset()
+    histograms.reset()
+    zero_counts(spec, gpu_kernels)
+    with tempfile.TemporaryDirectory() as tmp, environ(
+            BF_HEALTH_INTERVAL='0.1', BF_METRICS_INTERVAL='0.5',
+            BF_METRICS_FILE=os.path.join(tmp, 'metrics.prom'),
+            BF_PROCLOG_DIR=os.path.join(tmp, 'proclog')):
+        with bt.Pipeline() as p:
+            src = Source(gulps, tap_gulps, pace=tap_idle / 5)
+            h2d = bt.blocks.copy(src, space='cuda',
+                                 overload_policy='drop_oldest')
+            tap = SlowK1Sink(h2d, tap_idle)
+        states, stop = [], threading.Event()
+
+        def sample():
+            while not stop.wait(0.02):
+                states.append(p.health()['state'])
+        st = threading.Thread(target=sample, daemon=True)
+        st.start()
+        try:
+            secs, _ = drill_run(p)
+        finally:
+            stop.set()
+            st.join(5)
+        # the sheds since the monitor's last tick
+        states.append(p.health()['state'])
+        ring = h2d.orings[0]
+        shed = ring.shed_stats()
+        fb = gulp_bytes // gulps[0].shape[0]
+        require(shed['shed_gulps'] > 0, 'drop_oldest drill: nothing shed')
+        require(shed['shed_bytes'] == tap.skipped * fb,
+                'drop_oldest drill: shed %d bytes, the sink skipped %d '
+                'frames' % (shed['shed_bytes'], tap.skipped))
+        require(shed['shed_gulps'] == tap_gulps - len(tap.seen),
+                'drop_oldest drill: shed %d gulps, %d not delivered'
+                % (shed['shed_gulps'], tap_gulps - len(tap.seen)))
+        for g, crc in tap.seen:
+            require(crc == expect[g % len(expect)], 'drop_oldest drill: '
+                    'output of gulp %d differs from the K1 arm\'s bytes'
+                    % g)
+        require(spec.launches == len(tap.seen) or not bt.device.on_cuda(),
+                'drop_oldest drill: %d K1 launches for %d gulps'
+                % (spec.launches, len(tap.seen)))
+        require('SHEDDING' in states, 'drop_oldest drill: health never '
+                'SHEDDING (%s; %d monitor errors)'
+                % (sorted(set(states)), counters.get('health.hook_errors')))
+        prom = parse_prometheus(os.path.join(tmp, 'metrics.prom'))
+        names = {k[1] for k in prom if k[0] == 'bifrost_tpu_counter_total'}
+        for want_name in ('name="xfer.h2d_issued"',
+                          'name="ring.%s.shed_gulps"' % ring.name,
+                          'name="ring.%s.shed_bytes"' % ring.name):
+            require(want_name in names, 'exporter drill: %s missing from '
+                    'BF_METRICS_FILE' % want_name)
+        require(prom.get(('bifrost_tpu_counter_total',
+                          'name="ring.%s.shed_gulps"' % ring.name)) ==
+                shed['shed_gulps'], 'exporter drill: shed count differs')
+        require(prom.get(('bifrost_tpu_device_bytes',
+                          'device="0",kind="in_use"'), 0) > 0 or
+                not bt.device.on_cuda(),
+                'exporter drill: no device-memory gauge')
+        require(prom.get(('bifrost_tpu_hist_count',
+                          'name="slo.exit_age_s"'), 0) == len(tap.seen),
+                'exporter drill: slo.exit_age_s counts %s, not %d'
+                % (prom.get(('bifrost_tpu_hist_count',
+                             'name="slo.exit_age_s"')), len(tap.seen)))
+        res['drop_oldest'] = {
+            'seconds': secs, 'shed': shed, 'delivered': len(tap.seen),
+            'k1_launches': spec.launches, 'states': sorted(set(states)),
+            'transitions': counters.get('health.transitions')}
+        res['exporter'] = {
+            'series': len(prom),
+            'device_in_use': prom.get(('bifrost_tpu_device_bytes',
+                                       'device="0",kind="in_use"')),
+            'exit_age_count': prom[('bifrost_tpu_hist_count',
+                                    'name="slo.exit_age_s"')]}
+        del p, src, h2d, tap
+    log('supervision drop_oldest: %s' % json.dumps(res['drop_oldest']))
+    log('supervision exporter: %s' % json.dumps(res['exporter']))
+
+    # watchdog: the sink wedges; the run must raise PipelineStallError
+    counters.reset()
+    wedge = threading.Event()
+    with environ(BF_WATCHDOG_SECS='2', BF_WATCHDOG_ESCALATE='1'):
+        p, b = drill_chain(bt, blocks, gulps, ngulp,
+                           sink_kw={'block': wedge, 'block_at': 1})
+        p.shutdown_timeout = 1.0
+        try:
+            secs, exc = drill_run(p, bt.PipelineStallError)
+        finally:
+            wedge.set()
+    require(exc is not None, 'watchdog drill: run() did not raise')
+    stall_s = p.drill_end - b['sink'].blocked_at
+    require(2.0 <= stall_s <= 6.0, 'watchdog drill: raised %.2f s after '
+            'the sink wedged' % stall_s)
+    require(counters.get('watchdog_stalls') == 1,
+            'watchdog drill: %d stalls' % counters.get('watchdog_stalls'))
+    res['watchdog'] = {'seconds': secs, 'raised_after_wedge_s': stall_s,
+                       'stalls': counters.get('watchdog_stalls')}
+    del p, b, exc
+    log('supervision watchdog: %s' % json.dumps(res['watchdog']))
+    return res
+
+
+def phase_tier_overhead(bt, smi, runs=('plain', 'armed', 'armed', 'plain')):
+    """Seconds of the guppi-ci8 arm (examples/gpuspec_simple_torch.py over
+    GBLOCKS[8] blocks) with this tier quiet (no health thread, no watchdog,
+    no metrics file) and armed (health monitor at 0.5 s, watchdog at
+    10 s, metrics file every 1 s), in turns."""
+    import importlib.util
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    mod = importlib.util.spec_from_file_location(
+        'gpuspec_simple_torch',
+        os.path.join(here, 'examples', 'gpuspec_simple_torch.py'))
+    example = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(example)
+    out = {'plain': [], 'armed': []}
+    crcs = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'bl8.raw')
+        write_guppi(path, 8, GBLOCKS[8])
+        modes = {
+            'plain': dict(BF_HEALTH_INTERVAL='0', BF_WATCHDOG_SECS=None,
+                          BF_METRICS_FILE=None, BF_METRICS_INTERVAL=None),
+            'armed': dict(BF_HEALTH_INTERVAL='0.5', BF_WATCHDOG_SECS='10',
+                          BF_METRICS_FILE=os.path.join(tmp, 'm.prom'),
+                          BF_METRICS_INTERVAL='1')}
+        for mode in runs:
+            with environ(**modes[mode]):
+                with bt.Pipeline() as p:
+                    example.build([path], tmp, gulp_nframe=1, rfactor=GR)
+                t0 = time.perf_counter()
+                run_with_timeout(p, 300)
+                out[mode].append(time.perf_counter() - t0)
+            with open(path + '.fil', 'rb') as f:
+                crcs.add(zlib.crc32(f.read()))
+            os.remove(path + '.fil')
+    require(len(crcs) == 1, 'tier overhead: the .fil differs between runs')
+    out['overhead'] = (sum(out['armed']) / sum(out['plain'])) - 1.0
+    log('guppi-ci8 seconds, tier quiet %s, armed %s: overhead %.1f%% (%s)'
+        % (['%.3f' % x for x in out['plain']],
+           ['%.3f' % x for x in out['armed']], 100 * out['overhead'], smi))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3773,6 +4410,10 @@ def main():
     k7, k8 = run('K7, K8', phase_xcorr_kernels, gpu_kernels)
     fx = run('FX pipeline', phase_fx_pipeline, bt, spec, gpu_kernels, smi)
     xf = run('xfer', phase_xfer, bt, fx, smi)
+    la = run('linalg', phase_linalg, bt, L)
+    sup = run('supervision', phase_supervision, bt, spec, gpu_kernels)
+    sup['tier_overhead'] = run('tier overhead', phase_tier_overhead, bt,
+                               smi)
     dsp['fx_storage'] = run('fx-storage', phase_fx_storage, bt, spec,
                             gpu_kernels, fx, smi)
     dsp['romein'] = run('romein', phase_romein, bt, smi)
@@ -3867,6 +4508,8 @@ def main():
         k: phase_s[k] for k in ('map', 'fx-storage', 'fir', 'romein')}),
         'card': smi}))
     log(json.dumps({'xfer': xf, 'card': smi}))
+    log(json.dumps({'linalg': la, 'card': smi}))
+    log(json.dumps({'supervision': sup, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1648,3 +1648,167 @@ def test_convert_visibilities_storage_round_trip_on_the_card():
     np.testing.assert_array_equal(st.cpu().numpy(), want)
     back = storage_to_matrix(st, bi, bj, S)
     np.testing.assert_array_equal(back.cpu().numpy(), full)
+
+
+# ---------------------------------------------------------------------------
+# the supervised runtime on the card: abort with fills in flight, a device
+# block's restart, drop_oldest on a cuda ring
+# ---------------------------------------------------------------------------
+
+def _sup_blocks(gulps):
+    import bifrost_tpu_torch as bt
+
+    class Source(bt.SourceBlock):
+        def __init__(self, **kw):
+            super(Source, self).__init__(['g'], gulps[0].shape[0],
+                                         space='system', **kw)
+
+        def create_reader(self, name):
+            import contextlib
+            return contextlib.nullcontext([0])
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'g', 'time_tag': 0,
+                     'gulp_nframe': gulps[0].shape[0],
+                     '_tensor': {'shape': [-1, 2, gulps[0].shape[2]],
+                                 'dtype': 'ci8'}}]
+
+        def on_data(self, reader, ospans):
+            if reader[0] == len(gulps):
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                gulps[reader[0]].reshape(ospans[0].data.as_numpy().view(
+                    np.int8).shape)
+            reader[0] += 1
+            return [gulps[0].shape[0]]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring, fail_at=None, **kw):
+            super(Sink, self).__init__(iring, **kw)
+            self.out, self.nseq, self.fail_at = [], 0, fail_at
+
+        def on_sequence(self, iseq):
+            self.nseq += 1
+
+        def on_data(self, ispan):
+            if len(self.out) == self.fail_at:
+                raise RuntimeError('sink failed')
+            self.out.append(np.array(ispan.data.as_numpy().view(np.int8),
+                                     copy=True))
+    return Source, Sink
+
+
+def _sup_gulps(n, seed=41):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(-128, 128, (64, 2, 512, 2)).astype(np.int8)
+            for _ in range(n)]
+
+
+def test_abort_with_fills_in_flight_leaves_nothing_held():
+    """A sink that fails while the D2H block's fills are in flight: run()
+    raises, no thread is left, the engine has nothing outstanding and the
+    card's allocated memory falls back to within one gulp of where it
+    stood before the run."""
+    import gc
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import xfer
+    gulps = _sup_gulps(24)
+    Source, Sink = _sup_blocks(gulps)
+    xfer.reset_engine()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(Source(), space='cuda')
+        Sink(bt.blocks.copy(b, space='system'), fail_at=3)
+    with pytest.raises(bt.PipelineRuntimeError, match='sink failed'):
+        _run_bounded(p)
+    assert not any(t.is_alive() for t in p.threads)
+    assert xfer.engine().outstanding == 0
+    del p, b
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= before + gulps[0].nbytes
+
+
+def test_restart_of_a_device_block_keeps_the_stream():
+    """The H2D block fails once mid-stream and restarts: it waits on the
+    failed attempt's events before it goes on, its output sequence ends
+    at the failure (no end of data downstream), and every gulp after the
+    restart arrives byte for byte (the ring held the whole stream)."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.telemetry import counters
+    from bifrost_tpu_torch.testing import faults
+    gulps = _sup_gulps(6)
+    Source, Sink = _sup_blocks(gulps)
+    counters.reset()
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(Source(), space='cuda', on_failure='restart',
+                           restart_backoff=0.01,
+                           # the stream and the source's last reserve
+                           buffer_nframe=8 * 64)
+        sink = Sink(bt.blocks.copy(b, space='system'))
+    with faults.injected('block.on_data', match=b.name, count=1, after=2):
+        _run_bounded(p)
+    assert counters.get('block_restarts') == 1
+    assert sink.nseq == 2
+    want = gulps[:2] + gulps
+    assert len(sink.out) == len(want)
+    for got, g in zip(sink.out, want):
+        np.testing.assert_array_equal(got, g.reshape(got.shape))
+
+
+def test_drop_oldest_on_a_cuda_ring_releases_what_it_sheds():
+    """drop_oldest on a cuda ring: a reader that idles between spans is
+    shed past whole gulps, the ledger equals its skipped frames, every
+    gulp it reads equals its input, and the chunk map never holds more
+    than the ring's capacity (shed chunks are released)."""
+    import time
+    from bifrost_tpu_torch.ring import Ring, EndOfDataStop
+    ring = Ring(space='cuda', name='drop_oldest_cuda')
+    ring.set_overload_policy('drop_oldest')
+    hdr = {'name': 's', 'gulp_nframe': 4,
+           '_tensor': {'shape': [-1, 1024], 'dtype': 'f32'}}
+    gulps = [torch.full((4, 1024), float(i), device='cuda')
+             for i in range(40)]
+    held, got, skipped = [], [], [0]
+    import threading
+    ready = threading.Event()
+
+    def reader():
+        seq = ring.open_earliest_sequence(guarantee=True)
+        ready.set()
+        off = 0
+        while True:
+            try:
+                sp = seq.acquire(off, 4)
+            except EndOfDataStop:
+                break
+            skipped[0] += sp.frame_offset - off
+            if sp.nframe:
+                got.append((sp.frame_offset // 4, float(sp.data[0, 0])))
+            nxt = sp.frame_offset + sp.nframe
+            sp.release()
+            if not sp.nframe and nxt <= off:
+                break
+            off = nxt
+            time.sleep(0.01)
+        seq.close()
+
+    with ring.begin_writing() as w:
+        with w.begin_sequence(hdr, 4, 12) as s:
+            t = threading.Thread(target=reader, daemon=True)
+            t.start()
+            assert ready.wait(10)
+            for g in gulps:
+                with s.reserve(4) as sp:
+                    sp.set(g)
+                    sp.commit(4)
+                held.append(sum(c[0] for c in ring._storage.chunks.values()))
+    t.join(30)
+    assert not t.is_alive()
+    shed = ring.shed_stats()
+    assert shed['shed_bytes'] > 0
+    assert shed['shed_bytes'] == skipped[0] * 4096
+    assert shed['shed_gulps'] == len(gulps) - len(got)
+    assert all(v == float(i) for i, v in got)
+    assert max(held) <= ring.total_span

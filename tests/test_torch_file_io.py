@@ -10,6 +10,7 @@ device here.
 
 import contextlib
 import glob
+import json
 import os
 import wave
 from copy import deepcopy
@@ -133,11 +134,27 @@ def test_serialize_max_file_size_splitting(tmp_path):
     np.testing.assert_array_equal(sink.result(), data)
 
 
+#: the trace context both packages stamp in the byte-identity tests
+FIXED_TRACE = {'id': '00c0ffee00c0ffee', 'origin_ns': 1700000000000000000,
+               'host': 'test-host'}
+
+
+@pytest.fixture
+def fixed_trace(monkeypatch):
+    """Both packages' sources stamp :data:`FIXED_TRACE`."""
+    import bifrost_tpu.header_standard as jhs
+    import bifrost_tpu_torch.header_standard as ths
+    for mod in (jhs, ths):
+        monkeypatch.setattr(mod, 'new_trace_context',
+                            lambda: dict(FIXED_TRACE))
+
+
 @pytest.mark.parametrize('case', ['flat', 'split', 'ringlets'])
-def test_serialize_byte_identical_and_read_across(tmp_path, case):
+def test_serialize_byte_identical_and_read_across(tmp_path, case,
+                                                  fixed_trace):
     """Both packages serialize one stream to the same files, byte for
-    byte (header JSON and data segments), and each deserializes the
-    other's files to the same data and header."""
+    byte (header JSON, its ``_trace`` included, and data segments), and
+    each deserializes the other's files to the same data and header."""
     rng = np.random.RandomState(6)
     if case == 'ringlets':
         # a ringlet axis before the frame axis: one .dat file per lane
@@ -169,10 +186,10 @@ def test_serialize_byte_identical_and_read_across(tmp_path, case):
     assert sorted(tfiles) == sorted(jfiles)
     assert len(tfiles) > (2 if case != 'flat' else 1)
     for name in tfiles:
-        want = jfiles[name]
         if name.endswith('.bf.json'):
-            want = _without_trace(want)
-        assert tfiles[name] == want, name
+            assert json.loads(tfiles[name].decode())['_trace'] == \
+                FIXED_TRACE
+        assert tfiles[name] == jfiles[name], name
     name = hdr['name']
     for reader, d in ((bt, out[bf]), (bf, out[bt])):
         sink = _run(reader, lambda p: _sink(p, p.blocks.deserialize(
@@ -181,23 +198,6 @@ def test_serialize_byte_identical_and_read_across(tmp_path, case):
             np.concatenate(sink.gulps, axis=1)
         np.testing.assert_array_equal(got, data)
         assert sink.headers[0]['_tensor'] == hdr['_tensor']
-
-
-def _without_trace(blob):
-    """A JAX .bf.json without the ``_trace`` key, dumped as the serialize
-    block dumps a header.  The JAX pipeline stamps a trace context (a
-    random id and the clock) into every header it sources, so two JAX
-    runs of one stream already differ there; the port has no trace tier
-    yet (ROADMAP queue 1 item 4), and its header is the rest, byte for
-    byte."""
-    import io
-    import json
-    hdr = json.loads(blob.decode())
-    assert '_trace' in hdr
-    hdr.pop('_trace')
-    f = io.StringIO()
-    json.dump(hdr, f, indent=4, sort_keys=True)
-    return f.getvalue().encode()
 
 
 class _LaneSource(bt.SourceBlock):
@@ -259,7 +259,10 @@ def test_deserialize_loop_replay(tmp_path):
         restamp=True)))
     assert [h['time_tag'] for h in sink.headers] == [0, 1]
     assert [h['name'] for h in sink.headers] == ['rep', 'rep.loop1']
-    assert all('_trace' not in h for h in sink.headers)
+    # restamp drops the recorded context; the source stamps a fresh one
+    # a pass (tests/test_service.py:186 in the JAX package)
+    ids = [h['_trace']['id'] for h in sink.headers]
+    assert 'x' not in ids and len(set(ids)) == 2
     np.testing.assert_array_equal(sink.result(), np.concatenate([data] * 2))
 
 

@@ -80,7 +80,12 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.blocks.serialize, "
              "bifrost_tpu_torch.blocks.wav, bifrost_tpu_torch.xfer, "
              "bifrost_tpu_torch.telemetry, bifrost_tpu_torch.trace, "
-             "bifrost_tpu_torch.testing.faults\n"
+             "bifrost_tpu_torch.testing.faults, "
+             "bifrost_tpu_torch.supervision, bifrost_tpu_torch.affinity, "
+             "bifrost_tpu_torch.temp_storage, "
+             "bifrost_tpu_torch.header_standard, "
+             "bifrost_tpu_torch.telemetry.slo, "
+             "bifrost_tpu_torch.telemetry.exporter\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -150,6 +155,28 @@ def test_mesh_entry_points_import_without_a_device():
              "print(sorted(_build._libs), 'ring_permute' in _build.SOURCES)\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '[] True'
+
+
+def test_runtime_entry_points_import_without_a_device():
+    """The supervised runtime, the exporter, LinAlg and the new tunables
+    import and build without a device: no kernel built, no CUDA context,
+    and the telemetry snapshot reads no card memory."""
+    p = _run("import torch, bifrost_tpu_torch as bt\n"
+             "from bifrost_tpu_torch import supervision, affinity\n"
+             "from bifrost_tpu_torch.telemetry import exporter, slo\n"
+             "assert callable(bt.ops.LinAlg) and callable(bt.ops.matmul)\n"
+             "assert supervision.POLICIES == ('abort', 'restart', "
+             "'skip_sequence')\n"
+             "for t in ('on_failure', 'max_restarts', 'restart_backoff', "
+             "'overload_policy', 'shed_tolerant', 'core', "
+             "'share_temp_storage'):\n"
+             "    assert t in bt.BlockScope._TUNABLES, t\n"
+             "snap = bt.telemetry.snapshot()\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), snap['devices'], "
+             "torch.cuda.is_initialized())\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[] {} False'
 
 
 def test_default_mesh_needs_the_card_or_a_cpu_request():

@@ -50,6 +50,11 @@ def _reset(monkeypatch):
         s.reset()
         s.reconfigure()
     xfer.reset_engine()
+    # BF_SLO_MS is cached: the next test's observations re-read it
+    from bifrost_tpu.telemetry import slo as jslo_
+    from bifrost_tpu_torch.telemetry import slo as slo_
+    slo_.reset_budget()
+    jslo_.reset_budget()
 
 
 def test_counters_agree():
@@ -87,6 +92,13 @@ def _trace_events(path):
         doc = json.load(f)
     return [(e['name'], e['cat'], sorted((e.get('args') or {}).keys()))
             for e in doc['traceEvents'] if e['ph'] == 'X']
+
+
+def _compute_trace_ids(path):
+    with open(path) as f:
+        doc = json.load(f)
+    return {e['args']['trace'] for e in doc['traceEvents']
+            if e['ph'] == 'X' and e['cat'] == 'compute'}
 
 
 def test_spans_export_the_same_events(tmp_path, monkeypatch):
@@ -343,11 +355,14 @@ def test_pipeline_telemetry_counts_agree(tmp_path, monkeypatch):
                                   for r in blk.orings}
     port_ev = _trace_events(str(tmp_path / 'port.json'))
     jax_ev = _trace_events(str(tmp_path / 'jax.json'))
-    # the JAX spans also carry the stream's trace-context id
-    assert all(e[2] == ['gulp', 'seq'] for e in port_ev
+    # both packages' compute spans carry (seq, gulp) and the stream's
+    # trace-context id
+    assert all(e[2] == ['gulp', 'seq', 'trace'] for e in port_ev
                if e[1] == 'compute')
-    assert all({'gulp', 'seq'} <= set(e[2]) for e in jax_ev
+    assert all(e[2] == ['gulp', 'seq', 'trace'] for e in jax_ev
                if e[1] == 'compute')
+    assert _compute_trace_ids(str(tmp_path / 'port.json')) == \
+        {p.blocks[0]._trace_ctx['id']}
     # one a gulp a block, and the source's last call that ends the
     # sequence, in both packages
     ncompute = len([e for e in port_ev if e[1] == 'compute'])
@@ -357,3 +372,226 @@ def test_pipeline_telemetry_counts_agree(tmp_path, monkeypatch):
     assert {e[0] for e in port_ev if e[1] == 'xfer'} == {'h2d', 'd2h'}
     assert {e[0] for e in port_ev if e[1] == 'xfer'} == \
         {e[0] for e in jax_ev if e[1] == 'xfer'}
+
+
+# ---------------------------------------------------------------------------
+# exporter, SLO ages and trace context (the JAX package's
+# telemetry/exporter.py, telemetry/slo.py, header_standard.py:84-145)
+# ---------------------------------------------------------------------------
+
+from bifrost_tpu import header_standard as jhs  # noqa: E402
+from bifrost_tpu.telemetry import exporter as jexporter  # noqa: E402
+from bifrost_tpu.telemetry import slo as jslo  # noqa: E402
+from bifrost_tpu_torch import header_standard as ths  # noqa: E402
+from bifrost_tpu_torch.telemetry import exporter, slo  # noqa: E402
+
+SLO = [('port', counters, histograms, slo, ths),
+       ('jax', jcounters, jhistograms, jslo, jhs)]
+
+
+def test_prometheus_text_equals_jax():
+    """The same counters and histograms render to the same Prometheus
+    text in both packages (the device section aside: it reads each
+    package's own runtime)."""
+    rng = np.random.RandomState(4)
+    values = rng.lognormal(-6, 2, 200)
+    texts = {}
+    for name, c, h, _s, _f in BOTH:
+        c.inc('pipeline.gulps', 17)
+        c.inc('ring.r0.shed_gulps', 3)
+        c.inc('odd "name"\\x', 2)
+        for v in values:
+            h.observe('slo.exit_age_s', float(v))
+        h.observe('ring.r0.reserve_s', 0.25)
+        snap = {'counters': c.snapshot(), 'histograms': h.snapshot(),
+                'rings': {'r0': {'tail': 0, 'head': 96, 'size': 384,
+                                 'fill': 0.25}}}
+        mod = exporter if name == 'port' else jexporter
+        texts[name] = mod.prometheus_text(snap)
+    assert texts['port'] == texts['jax']
+    assert 'bifrost_tpu_counter_total{name="pipeline.gulps"} 17' in \
+        texts['port']
+    assert 'bifrost_tpu_hist_count{name="slo.exit_age_s"} 200' in \
+        texts['port']
+
+
+def test_prometheus_device_section_reads_torch_keys():
+    """The device gauges take the JAX keys and the port's allocator
+    keys (reserved, free)."""
+    text = exporter.prometheus_text({'devices': {0: {
+        'platform': 'cuda', 'bytes_in_use': 10, 'bytes_reserved': 20,
+        'peak_bytes_in_use': 15, 'bytes_free': 70, 'bytes_limit': 100,
+        'watermark_bytes': 12}}})
+    for kind, v in (('in_use', 10), ('reserved', 20), ('peak', 15),
+                    ('free', 70), ('limit', 100), ('watermark', 12)):
+        assert 'bifrost_tpu_device_bytes{device="0",kind="%s"} %d' \
+            % (kind, v) in text
+    # no card was initialised here: the snapshot reads none
+    assert exporter.snapshot()['devices'] == {}
+
+
+def test_rate_tracker_agrees(monkeypatch):
+    """RateTracker: no rates on the first observation, then per-second
+    deltas (counter resets clamp to 0), the same in both packages."""
+    clock = [100.0]
+    monkeypatch.setattr(time, 'monotonic', lambda: clock[0])
+    out = {}
+    for name, mod in (('port', exporter), ('jax', jexporter)):
+        clock[0] = 100.0
+        rt = mod.RateTracker()
+        first = rt.observe({'a': 5}, {'h': {'count': 2, 'sum': 1.0}})
+        clock[0] = 102.0
+        second = rt.observe({'a': 11, 'b': 4},
+                            {'h': {'count': 6, 'sum': 3.0}})
+        clock[0] = 103.0
+        third = rt.observe({'a': 1})
+        out[name] = (first, second, third)
+    assert out['port'] == out['jax']
+    assert out['port'][0]['dt'] is None
+    assert out['port'][1]['counters'] == {'a': 3.0, 'b': 2.0}
+    assert out['port'][2]['counters'] == {'a': 0.0}
+
+
+def test_capture_age_and_budget_agree(monkeypatch):
+    """capture_age_s (origin, tsamp extrapolation, skew) and the
+    BF_SLO_MS violation counting agree with the JAX module."""
+    hdr = {'_trace': {'id': 'abc', 'origin_ns': 10 ** 18}, 'tsamp': 0.5}
+    skewed = {'_trace': {'id': 'abc', 'origin_ns': 10 ** 18,
+                         'skew_ns': 2 * 10 ** 9}}
+    now = 1e9 + 30.0
+    monkeypatch.setenv('BF_SLO_MS', '1500')
+    got = {}
+    for name, c, h, s, _hs in SLO:
+        s.reset_budget()
+        ages = (s.capture_age_s(hdr, None, now),
+                s.capture_age_s(hdr, 10, now),
+                s.capture_age_s(skewed, None, now),
+                s.capture_age_s({'tsamp': 1.0}, 3, now),
+                s.capture_age_s(hdr, 100, now))
+        s.observe_commit('blk', 1.0)
+        s.observe_commit('blk', 2.0)
+        s.observe_exit('snk', 3.0)
+        s.observe_shed(9.0)
+        got[name] = (ages, s.budget_s(), c.get('slo.violations'),
+                     c.get('slo.blk.violations'),
+                     c.get('slo.snk.violations'),
+                     h.get('slo.exit_age_s').snapshot()['count'],
+                     h.get('slo.shed_age_s').snapshot()['count'])
+        s.reset_budget()
+    assert got['port'] == got['jax']
+    ages = got['port'][0]
+    assert ages[3] is None and ages[4] == 0.0
+    assert ages[:3] == pytest.approx((30.0, 25.0, 28.0), abs=1e-6)
+    assert got['port'][2:] == (2, 1, 1, 1, 1)
+
+
+def test_trace_context_functions_agree(monkeypatch):
+    """ensure / propagate / trace_context and BF_TRACE_CONTEXT=0 behave
+    as the JAX module's."""
+    for name, _c, _h, _s, hs in SLO:
+        hdr = {}
+        ctx = hs.ensure_trace_context(hdr)
+        assert hdr[hs.TRACE_CONTEXT_KEY] is ctx
+        assert set(ctx) == {'id', 'origin_ns', 'host'}
+        assert len(ctx['id']) == 16
+        assert hs.ensure_trace_context(hdr) is ctx
+        outs = [{}, {'_trace': {'id': 'mine'}}, 'not-a-dict']
+        assert hs.propagate_trace_context(hdr, outs) is ctx
+        assert outs[0]['_trace'] == ctx and outs[0]['_trace'] is not ctx
+        assert outs[1]['_trace'] == {'id': 'mine'}
+        assert hs.trace_context({'_trace': {'id': ''}}) is None
+        assert hs.propagate_trace_context({}, [{}]) is None
+        monkeypatch.setenv('BF_TRACE_CONTEXT', '0')
+        assert hs.ensure_trace_context({}) is None
+        monkeypatch.delenv('BF_TRACE_CONTEXT')
+    assert ths.TRACE_CONTEXT_KEY == jhs.TRACE_CONTEXT_KEY
+
+
+def _traced_run(mod, src_cls, sink_cls, gulps, hdr):
+    with mod.Pipeline() as p:
+        src = src_cls(gulps, hdr)
+        sink = sink_cls(mod.blocks.copy(src, space='system'))
+        run_bounded(p)
+    return p, src, sink
+
+
+class _HdrGather(_Gather):
+    """``_Gather`` that keeps each sequence header."""
+
+    def __init__(self, iring):
+        super(_HdrGather, self).__init__(iring)
+        self.headers = []
+
+    def on_sequence(self, iseq):
+        self.headers.append(iseq.header)
+
+
+def test_pipeline_stamps_propagates_and_ages(monkeypatch):
+    """Both pipelines stamp one trace context at the source, carry it to
+    every downstream header, record one commit age per committed gulp of
+    each ring owner and one exit age per sink gulp, and count the same
+    violations under a budget every age exceeds."""
+    monkeypatch.setenv('BF_SLO_MS', '0.000001')
+    rng = np.random.RandomState(3)
+    gulps = [rng.randn(8, 4).astype(np.float32) for _ in range(3)]
+    hdr = simple_header([-1, 4], 'f32')
+    got = {}
+    for name, mod, src_cls, sink_cls in (
+            ('port', bt, lambda g, h: _Source(g, h), _HdrGather),
+            ('jax', bf, lambda g, h: NumpySourceBlock(g, h, gulp_nframe=8),
+             GatherSink)):
+        c, h = (counters, histograms) if name == 'port' else \
+            (jcounters, jhistograms)
+        p, src, sink = _traced_run(mod, src_cls, sink_cls, gulps, hdr)
+        ctx = sink.headers[0]['_trace']
+        copy_blk = p.blocks[1]
+
+        def count(n):
+            hist = h.get(n)
+            return hist.snapshot()['count'] if hist else 0
+        got[name] = {
+            'ids': len({ctx['id'], src._trace_ctx['id'],
+                        copy_blk._trace_ctx['id']}),
+            'src_commits': count('slo.%s.commit_age_s' % src.name),
+            'copy_commits': count('slo.%s.commit_age_s' % copy_blk.name),
+            'exits': count('slo.exit_age_s'),
+            'sink_exits': count('slo.%s.exit_age_s' % sink.name),
+            'violations': c.get('slo.violations'),
+            'ring_gulps': c.get('ring.%s.gulps' % src.orings[0].name)}
+    assert got['port'] == got['jax']
+    assert got['port'] == {'ids': 1, 'src_commits': 3, 'copy_commits': 3,
+                           'exits': 3, 'sink_exits': 3, 'violations': 9,
+                           'ring_gulps': 3}
+
+
+def test_trace_context_off_stamps_nothing(monkeypatch):
+    monkeypatch.setenv('BF_TRACE_CONTEXT', '0')
+    gulps = [np.zeros((8, 4), np.float32)]
+    p, src, sink = _traced_run(bt, lambda g, h: _Source(g, h), _HdrGather,
+                               gulps, simple_header([-1, 4], 'f32'))
+    assert '_trace' not in sink.headers[0]
+    assert histograms.get('slo.exit_age_s') is None
+
+
+def test_metrics_file_written_at_the_end_of_a_run(tmp_path, monkeypatch):
+    """BF_METRICS_FILE gets a Prometheus textfile from the publisher's
+    last snapshot: the pipeline's counters, its rings and the SLO
+    histograms; the rings_flow proclogs name each ring."""
+    path = str(tmp_path / 'metrics.prom')
+    monkeypatch.setenv('BF_METRICS_FILE', path)
+    monkeypatch.setenv('BF_PROCLOG_DIR', str(tmp_path / 'proclog'))
+    gulps = [np.zeros((8, 4), np.float32)] * 2
+    p, src, sink = _traced_run(bt, lambda g, h: _Source(g, h), _Gather,
+                               gulps, simple_header([-1, 4], 'f32'))
+    with open(path) as f:
+        text = f.read()
+    assert 'bifrost_tpu_counter_total{name="pipeline.gulps"} %d' % \
+        counters.get('pipeline.gulps') in text
+    assert 'bifrost_tpu_hist_count{name="slo.exit_age_s"} 2' in text
+    ring = src.orings[0].name
+    assert 'bifrost_tpu_ring_bytes{ring="%s",kind="size"}' % ring in text
+    import glob
+    import os
+    flows = glob.glob(os.path.join(str(tmp_path / 'proclog'), '*',
+                                   'rings_flow', '*'))
+    assert ring in {os.path.basename(f) for f in flows}
