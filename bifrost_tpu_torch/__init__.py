@@ -48,11 +48,17 @@ Host <-> device transfers go through the transfer engine
 ring fills), which reports into :mod:`bifrost_tpu_torch.telemetry`; the
 ring and transfer seams of :mod:`bifrost_tpu_torch.testing.faults` and
 the ``BF_TRACE`` scopes of :mod:`bifrost_tpu_torch.trace` sit beside it.
+``Pipeline(gulp_batch=K)`` runs eligible blocks on K-gulp spans
+(:mod:`bifrost_tpu_torch.macro`), ``Pipeline(segments='auto')`` fuses
+chains of stage blocks into one call each
+(:mod:`bifrost_tpu_torch.segments`), and ``donate=True`` lets stage
+blocks take their input chunks out of the ring.
 Importing the package touches no device and builds no kernel.
 """
 
-from . import (affinity, blocks, device, io, ops, parallel, stages,
-               supervision, telemetry, testing, trace, views, xfer)
+from . import (affinity, blocks, device, io, macro, ops, parallel,
+               segments, stages, supervision, telemetry, testing, trace,
+               views, xfer)
 from .block_chainer import BlockChainer
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
@@ -64,9 +70,9 @@ from .ops.map import map, clear_map_cache, list_map_cache
 
 __version__ = '0.1.0'
 
-__all__ = ['affinity', 'blocks', 'device', 'io', 'ops', 'parallel',
-           'stages', 'supervision', 'telemetry', 'testing', 'trace',
-           'views', 'xfer',
+__all__ = ['affinity', 'blocks', 'device', 'io', 'macro', 'ops',
+           'parallel', 'segments', 'stages', 'supervision', 'telemetry',
+           'testing', 'trace', 'views', 'xfer',
            'BlockChainer', 'DataType', 'Pipeline', 'BlockScope', 'Block',
            'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
            'block_view', 'get_default_pipeline',

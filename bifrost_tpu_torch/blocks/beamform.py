@@ -5,8 +5,10 @@ The math and metadata live in :class:`bifrost_tpu_torch.stages
 .BeamformStage`, so the same code runs standalone here or fused into a
 chain (``blocks.fused([BeamformStage, DetectStage, ReduceStage])``,
 where the whole-chain K6 substitution applies,
-``stages.match_beamformer``).  The JAX block's macro-gulp and mesh
-branches are not ported.
+``stages.match_beamformer``).  Under a macro batch K the block runs its
+stage on K-gulp spans, so the engine is prewarmed at T and at T * K
+frames.  The JAX block's mesh branch (a per-shard prewarm) is not
+ported.
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ class BeamformBlock(_StageBlock):
         return ohdr
 
     def _prewarm_engine(self, ihdr):
-        """Gate and race the engine's candidates at the shape on_data
-        will present, so the winner is chosen at sequence start and the
-        probe cost never lands on the first gulp."""
+        """Gate and race the engine's candidates at the shapes on_data
+        will present, T and, under a macro batch K, T * K frames
+        (``bifrost_tpu/blocks/beamform.py:60-75``), so the winner is
+        chosen at sequence start and the probe cost never lands on a
+        gulp."""
+        from ..macro import resolve_gulp_batch
         t = ihdr['_tensor']
         gulp = self.gulp_nframe or ihdr.get('gulp_nframe')
         if not gulp:
@@ -55,8 +60,11 @@ class BeamformBlock(_StageBlock):
         dt = DataType(t['dtype'])
         int_input = dt.kind == 'ci' and dt.nbits == 8
         npol = stage.npol if stage.mode == 'perpol' else 1
-        stage.engine.prewarm(int(gulp), nfreq, npol=npol,
-                             int_input=int_input)
+        k = resolve_gulp_batch(self)
+        for t_shape in ([int(gulp)] if k <= 1 else
+                        [int(gulp), int(gulp) * k]):
+            stage.engine.prewarm(t_shape, nfreq, npol=npol,
+                                 int_input=int_input)
         self._gemm_ops = stage.engine.ops_per_frame(nfreq, npol) * \
             int(gulp)
 

@@ -22,6 +22,14 @@ D2H complete before its span commits.
 
 A device-to-device copy republishes the same tensor, which is safe
 because no block writes into a tensor it has put in a ring.
+
+Macro-gulp execution (:mod:`bifrost_tpu_torch.macro`): a copy that
+touches the device is eligible.  An H2D over a span of K whole gulps
+stages them with one ``xfer.to_device_batch`` call (one staging copy,
+one copy to the card), a D2H drains one deferred fill per K gulps, and
+host-to-host copies stay at K = 1.  The tensor an H2D makes is this
+ring's alone, so it is committed as owned (a donating consumer may claim
+it).
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ class CopyBlock(TransformBlock):
             space = self.irings[0].space
         self.orings = [self.create_ring(space=space)]
 
+    def macro_gulp_safe(self):
+        return self.irings[0].is_device or self.orings[0].is_device
+
     def on_sequence(self, iseq):
         return deepcopy(iseq.header)
 
@@ -65,15 +76,28 @@ class CopyBlock(TransformBlock):
                 np.may_share_memory(arr, buf):
             t, ev = eng.to_device_direct(arr)
             ispan.hold(ev)
+        elif self._macro_gulps(ispan) > 1:
+            # K whole gulps of a macro span: one staging pass, one copy
+            t = eng.to_device_batch(np.split(arr, self._macro_gulps(ispan))
+                                    ).reshape(arr.shape)
         else:
             t = eng.to_device(arr)
         return t if post is None else post(t)
+
+    def _macro_gulps(self, ispan):
+        """The whole gulps K of a macro span whose frame axis leads (no
+        ringlet axis before it), else 1."""
+        g = self._macro_gulp_in
+        if self._gulp_batch_active <= 1 or not g or \
+                ispan.tensor['ringlet_shape'] or ispan.nframe % g:
+            return 1
+        return ispan.nframe // g
 
     def on_data(self, ispan, ospan):
         idev = ispan.ring.is_device
         odev = ospan.ring.is_device
         if odev and not idev:
-            ospan.set(self._h2d(ispan))
+            ospan.set(self._h2d(ispan), owned=True)
         elif idev and not odev:
             out = ospan.data.as_numpy()
             if self._d2h_strict():

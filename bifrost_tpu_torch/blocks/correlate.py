@@ -26,7 +26,9 @@ Two block forms:
   K0 passes on the card;
 - :class:`CorrelateStageBlock`, stage-backed
   (:class:`bifrost_tpu_torch.stages.CorrelateStage`): integrates whole
-  groups within each gulp.
+  groups within each gulp; macro-gulp eligible and segment-fusable (the
+  engine is prewarmed at the per-group shape, which is the same for
+  every K).
 """
 
 from __future__ import annotations
@@ -389,7 +391,8 @@ class CorrelateStageBlock(_StageBlock):
     def on_sequence(self, iseq):
         ohdr = super(CorrelateStageBlock, self).on_sequence(iseq)
         # prewarm at the per-group shape (r, f, n): the engine chooses by
-        # that shape whatever the number of groups in a gulp
+        # that shape whatever the number of groups in a gulp, so one
+        # prewarm covers every macro batch K
         itensor = iseq.header['_tensor']
         _, f, s, p = itensor['shape'][:4]
         self._stage.engine.prewarm(self._stage.nframe_per_vis, f, s * p,

@@ -12,8 +12,12 @@ the frames whose lookahead the span holds.  Under a mesh scope
 (``parallel.ops.sharded_fdmt``: a max_delay halo from the neighbour
 rank, the engine's core on every shard).
 
-Left out: the in-segment halo carry of the stage blocks, which waits for
-the port's segments.
+The stage blocks (``fdmt_stage``, ``matched_filter``, ``threshold``) batch
+with their overlap under a macro batch K, the halo carry: a span is K * G
++ overlap frames, the ghost history rides its head once and the trailing
+ghost frames go uncommitted.  In a compiled segment
+(:mod:`bifrost_tpu_torch.segments`) the interior overlaps are carried
+inside the one call and their rings are elided.
 """
 
 from __future__ import annotations

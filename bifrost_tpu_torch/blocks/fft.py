@@ -8,8 +8,14 @@ lookahead (``overlap_nframe``) becomes the block's input overlap, so
 successive spans share that many frames and the block commits the rest.
 :class:`FftBlock` is the FFT stage as such a block (c2c forward or
 inverse, r2c, c2r, optionally shifted; the FX correlator's F step).
-Left out of this port: buffer donation, macro-gulp batching and mesh
-sharding, which the port's pipeline does not have yet.
+
+A stage block is macro-gulp eligible when its stage is time-concat
+equivariant (``Stage.batch_safe``): its plan for the K-gulp shape takes
+the stacked span in one call, and with a lookahead the span carries the
+overlap once (the halo carry).  Under ``donate`` it claims its input
+chunk out of the ring (``TransformBlock._take_donatable``) and drops it
+once the stage has read it.  Mesh sharding of the stage blocks is not
+ported (the JAX block's GSPMD plans).
 """
 
 from __future__ import annotations
@@ -27,10 +33,22 @@ class _StageBlock(TransformBlock):
     def __init__(self, iring, stage, *args, **kwargs):
         super(_StageBlock, self).__init__(iring, *args, **kwargs)
         self._stage = stage
-        self._plans = {}   # (shape, dtype) -> the stage's gulp function
+        #: (shape, dtype, donate) -> the stage's function for that shape
+        self._plans = {}
 
     def define_valid_input_spaces(self):
         return ('cuda',)
+
+    def macro_gulp_safe(self):
+        """Eligible when the stage is time-concat equivariant: the plan
+        for the K-gulp shape then takes the stacked span as one gulp."""
+        return bool(getattr(self._stage, 'batch_safe', False))
+
+    def macro_overlap_safe(self):
+        """The halo carry: an equivariant stage with a lookahead batches
+        too, its span K * stride + overlap frames and the trailing ghost
+        frames uncommitted."""
+        return self.macro_gulp_safe()
 
     def define_input_overlap_nframe(self, iseq):
         """The stage's lookahead (``Stage.overlap_nframe``) as the ring
@@ -40,13 +58,14 @@ class _StageBlock(TransformBlock):
     def on_sequence(self, iseq):
         self._ihdr = iseq.header
         self._plans = {}
+        self._donate_on = None
         return self._stage.transform_header(iseq.header)
 
     def define_output_nframes(self, input_nframe):
         return self._stage.output_nframe(input_nframe)
 
-    def _plan_for(self, x):
-        key = (tuple(x.shape), x.dtype)
+    def _plan_for(self, x, donate=False):
+        key = (tuple(x.shape), x.dtype, bool(donate))
         fn = self._plans.get(key)
         if fn is None:
             idt = DataType(self._ihdr['_tensor']['dtype'])
@@ -56,8 +75,13 @@ class _StageBlock(TransformBlock):
         return fn
 
     def on_data(self, ispan, ospan):
-        x = ispan.data
-        ospan.set(self._plan_for(x)(x))
+        x = self._take_donatable(ispan)
+        donate = x is not None
+        if not donate:
+            x = ispan.data
+        # a donated chunk's last reference is ``x``: it goes when this
+        # call returns, after the stage has queued its work on it
+        ospan.set(self._plan_for(x, donate)(x), owned=True)
 
 
 class FftBlock(_StageBlock):

@@ -48,9 +48,19 @@ capture -> exit age (``telemetry.slo``).  A block's ``overload_policy``
 tunable (or ``BF_OVERLOAD_POLICY``) sets its output rings' policy at
 start; its ``core`` tunable pins its thread (``affinity``).
 
-The JAX package's compiled segments, auto-tuner and static verifier are
-not part of this runtime yet; their place is kept as a no-op seam
-(:meth:`Pipeline._prepare_graph`).
+Macro-gulp execution (:mod:`bifrost_tpu_torch.macro`): under the
+``gulp_batch`` tunable (or ``BF_GULP_BATCH``) an eligible block reads,
+reserves and commits K gulps a span and dispatches once for them; the
+output headers keep the logical gulp, a macro writer's ring holds a
+second macro span of depth, and ``block.<name>.dispatches`` counts
+dispatches beside the logical ``.gulps``.  Under the ``donate`` tunable
+(or ``BF_DONATE=1``) the stage blocks claim their input chunks out of
+the ring (:meth:`TransformBlock._take_donatable`, counted on
+``donation.hits`` / ``.misses``).  ``Pipeline(segments=...)`` (or
+``BF_SEGMENTS``) runs the segment compiler
+(:mod:`bifrost_tpu_torch.segments`) in :meth:`Pipeline._prepare_graph`
+before any thread starts.  The JAX package's auto-tuner and static
+verifier are not part of this runtime yet.
 """
 
 from __future__ import annotations
@@ -90,7 +100,7 @@ __all__ = ['Pipeline', 'BlockScope', 'Block', 'SourceBlock',
            'block_scope', 'block_view', 'get_ring', 'izip',
            'PipelineInitError', 'PipelineRuntimeError',
            'PipelineStallError', 'resolve_sync_depth',
-           'resolve_overload_policy']
+           'resolve_overload_policy', 'resolve_donate']
 
 
 def izip(*iterables):
@@ -126,6 +136,15 @@ def get_current_block_scope():
 
 def block_scope(*args, **kwargs):
     return BlockScope(*args, **kwargs)
+
+
+def resolve_donate(scope):
+    """Buffer donation for ``scope``: the ``donate`` tunable where set in
+    the scope chain, else ``BF_DONATE=1`` (off by default)."""
+    d = scope.donate
+    if d is not None:
+        return bool(d)
+    return os.environ.get('BF_DONATE', '0') == '1'
 
 
 def resolve_sync_depth(scope):
@@ -166,9 +185,11 @@ class BlockScope(object):
     on_failure ('abort' | 'restart' | 'skip_sequence'), max_restarts and
     restart_backoff (defaults ``BF_RESTART_MAX`` 3 and
     ``BF_RESTART_BACKOFF`` 0.1 s), overload_policy ('block' |
-    'drop_oldest' | 'drop_newest', for the block's output rings) and
+    'drop_oldest' | 'drop_newest', for the block's output rings),
     shed_tolerant (a consumer's declaration that it accepts gapped input
-    from a drop-policy ring)."""
+    from a drop-policy ring), gulp_batch (the macro-gulp batch K,
+    :func:`bifrost_tpu_torch.macro.resolve_gulp_batch`) and donate
+    (buffer donation, :func:`resolve_donate`)."""
 
     DEFAULT_SYNC_DEPTH = 4
 
@@ -177,13 +198,15 @@ class BlockScope(object):
     _TUNABLES = ('gulp_nframe', 'buffer_nframe', 'buffer_factor',
                  'sync_depth', 'sync_strict', 'mesh', 'core',
                  'share_temp_storage', 'on_failure', 'max_restarts',
-                 'restart_backoff', 'overload_policy', 'shed_tolerant')
+                 'restart_backoff', 'overload_policy', 'shed_tolerant',
+                 'donate', 'gulp_batch')
 
     def __init__(self, name=None, gulp_nframe=None, buffer_nframe=None,
                  buffer_factor=None, sync_depth=None, sync_strict=None,
                  mesh=None, core=None, share_temp_storage=False,
                  on_failure=None, max_restarts=None, restart_backoff=None,
-                 overload_policy=None, shed_tolerant=None):
+                 overload_policy=None, shed_tolerant=None, donate=None,
+                 gulp_batch=None):
         if name is None:
             name = 'BlockScope_%i' % BlockScope.instance_count
             BlockScope.instance_count += 1
@@ -201,6 +224,8 @@ class BlockScope(object):
         self._restart_backoff = restart_backoff
         self._overload_policy = overload_policy
         self._shed_tolerant = shed_tolerant
+        self._donate = donate
+        self._gulp_batch = gulp_batch
         self._temp_storage = {}
         self._parent_scope = get_current_block_scope() \
             if not isinstance(self, Pipeline) else None
@@ -259,11 +284,20 @@ class Pipeline(BlockScope):
 
     instance_count = 0
 
-    def __init__(self, name=None, watchdog_secs=None, **kwargs):
+    def __init__(self, name=None, watchdog_secs=None, segments=None,
+                 **kwargs):
         if name is None:
             name = 'Pipeline_%i' % Pipeline.instance_count
             Pipeline.instance_count += 1
         super(Pipeline, self).__init__(name=name, **kwargs)
+        #: segment-compiler mode (:mod:`bifrost_tpu_torch.segments`):
+        #: None defers to BF_SEGMENTS (off by default); 'auto' replaces
+        #: every provably safe chain of stage blocks by one SegmentBlock
+        #: and elides the rings inside it; 'force' also raises when none
+        #: forms
+        self.segments = segments
+        #: the SegmentBlocks the compiler made (run())
+        self._segments = []
         #: stall-watchdog window in seconds (None: BF_WATCHDOG_SECS or
         #: off)
         self.watchdog_secs = watchdog_secs
@@ -297,9 +331,13 @@ class Pipeline(BlockScope):
         self.all_blocks_finished_initializing_event.set()
 
     def _prepare_graph(self):
-        """Seam where the JAX package rewrites and checks the block
-        graph before it runs (segment compiler, static verifier,
-        auto-tuner).  The port has none of them yet."""
+        """Rewrite the block graph before any thread starts: the segment
+        compiler runs unless its mode is 'off'
+        (``bifrost_tpu/pipeline.py:541-551``).  The JAX package's static
+        verifier and auto-tuner, which also hook here, are not ported."""
+        from . import segments as _segments
+        if _segments.resolve_mode(self.segments) != 'off':
+            _segments.compile_pipeline(self)
 
     def run(self):
         """Start every block thread and supervise them to the end
@@ -488,9 +526,11 @@ class Block(BlockScope):
         self.shutdown_event = threading.Event()
         self.perf_proclog = ProcLog(self.name + '/perf')
         self.bind_proclog = ProcLog(self.name + '/bind')
-        #: seconds spent per phase over all gulps, and the gulp count
+        #: seconds spent per phase over all dispatches, the dispatch
+        #: count (``ngulp``) and the logical gulps they covered
+        #: (``nlogical``, K a dispatch under macro-gulp execution)
         self.perf_totals = {'acquire': 0.0, 'reserve': 0.0,
-                            'process': 0.0, 'ngulp': 0}
+                            'process': 0.0, 'ngulp': 0, 'nlogical': 0}
         self._pending_events = deque()
         self._h_gulp = self._h_wait = self._h_batch = None
         #: supervision: the thread running this block (set by
@@ -500,6 +540,12 @@ class Block(BlockScope):
         self._hb_gulps = 0
         #: trace context of the sequence at hand
         self._trace_ctx = None
+        #: macro-gulp state of the sequence at hand (set by
+        #: MultiTransformBlock._process_sequence): the active batch K
+        #: (1 = off), the logical input gulp and the input overlap
+        self._gulp_batch_active = 1
+        self._macro_gulp_in = None
+        self._macro_overlap_in = 0
         #: kept current by the health monitor (see :meth:`on_health`)
         self.health_state = 'OK'
         self.init_trace = ''.join(traceback.format_stack()[:-1])
@@ -630,13 +676,10 @@ class Block(BlockScope):
             _slo.observe_exit(self.name, age)
 
     def _observe_gulp(self, acquire, reserve, process):
-        """Per-gulp telemetry: the three host-clock times summed in
-        ``perf_totals`` and the last gulp's in the perf proclog
-        (``acquire`` is -1 for sources), the ``block.<name>.gulp_s`` and
-        ``.ring_wait_s`` histograms, and one dispatch of one gulp on the
-        ``block.<name>.dispatches`` / ``.gulps`` counters and the
-        ``.batch_gulps`` histogram (the JAX package's
-        ``_observe_gulp`` and ``_observe_dispatch``)."""
+        """Per-dispatch telemetry: the three host-clock times summed in
+        ``perf_totals`` and the last dispatch's in the perf proclog
+        (``acquire`` is -1 for sources), and the ``block.<name>.gulp_s``
+        and ``.ring_wait_s`` histograms."""
         tot = self.perf_totals
         tot['acquire'] += max(acquire, 0.0)
         tot['reserve'] += reserve
@@ -655,9 +698,20 @@ class Block(BlockScope):
         wait = max(acquire, 0.0) + reserve
         self._h_gulp.record(wait + process)
         self._h_wait.record(wait)
+
+    def _observe_dispatch(self, ngulps):
+        """One ``on_data`` dispatch covering ``ngulps`` logical gulps:
+        the ``block.<name>.dispatches`` / ``.gulps`` counters, the
+        ``.batch_gulps`` histogram and ``perf_totals['nlogical']`` (the
+        JAX package's ``_observe_dispatch``)."""
+        ngulps = max(int(ngulps), 1)
         _counters.inc('block.%s.dispatches' % self.name)
-        _counters.inc('block.%s.gulps' % self.name)
-        self._h_batch.record(1)
+        _counters.inc('block.%s.gulps' % self.name, ngulps)
+        self.perf_totals['nlogical'] += ngulps
+        if self._h_batch is None:
+            self._h_batch = _histograms.get_or_create(
+                'block.%s.batch_gulps' % self.name, unit='gulps')
+        self._h_batch.record(ngulps)
 
     def _dispatch(self, fn, seq, gulp, *args):
         """``fn(*args)`` after the ``block.on_data`` fault seam, inside
@@ -677,16 +731,23 @@ class Block(BlockScope):
             return fn(*args)
 
     def begin_sequences(self, exit_stack, orings, oheaders,
-                        igulp_nframes, istride_nframes):
+                        igulp_nframes, istride_nframes, batch=1):
         # the output header's gulp_nframe excludes overlap
-        # (reference: pipeline.py:383-399)
+        # (reference: pipeline.py:383-399); under a macro batch the
+        # nframes are K-gulp values and the header keeps the logical
+        # gulp, so downstream defaults do not change with this block's K
         ostride_nframes = self._define_output_nframes(istride_nframes)
         for ohdr, ostride in zip(oheaders, ostride_nframes):
-            ohdr['gulp_nframe'] = ostride
+            ohdr['gulp_nframe'] = ostride // batch
         ogulp_nframes = self._define_output_nframes(igulp_nframes)
-        # writers buffer one gulp; extra depth belongs to readers
+        # writers buffer one gulp; extra depth belongs to readers.  A
+        # macro writer carries a second macro span of depth: a K = 1
+        # reader's guarantee lags one of its spans, and a ring of one
+        # macro span could never grant the next macro reserve
+        # (``bifrost_tpu/pipeline.py:1080-1095``)
+        obuf_factor = 2 if batch > 1 else 1
         oseqs = [exit_stack.enter_context(
-                     oring.begin_sequence(ohdr, ogulp, ogulp))
+                     oring.begin_sequence(ohdr, ogulp, obuf_factor * ogulp))
                  for oring, ohdr, ogulp
                  in zip(orings, oheaders, ogulp_nframes)]
         # init barrier (reference: pipeline.py:401-403)
@@ -816,6 +877,7 @@ class SourceBlock(Block):
                         if any(o == 0 for o in ostrides):
                             break
                     self._observe_gulp(-1, t1 - t0, time.time() - t1)
+                    self._observe_dispatch(1)
 
     def define_output_nframes(self, _):
         return [self.gulp_nframe] * len(self.orings)
@@ -871,6 +933,77 @@ class MultiTransformBlock(Block):
                 _slo.reset_block_ages(self.name)
                 self._drain_sequences(iseqs)
 
+    # -- macro-gulp execution (bifrost_tpu_torch.macro) ----------------
+    def macro_gulp_safe(self):
+        """Whether ``on_data`` can take a K-gulp span in one dispatch with
+        per-gulp results.  False by default: host blocks stay at K = 1.
+        The stage blocks, FusedBlock and the device copies override it."""
+        return False
+
+    def macro_overlap_safe(self):
+        """Whether a K-gulp span may carry the block's declared input
+        overlap (the in-segment halo carry): read as K * stride +
+        overlap frames, with the committed K * stride frames equal to K
+        overlapped gulps.  False by default: an overlap forces K = 1
+        (``macro.fallback.overlap``)."""
+        return False
+
+    def _macro_input_consumers(self):
+        """Readers of this block's input ring in the pipeline (through
+        views too), kept for ``macro.fallback.multi_reader_retired``."""
+        def base(r):
+            return getattr(r, '_base_ring', r)
+        target = base(self.irings[0])
+        return sum(1 for b in self.pipeline.blocks
+                   for r in getattr(b, 'irings', ()) if base(r) is target)
+
+    def _macro_static_reason(self):
+        """The K = 1 fallback reason that the block and its topology
+        give before any sequence opens, or None (shared with
+        ``FusedBlock._prewarm``, which builds no K-gulp plan that a
+        static fallback would discard)."""
+        if not self.macro_gulp_safe():
+            return 'block'
+        if len(self.irings) != 1 or len(self.orings) > 1:
+            return 'topology'
+        if not getattr(self, 'guarantee', True):
+            return 'unguaranteed'
+        return None
+
+    def _resolve_macro_batch(self, iseqs, istride_nframes, igulp_overlaps):
+        """The batch K of this sequence: the requested K (``gulp_batch``
+        or ``BF_GULP_BATCH``) when every condition holds, else 1, with
+        the reason counted on ``macro.fallback.<reason>``
+        (``bifrost_tpu/pipeline.py:1465-1505``)."""
+        from .macro import resolve_gulp_batch, fallback_reason
+        k = resolve_gulp_batch(self)
+        if k <= 1:
+            return 1
+        reason = self._macro_static_reason()
+        if reason is None and any(igulp_overlaps) and \
+                not self.macro_overlap_safe():
+            reason = 'overlap'
+        if reason is None and any(not g or g <= 0
+                                  for g in istride_nframes):
+            reason = 'dynamic_gulp'
+        if reason is None:
+            # a K-gulp span's output must be exactly K gulps' outputs for
+            # one commit to equal K
+            try:
+                per = self._define_output_nframes(list(istride_nframes))
+                mac = self._define_output_nframes(
+                    [g * k for g in istride_nframes])
+                if mac != [o * k for o in per]:
+                    reason = 'nonlinear'
+            except Exception:
+                reason = 'nonlinear'
+        if reason is not None:
+            fallback_reason(reason)
+            return 1
+        if self._macro_input_consumers() > 1:
+            fallback_reason('multi_reader_retired')
+        return k
+
     def _drain_sequences(self, iseqs):
         """Read and discard the rest of the input sequences
         (skip_sequence): a reader that merely stopped would hold its
@@ -898,6 +1031,18 @@ class MultiTransformBlock(Block):
         istride_nframes = [self.gulp_nframe or iseq.header['gulp_nframe']
                            for iseq in iseqs]
         igulp_overlaps = self._define_input_overlap_nframe(iseqs)
+        # macro-gulp execution: an eligible block reads K gulps a span;
+        # the span carries the overlap history once, at its head (the
+        # halo carry), not K times
+        batch = self._resolve_macro_batch(iseqs, istride_nframes,
+                                          igulp_overlaps)
+        self._gulp_batch_active = batch
+        self._macro_gulp_in = istride_nframes[0] if istride_nframes \
+            else None
+        self._macro_overlap_in = igulp_overlaps[0] if igulp_overlaps \
+            else 0
+        if batch > 1:
+            istride_nframes = [s * batch for s in istride_nframes]
         igulp_nframes = [g + o for g, o
                          in zip(istride_nframes, igulp_overlaps)]
 
@@ -908,7 +1053,7 @@ class MultiTransformBlock(Block):
         with ExitStack() as oseq_stack:
             oseqs, ogulp_overlaps = self.begin_sequences(
                 oseq_stack, orings, oheaders, igulp_nframes,
-                istride_nframes)
+                istride_nframes, batch=batch)
             if self.shutdown_event.is_set():
                 return False
             prev_time = time.time()
@@ -928,6 +1073,7 @@ class MultiTransformBlock(Block):
                                                     iskip_nframes)
                         self._on_skip(ospans)
                         self._sync_gulp(ospans)
+                        self._set_span_gulps(ospans, iskip_nframes[0], 0)
                         self.commit_spans(
                             ospans, [o.nframe for o in ospans],
                             ogulp_overlaps)
@@ -951,10 +1097,14 @@ class MultiTransformBlock(Block):
                         # (reference: pipeline.py:630-644)
                         self._on_skip(ospans)
                     self._sync_gulp(ospans)
+                    ngulps = self._set_span_gulps(
+                        ospans, ispans[0].nframe if ispans else 0,
+                        self._macro_overlap_in)
                     self.commit_spans(ospans, ostrides, ogulp_overlaps)
                 cur_time = time.time()
                 self._observe_gulp(acquire_time, reserve_time,
                                    cur_time - prev_time)
+                self._observe_dispatch(ngulps)
                 prev_time = cur_time
                 if not self.orings and self._trace_ctx is not None:
                     # a sink: the gulp leaves the pipeline here
@@ -963,6 +1113,18 @@ class MultiTransformBlock(Block):
                         ispans[0].frame_offset + ispans[0].nframe)
         self._on_sequence_end(iseqs)
         return True
+
+    def _set_span_gulps(self, ospans, nframe, overlap):
+        """The logical gulps a dispatch over ``nframe`` input frames
+        covered (1 at K = 1; a partial batch at sequence end rounds up,
+        and overlap frames are history, not gulps), set on the output
+        spans for ``ring.<name>.gulps``; returns the count."""
+        ngulps = 1
+        if self._gulp_batch_active > 1 and self._macro_gulp_in:
+            ngulps = max(1, -(-(nframe - overlap) // self._macro_gulp_in))
+        for ospan in ospans:
+            ospan._ngulps = ngulps
+        return ngulps
 
     def _on_skip(self, ospans):
         """Publish zeros into every output span."""
@@ -1011,6 +1173,39 @@ class TransformBlock(MultiTransformBlock):
     def __init__(self, iring, *args, **kwargs):
         super(TransformBlock, self).__init__([iring], *args, **kwargs)
         self.iring = self.irings[0]
+        self._donate_on = None
+
+    # -- buffer donation (FusedBlock and the stage blocks) ---------------
+    def _donation_on(self):
+        """The ``donate`` setting, resolved once a sequence (blocks reset
+        ``_donate_on`` to None in ``on_sequence``)."""
+        if self._donate_on is None:
+            self._donate_on = resolve_donate(self)
+        return self._donate_on
+
+    def _take_donatable(self, ispan, allow_parts=False):
+        """The input span's chunk claimed for donation
+        (:meth:`bifrost_tpu_torch.ring.ReadSpan.take_data`), a list of
+        the chunks tiling a macro span with ``allow_parts``, or None:
+        donation off, an overlapped read (the next span re-reads the
+        history frames; ``bifrost_tpu/pipeline.py:1822-1827``), or no
+        proof of exclusivity.  Callers read ``ispan.data`` on None.
+        Counts ``donation.hits`` / ``donation.misses``.
+
+        In the port, donation is a transfer of ownership, not an XLA
+        buffer alias: the chunk leaves the ring, the block's function
+        reads it, and the block drops it, so the caching allocator can
+        give its memory to the next output instead of the ring holding
+        it until its writer laps it."""
+        if not self._donation_on():
+            return None
+        if self._macro_overlap_in:
+            _counters.inc('donation.misses')
+            return None
+        x = ispan.take_data(allow_parts=allow_parts)
+        _counters.inc('donation.hits' if x is not None
+                      else 'donation.misses')
+        return x
 
     def _define_valid_input_spaces(self):
         return [self.define_valid_input_spaces()]

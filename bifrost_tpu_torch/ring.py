@@ -25,7 +25,9 @@ Storage:
   event before it touches the tensor, so blocks on different threads
   (and so possibly different streams) are ordered without a host sync.
   A committed tensor belongs to the ring: neither side may write into it
-  in place.
+  in place.  A ring's only reader may claim a chunk its writer marked
+  owned (:meth:`ReadSpan.take_data`, buffer donation): the chunk leaves
+  the ring, and the reader drops it once its work on it is queued.
 
 Ring views (:func:`ring_view`, :class:`RingView`) share a base ring's
 buffer, locks and guarantees and present transformed sequence headers;
@@ -58,7 +60,8 @@ carries the cumulative ledger in its ``_overload`` header.
 when no span is open and no deferred fill targets the buffer, else at
 the next span release or commit that leaves the ring quiescent.
 
-Each commit counts on ``ring.<name>.gulps`` and records the capture ->
+Each commit counts its logical gulps (K for a macro-gulp span,
+``WriteSpan._ngulps``) on ``ring.<name>.gulps`` and records the capture ->
 commit age of a traced stream (``telemetry.slo``); reserves and acquires
 record their flow-control wait on ``ring.<name>.reserve_s`` /
 ``.acquire_s`` and as ``ring`` spans.  :meth:`Ring.poison` wakes a
@@ -252,7 +255,9 @@ class _DeviceStorage(object):
 
     def __init__(self, lock=None):
         self._lock = lock if lock is not None else threading.RLock()
-        self.chunks = {}        # offset -> (nbyte, tensor, taxis, event)
+        #: offset -> (nbyte, tensor, taxis, event, owned); ``owned``
+        #: marks a tensor made for this ring alone (donation may claim it)
+        self.chunks = {}
         self._offsets = []      # sorted keys of self.chunks
         self.size = 0
         self.ghost = 0
@@ -261,10 +266,50 @@ class _DeviceStorage(object):
     def allocate(self, size, ghost, nringlet, tail, head):
         self.size, self.ghost, self.nringlet = size, ghost, nringlet
 
-    def put(self, offset, nbyte, tensor, taxis, event):
+    def put(self, offset, nbyte, tensor, taxis, event, owned=False):
         if offset not in self.chunks:
             bisect.insort(self._offsets, offset)
-        self.chunks[offset] = (nbyte, tensor, taxis, event)
+        self.chunks[offset] = (nbyte, tensor, taxis, event, owned)
+
+    def take(self, offset, nbyte):
+        """Claim the owned chunk covering exactly [offset, offset+nbyte)
+        for donation: remove it from the map and return it, else None.
+        The caller's stream is ordered after the chunk's event first.
+        Later reads of the range see a gap (zeros): the caller must be
+        its only reader."""
+        hit = self.chunks.get(offset)
+        if hit is None or hit[0] != nbyte or not hit[4]:
+            return None
+        del self.chunks[offset]
+        self._offsets.remove(offset)
+        _wait(hit[3])
+        return hit[1]
+
+    def take_tiling(self, offset, nbyte):
+        """Claim a run of two or more owned chunks that tile [offset,
+        offset+nbyte) exactly (the K per-gulp chunks of a K = 1 producer
+        under a macro consumer): remove them and return the tensors in
+        offset order, else None with the map untouched."""
+        end = offset + nbyte
+        i = bisect.bisect_left(self._offsets, offset)
+        run, covered = [], offset
+        while covered < end and i < len(self._offsets):
+            o = self._offsets[i]
+            if o != covered:
+                return None
+            cn, t, _taxis, ev, owned = self.chunks[o]
+            if not owned or o + cn > end:
+                return None
+            run.append((o, t, ev))
+            covered = o + cn
+            i += 1
+        if covered != end or len(run) < 2:
+            return None
+        for o, _t, ev in run:
+            del self.chunks[o]
+            _wait(ev)
+        self._offsets = sorted(self.chunks)
+        return [t for _o, t, _ev in run]
 
     def get(self, offset, nbyte, frame_nbyte, zeros_fn):
         """The tensor covering [offset, offset+nbyte): the committed
@@ -285,7 +330,7 @@ class _DeviceStorage(object):
             parts, covered, taxis = [], offset, None
             while covered < end and i < len(self._offsets):
                 o = self._offsets[i]
-                cn, t, ctaxis, ev = self.chunks[o]
+                cn, t, ctaxis, ev = self.chunks[o][:4]
                 i += 1
                 if o + cn <= covered:
                     continue
@@ -390,6 +435,7 @@ class Ring(object):
         self._open_reads = {}         # id(ReadSequence) -> open begins
         self._release_high = {}       # id(ReadSequence) -> max released end
         self._open_read_ends = {}     # id(ReadSequence) -> {begin: end}
+        self._readers = set()         # id(ReadSequence), every reader
         self._eod = False
         self._nwrite_open = 0
         self._nread_open = 0
@@ -793,11 +839,13 @@ class Ring(object):
             self._note_commit(wspan, commit_nbyte)
 
     def _note_commit(self, wspan, commit_nbyte):
-        """Per-commit telemetry: one gulp on ``ring.<name>.gulps`` and,
+        """Per-commit telemetry: the span's logical gulps (K for a
+        macro span) on ``ring.<name>.gulps`` and,
         for a traced stream, the capture -> commit age named after the
         ring's owner (``telemetry.slo``)."""
         c, _h, _s, slo = _observability()
-        c.inc('ring.%s.gulps' % self.name)
+        ngulps = wspan._ngulps
+        c.inc('ring.%s.gulps' % self.name, ngulps)
         try:
             header = wspan._sequence.header
             if header.get('_trace') is not None:
@@ -807,7 +855,7 @@ class Ring(object):
                     commit_nbyte // wspan.frame_nbyte
                 age = slo.capture_age_s(header, frame_end)
                 if age is not None:
-                    slo.observe_commit(name, age)
+                    slo.observe_commit(name, age, ngulps)
         except Exception:
             pass                     # the SLO feed never breaks commits
 
@@ -845,8 +893,9 @@ class Ring(object):
             return seq.next
 
     def _register_reader(self, rseq):
-        if rseq.guarantee:
-            with self._lock:
+        with self._lock:
+            self._readers.add(id(rseq))
+            if rseq.guarantee:
                 self._guarantees[id(rseq)] = max(rseq._seq.begin,
                                                  self._tail)
 
@@ -933,7 +982,34 @@ class Ring(object):
             for d in (self._guarantees, self._open_reads,
                       self._open_read_ends, self._release_high):
                 d.pop(id(rseq), None)
+            self._readers.discard(id(rseq))
             self._write_cond.notify_all()
+
+    def _take_exclusive(self, rseq, begin, nbyte, allow_parts=False):
+        """Claim the committed chunk covering exactly [begin,
+        begin+nbyte) for donation (``bifrost_tpu/ring.py:1312``), or
+        None where exclusivity is not proven: the ring must have one
+        reader, guaranteed, reading through no view and holding one open
+        span (the caller's), and the chunk must be owned
+        (``WriteSpan.set(..., owned=True)``).  With ``allow_parts`` a
+        run of owned chunks tiling the range is claimed as a list."""
+        if not self.is_device or not rseq.guarantee or \
+                rseq.header_transform is not None:
+            return None
+        with self._lock:
+            if self._nread_open != 1 or len(self._readers) != 1 or \
+                    len(self._guarantees) != 1:
+                return None
+            got = self._storage.take(begin, nbyte)
+            if got is None and allow_parts:
+                got = self._storage.take_tiling(begin, nbyte)
+        # the consumer's stream reads the tensors after this: the caching
+        # allocator must not hand their memory out before that work ends
+        for t in (got if isinstance(got, list) else [got]):
+            if t is not None and t.is_cuda:
+                import torch
+                t.record_stream(torch.cuda.current_stream(t.device))
+        return got
 
     def _overwritten_in(self, begin, nbyte):
         with self._lock:
@@ -1289,6 +1365,10 @@ class WriteSpan(_SpanAPI):
         self._data = None
         self._fill = None
         self._shed = False
+        self._owned = False
+        #: logical gulps this span covers: a macro span of K gulps sets
+        #: K, so ``ring.<name>.gulps`` keeps counting logical gulps
+        self._ngulps = 1
         # commit nothing unless told otherwise, so an exception in the
         # writer publishes no garbage (reference: ring2.py:463-464)
         self.commit_nframe = 0
@@ -1352,16 +1432,19 @@ class WriteSpan(_SpanAPI):
                 self._data = self._host_view(writeable=True)
         return self._data
 
-    def set(self, array):
+    def set(self, array, owned=False):
         """Publish a gulp into this span: a tensor of the span's device
         shape on a device ring (kept, not copied), or an array copied
-        into the host view."""
+        into the host view.  ``owned=True`` declares a device tensor
+        made for this ring alone, so that its single consumer may claim
+        the chunk for donation (:meth:`ReadSpan.take_data`)."""
         if self._ring.is_device:
             if tuple(array.shape) != tuple(self.device_shape):
                 raise ValueError("span expects shape %s, got %s"
                                  % (tuple(self.device_shape),
                                     tuple(array.shape)))
             self._tensor = array
+            self._owned = bool(owned)
         else:
             src = array.as_numpy() if isinstance(array, ndarray) else array
             self.data.as_numpy()[...] = src
@@ -1397,7 +1480,8 @@ class WriteSpan(_SpanAPI):
             self._tensor = None
             if commit_nbyte:
                 self._ring._note_shed(
-                    commit_nbyte, 1, header=self._sequence.header,
+                    commit_nbyte, self._ngulps,
+                    header=self._sequence.header,
                     frame_end=self.frame_offset + self.commit_nframe)
             if self._fill is not None:
                 self._fill.cancel()
@@ -1437,7 +1521,7 @@ class WriteSpan(_SpanAPI):
             if nframe_c < self.nframe:
                 x = x.narrow(taxis, 0, nframe_c)
             self._ring._storage.put(self._begin, commit_nbyte, x, taxis,
-                                    self._event)
+                                    self._event, self._owned)
 
 
 class ReadSpan(_SpanAPI):
@@ -1497,6 +1581,26 @@ class ReadSpan(_SpanAPI):
             else:
                 self._data = self._host_view(writeable=False)
         return self._data
+
+    def take_data(self, allow_parts=False):
+        """Device rings: claim this span's committed chunk for donation
+        (``bifrost_tpu/ring.py:2047``).  The chunk leaves the ring, so the
+        caller holds the only reference and the caching allocator can
+        recycle its memory once the caller's work on it is queued.
+        Returns the tensor, or None where exclusivity is not proven (a
+        second reader, a view, a partial or stitched span, a chunk not
+        owned): callers then read ``.data``.  With ``allow_parts`` (macro
+        spans) a run of owned chunks tiling the span is returned as a
+        list in frame order, which the caller must consume whole: this
+        span's ``.data`` would read zeros after it."""
+        if not self._ring.is_device or self._data is not None or \
+                not self._nbyte:
+            return None
+        got = self._ring._take_exclusive(self._sequence, self._begin,
+                                         self._nbyte, allow_parts)
+        if got is not None and not isinstance(got, list):
+            self._data = got
+        return got
 
     @property
     def nframe_overwritten(self):

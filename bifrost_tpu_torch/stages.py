@@ -48,8 +48,10 @@ class Stage(object):
 
     #: Time-concat equivariance: applying the stage to K gulps stacked
     #: along the time axis equals applying it per gulp and concatenating.
-    #: Every ported stage has it; a user-defined stage defaults to False.
-    #: The port keeps the flag for its macro-gulp slice, which reads it.
+    #: Every built-in stage has it; a user-defined stage defaults to
+    #: False.  Macro-gulp execution runs a chain of such stages once on
+    #: the stacked span ('block' mode, ``macro.chain_batch_mode``), and
+    #: the segment compiler carries a lookahead only through them.
     batch_safe = False
 
     #: Frames of future input (lookahead) each output frame may read:
@@ -767,8 +769,9 @@ def chain_overlap_nframe(stages):
     Walks the chain back from the sink, converting each downstream halo
     through the stage's frame ratio and adding the stage's own
     ``overlap_nframe``.  Returns None when a downstream halo does not
-    convert to a whole input-frame count.  The port keeps it, as it keeps
-    ``batch_safe``, for its segment slice, which reads it."""
+    convert to a whole input-frame count.  A FusedBlock declares it as
+    its input overlap, and the segment compiler reads it to decide
+    whether a chain carries its halo in one call."""
     halo = 0
     for stage in reversed(stages):
         num, den = getattr(stage, 'nframe_ratio', (1, 1))

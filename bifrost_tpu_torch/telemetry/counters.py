@@ -42,9 +42,33 @@ Counter names used by the port:
                                            ``Block._sync_gulp``
 - ``block.<name>.dispatches`` /
   ``block.<name>.gulps``                   ``on_data`` dispatches of a
-                                           block and the gulps they
-                                           covered (1:1 until macro-gulp
-                                           execution is ported)
+                                           block and the logical gulps
+                                           they covered (K a dispatch
+                                           under macro-gulp execution;
+                                           a segment's members count
+                                           gulps, the segment dispatches)
+- ``macro.fallback.<reason>``              sequences a block ran at K = 1
+                                           although a batch was asked
+                                           (block, topology,
+                                           unguaranteed, overlap,
+                                           dynamic_gulp, nonlinear), and
+                                           ``multi_reader_retired``: ones
+                                           that batched on a ring with
+                                           several readers
+- ``segment.compiled`` /
+  ``segment.elided_rings`` /
+  ``segment.overlap_carried``              segments made, interior rings
+                                           elided, overlap boundaries
+                                           carried inside a segment
+- ``segment.dispatches`` /
+  ``segment.gulps``                        calls of compiled segments and
+                                           the logical gulps they covered
+- ``donation.hits`` / ``donation.misses``  input chunks claimed out of
+                                           their ring for donation /
+                                           donating reads that read the
+                                           ring instead
+- ``fused.plan_builds``                    FusedBlock (and segment) plans
+                                           built
 - ``trace.dropped_spans``                  spans evicted by per-thread
                                            span-buffer overflow (added by
                                            ``telemetry.snapshot()``)

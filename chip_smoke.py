@@ -161,6 +161,21 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    under BF_WATCHDOG_SECS=2 with escalation (PipelineStallError 2-6 s
    after the wedge); then guppi-ci8 with that tier quiet and armed, in
    turns (the tier's overhead);
+10m. runs the macro phase (bifrost_tpu_torch.macro and .segments): the
+   flagship chain fused (K1) over 9 gulps at gulp_batch 1, 4 and 4 with
+   donate=True (9 K1 launches against 3, dispatches/gulps 9/9 against
+   3/9, the same bytes, output 0 within the gate of the oracle,
+   donation.hits > 0, the fused block's host ms a gulp and peak device
+   memory of each); the same chain as separate fft, detect, reduce blocks
+   at K = 4 with segments 'off' and 'force' (one segment, its elided
+   rings never reserved, K2 launched once a dispatch, the same bytes) and
+   at K = 1; config 22's FRB search with K3 forced at K = 4 under
+   segments 'auto' (one segment of three, its overlap carried) against
+   K = 1 'off', byte for byte, every pulse where the plan puts it; the
+   beamformer's K6 block over 5 gulps and the FX chain (K7) over 4 at
+   K = 4 against K = 1, byte for byte (FX also against its oracle).
+   Launch counts subtract the fused blocks' prewarm runs, one launch at
+   sequence start per plan shape;
 10a. drives the fx-K7 arm's chain followed by
    convert_visibilities('storage'), as examples/fx_correlator.py builds
    it (1 warm-up and 2 timed gulps, 1.08 GB of storage each): one K7
@@ -620,18 +635,20 @@ def make_gulps(seed=5, n=2):
 
 
 def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1,
-          scope=None, digest=False):
+          scope=None, digest=False, keep_first=False):
     """Drive source -> copy('cuda') -> chain -> copy('system') -> sink.
     ``gulps`` are int8 arrays of one gulp's ci8 bytes each, sent in turn
     (the gulp's frame count is ``gulps[0].shape[0]``); ``chain(h2d)``
     builds the device blocks and returns [(role, block), ...], the last
     one feeding the D2H copy, which sends one output span per ``per_out``
-    gulps.  ``scope`` holds Pipeline tunables (``sync_strict``).  Returns
-    (outputs {output index: array} of outputs 0, 1 and the last, seconds
-    of the timed gulps, per-block host milliseconds per gulp).  With
+    gulps.  ``scope`` holds Pipeline tunables (``sync_strict``,
+    ``gulp_batch``, ``donate``, ``segments``).  Returns (outputs {output
+    index: array} of outputs 0, 1 and the last, seconds of the timed
+    gulps, per-block host milliseconds per logical gulp).  With
     ``digest`` the sink keeps no copy: the outputs are the CRC-32 of
     every output's bytes, and the sink's ``process`` excludes the time
-    of the CRC (kept as ``digest``)."""
+    of the CRC (kept as ``digest``); ``keep_first`` also keeps output 0
+    as an array, under the key 'first'."""
     ngulp = nwarm + ntimed
     nout = ngulp // per_out
     first = nwarm // per_out - 1
@@ -682,6 +699,9 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1,
                 t = time.perf_counter()
                 self.out[self.n] = zlib.crc32(memoryview(
                     ispan.data.as_numpy().reshape(-1).view(np.uint8)))
+                if keep_first and self.n == 0:
+                    self.out['first'] = np.array(ispan.data.as_numpy(),
+                                                 copy=True)
                 self.digest_s += time.perf_counter() - t
             elif self.n in self.keep:
                 self.out[self.n] = np.array(ispan.data.as_numpy(),
@@ -701,7 +721,7 @@ def drive(bt, gulps, header, chain, nwarm=NWARM, ntimed=NTIMED, per_out=1,
     for role, blk in [('source', src), ('h2d', h2d)] + blocks + \
             [('d2h', d2h), ('sink', sink)]:
         tot = blk.perf_totals
-        per_gulp[role] = {k: tot[k] / max(tot['ngulp'], 1) * 1e3
+        per_gulp[role] = {k: tot[k] / max(tot['nlogical'], 1) * 1e3
                           for k in ('acquire', 'reserve', 'process')}
     if digest:
         per_gulp['sink']['digest'] = sink.digest_s / max(sink.n, 1) * 1e3
@@ -1371,9 +1391,10 @@ def beam_gulps(seed=9, n=2):
             for _ in range(n)]
 
 
-def run_beam_arm(bt, gulps, w, arm):
+def run_beam_arm(bt, gulps, w, arm, **kw):
     """One arm of the beamformer pipeline; returns (outputs, seconds of
-    the timed gulps, per-block host ms/gulp, the beam block)."""
+    the timed gulps, per-block host ms/gulp, the beam block).  ``kw``
+    goes to drive() (``nwarm``, ``ntimed``, ``scope``, ``digest``)."""
     from bifrost_tpu_torch.stages import (BeamformStage, DetectStage,
                                           ReduceStage)
     header = {'name': 'beams', 'time_tag': 0,
@@ -1399,7 +1420,7 @@ def run_beam_arm(bt, gulps, w, arm):
                     ReduceStage('time', BR)])))
         return blocks
 
-    out, secs, per_gulp = drive(bt, gulps, header, chain)
+    out, secs, per_gulp = drive(bt, gulps, header, chain, **kw)
     return out, secs, per_gulp, blocks[0][1]
 
 
@@ -2281,20 +2302,20 @@ def fdmt_oracle(plan, window, ntap):
     return out
 
 
-def run_fdmt_arm(bt, source, chain, nout_frames):
+def run_fdmt_arm(bt, source, chain, nout_frames, scope=None):
     """Drive source -> chain -> copy('system') -> a sink that writes every
     output span into one host array of ``nout_frames`` frames on the last
     axis.  Returns (array, output header, seconds of the FTIMED timed
     gulps at the sink, seconds from the source's first gulp to the sink's
     last, per-block host ms/gulp over each block's own gulps after its
-    first FWARM, the chain's blocks).
+    first FWARM, the chain's blocks).  ``scope`` holds Pipeline tunables.
 
     Six rings of three gulps lie between source and sink, more than the
     run's gulps: a block at the head can run a whole run ahead, and the
     sink's window then times the tail draining.  So each block's own
     steady ms/gulp is taken as well (a thread snapshots its totals when
-    it has done FWARM gulps); the slowest block's time bounds the chain's
-    rate."""
+    it has done FWARM logical gulps); the slowest block's time bounds the
+    chain's rate."""
     import threading
     ngulp = FWARM + FTIMED
 
@@ -2321,14 +2342,21 @@ def run_fdmt_arm(bt, source, chain, nout_frames):
 
     snaps, done = {}, threading.Event()
 
+    def running(roles):
+        # the blocks that run: a compiled segment stands in for its
+        # members (Pipeline(segments=...))
+        return [(r, b) for r, b in roles if b in p.blocks] + \
+            [('segment', s) for s in p._segments]
+
     def watch(roles):
         while not done.is_set():
-            for role, blk in roles:
-                if role not in snaps and blk.perf_totals['ngulp'] >= FWARM:
+            for role, blk in running(roles):
+                if role not in snaps and \
+                        blk.perf_totals['nlogical'] >= FWARM:
                     snaps[role] = dict(blk.perf_totals)
             time.sleep(5e-4)
 
-    with bt.Pipeline() as p:
+    with bt.Pipeline(**(scope or {})) as p:
         src = source()
         h2d = bt.blocks.copy(src, space='cuda')
         blocks = chain(h2d)
@@ -2349,9 +2377,9 @@ def run_fdmt_arm(bt, source, chain, nout_frames):
             % (sink.n, sink.off, ngulp, nout_frames))
     log_crc('fdmt outputs', crc32(sink.out))
     per_gulp = {}
-    for role, blk in roles:
+    for role, blk in running(roles):
         tot, snap = blk.perf_totals, snaps[role]
-        n = tot['ngulp'] - snap['ngulp']
+        n = tot['nlogical'] - snap['nlogical']
         require(n > 0, '%s ran no gulp after its first %d' % (role, FWARM))
         per_gulp[role] = {k: (tot[k] - snap[k]) / n * 1e3
                           for k in ('acquire', 'reserve', 'process')}
@@ -4116,10 +4144,12 @@ def phase_supervision(bt, spec, gpu_kernels, ngulp=12, tap_gulps=48,
             'drill reference: %d outputs' % len(seen))
     expect = [crc for _s, _g, crc, _z in seen]
     launches = spec.launches
-    # (the CPU rehearsal runs K1's plain version, which counts nothing)
-    require(launches == len(gulps) or not bt.device.on_cuda(),
-            'drill reference: %d K1 launches for %d gulps'
-            % (launches, len(gulps)))
+    # (the CPU rehearsal runs K1's plain version, which counts nothing);
+    # the fused block's prewarm launches K1 once at sequence start
+    require(launches == len(gulps) + b['fused'].prewarm_runs or
+            not bt.device.on_cuda(),
+            'drill reference: %d K1 launches for %d gulps and %d prewarm '
+            'runs' % (launches, len(gulps), b['fused'].prewarm_runs))
     res['reference'] = {'seconds': secs, 'k1_launches': launches}
     del p, b
     gc.collect()
@@ -4352,6 +4382,406 @@ def phase_tier_overhead(bt, smi, runs=('plain', 'armed', 'armed', 'plain')):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the macro phase: macro-gulp spans, compiled segments, the halo carry and
+# donation (bifrost_tpu_torch.macro, bifrost_tpu_torch.segments)
+# ---------------------------------------------------------------------------
+
+MACRO_K = 4
+# spec arms: 9 gulps, so K = 4 runs two full batches and a partial batch of
+# 1; beam-K4 5 gulps (4 + 1); fx-K4 4 gulps (one span: its D2H moves 8.6
+# GB a span)
+MSPEC_GULPS, MBEAM_GULPS, MFX_GULPS = 9, 5, 4
+
+
+def settle_memory():
+    """Free what earlier runs left (pipelines hold reference cycles) and
+    start a fresh peak; returns the bytes still allocated, which an arm's
+    peak is counted above."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def block_gulps(snap, blk):
+    """(dispatches, logical gulps) of ``blk`` on the counters."""
+    return (snap.get('block.%s.dispatches' % blk.name, 0),
+            snap.get('block.%s.gulps' % blk.name, 0))
+
+
+def prewarm_runs(blocks):
+    """Plan runs the FusedBlocks (and segments) of ``blocks`` made at
+    sequence start: each launches the chain's kernels once."""
+    return sum(getattr(b, 'prewarm_runs', 0) for b in blocks)
+
+
+def check_elided(arm, seg):
+    """No span was ever reserved or committed on a segment's interior
+    rings."""
+    for ring in seg._elided_rings:
+        occ = ring.occupancy()
+        require(occ['head'] == 0 and occ['reserve_head'] == 0 and
+                not ring._storage.chunks,
+                '%s: a span was reserved on the elided ring %s: %s'
+                % (arm, ring.name, occ))
+
+
+def macro_spec_arm(bt, spec, gpu_kernels, gulps, k, donate=None,
+                   segments=None, unfused=False):
+    """The flagship chain over MSPEC_GULPS gulps at batch ``k``: fused
+    (K1) or, ``unfused``, separate fft, detect('stokes') and reduce blocks
+    (K2); returns a record of its CRCs, first output, launches,
+    dispatches, host ms a gulp and peak device memory."""
+    import torch
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    from bifrost_tpu_torch.telemetry import counters
+    header = {'name': 'guppi', 'time_tag': 0,
+              '_tensor': {'shape': [-1, NPOL, NFINE], 'dtype': 'ci8',
+                          'labels': ['time', 'pol', 'fine_time'],
+                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    blocks = []
+
+    def chain(h2d):
+        if unfused:
+            b = bt.blocks.fft(h2d, axes='fine_time', axis_labels='freq')
+            blocks.append(('fft', b))
+            b = bt.blocks.detect(b, mode='stokes', axis='pol')
+            blocks.append(('detect', b))
+            blocks.append(('reduce', bt.blocks.reduce(b, 'freq', RFACTOR)))
+        else:
+            blocks.append(('fused', bt.blocks.fused(
+                h2d, [FftStage('fine_time', axis_labels='freq'),
+                      DetectStage('stokes', axis='pol'),
+                      ReduceStage('freq', RFACTOR)])))
+        return blocks
+
+    counters.reset()
+    zero_counts(spec, gpu_kernels)
+    base = settle_memory()
+    out, secs, per_gulp = drive(
+        bt, gulps, header, chain, 1, MSPEC_GULPS - 1, digest=True,
+        keep_first=True, scope={'gulp_batch': k, 'donate': donate,
+                           'segments': segments})
+    torch.cuda.synchronize()
+    p = blocks[0][1].pipeline
+    ran = p._segments + [b for _r, b in blocks if b in p.blocks]
+    snap = counters.snapshot()
+    rec = {'crc32': [out[i] for i in range(MSPEC_GULPS)],
+           'first': out['first'], 'seconds': secs,
+           'peak_bytes': torch.cuda.max_memory_allocated() - base,
+           'base_bytes': base,
+           'launches': read_counts(spec, gpu_kernels),
+           'prewarm_runs': prewarm_runs(ran),
+           'dispatches': {b.name.split('/')[-1]: block_gulps(snap, b)
+                          for b in ran},
+           # the chain's host time a logical gulp: working (process,
+           # the dispatch and its ring commits) and in all
+           'process_ms_per_gulp': {
+               b.name.split('/')[-1]: b.perf_totals['process'] /
+               max(b.perf_totals['nlogical'], 1) * 1e3 for b in ran},
+           'host_ms_per_gulp': {
+               b.name.split('/')[-1]:
+                   sum(b.perf_totals[x] for x in
+                       ('acquire', 'reserve', 'process')) /
+                   max(b.perf_totals['nlogical'], 1) * 1e3 for b in ran},
+           'per_gulp_ms': per_gulp,
+           'donation': [snap.get('donation.hits', 0),
+                        snap.get('donation.misses', 0)],
+           'segments': [s.name for s in p._segments],
+           'members': [s._members for s in p._segments],
+           'elided': [s._elided for s in p._segments],
+           'segment_compiled': snap.get('segment.compiled', 0),
+           'impl': [getattr(b, 'impl_info', None) for b in ran],
+           'batches': sorted({i.get('batch', 1) for b in ran
+                              for i in getattr(b, '_plan_impls', {})
+                              .values()})}
+    for seg in p._segments:
+        check_elided('spec %s' % seg.name, seg)
+    del blocks[:], p, ran
+    return rec
+
+
+def phase_macro(bt, spec, gpu_kernels, beam, fx, smi):
+    """The macro phase (see the module docstring's item 10m)."""
+    import gc
+    import torch
+    from bifrost_tpu_torch.ops import fdmt as F
+    from bifrost_tpu_torch.telemetry import counters
+    res = {'k': MACRO_K}
+    volts = make_gulps()
+    rows = [0, 1, NTIME // 2, NTIME - 1]
+    want0 = spec.spectrometer_oracle(volts[0][rows], RFACTOR)
+
+    def show(arm, r):
+        log('macro %s: crc32 %s; launches %s (%d prewarm runs); '
+            'dispatches/gulps %s; process ms a gulp %s, host ms a gulp in '
+            'all %s; peak device %.3f GB above the %.3f GB held before; '
+            'donation hits/misses %s; %.3f s (%s)'
+            % (arm, r['crc32'], {k: n for k, n in r['launches'].items()
+                                 if n}, r['prewarm_runs'], r['dispatches'],
+               {b: round(ms, 4)
+                for b, ms in r['process_ms_per_gulp'].items()},
+               {b: round(ms, 3) for b, ms in r['host_ms_per_gulp'].items()},
+               r['peak_bytes'] / 1e9, r['base_bytes'] / 1e9, r['donation'],
+               r['seconds'], smi))
+        log_per_gulp(r['per_gulp_ms'])
+
+    # spec-K4: the fused K1 chain at K = 1, K = 4, K = 4 donating
+    spec_runs = {}
+    for arm, k, donate in (('spec-K1', 1, None), ('spec-K4', MACRO_K, None),
+                           ('spec-K4-donate', MACRO_K, True)):
+        r = macro_spec_arm(bt, spec, gpu_kernels, volts, k, donate=donate)
+        show(arm, r)
+        spec_runs[arm] = r
+        n = r['launches']
+        nk1 = n['fused_spectrometer'] - r['prewarm_runs']
+        ndisp = -(-MSPEC_GULPS // k)
+        require(nk1 == ndisp, '%s: %d K1 launches for %d dispatches'
+                % (arm, nk1, ndisp))
+        require(n['fused_spectrometer_radix16'] == n['fused_spectrometer'],
+                '%s: K1 off the radix-16 kernel' % arm)
+        require(list(r['dispatches'].values()) == [(ndisp, MSPEC_GULPS)],
+                '%s: dispatches/gulps %s, not %d/%d'
+                % (arm, r['dispatches'], ndisp, MSPEC_GULPS))
+        info = r['impl'][0]
+        require(info.get('impl') == 'cuda-spectrometer' and
+                info.get('kernel') == 'cuda' and k in r['batches'],
+                '%s: the plan that ran last is %s, batches %s'
+                % (arm, info, r['batches']))
+        require(rel_err(r['first'][rows], want0) < GATE,
+                '%s: output 0 is outside the gate of the oracle' % arm)
+        if arm != 'spec-K1':
+            require(r['crc32'] == spec_runs['spec-K1']['crc32'],
+                    '%s: outputs differ from spec-K1' % arm)
+        del r['first']
+    require(spec_runs['spec-K4-donate']['donation'][0] > 0 and
+            spec_runs['spec-K4-donate']['impl'][0].get('donate_argnums'),
+            'spec-K4-donate: no donation (%s)'
+            % spec_runs['spec-K4-donate']['donation'])
+    fused_ms = {a: list(r['process_ms_per_gulp'].values())[0]
+                for a, r in spec_runs.items()}
+    log('macro spec: K = %d byte-identical to K = 1 with and without '
+        'donation; the fused block\'s process ms a gulp %s; peak device '
+        'memory above the start %s GB (%s)'
+        % (MACRO_K, {a: round(v, 4) for a, v in fused_ms.items()},
+           {a: round(r['peak_bytes'] / 1e9, 3)
+            for a, r in spec_runs.items()}, smi))
+    gc.collect()
+
+    # spec-seg: separate fft, detect, reduce blocks at K = 4, segments off
+    # and forced; and at K = 1 off (cuFFT at G against K * G frames)
+    seg_runs = {}
+    for arm, k, mode in (('seg-off', MACRO_K, 'off'),
+                         ('seg-force', MACRO_K, 'force'),
+                         ('seg-off-K1', 1, 'off')):
+        r = macro_spec_arm(bt, spec, gpu_kernels, volts, k, segments=mode,
+                           unfused=True)
+        show('spec-%s' % arm, r)
+        seg_runs[arm] = r
+        ndisp = -(-MSPEC_GULPS // k)
+        nk2 = r['launches']['stokes_detect'] - r['prewarm_runs']
+        require(nk2 == ndisp, 'spec-%s: %d K2 launches for %d dispatches'
+                % (arm, nk2, ndisp))
+        require(r['launches']['fused_spectrometer'] == 0,
+                'spec-%s: K1 ran in the unfused chain' % arm)
+        require(rel_err(r['first'][rows], want0) < GATE,
+                'spec-%s: output 0 is outside the gate of the oracle' % arm)
+        del r['first']
+    force = seg_runs['seg-force']
+    require(force['segment_compiled'] == 1 and len(force['segments']) == 1,
+            'spec-seg: %d segments compiled' % force['segment_compiled'])
+    require([m.split('/')[-1].rsplit('_', 1)[0]
+             for m in force['members'][0]] ==
+            ['FftBlock', 'DetectBlock', 'ReduceBlock'],
+            'spec-seg: the segment holds %s' % force['members'])
+    require(list(force['dispatches'].values()) ==
+            [(-(-MSPEC_GULPS // MACRO_K), MSPEC_GULPS)],
+            'spec-seg: the segment\'s dispatches/gulps %s'
+            % force['dispatches'])
+    require(force['crc32'] == seg_runs['seg-off']['crc32'],
+            'spec-seg: the segment\'s outputs differ from the unfused '
+            'chain\'s at K = %d' % MACRO_K)
+    cufft_equal = seg_runs['seg-off-K1']['crc32'] == \
+        seg_runs['seg-off']['crc32']
+    log('macro spec-seg: segment %s of %s, elided rings %s untouched, '
+        'byte-identical to the unfused chain at K = %d; the unfused chain '
+        'at K = 1 %s the K = %d bytes (cuFFT at %d against %d frames)'
+        % (force['segments'][0], force['members'][0], force['elided'][0],
+           MACRO_K, 'gives' if cufft_equal else 'does NOT give', MACRO_K,
+           NTIME, NTIME * MACRO_K))
+    res['spec'] = {k: {x: v for x, v in r.items() if x != 'impl'}
+                   for k, r in spec_runs.items()}
+    res['spec_seg'] = {k: {x: v for x, v in r.items() if x != 'impl'}
+                       for k, r in seg_runs.items()}
+    res['spec_seg']['cufft_k_gulp_bytes_equal'] = cufft_equal
+    del force, volts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # frb-seg: config 22's stream, K3 forced, K = 4 segments 'auto' against
+    # K = 1 segments 'off'
+    t0 = time.perf_counter()
+    ngulp = FWARM + FTIMED
+    N = ngulp * FG
+    noise, x = fdmt_stream()
+    plan = F.Fdmt().init(FCH, FMD, FF0, FDF)
+    nsteps = len(plan._plan['steps'])
+    halo = FMD + FNTAP - 1
+    thr = float(np.quantile(fdmt_oracle(plan, noise[:, :FG + halo], FNTAP)
+                            .cpu().numpy(), 1.0 - FFAR))
+    del noise
+    host = x.cpu().numpy()
+    del x
+    expect = pulse_expect(plan)
+    nout = N - halo
+    frb = {}
+    for arm, k, mode in (('frb-K1', 1, 'off'),
+                         ('frb-seg', MACRO_K, 'auto')):
+        blocks = []
+
+        def frb_chain(h2d):
+            b = bt.blocks.fdmt_stage(h2d, max_delay=FMD)
+            blocks.append(('fdmt_stage', b))
+            b = bt.blocks.matched_filter(b, FNTAP)
+            blocks.append(('matched_filter', b))
+            blocks.append(('threshold', bt.blocks.threshold(b, thr)))
+            return blocks
+
+        counters.reset()
+        zero_counts(spec, gpu_kernels)
+        base = settle_memory()
+        with environ(BF_FDMT_IMPL='pallas'):
+            out, _hdr, secs, secs_run, per_gulp, _ = run_fdmt_arm(
+                bt, freq_time_source(bt, host), frb_chain, nout,
+                scope={'gulp_batch': k, 'segments': mode})
+        snap = counters.snapshot()
+        p = blocks[0][1].pipeline
+        ran = p._segments + [b for _r, b in blocks if b in p.blocks]
+        n = read_counts(spec, gpu_kernels)['fdmt_step']
+        ndisp = -(-ngulp // k)
+        pre = prewarm_runs(ran)
+        require(n == (ndisp + pre) * nsteps,
+                '%s: %d K3 launches for %d dispatches and %d prewarm runs '
+                'of %d steps' % (arm, n, ndisp, pre, nsteps))
+        frb[arm] = {'seconds': secs, 'seconds_run': secs_run,
+                    'k3_launches': n, 'prewarm_runs': pre,
+                    'dispatches': {b.name.split('/')[-1]:
+                                   block_gulps(snap, b) for b in ran},
+                    'peak_bytes': torch.cuda.max_memory_allocated() - base,
+                    'segment_compiled': snap.get('segment.compiled', 0),
+                    'overlap_carried': snap.get('segment.overlap_carried',
+                                                0),
+                    'crc32': crc32(out)}
+        log('macro %s: %s; per-gulp host ms %s (%s)'
+            % (arm, json.dumps({x: v for x, v in frb[arm].items()}),
+               {r: round(t['process'], 3) for r, t in per_gulp.items()},
+               smi))
+        if arm == 'frb-K1':
+            ref = out
+        else:
+            require(len(p._segments) == 1 and
+                    frb[arm]['overlap_carried'] == 1,
+                    'frb-seg: segments %s, overlap_carried %d'
+                    % (p._segments, frb[arm]['overlap_carried']))
+            seg = p._segments[0]
+            require([m.split('/')[-1].rsplit('_', 1)[0]
+                     for m in seg._members] ==
+                    ['FdmtStageBlock', 'MatchedFilterBlock',
+                     'ThresholdBlock'],
+                    'frb-seg: the segment holds %s' % seg._members)
+            check_elided('frb-seg', seg)
+            require(np.array_equal(out.view(np.uint32),
+                                   ref.view(np.uint32)),
+                    'frb-seg is not byte-identical to frb-K1')
+            check_peaks('frb-seg', pulse_peaks(out, 1), expect)
+            del seg
+        del out, blocks, p, ran
+        gc.collect()
+    del ref, host
+    torch.cuda.empty_cache()
+    frb['setup_and_arms_s'] = time.perf_counter() - t0
+    res['frb'] = frb
+
+    # beam-K4: the beamformer pipeline's K6 block at K = 4 against K = 1
+    bgulps = beam_gulps()
+    w = beam_weights()
+    beam_runs = {}
+    for arm, k in (('beam-K1', 1), ('beam-K4', MACRO_K)):
+        counters.reset()
+        zero_counts(spec, gpu_kernels)
+        out, secs, per_gulp, blk = run_beam_arm(
+            bt, bgulps, w, 'K6', nwarm=1, ntimed=MBEAM_GULPS - 1,
+            digest=True, scope={'gulp_batch': k})
+        snap = counters.snapshot()
+        n = read_counts(spec, gpu_kernels)
+        ndisp = -(-MBEAM_GULPS // k)
+        nk6 = n['beamform_detect_int8'] - blk.prewarm_runs
+        require(nk6 == ndisp, '%s: %d K6 launches for %d dispatches'
+                % (arm, nk6, ndisp))
+        require(n['beamform_detect_int8_mma'] ==
+                n['beamform_detect_int8'],
+                '%s: K6 off its tensor-core kernel' % arm)
+        require(blk.impl_info.get('impl') == 'cuda-beamform-detect',
+                '%s: planned %s' % (arm, blk.impl_info))
+        beam_runs[arm] = {'crc32': [out[i] for i in range(MBEAM_GULPS)],
+                          'seconds': secs, 'k6_launches':
+                          n['beamform_detect_int8'],
+                          'prewarm_runs': blk.prewarm_runs,
+                          'dispatches': block_gulps(snap, blk),
+                          'per_gulp_ms': per_gulp}
+        log('macro %s: %s (%s)' % (arm, json.dumps(beam_runs[arm]), smi))
+        del blk
+    require(beam_runs['beam-K4']['crc32'] == beam_runs['beam-K1']['crc32'],
+            'beam-K4: outputs differ from K = 1')
+    res['beam'] = beam_runs
+    del bgulps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fx-K4: the FX chain's CorrelateStageBlock (K7) at K = 4 against
+    # K = 1, both against the FX phase's oracle
+    fx_runs = {}
+    want = [crc32(fx['oracle'][i % len(fx['gulps'])])
+            for i in range(MFX_GULPS)]
+    for arm, k in (('fx-K1', 1), ('fx-K4', MACRO_K)):
+        counters.reset()
+        zero_counts(spec, gpu_kernels)
+        base = settle_memory()
+        out, secs, per_gulp, info = run_fx_arm(
+            bt, fx['gulps'], 'fx-K7', nwarm=1, ntimed=MFX_GULPS - 1,
+            digest=True, scope={'gulp_batch': k})
+        n = read_counts(spec, gpu_kernels)['xcorr_herm']
+        ndisp = -(-MFX_GULPS // k)
+        require(n == ndisp, '%s: %d K7 launches for %d dispatches'
+                % (arm, n, ndisp))
+        crcs = [out[i] for i in range(MFX_GULPS)]
+        require(crcs == want, '%s: outputs differ from the oracle' % arm)
+        fx_runs[arm] = {'crc32': crcs, 'seconds': secs, 'k7_launches': n,
+                        'peak_bytes': torch.cuda.max_memory_allocated() -
+                        base,
+                        'per_gulp_ms': per_gulp}
+        log('macro %s: %s (%s)' % (arm, json.dumps(fx_runs[arm]), smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+    res['fx'] = fx_runs
+    res['launches'] = {
+        'K1': {a: r['launches']['fused_spectrometer']
+               for a, r in res['spec'].items()},
+        'K2': {a: r['launches']['stokes_detect']
+               for a, r in res['spec_seg'].items()
+               if isinstance(r, dict)},
+        'K3': {a: r['k3_launches'] for a, r in frb.items()
+               if isinstance(r, dict)},
+        'K6': {a: r['k6_launches'] for a, r in beam_runs.items()},
+        'K7': {a: r['k7_launches'] for a, r in fx_runs.items()}}
+    log('macro launches: %s' % json.dumps(res['launches']))
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4414,6 +4844,7 @@ def main():
     sup = run('supervision', phase_supervision, bt, spec, gpu_kernels)
     sup['tier_overhead'] = run('tier overhead', phase_tier_overhead, bt,
                                smi)
+    mac = run('macro', phase_macro, bt, spec, gpu_kernels, beam, fx, smi)
     dsp['fx_storage'] = run('fx-storage', phase_fx_storage, bt, spec,
                             gpu_kernels, fx, smi)
     dsp['romein'] = run('romein', phase_romein, bt, smi)
@@ -4462,6 +4893,11 @@ def main():
     k9['launches_per_gulp'] = k9['launches'] / float(MWARM + MTIMED)
     k9['launches_of'] = 'the mesh-corner-K9 arm (%d ranks, %d hops a gulp)' \
         % (MD, MD - 1)
+    # the macro phase's arms, K = 1 against K = MACRO_K (prewarm runs
+    # included)
+    for k, key in ((k1, 'K1'), (k2, 'K2'), (k3, 'K3'), (k6, 'K6'),
+                   (k7, 'K7')):
+        k['launches_macro'] = mac['launches'][key]
     kernels = [k0, k1, k2, k3, k4, k5, k6, k7, k8, k9]
     # the wrappers' host time: one call bracketed less a call's share of
     # 20 queued back to back
@@ -4510,6 +4946,8 @@ def main():
     log(json.dumps({'xfer': xf, 'card': smi}))
     log(json.dumps({'linalg': la, 'card': smi}))
     log(json.dumps({'supervision': sup, 'card': smi}))
+    mac['phase_s'] = phase_s['macro']
+    log(json.dumps({'macro': mac, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

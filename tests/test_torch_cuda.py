@@ -1812,3 +1812,127 @@ def test_drop_oldest_on_a_cuda_ring_releases_what_it_sheds():
     assert shed['shed_gulps'] == len(gulps) - len(got)
     assert all(v == float(i) for i, v in got)
     assert max(held) <= ring.total_span
+
+
+# ---------------------------------------------------------------------------
+# macro-gulp spans and donation on the card
+# ---------------------------------------------------------------------------
+
+def test_spectrometer_at_a_k_gulp_shape_equals_its_plain_version():
+    """K1 at the macro span of 4 gulps of 2048 frames (8192 x 2 x 4096,
+    r 4), as a K = 4 FusedBlock gives it: within the gate of its plain
+    version and of the float64 oracle on four rows, one launch."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    x = torch.randint(-128, 128, (4 * 2048, 2, 4096, 2), dtype=torch.int8,
+                      device='cuda', generator=g)
+    before = spec.launches
+    got = spec.fused_spectrometer(x, rfactor=4)
+    assert spec.launches == before + 1
+    want = spec.spectrometer_plain(x, rfactor=4)
+    assert _rel(got.cpu().numpy(), want.cpu().numpy()) < GATE
+    rows = [0, 2047, 2048, 8191]
+    oracle = spec.spectrometer_oracle(x[rows].cpu().numpy(), 4)
+    assert _rel(got[rows].cpu().numpy(), oracle) < GATE
+
+
+def test_take_data_of_an_h2d_chunk_is_not_recycled_before_its_reader():
+    """A chunk the engine's H2D stream filled, claimed by a reader on
+    another stream: the reader's kernel is held back, the reader drops
+    the chunk, and a new H2D of the same size follows at once.  The
+    claim recorded the reader's stream on the chunk, so the allocator
+    does not hand its memory to the new copy before the held-back kernel
+    has read it."""
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.ring import Ring
+    n = 1 << 22
+    ones = np.ones((16, n // 16), np.float32)
+    junk = np.full((16, n // 16), -7.0, np.float32)
+    ring = Ring(space='cuda')
+    hdr = {'name': 's', 'gulp_nframe': 16,
+           '_tensor': {'shape': [-1, n // 16], 'dtype': 'f32'}}
+    eng = xfer.engine()
+    side = torch.cuda.Stream()
+    def commit_owned(seq):
+        # in a function, so that no writer-side reference outlives it
+        with seq.reserve(16) as sp:
+            sp.set(eng.to_device(ones), owned=True)
+            sp.commit(16)
+
+    with ring.begin_writing() as w:
+        with w.begin_sequence(hdr, 16, 48) as seq:
+            commit_owned(seq)
+            r = ring.open_earliest_sequence(guarantee=True)
+            with torch.cuda.stream(side):
+                with r.acquire(0, 16) as ispan:
+                    x = ispan.take_data()
+                    assert x is not None and not ring._storage.chunks
+                    torch.cuda._sleep(200_000_000)
+                    y = x * 2.0
+                del x, ispan
+                later = eng.to_device(junk)
+            torch.cuda.synchronize()
+            r.close()
+    assert torch.equal(later, torch.from_numpy(junk).cuda())
+    assert bool((y == 2.0).all())
+
+
+def test_macro_writer_and_k1_reader_on_the_card():
+    """A K = 4 fused writer (K1 substituted at 4 x 1024 frames) feeding a
+    stage block pinned to K = 1: no deadlock, the K = 1 chain's bytes,
+    and the fused block's 4 launches a span cover its gulps."""
+    import contextlib
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    rng = np.random.RandomState(3)
+    gulps = [rng.randint(-64, 64, (1024, 2, 1024, 2)).astype(np.int8)
+             for _ in range(9)]
+
+    class Src(bt.SourceBlock):
+        def __init__(self):
+            super(Src, self).__init__(['v'], 1024, space='system')
+
+        def create_reader(self, name):
+            return contextlib.nullcontext(iter(gulps))
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'v', 'time_tag': 0,
+                     '_tensor': {'shape': [-1, 2, 1024], 'dtype': 'ci8',
+                                 'labels': ['time', 'pol', 'fine_time'],
+                                 'scales': [[0, 1]] * 3,
+                                 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(reader, None)
+            if g is None:
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                g.reshape(ospans[0].data.as_numpy().view(np.int8).shape)
+            return [1024]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    def run(k):
+        with bt.Pipeline(gulp_batch=k) as p:
+            b = bt.blocks.copy(Src(), space='cuda')
+            fb = bt.blocks.fused(b, [FftStage('fine_time',
+                                              axis_labels='freq'),
+                                     DetectStage('stokes', axis='pol'),
+                                     ReduceStage('freq', 4)])
+            b = bt.blocks.scrunch(fb, 2, gulp_batch=1)
+            sink = Sink(bt.blocks.copy(b, space='system'))
+        before = spec.launches
+        _run_bounded(p, timeout=60)
+        return np.concatenate(sink.out), spec.launches - before, fb
+    out4, n4, fb4 = run(4)
+    out1, n1, fb1 = run(1)
+    assert np.array_equal(out4, out1)
+    assert n1 == 9 + fb1.prewarm_runs and n4 == 3 + fb4.prewarm_runs

@@ -158,14 +158,15 @@ def test_pipeline_matches_jax_pipeline(jax_run, monkeypatch, substitute):
     assert hdr['_tensor'] == jhdr['_tensor']
     assert hdr['gulp_nframe'] == jhdr['gulp_nframe'] == NT
     # the path that ran, as the block published it, and the wrapper it
-    # went through once per gulp (the plain version, on the CPU)
+    # went through once per gulp and once in the block's prewarm at
+    # sequence start (the plain version, on the CPU)
     if substitute:
         assert info == {'impl': 'cuda-spectrometer', 'kernel': 'plain',
                         'nfft': NFINE, 'rfactor': RF}
-        assert calls == {'k1': NGULP, 'k2': 0}
+        assert calls == {'k1': NGULP + 1, 'k2': 0}
     else:
         assert info == {'impl': 'torch-fused'}
-        assert calls == {'k1': 0, 'k2': NGULP}
+        assert calls == {'k1': 0, 'k2': NGULP + 1}
     assert spec.launches == 0
     assert not any(gpu_kernels.launches.values())
 

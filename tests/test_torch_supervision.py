@@ -335,6 +335,40 @@ def test_restart_storm_budget_exhaustion_mid_chain(monkeypatch):
     assert got['port']['poisoned']
 
 
+def test_restart_storm_budget_exhaustion_mid_macro_gulp(monkeypatch):
+    """``tests/test_supervision.py:172`` through both packages: the
+    restart budget runs out while a K = 4 macro chain consumes the faulted
+    source's stream; the abort is a clean poison cascade with the same
+    exact counters in both."""
+    monkeypatch.setenv('BF_RESTART_MAX', '2')
+    nt = 8
+    gulps = [np.full((nt, 3), float(k), dtype=np.float32)
+             for k in range(16)]
+    hdr = _hdr()
+    hdr['gulp_nframe'] = nt
+
+    def drill(k):
+        with k['faults'].injected('block.on_data', match='NumpySourceBlock',
+                                  count=3, after=2):
+            with k['mod'].Pipeline(gulp_batch=4) as p:
+                p.shutdown_timeout = 5.0
+                src = k['source'](gulps, hdr, gulp_nframe=nt,
+                                  on_failure='restart',
+                                  restart_backoff=0.01)
+                dev = k['mod'].blocks.copy(src, space=k['space'])
+                host = k['mod'].blocks.copy(dev, space='system')
+                k['sink'](host)
+                exc = _run(p)
+        assert isinstance(exc, k['runtime']), repr(exc)
+        assert k['counters'].get('ring_poisoned') >= 3
+        return _outcome(k, p, exc)
+    got = _both(drill)
+    assert got['port'] == got['jax']
+    assert got['port']['block_restarts'] == 2
+    assert got['port']['block_failures'] == 3
+    assert got['port']['kinds'] == ['error', 'restarted', 'restarted']
+
+
 def test_skip_sequence_resets_slo_ages():
     """A skip_sequence drain resets the block's commit-age histogram: the
     skipped sequence's stale origin leaves the p99."""
