@@ -56,9 +56,9 @@ blocks take their input chunks out of the ring.
 Importing the package touches no device and builds no kernel.
 """
 
-from . import (affinity, blocks, device, io, macro, ops, parallel,
-               segments, stages, supervision, telemetry, testing, trace,
-               views, xfer)
+from . import (affinity, blocks, device, io, macro, memory, ops, parallel,
+               proclog, segments, stages, supervision, telemetry, testing,
+               trace, views, xfer)
 from .block_chainer import BlockChainer
 from .dtype import DataType
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,

@@ -58,6 +58,14 @@ class CopyBlock(TransformBlock):
     def macro_gulp_safe(self):
         return self.irings[0].is_device or self.orings[0].is_device
 
+    def verify_header(self, ihdr):
+        """The static verifier's header half (``bifrost_tpu/blocks/
+        copy.py:57``): a copy keeps the stream contract; a sharding
+        advertisement does not survive it."""
+        ohdr = deepcopy(ihdr)
+        ohdr.pop('_sharding', None)
+        return ohdr
+
     def on_sequence(self, iseq):
         return deepcopy(iseq.header)
 

@@ -30,6 +30,8 @@ __all__ = ['_StageBlock', 'FftBlock', 'fft']
 class _StageBlock(TransformBlock):
     """TransformBlock driven by a single Stage."""
 
+    _profile_eligible = True
+
     def __init__(self, iring, stage, *args, **kwargs):
         super(_StageBlock, self).__init__(iring, *args, **kwargs)
         self._stage = stage
@@ -54,6 +56,12 @@ class _StageBlock(TransformBlock):
         """The stage's lookahead (``Stage.overlap_nframe``) as the ring
         overlap between successive input spans."""
         return int(getattr(self._stage, 'overlap_nframe', 0) or 0)
+
+    def verify_header(self, ihdr):
+        """The pure header half that the static verifier propagates
+        through (``bifrost_tpu/blocks/fft.py:55``): the stage's
+        ``transform_header``, so a contract break shows before gulp 0."""
+        return self._stage.transform_header(ihdr)
 
     def on_sequence(self, iseq):
         self._ihdr = iseq.header

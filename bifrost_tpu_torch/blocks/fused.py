@@ -51,6 +51,8 @@ def device_stages(block):
 
 
 class FusedBlock(TransformBlock):
+    _profile_eligible = True
+
     def __init__(self, iring, stages, *args, substitute=True, **kwargs):
         super(FusedBlock, self).__init__(iring, *args, **kwargs)
         self.stages = list(stages)
@@ -116,6 +118,16 @@ class FusedBlock(TransformBlock):
         if self._plan_depot is not None:
             self._plan_depot[key] = (self._plans[key],
                                      self._plan_impls.get(key))
+
+    def verify_header(self, ihdr):
+        """The output header this chain advertises for ``ihdr``, from
+        each stage's pure ``transform_header`` (the static verifier's
+        propagation, ``bifrost_tpu/blocks/fused.py:114``): a stage that
+        rejects the stream raises here, before gulp 0."""
+        hdr = ihdr
+        for stage in self.stages:
+            hdr = stage.transform_header(hdr)
+        return hdr
 
     # -- macro-gulp eligibility ----------------------------------------------
     def macro_gulp_safe(self):

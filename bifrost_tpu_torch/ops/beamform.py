@@ -69,6 +69,9 @@ _LOSSY = frozenset(['planar_bf16', 'pallas_bf16', 'int8_wide',
 _IMPL_NAMES = ('xla', 'planar', 'planar_bf16', 'pallas_bf16',
                'int8_wide', 'pallas')
 
+#: the int8 candidates (the static verifier's BF-W170 reads them)
+_INT_IMPLS = frozenset(['int8_wide', 'pallas'])
+
 #: the hand-written kernels' candidates: they race only where the
 #: capability probe passed, so an error from one raises instead of
 #: dropping it from the race

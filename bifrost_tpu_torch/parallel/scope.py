@@ -9,15 +9,22 @@ gulp's frame (time) axis split over the mesh's time axis.
 Axis-name conventions: the *time* axis of a mesh is ``'sp'`` if present,
 else the first axis; the *station* axis is ``'tp'`` if present.
 
-Left out until a later slice: the GSPMD plans (``frame_local_plan``),
-the sharding descriptors of ring headers and the HLO collective stats
-(the port counts collective calls in ``parallel.ops.collectives``).
+The header sharding descriptors (:func:`sharding_descriptor`,
+:func:`meshes_equivalent`, :func:`descriptor_matches`,
+:func:`check_descriptor`, ``bifrost_tpu/parallel/scope.py:88-153``) are
+what the static verifier reads for its mesh checks (BF-W140 / BF-W141).
+
+Left out until a later slice: the GSPMD plans (``frame_local_plan``) and
+the HLO collective stats (the port counts collective calls in
+``parallel.ops.collectives``).
 """
 
 from __future__ import annotations
 
 __all__ = ['time_axis_name', 'station_axis_name', 'time_axis_size',
-           'shardable_nframe', 'shard_gulp', 'gather_local']
+           'shardable_nframe', 'shard_gulp', 'gather_local',
+           'sharding_descriptor', 'meshes_equivalent',
+           'descriptor_matches', 'check_descriptor']
 
 
 def time_axis_name(mesh):
@@ -61,3 +68,58 @@ def gather_local(x):
     from ..device import get_device
     dev = get_device()
     return x if x.device == dev else x.to(dev)
+
+
+def _axes(mesh):
+    return {str(n): int(s) for n, s in zip(mesh.axis_names,
+                                           mesh.devices.shape)}
+
+
+def sharding_descriptor(mesh, taxis):
+    """JSON-able record of a ring-resident gulp sharding for a sequence
+    header's ``_sharding``: the mesh axes, the sharded tensor axis, and
+    the mesh axis the frame axis shards over."""
+    return {
+        'mesh_axes': _axes(mesh),
+        'taxis': int(taxis),
+        'axis': time_axis_name(mesh),
+        'nshards': int(time_axis_size(mesh)),
+    }
+
+
+def meshes_equivalent(mesh_a, mesh_b):
+    """Whether two mesh scopes lay ring-resident gulps out alike (same
+    axes, time axis and devices), so that a span committed under one is
+    read by the other with no reshard.  None against a mesh is never
+    equivalent (one side commits single-device spans)."""
+    if mesh_a is None or mesh_b is None:
+        return mesh_a is mesh_b
+    if mesh_a is mesh_b:
+        return True
+    try:
+        return (_axes(mesh_a) == _axes(mesh_b) and
+                time_axis_name(mesh_a) == time_axis_name(mesh_b) and
+                mesh_a.devices.tolist() == mesh_b.devices.tolist())
+    except Exception:
+        return False
+
+
+def descriptor_matches(desc, mesh, taxis):
+    """Whether a header's ``_sharding`` descriptor describes the layout
+    this mesh gives a gulp with frame axis ``taxis``."""
+    if not isinstance(desc, dict) or mesh is None:
+        return False
+    want = sharding_descriptor(mesh, taxis)
+    return all(desc.get(k) == v for k, v in want.items())
+
+
+def check_descriptor(ihdr, mesh, taxis):
+    """Count a producer / consumer layout disagreement once a sequence on
+    ``mesh.layout_mismatch``: the input header's ``_sharding`` (when the
+    producer wrote one) against this consumer's mesh."""
+    desc = ihdr.get('_sharding') if isinstance(ihdr, dict) else None
+    if desc is None or mesh is None:
+        return
+    if not descriptor_matches(desc, mesh, taxis):
+        from ..telemetry import counters
+        counters.inc('mesh.layout_mismatch')

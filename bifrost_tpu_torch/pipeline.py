@@ -59,8 +59,18 @@ the ring (:meth:`TransformBlock._take_donatable`, counted on
 ``donation.hits`` / ``.misses``).  ``Pipeline(segments=...)`` (or
 ``BF_SEGMENTS``) runs the segment compiler
 (:mod:`bifrost_tpu_torch.segments`) in :meth:`Pipeline._prepare_graph`
-before any thread starts.  The JAX package's auto-tuner and static
-verifier are not part of this runtime yet.
+before any thread starts.
+
+Then ``run()`` checks the graph that will run with the static verifier
+(:mod:`bifrost_tpu_torch.analysis.verify`, :meth:`Pipeline.validate`):
+``BF_VALIDATE=warn`` (the default) reports, ``strict`` refuses a pipeline
+with any ``BF-E`` diagnostic, ``off`` skips it, and ``BF_LINT=1`` reports
+and returns without starting a thread.  It re-reads ``BF_RINGCHECK``
+(the ring-protocol checker) before the threads start.  Under
+``BF_TORCH_PROFILE=<dir>`` the first dispatch of a device block (a fused
+block, segment or stage block) runs inside a one-shot ``torch.profiler``
+capture (:mod:`bifrost_tpu_torch.telemetry.profiling`).  The JAX
+package's auto-tuner is not part of this runtime yet.
 """
 
 from __future__ import annotations
@@ -90,6 +100,7 @@ from .telemetry import exporter as _metrics_exporter
 from .telemetry import histograms as _histograms
 from .telemetry import slo as _slo
 from .telemetry import spans as _spans
+from .telemetry import profiling as _profiling
 from .temp_storage import TempStorage
 from .testing import faults
 from .trace import ScopedTracer, tracing_enabled as _tracing
@@ -333,8 +344,8 @@ class Pipeline(BlockScope):
     def _prepare_graph(self):
         """Rewrite the block graph before any thread starts: the segment
         compiler runs unless its mode is 'off'
-        (``bifrost_tpu/pipeline.py:541-551``).  The JAX package's static
-        verifier and auto-tuner, which also hook here, are not ported."""
+        (``bifrost_tpu/pipeline.py:541-551``), before the verifier, so
+        that it judges the graph that will run."""
         from . import segments as _segments
         if _segments.resolve_mode(self.segments) != 'off':
             _segments.compile_pipeline(self)
@@ -354,8 +365,20 @@ class Pipeline(BlockScope):
         block failed, the error of a transfer that failed after its
         block finished."""
         from .supervision import Supervisor
+        from .analysis import ringcheck as _ringcheck
+        from .analysis import verify as _verify
         self._prepare_graph()
+        # ``bifrost_tpu/pipeline.py:546-566``: lint mode builds and
+        # reports without running; the gate reports (warn) or refuses
+        # on a BF-E (strict)
+        if os.environ.get('BF_LINT', '').strip() == '1':
+            _verify.lint_intercept(self)
+            return
+        mode = _verify.validate_mode()
+        if mode != 'off':
+            _verify.gate_run(self, mode)
         faults.arm_from_env()
+        _ringcheck.reconfigure()
         # honour BF_TRACE_FILE / BF_SPAN_BUFFER / BF_SLO_MS changes since
         # the last run, and keep earlier runs' dead threads out of this
         # trace
@@ -426,6 +449,15 @@ class Pipeline(BlockScope):
         except Exception:
             if not any(f.fatal for f in self.supervisor.failures):
                 raise
+
+    def validate(self):
+        """The static verifier's diagnostics for the graph as built,
+        without running anything (``bifrost_tpu/pipeline.py:675-689``).
+        ``run()`` rewrites the graph with the segment compiler before its
+        own check, so this sees the graph before fusion, with a BF-I190
+        for each boundary the compiler would not fuse."""
+        from .analysis import verify
+        return verify.verify_pipeline(self)
 
     def health(self):
         """The pipeline's health (``bifrost_tpu/pipeline.py:691-708``):
@@ -506,6 +538,11 @@ class Block(BlockScope):
     (reference: pipeline.py:324-434)."""
 
     instance_counts = defaultdict(lambda: 0)
+
+    #: whether this block's dispatch is a device dispatch that the
+    #: one-shot ``BF_TORCH_PROFILE`` capture may bracket (the fused,
+    #: segment and stage blocks set it)
+    _profile_eligible = False
 
     def __init__(self, irings, name=None, type_=None, **kwargs):
         self.type = type_ or self.__class__.__name__
@@ -717,7 +754,9 @@ class Block(BlockScope):
         """``fn(*args)`` after the ``block.on_data`` fault seam, inside
         the gulp's compute span (seq, gulp and the stream's trace id)
         when span recording is on, and an NVTX range under
-        ``BF_TRACE=1``."""
+        ``BF_TRACE=1``; a device block's dispatch may be the one-shot
+        ``BF_TORCH_PROFILE`` capture (``bifrost_tpu/pipeline.py:
+        1790-1808``)."""
         faults.fire('block.on_data', self.name)
         with ExitStack() as scopes:
             if _spans.enabled():
@@ -728,6 +767,8 @@ class Block(BlockScope):
                     self.name + '.on_data', 'compute', **kwargs))
             if _tracing():
                 scopes.enter_context(ScopedTracer(self.name + '/on_data'))
+            if self._profile_eligible:
+                return _profiling.profiled_dispatch(lambda: fn(*args))
             return fn(*args)
 
     def begin_sequences(self, exit_stack, orings, oheaders,
@@ -884,6 +925,14 @@ class SourceBlock(Block):
 
     def define_valid_input_spaces(self):
         return []
+
+    def static_oheaders(self):
+        """The output headers this source will advertise, one a ring,
+        when they are known without opening the source, else None (the
+        default): the static verifier propagates from them
+        (``bifrost_tpu/pipeline.py:1334``).  No side effects;
+        ``on_sequence`` stays the runtime authority."""
+        return None
 
     def create_reader(self, sourcename):
         """A context manager giving the reader passed to on_sequence

@@ -67,8 +67,16 @@ record their flow-control wait on ``ring.<name>.reserve_s`` /
 ``.acquire_s`` and as ``ring`` spans.  :meth:`Ring.poison` wakes a
 failing block's peers instead of leaving them blocked.  The
 ``ring.reserve`` and ``ring.acquire`` fault seams (``testing.faults``)
-sit where the JAX ring has them.  The ringcheck shadow checker, its
-``ring.corrupt.*`` seams and the native core are not part of this core.
+sit where the JAX ring has them, and so do the hooks of the ring-protocol
+checker (``analysis.ringcheck``, ``BF_RINGCHECK=1``) and its
+``ring.corrupt.*`` seams.
+
+``Ring(space='system')`` returns a :class:`~bifrost_tpu_torch.ring_native.
+NativeRing`, whose state machine and buffer live in the C++ core of
+``native/`` (built at first use), unless ``BF_NO_NATIVE`` is set.
+'cuda_host' rings stay on this core (their buffer is torch's page-locked
+memory) and 'cuda' rings keep the chunk map.  Both cores share the
+sequence and span wrappers below.
 """
 
 from __future__ import annotations
@@ -86,6 +94,9 @@ from .dtype import DataType
 from .ndarray import ndarray
 from .space import canonical
 from .testing import faults
+# the ring-protocol checker: with BF_RINGCHECK off each seam below reads
+# one module global
+from .analysis import ringcheck as _rc
 
 __all__ = ['Ring', 'RingWriter', 'WriteSequence', 'ReadSequence',
            'WriteSpan', 'ReadSpan', 'EndOfDataStop', 'WouldBlock',
@@ -402,6 +413,16 @@ class Ring(object):
     #: reserve-path overload policies (module docstring)
     OVERLOAD_POLICIES = ('block', 'drop_oldest', 'drop_newest')
 
+    def __new__(cls, space='system', name=None, owner=None):
+        # 'system' rings run on the native core (``bifrost_tpu/ring.py:
+        # 457-466``); a failed build raises instead of falling back
+        if cls is Ring and canonical(space) == 'system':
+            from . import native
+            if native.available():
+                from .ring_native import NativeRing
+                return super(Ring, cls).__new__(NativeRing)
+        return super(Ring, cls).__new__(cls)
+
     def __init__(self, space='system', name=None, owner=None):
         self.space = canonical(space)
         if name is None:
@@ -503,7 +524,11 @@ class Ring(object):
 
     def _apply_geometry_locked(self, size, ghost, nringlet):
         """Re-lay the storage out; under the lock, on a quiescent ring
-        (no open span, no incomplete fill into the buffer)."""
+        (no open span, no incomplete fill into the buffer), which the
+        ring-protocol checker asserts against its shadow state."""
+        rc = _rc.hook(self) if _rc._enabled else None
+        if rc is not None:
+            rc.resize_applied(self._nwrite_open, self._nread_open, size)
         self._storage.allocate(size, ghost, nringlet,
                                self._tail, self._head)
         self._size, self._ghost, self._nringlet = size, ghost, nringlet
@@ -533,6 +558,15 @@ class Ring(object):
                 nringlet = max(nringlet, pn)
             self._pending_resize = (contiguous_bytes, total_bytes,
                                     nringlet)
+            rc = _rc.hook(self) if _rc._enabled else None
+            if rc is not None:
+                rc.resize_requested(contiguous_bytes, total_bytes)
+                if faults.armed('ring.corrupt.resize_under_span',
+                                self.name):
+                    # a core that re-lays the storage out now, under
+                    # whatever spans are open
+                    rc.resize_applied(self._nwrite_open,
+                                      self._nread_open, int(total_bytes))
             return self._maybe_apply_pending_locked()
 
     @property
@@ -669,11 +703,40 @@ class Ring(object):
             self._poisoned = exc if exc is not None else \
                 RuntimeError("ring poisoned")
             self._eod = True
+        from .telemetry import counters
+        counters.inc('ring_poisoned')
+        rc = _rc.hook(self) if _rc._enabled else None
+        if rc is not None:
+            # the seam operations blocked now: the checker's timer then
+            # proves that the wake-up released them
+            rc.poisoned_now()
+        if faults.armed('ring.corrupt.poison_nowake', self.name):
+            # leave blocked spans asleep; the test that arms this wakes
+            # its thread afterwards with _wake_all
+            return
+        self._wake_all()
+
+    def _wake_all(self):
+        """Wake every thread blocked on this ring (the poison wake-up)."""
+        with self._lock:
             for cond in (self._read_cond, self._write_cond,
                          self._seq_cond, self._span_cond):
                 cond.notify_all()
-        from .telemetry import counters
-        counters.inc('ring_poisoned')
+        self._wake_external()
+
+    def _wake_external(self):
+        """Wake threads blocked outside the Python locks (the native
+        core's)."""
+
+    def _corrupt_guarantee_jump(self, rseq):
+        """Force ``rseq``'s guarantee to the head while it may hold open
+        spans: the ``ring.corrupt.guarantee_jump`` seam, which the
+        checker must catch at the overwriting reserve it admits."""
+        with self._lock:
+            if id(rseq) in self._guarantees:
+                self._guarantees[id(rseq)] = self._head
+            self._open_reads.pop(id(rseq), None)
+            self._write_cond.notify_all()
 
     # -- writer side ------------------------------------------------------
     def begin_writing(self):
@@ -947,7 +1010,14 @@ class Ring(object):
                 ends[begin] = max(ends.get(begin, 0), end)
                 # the guarantee sits at the oldest open span
                 g = min(opens)
-                if g > self._guarantees.get(id(rseq), g):
+                cur = self._guarantees.get(id(rseq), g)
+                if begin >= end:
+                    # an empty span (its frames were overwritten) pins
+                    # nothing: leave the guarantee where the shed ledger
+                    # counted it to, or the next shed counts those bytes
+                    # again
+                    g = max(g, cur)
+                if g > cur:
                     self._write_cond.notify_all()
                 self._guarantees[id(rseq)] = g
             self._nread_open += 1
@@ -1176,6 +1246,9 @@ class ReadSequence(_SequenceAPI):
         self.header_transform = header_transform
         self._seq = ring._open_earliest()
         ring._register_reader(self)
+        rc = _rc.hook(ring) if _rc._enabled else None
+        if rc is not None:
+            rc.reader_opened(self)
 
     @property
     def header(self):
@@ -1196,6 +1269,9 @@ class ReadSequence(_SequenceAPI):
 
     def close(self):
         self._ring._close_read_seq(self)
+        rc = _rc.hook(self._ring) if _rc._enabled else None
+        if rc is not None:
+            rc.reader_closed(self)
 
     def increment(self):
         """Move to the next sequence (reference: ring2.py:293-298)."""
@@ -1203,6 +1279,9 @@ class ReadSequence(_SequenceAPI):
         self._seq = nxt
         self._tensor = None
         self._ring._reader_moved(self, nxt)
+        rc = _rc.hook(self._ring) if _rc._enabled else None
+        if rc is not None:
+            rc.reader_moved(self, nxt.begin)
 
     def acquire(self, frame_offset, nframe):
         return ReadSpan(self, frame_offset, nframe)
@@ -1373,25 +1452,44 @@ class WriteSpan(_SpanAPI):
         # writer publishes no garbage (reference: ring2.py:463-464)
         self.commit_nframe = 0
         _c, hist, spans, _slo = _observability()
+        # the checker tracks the blocking reserve and checks the granted
+        # span against its shadow guarantees
+        rc = _rc.hook(ring) if _rc._enabled else None
+        rc_tok = rc.reserve_enter(self._nbyte) if rc is not None else None
         # an explicit nonblocking reserve keeps its WouldBlock contract
         policy = 'block' if nonblocking else ring.overload_policy
         t0 = time.perf_counter()
         shed_nbyte = 0
-        if policy == 'drop_oldest':
-            shed_nbyte = ring._reserve_span_shed(self, fb)
-        elif policy == 'drop_newest':
-            try:
-                ring._reserve_span(self, True)
-            except WouldBlock:
-                # shed this gulp: the writer fills scratch and the
-                # commit is counted instead of published; its logical
-                # place is the committed head
-                self._shed = True
-                self._begin = ring.occupancy()['head']
-                return
-        else:
-            ring._reserve_span(self, nonblocking)     # sets self._begin
+        try:
+            if policy == 'drop_oldest':
+                shed_nbyte = ring._reserve_span_shed(self, fb)
+            elif policy == 'drop_newest':
+                try:
+                    ring._reserve_span(self, True)
+                except WouldBlock:
+                    self._shed = True
+            else:
+                ring._reserve_span(self, nonblocking)  # sets self._begin
+        except BaseException:
+            if rc is not None:
+                rc.reserve_abort(rc_tok)
+            raise
+        if self._shed:
+            # drop_newest shed this gulp: the writer fills scratch and
+            # the commit is counted instead of published; its logical
+            # place is the committed head
+            if rc is not None:
+                rc.reserve_abort(rc_tok)
+            self._begin = ring.occupancy()['head']
+            return
         dt = time.perf_counter() - t0
+        if rc is not None:
+            if shed_nbyte:
+                # mirror the forced guarantee advance before the check
+                rc.shed_advance(self._begin + self._nbyte -
+                                ring.total_span)
+            rc.reserve_done(rc_tok, self, self._begin, self._nbyte,
+                            ring.total_span)
         if shed_nbyte:
             # whole frames of the live sequence, in gulps of the header's
             # logical gulp
@@ -1509,7 +1607,17 @@ class WriteSpan(_SpanAPI):
                 self._fill.cancel()
         elif commit_nbyte:
             self._ring._storage.commit_ghost(self._begin, commit_nbyte)
+        # the checker sees the commit before the core does, so an illegal
+        # one raises before it changes the ring
+        rc = _rc.hook(self._ring) if _rc._enabled else None
+        if rc is not None:
+            rc.commit(self, commit_nbyte)
         self._ring._commit_span(self, commit_nbyte)
+        if faults.armed('ring.corrupt.double_commit', self._ring.name):
+            # commit the same span again
+            if rc is not None:
+                rc.commit(self, commit_nbyte)
+            self._ring._commit_span(self, commit_nbyte)
 
     def _finalize_storage(self, commit_nbyte):
         # called under the ring lock once this commit lands in order
@@ -1534,10 +1642,29 @@ class ReadSpan(_SpanAPI):
         self._sequence = sequence
         fb = sequence.tensor['frame_nbyte']
         _c, hist, spans, _slo = _observability()
+        rc = _rc.hook(ring) if _rc._enabled else None
+        rc_tok = rc.acquire_enter(
+            sequence, sequence._seq.begin + frame_offset * fb) \
+            if rc is not None else None
         t0 = time.perf_counter()
-        self._begin, self._nbyte = ring._acquire_span(
-            sequence, frame_offset * fb, nframe * fb, fb)
+        try:
+            self._begin, self._nbyte = ring._acquire_span(
+                sequence, frame_offset * fb, nframe * fb, fb)
+        except BaseException:
+            if rc is not None:
+                rc.acquire_abort(rc_tok)
+            raise
         dt = time.perf_counter() - t0
+        if rc is not None:
+            rc_nbyte = self._nbyte
+            if faults.armed('ring.corrupt.acquire_uncommitted', ring.name):
+                # report one frame past what the core handed out
+                rc_nbyte += fb
+            rc.acquire_done(rc_tok, sequence, self._begin, rc_nbyte)
+        if faults.armed('ring.corrupt.guarantee_jump', ring.name):
+            # jump this reader's guarantee to the head while the span is
+            # open; the checker catches the overwriting reserve
+            ring._corrupt_guarantee_jump(sequence)
         if ring._h_acquire is None:
             ring._h_acquire = hist.get_or_create(
                 'ring.%s.acquire_s' % ring.name, unit='s')
@@ -1557,6 +1684,8 @@ class ReadSpan(_SpanAPI):
                     f.wait()
                 self._ring._storage.refresh_ghost(self._begin, self._nbyte)
             except BaseException:
+                if rc is not None:
+                    rc.release(sequence, self._begin, self._nbyte)
                 self._ring._release_span(sequence, self._begin)
                 raise
         self._data = None
@@ -1630,4 +1759,14 @@ class ReadSpan(_SpanAPI):
             for ev in holds:
                 ev.synchronize()
         finally:
+            # the checker sees the release before the core does
+            rc = _rc.hook(self._ring) if _rc._enabled else None
+            if rc is not None:
+                rc.release(self._sequence, self._begin, self._nbyte)
             self._ring._release_span(self._sequence, self._begin)
+            if faults.armed('ring.corrupt.double_release',
+                            self._ring.name):
+                # release the same span again
+                if rc is not None:
+                    rc.release(self._sequence, self._begin)
+                self._ring._release_span(self._sequence, self._begin)

@@ -26,9 +26,20 @@ Seams wired into the port (site names are stable API):
 - ``block.on_sequence`` before a block's ``on_sequence`` (block name)
 - ``block.on_data``    before each gulp's ``on_data`` (block name)
 
-The JAX package's protocol-corruption seams (``ring.corrupt.*``,
-consumed through :func:`armed`) come with the ring-protocol checker;
-:func:`armed` is here for them.
+Protocol-corruption seams, consumed through :func:`armed` (which
+returns True instead of raising): each breaks the ring protocol on
+purpose, in both ring cores, so tests can show that the ring-protocol
+checker (``analysis.ringcheck``, ``BF_RINGCHECK=1``) catches it:
+
+- ``ring.corrupt.double_commit``   commit the same write span twice
+- ``ring.corrupt.double_release``  release the same read span twice
+- ``ring.corrupt.acquire_uncommitted``  report an acquired span one frame
+                       past the committed head
+- ``ring.corrupt.guarantee_jump``  force a guaranteed reader's guarantee
+                       to the head while it holds an open span
+- ``ring.corrupt.poison_nowake``   poison without waking blocked spans
+- ``ring.corrupt.resize_under_span``  report a storage re-layout to the
+                       checker while spans are open
 
 A fault fires ``count`` times after skipping its first ``after``
 matching calls; ``delay`` seconds of sleep are injected before the

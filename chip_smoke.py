@@ -223,7 +223,7 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    torch.roll of the stacked blocks timed with CUDA events;
 14. drives BASELINE config 5's array through copy('cuda') ->
    correlate(256, accuracy='int8') under block_scope(mesh=...) ->
-   copy('system') on 256-frame gulps (1 warm-up and 2 timed), the mesh's
+   copy('system') on 256-frame gulps (1 warm-up and 1 timed), the mesh's
    ranks all on cuda:0, in six arms: single (no mesh, the reference, held
    to the float64 products and the int64 oracle), mesh-psum ({'sp': 4},
    BF_XCORR_CORNER_TURN=off), mesh-corner-xla and mesh-corner-K9 (the
@@ -237,9 +237,26 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    fdmt(max_delay=1970) -> copy('system'), K3 forced, under an {'sp': 2}
    mesh of the card (spans of 2 x 9177 frames) and without a mesh: every
    span bit-identical;
+15a. runs the analysis phase: guppi-ci8 (4 blocks, the GBT geometry)
+   through the example's chain under BF_VALIDATE=strict, with
+   BF_RINGCHECK off and on, every 'system' ring a NativeRing and no
+   'cuda' one; the same two runs on the Python ring core in a child
+   process (chip_smoke.py --guppi-child RAW DIR, BF_NO_NATIVE=1), every
+   .fil byte-identical (one CRC), no checker violation, the verifier's ms
+   at start-up and the four rates printed (the chain's 524,288-point FFT
+   runs on cuFFT, above K1's 8192); the unfused spectrometer chain (K2,
+   2 gulps) under the gate and the checker; the flagship fused K1 chain
+   (1 warm-up and 2 timed gulps) with BF_TORCH_PROFILE armed: one
+   capture, its five kernels with the most device time (K1 among them) and the device's
+   busy share of the window; each ring.corrupt.* seam on a cuda ring and
+   a native system ring raising RingProtocolError with its invariant;
+   the drop_oldest card test's scenario 20 times, the ledger equal to
+   the skipped frames every time; and the codes the verifier gave every
+   pipeline this script ran (main() records each run's gate), none BF-E
+   or BF-I199;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
-   library phases' numbers, one of the xfer phase's, one JSON line of
-   per-kernel numbers
+   library phases' numbers, one of the xfer phase's, one of the analysis
+   phase's, one JSON line of per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -283,7 +300,7 @@ BEAM_SWEEP_NTIME = 96     # K6's R sweep: R 1 .. 32 and R = T = 96
 XT, XF, XS, XP, XR, XA = 256, 1024, 256, 2, 128, 2
 XN = XS * XP
 XSCALE = 1. / 32
-XWARM, XTIMED = 2, 3
+XWARM, XTIMED = 2, 2
 # the stateful X step: 64-frame gulps, 256 frames per integration
 XST, XSINT, XSWARM, XSTIMED = 64, 256, 4, 8
 XCHANNELS = (0, 511, 1023)
@@ -310,10 +327,10 @@ FAMP, FPW = 3.0, 8
 # tests put their 8-device meshes on one CPU).  K9 at the corner turn's
 # blocks, MD x (XT / MD, XF, XS, XP, 2) int8; the stateful correlate(XT)
 # on XT-frame gulps of BASELINE config 5's array under each mesh plan
-# (1 warm-up and 2 timed gulps, a 2.1 GB output each); config 22's FDMT
+# (1 warm-up and 1 timed gulp, a 2.1 GB output each); config 22's FDMT
 # stream on an {'sp': 2} mesh (spans of 16384 + 1970 = 2 x 9177 frames)
 MD = 4
-MWARM, MTIMED = 1, 2
+MWARM, MTIMED = 1, 1
 MFDMT = 2
 # the Guppi RAW front end (examples/gpuspec_simple_torch.py): Breakthrough
 # Listen's GBT L-band recording geometry, 64 coarse channels of 2.9296875
@@ -736,10 +753,7 @@ def run_pipeline(bt, gulps, substitute):
     Returns (outputs, Msamples/s, impl_info, per-block host ms/gulp)."""
     from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
     nfine = gulps[0].shape[2]
-    header = {'name': 'guppi', 'time_tag': 0,
-              '_tensor': {'shape': [-1, NPOL, nfine], 'dtype': 'ci8',
-                          'labels': ['time', 'pol', 'fine_time'],
-                          'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+    header = spec_header(nfine)
     blocks = []
 
     def chain(h2d):
@@ -4248,7 +4262,7 @@ def phase_supervision(bt, spec, gpu_kernels, ngulp=12, tap_gulps=48,
             src = Source(gulps, tap_gulps, pace=tap_idle / 5)
             h2d = bt.blocks.copy(src, space='cuda',
                                  overload_policy='drop_oldest')
-            tap = SlowK1Sink(h2d, tap_idle)
+            tap = SlowK1Sink(h2d, tap_idle, shed_tolerant=True)
         states, stop = [], threading.Event()
 
         def sample():
@@ -4782,6 +4796,452 @@ def phase_macro(bt, spec, gpu_kernels, beam, fx, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the analysis phase: the static verifier, the ring-protocol checker, the
+# native ring core, the one-shot profiler and the repaired shed ledger
+# ---------------------------------------------------------------------------
+
+# pipelines the verifier checked in this process: (pipeline, sorted codes,
+# ms of the check), recorded by the wrapper main() puts around gate_run
+VERIFIED = []
+# the flagship K1 chain under BF_TORCH_PROFILE: 1 warm-up and 2 timed
+# full-width gulps; the repaired drop_oldest ledger's runs
+AWARM, ATIMED, LEDGER_RUNS = 1, 2, 20
+CORRUPT_CASES = (('double_commit', 'double_commit'),
+                 ('double_release', 'double_release'),
+                 ('acquire_uncommitted', 'acquire_uncommitted'),
+                 ('guarantee_jump', 'guarantee_pin'),
+                 ('poison_nowake', 'poison_wake'),
+                 ('resize_under_span', 'resize_quiescence'))
+
+
+def record_verifier():
+    """Wrap the verifier's run() gate so that every pipeline this process
+    runs leaves its diagnostics' codes and the check's ms in VERIFIED."""
+    from bifrost_tpu_torch.analysis import verify
+    gate = verify.gate_run
+
+    def recorded(pipeline, mode):
+        t0 = time.perf_counter()
+        diags = gate(pipeline, mode)
+        VERIFIED.append((pipeline.name, sorted(d.code for d in diags),
+                         (time.perf_counter() - t0) * 1e3))
+        return diags
+    verify.gate_run = recorded
+
+
+def load_example():
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    mod = importlib.util.spec_from_file_location(
+        'gpuspec_simple_torch',
+        os.path.join(here, 'examples', 'gpuspec_simple_torch.py'))
+    example = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(example)
+    return example
+
+
+def analysis_guppi_run(bt, spec, gpu_kernels, path, tmp, checker, native):
+    """One guppi-ci8 run of the example's chain under BF_VALIDATE=strict,
+    with BF_RINGCHECK on or off; the 'system' rings must be on the core
+    asked for.  Returns the .fil's CRC, the rate and the kernel launches
+    (none: the chain's 524,288-point FFT is above K1's 8192 and runs on
+    cuFFT, as in the guppi phase)."""
+    from bifrost_tpu_torch.analysis import ringcheck
+    from bifrost_tpu_torch.ring_native import NativeRing
+    example = load_example()
+    ntime = GBLOCSIZE * 8 // (GCH * NPOL * 2 * 8)
+    ringcheck.reset()
+    with environ(BF_VALIDATE='strict',
+                 BF_RINGCHECK='1' if checker else None):
+        with bt.Pipeline() as p:
+            example.build([path], tmp, gulp_nframe=1, rfactor=GR)
+        rings = {id(r): r for b in p.blocks for r in b.orings}.values()
+        for r in rings:
+            want = native and r.space == 'system'
+            require(isinstance(r, NativeRing) == want,
+                    'analysis: %s ring %s is %s' % (r.space, r.name,
+                                                    type(r).__name__))
+        zero_counts(spec, gpu_kernels)
+        t0 = time.perf_counter()
+        run_with_timeout(p, 300)
+        secs = time.perf_counter() - t0
+        launches = {k: n for k, n in read_counts(spec, gpu_kernels).items()
+                    if n}
+    ringcheck.set_enabled(False)
+    viol = ringcheck.violations()
+    require(not viol, 'analysis: ringcheck violations %s' % viol[:3])
+    fil = path + '.fil'
+    with open(fil, 'rb') as f:
+        crc = zlib.crc32(f.read())
+    os.remove(fil)
+    return {'crc32': crc, 'seconds': secs, 'launches': launches,
+            'msps': GBLOCKS[8] * GCH * ntime * NPOL / secs / 1e6,
+            'system_rings': sum(1 for r in rings if r.space == 'system')}
+
+
+def guppi_child(path, tmp):
+    """``chip_smoke.py --guppi-child RAW DIR``: the guppi-ci8 runs on the
+    Python ring core (BF_NO_NATIVE=1), checker off then on; prints one
+    JSON line with their CRCs and rates."""
+    import torch
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import _build
+    from bifrost_tpu_torch.ops import gpu_kernels
+    from bifrost_tpu_torch.ops import spectrometer as spec
+    os.environ['BF_NO_NATIVE'] = '1'
+    bt.device.set_device('cuda:0')
+    _build.build()
+    out = {}
+    for checker in (False, True):
+        out['checker_on' if checker else 'checker_off'] = \
+            analysis_guppi_run(bt, spec, gpu_kernels, path, tmp, checker,
+                               native=False)
+        torch.cuda.empty_cache()
+    print('GUPPI_CHILD ' + json.dumps(out), flush=True)
+    return 0
+
+
+def profile_summary(trace):
+    """The five kernels with the most device time in a torch.profiler
+    Chrome trace, and the device's busy share of the capture's window
+    (kernels and copies, overlaps merged)."""
+    with open(trace) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if 'ts' in e and 'dur' in e]
+    by_name = {}
+    busy = []
+    for e in events:
+        if e.get('cat') == 'kernel':
+            by_name[e['name']] = by_name.get(e['name'], 0.0) + e['dur']
+        if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            busy.append((e['ts'], e['ts'] + e['dur']))
+    t0 = min(e['ts'] for e in events)
+    t1 = max(e['ts'] + e['dur'] for e in events)
+    merged, end = 0.0, None
+    for a, b in sorted(busy):
+        if end is None or a > end:
+            merged += b - a
+            end = b
+        elif b > end:
+            merged += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return ([{'name': n, 'ms': us / 1e3} for n, us in top],
+            merged / (t1 - t0) if t1 > t0 else 0.0, (t1 - t0) / 1e3)
+
+
+def analysis_profile(bt, spec, gpu_kernels, tmp):
+    """The flagship fused K1 chain (16384 x 2 x 4096, r 4) with
+    BF_TORCH_PROFILE armed: one capture of its first dispatch."""
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    from bifrost_tpu_torch.telemetry import counters, profiling
+    volts = make_gulps(n=2)
+    blocks = []
+
+    def chain(h2d):
+        blocks.append(('fused', bt.blocks.fused(
+            h2d, [FftStage('fine_time', axis_labels='freq'),
+                  DetectStage('stokes', axis='pol'),
+                  ReduceStage('freq', RFACTOR)])))
+        return blocks
+    profiling.reset()
+    counters.reset()
+    zero_counts(spec, gpu_kernels)
+    with environ(BF_TORCH_PROFILE=os.path.join(tmp, 'torchprof')):
+        _out, secs, _pg = drive(bt, volts, spec_header(NFINE), chain,
+                                nwarm=AWARM, ntimed=ATIMED, digest=True)
+    launches = spec.launches
+    trace = profiling.last_trace()
+    profiling.reset()
+    require(counters.get('torchprof.captures') == 1,
+            'analysis: %d profiler captures' %
+            counters.get('torchprof.captures'))
+    require(trace is not None and os.path.exists(trace),
+            'analysis: no profiler trace')
+    # the fused block's prewarm runs the plan once at sequence start
+    want = AWARM + ATIMED + prewarm_runs([b for _r, b in blocks])
+    require(launches == want, 'analysis: %d K1 launches for %d gulps and '
+            'the prewarm' % (launches, AWARM + ATIMED))
+    top, share, window_ms = profile_summary(trace)
+    require(any('spectrometer' in k['name'] for k in top),
+            'analysis: K1 not among the profiled kernels %s' % top)
+    return {'top_kernels': top, 'busy_share': share,
+            'window_ms': window_ms, 'k1_launches': launches,
+            'msps': ATIMED * NTIME * NPOL * NFINE / secs / 1e6}
+
+
+def corrupt_drill(bt, space, case):
+    """One ring.corrupt.* seam on a ``space`` ring; returns the invariant
+    the checker raised."""
+    import threading
+    import torch
+    from bifrost_tpu_torch.analysis import ringcheck
+    from bifrost_tpu_torch.analysis.ringcheck import RingProtocolError
+    from bifrost_tpu_torch.ring import Ring, RingPoisonedError
+    from bifrost_tpu_torch.testing import faults
+    ring = Ring(space=space, name='drill_%s_%s' % (space, case))
+    hdr = {'name': 's', 'gulp_nframe': 8,
+           '_tensor': {'shape': [-1, 1024], 'dtype': 'f32'}}
+    seq = ring.begin_writing().begin_sequence(hdr, 8, 16)
+    site = 'ring.corrupt.' + case
+
+    def put(val):
+        with seq.reserve(8) as sp:
+            if space == 'cuda':
+                sp.set(torch.full((8, 1024), val, device='cuda'))
+            else:
+                sp.data.as_numpy()[...] = val
+            sp.commit(8)
+    try:
+        if case == 'double_commit':
+            with faults.injected(site, match=ring.name):
+                put(1.0)
+        elif case == 'resize_under_span':
+            seq.reserve(8)
+            with faults.injected(site, match=ring.name):
+                ring.request_resize(1, ring.total_span * 2)
+        elif case == 'poison_nowake':
+            woke = []
+
+            def reader():
+                try:
+                    ring.open_earliest_sequence().acquire(0, 8)
+                except RingPoisonedError:
+                    woke.append(True)
+            t = threading.Thread(target=reader, daemon=True)
+            t.start()
+            time.sleep(0.2)
+            with faults.injected(site, match=ring.name):
+                ring.poison(RuntimeError('drill'))
+            deadline = time.monotonic() + 5
+            while not ringcheck.violations() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+            ring._wake_all()
+            t.join(5)
+            require(woke, 'analysis: the poisoned reader never woke')
+            seq.reserve(8)      # the next seam touch raises the record
+        else:
+            put(1.0)
+            put(2.0)
+            rseq = ring.open_earliest_sequence(guarantee=True)
+            if case == 'double_release':
+                span = rseq.acquire(0, 8)
+                with faults.injected(site, match=ring.name):
+                    span.release()
+            elif case == 'acquire_uncommitted':
+                with faults.injected(site, match=ring.name):
+                    rseq.acquire(8, 8)
+            else:
+                with faults.injected(site, match=ring.name):
+                    rseq.acquire(0, 8)
+                put(3.0)
+    except RingProtocolError as exc:
+        return exc.invariant
+    finally:
+        faults.clear()
+    return None
+
+
+def ledger_run(bt):
+    """The drop_oldest card test's scenario: a reader that idles between
+    spans of a cuda ring is shed past whole gulps.  Returns (shed bytes,
+    skipped frames, shed gulps, gulps read, values right, peak held
+    bytes within capacity)."""
+    import threading
+    import torch
+    from bifrost_tpu_torch.ring import Ring, EndOfDataStop
+    ring = Ring(space='cuda', name='drop_oldest_ledger')
+    ring.set_overload_policy('drop_oldest')
+    hdr = {'name': 's', 'gulp_nframe': 4,
+           '_tensor': {'shape': [-1, 1024], 'dtype': 'f32'}}
+    gulps = [torch.full((4, 1024), float(i), device='cuda')
+             for i in range(40)]
+    held, got, skipped = [], [], [0]
+    ready = threading.Event()
+
+    def reader():
+        seq = ring.open_earliest_sequence(guarantee=True)
+        ready.set()
+        off = 0
+        while True:
+            try:
+                sp = seq.acquire(off, 4)
+            except EndOfDataStop:
+                break
+            skipped[0] += sp.frame_offset - off
+            if sp.nframe:
+                got.append((sp.frame_offset // 4, float(sp.data[0, 0])))
+            nxt = sp.frame_offset + sp.nframe
+            sp.release()
+            if not sp.nframe and nxt <= off:
+                break
+            off = nxt
+            time.sleep(0.01)
+        seq.close()
+
+    with ring.begin_writing() as w:
+        with w.begin_sequence(hdr, 4, 12) as s:
+            t = threading.Thread(target=reader, daemon=True)
+            t.start()
+            require(ready.wait(10), 'analysis: the ledger reader never '
+                    'started')
+            for g in gulps:
+                with s.reserve(4) as sp:
+                    sp.set(g)
+                    sp.commit(4)
+                held.append(sum(c[0] for c in
+                                ring._storage.chunks.values()))
+    t.join(30)
+    require(not t.is_alive(), 'analysis: the ledger reader hung')
+    shed = ring.shed_stats()
+    return (shed['shed_bytes'], skipped[0], shed['shed_gulps'], len(got),
+            all(v == float(i) for i, v in got),
+            max(held) <= ring.total_span)
+
+
+def phase_analysis(bt, spec, gpu_kernels, smi):
+    """The static verifier, the ring-protocol checker and the native ring
+    core on the Guppi chain, the profiler on the flagship K1 chain, the
+    ring.corrupt.* drills, the repaired drop_oldest ledger and the
+    verifier's codes for every pipeline this script ran."""
+    import tempfile
+    import torch
+    from bifrost_tpu_torch.analysis import ringcheck
+    out = {'card': smi}
+    here = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'bl8.raw')
+        write_guppi(path, 8, GBLOCKS[8])
+        runs = {}
+        for checker in (False, True):
+            key = 'checker_on' if checker else 'checker_off'
+            n_before = len(VERIFIED)
+            runs[key] = analysis_guppi_run(bt, spec, gpu_kernels, path,
+                                           tmp, checker, native=True)
+            require(len(VERIFIED) == n_before + 1,
+                    'analysis: the verifier did not run at start-up')
+            runs[key]['codes'] = VERIFIED[-1][1]
+            runs[key]['verify_ms'] = VERIFIED[-1][2]
+            torch.cuda.empty_cache()
+        p = subprocess.run([sys.executable, here, '--guppi-child', path,
+                            tmp], capture_output=True, text=True,
+                           timeout=600)
+        child = [line for line in p.stdout.splitlines()
+                 if line.startswith('GUPPI_CHILD ')]
+        require(p.returncode == 0 and child, 'analysis: the Python-core '
+                'child failed (rc %d): %s' % (p.returncode,
+                                              p.stderr[-2000:]))
+        python = json.loads(child[-1][len('GUPPI_CHILD '):])
+        crcs = {r['crc32'] for r in list(runs.values()) +
+                list(python.values())}
+        require(len(crcs) == 1, 'analysis: the .fil differs between the '
+                'native and Python cores: %s' % crcs)
+        log_crc('analysis guppi-ci8 .fil (both cores)', crcs.pop())
+        out['guppi_ci8'] = {'native': runs, 'python': python,
+                            'blocks': GBLOCKS[8]}
+        log('analysis guppi-ci8 (BF_VALIDATE=strict): codes %s, verifier '
+            '%.1f ms at start-up; Msamples/s native %.1f / %.1f, Python '
+            '%.1f / %.1f (checker off / on) (%s)'
+            % (runs['checker_off']['codes'],
+               runs['checker_off']['verify_ms'],
+               runs['checker_off']['msps'], runs['checker_on']['msps'],
+               python['checker_off']['msps'],
+               python['checker_on']['msps'], smi))
+        # K2 on its path under the gate and the checker: the unfused
+        # spectrometer chain (substitute off)
+        from bifrost_tpu_torch.stages import FftStage, DetectStage, \
+            ReduceStage
+
+        k2_blocks = []
+
+        def k2_chain(h2d):
+            k2_blocks.append(('fused', bt.blocks.fused(
+                h2d, [FftStage('fine_time', axis_labels='freq'),
+                      DetectStage('stokes', axis='pol'),
+                      ReduceStage('freq', RFACTOR)], substitute=False)))
+            return k2_blocks
+        ringcheck.reset()
+        zero_counts(spec, gpu_kernels)
+        with environ(BF_VALIDATE='strict', BF_RINGCHECK='1'):
+            drive(bt, make_gulps(n=1), spec_header(NFINE), k2_chain,
+                  nwarm=1, ntimed=1, digest=True)
+        ringcheck.set_enabled(False)
+        k2 = gpu_kernels.launches['stokes_detect']
+        require(k2 == 2 + prewarm_runs([b for _r, b in k2_blocks]) and
+                not ringcheck.violations(),
+                'analysis: K2 arm %d launches, violations %s'
+                % (k2, ringcheck.violations()[:2]))
+        out['k2_arm'] = {'launches': k2, 'codes': VERIFIED[-1][1]}
+        out['profile'] = analysis_profile(bt, spec, gpu_kernels, tmp)
+        log('analysis profile (one K1 dispatch of 16384 x 2 x 4096, '
+            'not a cell): window %.3f ms, device busy %.1f%%, top '
+            'kernels %s (%s)'
+            % (out['profile']['window_ms'],
+               100 * out['profile']['busy_share'],
+               json.dumps(out['profile']['top_kernels']), smi))
+    # the corruption drills on a cuda ring and a native system ring
+    from bifrost_tpu_torch.ring import Ring
+    from bifrost_tpu_torch.ring_native import NativeRing
+    require(isinstance(Ring(space='system'), NativeRing),
+            'analysis: a system ring is not native')
+    drills = {}
+    with environ(BF_RINGCHECK_WAKE_SECS='0.2'):
+        ringcheck.set_enabled(True)
+        try:
+            for space in ('cuda', 'system'):
+                for case, invariant in CORRUPT_CASES:
+                    ringcheck.reset()
+                    got = corrupt_drill(bt, space, case)
+                    require(got == invariant, 'analysis: %s on a %s ring '
+                            'raised %r, not %r' % (case, space, got,
+                                                   invariant))
+                    drills['%s/%s' % (space, case)] = got
+        finally:
+            ringcheck.set_enabled(False)
+            ringcheck.reset()
+    out['drills'] = drills
+    log('analysis drills: every ring.corrupt.* seam raised its invariant '
+        'on a cuda ring and a native system ring: %s' % json.dumps(drills))
+    ledgers = []
+    for _ in range(LEDGER_RUNS):
+        shed, skipped, shed_gulps, nread, values_ok, held_ok = \
+            ledger_run(bt)
+        require(shed > 0 and shed == skipped * 4096 and
+                shed_gulps == 40 - nread and values_ok and held_ok,
+                'analysis: drop_oldest ledger %d bytes for %d skipped '
+                'frames, %d shed gulps for %d read, values %s, held %s'
+                % (shed, skipped, shed_gulps, nread, values_ok, held_ok))
+        ledgers.append([shed, skipped])
+    out['ledger_runs'] = ledgers
+    log('analysis drop_oldest ledger: %d runs, shed bytes = skipped '
+        'frames x 4096 every time: %s' % (LEDGER_RUNS, ledgers))
+    # every pipeline of this process: no BF-E, no BF-I199
+    bad = [(n, c) for n, c, _ms in VERIFIED
+           if any(x.startswith('BF-E') or x == 'BF-I199' for x in c)]
+    require(VERIFIED and not bad, 'analysis: verifier errors %s' % bad[:5])
+    per_chain = {}
+    for n, c, ms in VERIFIED:
+        key = ' '.join(c) or '(none)'
+        per_chain.setdefault(key, []).append(round(ms, 2))
+    out['verified_pipelines'] = len(VERIFIED)
+    out['codes_per_chain'] = {k: {'pipelines': len(v), 'max_ms': max(v)}
+                              for k, v in per_chain.items()}
+    log('analysis verifier: %d pipelines, no BF-E and no BF-I199; codes '
+        'per chain %s' % (len(VERIFIED), json.dumps(out['codes_per_chain'])))
+    return out
+
+
+def spec_header(nfine):
+    """The spectrometer chain's input header (ci8, time x pol x
+    fine_time)."""
+    return {'name': 'guppi', 'time_tag': 0,
+            '_tensor': {'shape': [-1, NPOL, nfine], 'dtype': 'ci8',
+                        'labels': ['time', 'pol', 'fine_time'],
+                        'scales': [[0, 1]] * 3, 'units': [None] * 3}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4789,6 +5249,8 @@ def main():
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    if sys.argv[1:2] == ['--guppi-child']:
+        return guppi_child(*sys.argv[2:4])
     import bifrost_tpu_torch as bt
     from bifrost_tpu_torch import _build
     from bifrost_tpu_torch.ops import gpu_kernels
@@ -4815,6 +5277,7 @@ def main():
                 log('  %s: %s' % (lib, line.strip()))
 
     phase_s = {}
+    record_verifier()
 
     def run(name, fn, *args):
         t = time.perf_counter()
@@ -4856,6 +5319,7 @@ def main():
                gpu_kernels, par, smi)
     fmesh = run('FDMT mesh', phase_fdmt_mesh, bt, spec, gpu_kernels, F,
                 par, smi)
+    ana = run('analysis', phase_analysis, bt, spec, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
@@ -4948,6 +5412,8 @@ def main():
     log(json.dumps({'supervision': sup, 'card': smi}))
     mac['phase_s'] = phase_s['macro']
     log(json.dumps({'macro': mac, 'card': smi}))
+    ana['phase_s'] = phase_s['analysis']
+    log(json.dumps({'analysis': ana}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

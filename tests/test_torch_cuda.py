@@ -1936,3 +1936,153 @@ def test_macro_writer_and_k1_reader_on_the_card():
     out1, n1, fb1 = run(1)
     assert np.array_equal(out4, out1)
     assert n1 == 9 + fb1.prewarm_runs and n4 == 3 + fb4.prewarm_runs
+
+
+# ---------------------------------------------------------------------------
+# the native ring core, the ring-protocol checker and the profiler on the
+# card
+# ---------------------------------------------------------------------------
+
+def test_native_system_ring_fed_by_deferred_d2h_fills():
+    """copy('cuda') -> copy('system') with the transfer engine's deferred
+    fills landing in a native 'system' ring: every byte arrives, the
+    fills ran deferred, and the ring is a NativeRing."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.ring_native import NativeRing
+    from bifrost_tpu_torch.telemetry import counters
+    gulps = _sup_gulps(12)
+    Source, Sink = _sup_blocks(gulps)
+    counters.reset()
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(Source(), space='cuda')
+        d2h = bt.blocks.copy(b, space='system', buffer_nframe=3 * 64)
+        sink = Sink(d2h)
+    assert isinstance(d2h.orings[0], NativeRing)
+    _run_bounded(p)
+    assert len(sink.out) == len(gulps)
+    for got, g in zip(sink.out, gulps):
+        np.testing.assert_array_equal(got, g.reshape(got.shape))
+    assert counters.get('xfer.d2h_issued') >= len(gulps)
+    assert xfer.engine().outstanding == 0
+
+
+@pytest.mark.parametrize('case,invariant', [
+    ('double_commit', 'double_commit'),
+    ('double_release', 'double_release'),
+    ('acquire_uncommitted', 'acquire_uncommitted'),
+    ('guarantee_jump', 'guarantee_pin'),
+    ('resize_under_span', 'resize_quiescence')])
+def test_ringcheck_on_a_cuda_ring(case, invariant):
+    """Each ring.corrupt.* seam on a 'cuda' ring on the card raises the
+    checker's invariant."""
+    from bifrost_tpu_torch.analysis import ringcheck
+    from bifrost_tpu_torch.analysis.ringcheck import RingProtocolError
+    from bifrost_tpu_torch.ring import Ring
+    from bifrost_tpu_torch.testing import faults
+    ringcheck.set_enabled(True)
+    ringcheck.reset()
+    try:
+        ring = Ring(space='cuda', name='rc_card_' + case)
+        hdr = {'name': 's', 'gulp_nframe': 8,
+               '_tensor': {'shape': [-1, 4], 'dtype': 'f32'}}
+        seq = ring.begin_writing().begin_sequence(hdr, 8, 16)
+
+        def put(val):
+            with seq.reserve(8) as sp:
+                sp.set(torch.full((8, 4), val, device='cuda'))
+                sp.commit(8)
+        site = 'ring.corrupt.' + case
+        with pytest.raises(RingProtocolError) as ei:
+            if case == 'double_commit':
+                with faults.injected(site, match=ring.name):
+                    put(1.0)
+            elif case == 'resize_under_span':
+                sp = seq.reserve(8)
+                with faults.injected(site, match=ring.name):
+                    ring.request_resize(1, ring.total_span * 2)
+            else:
+                put(1.0)
+                put(2.0)
+                rseq = ring.open_earliest_sequence(guarantee=True)
+                if case == 'double_release':
+                    span = rseq.acquire(0, 8)
+                    with faults.injected(site, match=ring.name):
+                        span.release()
+                elif case == 'acquire_uncommitted':
+                    with faults.injected(site, match=ring.name):
+                        rseq.acquire(8, 8)
+                else:
+                    with faults.injected(site, match=ring.name):
+                        rseq.acquire(0, 8)
+                    put(3.0)
+        assert ei.value.invariant == invariant
+    finally:
+        faults.clear()
+        ringcheck.set_enabled(False)
+        ringcheck.reset()
+
+
+def test_profiler_capture_names_a_cuda_kernel(monkeypatch, tmp_path):
+    """BF_TORCH_PROFILE on a fused K1 chain: one capture whose Chrome
+    trace holds kernel events, K1's among them."""
+    import contextlib
+    import json
+    import os
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    from bifrost_tpu_torch.telemetry import counters, profiling
+    rng = np.random.RandomState(3)
+    gulps = [rng.randint(-64, 64, (256, 2, 1024, 2)).astype(np.int8)
+             for _ in range(3)]
+
+    class Src(bt.SourceBlock):
+        def __init__(self):
+            super(Src, self).__init__(['v'], 256, space='system')
+
+        def create_reader(self, name):
+            return contextlib.nullcontext(iter(gulps))
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'v', 'time_tag': 0,
+                     '_tensor': {'shape': [-1, 2, 1024], 'dtype': 'ci8',
+                                 'labels': ['time', 'pol', 'fine_time'],
+                                 'scales': [[0, 1]] * 3,
+                                 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(reader, None)
+            if g is None:
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                g.reshape(ospans[0].data.as_numpy().view(np.int8).shape)
+            return [256]
+
+    class Sink(bt.SinkBlock):
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            pass
+
+    monkeypatch.setenv('BF_TORCH_PROFILE', str(tmp_path))
+    profiling.reset()
+    counters.reset()
+    try:
+        with bt.Pipeline() as p:
+            b = bt.blocks.copy(Src(), space='cuda')
+            b = bt.blocks.fused(b, [FftStage('fine_time',
+                                             axis_labels='freq'),
+                                    DetectStage('stokes', axis='pol'),
+                                    ReduceStage('freq', 4)])
+            Sink(bt.blocks.copy(b, space='system'))
+        _run_bounded(p)
+    finally:
+        profiling.reset()
+    assert counters.get('torchprof.captures') == 1
+    trace = profiling.last_trace()
+    assert os.path.exists(trace)
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
+    assert any('spectrometer' in k for k in kernels), sorted(kernels)

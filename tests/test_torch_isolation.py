@@ -85,7 +85,12 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.temp_storage, "
              "bifrost_tpu_torch.header_standard, "
              "bifrost_tpu_torch.telemetry.slo, "
-             "bifrost_tpu_torch.telemetry.exporter\n"
+             "bifrost_tpu_torch.telemetry.exporter, "
+             "bifrost_tpu_torch.telemetry.profiling, "
+             "bifrost_tpu_torch.native, bifrost_tpu_torch.ring_native, "
+             "bifrost_tpu_torch.memory, bifrost_tpu_torch.proclog, "
+             "bifrost_tpu_torch.analysis.verify, "
+             "bifrost_tpu_torch.analysis.ringcheck\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr

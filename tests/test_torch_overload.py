@@ -547,3 +547,55 @@ def test_health_live_during_shedding_pipeline(name, monkeypatch):
     assert 'SHEDDING' in states
     assert shed['shed_bytes'] == skipped * 3 * 4
     assert got + skipped == ng * 4
+
+
+@pytest.mark.parametrize('core', ['native', 'python'])
+def test_shed_ledger_equals_the_skipped_frames_after_an_empty_span(
+        core, monkeypatch):
+    """The drop_oldest ledger in both port cores: a shed that advances
+    the guarantee, then an acquire at the older offset (an empty span, its
+    frames overwritten), then another shed.  The ledger equals the frames
+    the reader skipped and never exceeds the bytes committed; before the
+    repair the empty span pulled the guarantee back and the second shed
+    counted 8 frames twice."""
+    if core == 'python':
+        monkeypatch.setenv('BF_NO_NATIVE', '1')
+    else:
+        monkeypatch.delenv('BF_NO_NATIVE', raising=False)
+    ring, eod = Ring(space='system', name='shed_empty_' + core), \
+        EndOfDataStop
+    ring.set_overload_policy('drop_oldest')
+    fb = 16
+    hdr = {'name': 's', 'gulp_nframe': 4,
+           '_tensor': {'shape': [-1, 4], 'dtype': 'f32'}}
+    skipped, off, committed = 0, 0, 0
+    with ring.begin_writing() as w:
+        with w.begin_sequence(hdr, 4, 12) as seq:
+            rd = ring.open_earliest_sequence(guarantee=True)
+
+            def write():
+                with seq.reserve(4) as sp:
+                    sp.data.as_numpy()[...] = 1.0
+                    sp.commit(4)
+                return 4 * fb
+            for _ in range(6):
+                committed += write()
+            sp = rd.acquire(off, 4)
+            assert sp.nframe == 0 and sp.frame_offset == 4
+            skipped += sp.frame_offset - off
+            off = sp.frame_offset + sp.nframe
+            sp.release()
+            committed += write()
+            while True:
+                try:
+                    sp = rd.acquire(off, 4)
+                except eod:
+                    break
+                skipped += sp.frame_offset - off
+                off = sp.frame_offset + sp.nframe
+                sp.release()
+                if off * fb >= committed:
+                    break
+    shed = ring.shed_stats()['shed_bytes']
+    assert shed == skipped * fb
+    assert shed <= committed

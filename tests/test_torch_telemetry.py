@@ -595,3 +595,162 @@ def test_metrics_file_written_at_the_end_of_a_run(tmp_path, monkeypatch):
     flows = glob.glob(os.path.join(str(tmp_path / 'proclog'), '*',
                                    'rings_flow', '*'))
     assert ring in {os.path.basename(f) for f in flows}
+
+
+# ---------------------------------------------------------------------------
+# the one-shot profiler capture, the usage tracker and the memory helpers
+# ---------------------------------------------------------------------------
+
+def _fused_chain(ngulp=3):
+    from bifrost_tpu_torch.stages import DetectStage
+    from tests.test_torch_supervision import (TorchGatherSink,
+                                              TorchNumpySourceBlock)
+    hdr = simple_header([-1, 2, 8], 'cf32', labels=['time', 'pol', 'freq'])
+    rng = np.random.RandomState(4)
+    gulps = [(rng.randn(4, 2, 8) + 1j * rng.randn(4, 2, 8))
+             .astype(np.complex64) for _ in range(ngulp)]
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(TorchNumpySourceBlock(gulps, hdr, 4),
+                           space='cuda')
+        b = bt.blocks.fused(b, [DetectStage('stokes', axis='pol')])
+        sink = TorchGatherSink(bt.blocks.copy(b, space='system'))
+    return p, sink
+
+
+def test_profiler_captures_one_dispatch_and_reset_rearms(monkeypatch,
+                                                         tmp_path):
+    """BF_TORCH_PROFILE: the first fused dispatch of the process runs in
+    one torch.profiler capture (one Chrome trace, one count); later
+    dispatches are not captured until reset()."""
+    import os
+    from bifrost_tpu_torch.telemetry import profiling
+    monkeypatch.setenv('BF_TORCH_PROFILE', str(tmp_path))
+    profiling.reset()
+    try:
+        for run in (1, 2):
+            p, sink = _fused_chain()
+            run_bounded(p)
+            assert sink.result().shape[0] == 12
+            assert counters.get('torchprof.captures') == 1
+        trace = profiling.last_trace()
+        assert trace == str(tmp_path / ('torchprof-%d.json' % os.getpid()))
+        assert os.listdir(tmp_path) == [os.path.basename(trace)]
+        with open(trace) as f:
+            events = json.load(f)['traceEvents']
+        assert events
+        profiling.reset()
+        p, _sink = _fused_chain()
+        run_bounded(p)
+        assert counters.get('torchprof.captures') == 2
+    finally:
+        profiling.reset()
+    # unarmed: no capture
+    monkeypatch.delenv('BF_TORCH_PROFILE')
+    p, _sink = _fused_chain()
+    run_bounded(p)
+    assert counters.get('torchprof.captures') == 2
+
+
+def test_usage_file_keys_and_format_equal_the_jax_tracker(monkeypatch,
+                                                          tmp_path):
+    """The same tracked calls give the same usage file (the package
+    prefix of the surfaced counters aside) and the same state file."""
+    import bifrost_tpu.telemetry as jtel
+    files = {}
+    for name, tel, c in (('port', telemetry, counters),
+                         ('jax', jtel, jcounters)):
+        monkeypatch.setenv('BF_CACHE_DIR', str(tmp_path / name))
+        monkeypatch.setattr(tel, '_client', tel._LocalClient())
+        monkeypatch.setattr(tel, '_surfaced_totals', {})
+        assert not tel.is_active()
+        tel.enable()
+
+        @tel.track_function
+        def counted(x):
+            return x + 1
+
+        @tel.track_function_timed
+        def timed(x):
+            return x * 2
+
+        class Thing(object):
+            @tel.track_method
+            def poke(self):
+                return 1
+
+            @tel.track_method_timed
+            def prod(self):
+                return 2
+
+        for i in range(3):
+            counted(i)
+        timed(1)
+        Thing().poke()
+        Thing().prod()
+        Thing().prod()
+        tel.track_module()
+        c.inc('block_failures', 2)
+        snap = tel.flush()
+        assert snap['block_failures'] == 2
+        with open(tel.usage_path()) as f:
+            usage = json.load(f)
+        with open(tel._state_path()) as f:
+            state = f.read()
+        tel.disable()
+        assert not tel.is_active()
+        files[name] = (usage, state)
+    port, jax = files['port'], files['jax']
+    assert port[1] == jax[1] == 'enabled'
+    rename = {k.replace('bifrost_tpu.counters.',
+                        'bifrost_tpu_torch.counters.'): v
+              for k, v in jax[0].items()}
+    assert sorted(port[0]) == sorted(rename)
+    for k, v in port[0].items():
+        assert v[:2] == rename[k][:2] and len(v) == 3
+    assert port[0]['bifrost_tpu_torch.counters.block_failures'][0] == 2
+
+
+def test_telemetry_cli_status(monkeypatch, tmp_path):
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, BF_CACHE_DIR=str(tmp_path),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    p = subprocess.run([sys.executable, '-m', 'bifrost_tpu_torch.telemetry',
+                        '--enable', '--status'], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.startswith('bifrost_tpu_torch local telemetry is '
+                               'active (file: %s' % tmp_path)
+    assert 'no usage recorded' in p.stdout
+    assert (tmp_path / 'telemetry_state').read_text() == 'enabled'
+
+
+@pytest.mark.parametrize('size', [1, 100, 4096, 12345])
+def test_memory_helpers_equal_jax(size, monkeypatch):
+    from bifrost_tpu import memory as jmemory
+    from bifrost_tpu_torch import memory
+    for mod in (memory, jmemory):
+        buf = mod.raw_malloc(size)
+        assert buf.dtype == np.uint8 and buf.shape == (size,)
+        assert buf.ctypes.data % mod.ALIGNMENT == 0
+    assert memory.ALIGNMENT == jmemory.ALIGNMENT
+    host = memory.raw_malloc(size, 'cuda_host')
+    assert host.ctypes.data % memory.ALIGNMENT == 0
+    src = np.arange(size, dtype=np.uint64).astype(np.uint8)
+    a, b = memory.raw_malloc(size), jmemory.raw_malloc(size)
+    memory.memcpy(a, src)
+    jmemory.memcpy(b, src)
+    assert np.array_equal(a, b) and np.array_equal(a, src)
+    memory.memset(a, 7)
+    jmemory.memset(b, 7)
+    assert np.array_equal(a, b) and (a == 7).all()
+    with pytest.raises(ValueError):
+        memory.raw_malloc(size, 'cuda')
+    with pytest.raises(ValueError):
+        jmemory.raw_malloc(size, 'tpu')
+    for env in ('4096', '64', 'junk'):
+        monkeypatch.setenv('BF_ALIGNMENT', env)
+        assert memory._alignment_from_env() == \
+            jmemory._alignment_from_env()
