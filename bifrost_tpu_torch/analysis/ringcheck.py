@@ -297,6 +297,15 @@ class _Shadow(object):
             self._note('commit', 'begin=%d nbyte=%d'
                        % (rec['begin'], commit_nbyte))
 
+    def external_head(self, head):
+        """Commits made past the span wrappers (the native capture engine
+        commits through the C core): take the core's committed head."""
+        with self.lock:
+            if not self.head_known or head > self.head:
+                self._note('commit.external', 'head=%d' % head)
+                self.head = head
+                self.head_known = True
+
     # -- reader side -------------------------------------------------------
     def reader_opened(self, rseq):
         with self.lock:

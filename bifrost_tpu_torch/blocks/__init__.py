@@ -29,6 +29,9 @@ from .serialize import (SerializeBlock, DeserializeBlock, serialize,
 from .wav import WavSourceBlock, WavSinkBlock, read_wav, write_wav
 from .convert_visibilities import (ConvertVisibilitiesBlock,
                                    convert_visibilities)
+from .psrdada import (DadaFileSourceBlock, PsrdadaSourceBlock,
+                      read_dada_file, read_psrdada_buffer)
+from .audio import AudioSourceBlock, read_audio
 
 __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'beamform', 'FftBlock', 'fft', 'DetectBlock', 'detect',
@@ -47,4 +50,6 @@ __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'BinaryFileWriteBlock', 'binary_read', 'binary_write',
            'SerializeBlock', 'DeserializeBlock', 'serialize', 'deserialize',
            'WavSourceBlock', 'WavSinkBlock', 'read_wav', 'write_wav',
-           'ConvertVisibilitiesBlock', 'convert_visibilities']
+           'ConvertVisibilitiesBlock', 'convert_visibilities',
+           'DadaFileSourceBlock', 'PsrdadaSourceBlock', 'read_dada_file',
+           'read_psrdada_buffer', 'AudioSourceBlock', 'read_audio']

@@ -1,11 +1,46 @@
-"""File-format readers and writers (host side, numpy only).
+"""Host I/O (numpy and the standard library; the port of
+``bifrost_tpu/io``).
 
-The port carries the SIGPROC filterbank format
-(:mod:`bifrost_tpu_torch.io.sigproc`) and the GUPPI RAW block headers
-(:mod:`bifrost_tpu_torch.io.guppi`); the JAX package's packet formats,
-sockets, capture and bridge are not ported yet.
+- File formats: the SIGPROC filterbank format (:mod:`.sigproc`) and the
+  GUPPI RAW block headers (:mod:`.guppi`).
+- Packets: the twelve wire formats (:mod:`.packet_formats`), UDP sockets
+  with ``recvmmsg``/``sendmmsg`` batching (:mod:`.udp_socket`), the
+  capture engines (:mod:`.packet_capture`: the Python engine, the native
+  C++ engine over a native ring, the sharded zero-copy engine, the raw
+  sniffer, disk replay) and the transmit engines
+  (:mod:`.packet_writer`).
+- PSRDADA shared-memory rings (:mod:`.dada_shm`) and the PortAudio
+  binding (:mod:`.portaudio`).
+
+Not ported yet: the JAX package's TCP ring bridge (``io/bridge.py`` and
+its blocks).
 """
 
 from . import guppi, sigproc
+from . import packet_formats, udp_socket, packet_capture, packet_writer
+from . import dada_shm, portaudio
+from .udp_socket import Address, UDPSocket
+from .packet_formats import (PacketDesc, get_format, register_format,
+                             FORMATS, SimpleFormat, ChipsFormat,
+                             PBeamFormat, TbnFormat, DrxFormat,
+                             Drx8Format, IBeamFormat, CorFormat,
+                             Snap2Format, VdifFormat, TbfFormat,
+                             VBeamFormat)
+from .packet_capture import (PacketCaptureCallback, UDPCapture,
+                             NativeUDPCapture, ShardedUDPCapture,
+                             UDPSniffer, DiskReader)
+from .packet_writer import (HeaderInfo, RateLimiter, UDPTransmit,
+                            NativeUDPTransmit, DiskWriter)
+from .dada_shm import IpcRing, DadaHDU
 
-__all__ = ['guppi', 'sigproc']
+__all__ = ['guppi', 'sigproc', 'packet_formats', 'udp_socket',
+           'packet_capture', 'packet_writer', 'dada_shm', 'portaudio',
+           'Address', 'UDPSocket', 'PacketDesc', 'get_format',
+           'register_format', 'FORMATS', 'SimpleFormat', 'ChipsFormat',
+           'PBeamFormat', 'TbnFormat', 'DrxFormat', 'Drx8Format',
+           'IBeamFormat', 'CorFormat', 'Snap2Format', 'VdifFormat',
+           'TbfFormat', 'VBeamFormat', 'PacketCaptureCallback',
+           'UDPCapture', 'NativeUDPCapture', 'ShardedUDPCapture',
+           'UDPSniffer', 'DiskReader', 'HeaderInfo', 'RateLimiter',
+           'UDPTransmit', 'NativeUDPTransmit', 'DiskWriter', 'IpcRing',
+           'DadaHDU']

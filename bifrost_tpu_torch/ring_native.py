@@ -131,6 +131,11 @@ class _NativeStorage(object):
 class NativeRing(Ring):
     """A 'system' ring on the C++ core (module docstring)."""
 
+    #: set by an engine that reserves and commits through the C core
+    #: itself (``io.packet_capture.NativeUDPCapture``): the ring checker
+    #: then takes its committed head from the core at each acquire
+    _external_writer = False
+
     def __init__(self, space='system', name=None, owner=None):
         super(NativeRing, self).__init__(space=space, name=name,
                                          owner=owner)
@@ -463,6 +468,8 @@ class NativeRing(Ring):
             # next shed counts those bytes again
             tail, _head = self._tail_head()
             self._lib.bft_reader_set_guarantee(self._handle, rid, tail, 2)
+        if self._external_writer and _rc._enabled:
+            _rc.hook(self).external_head(self._tail_head()[1])
         with self._lock:
             self._nread_open += 1
         return begin.value, got.value

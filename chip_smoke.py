@@ -254,9 +254,30 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    the skipped frames every time; and the codes the verifier gave every
    pipeline this script ran (main() records each run's gate), none BF-E
    or BF-I199;
+15b. runs the capture phase: CHIPS packets laid out as LWA-SV's
+   F-engines send them (16 boards, 132 channels x 16 stands x 2 pols of
+   ci4 a packet, 4,238-byte datagrams) over loopback from a child
+   process into a capture ring, and the LWA-style correlator front end
+   on the card: capture ring -> copy('cuda') -> transpose(time, freq,
+   src, stand, pol) -> merge_axes(src, stand) -> correlate(1024,
+   int8, K7 forced) -> accumulate(2) -> copy('system'), 1,024-frame
+   gulps (69.2 MB), with a guaranteed host tap on the capture ring; in
+   four arms: the native engine on a native 'system' ring and the
+   sharded zero-copy engine (16 workers) on a pinned 'cuda_host' ring,
+   each fed by the port's native transmit engine (chip_smoke.py
+   --capture-sender PORT RATE SEED, paced from 100,000 packets/s down
+   by halves until no packet is lost) and by a sendmmsg blaster
+   (--capture-blaster PORT SEED).  Every arm: the loss ledger covers
+   every committed cell, every tapped cell holds the sent payload or is
+   blank (the throttled arms: every byte as sent, nothing lost), every
+   visibility equals the float64 oracle made on the card from the
+   tapped bytes, K7 launches once a gulp, and the sharded arms' H2D is
+   the direct one (xfer.h2d_direct a gulp, no staged copy); packets/s
+   received, Gbit/s, the loss fraction, the ratio to LWA's 25,000
+   frames/s and each block's host ms a gulp are printed;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
    library phases' numbers, one of the xfer phase's, one of the analysis
-   phase's, one JSON line of per-kernel numbers
+   and capture phases', one JSON line of per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -5233,6 +5254,470 @@ def phase_analysis(bt, spec, gpu_kernels, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# capture: live CHIPS packets over loopback into an LWA-style correlator
+# front end (the port's io tier: UDP sockets, the CHIPS codec, the native
+# and sharded capture engines, the native transmit engine)
+# ---------------------------------------------------------------------------
+
+CS, CCH, CST, CPOL = 16, 132, 16, 2   # boards, channels, stands a board, pols
+CPAY = CCH * CST * CPOL               # ci4 payload: 4,224 bytes
+CHDR = 16                             # the CHIPS header
+CG = 1024                             # frames a gulp (one capture span)
+CR, CA = 1024, 2                      # correlate's R, accumulate's A
+CNG = 4                               # gulps an arm sends
+CRATES = (100000, 50000, 25000, 12500, 6250)   # throttled arms, packets/s
+CREAL_FPS = 25000.0                   # LWA real time: ~25 kHz channels
+CSEED = 41
+CTHREADS = 16                         # sharded workers, one a board
+CVLEN = 64
+CTIMEOUT = 0.5                        # idle seconds that end a capture
+CSHARDED_SPACE = 'cuda_host'
+
+
+def capture_payloads(seed=CSEED, ngulp=CNG):
+    """The arm's payloads, (frames, boards, 4,224) uint8: random ci4
+    bytes, made alike by the sender, the blaster and the checks."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(ngulp * CG, CS, CPAY), dtype=np.uint8)
+
+
+def capture_header(desc):
+    """The capture ring's sequence header: (time, src, freq, stand, pol)
+    ci4; a board's stands continue the one before (src's scale step is
+    CST), so merge_axes(src, stand) gives the station axis."""
+    return 0, {'name': 'chips-lwa', 'time_tag': 0, '_tensor': {
+        'shape': [-1, CS, CCH, CST, CPOL], 'dtype': 'ci4',
+        'labels': ['time', 'src', 'freq', 'stand', 'pol'],
+        'scales': [[0, 1], [0, CST], [0, 1], [0, 1], [0, 1]],
+        'units': [None] * 5}}
+
+
+def capture_sender(port, rate, seed):
+    """Child process of a throttled arm: the port's UDPTransmit (the
+    native transmit engine) paced at ``rate`` packets/s, one frame (16
+    packets) a call.  Frame 0 goes first; the rest after a line on
+    stdin."""
+    from bifrost_tpu_torch.io.udp_socket import Address, UDPSocket
+    from bifrost_tpu_torch.io.packet_writer import (HeaderInfo, UDPTransmit,
+                                                    NativeUDPTransmit)
+    data = capture_payloads(int(seed))
+    sock = UDPSocket().connect(Address('127.0.0.1', int(port)))
+    hi = HeaderInfo()
+    hi.set_nsrc(CS)
+    hi.set_nchan(CCH)
+    tx = UDPTransmit('chips', sock)
+    require(isinstance(tx, NativeUDPTransmit),
+            'the sender is not the native transmit engine')
+    tx.send(hi, 1, 1, 0, 1, data[:1])          # CHIPS wire seq is 1-based
+    print('READY', flush=True)
+    sys.stdin.readline()
+    tx.set_rate_limit(int(rate))               # the bucket starts now
+    t0 = time.perf_counter()
+    for i in range(1, data.shape[0]):
+        tx.send(hi, i + 1, 1, 0, 1, data[i:i + 1])
+    print('SENT %d %.6f' % (tx.npackets_sent - CS,
+                            time.perf_counter() - t0), flush=True)
+    sock.close()
+    return 0
+
+
+def capture_blaster(port, seed):
+    """Child process of an unthrottled arm: ``sendmmsg`` as fast as the
+    host goes, one socket (one flow) a board, the iovec tables built
+    over the frame buffers before the clock starts (after the JAX
+    package's bench_suite.py blaster).  Frame 0 goes first; the rest
+    after a line on stdin, 64 frames a board in turn."""
+    import ctypes
+    import errno
+    import select
+    import socket
+    import struct
+
+    class _iovec(ctypes.Structure):
+        _fields_ = [('iov_base', ctypes.c_void_p),
+                    ('iov_len', ctypes.c_size_t)]
+
+    class _msghdr(ctypes.Structure):
+        _fields_ = [('msg_name', ctypes.c_void_p),
+                    ('msg_namelen', ctypes.c_uint),
+                    ('msg_iov', ctypes.c_void_p),
+                    ('msg_iovlen', ctypes.c_size_t),
+                    ('msg_control', ctypes.c_void_p),
+                    ('msg_controllen', ctypes.c_size_t),
+                    ('msg_flags', ctypes.c_int)]
+
+    class _mmsghdr(ctypes.Structure):
+        _fields_ = [('msg_hdr', _msghdr), ('msg_len', ctypes.c_uint)]
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    msize = ctypes.sizeof(_mmsghdr)
+    hdr = struct.Struct('>BBBBBBHQ')
+    data = capture_payloads(int(seed))
+    nt, frame = data.shape[0], CHDR + CPAY
+    seqs = np.arange(nt, dtype=np.int64)
+    socks, tables = [], []
+    for s in range(CS):
+        sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sk.connect(('127.0.0.1', int(port)))
+        buf = np.empty((nt, frame), np.uint8)
+        buf[:, :CHDR] = np.frombuffer(
+            hdr.pack(s + 1, 0, CCH, 1, 0, CS, 0, 0), np.uint8)
+        buf[:, 8:16] = (seqs + 1).astype('>u8').view(np.uint8).reshape(-1, 8)
+        buf[:, CHDR:] = data[:, s]
+        iov = (_iovec * nt)()
+        mh = (_mmsghdr * nt)()
+        iov_np = np.frombuffer(iov, np.uint64).reshape(nt, 2)
+        iov_np[:, 0] = buf.ctypes.data + np.arange(nt, dtype=np.uint64) * \
+            frame
+        iov_np[:, 1] = frame
+        mh_np = np.frombuffer(mh, np.uint64).reshape(nt, msize // 8)
+        mh_np[:, 2] = ctypes.addressof(iov) + \
+            np.arange(nt, dtype=np.uint64) * ctypes.sizeof(_iovec)
+        mh_np[:, 3] = 1
+        socks.append(sk)
+        tables.append((buf, iov, mh, ctypes.addressof(mh)))
+    del data
+
+    def blast(fd, base, off, want):
+        done = 0
+        while done < want:
+            ctypes.set_errno(0)
+            n = libc.sendmmsg(fd, ctypes.cast(base + (off + done) * msize,
+                                              ctypes.POINTER(_mmsghdr)),
+                              want - done, 0)
+            if n < 0:
+                err = ctypes.get_errno()
+                if err in (errno.EAGAIN, errno.EWOULDBLOCK, errno.ENOBUFS):
+                    select.select([], [fd], [], 0.05)
+                    continue
+                if err == errno.EINTR:
+                    continue
+                raise OSError(err, 'sendmmsg')
+            done += n
+        return done
+
+    for s in range(CS):
+        blast(socks[s].fileno(), tables[s][3], 0, 1)
+    print('READY', flush=True)
+    sys.stdin.readline()
+    sent = 0
+    t0 = time.perf_counter()
+    for k in range(1, nt, 64):
+        want = min(64, nt - k)
+        for s in range(CS):
+            sent += blast(socks[s].fileno(), tables[s][3], k, want)
+    print('SENT %d %.6f' % (sent, time.perf_counter() - t0), flush=True)
+    for sk in socks:
+        sk.close()
+    return 0
+
+
+def capture_oracle(gulp):
+    """One gulp's visibilities on the card from its tapped ci4 bytes:
+    the nibbles unpacked with shifts (re high, im low), reordered to
+    (time, freq, station, pol) and multiplied in float64 (K7's plain
+    version).  Returns (F, N, N) on the card."""
+    import torch
+    from bifrost_tpu_torch.ops.gpu_kernels import xcorr_herm_plain
+    from bifrost_tpu_torch.device import get_device
+    u = torch.from_numpy(gulp).to(get_device()).view(CG, CS, CCH, CST, CPOL)
+    re = u.view(torch.int8) >> 4
+    im = (u << 4).view(torch.int8) >> 4
+    n = CS * CST * CPOL
+    re = re.permute(0, 2, 1, 3, 4).reshape(1, CG, CCH, n)
+    im = im.permute(0, 2, 1, 3, 4).reshape(1, CG, CCH, n)
+    return xcorr_herm_plain(re, im)[0]
+
+
+def capture_child(which, port, rate=None):
+    """Start a sender or blaster child; returns the Popen once it has
+    sent frame 0 (its READY line)."""
+    import select
+    here = os.path.abspath(__file__)
+    args = [sys.executable, here, '--capture-' + which, str(port)]
+    if rate is not None:
+        args.append(str(rate))
+    args.append(str(CSEED))
+    child = subprocess.Popen(args, stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, text=True)
+    ready, _, _ = select.select([child.stdout], [], [], 120)
+    line = child.stdout.readline() if ready else ''
+    if line.strip() != 'READY':
+        child.kill()
+        child.wait()
+        raise RuntimeError('chip_smoke check failed: capture %s child did '
+                           'not start (%r)' % (which, line))
+    return child
+
+
+def capture_arm(bt, gpu_kernels, arm, engine, which, rate, payloads, smi):
+    """One arm: the capture engine fills a host ring from the child's
+    packets while the chain runs on the card:
+
+        capture ring -> copy('cuda') -> transpose(time, freq, src, stand,
+        pol) -> merge_axes(src, stand) -> correlate(CR, int8, K7 forced)
+        -> accumulate(CA) -> copy('system') -> sink
+
+    with a guaranteed host tap on the capture ring.  Checks the ledger,
+    the tapped bytes against what was sent, every visibility against
+    the float64 oracle made from the tapped bytes, K7 once a gulp and
+    (sharded) the direct H2D.  Returns the arm's numbers."""
+    import threading
+    import torch
+    from bifrost_tpu_torch.io import packet_capture as pc
+    from bifrost_tpu_torch.io.udp_socket import Address, UDPSocket
+    from bifrost_tpu_torch.ring_native import NativeRing
+    from bifrost_tpu_torch.telemetry import counters
+    name = '%s-%d' % (arm, rate or 0)
+    nt = CNG * CG
+    rx = None
+    if engine == 'native':
+        ring = bt.Ring(space='system', name=name)
+        rx = UDPSocket().bind(Address('127.0.0.1', 0))
+        rx.set_timeout(CTIMEOUT)
+        cap = pc.UDPCapture('chips', rx, ring, CS, 0, CPAY, CG, CG,
+                            capture_header)
+        require(isinstance(ring, NativeRing) and
+                isinstance(cap, pc.NativeUDPCapture),
+                '%s: not the native engine on a native ring (%s on %s)'
+                % (arm, type(cap).__name__, type(ring).__name__))
+        socks = [rx]
+    else:
+        ring = bt.Ring(space=CSHARDED_SPACE, name=name)
+        cap = pc.ShardedUDPCapture(
+            'chips', Address('127.0.0.1', 0), ring, CS, 0, CPAY, CG, CG,
+            capture_header, nthreads=CTHREADS, vlen=CVLEN,
+            frame_size=CHDR + CPAY, timeout=CTIMEOUT)
+        require(cap._zero_copy_ok, '%s: zero-copy scatter not possible' % arm)
+        socks = cap._socks
+    import socket as socket_mod
+    rcvbuf = socks[0].sock.getsockopt(socket_mod.SOL_SOCKET,
+                                      socket_mod.SO_RCVBUF)
+    port = socks[0].sock.getsockname()[1]
+    tapped = np.zeros((nt, CS, CPAY), np.uint8)
+    outs = []
+
+    class Tap(bt.SinkBlock):
+        def on_sequence(self, iseq):
+            self.f = 0
+
+        def on_data(self, ispan):
+            n = min(ispan.nframe, nt - self.f)
+            a = ispan.data.as_numpy().reshape(ispan.nframe, CS, CPAY)
+            tapped[self.f:self.f + n] = a[:n]
+            self.f += ispan.nframe
+
+    class VisSink(bt.SinkBlock):
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            outs.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    x0 = {k: counters.get('xfer.' + k) for k in ('h2d_direct', 'h2d_staged')}
+    for k in gpu_kernels.launches:
+        gpu_kernels.launches[k] = 0
+    box = {}
+    with bt.Pipeline() as p:
+        h2d = bt.blocks.copy(ring, space='cuda')
+        tap = Tap(ring)
+        b = bt.blocks.transpose(h2d, ['time', 'freq', 'src', 'stand', 'pol'])
+        tr = b
+        b = bt.views.merge_axes(b, 'src', 'stand', label='station')
+        corr = bt.blocks.correlate(b, CR, accuracy='int8', impl='pallas')
+        acc = bt.blocks.accumulate(corr, CA)
+        d2h = bt.blocks.copy(acc, space='system')
+        sink = VisSink(d2h)
+
+        def run_pipe():
+            try:
+                p.run()
+            except BaseException as exc:
+                box['pipe'] = exc
+
+        def run_cap():
+            try:
+                # an idle socket ends the capture only once the child
+                # is done: it waits for the readers after frame 0
+                while True:
+                    st = cap.recv()
+                    if st in (pc.CAPTURE_NO_DATA, pc.CAPTURE_INTERRUPTED) \
+                            and done.is_set():
+                        break
+            except BaseException as exc:
+                box['cap'] = exc
+            finally:
+                cap.end()
+
+        tp = threading.Thread(target=run_pipe, daemon=True)
+        tc = threading.Thread(target=run_cap, daemon=True)
+        done = threading.Event()
+        tp.start()
+        tc.start()
+        try:
+            child = capture_child(which, port, rate)
+        except BaseException:
+            done.set()
+            raise
+        try:
+            # the chain and the tap must hold the ring before the stream
+            # goes on (frame 0 opened the sequence)
+            t_end = time.monotonic() + 120
+            while len(ring._readers) < 2 and time.monotonic() < t_end and \
+                    not box:
+                time.sleep(0.01)
+            require(len(ring._readers) >= 2, '%s: the pipeline did not '
+                    'attach to the capture ring (%s)' % (arm, box))
+            child.stdin.write('GO\n')
+            child.stdin.flush()
+            out, _ = child.communicate(timeout=300)
+        finally:
+            done.set()
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        require(child.returncode == 0, '%s: the %s child exited %s'
+                % (arm, which, child.returncode))
+        sent_line = [ln for ln in out.splitlines() if ln.startswith('SENT')]
+        require(sent_line, '%s: the %s child reported nothing' % (arm, which))
+        _, nsent, send_s = sent_line[0].split()
+        nsent, send_s = int(nsent), float(send_s)
+        tc.join(120)
+        require(not tc.is_alive(), '%s: the capture did not end' % arm)
+        tp.join(300)
+        if tp.is_alive():
+            p.shutdown()
+            raise RuntimeError('chip_smoke check failed: %s: pipeline still '
+                               'running' % arm)
+    for k in ('cap', 'pipe'):
+        if k in box:
+            raise box[k]
+    if rx is not None:
+        rx.close()
+    counts = dict(gpu_kernels.launches)
+    x1 = {k: counters.get('xfer.' + k) - x0[k] for k in x0}
+    st = cap.stats
+    ngood, nmiss = int(st['ngood_bytes']), int(st['nmissing_bytes'])
+    ngulp = tap.f // CG
+    require(ngulp >= CA, '%s: %d gulps committed' % (arm, ngulp))
+    require(ngood + nmiss == ngulp * CG * CS * CPAY,
+            '%s: ledger %d good + %d missing bytes for %d gulps'
+            % (arm, ngood, nmiss, ngulp))
+    cells = tapped[:ngulp * CG]
+    sent = payloads[:ngulp * CG]
+    same = (cells == sent).all(axis=-1)
+    zero = ~cells.any(axis=-1)
+    require(bool((same | zero).all()), '%s: a tapped cell is neither the '
+            'sent payload nor blank' % arm)
+    loss = nmiss / float(ngood + nmiss)
+    if which == 'sender' and nmiss:
+        return {'rate_pps': rate, 'loss': loss, 'missing_bytes': nmiss,
+                'retry': True}
+    if which == 'sender':
+        require(tap.f == nt and np.array_equal(tapped, payloads),
+                '%s: the tapped bytes differ from the sent payloads' % arm)
+    require(counts['xcorr_herm'] == ngulp, '%s: %d K7 launches for %d gulps'
+            % (arm, counts['xcorr_herm'], ngulp))
+    if engine == 'sharded':
+        require(x1['h2d_direct'] == ngulp and x1['h2d_staged'] == 0,
+                '%s: the H2D did not take the direct path: %s' % (arm, x1))
+    nout = ngulp // CA
+    require(len(outs) == nout, '%s: %d visibilities for %d gulps'
+            % (arm, len(outs), ngulp))
+    for k, a in enumerate(outs):
+        require(a.shape == (1, CCH, CS * CST, CPOL, CS * CST, CPOL) and
+                a.dtype == np.complex64 and np.isfinite(a).all(),
+                '%s output %d: bad shape, type or values' % (arm, k))
+        want = None
+        for g in range(k * CA, (k + 1) * CA):
+            v = capture_oracle(cells[g * CG:(g + 1) * CG])
+            want = v if want is None else want + v
+        got = torch.from_numpy(a.reshape(CCH, CS * CST * CPOL,
+                                         CS * CST * CPOL)).to(want.device)
+        require(bool(torch.equal(got, want.to(got.dtype))),
+                '%s output %d differs from the float64 oracle' % (arm, k))
+        del want, got
+    log_crc('capture %s' % arm, {k: crc32(a) for k, a in enumerate(outs)})
+    pkts = ngood // CPAY
+    pps = pkts / send_s if send_s > 0 else float('nan')
+    per_gulp = {}
+    for role, blk in (('h2d', h2d), ('tap', tap), ('transpose', tr),
+                      ('correlate', corr), ('accumulate', acc),
+                      ('d2h', d2h), ('sink', sink)):
+        tot = blk.perf_totals
+        per_gulp[role] = {k: tot[k] / max(tot['nlogical'], 1) * 1e3
+                          for k in ('acquire', 'reserve', 'process')}
+    res = {'engine': type(cap).__name__, 'ring': type(ring).__name__,
+           'space': ring.space, 'rate_pps': rate, 'packets_sent': nsent + CS,
+           'send_s': send_s, 'gulps': ngulp, 'outputs': nout,
+           'packets_good': pkts, 'pps_received': pps,
+           'gbps_received': pps * (CHDR + CPAY) * 8 / 1e9,
+           'loss': loss, 'missing_bytes': nmiss,
+           'realtime_ratio': pps / CS / CREAL_FPS,
+           'pps_offered': nsent / send_s if send_s > 0 else float('nan'),
+           'rcvbuf_bytes': rcvbuf, 'launches_k7': counts['xcorr_herm'],
+           'h2d': x1, 'per_gulp_ms': per_gulp}
+    if engine == 'sharded':
+        res['zero_copy_packets'] = sum(w['zero_copy'] for w in cap._wstats)
+        res['steered'] = cap._steered
+        res['nlate'], res['nalien'], res['ndup'] = \
+            st['nlate'], st['nalien'], st['ndup']
+    log('capture arm %s: %s (%s)' % (arm, json.dumps(
+        {k: v for k, v in res.items() if k != 'per_gulp_ms'}), smi))
+    log_per_gulp(per_gulp)
+    return res
+
+
+CAPTURE_ARMS = (('capture-native', 'native', 'sender'),
+                ('capture-native-blast', 'native', 'blaster'),
+                ('capture-sharded', 'sharded', 'sender'),
+                ('capture-sharded-blast', 'sharded', 'blaster'))
+
+
+def phase_capture(bt, gpu_kernels, smi):
+    import gc
+    import torch
+    try:
+        with open('/proc/sys/net/core/rmem_max') as f:
+            rmem_max = int(f.read())
+    except (OSError, ValueError):
+        rmem_max = None
+    log('capture: %d boards x %d channels x %d stands x %d pols ci4, %d-byte '
+        'packets, gulps of %d frames (%.1f MB), R %d, A %d, %d gulps an arm; '
+        'net.core.rmem_max %s' % (CS, CCH, CST, CPOL, CHDR + CPAY, CG,
+                                  CG * CS * CPAY / 1e6, CR, CA, CNG,
+                                  rmem_max))
+    payloads = capture_payloads()
+    arms = {}
+    for arm, engine, which in CAPTURE_ARMS:
+        if which == 'blaster':
+            arms[arm] = capture_arm(bt, gpu_kernels, arm, engine, which,
+                                    None, payloads, smi)
+        else:
+            tried = []
+            for rate in CRATES:
+                r = capture_arm(bt, gpu_kernels, arm, engine, which, rate,
+                                payloads, smi)
+                if not r.get('retry'):
+                    break
+                log('capture arm %s at %d packets/s lost %d bytes (%.3g); '
+                    'halving the rate' % (arm, rate, r['missing_bytes'],
+                                          r['loss']))
+                tried.append(r)
+            require(not r.get('retry'), '%s lost packets at every rate %s'
+                    % (arm, list(CRATES)))
+            r['lossy_rates'] = tried
+            arms[arm] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {'geometry': {'boards': CS, 'channels': CCH, 'stands': CST,
+                         'pols': CPOL, 'payload': CPAY, 'gulp': CG,
+                         'R': CR, 'A': CA, 'gulps': CNG},
+            'rmem_max': rmem_max, 'arms': arms,
+            'launches': {a: r['launches_k7'] for a, r in arms.items()}}
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -5243,12 +5728,16 @@ def spec_header(nfine):
 
 
 def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    if sys.argv[1:2] == ['--capture-sender']:
+        return capture_sender(*sys.argv[2:5])
+    if sys.argv[1:2] == ['--capture-blaster']:
+        return capture_blaster(*sys.argv[2:4])
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke: no CUDA device is available\n')
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
     if sys.argv[1:2] == ['--guppi-child']:
         return guppi_child(*sys.argv[2:4])
     import bifrost_tpu_torch as bt
@@ -5320,6 +5809,7 @@ def main():
     fmesh = run('FDMT mesh', phase_fdmt_mesh, bt, spec, gpu_kernels, F,
                 par, smi)
     ana = run('analysis', phase_analysis, bt, spec, gpu_kernels, smi)
+    capt = run('capture', phase_capture, bt, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
@@ -5341,6 +5831,7 @@ def main():
     k7['launches_per_gulp'] = k7['launches'] / float(XWARM + XTIMED)
     k7['launches_x_stateful'] = fx['launches']['x-stateful']['xcorr_herm']
     k7['launches_vec16'] = fx['launches']['fx-K7']['xcorr_herm_vec16']
+    k7['launches_capture'] = capt['launches']
     k7['launches_x_stateful_vec16'] = \
         fx['launches']['x-stateful']['xcorr_herm_vec16']
     k8['launches'] = n8['xcorr_cross']
@@ -5414,6 +5905,8 @@ def main():
     log(json.dumps({'macro': mac, 'card': smi}))
     ana['phase_s'] = phase_s['analysis']
     log(json.dumps({'analysis': ana}))
+    capt['phase_s'] = phase_s['capture']
+    log(json.dumps({'capture': capt, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

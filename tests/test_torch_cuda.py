@@ -31,8 +31,10 @@ across gulps, Romein's atomic scatter with wrap and accumulate, and the
 visibility storage round trip; and the transfer engine (pinned slots
 that recycle only after their copy's event, H2D alias safety, D2H on
 the copy stream after a producer kernel with no synchronize, fills into
-pageable and pinned targets, the ``cuda_host`` direct paths).  Marked
-``cuda``; each test skips without a card.
+pageable and pinned targets, the ``cuda_host`` direct paths); and the
+capture tier (the sharded zero-copy engine into a pinned ``cuda_host``
+ring, whose H2D is the direct one, and the capture chain's K7 against
+its plain version).  Marked ``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -2086,3 +2088,164 @@ def test_profiler_capture_names_a_cuda_kernel(monkeypatch, tmp_path):
         events = json.load(f)['traceEvents']
     kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
     assert any('spectrometer' in k for k in kernels), sorted(kernels)
+
+
+# ---------------------------------------------------------------------------
+# capture: the sharded engine into a pinned ring, and the capture chain's K7
+# ---------------------------------------------------------------------------
+
+def _chips_packets(nframe, nsrc, pay, f0=0, seed=5):
+    """CHIPS packets of frames [f0, f0 + nframe) of every source (wire
+    seq f + 1) with seeded payloads; returns (packets, payloads)."""
+    from bifrost_tpu_torch.io.packet_formats import ChipsFormat, PacketDesc
+    rng = np.random.RandomState(seed)
+    data = rng.randint(0, 256, (nframe, nsrc, pay)).astype(np.uint8)
+    fmt = ChipsFormat()
+    pkts = [fmt.pack(PacketDesc(seq=f0 + f + 1, src=s, nsrc=nsrc, nchan=1,
+                                payload=data[f, s].tobytes()))
+            for f in range(nframe) for s in range(nsrc)]
+    return pkts, data
+
+
+def _capture_header(shape, dtype, labels, scales):
+    def cb(desc):
+        return 0, {'name': 'cap', 'time_tag': 0, '_tensor': {
+            'shape': [-1] + list(shape), 'dtype': dtype,
+            'labels': list(labels), 'scales': scales,
+            'units': [None] * (len(shape) + 1)}}
+    return cb
+
+
+class _CaptureGather(object):
+    def __init__(self, bt):
+        class Sink(bt.SinkBlock):
+            def on_sequence(self, iseq):
+                self.gulps = []
+
+            def on_data(self, ispan):
+                self.gulps.append(np.array(ispan.data.as_numpy(), copy=True))
+        self.cls = Sink
+
+
+def test_sharded_capture_into_a_cuda_host_ring_takes_the_direct_h2d():
+    """ShardedUDPCapture (4 workers, zero-copy) into a pinned cuda_host
+    ring, then copy('cuda') -> copy('system'): every H2D ships the span
+    itself (xfer.h2d_direct once a gulp, nothing staged), held until its
+    copy ends, and the bytes are the packets sent."""
+    import threading
+    import time
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.io.packet_capture import ShardedUDPCapture
+    from bifrost_tpu_torch.io.udp_socket import Address, UDPSocket
+    from bifrost_tpu_torch.telemetry import counters
+    nsrc, pay, bt_ = 4, 512, 64
+    pkts, data = _chips_packets(4 * bt_, nsrc, pay)
+    ring = bt.Ring(space='cuda_host', name='cuda-sharded-capture')
+    assert ring._storage.pinned
+    cap = ShardedUDPCapture(
+        'chips', Address('127.0.0.1', 0), ring, nsrc, 0, pay, bt_, bt_,
+        _capture_header([nsrc, pay], 'u8', ['time', 'src', 'byte'],
+                        [[0, 1]] * 3),
+        nthreads=4, vlen=16, frame_size=16 + pay, timeout=0.25)
+    port = cap._socks[0].sock.getsockname()[1]
+    xfer.reset_engine()
+    counters.reset()
+    Sink = _CaptureGather(bt).cls
+    box = {}
+    with bt.Pipeline() as p:
+        sink = Sink(bt.blocks.copy(bt.blocks.copy(ring, space='cuda'),
+                                   space='system'))
+
+        def run():
+            try:
+                p.run()
+            except BaseException as exc:
+                box['exc'] = exc
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        txs = [UDPSocket().connect(Address('127.0.0.1', port))
+               for _ in range(nsrc)]
+        try:
+            # the copy block must hold the ring before it laps
+            txs[0].send(pkts[0])
+            deadline = time.monotonic() + 60
+            while not ring._readers and time.monotonic() < deadline:
+                time.sleep(0.01)
+            for i, pk in enumerate(pkts[1:], 1):
+                txs[i % nsrc].send(pk)
+                if i % 64 == 0:
+                    time.sleep(0.001)
+            while cap.stats['nreceived'] < len(pkts) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+        finally:
+            cap.end()
+            for tx in txs:
+                tx.close()
+        t.join(120)
+        assert not t.is_alive()
+    if 'exc' in box:
+        raise box['exc']
+    got = np.concatenate(sink.gulps)
+    st = cap.stats
+    ngulp = got.shape[0] // bt_
+    assert ngulp * bt_ * nsrc * pay == st['ngood_bytes'] + \
+        st['nmissing_bytes']
+    cells = got.reshape(-1, nsrc, pay)
+    same = (cells == data[:cells.shape[0]]).all(axis=-1)
+    assert (same | ~cells.any(axis=-1)).all()
+    assert counters.get('xfer.h2d_direct') == ngulp
+    assert counters.get('xfer.h2d_staged') == 0
+    if cap._steered:
+        assert sum(w['zero_copy'] for w in cap._wstats) > 0
+
+
+def test_capture_chain_k7_equals_its_plain_version():
+    """The slice's chain at small width on the card from a packet file:
+    capture ring (ci4) -> copy('cuda') -> transpose -> merge_axes ->
+    correlate(R, int8, K7 forced) -> accumulate(A): K7 once a gulp, and
+    the visibilities equal K7's plain version (float64 products) of the
+    captured bytes."""
+    import io
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.io.packet_capture import (
+        DiskReader, CAPTURE_NO_DATA, CAPTURE_INTERRUPTED)
+    nsrc, nchan, nstand, npol = 2, 8, 16, 2
+    pay, g, r, a = nchan * nstand * npol, 32, 32, 2
+    pkts, data = _chips_packets(4 * g, nsrc, pay, seed=9)
+    ring = bt.Ring(space='system', name='cuda-capture-chain')
+    cap = DiskReader('chips', io.BytesIO(b''.join(pkts)), ring, nsrc, 0,
+                     pay, g, g, _capture_header(
+                         [nsrc, nchan, nstand, npol], 'ci4',
+                         ['time', 'src', 'freq', 'stand', 'pol'],
+                         [[0, 1], [0, nstand], [0, 1], [0, 1], [0, 1]]))
+    for _ in range(100):
+        if cap.recv() in (CAPTURE_NO_DATA, CAPTURE_INTERRUPTED):
+            break
+    cap.end()
+    for k in gpu_kernels.launches:
+        gpu_kernels.launches[k] = 0
+    Sink = _CaptureGather(bt).cls
+    with bt.Pipeline() as p:
+        b = bt.blocks.copy(ring, space='cuda')
+        b = bt.blocks.transpose(b, ['time', 'freq', 'src', 'stand', 'pol'])
+        b = bt.views.merge_axes(b, 'src', 'stand', label='station')
+        b = bt.blocks.correlate(b, r, accuracy='int8', impl='pallas')
+        sink = Sink(bt.blocks.copy(bt.blocks.accumulate(b, a),
+                                   space='system'))
+        p.run()
+    assert gpu_kernels.launches['xcorr_herm'] == 4
+    got = np.concatenate(sink.gulps)
+    u = torch.from_numpy(data).cuda().view(-1, nsrc, nchan, nstand, npol)
+    re = (u.view(torch.int8) >> 4).permute(0, 2, 1, 3, 4)
+    im = ((u << 4).view(torch.int8) >> 4).permute(0, 2, 1, 3, 4)
+    n = nsrc * nstand * npol
+    want = gpu_kernels.xcorr_herm_plain(re.reshape(4, g, nchan, n),
+                                        im.reshape(4, g, nchan, n))
+    want = want.reshape(2, a, nchan, n, n).sum(dim=1).cpu().numpy()
+    assert got.shape == (2, nchan, nsrc * nstand, npol, nsrc * nstand,
+                         npol)
+    np.testing.assert_array_equal(got.reshape(2, nchan, n, n),
+                                  want.astype(np.complex64))

@@ -9,7 +9,8 @@ the JAX package's stages, ops and blocks on the same seeded inputs:
 - ReduceStage and ``ops.reduce`` with every op, and the reduce block's
   host path;
 - the fftshift, reverse and scrunch blocks on host and device rings,
-  byte-identical where the op only moves data; print_header.
+  byte-identical where the op only moves data; print_header;
+- the audio source over a fake PortAudio library, against the JAX block.
 
 The port runs on the CPU device here.
 """
@@ -415,3 +416,88 @@ def test_sigproc_reduce_path_byte_identical_to_jax(tmp_path):
             run_bounded(p)
         outs[pkg] = (outdir / 'in.fil').read_bytes()
     assert outs[bt] == outs[bf]
+
+
+class _FakePortAudio(object):
+    """A PortAudio library stand-in (as ``tests/test_misc_blocks.py``'s):
+    three good reads of int16 ramps, then an input overflow."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def Pa_Initialize(self):
+        return 0
+
+    def Pa_OpenDefaultStream(self, stream_p, channels, out_ch, fmt, rate,
+                             fpb, cb, user):
+        return 0
+
+    def Pa_StartStream(self, stream):
+        return 0
+
+    def Pa_ReadStream(self, stream, buf, nframe):
+        self.reads += 1
+        if self.reads > 3:
+            return -9988
+        n = len(bytes(buf)) // 2
+        buf[:] = (np.arange(n, dtype=np.int16) + 1000 * self.reads).tobytes()
+        return 0
+
+    def Pa_StopStream(self, stream):
+        return 0
+
+    def Pa_CloseStream(self, stream):
+        return 0
+
+    @property
+    def Pa_GetErrorText(self):
+        class F(object):
+            restype = None
+
+            def __call__(self, err):
+                return b'fake overflow'
+        return F()
+
+
+class _Gather(bt.SinkBlock):
+    def __init__(self, iring):
+        super(_Gather, self).__init__(iring)
+        self.headers, self.gulps = [], []
+
+    def on_sequence(self, iseq):
+        self.headers.append(iseq.header)
+
+    def on_data(self, ispan):
+        self.gulps.append(np.array(ispan.data.as_numpy(), copy=True))
+
+
+def test_audio_block_equals_jax_with_a_fake_portaudio():
+    """The port's audio source (``blocks/audio.py`` over
+    ``io/portaudio.py``) against the JAX block, each over its own fake
+    library: the same gulps, dtype and header."""
+    from bifrost_tpu.io import portaudio as jpa
+    from bifrost_tpu_torch.io import portaudio as tpa
+    kw = [{'rate': 8000, 'channels': 2, 'nbits': 16}]
+    tpa.set_library(_FakePortAudio())
+    jpa.set_library(_FakePortAudio())
+    try:
+        with bt.Pipeline() as p:
+            sink = _Gather(bt.blocks.read_audio(kw, gulp_nframe=8))
+            run_bounded(p)
+        with bf.Pipeline() as p:
+            jsink = GatherSink(bf.blocks.read_audio(kw, gulp_nframe=8))
+            run_bounded(p)
+    finally:
+        tpa.set_library(None)
+        jpa.set_library(None)
+    got = np.concatenate(sink.gulps)
+    assert got.shape == (24, 2) and got.dtype == np.int16
+    np.testing.assert_array_equal(got, jsink.result())
+    np.testing.assert_array_equal(got[:8].reshape(-1),
+                                  np.arange(16, dtype=np.int16) + 1000)
+    hdr, jhdr = sink.headers[0], jsink.headers[0]
+    assert hdr['_tensor'] == jhdr['_tensor']
+    assert hdr['frame_rate'] == jhdr['frame_rate'] == 8000
+    if not tpa.available():
+        with pytest.raises(ImportError):
+            bt.blocks.read_audio(kw, gulp_nframe=8)

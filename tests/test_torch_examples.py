@@ -11,7 +11,11 @@
   oracle's visibilities;
 - ``examples/romein_grid_torch.py`` against ``examples/romein_grid.py``:
   the accumulated grids agree within 1e-5 of the largest magnitude and
-  the dirty image peaks at the injected source.
+  the dirty image peaks at the injected source;
+- ``examples/capture_spectrometer_torch.py`` (live CHIPS packets over
+  loopback, the native capture and transmit engines) against
+  ``examples/capture_spectrometer.py``: the detected spectra agree within
+  1e-5 of the largest bin and both peak at the tone.
 
 Each example imports no jax and runs on the card by default; without a
 card it stops with the device error.  Here the tests call
@@ -40,7 +44,8 @@ from tests.test_torch_bounded import run_bounded
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(ROOT, 'examples', 'gpuspec_simple_torch.py')
 EXAMPLES = [os.path.join(ROOT, 'examples', n + '_torch.py')
-            for n in ('gpuspec_simple', 'fx_correlator', 'romein_grid')]
+            for n in ('gpuspec_simple', 'fx_correlator', 'romein_grid',
+                      'capture_spectrometer')]
 GATE = 1e-5
 
 
@@ -243,3 +248,115 @@ def test_romein_example_equals_jax_and_finds_the_source():
     scale = np.abs(jimager.grid).max()
     assert np.abs(imager.grid - jimager.grid).max() / scale < GATE
     assert tex.peak_lm(imager.image()) == tex.SRC_LM
+
+
+def test_capture_spectrometer_example_equals_jax():
+    """examples/capture_spectrometer_torch.py (the native capture and
+    transmit engines, fused FFT -> detect) against
+    examples/capture_spectrometer.py through the JAX package: the
+    detected spectra agree within 1e-5 of the largest bin, and both peak
+    at the tone."""
+    import types
+    device.set_device('cpu')
+    tex, jex = _load('capture_spectrometer_torch'), \
+        _load('capture_spectrometer')
+    got, engine = tex.run()
+    assert engine == 'NativeUDPCapture'
+    spectra = []
+
+    class Recording(bf.SinkBlock):
+        """Records what the JAX example's sink sums."""
+
+        def __init_subclass__(cls, **kw):
+            super().__init_subclass__(**kw)
+            inner = cls.on_data
+
+            def on_data(self, ispan):
+                spectra.append(np.asarray(ispan.data.as_numpy())
+                               .sum(axis=(0, 1)))
+                return inner(self, ispan)
+            cls.on_data = on_data
+
+    class _CappedEvent(object):
+        """The JAX example waits up to 30 s for its blocks' start-up,
+        which they finish only once data flows: a timed wait here lasts
+        at most 1 s (untimed waits are left alone)."""
+
+        def __init__(self, event):
+            self._event = event
+
+        def __getattr__(self, name):
+            return getattr(self._event, name)
+
+        def wait(self, timeout=None):
+            return self._event.wait(None if timeout is None
+                                    else min(timeout, 1.0))
+
+    pipelines = []
+
+    class Pipeline(bf.Pipeline):
+        def __init__(self, *args, **kwargs):
+            super(Pipeline, self).__init__(*args, **kwargs)
+            self.started = self.all_blocks_finished_initializing_event
+            self.all_blocks_finished_initializing_event = _CappedEvent(
+                self.started)
+            pipelines.append(self)
+
+    # The JAX example's transmitter and capture race its copy block: on
+    # a loaded host the capture can take the whole stream in one batch
+    # and lap the 4-span ring before the reader attaches.  The port's
+    # example has a handshake; the same one is put around the JAX
+    # example's objects here (its data path is untouched): the
+    # transmitter waits after the first slot until the pipeline has
+    # started, and the capture's idle returns do not end it before the
+    # transmitter is done.
+    import threading
+    import time
+    sent = threading.Event()
+
+    def transmit(*args, **kwargs):
+        tx = real_transmit(*args, **kwargs)
+        send, calls = tx.send, []
+
+        def gated_send(*a, **k):
+            if len(calls) == 1:
+                assert pipelines[-1].started.wait(60)
+            calls.append(1)
+            out = send(*a, **k)
+            if len(calls) == jex.NSEQ + 2 * jex.BUF_NTIME:
+                sent.set()
+            return out
+        tx.send = gated_send
+        return tx
+
+    def capture(*args, **kwargs):
+        cap = real_capture(*args, **kwargs)
+        recv = cap.recv
+
+        def gated_recv():
+            deadline = time.monotonic() + 60
+            while True:
+                status = recv()
+                if status not in (jex.CAPTURE_NO_DATA,
+                                  jex.CAPTURE_INTERRUPTED) or \
+                        sent.is_set() or time.monotonic() > deadline:
+                    return status
+        cap.recv = gated_recv
+        return cap
+
+    real_capture, real_transmit = jex.UDPCapture, jex.UDPTransmit
+    proxy = types.ModuleType('bifrost_tpu')
+    proxy.__dict__.update(bf.__dict__)
+    proxy.SinkBlock = Recording
+    proxy.Pipeline = Pipeline
+    jex.bf = proxy
+    jex.UDPCapture, jex.UDPTransmit = capture, transmit
+    out = io.StringIO()
+    import contextlib
+    with contextlib.redirect_stdout(out):
+        jex.main()
+    want = np.sum(spectra, axis=0)
+    assert 'detected tone at fine bin %d' % jex.TONE_BIN in out.getvalue()
+    assert got.shape == want.shape == (tex.NTIME,)
+    assert int(np.argmax(got)) == int(np.argmax(want)) == tex.TONE_BIN
+    assert np.abs(got - want).max() / np.abs(want).max() < GATE

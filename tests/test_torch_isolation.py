@@ -90,7 +90,14 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.native, bifrost_tpu_torch.ring_native, "
              "bifrost_tpu_torch.memory, bifrost_tpu_torch.proclog, "
              "bifrost_tpu_torch.analysis.verify, "
-             "bifrost_tpu_torch.analysis.ringcheck\n"
+             "bifrost_tpu_torch.analysis.ringcheck, "
+             "bifrost_tpu_torch.io.udp_socket, "
+             "bifrost_tpu_torch.io.packet_formats, "
+             "bifrost_tpu_torch.io.packet_capture, "
+             "bifrost_tpu_torch.io.packet_writer, "
+             "bifrost_tpu_torch.io.dada_shm, bifrost_tpu_torch.io.portaudio, "
+             "bifrost_tpu_torch.blocks.psrdada, "
+             "bifrost_tpu_torch.blocks.audio\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -182,6 +189,31 @@ def test_runtime_entry_points_import_without_a_device():
              "torch.cuda.is_initialized())\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '[] {} False'
+
+
+def test_io_entry_points_import_without_a_device():
+    """The capture, transmit, DADA and audio tier imports and builds its
+    objects without a device: no kernel built, no CUDA context, the
+    exports the JAX package's io tier has."""
+    p = _run("import torch, bifrost_tpu_torch as bt\n"
+             "io = bt.io\n"
+             "for n in ('UDPSocket', 'Address', 'UDPCapture', "
+             "'NativeUDPCapture', 'ShardedUDPCapture', 'UDPSniffer', "
+             "'DiskReader', 'UDPTransmit', 'NativeUDPTransmit', "
+             "'DiskWriter', 'HeaderInfo', 'IpcRing', 'DadaHDU'):\n"
+             "    assert hasattr(io, n), n\n"
+             "print(sorted(io.FORMATS))\n"
+             "for n in ('read_dada_file', 'read_psrdada_buffer', "
+             "'read_audio', 'AudioSourceBlock'):\n"
+             "    assert hasattr(bt.blocks, n), n\n"
+             "io.PacketCaptureCallback().set_chips(lambda d: (0, {}))\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), torch.cuda.is_initialized())\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.split('\n')[0] == str(sorted(
+        ['simple', 'chips', 'pbeam', 'tbn', 'drx', 'ibeam', 'cor', 'snap2',
+         'vdif', 'tbf', 'drx8', 'vbeam']))
+    assert p.stdout.strip().split('\n')[1] == '[] False'
 
 
 def test_default_mesh_needs_the_card_or_a_cpu_request():
