@@ -17,12 +17,13 @@ as stalls, gulp-0 exceptions or silently lost performance:
 The codes are the JAX package's (:data:`CODES`, the same catalog).  The
 checks: tensor contracts (BF-E120/E121, through the blocks' pure
 ``verify_header`` halves and the sources' ``static_oheaders``), ring
-sizing (BF-E101/W102), donation (BF-E130/W131), mesh boundaries
-(BF-W140/W141), macro-gulp eligibility (BF-W160/I161), quantized rings on
-a float path (BF-W170), drop policies on guaranteed rings (BF-E180) and
-the segment boundaries that did not fuse (BF-I190/I191/I192, from the
-segment planner itself).  The bridge, fabric, service and placement
-checks come with the I/O and control tiers.
+sizing (BF-E101/W102, and BF-W110 for a bridge sink's credit window),
+donation (BF-E130/W131), mesh boundaries (BF-W140/W141), bridge sinks
+(BF-E150/W151/W152), macro-gulp eligibility (BF-W160/I161), quantized
+rings on a float path (BF-W170), drop policies on guaranteed rings
+(BF-E180) and bridge quotas (BF-W181), and the segment boundaries that
+did not fuse (BF-I190/I191/I192, from the segment planner itself).  The
+fabric, service and placement checks come with the control tiers.
 
 Everything is best effort: where propagation stops the verifier says so
 (``BF-I17x``) instead of guessing, a check that fails internally reports
@@ -48,7 +49,7 @@ __all__ = ['Diagnostic', 'PipelineValidationError', 'CODES',
 #: stable diagnostic-code catalog: code -> one-line title.
 #: BF-Exxx = error (strict mode refuses to run), BF-Wxxx = warning,
 #: BF-Ixxx = info.  The catalog is the JAX package's, code for code; the
-#: bridge, fabric, service and placement codes come with their tiers.
+#: fabric, service and placement codes come with their tiers.
 CODES = {
     'BF-E101': 'ring sized below the deadlock-freedom bound',
     'BF-W102': 'buffer_factor below the deadlock-freedom bound',
@@ -188,9 +189,10 @@ class scope_overrides(object):
     """Thread-local candidate-tunable overrides that the checks read: how
     a caller asks "what would the verifier say at <candidate>?" without
     changing the live pipeline while block threads resolve the same
-    tunables.  The key read here is ``gulp_batch`` (a pipeline-level
+    tunables.  The keys read here are ``gulp_batch`` (a pipeline-level
     macro K candidate; blocks that pin their own value below the root
-    keep it).  Overrides shape only the calling thread's verdict."""
+    keep it) and ``bridge_window`` (``{bridge sink name: window}``).
+    Overrides shape only the calling thread's verdict."""
 
     def __init__(self, overrides):
         self.overrides = dict(overrides or {})
@@ -235,6 +237,19 @@ def _static_k_requested(block):
         except (TypeError, ValueError):
             pass
     return resolve_gulp_batch(block)
+
+
+def _bridge_window(b):
+    """Effective credit window of bridge sink ``b``, with any
+    ``bridge_window`` candidate from :class:`scope_overrides`."""
+    ov = _overrides().get('bridge_window') or {}
+    w = ov.get(getattr(b, 'name', None))
+    if w is None:
+        w = getattr(b, 'window', 1)
+    try:
+        return int(w)
+    except (TypeError, ValueError):
+        return 1
 
 
 # ---------------------------------------------------------------------------
@@ -459,7 +474,8 @@ def _consumer_geometry(g, b, ring, stream, diags):
     """(span_frames, hold_frames, overlap) of consumer ``b`` on
     ``ring``, or (None, None, None) when the gulp is unknown.  span =
     one acquired span (incl. overlap and macro K); hold = frames this
-    consumer's guarantee can pin at once."""
+    consumer's guarantee can pin at once (a bridge sink's window holds
+    several spans)."""
     gin = b.gulp_nframe or stream.gulp
     if gin is None:
         return None, None, None
@@ -476,7 +492,11 @@ def _consumer_geometry(g, b, ring, stream, diags):
     # the overlap history rides each span ONCE (at the head), whatever
     # the macro batch: K strides plus one halo, not K halos
     span = k * gin + overlap
-    return span, span, overlap
+    hold = span
+    from ..blocks.bridge import BridgeSink
+    if isinstance(b, BridgeSink):
+        hold = span * max(_bridge_window(b), 1)
+    return span, hold, overlap
 
 
 def _check_ring_sizing(g, diags):
@@ -484,11 +504,13 @@ def _check_ring_sizing(g, diags):
     (macro K·G, doubled per the begin_sequences writer-depth rule) plus
     the largest guaranteed-reader pin must fit in what the sizing
     negotiation will provide (``Ring.resize`` takes the MAX over all
-    requests).  When the negotiated capacity falls short, an explicit
-    ``buffer_nframe`` below the bound is an ERROR (the declared capacity
-    deadlocks the writer) and an explicit ``buffer_factor`` below it is
-    a warning.  The bridge window check (BF-W110) comes with the I/O
-    tier."""
+    requests, a bridge sender's own ``window + 2`` among them).  When the
+    negotiated capacity falls short, an explicit ``buffer_nframe`` below
+    the bound is an ERROR (the declared capacity deadlocks the writer)
+    and an explicit ``buffer_factor`` below it is a warning; a bridge
+    window that cannot fit beside the writer's resident span is a
+    warning (BF-W110: the window caps itself and pipelining is lost)."""
+    from ..blocks.bridge import BridgeSink
     for rid, stream in g.streams.items():
         producer = g.producers.get(rid)
         if producer is None or stream.gulp is None:
@@ -520,6 +542,11 @@ def _check_ring_sizing(g, diags):
             req = bnf if bnf is not None \
                 else int(math.ceil((bf if bf is not None else 3)
                                    * span))
+            if isinstance(b, BridgeSink):
+                # RingSender resizes the source ring itself at run time
+                # (buffer_factor=window+2), so the negotiated capacity
+                # is never below that
+                req = max(req, (_bridge_window(b) + 2) * span)
             requests.append(req)
             cons.append((b, span, hold, bnf, bf, req))
         if not pins:
@@ -553,6 +580,25 @@ def _check_ring_sizing(g, diags):
                     '(writer span %d + largest guaranteed pin %d)'
                     % (_ring_name(ring), bf, req, required,
                        writer_span, max_pin),
+                    block=b.name, ring=_ring_name(ring)))
+        # bridge window against the source ring: the sender pins
+        # ``window`` spans unacked; a ring that cannot hold them beside
+        # the writer's span caps the credit pipeline
+        for b, span, hold, bnf, bf, req in cons:
+            if isinstance(b, BridgeSink) and \
+                    _bridge_window(b) > 1 and \
+                    provided < hold + writer_span:
+                diags.append(Diagnostic(
+                    'BF-W110',
+                    'bridge sink %r holds a window of %d spans '
+                    '(%d frames) but ring %r provides only %d '
+                    'frames: the credit window is capped at ~%d '
+                    'span(s), losing pipelining — raise the ring '
+                    'buffering or lower BF_BRIDGE_WINDOW'
+                    % (b.name, _bridge_window(b), hold,
+                       _ring_name(ring), provided,
+                       max((provided - writer_span) // max(span, 1),
+                           1)),
                     block=b.name, ring=_ring_name(ring)))
 
 
@@ -672,6 +718,38 @@ def _mesh_desc(mesh):
         return 'mesh[%s]' % axes
     except Exception:
         return 'a different mesh'
+
+
+def _check_bridge(g, diags):
+    from ..blocks.bridge import BridgeSink
+    for b in g.blocks:
+        if not isinstance(b, BridgeSink):
+            continue
+        ov_w = (_overrides().get('bridge_window') or {}).get(b.name)
+        req_w = ov_w if ov_w is not None \
+            else getattr(b, 'requested_window', None)
+        if req_w is not None and int(req_w) < 1:
+            diags.append(Diagnostic(
+                'BF-E150',
+                'bridge sink %r configured with window=%s: the credit '
+                'window must be >= 1 span (1 = fully synchronous '
+                'v1-pump semantics); 0 would never grant the first '
+                'span credit' % (b.name, req_w),
+                block=b.name))
+        if getattr(b, 'protocol', None) == 1:
+            if getattr(b, 'crc', False):
+                diags.append(Diagnostic(
+                    'BF-W151',
+                    'bridge sink %r requests CRC on the v1 wire, '
+                    'which has no integrity field: the stream will '
+                    'ship unchecked' % b.name, block=b.name))
+            if _bridge_window(b) > 1:
+                diags.append(Diagnostic(
+                    'BF-W152',
+                    'bridge sink %r requests a %d-span credit window '
+                    'on the v1 wire, which is strictly '
+                    'send-and-wait: the window setting is ignored'
+                    % (b.name, _bridge_window(b)), block=b.name))
 
 
 def _check_macro(g, diags):
@@ -827,7 +905,8 @@ def ring_capacity_floors(pipeline):
                                     floor is then a lower bound)}}
 
     Uses the SAME model as the ``BF-E101``/``BF-W102`` checks — macro
-    K resolved from the current scope tunables — so a controller that never sizes a ring
+    K resolved from the current scope tunables, bridge windows counted
+    as multi-span holds — so a controller that never sizes a ring
     below this floor can never tune into a configuration
     ``verify_pipeline`` would reject for sizing.  Rings whose gulp
     geometry is entirely unknown are omitted (nothing is provable
@@ -895,9 +974,13 @@ def _check_overload(g, diags):
       never asked to tolerate).  Either make the consumer
       shed-tolerant (it handles ``nframe_skipped``/the ``_overload``
       header stamp), read unguaranteed, or keep the ring on 'block'.
-
-    The bridge quota check (BF-W181) comes with the I/O tier."""
+    - **BF-W181** — a bridge sender's per-stream quota bucket is
+      smaller than ONE span at the sequence's (macro-)gulp geometry:
+      every span exceeds the bucket, so under a drop policy the
+      stream sheds to zero throughput (and under 'block' every span
+      pays full refill time)."""
     from ..pipeline import resolve_overload_policy
+    from ..blocks.bridge import BridgeSink
     for b in g.blocks:
         try:
             policy = resolve_overload_policy(b)
@@ -930,6 +1013,42 @@ def _check_overload(g, diags):
                         % (_ring_name(oring), policy, consumer.name),
                         block=consumer.name,
                         ring=_ring_name(oring)))
+    for b in g.blocks:
+        if not isinstance(b, BridgeSink):
+            continue
+        quota = getattr(b, 'quota_bytes_per_s', None)
+        if quota is None:
+            from ..io.bridge import bridge_quota_mbps
+            quota = bridge_quota_mbps() * 1e6
+        if not quota or quota <= 0:
+            continue
+        irings = getattr(b, 'irings', ()) or ()
+        if not irings:
+            continue
+        stream = g.streams.get(id(_base(irings[0])))
+        if stream is None or stream.header is None:
+            continue
+        try:
+            from ..ring import _tensor_info
+            fb = _tensor_info(stream.header)['frame_nbyte']
+            gulp = b.gulp_nframe or stream.gulp or 1
+            k = _static_k_requested(b) or 1
+            span_nbyte = int(gulp) * int(k) * int(fb)
+        except Exception:
+            continue
+        # bucket capacity = one second of quota (io.bridge._TokenBucket)
+        if span_nbyte > quota:
+            diags.append(Diagnostic(
+                'BF-W181',
+                'bridge sink %r per-stream quota (%.0f B/s) is '
+                'smaller than one %s-frame span (%d bytes, '
+                'gulp=%s x K=%s): every span overflows the token '
+                'bucket — a drop policy sheds the stream to zero, '
+                "'block' rate-limits every span by its full refill "
+                'time.  Raise the quota above one span per second '
+                'or shrink the macro batch'
+                % (b.name, quota, gulp * k, span_nbyte, gulp, k),
+                block=b.name, ring=_ring_name(irings[0])))
 
 
 def _check_segments(g, diags):
@@ -976,7 +1095,7 @@ def _check_segments(g, diags):
 
 
 _CHECKS = (_check_tensor_contracts, _check_ring_sizing,
-           _check_donation, _check_mesh, _check_macro,
+           _check_donation, _check_mesh, _check_bridge, _check_macro,
            _check_quantization, _check_overload, _check_segments)
 
 

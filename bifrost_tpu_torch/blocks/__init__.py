@@ -32,6 +32,9 @@ from .convert_visibilities import (ConvertVisibilitiesBlock,
 from .psrdada import (DadaFileSourceBlock, PsrdadaSourceBlock,
                       read_dada_file, read_psrdada_buffer)
 from .audio import AudioSourceBlock, read_audio
+from .bridge import (BridgeSink, BridgeSource, bridge_sink, bridge_source,
+                     CircuitOpenError)
+from . import bridge
 
 __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'beamform', 'FftBlock', 'fft', 'DetectBlock', 'detect',
@@ -52,4 +55,6 @@ __all__ = ['CopyBlock', 'copy', 'FusedBlock', 'fused', 'BeamformBlock',
            'WavSourceBlock', 'WavSinkBlock', 'read_wav', 'write_wav',
            'ConvertVisibilitiesBlock', 'convert_visibilities',
            'DadaFileSourceBlock', 'PsrdadaSourceBlock', 'read_dada_file',
-           'read_psrdada_buffer', 'AudioSourceBlock', 'read_audio']
+           'read_psrdada_buffer', 'AudioSourceBlock', 'read_audio',
+           'BridgeSink', 'BridgeSource', 'bridge_sink', 'bridge_source',
+           'CircuitOpenError', 'bridge']

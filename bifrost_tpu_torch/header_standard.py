@@ -12,18 +12,25 @@ stream's first commit and the origin host.  Source blocks stamp it
 (:func:`ensure_trace_context`), transforms and sinks copy it to their
 outputs (:func:`propagate_trace_context`), compute spans carry its id,
 and ``telemetry.slo`` ages each commit against its origin.
+
+:func:`serialize_header` / :func:`deserialize_header` are the JSON codec
+of every wire transport (``io.bridge``): the bytes equal the JAX
+package's for the same dict, so the two packages talk to each other.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import time
 import uuid
 
+import numpy as np
+
 __all__ = ['STANDARD_HEADER_FIELDS', 'enforce_header_standard',
-           'TRACE_CONTEXT_KEY', 'trace_context_enabled',
-           'new_trace_context', 'trace_context', 'ensure_trace_context',
+           'serialize_header', 'deserialize_header', 'TRACE_CONTEXT_KEY',
+           'trace_context_enabled', 'new_trace_context', 'trace_context', 'ensure_trace_context',
            'propagate_trace_context']
 
 # field -> accepted type(s)
@@ -36,6 +43,32 @@ STANDARD_HEADER_FIELDS = {
     'tstart': (int, float),
     'tsamp': (int, float),
 }
+
+def _json_default(obj):
+    """JSON coercions for the numpy values that header transforms and
+    capture engines leave in sequence headers: scalars become Python
+    numbers, arrays (nested) lists.  A bare ``json.dumps`` raises
+    TypeError on them."""
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    raise TypeError("header value of type %s is not JSON-serializable"
+                    % type(obj).__name__)
+
+
+def serialize_header(header):
+    """A sequence header as UTF-8 JSON bytes, numpy scalars and arrays
+    coerced (the one serializer of the wire transports)."""
+    return json.dumps(header, default=_json_default).encode()
+
+
+def deserialize_header(payload):
+    """Inverse of :func:`serialize_header` (bytes or str)."""
+    if isinstance(payload, (bytes, bytearray, memoryview)):
+        payload = bytes(payload).decode()
+    return json.loads(payload)
+
 
 #: header key carrying the stream's trace context (a plain JSON dict)
 TRACE_CONTEXT_KEY = '_trace'

@@ -11,14 +11,15 @@
   (:mod:`.packet_writer`).
 - PSRDADA shared-memory rings (:mod:`.dada_shm`) and the PortAudio
   binding (:mod:`.portaudio`).
-
-Not ported yet: the JAX package's TCP ring bridge (``io/bridge.py`` and
-its blocks).
+- The TCP ring bridge (:mod:`.bridge`, wire v1 and v2: credit window,
+  striping, CRC, reconnect and resume) that couples a ring on one host
+  to a ring on another; its pipeline blocks are
+  ``blocks.bridge_sink`` / ``blocks.bridge_source``.
 """
 
 from . import guppi, sigproc
 from . import packet_formats, udp_socket, packet_capture, packet_writer
-from . import dada_shm, portaudio
+from . import dada_shm, portaudio, bridge
 from .udp_socket import Address, UDPSocket
 from .packet_formats import (PacketDesc, get_format, register_format,
                              FORMATS, SimpleFormat, ChipsFormat,
@@ -32,6 +33,9 @@ from .packet_capture import (PacketCaptureCallback, UDPCapture,
 from .packet_writer import (HeaderInfo, RateLimiter, UDPTransmit,
                             NativeUDPTransmit, DiskWriter)
 from .dada_shm import IpcRing, DadaHDU
+from .bridge import (RingSender, RingReceiver, BridgeListener,
+                     BridgeProtocolError, listen, connect, connect_striped,
+                     query_resume, WIRE_VERSION)
 
 __all__ = ['guppi', 'sigproc', 'packet_formats', 'udp_socket',
            'packet_capture', 'packet_writer', 'dada_shm', 'portaudio',
@@ -43,4 +47,6 @@ __all__ = ['guppi', 'sigproc', 'packet_formats', 'udp_socket',
            'UDPCapture', 'NativeUDPCapture', 'ShardedUDPCapture',
            'UDPSniffer', 'DiskReader', 'HeaderInfo', 'RateLimiter',
            'UDPTransmit', 'NativeUDPTransmit', 'DiskWriter', 'IpcRing',
-           'DadaHDU']
+           'DadaHDU', 'bridge', 'RingSender', 'RingReceiver',
+           'BridgeListener', 'BridgeProtocolError', 'listen', 'connect',
+           'connect_striped', 'query_resume', 'WIRE_VERSION']

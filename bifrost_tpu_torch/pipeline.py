@@ -707,10 +707,16 @@ class Block(BlockScope):
 
     def _observe_exit_age(self, iheader, frame_end):
         """Capture -> pipeline-exit age of a sink's gulp; a no-op without
-        a trace context in the input header."""
+        a trace context in the input header.  A stream that crossed one
+        or more bridge hops also records the fabric age: the same
+        instant against the origin host's capture time, corrected by the
+        hops' handshake clock offsets (``skew_ns``)."""
         age = _slo.capture_age_s(iheader, frame_end)
         if age is not None:
             _slo.observe_exit(self.name, age)
+            ctx = self._trace_ctx or {}
+            if ctx.get('hops'):
+                _slo.observe_fabric_exit(self.name, age)
 
     def _observe_gulp(self, acquire, reserve, process):
         """Per-dispatch telemetry: the three host-clock times summed in

@@ -1398,6 +1398,25 @@ class _SpanAPI(object):
         from .devrep import device_rep_shape
         return device_rep_shape(self.shape, self.dtype)
 
+    def lane_memoryviews(self):
+        """Zero-copy byte views of this span's ring storage, one
+        contiguous ``memoryview`` per ringlet lane in ringlet-major order
+        (the bridge's wire layout).  Host rings only (the Python core,
+        the native core and pinned ``cuda_host``); None for ``cuda``
+        rings and empty spans.  The views alias the ring buffer: valid
+        while the span is open, and writable, so that a write span is a
+        ``recv_into`` target and a read span a ``sendmsg`` source."""
+        if self._ring.is_device or not self._nbyte:
+            return None
+        if getattr(self, '_shed', False):
+            # a drop_newest shed holds no ring bytes: its lanes are the
+            # scratch that .data hands out
+            raw = self._ring._scratch_host(self.tensor['nringlet'],
+                                           self._nbyte)
+        else:
+            raw = self._ring._storage.view(self._begin, self._nbyte)
+        return [memoryview(raw[i]) for i in range(raw.shape[0])]
+
     def _host_view(self, writeable):
         """Zero-copy numpy view of the ring bytes, shaped
         (*ringlet_shape, nframe, *frame_shape); a packed sub-byte type's

@@ -188,9 +188,10 @@ def _meshes_ok(a, b):
 
 
 def _is_bridge(block):
-    """The cross-host bridge endpoints come with the host I/O tier; none
-    exists in the port yet."""
-    return False
+    """Whether ``block`` is a bridge endpoint: a cross-host boundary that
+    never fuses."""
+    from .blocks.bridge import BridgeSink, BridgeSource
+    return isinstance(block, (BridgeSink, BridgeSource))
 
 
 def _boundary_reason(producer, oring, consumers, mode):

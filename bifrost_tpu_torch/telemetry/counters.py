@@ -72,6 +72,42 @@ Counter names used by the port:
 - ``trace.dropped_spans``                  spans evicted by per-thread
                                            span-buffer overflow (added by
                                            ``telemetry.snapshot()``)
+Ring-bridge counters (``io/bridge.py``, wire v2):
+
+- ``bridge.tx.frames`` / ``bridge.tx.bytes`` /
+  ``bridge.tx.spans``                      frames, payload bytes and span
+                                           frames sent by RingSender
+- ``bridge.tx.reconnects``                 sender redials (unacked frames
+                                           retransmitted)
+- ``bridge.redial_attempts``               redials tried, and
+  ``bridge.circuit_open``                  redial budgets spent
+- ``bridge.tx.restripes``                  planned stripe-count retunes
+                                           (drained redials at a span
+                                           boundary, not counted against
+                                           the reconnect budget)
+- ``bridge.tx.shed_gulps`` /
+  ``bridge.tx.shed_bytes`` /
+  ``bridge.tx.quota_shed_gulps``           gulps and bytes the sender
+                                           shed at the credit window or
+                                           its per-stream quota
+- ``bridge.rx.frames`` / ``bridge.rx.bytes`` /
+  ``bridge.rx.spans``                      frames, bytes and spans
+                                           committed by RingReceiver
+- ``bridge.rx.dups``                       retransmitted frames dropped
+                                           by sequence number after a
+                                           reconnect
+- ``bridge.rx.crc_errors``                 span CRC32 mismatches
+                                           (``BF_BRIDGE_CRC=1``); each
+                                           raises BridgeProtocolError
+- ``bridge.rx.sessions_adopted``           new sender sessions a receiver
+                                           with ``adopt_sessions`` took
+
+The send-stall and recv-wait distributions are the
+``bridge.<name>.send_stall_s`` / ``bridge.<name>.recv_wait_s``
+histograms; each endpoint's byte totals and rate are on the
+``<name>_bridge_transmit/stats`` / ``<name>_bridge_capture/stats``
+ProcLogs.  The health monitor reads the reconnect, redial, circuit and
+shed counters as degraded-mode events.
 """
 
 from __future__ import annotations

@@ -24,9 +24,9 @@ against the sequence origin.
 ``slo.violations`` and ``slo.<name>.violations``.  Everything is a no-op
 for sequences without a trace context (``BF_TRACE_CONTEXT=0``).
 
-:func:`observe_fabric_exit` keeps the JAX name for the cross-host age,
-which needs the fabric tier; the port has none yet, so it records
-nothing.
+:func:`observe_fabric_exit` records the cross-host age of streams that
+crossed a bridge (``io.bridge`` stamps ``hops`` and ``skew_ns`` into the
+trace context), on ``slo.fabric_exit_age_s``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ __all__ = ['budget_s', 'reset_budget', 'capture_age_s',
 
 #: the merged pipeline-exit age histogram (all sink blocks)
 EXIT_HISTOGRAM = 'slo.exit_age_s'
-#: the cross-host capture-to-sink age of the JAX fabric tier (unused here)
+#: the cross-host capture-to-sink age (sinks behind >= 1 bridge hop)
 FABRIC_EXIT_HISTOGRAM = 'slo.fabric_exit_age_s'
 #: age of data at the moment a drop_* overload policy shed it
 SHED_HISTOGRAM = 'slo.shed_age_s'
@@ -124,8 +124,14 @@ def observe_exit(name, age_s):
 
 
 def observe_fabric_exit(name, age_s):
-    """The JAX package's cross-host exit age.  It needs the fabric tier
-    (bridge hops), which the port has not ported: no-op."""
+    """Record a cross-host capture -> sink age: sink blocks call it
+    beside :func:`observe_exit` when their input's trace context shows
+    one or more bridge hops.  The merged ``slo.fabric_exit_age_s`` and a
+    per-sink histogram; ages above ``BF_SLO_MS`` count on the shared
+    violation counters."""
+    histograms.observe(FABRIC_EXIT_HISTOGRAM, age_s)
+    _observe('slo.%s.fabric_exit_age_s' % name,
+             'slo.%s.violations' % name, age_s)
 
 
 def observe_shed(age_s):

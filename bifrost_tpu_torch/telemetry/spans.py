@@ -1,7 +1,6 @@
 """Gulp-span tracing: per-thread event buffers, Chrome trace-event
 export, and the flight recorder (the JAX package's
-``bifrost_tpu/telemetry/spans.py``; its cross-host clock correlation
-comes with the fleet tier).
+``bifrost_tpu/telemetry/spans.py``).
 
 Every instrumented operation (block compute in ``pipeline.py``, H2D and
 D2H transfer time in ``xfer.py``) records one complete span (name,
@@ -17,6 +16,11 @@ stays cheap enough for the gulp hot path.
 - **flight recorder**: :func:`enable_flight_recorder` turns recording on
   without a trace file, and :func:`flight_record` renders the most
   recent spans of every thread as a text timeline.
+- **cross-host clocks**: each bridge handshake registers its session
+  (:func:`note_peer_clock`, the sender with the ping-estimated offsets),
+  and the export carries them under ``otherData.bf_clock``
+  (:func:`clock_info`), so that two hosts' traces can be joined on one
+  clock.
 
 ``BF_SPAN_BUFFER`` bounds events kept per thread (default 65536; the
 buffer is a ring, the oldest events fall off).  Timestamps are
@@ -37,7 +41,7 @@ __all__ = ['enabled', 'trace_file', 'span', 'record',
            'enable_flight_recorder', 'disable_flight_recorder',
            'export', 'export_if_configured', 'flight_record',
            'prune_dead_buffers', 'reset', 'events',
-           'dropped_spans']
+           'dropped_spans', 'note_peer_clock', 'clock_info']
 
 DEFAULT_BUFFER = 65536
 #: per-thread buffer size in flight-recorder-only mode (no trace
@@ -68,6 +72,9 @@ _buffers = []            # [(threading.Thread, deque, drops:[int])]
 #: prune_dead_buffers calls — it is exported as a cumulative counter
 #: (Prometheus rate() breaks on a counter that decreases)
 _dropped_retired = 0
+
+_clock_lock = threading.Lock()
+_sessions = {}           # session -> {'role', 'offset_us', 'rtt_us', ...}
 
 
 def now_us():
@@ -253,6 +260,50 @@ def prune_dead_buffers():
         _retire_locked(lambda e: e[0].is_alive())
 
 
+# ---------------------------------------------------------------------------
+# cross-host clock correlation
+# ---------------------------------------------------------------------------
+
+def note_peer_clock(session, role, offset_us=None, rtt_us=None,
+                    wall_offset_ns=None):
+    """Register a bridge session this process took part in.
+
+    The sender passes the offsets its handshake ping estimated
+    (``offset_us``: the receiver's span clock less the sender's at the
+    same instant, ``rtt_us``: the round trip it rode on,
+    ``wall_offset_ns``: the same for the wall clock); the receiver
+    registers with its role only.  A re-registration keeps the estimate
+    of the lowest round trip, and never replaces an estimate by none."""
+    with _clock_lock:
+        cur = _sessions.get(session)
+        if cur is not None and offset_us is not None \
+                and cur.get('rtt_us') is not None \
+                and rtt_us is not None \
+                and rtt_us >= cur['rtt_us']:
+            return
+        entry = {'role': role}
+        if offset_us is not None:
+            entry['offset_us'] = round(float(offset_us), 3)
+        if rtt_us is not None:
+            entry['rtt_us'] = round(float(rtt_us), 3)
+        if wall_offset_ns is not None:
+            entry['wall_offset_ns'] = int(wall_offset_ns)
+        if cur is not None and 'offset_us' not in entry \
+                and 'offset_us' in cur:
+            return
+        _sessions[session] = entry
+
+
+def clock_info():
+    """This process's clock metadata for the trace export: host, pid and
+    every bridge session seen (with the sender's estimates)."""
+    import socket as socket_mod
+    with _clock_lock:
+        sessions = {k: dict(v) for k, v in _sessions.items()}
+    return {'host': socket_mod.gethostname(), 'pid': os.getpid(),
+            'sessions': sessions}
+
+
 class span(object):
     """With-block recording one complete span::
 
@@ -334,7 +385,8 @@ def export(path=None):
             else:
                 chunks.append('}')
     chunks.append('],"displayTimeUnit":"ms","otherData":%s}'
-                  % dumps({'bf_dropped_spans': dropped_spans()}))
+                  % dumps({'bf_clock': clock_info(),
+                           'bf_dropped_spans': dropped_spans()}))
     # pid AND thread ident: two pipelines' teardown exports in one
     # process must not truncate each other's tmp file mid-write
     tmp = '%s.tmp%d.%d' % (path, pid, threading.get_ident())
@@ -399,10 +451,12 @@ def flight_record(per_thread=32):
 
 
 def reset():
-    """Drop all buffered events, drop counts and thread registrations
-    (tests)."""
+    """Drop all buffered events, drop counts, clock registrations and
+    thread registrations (tests)."""
     global _tls, _dropped_retired
     with _buffers_lock:
         del _buffers[:]
         _dropped_retired = 0
+    with _clock_lock:
+        _sessions.clear()
     _tls = threading.local()

@@ -41,6 +41,10 @@ checker (``analysis.ringcheck``, ``BF_RINGCHECK=1``) catches it:
 - ``ring.corrupt.resize_under_span``  report a storage re-layout to the
                        checker while spans are open
 
+Transport seam: :class:`LinkCut` wraps a bridge sender's socket and cuts
+the link after a given span frame, so that reconnect and resume
+(retransmit, duplicate drop) can be driven the same way in any process.
+
 A fault fires ``count`` times after skipping its first ``after``
 matching calls; ``delay`` seconds of sleep are injected before the
 exception (a delay with ``exc=None`` makes a pure stall).  ``match`` is a
@@ -50,12 +54,15 @@ matches all).
 
 from __future__ import annotations
 
+import errno
 import os
+import socket
+import struct
 import threading
 import time
 
 __all__ = ['FaultInjected', 'inject', 'injected', 'clear', 'fire',
-           'fired', 'arm_from_env', 'active', 'armed']
+           'fired', 'arm_from_env', 'active', 'armed', 'LinkCut']
 
 
 class FaultInjected(RuntimeError):
@@ -249,3 +256,96 @@ def arm_from_env(env=None):
         except ValueError:
             raise ValueError("Malformed BF_FAULTS entry: %r" % part)
         inject(site, match=match, count=count, after=after, delay=delay)
+
+
+class LinkCut(object):
+    """Socket proxy for a bridge sender's connection that cuts the link
+    right after the sender has handed over its ``after_spans``-th span
+    frame (v1 or v2 framing, counted in ``sendmsg``).  From then on every
+    send through the proxy raises ConnectionResetError; receives go dark
+    as that frame starts (each raises once it returns), so the receiver
+    commits the span but the sender never reads its ACK.  After the redial the sender retransmits
+    the span and the receiver drops the duplicate.
+
+    The cut link closes cleanly: ``shutdown`` only half-closes it and
+    ``close`` reads what the peer still sends (its ACKs) until the peer
+    hangs up, so that no unread byte turns the close into a reset that
+    would discard the span's last bytes on their way.  Every other
+    attribute is the wrapped socket's."""
+
+    _SPAN = 2
+    _FRAME = struct.Struct('<BQ')
+
+    def __init__(self, sock, after_spans, close_timeout=30.0):
+        self._sock = sock
+        self._after = int(after_spans)
+        self._close_timeout = float(close_timeout)
+        self._spans = 0
+        self._left = 0           # bytes of the frame being sent
+        self._in_span = False
+        self._dark = False       # receives raise from here on
+        self.cut = threading.Event()
+
+    def _reset(self):
+        return ConnectionResetError(
+            errno.ECONNRESET, 'bridge link cut after span frame %d'
+            % self._after)
+
+    def sendmsg(self, buffers, *args):
+        if self.cut.is_set():
+            raise self._reset()
+        bufs = list(buffers)
+        if not self._left and bufs:
+            # a frame starts here: [u8 type][u64 length] heads it
+            head = bytes(memoryview(bufs[0]).cast('B')[:self._FRAME.size])
+            if len(head) == self._FRAME.size:
+                mtype, length = self._FRAME.unpack(head)
+                self._left = self._FRAME.size + length
+                self._in_span = mtype == self._SPAN
+                if self._in_span and self._spans + 1 >= self._after:
+                    self._dark = True
+        n = self._sock.sendmsg(bufs, *args)
+        self._left = max(self._left - n, 0)
+        if not self._left and self._in_span:
+            # the whole span frame is handed over (a short write goes on
+            # in the next call, which carries no head)
+            self._in_span = False
+            self._spans += 1
+            if self._spans >= self._after:
+                self.cut.set()
+        return n
+
+    def sendall(self, data, *args):
+        if self.cut.is_set():
+            raise self._reset()
+        return self._sock.sendall(data, *args)
+
+    def recv_into(self, view, *args):
+        if self._dark:
+            raise self._reset()
+        n = self._sock.recv_into(view, *args)
+        if self._dark:
+            raise self._reset()
+        return n
+
+    def shutdown(self, how):
+        if not self.cut.is_set():
+            return self._sock.shutdown(how)
+        try:
+            self._sock.shutdown(socket.SHUT_WR)
+        except OSError:
+            pass
+
+    def close(self):
+        if self.cut.is_set():
+            self.shutdown(socket.SHUT_RDWR)
+            try:
+                self._sock.settimeout(self._close_timeout)
+                while self._sock.recv(1 << 16):
+                    pass
+            except OSError:
+                pass
+        self._sock.close()
+
+    def __getattr__(self, name):
+        return getattr(self._sock, name)

@@ -275,9 +275,33 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    the direct one (xfer.h2d_direct a gulp, no staged copy); packets/s
    received, Gbit/s, the loss fraction, the ratio to LWA's 25,000
    frames/s and each block's host ms a gulp are printed;
+15c. runs the bridge phase: a GUPPI RAW file at the guppi-ci8 arm's GBT
+   geometry (4 blocks of 128 MiB) sent by a child process (chip_smoke.py
+   --bridge-sender JSON: read_guppi_raw into a native 'system' ring ->
+   bridge_sink, host only) over loopback TCP to bridge_source in this
+   process -> the example's chain after its reader (copy('cuda') ->
+   fused FFT, Stokes, reduce(4) -> copy('system') -> merge_axes ->
+   transpose -> write_sigproc), in three arms: bridge-w1 (window 1, one
+   stream, a native 'system' ring), bridge-w4s4 (window 4, 4 stripes,
+   CRC, a pinned 'cuda_host' ring whose H2D must be all direct) and
+   bridge-resume (window 4, the link cut once by testing.faults.LinkCut
+   after the third span: the sender redials and retransmits, the
+   receiver drops the duplicates, one 'reconnected' record).  Each .fil
+   equals the unbridged run's byte for byte, is within 1e-5 of the
+   float64 oracle on 2 blocks with every tone at its bin, and every
+   span arrives once (bridge.rx.spans 4, no CRC error).  The chain's
+   524,288-point FFT is above K1's 8192 and runs on cuFFT (as in
+   guppi-ci8), so a fourth arm, bridge-K1, bridges the spectrometer
+   arm's 16384 x 2 x 4096 ci8 gulps (4 of 256 MiB, window 4, 2 stripes,
+   CRC, into a 'cuda_host' ring) into fused[FFT, Stokes, reduce(4)]: K1
+   once a gulp on its radix-16 kernel, each output equal byte for byte
+   to K1 on the unbridged gulp and within 1e-5 of the oracle on 4 rows.
+   Each arm prints the payload rate over the sender's seconds, the
+   send-stall and recv-wait p50/p99, the handshake's round trip, the
+   counters of both ends and each block's host ms a gulp;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
-   library phases' numbers, one of the xfer phase's, one of the analysis
-   and capture phases', one JSON line of per-kernel numbers
+   library phases' numbers, one of the xfer phase's, one of the analysis,
+   capture and bridge phases', one JSON line of per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -5718,6 +5742,416 @@ def phase_capture(bt, gpu_kernels, smi):
             'launches': {a: r['launches_k7'] for a, r in arms.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the bridge phase: a GUPPI stream shipped across a ring bridge
+# ---------------------------------------------------------------------------
+
+# arm -> (stream, receiver ring space, window, stripes, CRC, cut after
+# span frame N or 0); the sender is a child process, the receiver this one
+BRIDGE_ARMS = (('bridge-w1', 'guppi', 'system', 1, 1, False, 0),
+               ('bridge-w4s4', 'guppi', 'cuda_host', 4, 4, True, 0),
+               ('bridge-resume', 'guppi', 'system', 4, 1, False, 3),
+               ('bridge-K1', 'k1', 'cuda_host', 4, 2, True, 0))
+BNBLOCK = 4                # GUPPI blocks (128 MiB) a GUPPI arm ships
+BK1GULPS = 4               # spectrometer gulps (256 MiB) of bridge-K1
+BK1SEED = 43
+BTIMEOUT = 300             # seconds an arm's sender or receiver may take
+
+
+def k1_source_class(bt, gulps, ngulp, name):
+    """A source of ``ngulp`` spectrometer gulps (T, 2, nfft ci8), cycling
+    through ``gulps``."""
+    ntime = gulps[0].shape[0]
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__([name], ntime, space='system')
+            self.count = 0
+
+        def create_reader(self, sourcename):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, sourcename):
+            hdr = spec_header(gulps[0].shape[2])
+            hdr['name'] = name
+            return [hdr]
+
+        def on_data(self, reader, ospans):
+            if self.count == ngulp:
+                return [0]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = gulps[self.count % len(gulps)].reshape(dst.shape)
+            self.count += 1
+            return [ntime]
+    return Source
+
+
+def bridge_sender(args):
+    """``chip_smoke.py --bridge-sender JSON``: the sending host of a
+    bridge arm, a host-only chain that imports bifrost_tpu_torch and
+    nothing of the card: read_guppi_raw (or the K1 arm's gulps) into a
+    native 'system' ring sized once at the sender's final geometry ->
+    bridge_sink.  With ``cut`` the first dial's sockets go through
+    testing.faults.LinkCut, which cuts the link after span frame ``cut``.
+    Prints one BRIDGE_SENDER line of JSON: the sink's seconds, its
+    bridge counters, the send-stall histogram, the handshake's round
+    trip and clock offset, and the failure history."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.telemetry import counters, histograms
+    from bifrost_tpu_torch.testing.faults import LinkCut
+    a = json.loads(args)
+    window = a['window']
+    with bt.Pipeline() as p:
+        if a['stream'] == 'guppi':
+            src = bt.blocks.read_guppi_raw([a['raw']], gulp_nframe=1)
+        else:
+            gulps = make_gulps(BK1SEED)
+            src = k1_source_class(bt, gulps, BK1GULPS, 'k1')()
+        sink = bt.blocks.bridge_sink(src, '127.0.0.1', a['port'],
+                                     window=window, nstreams=a['nstreams'],
+                                     crc=a['crc'])
+    # the native core clears its buffer at each growth: allocate the
+    # window's depth (RingSender resizes to window + 2 spans) once
+    src.orings[0].resize(a['gulp_nbyte'], (window + 2) * a['gulp_nbyte'])
+    if a['cut']:
+        dial = sink._connect
+        first = [True]
+
+        def cut_dial():
+            socks = dial()
+            if first[0]:
+                first[0] = False
+                socks = [LinkCut(s, a['cut']) for s in socks]
+            return socks
+        sink._connect = cut_dial
+    main = sink.main
+    box = {}
+
+    def timed_main(orings):
+        t0 = time.perf_counter()
+        try:
+            return main(orings)
+        finally:
+            box['secs'] = time.perf_counter() - t0
+    sink.main = timed_main
+    p.run()
+    sender = sink._sender
+    h = histograms.get('bridge.%s.send_stall_s' % sink.name)
+    out = {'secs': box['secs'],
+           'counters': {k: v for k, v in counters.snapshot().items()
+                        if k.startswith('bridge.')},
+           'send_stall_s': h.snapshot() if h is not None else None,
+           'rtt_us': sender._wall_rtt_us,
+           'wall_offset_ns': sender.wall_offset_ns,
+           'failures': [(f.kind, type(f.exc).__name__)
+                        for f in p.supervisor.failures]}
+    if out['send_stall_s'] is not None:
+        out['send_stall_s'].pop('buckets')
+    print('BRIDGE_SENDER ' + json.dumps(out), flush=True)
+    return 0
+
+
+def bridge_child(args):
+    """Start a bridge sender child."""
+    here = os.path.abspath(__file__)
+    return subprocess.Popen([sys.executable, here, '--bridge-sender',
+                             json.dumps(args)], stdin=subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def bridge_child_result(arm, child, timeout=BTIMEOUT):
+    """Wait for a sender child (killed on time-out); its exit code and
+    stderr are checked and its BRIDGE_SENDER line returned."""
+    try:
+        out, err = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        out, err = child.communicate()
+        raise RuntimeError('chip_smoke check failed: %s sender still '
+                           'running after %d s; stderr:\n%s'
+                           % (arm, timeout, err[-4000:]))
+    if child.returncode != 0:
+        raise RuntimeError('chip_smoke check failed: %s sender exited %d; '
+                           'stderr:\n%s' % (arm, child.returncode,
+                                            err[-4000:]))
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith('BRIDGE_SENDER ')]
+    require(len(lines) == 1, '%s: the sender printed no result' % arm)
+    return json.loads(lines[0][len('BRIDGE_SENDER '):])
+
+
+def hist_pct(h):
+    if h is None:
+        return None
+    return {'count': h['count'], 'p50': h['p50'], 'p99': h['p99']}
+
+
+def bridge_arm(bt, spec, gpu_kernels, arm, stream, space, window, nstreams,
+               crc, cut, ctx, smi):
+    """One arm: a child sends the stream over loopback; this process
+    receives it into a ``space`` ring and runs the spectrometer on the
+    card, then holds the output to the unbridged run and the oracle."""
+    from bifrost_tpu_torch.telemetry import counters, histograms
+    from bifrost_tpu_torch.stages import (FftStage, DetectStage,
+                                          ReduceStage)
+    outdir = os.path.join(ctx['tmp'], arm)
+    os.makedirs(outdir)
+    before = counters.snapshot()
+    zero_counts(spec, gpu_kernels)
+    sink = None
+    with bt.Pipeline() as p:
+        src = bt.blocks.bridge_source('127.0.0.1', 0, space=space)
+        if stream == 'guppi':
+            ctx['example'].build_after(src, outdir, GR)
+            gulp_nbyte, ngulp = GBLOCSIZE, BNBLOCK
+        else:
+            h2d = bt.blocks.copy(src, space='cuda')
+            fused = bt.blocks.fused(
+                h2d, [FftStage('fine_time', axis_labels='freq'),
+                      DetectStage('stokes', axis='pol'),
+                      ReduceStage('freq', RFACTOR)])
+            sink = ctx['k1_sink'](bt.blocks.copy(fused, space='system'))
+            gulp_nbyte, ngulp = NTIME * NPOL * NFINE * 2, BK1GULPS
+    child = bridge_child({'port': src.port, 'stream': stream,
+                          'raw': ctx.get('raw'), 'window': window,
+                          'nstreams': nstreams, 'crc': crc, 'cut': cut,
+                          'gulp_nbyte': gulp_nbyte})
+    t0 = time.perf_counter()
+    try:
+        run_with_timeout(p, BTIMEOUT)
+    except BaseException:
+        child.kill()
+        child.communicate()
+        raise
+    rx_secs = time.perf_counter() - t0
+    tx = bridge_child_result(arm, child)
+    counts = read_counts(spec, gpu_kernels)
+    after = counters.snapshot()
+    d = {k: after.get(k, 0) - before.get(k, 0)
+         for k in set(after) | set(before)}
+    txc = tx['counters']
+    require(d.get('bridge.rx.spans') == ngulp,
+            '%s: bridge.rx.spans %s, not %d' % (arm, d.get('bridge.rx.spans'),
+                                                 ngulp))
+    retransmitted = txc.get('bridge.tx.spans', 0) - ngulp
+    if cut:
+        # bridge.tx.spans counts every span frame sent, retransmits too
+        require(txc.get('bridge.tx.reconnects', 0) >= 1 and
+                retransmitted >= 1, '%s: no reconnect and retransmit (%s)'
+                % (arm, txc))
+        require(d.get('bridge.rx.dups', 0) >= 1,
+                '%s: the receiver dropped no duplicate' % arm)
+        recs = [f for f in p.supervisor.failures if f.kind == 'reconnected']
+        require(len(recs) == 1, '%s: %d reconnected records in the '
+                'receiver\'s failure history, not 1' % (arm, len(recs)))
+    else:
+        require(retransmitted == 0 and
+                not txc.get('bridge.tx.reconnects') and
+                not d.get('bridge.rx.dups'),
+                '%s: an uncut link reconnected or retransmitted (%s)'
+                % (arm, txc))
+    require(not d.get('bridge.rx.crc_errors'), '%s: %s CRC errors'
+            % (arm, d.get('bridge.rx.crc_errors', 0)))
+    if not cut:
+        require(txc.get('bridge.tx.bytes') == d.get('bridge.rx.bytes'),
+                '%s: %s bytes sent, %s received' % (
+                    arm, txc.get('bridge.tx.bytes'),
+                    d.get('bridge.rx.bytes')))
+    if space == 'cuda_host':
+        require(src.orings[0]._storage.pinned,
+                '%s: the cuda_host ring is not pinned' % arm)
+        require(d.get('xfer.h2d_direct') == ngulp and
+                not d.get('xfer.h2d_staged') and
+                not d.get('xfer.h2d_unstaged'),
+                '%s: the H2D was not all direct: direct %s, staged %s, '
+                'unstaged %s' % (arm, d.get('xfer.h2d_direct'),
+                                 d.get('xfer.h2d_staged'),
+                                 d.get('xfer.h2d_unstaged')))
+    out = {'stream': stream, 'space': space, 'window': window,
+           'nstreams': nstreams, 'crc': crc, 'cut_after_span': cut or None,
+           'gulps': ngulp, 'gulp_bytes': gulp_nbyte,
+           'launches': {k: n for k, n in counts.items() if n},
+           'rx_counters': {k: v for k, v in d.items()
+                           if k.startswith('bridge.') and v},
+           'tx_counters': txc, 'retransmitted_spans': retransmitted,
+           'tx_failures': tx['failures'],
+           'rx_failures': [(f.kind, type(f.exc).__name__)
+                           for f in p.supervisor.failures],
+           'h2d': {k: d.get(k, 0) for k in ('xfer.h2d_direct',
+                                            'xfer.h2d_staged',
+                                            'xfer.h2d_unstaged')}}
+    if stream == 'guppi':
+        fil = os.path.join(outdir, os.path.basename(ctx['raw']) + '.fil')
+        with open(fil, 'rb') as f:
+            blob = f.read()
+        log_crc('%s .fil' % arm, zlib.crc32(blob))
+        require(blob == ctx['ref_fil'], '%s: the .fil differs from the '
+                'unbridged run' % arm)
+        check_guppi_fil(arm, fil, ctx['oracle'], ctx['ntime'])
+        os.remove(fil)
+        require(not counts.get('fused_spectrometer'),
+                '%s: K1 ran on the GUPPI chain' % arm)
+    else:
+        # the fused block's prewarm runs K1 once at sequence start
+        launches = counts.get('fused_spectrometer', 0)
+        prewarm = fused.prewarm_runs
+        require(launches == ngulp + prewarm and
+                counts.get('fused_spectrometer_radix16') == launches,
+                '%s: K1 launched %d times (radix16 %s) for %d gulps and '
+                '%d prewarm runs' % (arm, launches,
+                                     counts.get('fused_spectrometer_radix16'),
+                                     ngulp, prewarm))
+        require(len(sink.out) == ngulp, '%s: %d outputs of %d'
+                % (arm, len(sink.out), ngulp))
+        for i, got in enumerate(sink.out):
+            want = ctx['k1_want'][i % len(ctx['k1_want'])]
+            require(got.shape == want.shape and got.tobytes() ==
+                    want.tobytes(), '%s gulp %d: output differs from K1 '
+                    'on the unbridged gulp' % (arm, i))
+            r = rel_err(got[ctx['k1_rows']], ctx['k1_oracle'][i % 2])
+            require(r < GATE, '%s gulp %d rows vs oracle: %.3g'
+                    % (arm, i, r))
+        log_crc('%s outputs' % arm, {i: crc32(a)
+                                     for i, a in enumerate(sink.out)})
+        out['k1_launches'] = launches
+        out['k1_prewarm_runs'] = prewarm
+    payload = txc.get('bridge.tx.bytes', 0)
+    per_gulp = {}
+    for blk in p.blocks:
+        tot = blk.perf_totals
+        if not tot['ngulp']:
+            continue        # the bridge source keeps no gulp loop times
+        per_gulp[blk.name] = {k: tot[k] / tot['ngulp'] * 1e3
+                              for k in ('acquire', 'reserve', 'process')}
+    wait = histograms.get('bridge.%s.recv_wait_s' % src.name)
+    out.update({
+        'sender_s': tx['secs'], 'receiver_s': rx_secs,
+        'payload_MBps': payload / tx['secs'] / 1e6,
+        'payload_Gbps': payload * 8 / tx['secs'] / 1e9,
+        'send_stall_s': hist_pct(tx['send_stall_s']),
+        'recv_wait_s': hist_pct(wait.snapshot() if wait else None),
+        'rtt_us': tx['rtt_us'], 'wall_offset_ns': tx['wall_offset_ns'],
+        'host_ms_per_gulp': per_gulp, 'card': smi})
+    log('%s: %s stream, %d gulps of %d MiB, window %d, %d stripe(s), CRC '
+        '%s%s -> %s ring: %.1f MB/s = %.2f Gbit/s of payload over the '
+        'sender\'s %.2f s (receiver %.2f s); send stall %s, recv wait %s; '
+        'handshake rtt %s us; rx %s; tx %s; launches %s (%s)'
+        % (arm, stream, ngulp, gulp_nbyte >> 20, window, nstreams,
+           'on' if crc else 'off',
+           ', cut after span %d' % cut if cut else '', space,
+           out['payload_MBps'], out['payload_Gbps'], tx['secs'], rx_secs,
+           out['send_stall_s'], out['recv_wait_s'], tx['rtt_us'],
+           out['rx_counters'], txc, out['launches'], smi))
+    log_per_gulp(per_gulp)
+    return out
+
+
+def check_guppi_fil(arm, fil, oracle, ntime, nblock=BNBLOCK):
+    """The .fil's data within GATE of the float64 oracle on the first
+    blocks, and every tone at its bin."""
+    from bifrost_tpu_torch.io import sigproc as sigproc_io
+    with sigproc_io.SigprocFile(fil) as f:
+        hsize = f.header_size
+    nf = GCH * ntime // GR
+    data = np.fromfile(fil, np.float32, offset=hsize)
+    require(data.size == nblock * 4 * nf, '%s: .fil holds %d values, not %d'
+            % (arm, data.size, nblock * 4 * nf))
+    data = data.reshape(nblock, 4, nf)
+    require(np.isfinite(data).all(), '%s: non-finite output' % arm)
+    errs = []
+    for b, want in enumerate(oracle):
+        errs.append(float(np.abs(data[b] - want).max() /
+                          np.abs(want).max()))
+        require(errs[-1] < GATE, '%s block %d: %.3g of the oracle (gate %g)'
+                % (arm, b, errs[-1], GATE))
+    peaks = data[:, 0].reshape(nblock, GCH, -1).argmax(-1)
+    bins = guppi_tone_bins(GCH, ntime) // GR
+    require((peaks == bins[None]).all(), '%s: %d of %d tones off their bin'
+            % (arm, int((peaks != bins[None]).sum()), peaks.size))
+    return errs
+
+
+def phase_bridge(bt, spec, gpu_kernels, smi):
+    """The bridge phase (module docstring, 15c)."""
+    import tempfile
+    import gc
+    import torch
+    from bifrost_tpu_torch.stages import (FftStage, DetectStage,
+                                          ReduceStage)
+    ctx = {'example': load_example()}
+    arms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx['tmp'] = tmp
+        raw = ctx['raw'] = os.path.join(tmp, 'bridged.raw')
+        t0 = time.perf_counter()
+        kept = write_guppi(raw, 8, BNBLOCK, GCH, GBLOCSIZE)
+        ctx['ntime'] = ntime = GBLOCSIZE // (GCH * NPOL * 2)
+        t_write = time.perf_counter() - t0
+        # the unbridged reference run, and the oracle of its first blocks
+        refdir = os.path.join(tmp, 'reference')
+        os.makedirs(refdir)
+        zero_counts(spec, gpu_kernels)
+        t0 = time.perf_counter()
+        with bt.Pipeline() as p:
+            ctx['example'].build([raw], refdir, gulp_nframe=1, rfactor=GR)
+        run_with_timeout(p, BTIMEOUT)
+        t_ref = time.perf_counter() - t0
+        ref_counts = read_counts(spec, gpu_kernels)
+        fil = os.path.join(refdir, 'bridged.raw.fil')
+        with open(fil, 'rb') as f:
+            ctx['ref_fil'] = f.read()
+        log_crc('bridge reference .fil', zlib.crc32(ctx['ref_fil']))
+        t0 = time.perf_counter()
+        ctx['oracle'] = [guppi_oracle(spec, v, GR) for v in kept]
+        del kept
+        ref_errs = check_guppi_fil('bridge reference', fil, ctx['oracle'],
+                                   ntime)
+        t_oracle = time.perf_counter() - t0
+        log('bridge: GUPPI file of %d blocks of %d MiB written in %.1f s; '
+            'unbridged reference run %.2f s, launches %s, oracle rel %s '
+            '(%.1f s)' % (BNBLOCK, GBLOCSIZE >> 20, t_write, t_ref,
+                          {k: n for k, n in ref_counts.items() if n},
+                          ['%.3g' % e for e in ref_errs], t_oracle))
+        # bridge-K1's reference: K1 on each unbridged gulp, and the
+        # oracle on a few rows
+        gulps = make_gulps(BK1SEED)
+        ctx['k1_rows'] = rows = [0, 1, NTIME // 2, NTIME - 1]
+        ctx['k1_want'] = [spec.fused_spectrometer(
+            torch.from_numpy(g).cuda(), rfactor=RFACTOR).cpu().numpy()
+            for g in gulps]
+        ctx['k1_oracle'] = [spec.spectrometer_oracle(g[rows], RFACTOR)
+                            for g in gulps]
+        del gulps
+
+        class K1Sink(bt.SinkBlock):
+            def __init__(self, iring):
+                super(K1Sink, self).__init__(iring)
+                self.out = []
+
+            def on_sequence(self, iseq):
+                pass
+
+            def on_data(self, ispan):
+                self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+        ctx['k1_sink'] = K1Sink
+        for arm, stream, space, window, nstreams, crc, cut in BRIDGE_ARMS:
+            arms[arm] = bridge_arm(bt, spec, gpu_kernels, arm, stream, space,
+                                   window, nstreams, crc, cut, ctx, smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return {'guppi': {'nchan': GCH, 'blocsize': GBLOCSIZE, 'blocks': BNBLOCK,
+                      'ntime': ntime, 'rfactor': GR,
+                      'reference_run_s': t_ref,
+                      'reference_launches': {k: n for k, n in
+                                             ref_counts.items() if n},
+                      'oracle_rel_err': ref_errs},
+            'k1': {'gulp': [NTIME, NPOL, NFINE], 'gulps': BK1GULPS,
+                   'rfactor': RFACTOR},
+            'arms': arms,
+            'launches_k1': arms['bridge-K1']['k1_launches']}
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -5734,6 +6168,8 @@ def main():
         return capture_sender(*sys.argv[2:5])
     if sys.argv[1:2] == ['--capture-blaster']:
         return capture_blaster(*sys.argv[2:4])
+    if sys.argv[1:2] == ['--bridge-sender']:
+        return bridge_sender(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke: no CUDA device is available\n')
@@ -5810,9 +6246,12 @@ def main():
                 par, smi)
     ana = run('analysis', phase_analysis, bt, spec, gpu_kernels, smi)
     capt = run('capture', phase_capture, bt, gpu_kernels, smi)
+    brg = run('bridge', phase_bridge, bt, spec, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
+    k1['launches_bridge'] = brg['launches_k1']
+    k1['launches_bridge_of'] = 'the bridge-K1 arm (%d gulps)' % BK1GULPS
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k2['launches_detect_block'] = dk2['launches']
     k2['launches_detect_block_of'] = \
@@ -5907,6 +6346,8 @@ def main():
     log(json.dumps({'analysis': ana}))
     capt['phase_s'] = phase_s['capture']
     log(json.dumps({'capture': capt, 'card': smi}))
+    brg['phase_s'] = phase_s['bridge']
+    log(json.dumps({'bridge': brg, 'card': smi}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

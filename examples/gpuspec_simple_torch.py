@@ -31,6 +31,15 @@ from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
 def build(filenames, outdir='.', gulp_nframe=1, rfactor=4):
     bc = bt.BlockChainer()
     bc.blocks.read_guppi_raw(filenames, gulp_nframe=gulp_nframe)
+    return build_after(bc, outdir, rfactor)
+
+
+def build_after(bc, outdir='.', rfactor=4):
+    """The chain after the reader, appended to ``bc`` (a BlockChainer,
+    or the block whose output ring carries the GUPPI stream, such as a
+    ``bridge_source`` on the host that receives it)."""
+    if not isinstance(bc, bt.BlockChainer):
+        bc = bt.BlockChainer(bc)
     bc.blocks.copy(space='cuda')
     bc.blocks.fused([
         FftStage('fine_time', axis_labels='fine_freq'),

@@ -34,7 +34,9 @@ the copy stream after a producer kernel with no synchronize, fills into
 pageable and pinned targets, the ``cuda_host`` direct paths); and the
 capture tier (the sharded zero-copy engine into a pinned ``cuda_host``
 ring, whose H2D is the direct one, and the capture chain's K7 against
-its plain version).  Marked ``cuda``; each test skips without a card.
+its plain version); and the ring bridge (into a pinned ``cuda_host``
+ring whose H2D is the direct one, and out of a ring that an async D2H
+fills).  Marked ``cuda``; each test skips without a card.
 
 Run on a machine with a card from the repository root (the repository's
 conftest.py imports JAX, which such a machine need not have)::
@@ -2249,3 +2251,136 @@ def test_capture_chain_k7_equals_its_plain_version():
                          npol)
     np.testing.assert_array_equal(got.reshape(2, nchan, n, n),
                                   want.astype(np.complex64))
+
+
+# ---------------------------------------------------------------------------
+# the ring bridge on the card's host side
+# ---------------------------------------------------------------------------
+
+def _bridge_blocks(bt, gulps):
+    """A ci8 source of ``gulps`` (64 frames x 2 pols x 512 channels) and
+    a sink that keeps its gulps' int8 bytes."""
+    import contextlib
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['x'], 64)
+            self.it = iter(gulps)
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'x', 'time_tag': 0, '_tensor': {
+                'shape': [-1, 2, 512], 'dtype': 'ci8',
+                'labels': ['time', 'pol', 'chan'], 'scales': [[0, 1]] * 3,
+                'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(self.it, None)
+            if g is None:
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                g.reshape(64, 2, 1024)
+            return [64]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy().view(np.int8),
+                                     copy=True))
+
+    return Source, Sink
+
+
+def _run_both(*pipelines, timeout=120):
+    import threading
+    errors = []
+
+    def run(p):
+        try:
+            p.run()
+        except BaseException as exc:
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(p,), daemon=True)
+               for p in pipelines]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        for p in pipelines:
+            p.shutdown()
+        pytest.fail('bridge pipelines still running after %g s' % timeout)
+    if errors:
+        raise errors[0]
+
+
+def test_bridge_into_a_cuda_host_ring_takes_the_direct_h2d():
+    """bridge_sink ==TCP==> bridge_source(space='cuda_host') ->
+    copy('cuda'): the receiver recv_into's the pinned ring's lanes and
+    the H2D reads them in place (xfer.h2d_direct once a gulp, nothing
+    staged); the bytes arrive as sent, 4 spans of credit over 2 stripes
+    with CRC."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    rng = np.random.RandomState(34)
+    gulps = [rng.randint(-128, 128, (64, 2, 512, 2)).astype(np.int8)
+             for _ in range(6)]
+    xfer.reset_engine()
+    counters.reset()
+    Source, Sink = _bridge_blocks(bt, gulps)
+    with bt.Pipeline() as prx:
+        src = bt.blocks.bridge_source('127.0.0.1', 0, space='cuda_host')
+        b = bt.blocks.copy(src, space='cuda')
+        sink = Sink(bt.blocks.copy(b, space='system'))
+    with bt.Pipeline() as ptx:
+        bt.blocks.bridge_sink(Source(), '127.0.0.1', src.port, window=4,
+                              nstreams=2, crc=True)
+    _run_both(prx, ptx)
+    assert src.orings[0]._storage.pinned
+    assert counters.get('bridge.rx.spans') == 6
+    assert counters.get('bridge.rx.crc_errors') == 0
+    assert counters.get('xfer.h2d_direct') == 6
+    assert counters.get('xfer.h2d_staged') + \
+        counters.get('xfer.h2d_unstaged') == 0
+    got = np.concatenate(sink.out)
+    np.testing.assert_array_equal(got, np.concatenate(gulps).reshape(
+        got.shape))
+
+
+def test_bridge_sink_behind_an_async_d2h_ships_the_device_bytes():
+    """source -> copy('cuda') -> copy('system') (deferred D2H fills) ->
+    bridge_sink with 4 spans of credit: each span the sender holds and
+    sends carries the device's bytes, so the fills complete before the
+    lanes go to sendmsg."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import xfer
+    from bifrost_tpu_torch.telemetry import counters
+    rng = np.random.RandomState(35)
+    gulps = [rng.randint(-128, 128, (64, 2, 512, 2)).astype(np.int8)
+             for _ in range(8)]
+    xfer.reset_engine()
+    counters.reset()
+    Source, Sink = _bridge_blocks(bt, gulps)
+    with bt.Pipeline() as prx:
+        src = bt.blocks.bridge_source('127.0.0.1', 0)
+        sink = Sink(src)
+    with bt.Pipeline() as ptx:
+        b = bt.blocks.copy(Source(), space='cuda')
+        h = bt.blocks.copy(b, space='system')
+        bt.blocks.bridge_sink(h, '127.0.0.1', src.port, window=4)
+    _run_both(prx, ptx)
+    assert counters.get('xfer.d2h_async') == 8
+    assert counters.get('bridge.tx.spans') == 8
+    got = np.concatenate(sink.out)
+    np.testing.assert_array_equal(got, np.concatenate(gulps).reshape(
+        got.shape))

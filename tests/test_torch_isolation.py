@@ -97,7 +97,8 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.io.packet_writer, "
              "bifrost_tpu_torch.io.dada_shm, bifrost_tpu_torch.io.portaudio, "
              "bifrost_tpu_torch.blocks.psrdada, "
-             "bifrost_tpu_torch.blocks.audio\n"
+             "bifrost_tpu_torch.blocks.audio, bifrost_tpu_torch.io.bridge, "
+             "bifrost_tpu_torch.blocks.bridge\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -214,6 +215,28 @@ def test_io_entry_points_import_without_a_device():
         ['simple', 'chips', 'pbeam', 'tbn', 'drx', 'ibeam', 'cor', 'snap2',
          'vdif', 'tbf', 'drx8', 'vbeam']))
     assert p.stdout.strip().split('\n')[1] == '[] False'
+
+
+def test_bridge_entry_points_import_without_a_device():
+    """The ring bridge and its blocks import and build their objects
+    without a device: no kernel built, no CUDA context, the exports of
+    the JAX package's bridge tier, and a listener that binds and closes."""
+    p = _run("import torch, bifrost_tpu_torch as bt\n"
+             "for n in ('RingSender', 'RingReceiver', 'BridgeListener', "
+             "'BridgeProtocolError', 'listen', 'connect', "
+             "'connect_striped', 'query_resume', 'WIRE_VERSION'):\n"
+             "    assert hasattr(bt.io, n), n\n"
+             "for n in ('bridge_sink', 'bridge_source', 'BridgeSink', "
+             "'BridgeSource', 'CircuitOpenError'):\n"
+             "    assert hasattr(bt.blocks, n), n\n"
+             "assert bt.blocks.bridge.bridge_sink is bt.blocks.bridge_sink\n"
+             "lst = bt.io.BridgeListener('127.0.0.1', 0)\n"
+             "lst.close()\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(bt.io.WIRE_VERSION, sorted(_build._libs), "
+             "torch.cuda.is_initialized())\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '2 [] False'
 
 
 def test_default_mesh_needs_the_card_or_a_cpu_request():

@@ -326,6 +326,31 @@ def test_boundary_reasons_equal_jax(case):
     assert want in port
 
 
+def test_boundary_bridge_endpoint_equals_jax():
+    """tests/test_segments.py:250: a source read by a bridge sink stops
+    at a 'bridge' boundary in both planners; so does a bridge source's
+    output."""
+    out = []
+    for pkg, planner, src_cls in ((bt, bseg, Source),
+                                  (bf, jseg, NumpySourceBlock)):
+        with pkg.Pipeline() as p:
+            if pkg is bt:
+                s = src_cls(voltages(1), spec_header())
+            else:
+                s = src_cls([as_ci8(voltages(1)[0])], spec_header(),
+                            gulp_nframe=NT)
+            pkg.blocks.bridge_sink(s, '127.0.0.1', 1)
+        with pkg.Pipeline() as p2:
+            b = pkg.blocks.bridge_source('127.0.0.1', 0)
+            (Gather if pkg is bt else GatherSink)(b)
+        b.listener.close()
+        out.append(({r for _t, r in reasons(planner, p)},
+                    reasons(planner, p2)))
+    (port, port2), (jax, jax2) = out
+    assert port == jax == {'bridge'}
+    assert port2 == jax2 == {('BridgeSource', 'bridge')}
+
+
 def test_boundary_multi_reader_fuses_the_safe_subchain():
     base, _, _ = run_chain(None)
     counters.reset()

@@ -1,7 +1,7 @@
 """The port's static pipeline verifier against the JAX package's
-(``tests/test_analysis.py:54-300`` without its three bridge cases, the
-BF-E180 half of ``tests/test_overload.py:274-429``, and the segment
-boundaries of ``tests/test_torch_segments.py``).  Each topology is built
+(``tests/test_analysis.py:54-300``, the BF-E180 and BF-W181 cases of
+``tests/test_overload.py:274-429``, the bridge sinks' codes, and the
+segment boundaries of ``tests/test_torch_segments.py``).  Each topology is built
 in both packages; the diagnostics must carry the same codes on the same
 blocks and rings (blocks by their place in the pipeline, rings by the
 block and output that write them).
@@ -269,6 +269,45 @@ def test_float_path_on_quantized_ring_warns(kw, warns):
     assert ('BF-W170' in _codes(diags)) == warns
     if not warns:
         assert [d for d in diags if d.severity != 'info'] == []
+
+
+# ---------------------------------------------------------------------------
+# bridge sinks: BF-W110, BF-E150, BF-W151, BF-W152, BF-W181
+# (tests/test_analysis.py:168-199, tests/test_overload.py:299-313)
+# ---------------------------------------------------------------------------
+
+#: case -> (bridge_sink kwargs, macro K of the producing chain, the
+#: bridge codes the verifiers must give)
+BRIDGE_CASES = {
+    'window4': ({'window': 4}, None, []),
+    'window0': ({'window': 0}, None, ['BF-E150']),
+    'v1_crc_window': ({'protocol': 1, 'crc': True, 'window': 4}, None,
+                      ['BF-W151', 'BF-W152']),
+    'quota_below_span': ({'quota_bytes_per_s': 8}, None, ['BF-W181']),
+    'quota_above_span': ({'quota_bytes_per_s': 1e9}, None, []),
+    'window8_behind_macro_writer': ({'window': 8}, 4, ['BF-W110']),
+    'window4_behind_macro_writer': ({'window': 4}, 4, []),
+}
+
+
+@pytest.mark.parametrize('case', sorted(BRIDGE_CASES))
+def test_bridge_codes_equal_jax(case):
+    kw, k, want = BRIDGE_CASES[case]
+
+    def build(pkg):
+        with pkg.Pipeline(gulp_batch=k) as p:
+            src = _source(pkg)
+            if k:
+                b = pkg.blocks.copy(src, space=_dev(pkg))
+                f = pkg.blocks.fft(b, axes='fine_time', axis_labels='freq')
+                src = pkg.blocks.copy(f, space='system')
+            pkg.blocks.bridge_sink(src, '127.0.0.1', 59999, **kw)
+        return p, None
+    (p, diags, _), _j = _both(build)
+    bridge = {'BF-W110', 'BF-E150', 'BF-W151', 'BF-W152', 'BF-W181'}
+    assert sorted(c for c in _codes(diags) if c in bridge) == want
+    assert [d.code for d in diags if d.is_error] == \
+        [c for c in want if c.startswith('BF-E')]
 
 
 def test_codes_equal_the_jax_catalog():
