@@ -53,29 +53,52 @@ the ``BF_TRACE`` scopes of :mod:`bifrost_tpu_torch.trace` sit beside it.
 chains of stage blocks into one call each
 (:mod:`bifrost_tpu_torch.segments`), and ``donate=True`` lets stage
 blocks take their input chunks out of the ring.
+``Pipeline.run(autotune=True)`` (or ``BF_AUTOTUNE``) retunes those
+knobs while the pipeline runs (:mod:`bifrost_tpu_torch.autotune`), and
+``BF_FLEET_COLLECTOR`` streams the process's telemetry to a fleet
+collector (:mod:`bifrost_tpu_torch.telemetry.fleet`).
 Importing the package touches no device and builds no kernel.
 """
 
-from . import (affinity, blocks, device, io, macro, memory, ops, parallel,
-               proclog, segments, stages, supervision, telemetry, testing,
-               trace, views, xfer)
+from . import (affinity, autotune, blocks, device, io, macro, memory, ops,
+               parallel, proclog, segments, stages, supervision, telemetry,
+               testing, trace, views, xfer)
 from .block_chainer import BlockChainer
 from .dtype import DataType
+from .space import Space, SPACES
+from .ndarray import (ndarray, asarray, empty, zeros, empty_like, zeros_like,
+                      copy_array, memset_array)
+from .ring import (Ring, EndOfDataStop, WouldBlock, RingPoisonedError,
+                   split_shape, ring_view)
 from .pipeline import (Pipeline, BlockScope, Block, SourceBlock,
-                       TransformBlock, SinkBlock, block_scope, block_view,
-                       get_default_pipeline, PipelineInitError,
+                       MultiTransformBlock, TransformBlock, SinkBlock,
+                       block_scope, block_view, get_default_pipeline,
+                       get_current_block_scope, PipelineInitError,
                        PipelineRuntimeError, PipelineStallError)
-from .ring import Ring, EndOfDataStop
 from .ops.map import map, clear_map_cache, list_map_cache
+from .ops.reduce import reduce
+from .ops.transpose import transpose
+from .ops.quantize import quantize, unpack
+from .io import udp_socket
+from .io.udp_socket import Address as address
+from .utils import EnvVars, ObjectCache
+from .header_standard import enforce_header_standard
 
 __version__ = '0.1.0'
 
-__all__ = ['affinity', 'blocks', 'device', 'io', 'macro', 'ops',
-           'parallel', 'segments', 'stages', 'supervision', 'telemetry',
-           'testing', 'trace', 'views', 'xfer',
-           'BlockChainer', 'DataType', 'Pipeline', 'BlockScope', 'Block',
-           'SourceBlock', 'TransformBlock', 'SinkBlock', 'block_scope',
-           'block_view', 'get_default_pipeline',
-           'PipelineInitError', 'PipelineRuntimeError',
-           'PipelineStallError', 'Ring',
-           'EndOfDataStop', 'map', 'clear_map_cache', 'list_map_cache']
+__all__ = ['affinity', 'autotune', 'blocks', 'device', 'io', 'macro',
+           'memory', 'ops', 'parallel', 'proclog', 'segments', 'stages',
+           'supervision', 'telemetry', 'testing', 'trace', 'views', 'xfer',
+           'BlockChainer', 'DataType', 'Space', 'SPACES',
+           'ndarray', 'asarray', 'empty', 'zeros', 'empty_like',
+           'zeros_like', 'copy_array', 'memset_array',
+           'Ring', 'EndOfDataStop', 'WouldBlock', 'RingPoisonedError',
+           'split_shape', 'ring_view',
+           'Pipeline', 'BlockScope', 'Block', 'SourceBlock',
+           'MultiTransformBlock', 'TransformBlock', 'SinkBlock',
+           'block_scope', 'block_view', 'get_default_pipeline',
+           'get_current_block_scope', 'PipelineInitError',
+           'PipelineRuntimeError', 'PipelineStallError',
+           'map', 'clear_map_cache', 'list_map_cache', 'reduce',
+           'transpose', 'quantize', 'unpack', 'udp_socket', 'address',
+           'EnvVars', 'ObjectCache', 'enforce_header_standard']

@@ -7,7 +7,7 @@ bytes (default 512, the reference's).  A ``cuda_host`` buffer is
 page-locked when the port runs on a card, as the ``cuda_host`` rings'
 buffers are.  Device memory belongs to torch's caching allocator, so a
 raw ``cuda`` allocation raises (the JAX package raises for ``tpu``):
-allocate with :func:`bifrost_tpu_torch.ndarray.empty` instead.
+allocate with :func:`bifrost_tpu_torch.empty` instead.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def raw_malloc(size, space='system'):
     if space == 'cuda':
         raise ValueError("Raw device allocation is managed by torch's "
                          "caching allocator; allocate with "
-                         "bifrost_tpu_torch.ndarray.empty(space='cuda')")
+                         "bifrost_tpu_torch.empty(shape, dtype, "
+                         "space='cuda')")
     if space == 'cuda_host':
         from .device import on_cuda
         if on_cuda():

@@ -4,7 +4,10 @@ The reference's ``bf.ndarray`` is a numpy subclass carrying a space and
 a bifrost dtype (reference: python/bifrost/ndarray.py:120-166).  The
 port needs it only for host ring spans: a thin wrapper over a numpy
 view of the ring buffer plus its :class:`~bifrost_tpu_torch.dtype.DataType`.
-Device spans hand out ``torch.Tensor`` directly.
+Device spans hand out ``torch.Tensor`` directly, and the constructors
+below (``empty``, ``zeros``, ``asarray`` and the ``_like`` pair, the
+JAX package's ``bifrost_tpu/ndarray.py:206-255``) give a tensor in the
+device representation (:mod:`.devrep`) for ``space='cuda'``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import numpy as np
 from .dtype import DataType
 from .space import canonical
 
-__all__ = ['ndarray', 'copy_array', 'memset_array', 'empty']
+__all__ = ['ndarray', 'asarray', 'empty', 'zeros', 'empty_like',
+           'zeros_like', 'copy_array', 'memset_array']
 
 
 class ndarray(object):
@@ -93,3 +97,98 @@ def empty(shape, dtype='f32', space='system'):
     else:
         buf = np.empty(tuple(shape), dtype=dtype.as_numpy_dtype())
     return ndarray(buf, dtype=dtype, space=space, shape=tuple(shape))
+
+
+def zeros(shape, dtype='f32', space='system'):
+    """:func:`empty`, zero-filled."""
+    dtype = DataType(dtype)
+    if canonical(space) == 'cuda':
+        from .devrep import device_rep_zeros
+        return device_rep_zeros(list(shape), dtype)
+    return memset_array(empty(shape, dtype, space), 0)
+
+
+def _is_tensor(obj):
+    import sys
+    torch = sys.modules.get('torch')
+    return torch is not None and isinstance(obj, torch.Tensor)
+
+
+def _like(other, space, fill):
+    if _is_tensor(other):
+        if space is not None and canonical(space) != 'cuda':
+            raise TypeError("a device tensor does not carry its bifrost "
+                            "dtype: use empty(shape, dtype, %r)" % space)
+        import torch
+        return torch.zeros_like(other) if fill else \
+            torch.empty_like(other)
+    make = zeros if fill else empty
+    return make(other.shape, other.dtype,
+                other.space if space is None else space)
+
+
+def empty_like(other, space=None):
+    """An uninitialised array of ``other``'s shape and dtype, in
+    ``other``'s space unless ``space`` is given."""
+    return _like(other, space, False)
+
+
+def zeros_like(other, space=None):
+    """:func:`empty_like`, zero-filled."""
+    return _like(other, space, True)
+
+
+def _rep_drops_last_axis(dtype):
+    """Whether the device representation of ``dtype`` adds a trailing
+    (re, im) axis to the logical shape."""
+    from .devrep import device_rep_shape
+    return len(device_rep_shape([1], dtype)) == 2
+
+
+def asarray(obj, space=None, dtype=None):
+    """``obj`` (an :class:`ndarray`, a device tensor, or anything numpy
+    takes) as an array in ``space`` (its own space, else 'system', by
+    default).  A device tensor goes to a host space as ``dtype`` (the
+    bifrost dtype of its representation; the tensor's own dtype when
+    None).  For a packed ``dtype``, ``obj`` is the byte storage and the
+    logical shape is derived from it."""
+    if isinstance(obj, ndarray):
+        if space is None or canonical(space) == obj.space:
+            return obj
+        if canonical(space) == 'cuda':
+            from .devrep import to_device_rep
+            return to_device_rep(obj.as_numpy(), obj.dtype)
+        return ndarray(np.array(obj.as_numpy(), copy=True),
+                       dtype=obj.dtype, space=space, shape=obj.shape)
+    if _is_tensor(obj):
+        if space is None or canonical(space) == 'cuda':
+            return obj
+        if dtype is None:
+            return ndarray(obj.detach().cpu().numpy(), space=space)
+        dt = DataType(dtype)
+        shape = tuple(obj.shape[:-1]) if _rep_drops_last_axis(dt) \
+            else tuple(obj.shape)
+        out = empty(shape, dt, space)
+        from .devrep import from_device_rep
+        from_device_rep(obj, dt, out.as_numpy())
+        return out
+    buf = np.asarray(obj)
+    shape = None
+    if dtype is not None:
+        dt = DataType(dtype)
+        if dt.is_packed:
+            if buf.dtype != np.uint8:
+                buf = buf.view(np.uint8)
+            shape = buf.shape[:-1] + \
+                (buf.shape[-1] * 8 // dt.itemsize_bits,)
+        elif dt.as_numpy_dtype() != buf.dtype:
+            if dt.as_numpy_dtype().names is not None:
+                buf = buf.view(dt.as_numpy_dtype()).reshape(
+                    buf.shape[:-1] + (-1,)) \
+                    if buf.dtype == np.uint8 else buf
+            else:
+                buf = buf.astype(dt.as_numpy_dtype())
+    a = ndarray(buf, dtype=dtype, space='system', shape=shape)
+    if space is not None and canonical(space) != 'system':
+        return asarray(a, space)
+    return a

@@ -16,7 +16,9 @@ not apply; rfactor need only divide nfft.
 The wrapper picks one of the source's two kernels by nfft alone: the
 radix-16 Stockham kernel from :data:`RADIX16_MIN_NFFT` (256) to
 :data:`MAX_NFFT`, the in-place radix-2 kernel for nfft 4 to 128.
-:data:`launches_by_path` counts each.  Neither gives way to the other.
+:data:`launches_by_path` counts each, and the telemetry counter
+``kernel.fused_spectrometer.launches`` counts both (the fleet plane
+carries it).  Neither kernel gives way to the other.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`spectrometer_plain` (``torch.fft.fft`` over the
@@ -31,6 +33,8 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+
+from ..telemetry import counters as _counters
 
 __all__ = ['fused_spectrometer', 'spectrometer_plain',
            'spectrometer_oracle', 'MAX_NFFT', 'RADIX16_MIN_NFFT',
@@ -132,6 +136,7 @@ def _launch(volt, T, nfft, rfactor):
     _build.check(lib, err, 'fused_spectrometer')
     launches += 1
     launches_by_path[path] += 1
+    _counters.inc('kernel.fused_spectrometer.launches')
     return out
 
 

@@ -159,10 +159,22 @@ def resolve_donate(scope):
 
 
 def resolve_sync_depth(scope):
-    """Device run-ahead in gulps: the ``sync_depth`` tunable, else
-    :data:`BlockScope.DEFAULT_SYNC_DEPTH`."""
+    """Device run-ahead in gulps: the ``sync_depth`` tunable where set in
+    the scope chain, else ``BF_SYNC_DEPTH``, else
+    :data:`BlockScope.DEFAULT_SYNC_DEPTH`.  Read per gulp, so the
+    auto-tuner's change of ``pipeline._sync_depth`` holds from the next
+    gulp.  0 is legal: a hard drain every gulp."""
     d = scope.sync_depth
-    return BlockScope.DEFAULT_SYNC_DEPTH if d is None else max(int(d), 0)
+    if d is None:
+        try:
+            d = int(os.environ.get('BF_SYNC_DEPTH', '') or
+                    BlockScope.DEFAULT_SYNC_DEPTH)
+        except ValueError:
+            d = BlockScope.DEFAULT_SYNC_DEPTH
+    try:
+        return max(int(d), 0)
+    except (TypeError, ValueError):
+        return BlockScope.DEFAULT_SYNC_DEPTH
 
 
 def resolve_overload_policy(scope):
@@ -350,9 +362,16 @@ class Pipeline(BlockScope):
         if _segments.resolve_mode(self.segments) != 'off':
             _segments.compile_pipeline(self)
 
-    def run(self):
+    def run(self, autotune=None):
         """Start every block thread and supervise them to the end
         (``bifrost_tpu/pipeline.py:537-676``).
+
+        ``autotune`` starts the closed-loop auto-tuner
+        (:mod:`bifrost_tpu_torch.autotune`): ``True`` or ``'on'`` tunes,
+        ``'freeze'`` tunes, pins and dumps a profile, ``None`` defers to
+        ``BF_AUTOTUNE``.  It starts before the block threads, so that a
+        warm-start profile is applied before the first sequence resolves
+        its tunables, and stops before the metrics publisher.
 
         A block that raises is handled by its ``on_failure`` policy; a
         fatal failure poisons every ring, the wind-down waits at most
@@ -389,13 +408,22 @@ class Pipeline(BlockScope):
         self.supervisor = Supervisor(self)
         self.all_blocks_finished_initializing_event.clear()
         metrics = None
+        from . import autotune as _autotune
+        tuner = _autotune.maybe_start(self, autotune)
         try:
-            self.threads = [threading.Thread(target=block.run,
-                                             name=block.name, daemon=True)
-                            for block in self.blocks]
-            for block, thread in zip(self.blocks, self.threads):
-                block._thread = thread
-                thread.start()
+            try:
+                self.threads = [threading.Thread(target=block.run,
+                                                 name=block.name,
+                                                 daemon=True)
+                                for block in self.blocks]
+                for block, thread in zip(self.blocks, self.threads):
+                    block._thread = thread
+                    thread.start()
+            except BaseException:
+                # no controller ticks against a pipeline that never ran
+                if tuner is not None:
+                    tuner.stop(wait=False)
+                raise
             try:
                 self.synchronize_block_initializations()
                 self.supervisor.start_watchdog(self.watchdog_secs)
@@ -409,6 +437,8 @@ class Pipeline(BlockScope):
             finally:
                 self.supervisor.stop_watchdog()
                 self.supervisor.stop_health()
+                if tuner is not None:
+                    tuner.stop()         # publishes the final knob state
                 if metrics is not None:
                     metrics.stop()       # publishes one last snapshot
             self._complete_transfers()

@@ -993,7 +993,10 @@ class Ring(object):
                 if self._eod and limit is not None and want >= limit:
                     raise EndOfDataStop("Ring consumed")
                 if want + nbyte <= self._head:
-                    end = want + nbyte
+                    # a finished sequence's partial last gulp ends at
+                    # the sequence's end, not in the next sequence
+                    end = want + nbyte if seq_end is None else \
+                        min(want + nbyte, seq_end)
                     break
                 if limit is not None and limit <= self._head:
                     end = min(limit, want + nbyte)

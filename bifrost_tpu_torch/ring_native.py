@@ -472,7 +472,15 @@ class NativeRing(Ring):
             _rc.hook(self).external_head(self._tail_head()[1])
         with self._lock:
             self._nread_open += 1
-        return begin.value, got.value
+        nget = got.value
+        if nget:
+            # the C core hands a finished sequence's partial last gulp
+            # out whole, into the next sequence: end it at the
+            # sequence's own end
+            seq_end = rseq._seq.end
+            if seq_end is not None and begin.value + nget > seq_end:
+                nget = max(seq_end - begin.value, 0)
+        return begin.value, nget
 
     def _release_span(self, rseq, span_begin):
         native.check(self._lib.bft_reader_release(

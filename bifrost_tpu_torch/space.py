@@ -17,6 +17,8 @@ The port keeps three of them:
 
 from __future__ import annotations
 
+__all__ = ['Space', 'SPACES', 'canonical', 'space_accessible']
+
 SPACES = ('system', 'cuda_host', 'cuda')
 
 _ALIASES = {
@@ -27,9 +29,48 @@ _ALIASES = {
 _HOST = ('system', 'cuda_host')
 
 
+class Space(object):
+    """Validated memory-space tag (reference:
+    python/bifrost/Space.py:27-46; ``bifrost_tpu/space.py:31``), over the
+    port's spaces and aliases."""
+
+    def __init__(self, s):
+        if isinstance(s, Space):
+            s = s._space
+        self._space = canonical(s)
+
+    def as_string(self):
+        return self._space
+
+    def __str__(self):
+        return self._space
+
+    def __repr__(self):
+        return "Space(%r)" % self._space
+
+    def __eq__(self, other):
+        return str(self) == str(Space(other))
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash(self._space)
+
+    @property
+    def is_device(self):
+        return self._space == 'cuda'
+
+    @property
+    def is_host(self):
+        return self._space in _HOST
+
+
 def canonical(space):
     """The canonical space string for ``space`` (aliases resolved);
     raises ValueError on an unknown name."""
+    if isinstance(space, Space):
+        return space._space
     s = _ALIASES.get(str(space), str(space))
     if s not in SPACES:
         raise ValueError("Invalid space: %r (valid: %s)"

@@ -12,8 +12,11 @@ keeps per-name call counts and timings and merges them into a JSON file
 under the state directory (``BF_CACHE_DIR``, else
 ``~/.bifrost_tpu_torch``).  It is local and opt-in, as the JAX package's:
 off until :func:`enable` (or ``python -m bifrost_tpu_torch.telemetry
---enable``) persists the opt-in, and nothing is ever sent anywhere.  The
-JAX package's ``fleet`` module is not ported.
+--enable``) persists the opt-in, and nothing is ever sent anywhere.
+
+:mod:`.fleet` is the fleet plane: a publisher that streams this
+process's telemetry to a collector (``BF_FLEET_COLLECTOR``), the
+collector's per-host rollup, alert rules and incident bundles.
 """
 
 from __future__ import annotations
@@ -32,12 +35,14 @@ from . import spans  # noqa: F401  (gulp-span tracing / flight recorder)
 from . import slo  # noqa: F401  (capture-to-commit SLO ages)
 from . import exporter  # noqa: F401  (snapshot, Prometheus, publisher)
 from . import profiling  # noqa: F401  (one-shot BF_TORCH_PROFILE capture)
+from . import fleet  # noqa: F401  (fleet publisher, collector, alerts)
 
 __all__ = ['is_active', 'enable', 'disable', 'flush', 'snapshot',
            'track_script', 'track_module', 'track_function',
            'track_function_timed', 'track_method',
            'track_method_timed', 'usage_path', 'counters',
-           'histograms', 'spans', 'slo', 'exporter', 'profiling']
+           'histograms', 'spans', 'slo', 'exporter', 'profiling',
+           'fleet']
 
 MAX_ENTRIES = 100     # flush the in-memory cache after this many names
 

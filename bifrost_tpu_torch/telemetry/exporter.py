@@ -332,12 +332,22 @@ class MetricsPublisher(threading.Thread):
         #: peak_bytes_in_use where available, but live on every
         #: backend and reset-free across allocator stat resets)
         self._hbm_watermark = {}
+        #: fleet streaming (telemetry.fleet): with BF_FLEET_COLLECTOR
+        #: set, hold the process-shared FleetPublisher for this
+        #: pipeline's lifetime, so that pipelines in one process share
+        #: one stream; the last stop() sends the final full snapshot
+        from . import fleet as _fleet
+        self._fleet = _fleet.acquire_publisher()
 
     def stop(self, wait=True):
         """Stop the loop; publishes one final snapshot first."""
         self._stop_event.set()
         if wait and self.is_alive():
             self.join(self.interval + 2.0)
+        if self._fleet is not None:
+            from . import fleet as _fleet
+            _fleet.release_publisher(self._fleet)
+            self._fleet = None
 
     def run(self):
         while not self._stop_event.wait(self.interval):

@@ -31,7 +31,7 @@ import math
 import threading
 
 __all__ = ['Histogram', 'observe', 'get', 'get_or_create', 'snapshot',
-           'clear', 'reset', 'NBUCKET', 'EXP_MIN']
+           'clear', 'clear_matching', 'reset', 'NBUCKET', 'EXP_MIN']
 
 #: number of power-of-two buckets per histogram
 NBUCKET = 64
@@ -185,6 +185,14 @@ def clear(name):
         h.vmax = 0.0
         h.buckets = [0] * NBUCKET
     return True
+
+
+def clear_matching(prefix):
+    """Zero every registered histogram whose name starts with
+    ``prefix`` (in place); returns how many were cleared."""
+    with _lock:
+        names = [n for n in _registry if n.startswith(prefix)]
+    return sum(1 for n in names if clear(n))
 
 
 def reset():

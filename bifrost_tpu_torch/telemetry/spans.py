@@ -41,7 +41,8 @@ __all__ = ['enabled', 'trace_file', 'span', 'record',
            'enable_flight_recorder', 'disable_flight_recorder',
            'export', 'export_if_configured', 'flight_record',
            'prune_dead_buffers', 'reset', 'events',
-           'dropped_spans', 'note_peer_clock', 'clock_info']
+           'dropped_spans', 'note_peer_clock', 'clock_info',
+           'flight_events']
 
 DEFAULT_BUFFER = 65536
 #: per-thread buffer size in flight-recorder-only mode (no trace
@@ -448,6 +449,24 @@ def flight_record(per_thread=32):
                         tname[-24:], name, extra))
     lines.append('=== end flight recorder ===')
     return '\n'.join(lines)
+
+
+def flight_events(per_thread=64):
+    """Structured twin of :func:`flight_record`: the most recent
+    ``per_thread`` spans of every thread as ``[[thread_name, name,
+    cat, ts_us, dur_us, args], ...]`` sorted by start time.  The fleet
+    publisher attaches them to full snapshots and flight-request
+    replies (:mod:`.fleet`), and incident bundles render them as
+    Chrome traces."""
+    with _buffers_lock:
+        bufs = [(t.name, b) for t, b, _d in _buffers]
+    out = []
+    for tname, buf in bufs:
+        for name, cat, ts, dur, args in _drain(buf)[-per_thread:]:
+            out.append([tname, name, cat or 'bf',
+                        round(ts, 3), round(dur, 3), args])
+    out.sort(key=lambda e: e[3])
+    return out
 
 
 def reset():

@@ -1,13 +1,34 @@
-"""Small shared utilities (the port of the part of
-``bifrost_tpu/utils.py`` that the port needs so far: the bounded LRU
-cache that ``ops.map`` keeps its parsed expressions in)."""
+"""Small shared utilities (the port of ``bifrost_tpu/utils.py`` less its
+XLA compilation cache): cached environment lookups and the bounded LRU
+cache that ``ops.map`` keeps its parsed expressions in."""
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 
-__all__ = ['ObjectCache']
+__all__ = ['EnvVars', 'ObjectCache']
+
+
+class EnvVars(object):
+    """Cached environment lookups (reference: src/EnvVars.hpp:34-42):
+    the first read of a name is kept until :meth:`clear`."""
+
+    _cache = {}
+    _lock = threading.Lock()
+
+    @classmethod
+    def get(cls, name, default=None):
+        with cls._lock:
+            if name not in cls._cache:
+                cls._cache[name] = os.environ.get(name, default)
+            return cls._cache[name]
+
+    @classmethod
+    def clear(cls):
+        with cls._lock:
+            cls._cache.clear()
 
 
 class ObjectCache(object):

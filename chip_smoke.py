@@ -299,9 +299,39 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    Each arm prints the payload rate over the sender's seconds, the
    send-stall and recv-wait p50/p99, the handshake's round trip, the
    counters of both ends and each block's host ms a gulp;
+15d. runs the closed-loop auto-tuner on bench.py's device-resident
+   chain at full width: a 'cuda' source that cycles through three
+   distinct pre-staged 16384 x 2 x 4096 ci8 gulps (3 sequences of 128
+   gulps) -> fused[FFT, Stokes, reduce(4)] (K1) -> a sink that digests
+   every output gulp on the card and forces completion after 4 gulps
+   and at the last (no D2H).  Six freeze-mode runs climb from the de-tuned cold start (K 1,
+   sync_depth 1), each warm-started at the profile the last one dumped,
+   and must retune at least once; then, in alternating order, the
+   arms detuned (K 1, sync 1), tuned (the cold start, warm-started by
+   Pipeline.run(autotune=True) from the dumped profile), hand (K 16,
+   sync 4) and hand_ctl (hand with the tuner running and every ceiling
+   pinned), three times each.  Every arm's output equals the detuned
+   arm's bit for bit (every gulp's digest and gulp 0's bytes), gulp 0
+   is within 1e-5 of the oracle on 3 rows, the three distinct gulps
+   digest apart, and every K1 launch takes the radix-16 kernel.  Prints each arm's Msamples/s, knobs and K1 launches, the tuned gap to
+   hand and hand_ctl's overhead;
+15e. runs the fleet plane: a FleetCollector in this process on
+   loopback, with an alert rule file (the child host's absence) and an
+   incident directory; this process publishes under BF_FLEET_HOST
+   smoke-parent, a child (``chip_smoke.py --fleet-child JSON``) runs the
+   K1 arm on the same card under smoke-child.  Both hosts must be live
+   together; after the child exits its host goes stale and the rule
+   fires; this process's K1 arm stalls its source until the health
+   monitor's STALLED escalation has written one incident bundle holding
+   both hosts' flight timelines with the fused blocks' on_data spans;
+   the child runs again and the rule clears.  The rollup must hold both
+   hosts, each with its card memory section and its K1 launch counter,
+   which must equal the launches that host's arm measured (the counters
+   are set to 0 where the phase starts).  Prints the alert and incident timings and fleet.pub.busy_us per
+   second of wall;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
    library phases' numbers, one of the xfer phase's, one of the analysis,
-   capture and bridge phases', one JSON line of per-kernel numbers
+   capture, bridge, autotune and fleet phases', one JSON line of per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -6152,6 +6182,572 @@ def phase_bridge(bt, spec, gpu_kernels, smi):
             'launches_k1': arms['bridge-K1']['k1_launches']}
 
 
+# ---------------------------------------------------------------------------
+# the auto-tuner and the fleet plane (items 15d and 15e)
+# ---------------------------------------------------------------------------
+
+#: autotune phase: sequences an arm runs, gulps a sequence, gulps before
+#: the clock starts, freeze-mode rounds of the tuned arm's climb, and
+#: repetitions of the measured arms (interleaved, order alternating)
+TSEQ, TGULPS, TWARM, TROUNDS, TREPS = 3, 128, 4, 6, 3
+#: distinct pre-staged gulps the tuner phase's source cycles through: 3
+#: is prime to every power-of-two gulp_batch, so a K-gulp span that
+#: drops, repeats or reorders chunks changes some gulp's digest
+TDISTINCT = 3
+#: the oracle rows of the tuner phase's K1 check
+TROWS = [0, 5000, 16383]
+#: fleet phase: gulps of the parent's arm (it stalls after FSTALL_AT),
+#: of the first child's and of the second child's
+FGULPS, FSTALL_AT, FCHILD_GULPS, FCHILD2_GULPS = 16, 8, 24, 4
+FHOST, FCHILD_HOST = 'smoke-parent', 'smoke-child'
+#: the telemetry counter of K1 launches that the fleet plane carries
+K1_COUNTER = 'kernel.fused_spectrometer.launches'
+FTIMEOUT = 300             # seconds a fleet child may take
+
+
+def device_gulps(n, seed=14):
+    """``n`` distinct pre-staged flagship gulps on the card, each
+    (16384, 2, 4096, 2) int8, the ci8 device representation; and their
+    host copies."""
+    import torch
+    from bifrost_tpu_torch.device import get_device
+    rng = np.random.RandomState(seed)
+    hosts = [rng.randint(-64, 64, (NTIME, NPOL, NFINE, 2)).astype(np.int8)
+             for _ in range(n)]
+    return [torch.from_numpy(h).to(get_device()) for h in hosts], hosts
+
+
+def device_k1_chain(bt, gulps, nseq, ngulp, nwarm, hold=None, scope=None,
+                    name='tune'):
+    """The device-resident K1 chain of bench.py: a 'cuda' source that
+    publishes ``ngulp`` gulps in each of ``nseq`` sequences, gulp i being
+    the pre-staged ``gulps[i % len(gulps)]``
+    -> fused[FFT, Stokes, reduce(4)] (K1 by
+    match_spectrometer) -> a device sink that digests every output gulp
+    on the card (no D2H but gulp 0's) and forces completion after
+    ``nwarm`` gulps and at the last.  ``hold(count)`` runs before each
+    gulp is published.  Returns (pipeline, fused block, sink)."""
+    import torch
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    total = nseq * ngulp
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(
+                ['%s%d' % (name, i) for i in range(nseq)], NTIME,
+                space='cuda')
+            self.count = 0
+
+        def create_reader(self, sourcename):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, sourcename):
+            self.count = 0
+            hdr = spec_header(NFINE)
+            hdr['name'] = sourcename
+            return [hdr]
+
+        def on_data(self, reader, ospans):
+            if self.count == ngulp:
+                return [0]
+            if hold is not None:
+                hold(self.count)
+            ospans[0].set(gulps[self.count % len(gulps)])
+            self.count += 1
+            return [NTIME]
+
+    class DeviceSink(bt.SinkBlock):
+        """Keeps an exact int64 digest of each gulp's output bits on the
+        card: per-row sums of the int32 view, weighted by row."""
+
+        def __init__(self, iring):
+            super(DeviceSink, self).__init__(iring)
+            self.n = 0
+            self.digests = []
+            self.first = None
+            self.weights = None
+            self.t0 = self.t1 = None
+
+        def define_valid_input_spaces(self):
+            return ('cuda',)
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            x = ispan.data
+            rows = x.view(torch.int32).reshape(x.shape[0], -1, x.shape[-1]) \
+                .sum(dim=-1, dtype=torch.int64)
+            if self.weights is None:
+                self.weights = torch.arange(
+                    1, rows.numel() + 1, dtype=torch.int64,
+                    device=rows.device).reshape(rows.shape) * 2654435761
+            self.digests.append((rows * self.weights).sum())
+            if self.n == 0:
+                self.first = x.cpu().numpy()
+            self.n += 1
+            if self.n == nwarm:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            elif self.n == total:
+                torch.cuda.synchronize()
+                self.t1 = time.perf_counter()
+
+    with bt.Pipeline(**(scope or {})) as p:
+        fb = bt.blocks.fused(Source(), [
+            FftStage('fine_time', axis_labels='freq'),
+            DetectStage('stokes', axis='pol'),
+            ReduceStage('freq', RFACTOR)])
+        sink = DeviceSink(fb)
+    return p, fb, sink
+
+
+class _Run(object):
+    """``run_with_timeout`` calls ``run()``: this passes ``autotune``."""
+
+    def __init__(self, p, autotune):
+        self.p, self.autotune = p, autotune
+
+    def run(self):
+        return self.p.run(autotune=self.autotune)
+
+    def shutdown(self):
+        self.p.shutdown()
+
+
+def tune_arm(bt, spec, gulps, arm, gulp_batch, sync_depth, autotune=None,
+             env=None):
+    """One run of the tuner phase's chain; returns its record."""
+    from bifrost_tpu_torch.telemetry import counters, histograms
+    with environ(**(env or {})):
+        counters.reset()
+        histograms.reset()
+        settle_memory()
+        p, fb, sink = device_k1_chain(
+            bt, gulps, TSEQ, TGULPS, TWARM,
+            scope={'gulp_batch': gulp_batch, 'sync_depth': sync_depth})
+        l0, r0 = spec.launches, spec.launches_by_path['radix16']
+        t = time.perf_counter()
+        run_with_timeout(_Run(p, autotune))
+        secs = time.perf_counter() - t
+    total = TSEQ * TGULPS
+    require(sink.n == total and sink.t1 is not None,
+            'autotune %s: the sink saw %d of %d gulps' % (arm, sink.n, total))
+    snap = counters.snapshot()
+    launches = spec.launches - l0
+    rec = {'arm': arm, 'gulp_batch': gulp_batch, 'sync_depth': sync_depth,
+           'autotune': autotune, 'seconds': secs,
+           'msps': (total - TWARM) * NTIME * NPOL * NFINE /
+                   (sink.t1 - sink.t0) / 1e6,
+           'launches': launches,
+           'launches_radix16': spec.launches_by_path['radix16'] - r0,
+           'prewarm_runs': fb.prewarm_runs,
+           'dispatches': block_gulps(snap, fb),
+           'digests': [int(d) for d in sink.digests],
+           'first': sink.first,
+           'knobs': {k: snap.get('autotune.' + k)
+                     for k in ('gulp_batch', 'sync_depth')},
+           'retunes': snap.get('autotune.retunes', 0),
+           'reverts': snap.get('autotune.reverts', 0),
+           'rejected': snap.get('autotune.rejected', 0),
+           'ticks': snap.get('autotune.ticks', 0),
+           'tick_busy_us': snap.get('autotune.tick_busy_us', 0)}
+    require(rec['launches_radix16'] == launches and launches > 0,
+            'autotune %s: %d K1 launches, %d on the radix-16 kernel'
+            % (arm, launches, rec['launches_radix16']))
+    del p, fb, sink
+    return rec
+
+
+def phase_autotune(bt, spec, smi):
+    """The tuner phase (item 15d of the module docstring)."""
+    import tempfile
+    from bifrost_tpu_torch import autotune
+    gulps, hosts = device_gulps(TDISTINCT)
+    out = {'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
+           'distinct_gulps': TDISTINCT,
+           'sequences': TSEQ, 'gulps_per_sequence': TGULPS,
+           'gulps_untimed': TWARM, 'freeze_rounds': TROUNDS,
+           'card': smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        profile = os.path.join(tmp, 'autotune_profile.json')
+        # the climb: freeze-mode runs from the de-tuned cold start, each
+        # warm-starting at the profile the previous one dumped (a fast
+        # tick and a 15% min-gain for the climb only, as the JAX
+        # package's config 14 does)
+        climb = {'BF_AUTOTUNE_PROFILE': profile,
+                 'BF_AUTOTUNE_INTERVAL': '0.04',
+                 'BF_AUTOTUNE_COOLDOWN': '1',
+                 'BF_AUTOTUNE_MIN_GAIN': '0.15'}
+        rounds = []
+        for i in range(TROUNDS):
+            rec = tune_arm(bt, spec, gulps, 'climb%d' % i, 1, 1,
+                           autotune='freeze', env=climb)
+            rounds.append({k: rec[k] for k in (
+                'msps', 'knobs', 'retunes', 'reverts', 'rejected', 'ticks',
+                'launches', 'dispatches')})
+            log('autotune climb %d: %.1f Msamples/s, knobs %s, %d retunes, '
+                '%d reverts, %d K1 launches, dispatches/gulps %s'
+                % (i, rec['msps'], rec['knobs'], rec['retunes'],
+                   rec['reverts'], rec['launches'], rec['dispatches']))
+        retunes = sum(r['retunes'] for r in rounds)
+        require(retunes > 0, 'autotune: the controller never retuned in '
+                '%d freeze rounds' % TROUNDS)
+        prof = autotune.load_profile(profile)
+        require(prof is not None, 'autotune: no profile was dumped')
+        out['climb'] = rounds
+        out['retunes'] = retunes
+        out['converged_knobs'] = prof['knobs']
+        arms = {
+            'detuned': dict(gulp_batch=1, sync_depth=1),
+            'tuned': dict(gulp_batch=1, sync_depth=1, autotune=True,
+                          env={'BF_AUTOTUNE_PROFILE': profile}),
+            'hand': dict(gulp_batch=16, sync_depth=4),
+            # every ceiling pinned: the controller reads and judges but
+            # can take no step
+            'hand_ctl': dict(gulp_batch=16, sync_depth=4, autotune=True,
+                             env={'BF_AUTOTUNE_PROFILE':
+                                  os.path.join(tmp, 'unused.json'),
+                                  'BF_AUTOTUNE_MAX_BATCH': '16',
+                                  'BF_AUTOTUNE_MAX_DEPTH': '4',
+                                  'BF_AUTOTUNE_MAX_RING_BYTES': '1'}),
+        }
+        recs = {a: [] for a in arms}
+        for rep in range(TREPS):
+            order = list(arms) if rep % 2 == 0 else list(reversed(arms))
+            for a in order:
+                recs[a].append(tune_arm(bt, spec, gulps, a, **arms[a]))
+    ref = recs['detuned'][0]
+    require(len(set(ref['digests'][:TDISTINCT])) == TDISTINCT,
+            'autotune: the %d distinct gulps do not digest apart: %s'
+            % (TDISTINCT, ref['digests'][:TDISTINCT]))
+    rows = spec.spectrometer_oracle(hosts[0][TROWS], RFACTOR)
+    err = rel_err(ref['first'][TROWS], rows)
+    require(err < GATE, 'autotune: K1 output %.3g from the oracle' % err)
+    for a, rs in recs.items():
+        for r in rs:
+            require(r['digests'] == ref['digests'] and
+                    r['first'].tobytes() == ref['first'].tobytes(),
+                    'autotune: the %s arm differs from the detuned arm'
+                    % a)
+    best = {a: max(r['msps'] for r in rs) for a, rs in recs.items()}
+    tuned = max(recs['tuned'], key=lambda r: r['msps'])
+    out['arms'] = {a: {
+        'msps_max': best[a], 'msps_all': [r['msps'] for r in rs],
+        'gulp_batch_set': rs[0]['gulp_batch'],
+        'sync_depth_set': rs[0]['sync_depth'],
+        'knobs': rs[0]['knobs'], 'retunes': [r['retunes'] for r in rs],
+        'k1_launches': rs[0]['launches'],
+        'prewarm_runs': rs[0]['prewarm_runs'],
+        'dispatches_gulps': rs[0]['dispatches'],
+        'tick_busy_us': [r['tick_busy_us'] for r in rs]}
+        for a, rs in recs.items()}
+    out['oracle_rel_err'] = err
+    out['outputs_identical'] = True
+    out['tuned_knobs'] = tuned['knobs']
+    out['tuned_over_detuned'] = best['tuned'] / best['detuned']
+    out['tuned_gap_to_hand_pct'] = (best['tuned'] / best['hand'] - 1) * 100
+    pairs = sorted(c['msps'] / h['msps'] for c, h in
+                   zip(recs['hand_ctl'], recs['hand']))
+    out['hand_ctl_overhead_pct'] = (1 - pairs[len(pairs) // 2]) * 100
+    rings = prof['knobs'].get('ring_total_bytes') or {}
+    out['ring_knob'] = (
+        'inert: every ring already holds more than MAX_RING_BYTES (%d), '
+        'the smallest %d bytes; one gulp is %d bytes'
+        % (autotune.MAX_RING_BYTES, min(rings.values() or [0]),
+           hosts[0].nbytes))
+    for a in arms:
+        log('autotune %s: %s Msamples/s (max %.1f), K %s sync %s -> knobs '
+            '%s, K1 launches %d (%d plan runs), dispatches/gulps %s'
+            % (a, ['%.1f' % r['msps'] for r in recs[a]], best[a],
+               arms[a]['gulp_batch'], arms[a]['sync_depth'],
+               recs[a][0]['knobs'], recs[a][0]['launches'],
+               recs[a][0]['prewarm_runs'], recs[a][0]['dispatches']))
+    log('autotune: tuned/detuned %.3f, tuned gap to hand %.2f%%, hand_ctl '
+        'overhead %.2f%%, converged profile %s, %s'
+        % (out['tuned_over_detuned'], out['tuned_gap_to_hand_pct'],
+           out['hand_ctl_overhead_pct'], json.dumps(prof['knobs']),
+           out['ring_knob']))
+    out['launches_k1'] = {a: [r['launches'] for r in rs]
+                          for a, rs in recs.items()}
+    del recs, ref, tuned, gulps
+    return out
+
+
+def fleet_k1_run(bt, spec, ngulp, hold=None, name='fleet', nwarm=1):
+    """The device-resident K1 arm for the fleet phase: ``ngulp`` gulps in
+    one sequence, timed after ``nwarm``; returns (Msamples/s, K1
+    launches, fused block name)."""
+    gulps, _hosts = device_gulps(1, seed=15)
+    l0 = spec.launches
+    p, fb, sink = device_k1_chain(bt, gulps, 1, ngulp, nwarm, hold=hold,
+                                  name=name)
+    run_with_timeout(p)
+    require(sink.n == ngulp, 'fleet: the sink saw %d of %d gulps'
+            % (sink.n, ngulp))
+    msps = (ngulp - nwarm) * NTIME * NPOL * NFINE / (sink.t1 - sink.t0) \
+        / 1e6
+    return msps, spec.launches - l0, fb.name
+
+
+def fleet_child(arg):
+    """``chip_smoke.py --fleet-child JSON``: a second publisher on the
+    same card, under its own BF_FLEET_HOST, running the K1 arm."""
+    cfg = json.loads(arg)
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import _build
+    from bifrost_tpu_torch.ops import spectrometer as spec
+    from bifrost_tpu_torch.telemetry import counters, fleet
+    bt.device.set_device('cuda:0')
+    _build.build()
+    os.environ.update(BF_FLEET_COLLECTOR='127.0.0.1:%d' % cfg['port'],
+                      BF_FLEET_HOST=cfg['host'], BF_FLEET_INTERVAL='0.25')
+    pub = fleet.acquire_publisher()
+    require(pub is not None, 'fleet child: no publisher')
+    try:
+        msps, launches, fused = fleet_k1_run(bt, spec, cfg['ngulp'],
+                                             name='child')
+    finally:
+        fleet.release_publisher(pub)
+    counter = counters.get(K1_COUNTER)
+    require(counter == launches, 'fleet child: K1 counter %s, %d launches'
+            % (counter, launches))
+    print(json.dumps({'fleet_child': {'msps': msps, 'launches': launches,
+                                      'counter': counter,
+                                      'fused': fused}}), flush=True)
+    return 0
+
+
+def start_fleet_child(port, ngulp):
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = json.dumps({'port': port, 'host': FCHILD_HOST, 'ngulp': ngulp})
+    return subprocess.Popen([sys.executable, os.path.join(here,
+                                                          'chip_smoke.py'),
+                             '--fleet-child', cfg],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_fleet_child(child, what):
+    try:
+        out, err = child.communicate(timeout=FTIMEOUT)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise RuntimeError('chip_smoke check failed: %s did not end in '
+                           '%d s' % (what, FTIMEOUT))
+    require(child.returncode == 0, '%s exited %s: %s'
+            % (what, child.returncode, err[-2000:]))
+    return json.loads(out.strip().splitlines()[-1])['fleet_child']
+
+
+def wait_for(pred, what, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise RuntimeError('chip_smoke check failed: %s (waited %g s)'
+                               % (what, timeout))
+        time.sleep(0.05)
+    return time.monotonic()
+
+
+def flight_spans(path, suffix):
+    """X events of a bundle's Chrome trace whose name ends in
+    ``suffix``."""
+    try:
+        with open(path) as f:
+            trace = json.load(f)
+    except (OSError, ValueError):
+        return []
+    return [e['name'] for e in trace.get('traceEvents', [])
+            if e.get('ph') == 'X' and e['name'].endswith(suffix)]
+
+
+def phase_fleet(bt, spec, gpu_kernels, smi):
+    """The fleet phase (item 15e of the module docstring)."""
+    import tempfile
+    from bifrost_tpu_torch.telemetry import counters, fleet
+    # the rollup's K1 counter must count this phase's launches alone
+    counters.reset()
+    zero_counts(spec, gpu_kernels)
+    out = {'card': smi}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, environ(
+            BF_FLEET_HOST=FHOST, BF_FLEET_INTERVAL='0.25',
+            BF_HEALTH_INTERVAL='0.1', BF_HEALTH_STALL_SECS='1'):
+        rules = os.path.join(tmp, 'rules.json')
+        with open(rules, 'w') as f:
+            json.dump({'rules': [{'name': 'child-stale', 'kind': 'absence',
+                                  'host': FCHILD_HOST, 'for_ticks': 1,
+                                  'clear_ticks': 1, 'severity': 'page'}]},
+                      f)
+        coll = fleet.FleetCollector(
+            bind=('127.0.0.1', 0), rules=fleet.load_rules(rules),
+            interval=0.1, deadline=1.5,
+            incident_dir=os.path.join(tmp, 'incidents'),
+            rollup_file=os.path.join(tmp, 'rollup.json'))
+        coll.recorder.settle = 0.5
+        coll.start()
+        child = None
+        os.environ['BF_FLEET_COLLECTOR'] = '127.0.0.1:%d' % coll.port
+        pub = fleet.acquire_publisher()
+        busy0 = counters.get('fleet.pub.busy_us')
+        try:
+            require(pub is not None and pub.host == FHOST,
+                    'fleet: the parent has no publisher')
+            # two publishers at once: the child's arm beside the parent's
+            child = start_fleet_child(coll.port, FCHILD_GULPS)
+            both = {'live': 0}
+
+            def two_live():
+                r = coll.rollup()
+                both['live'] = max(both['live'], r['fleet']['hosts_live'])
+                return both['live'] >= 2 or child.poll() is not None
+            wait_for(two_live, 'fleet: the child never published',
+                     timeout=FTIMEOUT)
+            c1 = finish_fleet_child(child, 'the first fleet child')
+            t_exit = time.time()
+            child = None
+            require(both['live'] == 2, 'fleet: the two hosts were never '
+                    'live together')
+
+            def fired():
+                return any(e['name'] == 'child-stale' and
+                           e['event'] == 'FIRING'
+                           for e in coll.engine.history)
+            wait_for(fired, 'fleet: the staleness rule did not fire')
+            t_fired = next(e['wall'] for e in coll.engine.history
+                           if e['event'] == 'FIRING')
+            # the parent's arm, with a stall drill: its source wedges
+            # until the STALLED escalation has written a bundle
+            stall = {}
+
+            def stalled():
+                return [b for b in coll.recorder.bundles
+                        if 'STALLED' in os.path.basename(b)]
+
+            def hold(count):
+                if count == FSTALL_AT and 't0' not in stall:
+                    stall['t0'] = time.monotonic()
+                    stall['t1'] = wait_for(
+                        stalled, 'fleet: no incident bundle after the '
+                        'stall')
+            # timed after the stall
+            msps, launches, fused = fleet_k1_run(bt, spec, FGULPS,
+                                                 hold=hold,
+                                                 nwarm=FSTALL_AT + 2)
+            require(len(stalled()) == 1, 'fleet: %d STALLED bundles'
+                    % len(stalled()))
+            bundle = stalled()[0]
+            hosts_dir = os.path.join(bundle, 'hosts')
+            wait_for(lambda: flight_spans(os.path.join(
+                hosts_dir, FHOST, 'flight.json'), fused + '.on_data'),
+                'fleet: the parent flight timeline lacks %s.on_data'
+                % fused)
+            child_spans = flight_spans(os.path.join(
+                hosts_dir, FCHILD_HOST, 'flight.json'), '.on_data')
+            require([s for s in child_spans if 'FusedBlock' in s],
+                    'fleet: the child flight timeline lacks the fused '
+                    "block's on_data spans: %s" % child_spans[:8])
+            # the child comes back: its host is fresh again, the rule
+            # clears
+            t_back = time.time()
+            child = start_fleet_child(coll.port, FCHILD2_GULPS)
+
+            def cleared():
+                return any(e['name'] == 'child-stale' and
+                           e['event'] == 'RESOLVED'
+                           for e in coll.engine.history)
+            wait_for(cleared, 'fleet: the staleness rule did not clear',
+                     timeout=FTIMEOUT)
+            t_cleared = next(e['wall'] for e in coll.engine.history
+                             if e['event'] == 'RESOLVED')
+            c2 = finish_fleet_child(child, 'the second fleet child')
+            child = None
+            wait_for(lambda: coll.rollup()['hosts'].get(
+                FCHILD_HOST, {}).get('final'),
+                'fleet: the second child sent no final snapshot')
+        finally:
+            if child is not None:
+                child.kill()
+                child.communicate()
+            fleet.release_publisher(pub)
+            os.environ.pop('BF_FLEET_COLLECTOR', None)
+        wait_for(lambda: coll.rollup()['hosts'].get(FHOST, {}).get('final'),
+                 'fleet: this process sent no final snapshot')
+        busy_us = counters.get('fleet.pub.busy_us') - busy0
+        wall = time.perf_counter() - t_phase
+        rollup = coll.rollup()
+        coll.stop()
+        with open(os.path.join(tmp, 'rollup.json')) as f:
+            written = json.load(f)
+        require(sorted(written['hosts']) == [FCHILD_HOST, FHOST],
+                'fleet: the rollup file holds %s' % sorted(written['hosts']))
+        # the rollup keeps a host's last session: the second child's
+        for h, want in ((FHOST, launches), (FCHILD_HOST, c2['launches'])):
+            e = rollup['hosts'].get(h) or {}
+            n = e.get('counters', {}).get(K1_COUNTER)
+            dev = (e.get('devices') or {}).get('0') or {}
+            require(want > 0 and n == want, 'fleet: host %s has K1 launch '
+                    'counter %s in the rollup, %d launches measured'
+                    % (h, n, want))
+            require(dev.get('platform') == 'cuda' and
+                    dev.get('bytes_in_use', 0) > 0 and
+                    dev.get('bytes_limit', 0) > 0,
+                    'fleet: host %s has no device memory section: %s'
+                    % (h, dev))
+        others = [os.path.basename(b) for b in coll.recorder.bundles
+                  if b != bundle]
+        require(others in ([], ['incident_001_dead-host-' + FCHILD_HOST]),
+                'fleet: unexpected incident bundles %s' % others)
+        with open(os.path.join(bundle, 'meta.json')) as f:
+            meta = json.load(f)
+        require(sorted(meta['hosts']) == [FCHILD_HOST, FHOST] and
+                'STALLED' in meta['reason'],
+                'fleet: bundle meta %s' % {k: meta[k] for k in
+                                           ('reason', 'hosts')})
+        out.update({
+            'hosts': sorted(rollup['hosts']),
+            'live_together': both['live'],
+            'k1_counters_rollup': {h: rollup['hosts'][h]['counters'][
+                K1_COUNTER] for h in (FHOST, FCHILD_HOST)},
+            'devices': {h: rollup['hosts'][h]['devices']['0']
+                        for h in (FHOST, FCHILD_HOST)},
+            'parent_msps': msps, 'parent_launches': launches,
+            'child_msps': [c1['msps'], c2['msps']],
+            'child_launches': [c1['launches'], c2['launches']],
+            'child_counters': [c1['counter'], c2['counter']],
+            'alert_fired_after_exit_s': t_fired - t_exit,
+            'alert_cleared_after_restart_s': t_cleared - t_back,
+            'incident_after_stall_s': stall['t1'] - stall['t0'],
+            'incident': os.path.basename(bundle),
+            'other_incidents': others,
+            'incident_reason': meta['reason'],
+            'alert_history': [{k: e[k] for k in ('name', 'instance',
+                                                 'event')}
+                              for e in rollup['alerts']['history']],
+            'fleet_counters': {k: v for k, v in counters.snapshot().items()
+                               if k.split('.')[0] in ('fleet', 'alerts',
+                                                      'incident')},
+            'pub_busy_us': busy_us, 'wall_s': wall,
+            'pub_busy_fraction': busy_us / 1e6 / wall})
+    log('fleet: hosts %s (live together %d), K1 launches measured: parent '
+        '%d, children %s; K1 counters in the rollup %s, in the children %s; '
+        'parent %.1f Msamples/s, children %s Msamples/s'
+        % (out['hosts'], out['live_together'], launches,
+           out['child_launches'], out['k1_counters_rollup'],
+           out['child_counters'], msps,
+           ['%.1f' % m for m in out['child_msps']]))
+    log('fleet: staleness alert fired %.2f s after the child exited, '
+        'cleared %.2f s after it restarted; incident %s %.2f s after the '
+        'stall; fleet.pub.busy_us %d over %.1f s of wall (%.4f%%)'
+        % (out['alert_fired_after_exit_s'],
+           out['alert_cleared_after_restart_s'], out['incident'],
+           out['incident_after_stall_s'], busy_us, wall,
+           100 * out['pub_busy_fraction']))
+    return out
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -6176,6 +6772,8 @@ def main():
         return 1
     if sys.argv[1:2] == ['--guppi-child']:
         return guppi_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ['--fleet-child']:
+        return fleet_child(sys.argv[2])
     import bifrost_tpu_torch as bt
     from bifrost_tpu_torch import _build
     from bifrost_tpu_torch.ops import gpu_kernels
@@ -6247,11 +6845,23 @@ def main():
     ana = run('analysis', phase_analysis, bt, spec, gpu_kernels, smi)
     capt = run('capture', phase_capture, bt, gpu_kernels, smi)
     brg = run('bridge', phase_bridge, bt, spec, gpu_kernels, smi)
+    tune = run('autotune', phase_autotune, bt, spec, smi)
+    flt = run('fleet', phase_fleet, bt, spec, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
     k1['launches_bridge'] = brg['launches_k1']
     k1['launches_bridge_of'] = 'the bridge-K1 arm (%d gulps)' % BK1GULPS
+    k1['launches_autotune'] = tune['launches_k1']
+    k1['launches_autotune_of'] = (
+        'each arm of the autotune phase (%d sequences x %d gulps, plan '
+        'runs included)' % (TSEQ, TGULPS))
+    k1['launches_fleet'] = {FHOST: flt['parent_launches'],
+                            FCHILD_HOST: flt['child_launches']}
+    k1['launches_fleet_of'] = (
+        "the fleet phase: this process's arm (%d gulps) and the child's two "
+        '(%d and %d gulps), prewarm runs included; each equal to its '
+        "process's K1 counter" % (FGULPS, FCHILD_GULPS, FCHILD2_GULPS))
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k2['launches_detect_block'] = dk2['launches']
     k2['launches_detect_block_of'] = \
@@ -6348,6 +6958,10 @@ def main():
     log(json.dumps({'capture': capt, 'card': smi}))
     brg['phase_s'] = phase_s['bridge']
     log(json.dumps({'bridge': brg, 'card': smi}))
+    tune['phase_s'] = phase_s['autotune']
+    log(json.dumps({'autotune': tune}))
+    flt['phase_s'] = phase_s['fleet']
+    log(json.dumps({'fleet': flt}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

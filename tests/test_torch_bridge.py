@@ -244,9 +244,10 @@ def _gather(ring, gulp):
     return got
 
 
-def _bridge(spkg, rpkg, case, receiver_kw=None):
+def _bridge(spkg, rpkg, case, receiver_kw=None, gather_gulp=None):
     """Bridge ``case``'s stream from a ``spkg`` sender to an ``rpkg``
-    receiver over loopback; returns what the receiver's ring holds."""
+    receiver over loopback; returns what the receiver's ring holds, read
+    in ``gather_gulp``-frame spans (the case's gulp by default)."""
     datasets, hdr_fn, gulp, kw, nstreams = CASES[case]
     SR, SB = PKG[spkg]
     RR, RB = PKG[rpkg]
@@ -276,7 +277,7 @@ def _bridge(spkg, rpkg, case, receiver_kw=None):
     for t in threads:
         t.start()
     try:
-        out = bounded(_gather, dst, gulp)
+        out = bounded(_gather, dst, gather_gulp or gulp)
         for t in threads:
             t.join(TIMEOUT)
             assert not t.is_alive()
@@ -980,22 +981,82 @@ def test_lanes_of_a_shed_span_are_scratch(monkeypatch):
         assert ring.shed_stats()['shed_gulps'] == 1
 
 
-def test_partial_gulp_of_an_earlier_sequence_reads_as_jax():
-    """A known fault of both packages and both ring cores (ROADMAP queue
-    3): a guaranteed read of a finished sequence whose last gulp is
-    partial runs on into the next sequence's frames when they are
-    already committed.  The bridge forwards what the ring hands out, so
-    here the two packages deliver the same (overrun) stream."""
+@pytest.mark.parametrize('core', ['python', 'native'])
+def test_partial_gulp_of_an_earlier_sequence_stops_at_its_end(core,
+                                                              monkeypatch):
+    """A guaranteed read of a finished sequence whose last gulp is
+    partial ends at the sequence's own end on both of the port's ring
+    cores, although the next sequence's frames are already committed.
+    The JAX package still runs on into the next sequence (a weak spot of
+    the reference, ROADMAP queue 3): its third span of the first
+    sequence is 8 frames long."""
+    from bifrost_tpu_torch.ring_native import NativeRing
+    if core == 'python':
+        monkeypatch.setenv('BF_NO_NATIVE', '1')
+    else:
+        monkeypatch.delenv('BF_NO_NATIVE', raising=False)
     hdr = _plain_hdr('over', 4)
     data = [_f32((20, 4), 31), _f32((20, 4), 32)]
     got = {}
     for pkg in ('port', 'jax'):
         src = PKG[pkg][0].Ring(space='system', name=_name('over'))
+        if pkg == 'port':
+            assert isinstance(src, NativeRing) == (core == 'native')
         _fill(src, data, hdr, 8)
         got[pkg] = [[(sp.frame_offset, sp.nframe) for sp in seq.read(8)]
                     for seq in src.read(guarantee=True)]
-    assert got['port'] == got['jax'] == [[(0, 8), (8, 8), (16, 8)],
-                                         [(0, 8), (8, 8), (16, 4)]]
+    assert got['port'] == [[(0, 8), (8, 8), (16, 4)],
+                           [(0, 8), (8, 8), (16, 4)]]
+    assert got['jax'] == [[(0, 8), (8, 8), (16, 8)],
+                          [(0, 8), (8, 8), (16, 4)]]
+
+
+def _sigproc_hdr(s):
+    """A ['time', 'pol', 'freq'] header that write_sigproc accepts."""
+    return {'name': 'part%d.fil' % s, 'time_tag': 0,
+            '_tensor': {'shape': [-1, 1, 4], 'dtype': 'f32',
+                        'labels': ['time', 'pol', 'freq'],
+                        'scales': [[0., 1e-3], None, [1400., 1.]],
+                        'units': ['s', None, 'MHz']},
+            'gulp_nframe': 8}
+
+
+#: two sequences whose last gulps are partial (20 and 13 frames, gulp 8)
+PARTIAL = [_f32((20, 1, 4), 41), _f32((13, 1, 4), 42)]
+
+
+@pytest.mark.parametrize('core', ['python', 'native'])
+def test_partial_gulps_reach_write_sigproc_and_the_bridge_unmixed(
+        core, tmp_path, monkeypatch):
+    """A two-sequence stream with partial last gulps, fully committed
+    before it is read, goes through write_sigproc and through the port's
+    bridge sender (into a port and a JAX receiver): every file and every
+    received sequence holds its own sequence's frames and no others.
+    The receivers' rings are read one frame a span, which no overrun of
+    the reader's own can reach (the JAX ring's read would overrun)."""
+    from bifrost_tpu_torch.io.sigproc import SigprocFile
+    from tests.test_torch_bounded import run_bounded
+    if core == 'python':
+        monkeypatch.setenv('BF_NO_NATIVE', '1')
+    else:
+        monkeypatch.delenv('BF_NO_NATIVE', raising=False)
+    ring = TR.Ring(space='system', name=_name('fil'))
+    _fill(ring, PARTIAL, _sigproc_hdr, 8)
+    with bt.Pipeline() as p:
+        bt.blocks.write_sigproc(ring, path=str(tmp_path))
+        run_bounded(p)
+    for s, want in enumerate(PARTIAL):
+        with SigprocFile(str(tmp_path / ('part%d.fil' % s))) as sf:
+            got = sf.read(64)
+        assert got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+    CASES['partial'] = (PARTIAL, _sigproc_hdr, 8, {'window': 2}, 1)
+    try:
+        for rpkg in ('port', 'jax'):
+            _check_delivered(_bridge('port', rpkg, 'partial',
+                                     gather_gulp=1), 'partial')
+    finally:
+        del CASES['partial']
 
 
 # ---------------------------------------------------------------------------

@@ -2384,3 +2384,128 @@ def test_bridge_sink_behind_an_async_d2h_ships_the_device_bytes():
     got = np.concatenate(sink.out)
     np.testing.assert_array_equal(got, np.concatenate(gulps).reshape(
         got.shape))
+
+
+# ---------------------------------------------------------------------------
+# the auto-tuner and the fleet plane on the card
+# ---------------------------------------------------------------------------
+
+def _k1_chain(bt, gulps, hold=None, gulp_batch=None):
+    """Two sequences of ci8 gulps (1024 x 2 x 1024) -> copy('cuda') ->
+    fused[FFT, Stokes, reduce 4] (K1) -> copy('system') -> sink.  With
+    ``hold``, the second sequence begins once ``hold()`` is true (at most
+    30 s)."""
+    import contextlib
+    import time
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+
+    class Src(bt.SourceBlock):
+        def __init__(self):
+            super(Src, self).__init__(['a', 'b'], 1024, space='system')
+
+        def create_reader(self, name):
+            return contextlib.nullcontext(iter(gulps))
+
+        def on_sequence(self, reader, name):
+            if name == 'b' and hold is not None:
+                deadline = time.monotonic() + 30
+                while not hold() and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            return [{'name': name, 'time_tag': 0,
+                     '_tensor': {'shape': [-1, 2, 1024], 'dtype': 'ci8',
+                                 'labels': ['time', 'pol', 'fine_time'],
+                                 'scales': [[0, 1]] * 3,
+                                 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(reader, None)
+            if g is None:
+                return [0]
+            ospans[0].data.as_numpy().view(np.int8)[...] = \
+                g.reshape(ospans[0].data.as_numpy().view(np.int8).shape)
+            return [1024]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    with bt.Pipeline(gulp_batch=gulp_batch) as p:
+        b = bt.blocks.copy(Src(), space='cuda')
+        fb = bt.blocks.fused(b, [FftStage('fine_time', axis_labels='freq'),
+                                 DetectStage('stokes', axis='pol'),
+                                 ReduceStage('freq', 4)])
+        sink = Sink(bt.blocks.copy(fb, space='system'))
+    return p, fb, sink
+
+
+def test_autotune_retunes_gulp_batch_on_a_fused_k1_block(monkeypatch):
+    """Pipeline.run(autotune=True) over two sequences: the controller
+    doubles gulp_batch during the first, the second runs K1 on K-gulp
+    spans (fewer launches than gulps, every one on the radix-16 kernel),
+    and the output equals an untuned run's byte for byte."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.telemetry import counters
+    monkeypatch.setenv('BF_AUTOTUNE_INTERVAL', '0.02')
+    monkeypatch.setenv('BF_AUTOTUNE_COOLDOWN', '0')
+    monkeypatch.setenv('BF_AUTOTUNE_PROFILE', '/nonexistent/profile.json')
+    rng = np.random.RandomState(22)
+    gulps = [rng.randint(-64, 64, (1024, 2, 1024, 2)).astype(np.int8)
+             for _ in range(16)]
+    p, fb, sink = _k1_chain(bt, gulps)
+    _run_bounded(p)
+    plain = np.concatenate(sink.out)
+    counters.reset()
+    p, fb, sink = _k1_chain(
+        bt, gulps, hold=lambda: counters.get('autotune.gulp_batch') > 1)
+    before = dict(spec.launches_by_path)
+    nlaunch = spec.launches
+
+    class Tuned(object):
+        def __init__(self, p):
+            self.p = p
+
+        def run(self):
+            return self.p.run(autotune=True)
+
+        def shutdown(self):
+            self.p.shutdown()
+    _run_bounded(Tuned(p))
+    launches = spec.launches - nlaunch
+    assert counters.get('autotune.retunes') >= 1
+    assert counters.get('autotune.gulp_batch') > 1
+    assert launches - fb.prewarm_runs < 2 * len(gulps)   # two sequences
+    assert spec.launches_by_path['radix16'] - before['radix16'] == launches
+    np.testing.assert_array_equal(np.concatenate(sink.out), plain)
+
+
+def test_fleet_full_snapshot_carries_the_card_memory_section():
+    """A fleet publisher's full snapshot carries the exporter's device
+    section from torch's allocator once CUDA is in use; its collector
+    keeps it on the host's rollup entry."""
+    from bifrost_tpu_torch.telemetry import fleet
+    x = torch.empty(1 << 24, dtype=torch.uint8, device='cuda')
+    coll = fleet.FleetCollector(rules=[])
+    pub = fleet.FleetPublisher(collector=('127.0.0.1', coll.port),
+                               host='card', interval=0.1)
+    sent = []
+    pub._send = sent.append
+    try:
+        pub.publish(full=True)
+        for msg in sent:
+            coll._handle(msg, ('127.0.0.1', 1))
+        dev = sent[0]['devices'][str(torch.cuda.current_device())]
+        assert dev['platform'] == 'cuda'
+        assert dev['bytes_in_use'] >= x.numel()
+        assert 0 < dev['bytes_free'] <= dev['bytes_limit']
+        assert coll.rollup()['hosts']['card']['devices'] == \
+            sent[0]['devices']
+    finally:
+        pub._sock.close()
+        coll._sock.close()

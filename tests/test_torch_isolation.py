@@ -29,7 +29,15 @@ def _sources():
                                             'examples/'
                                             'fx_correlator_torch.py',
                                             'examples/'
-                                            'romein_grid_torch.py')]
+                                            'romein_grid_torch.py',
+                                            'examples/'
+                                            'your_first_block_torch.py',
+                                            'examples/'
+                                            'file_roundtrip_torch.py',
+                                            'examples/'
+                                            'serialize_replay_torch.py',
+                                            'examples/'
+                                            'fdmt_search_torch.py')]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
@@ -98,7 +106,12 @@ def test_import_leaves_jax_out_of_sys_modules():
              "bifrost_tpu_torch.io.dada_shm, bifrost_tpu_torch.io.portaudio, "
              "bifrost_tpu_torch.blocks.psrdada, "
              "bifrost_tpu_torch.blocks.audio, bifrost_tpu_torch.io.bridge, "
-             "bifrost_tpu_torch.blocks.bridge\n"
+             "bifrost_tpu_torch.blocks.bridge, bifrost_tpu_torch.autotune, "
+             "bifrost_tpu_torch.telemetry.fleet, "
+             "bifrost_tpu_torch.monitor_utils, bifrost_tpu_torch.cli, "
+             "bifrost_tpu_torch.tools, bifrost_tpu_torch.tools.like_top, "
+             "bifrost_tpu_torch.tools.like_ps, "
+             "bifrost_tpu_torch.tools.pipeline2dot\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "%r)\nprint(bad)" % (FORBIDDEN,))
     assert p.returncode == 0, p.stderr
@@ -237,6 +250,29 @@ def test_bridge_entry_points_import_without_a_device():
              "torch.cuda.is_initialized())\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '2 [] False'
+
+
+def test_tuner_fleet_and_monitors_import_without_a_device():
+    """The auto-tuner, the fleet plane, the monitors and the top-level
+    surface import and build their objects without a device: no kernel
+    built, no CUDA context, and a fleet collector that binds and
+    closes."""
+    p = _run("import torch, bifrost_tpu_torch as bt\n"
+             "from bifrost_tpu_torch import autotune, cli, monitor_utils\n"
+             "from bifrost_tpu_torch.telemetry import fleet\n"
+             "from bifrost_tpu_torch.tools import like_top, like_ps, "
+             "pipeline2dot\n"
+             "for n in ('asarray', 'zeros', 'empty_like', 'zeros_like', "
+             "'Space', 'EnvVars', 'autotune'):\n"
+             "    assert hasattr(bt, n), n\n"
+             "assert autotune.resolve_mode(None) == 'off'\n"
+             "c = fleet.FleetCollector(rules=[])\n"
+             "c._sock.close()\n"
+             "assert fleet.acquire_publisher() is None\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), torch.cuda.is_initialized())\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == '[] False'
 
 
 def test_default_mesh_needs_the_card_or_a_cpu_request():

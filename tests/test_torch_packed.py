@@ -244,10 +244,10 @@ def test_unpack_op_equals_jax(src_dtype, dst_dtype):
     jsrc = _storage(src_dtype, jci4).reshape(8, 32)
     n = 32 * 8 // DataType(src_dtype).itemsize_bits
     ddt = DataType(dst_dtype).as_numpy_dtype()
-    dst = bt.ndarray.ndarray(np.zeros((8, n), ddt), dtype=dst_dtype)
+    dst = bt.ndarray(np.zeros((8, n), ddt), dtype=dst_dtype)
     jdst = bf.ndarray(np.zeros((8, n), ddt), dtype=dst_dtype)
     sdt = src_dtype
-    unpack(bt.ndarray.ndarray(src, dtype=sdt, shape=(8, n)), dst)
+    unpack(bt.ndarray(src, dtype=sdt, shape=(8, n)), dst)
     bf.ops.unpack(bf.ndarray(jsrc, dtype=sdt, shape=(8, n)), jdst)
     assert dst.as_numpy().tobytes() == np.asarray(jdst).tobytes()
 
@@ -260,13 +260,13 @@ def _host_array(pkg, name):
     raw = np.arange(nbyte, dtype=np.uint8) * 37
     if name.startswith('ci') and dt.nbits == 8:
         buf = raw.view(pkg.dtype.ci8).reshape(4, 16)
-        return (bt.ndarray.ndarray(buf, dtype=name) if pkg is bt
+        return (bt.ndarray(buf, dtype=name) if pkg is bt
                 else bf.ndarray(buf, dtype=name))
     buf = raw.reshape(4, -1)
     if name == 'ci4':
         buf = buf.view(ci4 if pkg is bt else jci4)
     if pkg is bt:
-        return bt.ndarray.ndarray(buf, dtype=name, shape=(4, 16))
+        return bt.ndarray(buf, dtype=name, shape=(4, 16))
     return bf.ndarray(buf, dtype=name, shape=(4, 16))
 
 
