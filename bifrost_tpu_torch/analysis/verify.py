@@ -22,8 +22,11 @@ donation (BF-E130/W131), mesh boundaries (BF-W140/W141), bridge sinks
 (BF-E150/W151/W152), macro-gulp eligibility (BF-W160/I161), quantized
 rings on a float path (BF-W170), drop policies on guaranteed rings
 (BF-E180) and bridge quotas (BF-W181), and the segment boundaries that
-did not fuse (BF-I190/I191/I192, from the segment planner itself).  The
-fabric, service and placement checks come with the control tiers.
+did not fuse (BF-I190/I191/I192, from the segment planner itself).
+Whole fabric, service and placement specs are checked before anything
+builds by :func:`verify_fabric` (BF-E200/E201/W202/W203),
+:func:`verify_service` (BF-E210/E211/W212/W230/W231) and
+:func:`verify_placement` (BF-E220-E223/W224).
 
 Everything is best effort: where propagation stops the verifier says so
 (``BF-I17x``) instead of guessing, a check that fails internally reports
@@ -889,8 +892,8 @@ def _check_quantization(g, diags):
 
 def ring_capacity_floors(pipeline):
     """The BF-E101 deadlock-freedom bound per ring, as a runtime-facing
-    dict, the floor below which no online ring retune may go (the JAX
-    package's auto-tuner reads it; the port's is not ported yet):
+    dict, the floor below which no online ring retune may go (the
+    auto-tuner reads it):
 
         {ring_name: {'frames':      required frames (writer-resident
                                     span + largest guaranteed pin),
@@ -1122,7 +1125,365 @@ def verify_pipeline(pipeline):
 
 
 
+# ---------------------------------------------------------------------------
+# fabric-spec verification (bifrost_tpu_torch.fabric)
+# ---------------------------------------------------------------------------
 
+def verify_fabric(spec):
+    """Statically check a whole multi-host fabric spec
+    (:class:`bifrost_tpu_torch.fabric.FabricSpec` or its dict form) BEFORE
+    any host launches — the fabric-level sibling of
+    :func:`verify_pipeline`:
+
+    - **BF-E200** endpoint mismatch: a link names a host the spec
+      does not define, a fan with no members, or a link whose only
+      endpoint is itself;
+    - **BF-E201** port collision: two listening endpoints (bridge
+      data ports, including fan offsets, or membership control ports)
+      bound to the same address:port;
+    - **BF-W202** window/stripe sizing: a declared leg buffer smaller
+      than the credit window needs (``buffer_spans < window + 2`` —
+      the same ``window + 2`` rule BF-W110 enforces at ring level),
+      or a nonsensical stripe count;
+    - **BF-W203** quota vs macro-span: a per-stream quota smaller
+      than one span at the link's declared gulp size, so every span
+      overflows the token bucket (the spec-level BF-W181).
+
+    Returns a list of :class:`Diagnostic` anchored on
+    ``link:<name>`` / ``host:<name>``.  Window-below-one is reported
+    as the existing **BF-E150**."""
+    from ..fabric import FabricSpec
+    if isinstance(spec, dict):
+        spec = FabricSpec.from_dict(spec)
+    diags = []
+    # -- endpoints (BF-E200) ----------------------------------------------
+    for lname, link in sorted(spec.links.items()):
+        where = 'link:%s' % lname
+        members = list(link.src) + list(link.dst)
+        for host in members:
+            if host not in spec.hosts:
+                diags.append(Diagnostic(
+                    'BF-E200',
+                    'link %r references host %r, which the fabric '
+                    'spec does not define (hosts: %s)'
+                    % (lname, host, ', '.join(sorted(spec.hosts))
+                       or 'none'), block=where))
+        if not link.src or not link.dst:
+            diags.append(Diagnostic(
+                'BF-E200', 'link %r has an empty %s side'
+                % (lname, 'src' if not link.src else 'dst'),
+                block=where))
+        if link.kind == 'fanin' and len(link.src) < 2:
+            diags.append(Diagnostic(
+                'BF-E200',
+                'fan-in link %r has %d origin(s): a fan-in needs at '
+                'least 2 (use kind "pipe" for a point-to-point link)'
+                % (lname, len(link.src)), block=where))
+        if link.kind == 'fanout' and len(link.dst) < 1:
+            diags.append(Diagnostic(
+                'BF-E200', 'fan-out link %r has no legs' % lname,
+                block=where))
+        if set(link.src) == set(link.dst) and len(members) == 2:
+            diags.append(Diagnostic(
+                'BF-E200',
+                'link %r connects host %r to itself — a same-host '
+                'hop needs no bridge (use a ring)'
+                % (lname, link.src[0]), block=where))
+    # -- port collisions (BF-E201) ----------------------------------------
+    # keyed by ADDRESS, not host name: two spec hosts sharing one
+    # address (a single-machine loopback fabric — bf_fabric up) must
+    # collide on equal ports, or the lint passes what bind() rejects
+    bound = {}
+    for hname, host in sorted(spec.hosts.items()):
+        if host.control_port:
+            key = (host.address, host.control_port)
+            bound[key] = 'host:%s control port' % hname
+    for lname, link in sorted(spec.links.items()):
+        for rhost, off in link.receivers():
+            if rhost not in spec.hosts:
+                continue
+            key = (spec.hosts[rhost].address, link.port + off)
+            owner = 'link:%s endpoint +%d' % (lname, off)
+            if key in bound:
+                diags.append(Diagnostic(
+                    'BF-E201',
+                    'port %d on host %r is claimed by both %s and %s'
+                    % (key[1], rhost, bound[key], owner),
+                    block='link:%s' % lname))
+            else:
+                bound[key] = owner
+    # -- window / stripe sizing (BF-E150 / BF-W202) -----------------------
+    for lname, link in sorted(spec.links.items()):
+        where = 'link:%s' % lname
+        if link.window is not None and link.window < 1:
+            diags.append(Diagnostic(
+                'BF-E150',
+                'link %r configured with window=%d: the credit window '
+                'must be >= 1 span' % (lname, link.window),
+                block=where))
+        elif link.window is not None and link.buffer_spans is not None \
+                and link.buffer_spans < link.window + 2:
+            diags.append(Diagnostic(
+                'BF-W202',
+                'link %r declares buffer_spans=%d but its credit '
+                'window needs window+2=%d spans of ring depth (the '
+                'BF-W110 sizing rule): the window will self-cap below '
+                'the configured pipelining'
+                % (lname, link.buffer_spans, link.window + 2),
+                block=where))
+        if link.streams is not None and link.streams < 1:
+            diags.append(Diagnostic(
+                'BF-W202',
+                'link %r configured with streams=%d: striping needs '
+                'at least 1 connection' % (lname, link.streams),
+                block=where))
+    # -- quota vs span (BF-W203) ------------------------------------------
+    for lname, link in sorted(spec.links.items()):
+        quota = link.quota_mbps * 1e6
+        if quota > 0 and link.gulp_nbyte:
+            if link.gulp_nbyte > quota:
+                diags.append(Diagnostic(
+                    'BF-W203',
+                    'link %r per-stream quota (%.0f B/s) is smaller '
+                    'than one declared span (%d bytes): every span '
+                    'overflows the token bucket — a drop policy sheds '
+                    'the stream to zero throughput'
+                    % (lname, quota, link.gulp_nbyte),
+                    block='link:%s' % lname))
+    return diags
+
+
+# ---------------------------------------------------------------------------
+# service-spec verification (bifrost_tpu_torch.service)
+# ---------------------------------------------------------------------------
+
+def verify_service(specs, ncores=None):
+    """Statically check a whole multi-tenant service spec (a list of
+    :class:`bifrost_tpu_torch.service.TenantSpec` or their dict forms)
+    BEFORE any job builds — the service-level sibling of
+    :func:`verify_fabric`; ``JobManager.submit`` runs it at admission
+    time:
+
+    - **BF-E210** duplicate tenant id: two tenants share an id — the
+      per-tenant counter namespaces, ProcLog panes, and the job
+      registry would silently merge;
+    - **BF-E211** quota below one gulp span: a 'shed'-policy tenant
+      whose ``quota_bytes_per_s`` is smaller than its declared
+      ``gulp_nbyte`` sheds EVERY gulp (the token bucket can never
+      cover one span) — zero throughput by construction (the
+      service-tier BF-W181/BF-W203; 'pace' policy is exempt, its
+      debt-based bucket admits oversized spans at full refill cost);
+    - **BF-W212** core oversubscription: the tenants' summed
+      ``ncores`` requests exceed the host pool — tenants will SHARE
+      cores round-robin (``affinity.partition_cores``) instead of
+      owning them;
+    - **BF-W230** capture ring below two spans: a 'udp' source whose
+      ``ring_nframe`` is smaller than 2x its ``buffer_ntime`` cannot
+      hold the capture engine's double-buffered span window — the
+      writer stalls against its own open span and the socket drops at
+      wire rate;
+    - **BF-W231** quota below ingest rate: a 'udp' source declares
+      ``ingest_bytes_per_s`` above the tenant's ``quota_bytes_per_s``
+      — the quota gate sheds a stream the capture tier was explicitly
+      sized to sustain.
+
+    ``ncores`` is the schedulable core count (default: this process's
+    affinity mask).  Returns :class:`Diagnostic` s anchored on
+    ``tenant:<id>``."""
+    from ..service import TenantSpec
+    specs = [TenantSpec.coerce(s) for s in specs]
+    diags = []
+    seen = {}
+    for s in specs:
+        if s.id in seen:
+            diags.append(Diagnostic(
+                'BF-E210',
+                'tenant id %r is declared %d times: tenant ids key '
+                'the counter namespaces, the [tenants] telemetry '
+                'section, and the job registry — they must be unique '
+                'per service' % (s.id, seen[s.id] + 1),
+                block='tenant:%s' % s.id))
+        seen[s.id] = seen.get(s.id, 0) + 1
+    for s in specs:
+        if s.quota_bytes_per_s > 0 and s.gulp_nbyte and \
+                s.quota_policy == 'shed' and \
+                s.gulp_nbyte > s.quota_bytes_per_s:
+            diags.append(Diagnostic(
+                'BF-E211',
+                'tenant %r quota (%.0f B/s, policy shed) is smaller '
+                'than one declared gulp span (%d bytes): refilling '
+                'the bucket for a single gulp takes over a second, '
+                'so the gate sheds all but a trickle of the stream — '
+                'raise the quota above one span per second, shrink '
+                'the gulp, or use the pace policy'
+                % (s.id, s.quota_bytes_per_s, s.gulp_nbyte),
+                block='tenant:%s' % s.id))
+    for s in specs:
+        src = s.source if isinstance(s.source, dict) else {}
+        if src.get('kind') != 'udp':
+            continue
+        buf_ntime = int(src.get('buffer_ntime', 64) or 64)
+        ring_nframe = src.get('ring_nframe')
+        if ring_nframe is not None and \
+                int(ring_nframe) < 2 * buf_ntime:
+            diags.append(Diagnostic(
+                'BF-W230',
+                'tenant %r capture ring holds %d frames but the '
+                'capture engine keeps a double-buffered window of 2 x '
+                'buffer_ntime = %d frames open: the writer stalls '
+                'against its own open span and the socket drops at '
+                'wire rate — raise ring_nframe to at least %d'
+                % (s.id, int(ring_nframe), 2 * buf_ntime,
+                   2 * buf_ntime),
+                block='tenant:%s' % s.id))
+        ingest = src.get('ingest_bytes_per_s')
+        if ingest and s.quota_bytes_per_s > 0 and \
+                float(ingest) > s.quota_bytes_per_s:
+            diags.append(Diagnostic(
+                'BF-W231',
+                'tenant %r declares an ingest rate of %.0f B/s but '
+                'its quota admits only %.0f B/s: the quota gate will '
+                'shed a stream the capture tier was sized to sustain '
+                '— raise the quota or lower the declared rate'
+                % (s.id, float(ingest), s.quota_bytes_per_s),
+                block='tenant:%s' % s.id))
+    if ncores is None:
+        from ..affinity import available_cores
+        ncores = len(available_cores())
+    want = sum(max(s.ncores, 1) for s in specs)
+    if ncores and want > ncores:
+        diags.append(Diagnostic(
+            'BF-W212',
+            'tenants request %d core(s) but the host pool has %d: '
+            'the scheduler will share cores round-robin '
+            '(affinity.partition_cores) instead of giving each '
+            'tenant exclusive cores — lower ncores/priorities or '
+            'shrink the tenant set for isolation'
+            % (want, ncores),
+            block='tenant:%s' % specs[0].id if specs else None))
+    return diags
+
+
+# ---------------------------------------------------------------------------
+# cross-host placement verification (bifrost_tpu_torch.scheduler)
+# ---------------------------------------------------------------------------
+
+def verify_placement(spec, tenants, assignments):
+    """Jointly pre-gate a cross-host tenant placement BEFORE the
+    scheduler applies it — the composition of :func:`verify_fabric`
+    (over the fabric spec) and :func:`verify_service` (over each
+    host's assigned tenant group at THAT host's core capacity), plus
+    the placement-level findings neither can see alone:
+
+    - **BF-E220** unsatisfiable demand: a tenant's ``ncores`` exceeds
+      the core capacity of EVERY schedulable host — no bin-packing
+      order can place it;
+    - **BF-E221** unknown pin: ``assignments`` maps a tenant onto a
+      host name the fabric spec does not define;
+    - **BF-E222** fabric pre-gate failed: :func:`verify_fabric`
+      returned errors — the placement would launch tenants onto a
+      topology that cannot come up (the underlying BF-E2xx
+      diagnostics are passed through alongside);
+    - **BF-E223** service pre-gate failed: :func:`verify_service`
+      over some host's tenant group returned errors (duplicate ids,
+      shed-quota below one span, ...) — passed through alongside;
+    - **BF-W224** oversubscription: a host's assigned tenants demand
+      more cores than it declares — :func:`affinity.partition_cores`
+      will share cores and the scheduler displaces the
+      lowest-priority tenants' quotas (bounded, counted — never a
+      deadlock).
+
+    ``spec`` is a :class:`bifrost_tpu_torch.fabric.FabricSpec` (or dict),
+    ``tenants`` a list of :class:`bifrost_tpu_torch.service.TenantSpec` (or
+    dicts), ``assignments`` a ``{tenant_id: host_name}`` mapping
+    (tenants absent from it are unplaced and only capacity-checked).
+    Returns :class:`Diagnostic` s anchored on ``tenant:<id>`` /
+    ``host:<name>``."""
+    from ..fabric import FabricSpec
+    from ..service import TenantSpec
+    if isinstance(spec, dict):
+        spec = FabricSpec.from_dict(spec)
+    tenants = [TenantSpec.coerce(t) for t in tenants]
+    assignments = dict(assignments or {})
+    diags = []
+
+    # -- fabric pre-gate (BF-E222) ----------------------------------------
+    fab = verify_fabric(spec)
+    diags.extend(fab)
+    fab_errors = [d for d in fab if d.severity == 'error']
+    if fab_errors:
+        diags.append(Diagnostic(
+            'BF-E222',
+            'placement fabric pre-gate failed: verify_fabric found '
+            '%d error(s) (%s) — no tenant may be placed onto a '
+            'topology that cannot come up'
+            % (len(fab_errors),
+               ', '.join(sorted({d.code for d in fab_errors})))))
+
+    # -- capacity model ----------------------------------------------------
+    # a host that declares cores is schedulable at len(cores); one
+    # that does not still runs tenants on shared cores at capacity 1
+    caps = {name: (len(h.cores) if h.cores else 1)
+            for name, h in spec.hosts.items()}
+    max_cap = max(caps.values()) if caps else 0
+
+    # -- per-tenant findings (BF-E220 / BF-E221) --------------------------
+    by_host = {}
+    for t in tenants:
+        want = max(t.ncores, 1)
+        if want > max_cap:
+            diags.append(Diagnostic(
+                'BF-E220',
+                'tenant %r requests %d core(s) but the largest '
+                'schedulable host offers %d: no placement order can '
+                'satisfy it — shrink ncores or add capacity'
+                % (t.id, want, max_cap),
+                block='tenant:%s' % t.id))
+        host = assignments.get(t.id)
+        if host is None:
+            continue
+        if host not in spec.hosts:
+            diags.append(Diagnostic(
+                'BF-E221',
+                'tenant %r is pinned to host %r, which the fabric '
+                'spec does not define (hosts: %s)'
+                % (t.id, host, ', '.join(sorted(spec.hosts))
+                   or 'none'),
+                block='tenant:%s' % t.id))
+            continue
+        by_host.setdefault(host, []).append(t)
+
+    # -- per-host service pre-gate (BF-E223) and oversubscription
+    #    (BF-W224) ---------------------------------------------------------
+    for host in sorted(by_host):
+        group = by_host[host]
+        svc = verify_service(group, ncores=caps[host])
+        diags.extend(svc)
+        svc_errors = [d for d in svc if d.severity == 'error']
+        if svc_errors:
+            diags.append(Diagnostic(
+                'BF-E223',
+                'placement service pre-gate failed on host %r: '
+                'verify_service found %d error(s) (%s) for its '
+                'tenant group [%s]'
+                % (host, len(svc_errors),
+                   ', '.join(sorted({d.code for d in svc_errors})),
+                   ', '.join(t.id for t in group)),
+                block='host:%s' % host))
+        want = sum(max(t.ncores, 1) for t in group)
+        if want > caps[host]:
+            displaced = sorted(group,
+                               key=lambda t: (t.priority, t.id))
+            diags.append(Diagnostic(
+                'BF-W224',
+                'host %r is oversubscribed: its tenant group '
+                'demands %d core(s) against %d — '
+                'affinity.partition_cores shares cores and the '
+                'scheduler displaces the lowest-priority tenant '
+                '(%r) first (quota scaled, shed counted)'
+                % (host, want, caps[host], displaced[0].id),
+                block='host:%s' % host))
+    return diags
 
 
 # ---------------------------------------------------------------------------

@@ -63,9 +63,10 @@ class FusedBlock(TransformBlock):
         self._plans = {}
         self._plan_impls = {}
         #: a dict of plans shared between blocks of equal
-        #: :meth:`plan_signature` (the JAX service tier's warm start);
-        #: None, the default, turns it off.  Nothing in the port sets it
-        #: until the service tier is ported
+        #: :meth:`plan_signature`; None, the default, turns it off.  The
+        #: service tier's JobManager sets it on every tenant's fused
+        #: blocks (a cold job deposits its plans, a warm job of the same
+        #: topology fetches them: ``service._WARM``)
         self._plan_depot = None
         #: configuration of the plan that ran last, published to the
         #: ``<name>/impl`` proclog so benchmarks read what ran
@@ -213,8 +214,8 @@ class FusedBlock(TransformBlock):
                               substitute=self.substitute)
 
     def _build_plan(self, shape, dtype, donate=False):
-        # every plan build is counted (the JAX service tier's warm-start
-        # gate reads it)
+        # every plan build is counted (a warm tenant of the service tier
+        # builds none)
         _counters.inc('fused.plan_builds')
         fn, info = self._compose(shape, dtype)
         self._last_built_impl = dict(info, donate_argnums=[0]) \

@@ -547,7 +547,7 @@ class HealthMonitor(threading.Thread):
                 self._delta(snap, 'bridge.tx.reconnects') +
                 self._delta(snap, 'bridge.redial_attempts') +
                 self._delta(snap, 'bridge.circuit_open') +
-                # fabric choreography (bifrost_tpu.fabric): a fan-out
+                # fabric choreography (the fabric tier): a fan-out
                 # leg re-striped onto survivors, a fan-in origin
                 # marked gapped, or a dead sender session adopted —
                 # the pipeline is degraded-but-running, not failed

@@ -16,13 +16,17 @@ and two exporters publish it:
   cumulative ``_bucket{le=...}`` / ``_sum`` / ``_count``, ring occupancy
   and card memory as gauges), under the JAX package's metric names.
 
-The JAX package's tenant and scheduler sections wait for the port's
-service and scheduler tiers.  A publisher failure never reaches the
+The snapshot also carries the service tier's ``tenants`` section and
+the control plane's ``scheduler`` section (each read only where its
+module is already imported), and the fabric host identity that
+``proclog.set_identity`` set; the Prometheus text adds the
+tenant-labelled series.  A publisher failure never reaches the
 pipeline.
 """
 from __future__ import annotations
 
 import os
+import sys
 import threading
 
 from . import counters, histograms, spans
@@ -149,6 +153,34 @@ def _device_stats():
     return out
 
 
+def _tenant_section():
+    """The service tier's per-tenant rollups
+    (:func:`bifrost_tpu_torch.service.telemetry_section`), or {} when the
+    service tier is not imported in this process: a snapshot must not
+    import it."""
+    if '%s.service' % __name__.split('.')[0] not in sys.modules:
+        return {}
+    try:
+        from .. import service
+        return service.telemetry_section()
+    except Exception:
+        return {}
+
+
+def _scheduler_section():
+    """The control plane's placement and migration counters
+    (:func:`bifrost_tpu_torch.scheduler.telemetry_section`), or {} when
+    the scheduler is not imported in this process (the same gate as the
+    tenant section)."""
+    if '%s.scheduler' % __name__.split('.')[0] not in sys.modules:
+        return {}
+    try:
+        from .. import scheduler
+        return scheduler.telemetry_section()
+    except Exception:
+        return {}
+
+
 #: mesh counter prefixes folded into the snapshot's 'mesh' summary
 _MESH_KEYS = ('mesh.reshards', 'mesh.reshard_bytes',
               'mesh.sharded_commits', 'mesh.layout_mismatch',
@@ -178,7 +210,10 @@ def snapshot(pipeline=None, rates=False):
          'rings':      {name: {tail,head,size,...,fill}},
          'devices':    {index: {platform,bytes_in_use,bytes_limit,...}},
          'mesh':       {reshards,sharded_commits,collectives,...},
-         'identity':   {hostname, pid},
+         'tenants':    {tenant_id: {state,health,gulps,bytes,
+                        quota_shed_*,ring_shed_*,slo,...}},
+         'scheduler':  {placements,migrations,replacements,...},
+         'identity':   {hostname, pid, fabric_host?, fabric_role?},
          'rates':      {dt, counters: {name: per_s},
                         histograms: {name: {count_per_s, sum_per_s}}}}
 
@@ -203,14 +238,21 @@ def snapshot(pipeline=None, rates=False):
             counts.get('trace.dropped_spans', 0) + dropped
     hists = histograms.snapshot()
     import socket
+    from ..proclog import get_identity
+    identity = {'hostname': socket.gethostname(), 'pid': os.getpid()}
+    ident = get_identity()
+    if ident is not None:
+        identity['fabric_host'] = ident[0]
+        identity['fabric_role'] = ident[1]
     snap = {
         'counters': counts,
         'histograms': hists,
         'rings': _ring_occupancy(pipeline),
         'devices': _device_stats(),
         'mesh': _mesh_summary(counts),
-        'identity': {'hostname': socket.gethostname(),
-                     'pid': os.getpid()},
+        'tenants': _tenant_section(),
+        'scheduler': _scheduler_section(),
+        'identity': identity,
     }
     if rates:
         tracker = rates if isinstance(rates, RateTracker) \
@@ -284,6 +326,35 @@ def prometheus_text(snap=None):
                 lines.append('bifrost_tpu_device_bytes{device="%s",'
                              'kind="%s"} %d' % (_esc(idx), kind,
                                                 d[key]))
+    # the service tier's tenant-labelled series: one gauge family keyed
+    # {tenant, kind} and a one-hot health family
+    tenants = snap.get('tenants', {})
+    if tenants:
+        lines.append('# TYPE bifrost_tpu_tenant gauge')
+        lines.append('# TYPE bifrost_tpu_tenant_health gauge')
+    for tid in sorted(tenants):
+        d = tenants[tid]
+        label = _esc(tid)
+        for key in ('gulps', 'bytes', 'quota_shed_gulps',
+                    'quota_shed_bytes', 'ring_shed_gulps',
+                    'ring_shed_bytes', 'warm'):
+            v = d.get(key)
+            if isinstance(v, (int, float)):
+                # exact integer ledgers, written as %d like every counter
+                lines.append('bifrost_tpu_tenant{tenant="%s",'
+                             'kind="%s"} %d' % (label, key, int(v)))
+        slo = d.get('slo') or {}
+        p99 = slo.get('exit_age_p99_s')
+        if isinstance(p99, (int, float)):
+            lines.append('bifrost_tpu_tenant{tenant="%s",'
+                         'kind="exit_age_p99_s"} %g' % (label, p99))
+        if isinstance(slo.get('violations'), (int, float)):
+            lines.append('bifrost_tpu_tenant{tenant="%s",'
+                         'kind="slo_violations"} %g'
+                         % (label, slo['violations']))
+        lines.append('bifrost_tpu_tenant_health{tenant="%s",'
+                     'state="%s"} 1' % (label,
+                                        _esc(d.get('health', '?'))))
     return '\n'.join(lines) + '\n'
 
 

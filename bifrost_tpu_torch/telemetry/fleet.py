@@ -14,8 +14,8 @@ publisher of either package feeds a collector of the other).
   in use.  The publisher arms the span flight recorder while it runs
   and answers two collector requests on its own socket: ``need_full``
   (resync) and ``flight_request`` (incident capture).  The ``tenants``
-  and ``scheduler`` sections stay empty: the port has no service tier
-  yet.
+  and ``scheduler`` sections carry the service tier's and the control
+  plane's rollups where those modules run in the process.
 
 - :class:`FleetCollector`: binds one UDP port, keeps a per-host rollup
   with staleness marking (its own deadline and the dead verdicts of an
@@ -375,8 +375,8 @@ class FleetPublisher(threading.Thread):
                'mono_us': spans.now_us(),
                'rings': exporter._ring_occupancy(None),
                'health': _health_section(),
-               'tenants': {},
-               'scheduler': {}}
+               'tenants': exporter._tenant_section(),
+               'scheduler': exporter._scheduler_section()}
         if final:
             msg['final'] = True
         counts = counters.snapshot()
@@ -988,7 +988,8 @@ class FleetCollector(object):
     staleness marking (own ``deadline`` + the attached Membership's
     verdicts), alert evaluation, rollup/Prometheus export, incident
     settling.  ``membership`` is optional: any object with
-    ``is_dead(host)`` (the fabric's membership, where one runs)."""
+    ``is_dead(host)``, such as the fabric's
+    :class:`bifrost_tpu_torch.fabric.Membership`."""
 
     def __init__(self, bind=('127.0.0.1', 0), membership=None,
                  rules=None, interval=None, deadline=None,

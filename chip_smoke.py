@@ -329,9 +329,52 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    which must equal the launches that host's arm measured (the counters
    are set to 0 where the phase starts).  Prints the alert and incident timings and fleet.pub.busy_us per
    second of wall;
+15f. runs the service tier: four distinct 16384 x 2 x 4096 ci8 gulps
+   recorded with serialize; tenants replay the recording (looped) ->
+   QuotaGate -> copy('cuda') -> fused[FFT, Stokes, reduce(4)] (K1) ->
+   copy('system') -> a sink that keeps each output's CRC-32.  Tenants A,
+   B and C first run alone (each equal to A byte for byte, A within 1e-5
+   of the float64 oracle on 3 rows of 2 gulps); then together on one
+   JobManager: A at priority 2, B shedding at half the rate it showed
+   alone (its shed gulps counted, admitted plus shed bytes equal to the
+   offered bytes, every admitted gulp equal to A's solo output of that
+   recorded gulp), and C with a host-level fault in its fused block
+   (BF_FAULTS' block.on_data, matched on the block's full name), which
+   fails C while A and B finish unharmed.  K1 launches on the radix-16
+   kernel only, split into gulps and prewarm runs.  Then a cold tenant
+   of A's topology on a warm-enabled manager and a warm one after it:
+   one service.warm.hits, plan-depot hits and no plan build, the same
+   bytes.  Prints each tenant's Msamples/s alone and together and the
+   submit-to-first-gulp ms cold and warm;
+15g. runs the fabric tier: examples/fx_correlator_torch.py and
+   examples/fdmt_search_torch.py with --fabric's two loopback hosts at
+   their own shapes, K7 and K3 forced, equal to their single-host runs;
+   then a full-width drill: a child process (``chip_smoke.py
+   --fabric-stations JSON``) is the 'stations' host of a FabricSpec and
+   ships the FX phase's ci8 gulps over a 'pipe' link to this process's
+   'xhost', which runs the fx-K7 chain and digests every visibility on
+   the card.  The child is SIGKILLed after gulp 3 (all it shipped
+   acknowledged), membership marks it dead, a relaunched child rejoins
+   and replays only the unacknowledged gulps (bridge.rx.sessions_adopted
+   >= 1).  Every visibility equals the FX chain's oracle for its gulp
+   (card digest; CRC-32 of the first two), K7 launches once a gulp, and
+   the sender's journal holds delivered plus shed bytes equal to the
+   bytes produced.  Prints the dead-mark latency, the resume frame and
+   the delivery MB/s of each session;
+15h. runs the scheduler tier: two JobManagers as hosts h1 and h2 of one
+   FabricSpec; three synthetic K1 tenants (float32 pairs made ci8 on the
+   host, 256 x 2 x 4096 a gulp) whose sinks journal each delivered gulp
+   to an AckLedger.  A solo run deposits the warm plans; the tenants are
+   placed and applied warm; sc migrates h1 -> h2 at its ledger
+   frontier; h1 dies and sa is re-placed at its frontier; one arbiter
+   pass moves quota from sb to sa.  Every gulp of every tenant is
+   delivered once and equals the solo run's, and the resumes are
+   counted (scheduler.resume.skipped_frames).  Prints the migration's and
+   the re-placement's ms;
 16. prints a JSON line of pipeline rates per chain, one of the DSP
    library phases' numbers, one of the xfer phase's, one of the analysis,
-   capture, bridge, autotune and fleet phases', one JSON line of per-kernel numbers
+   capture, bridge, autotune, fleet, service, fabric and scheduler
+   phases', one JSON line of per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -1947,10 +1990,21 @@ def fx_gulps(seed=13, n=2):
 
 
 def fx_oracle(gulp):
+    """The FX chain's output for one gulp as a host array (1, F, S, P, S,
+    P) complex64 (:func:`fx_oracle_device`)."""
+    import torch
+    vis = fx_oracle_device(gulp)
+    out = vis.cpu().numpy()
+    del vis
+    torch.cuda.empty_cache()
+    return out
+
+
+def fx_oracle_device(gulp):
     """The FX chain's output for one gulp, made on the card: the port's
     F step (torch.fft through fftn_dispatch) and quantize, then the X
     step in float64 products (K7's plain version) and the accumulate.
-    Returns a host array (1, F, S, P, S, P) complex64."""
+    Returns a card tensor (1, F, S, P, S, P) complex64."""
     import torch
     from bifrost_tpu_torch.ops.fft import fftn_dispatch
     from bifrost_tpu_torch.ops.gpu_kernels import xcorr_herm_plain
@@ -1963,10 +2017,8 @@ def fx_oracle(gulp):
     vis = xcorr_herm_plain(q[..., 0].reshape(ng, XR, XF, XN),
                            q[..., 1].reshape(ng, XR, XF, XN))
     vis = vis.reshape(ng // XA, XA, XF, XN, XN).sum(dim=1)
-    out = vis.reshape(ng // XA, XF, XS, XP, XS, XP).cpu().numpy()
-    del q, vis
-    torch.cuda.empty_cache()
-    return out
+    del q
+    return vis.reshape(ng // XA, XF, XS, XP, XS, XP)
 
 
 def fx_header(labels, nframe):
@@ -6748,6 +6800,913 @@ def phase_fleet(bt, spec, gpu_kernels, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the service, fabric and scheduler tiers (items 15f, 15g and 15h)
+# ---------------------------------------------------------------------------
+
+#: service phase: distinct recorded flagship gulps, the replay passes of
+#: tenants A (solo and together), B (solo and together, shedding) and C,
+#: of the cold and warm tenants; the oracle's rows; C's faulted gulp
+SGULPS, SA_LOOPS, SB_LOOPS, SC_LOOPS, SW_LOOPS = 4, 2, 3, 2, 1
+SSEED, SROWS, SFAULT_AFTER = 61, [0, 8191, 16383], 1
+#: fabric phase: gulps the stations child ships (two distinct FX gulps in
+#: turn) and the one after which it is killed; membership timers
+FNGULP, FKILL_AFTER = 6, 3
+FHEARTBEAT, FDEADLINE, FREJOIN_CAP = '0.1', '1.0', '0.2'
+FXTIMEOUT = 300
+#: scheduler phase: the synthetic tenants' gulps (SCH_T frames of
+#: NPOL x NFINE ci8 made from as many float32 pairs), gulps a stream,
+#: each tenant's pacing (seconds a gulp), the migration's and the host
+#: death's frontier (gulps delivered first)
+SCH_T, SCH_N, SCH_SEED = 256, 12, 71
+SCH_TICK = {'sa': 0.6, 'sb': 1.2, 'sc': 0.25}
+SCH_MIGRATE_AT, SCH_KILL_AT = 2, 3
+
+
+def card_digest(x):
+    """An order-sensitive digest of a card tensor's bytes, made on the
+    card: int32 words summed along the last axis, weighted by position."""
+    import torch
+    words = x.contiguous().view(torch.int32)
+    rows = words.reshape(words.shape[0], -1, words.shape[-1]) \
+        .sum(dim=-1, dtype=torch.int64)
+    w = torch.arange(1, rows.numel() + 1, dtype=torch.int64,
+                     device=rows.device).reshape(rows.shape) * 2654435761
+    return int((rows * w).sum().item())
+
+
+def spectrometer_build(bt, out, tid, sink_cls):
+    """A tenant's chain past its quota gate: copy('cuda') -> fused[FFT,
+    Stokes, reduce(4)] (K1 substituted) -> copy('system') ->
+    ``sink_cls``; ``out[tid]`` gets (sink, fused block)."""
+    from bifrost_tpu_torch.stages import (FftStage, DetectStage,
+                                          ReduceStage)
+
+    def build(gate):
+        fb = bt.blocks.fused(
+            bt.blocks.copy(gate, space='cuda'),
+            [FftStage('fine_time', axis_labels='freq'),
+             DetectStage('stokes', axis='pol'),
+             ReduceStage('freq', RFACTOR)])
+        out[tid] = (sink_cls(bt.blocks.copy(fb, space='system')), fb)
+    return build
+
+
+def crc_sink_class(bt):
+    class CrcSink(bt.SinkBlock):
+        """CRC-32 of every output gulp as (sequence, crc), the host
+        clock at each, and the oracle rows of the first gulps."""
+
+        def __init__(self, iring):
+            super(CrcSink, self).__init__(iring)
+            self.out, self.times, self.rows = [], [], []
+            self.nseq = -1
+
+        def on_sequence(self, iseq):
+            self.nseq += 1
+
+        def on_data(self, ispan):
+            a = ispan.data.as_numpy()
+            self.out.append((self.nseq, zlib.crc32(memoryview(
+                a.reshape(-1).view(np.uint8)))))
+            if len(self.rows) < SGULPS:
+                self.rows.append(np.array(a[SROWS], copy=True))
+            self.times.append(time.perf_counter())
+    return CrcSink
+
+
+def record_stream(bt, gulps, tmp):
+    """Record ``gulps`` with the port's serialize; returns the basename
+    a replay tenant names."""
+    src_cls = k1_source_class(bt, gulps, len(gulps), 'svc')
+    with bt.Pipeline() as p:
+        bt.blocks.serialize(src_cls(), path=tmp)
+    run_with_timeout(p, FXTIMEOUT)
+    return os.path.join(tmp, 'svc')
+
+
+def replay_spec(service, tid, base, loops, **kw):
+    return service.TenantSpec(tid, gulp_nframe=NTIME, source={
+        'kind': 'replay', 'basenames': [base], 'gulp_nframe': NTIME,
+        'loop': loops}, **kw)
+
+
+def tenant_rate(sink):
+    """Msamples/s of a tenant between its first and last output."""
+    t = sink.times
+    if len(t) < 2:
+        return None
+    return (len(t) - 1) * NTIME * NPOL * NFINE / (t[-1] - t[0]) / 1e6
+
+
+def check_tenant_bytes(what, sink, ref, ordered=True):
+    """Every output of ``sink`` is the solo run's output of one recorded
+    gulp; within a replay pass (a sequence) the gulps keep their order.
+    Returns the recorded gulp index of each output."""
+    idx = {c: i for i, c in enumerate(ref)}
+    found, last = [], {}
+    for seq, c in sink.out:
+        require(c in idx, '%s: an output differs from every solo output'
+                % what)
+        i = idx[c]
+        require(not ordered or i > last.get(seq, -1),
+                '%s: outputs out of order in pass %d' % (what, seq))
+        last[seq] = i
+        found.append(i)
+    return found
+
+
+def service_solo(bt, TS, base, tid, loops, crc_sink, **kw):
+    """One tenant alone on a JobManager of its own (no warm state)."""
+    out = {}
+    mgr = TS.JobManager(max_tenants=1, warm=False)
+    job = mgr.submit(replay_spec(TS, tid, base, loops, **kw),
+                     spectrometer_build(bt, out, tid, crc_sink))
+    mgr.start()
+    states = mgr.wait(FXTIMEOUT)
+    mgr.shutdown()
+    require(states == {tid: 'DONE'}, 'service: solo %s ended %s (%s)'
+            % (tid, states, job.error))
+    sink, fb = out[tid]
+    require(len(sink.out) == loops * SGULPS, 'service: solo %s delivered '
+            '%d of %d gulps' % (tid, len(sink.out), loops * SGULPS))
+    return sink, fb, job
+
+
+def phase_service(bt, spec, gpu_kernels, smi):
+    """The service phase (item 15f of the module docstring)."""
+    import tempfile
+    import torch
+    from bifrost_tpu_torch import service as TS
+    from bifrost_tpu_torch.telemetry import counters
+    from bifrost_tpu_torch.testing import faults
+    crc_sink = crc_sink_class(bt)
+    gulps = make_gulps(SSEED, SGULPS)
+    gulp_nbyte = gulps[0].nbytes
+    nsamp = NTIME * NPOL * NFINE
+    out = {'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
+           'recorded_gulps': SGULPS, 'card': smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        base = record_stream(bt, gulps, tmp)
+        out['record_s'] = time.perf_counter() - t0
+        oracle = [spec.spectrometer_oracle(g[SROWS], RFACTOR)
+                  for g in gulps]
+        del gulps
+        # solo runs: each tenant's chain alone (C without its fault)
+        solo = {}
+        for tid, loops in (('A', SA_LOOPS), ('B', SB_LOOPS),
+                           ('C', SC_LOOPS)):
+            sink, _fb, _job = service_solo(bt, TS, base, tid, loops,
+                                           crc_sink)
+            solo[tid] = sink
+        ref = [c for _s, c in solo['A'].out[:SGULPS]]
+        require(len(set(ref)) == SGULPS, 'service: the recorded gulps do '
+                'not digest apart')
+        for tid, sink in solo.items():
+            require([c for _s, c in sink.out] ==
+                    ref * (len(sink.out) // SGULPS),
+                    'service: solo %s differs from solo A' % tid)
+        errs = []
+        for k in range(2):
+            errs.append(rel_err(solo['A'].rows[k], oracle[k]))
+            require(errs[-1] < GATE, 'service: solo A gulp %d rows vs the '
+                    'oracle: %.3g' % (k, errs[-1]))
+        log_crc('service solo A outputs', ref)
+        alone = {t: tenant_rate(s) for t, s in solo.items()}
+        # B's quota: half the ci8 bytes (2 a sample) a second it showed
+        # alone
+        quota = alone['B'] * 1e6 * 2 * 0.5
+        # together: A (priority 2), B (shed at half its rate), C with a
+        # host-level fault in its fused block
+        counters.reset()
+        faults.clear()
+        run = {}
+        mgr = TS.JobManager(max_tenants=4, warm=False)
+        for tid, loops, kw in (
+                ('A', SA_LOOPS, {'priority': 2}),
+                ('B', SB_LOOPS, {'quota_bytes_per_s': quota,
+                                 'quota_policy': 'shed'}),
+                ('C', SC_LOOPS, {})):
+            mgr.submit(replay_spec(TS, tid, base, loops, **kw),
+                       spectrometer_build(bt, run, tid, crc_sink))
+        cname = run['C'][1].name
+        fault = faults.inject('block.on_data', match=cname,
+                              count=1, after=SFAULT_AFTER)
+        zero_counts(spec, gpu_kernels)
+        t0 = time.perf_counter()
+        mgr.start()
+        states = mgr.wait(FXTIMEOUT)
+        wall = time.perf_counter() - t0
+        counts = read_counts(spec, gpu_kernels)
+        faults.clear()
+        stats = {t: mgr.job(t).stats() for t in ('A', 'B', 'C')}
+        mgr.shutdown()
+        require(states == {'A': 'DONE', 'B': 'DONE', 'C': 'FAILED'},
+                'service: tenants ended %s (C: %s)' % (
+                    states, stats['C'].get('error')))
+        require(fault.fired == 1 and 'injected fault' in
+                stats['C'].get('error', ''), 'service: C failed otherwise: '
+                '%s' % stats['C'].get('error'))
+        for tid in ('A', 'B'):
+            require(stats[tid]['rings_poisoned'] == 0 and
+                    stats[tid]['ring_shed_gulps'] == 0,
+                    'service: %s felt C\'s fault: %s' % (tid, stats[tid]))
+        a_sink, b_sink = run['A'][0], run['B'][0]
+        require([c for _s, c in a_sink.out] == ref * SA_LOOPS,
+                'service: A together differs from A alone')
+        b_found = check_tenant_bytes('service B', b_sink, ref)
+        for what, sink, idx in (('A', a_sink, [0, 1]),
+                                ('B', b_sink, b_found[:2])):
+            for k, i in enumerate(idx):
+                errs.append(rel_err(sink.rows[k], oracle[i]))
+                require(errs[-1] < GATE, 'service: %s output %d rows vs '
+                        'the oracle: %.3g' % (what, k, errs[-1]))
+        shed = counters.get('service.B.quota_shed_gulps')
+        admitted = counters.get('service.B.admitted_gulps')
+        offered = SB_LOOPS * SGULPS
+        require(shed >= 1 and admitted == len(b_sink.out) >= 1 and
+                admitted + shed == offered,
+                'service: B admitted %d, shed %d of %d gulps, delivered %d'
+                % (admitted, shed, offered, len(b_sink.out)))
+        require(counters.get('service.B.admitted_bytes') +
+                counters.get('service.B.quota_shed_bytes') ==
+                offered * gulp_nbyte, 'service: B\'s admitted and shed '
+                'bytes do not add up to the offered bytes')
+        fused = [run[t][1] for t in ('A', 'B', 'C')]
+        prewarm = sum(fb.prewarm_runs for fb in fused)
+        k1 = counts['fused_spectrometer']
+        delivered = len(a_sink.out) + len(b_sink.out)
+        require(k1 > delivered + prewarm and
+                counts['fused_spectrometer_radix16'] == k1,
+                'service: K1 launched %d times (radix16 %s) for %d delivered '
+                'gulps, %d prewarm runs and C\'s gulps'
+                % (k1, counts['fused_spectrometer_radix16'], delivered,
+                   prewarm))
+        log_crc('service together B outputs', [c for _s, c in b_sink.out])
+        together = {t: tenant_rate(run[t][0]) for t in ('A', 'B')}
+        out.update({
+            'alone_msps': alone, 'together_msps': together,
+            'together_aggregate_msps': (len(a_sink.out) + len(b_sink.out) +
+                                        len(run['C'][0].out)) * nsamp /
+            wall / 1e6,
+            'together_wall_s': wall, 'quota_b_bytes_per_s': quota,
+            'b_admitted_gulps': admitted, 'b_shed_gulps': shed,
+            'b_offered_gulps': offered, 'b_recorded_gulp_of_each_output':
+                b_found, 'c_gulps_before_fault': len(run['C'][0].out),
+            'c_error': stats['C'].get('error', '').splitlines()[0],
+            'oracle_rel_err': errs,
+            'k1_launches': k1, 'k1_prewarm_runs': prewarm,
+            'k1_launches_gulps': k1 - prewarm, 'launches': {
+                k: n for k, n in counts.items() if n}})
+        del run, solo, fused
+        settle_memory()
+        # warm start: A's topology resubmitted as a new tenant after a
+        # cold tenant of it finished on a warm-enabled manager
+        counters.reset()
+        mgr = TS.JobManager(max_tenants=2, warm=True)
+        TS.reset_warm_registry()
+        lat, warm = {}, {}
+        for tid in ('Acold', 'Awarm'):
+            t0 = time.perf_counter()
+            job = mgr.submit(replay_spec(TS, tid, base, SW_LOOPS),
+                             spectrometer_build(bt, warm, tid, crc_sink))
+            zero_counts(spec, gpu_kernels)
+            mgr.start(tid)
+            require(job.wait(FXTIMEOUT) == 'DONE', 'service: %s ended %s '
+                    '(%s)' % (tid, job.state, job.error))
+            sink, fb = warm[tid]
+            c = read_counts(spec, gpu_kernels)
+            lat[tid] = {'warm': job.warm,
+                        'submit_to_first_gulp_ms':
+                            (sink.times[0] - t0) * 1e3,
+                        'run_start_to_first_admitted_ms':
+                            job.start_latency_s * 1e3,
+                        'k1_launches': c['fused_spectrometer_radix16'],
+                        'k1_prewarm_runs': fb.prewarm_runs,
+                        'plan_depot_hits':
+                            counters.get('fused.plan_depot_hits'),
+                        'plan_builds': counters.get('fused.plan_builds')}
+            require([x for _s, x in sink.out] == ref * SW_LOOPS,
+                    'service: %s differs from A alone' % tid)
+        mgr.shutdown()
+        require(not lat['Acold']['warm'] and lat['Awarm']['warm'] and
+                counters.get('service.warm.hits') == 1 and
+                counters.get('service.warm.rejected_stale') == 0,
+                'service: warm start %s, hits %d' % (
+                    lat, counters.get('service.warm.hits')))
+        require(lat['Awarm']['plan_depot_hits'] -
+                lat['Acold']['plan_depot_hits'] >= 1 and
+                lat['Awarm']['plan_builds'] == lat['Acold']['plan_builds'],
+                'service: the warm tenant built plans: %s' % lat)
+        for tid in ('Acold', 'Awarm'):
+            n = lat[tid]['k1_launches']
+            require(n == SW_LOOPS * SGULPS + lat[tid]['k1_prewarm_runs'],
+                    'service: %s launched K1 %d times' % (tid, n))
+        out['warm'] = lat
+        out['warm_counters'] = {k: v for k, v in counters.snapshot().items()
+                                if k.startswith(('service.warm', 'fused.',
+                                                 'autotune.profile'))}
+        del warm
+        settle_memory()
+    torch.cuda.empty_cache()
+    log('service: 3 tenants of %d x %d x %d ci8 (r %d) replayed from a '
+        'recording; alone %s Msamples/s, together A %.1f and B %.1f '
+        '(aggregate %.1f over %.1f s); B shed %d of %d gulps at a quota of '
+        '%.3g B/s; C failed after %d gulps (%s); K1 %d launches (%d gulps, %d '
+        'prewarm); warm start %s (%s)'
+        % (NTIME, NPOL, NFINE, RFACTOR,
+           {t: round(v, 1) for t, v in out['alone_msps'].items()},
+           together['A'], together['B'] or 0,
+           out['together_aggregate_msps'], wall, shed, offered, quota,
+           out['c_gulps_before_fault'], out['c_error'], k1, k1 - prewarm,
+           prewarm, {t: (round(v['submit_to_first_gulp_ms'], 1),
+                         v['k1_prewarm_runs']) for t, v in lat.items()},
+           smi))
+    return out
+
+
+# -- the fabric phase -------------------------------------------------------
+
+def fx_fabric_spec(ports):
+    return {'name': 'smoke_fx', 'hosts': {
+        'stations': {'address': '127.0.0.1', 'control_port': ports[0],
+                     'role': 'capture'},
+        'xhost': {'address': '127.0.0.1', 'control_port': ports[1],
+                  'role': 'reduce'}},
+        'links': {'voltages': {'kind': 'pipe', 'src': 'stations',
+                               'dst': 'xhost', 'port': ports[2],
+                               'window': 2,
+                               'gulp_nbyte': XT * XF * XS * XP * 2}}}
+
+
+def fabric_stations(arg):
+    """``chip_smoke.py --fabric-stations JSON``: the 'stations' host of
+    the fabric drill, host only.  It resumes where the xhost's receiver
+    (or its own ledger) says, ships the FX phase's ci8 gulps in turn up
+    to FNGULP, prints a FABRIC_PRODUCED line (its bytes so far) at each
+    gulp and one FABRIC_STATIONS line of JSON at the end."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import fabric
+    from bifrost_tpu_torch.telemetry import counters
+    a = json.loads(arg)
+    gulps = fx_gulps()
+    box = {}
+    hold = a.get('hold_after')
+
+    class Stations(bt.SourceBlock):
+        def __init__(self, start):
+            super(Stations, self).__init__(['fx'], XT, space='system')
+            self.count = start
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [fx_header(['time', 'fine', 'station', 'pol'], XT)]
+
+        def on_data(self, reader, ospans):
+            if self.count == FNGULP:
+                return [0]
+            if self.count == hold:
+                # the drill's kill lands here, once every span shipped so
+                # far is acknowledged and journalled (the ledger writes at
+                # most every AckLedger.SAVE_INTERVAL), none in flight
+                led = fh.ledger('voltages')
+                while led.acked_frames('fx') < hold * XT:
+                    if self.shutdown_event.wait(0.01):
+                        return [0]
+                led.save(force=True)
+                self.shutdown_event.wait()
+                return [0]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = gulps[self.count % len(gulps)].reshape(dst.shape)
+            self.count += 1
+            box['produced'] = box.get('produced', 0) + dst.nbytes
+            print('FABRIC_PRODUCED %d' % box['produced'], flush=True)
+            return [XT]
+
+    def build(ctx):
+        box['resume_frames'] = ctx.resume_offset('voltages', 'fx')
+        require(box['resume_frames'] % XT == 0, 'stations: resume at frame '
+                '%d' % box['resume_frames'])
+        ctx.sink('voltages', Stations(box['resume_frames'] // XT))
+
+    fh = fabric.FabricHost(a['spec'], 'stations', build)
+    t0 = time.perf_counter()
+    fh.build()
+    fh.run()
+    print('FABRIC_STATIONS ' + json.dumps({
+        'secs': time.perf_counter() - t0, 'rejoining': fh.rejoining,
+        'resume_frames': box['resume_frames'],
+        'counters': {k: v for k, v in counters.snapshot().items()
+                     if k.startswith(('bridge.tx', 'fabric.'))}}),
+        flush=True)
+    return 0
+
+
+def produced_bytes(stdout):
+    """The last FABRIC_PRODUCED count a stations child printed."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith('FABRIC_PRODUCED ')]
+    return int(lines[-1].split()[1]) if lines else 0
+
+
+def stations_child(spec, hold_after=None):
+    here = os.path.abspath(__file__)
+    return subprocess.Popen([sys.executable, here, '--fabric-stations',
+                             json.dumps({'spec': spec,
+                                         'hold_after': hold_after})],
+                            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def load_module(name, path):
+    import importlib.util
+    mod = importlib.util.spec_from_file_location(name, path)
+    m = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(m)
+    return m
+
+
+def fabric_examples(bt, spec, gpu_kernels, smi):
+    """The two examples' --fabric runs at their own shapes against their
+    single-host runs, K7 and K3 forced; returns their record."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    fx = load_module('fx_correlator_torch',
+                     os.path.join(here, 'examples', 'fx_correlator_torch.py'))
+    fd = load_module('fdmt_search_torch',
+                     os.path.join(here, 'examples', 'fdmt_search_torch.py'))
+    out = {}
+    with environ(BF_XCORR_IMPL='pallas', BF_FDMT_IMPL='pallas'):
+        single = fx.run_single(quiet=True)
+        zero_counts(spec, gpu_kernels)
+        t0 = time.perf_counter()
+        hosts, sinks = fx.build_fabric(quiet=True)
+        fx.run_hosts(hosts, FXTIMEOUT)
+        secs = time.perf_counter() - t0
+        counts = read_counts(spec, gpu_kernels)
+        got = sinks[0].visibilities
+        require(len(got) == len(single.visibilities) == fx.NGULP and all(
+            a.tobytes() == b.tobytes()
+            for a, b in zip(got, single.visibilities)),
+            'fabric: fx_correlator_torch --fabric differs from its single '
+            'host run')
+        require(counts['xcorr_herm'] >= fx.NGULP, 'fabric: the FX example '
+                'launched K7 %d times' % counts['xcorr_herm'])
+        log_crc('fabric fx example visibilities', [crc32(a) for a in got])
+        out['fx_example'] = {'gulps': fx.NGULP, 'secs': secs,
+                             'k7_launches': counts['xcorr_herm']}
+        peak1 = fd.run_single()
+        zero_counts(spec, gpu_kernels)
+        t0 = time.perf_counter()
+        peak2 = fd.run_fabric(FXTIMEOUT)
+        secs = time.perf_counter() - t0
+        counts = read_counts(spec, gpu_kernels)
+        require(peak1.best == peak2.best and
+                peak1.ncandidates == peak2.ncandidates,
+                'fabric: fdmt_search_torch --fabric found %s (%d), single '
+                'host %s (%d)' % (peak2.best, peak2.ncandidates, peak1.best,
+                                  peak1.ncandidates))
+        require(counts['fdmt_step'] >= 1, 'fabric: the FDMT example '
+                'launched K3 %d times' % counts['fdmt_step'])
+        out['fdmt_example'] = {'peak': list(peak2.best),
+                               'candidates': peak2.ncandidates,
+                               'secs': secs,
+                               'k3_launches': counts['fdmt_step']}
+    log('fabric: examples --fabric equal their single-host runs: FX %d '
+        'integrations (K7 %d launches, %.1f s), FDMT peak %s (K3 %d '
+        'launches, %.1f s) (%s)'
+        % (len(got), out['fx_example']['k7_launches'],
+           out['fx_example']['secs'], list(peak2.best),
+           out['fdmt_example']['k3_launches'], out['fdmt_example']['secs'],
+           smi))
+    return out
+
+
+def fx_xhost_build(bt, box):
+    """The xhost's chain: the link's system ring -> copy('cuda') -> fft ->
+    quantize -> correlate (K7 forced) -> accumulate -> a sink that
+    digests each visibility on the card (and keeps the host CRC-32 of the
+    first two)."""
+    class DigestSink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(DigestSink, self).__init__(iring)
+            self.digests, self.times, self.crcs = [], [], []
+
+        def define_valid_input_spaces(self):
+            return ('cuda',)
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.digests.append(card_digest(ispan.data))
+            if len(self.crcs) < 2:
+                self.crcs.append(crc32(ispan.data.cpu().numpy()))
+            self.times.append(time.perf_counter())
+
+    def build(ctx):
+        b = bt.blocks.copy(ctx.source('voltages'), space='cuda')
+        b = bt.blocks.fft(b, axes='fine', axis_labels='freq')
+        b = bt.blocks.quantize(b, 'ci8', scale=XSCALE)
+        b = bt.blocks.correlate(b, XR, accuracy='int8', impl='pallas',
+                                fusable=True)
+        b = bt.blocks.accumulate(b, XA, fusable=True)
+        box['sink'] = DigestSink(b)
+    return build
+
+
+def phase_fabric(bt, spec, gpu_kernels, smi):
+    """The fabric phase (item 15g of the module docstring)."""
+    import tempfile
+    import threading
+    import torch
+    from bifrost_tpu_torch import fabric
+    from bifrost_tpu_torch.scheduler import ledger_frontier
+    from bifrost_tpu_torch.telemetry import counters
+    out = {'examples': fabric_examples(bt, spec, gpu_kernels, smi),
+           'card': smi}
+    # the reference: the FX chain's output for each distinct gulp, made
+    # on the card in float64 products (the FX phase's oracle)
+    gulps = fx_gulps()
+    want_digest, want_crc = [], []
+    for g in gulps:
+        vis = fx_oracle_device(g)
+        want_digest.append(card_digest(vis))
+        want_crc.append(crc32(vis.cpu().numpy()))
+        del vis
+    del gulps
+    torch.cuda.empty_cache()
+    gulp_nbyte = XT * XF * XS * XP * 2
+    with tempfile.TemporaryDirectory() as tmp, environ(
+            BF_FABRIC_STATE=os.path.join(tmp, 'state'),
+            BF_FABRIC_HEARTBEAT_SECS=FHEARTBEAT,
+            BF_FABRIC_DEADLINE_SECS=FDEADLINE,
+            BF_FABRIC_REJOIN_CAP=FREJOIN_CAP):
+        fspec = fx_fabric_spec(free_ports('udp', 2) +
+                               free_ports('tcp', 1))
+        counters.reset()
+        box = {}
+        fh = fabric.FabricHost(fspec, 'xhost', fx_xhost_build(bt, box),
+                               jitter=False)
+        fh.build()
+        zero_counts(spec, gpu_kernels)
+        err = {}
+
+        def run():
+            try:
+                fh.run(install_signals=False)
+            except BaseException as exc:
+                err['exc'] = exc
+        xt = threading.Thread(target=run, daemon=True)
+        xt.start()
+        sink = box['sink']
+        child = stations_child(fspec, hold_after=FKILL_AFTER)
+        second = None
+        try:
+            member = fh.membership
+
+            def alive():
+                snap = member.peers_snapshot().get('stations') or {}
+                return snap.get('alive') and 'stations' not in member._dead
+            wait_for(lambda: len(sink.digests) >= FKILL_AFTER and
+                     ledger_frontier(fspec['name'], 'stations', 'voltages')
+                     >= FKILL_AFTER * XT and alive(),
+                     'fabric: the stations child delivered no %d gulps'
+                     % FKILL_AFTER, timeout=FXTIMEOUT)
+            frontier_before = ledger_frontier(fspec['name'], 'stations',
+                                              'voltages')
+            t_kill = time.monotonic()
+            child.kill()
+            produced = [produced_bytes(child.communicate()[0])]
+            t_dead = wait_for(lambda: 'stations' in member._dead,
+                              'fabric: membership never marked the killed '
+                              'stations host dead', timeout=30)
+            dead_ms = (t_dead - t_kill) * 1e3
+            second = stations_child(fspec)
+            try:
+                sout, serr = second.communicate(timeout=FXTIMEOUT)
+            except subprocess.TimeoutExpired:
+                second.kill()
+                sout, serr = second.communicate()
+                raise RuntimeError('chip_smoke check failed: the second '
+                                   'stations child still running')
+            require(second.returncode == 0, 'fabric: the second stations '
+                    'child exited %d: %s' % (second.returncode,
+                                             serr[-3000:]))
+            second = None
+            xt.join(FXTIMEOUT)
+            require(not xt.is_alive(), 'fabric: the xhost still running')
+        finally:
+            for c in (child, second):
+                if c is not None and c.poll() is None:
+                    c.kill()
+                    c.communicate()
+            if xt.is_alive():
+                fh.pipeline.shutdown()
+                xt.join(30)
+        if 'exc' in err:
+            raise err['exc']
+        counts = read_counts(spec, gpu_kernels)
+        tx = json.loads([ln for ln in sout.splitlines()
+                         if ln.startswith('FABRIC_STATIONS ')][0]
+                        .split(' ', 1)[1])
+        produced.append(produced_bytes(sout))
+        led = fabric.AckLedger(fspec['name'], 'stations', 'voltages')
+        snap = counters.snapshot()
+        ring_shed = sum(r.shed_stats().get('shed_bytes', 0)
+                        for b in fh.pipeline.blocks
+                        for r in getattr(b, 'orings', ()))
+    require(len(sink.digests) == FNGULP, 'fabric: the xhost received %d of '
+            '%d gulps' % (len(sink.digests), FNGULP))
+    for i, d in enumerate(sink.digests):
+        require(d == want_digest[i % 2], 'fabric: visibility %d differs '
+                'from the FX chain\'s for its gulp' % i)
+    require(sink.crcs == want_crc, 'fabric: crc32 of the first two '
+            'visibilities %s, of the FX chain\'s %s' % (sink.crcs, want_crc))
+    require(counts['xcorr_herm'] == FNGULP, 'fabric: K7 launched %d times '
+            'for %d gulps' % (counts['xcorr_herm'], FNGULP))
+    require(snap.get('bridge.rx.sessions_adopted', 0) >= 1,
+            'fabric: the relaunched stations host was not adopted')
+    resumed = tx['resume_frames']
+    require(tx['rejoining'] and resumed >= FKILL_AFTER * XT and
+            resumed % XT == 0 and resumed < FNGULP * XT,
+            'fabric: the relaunched stations host resumed at frame %d'
+            % resumed)
+    delivered = len(sink.digests) * gulp_nbyte
+    shed = led.shed_bytes + ring_shed
+    require(produced == [FKILL_AFTER * gulp_nbyte,
+                         FNGULP * XT * 2 * XF * XS * XP - resumed * 2 * XF *
+                         XS * XP] and sum(produced) == delivered + shed and
+            frontier_before == FKILL_AFTER * XT,
+            'fabric: the two stations runs produced %s bytes, the xhost '
+            'delivered %d and the journal and rings shed %d (journal '
+            'frontier at the kill %d frames)' % (
+                produced, delivered, shed, frontier_before))
+    t = sink.times
+    seg1 = [t[i] for i in range(FKILL_AFTER)]
+    seg2 = t[resumed // XT:]
+    rates = [(len(s) - 1) * gulp_nbyte / (s[-1] - s[0]) / 1e6
+             for s in (seg1, seg2) if len(s) > 1]
+    out.update({
+        'gulps': FNGULP, 'gulp_bytes': gulp_nbyte,
+        'killed_after_gulp': FKILL_AFTER,
+        'ledger_frontier_at_kill': frontier_before,
+        'resumed_at_frame': resumed,
+        'replayed_frames': FNGULP * XT - resumed,
+        'dead_mark_ms': dead_ms, 'deadline_s': float(FDEADLINE),
+        'link_MBps': rates, 'k7_launches': counts['xcorr_herm'],
+        'produced_bytes': produced, 'delivered_bytes': delivered,
+        'shed_bytes': shed,
+        'journal': {'acked_bytes': led.acked_bytes,
+                    'acked_frames': led.acked_frames('fx'),
+                    'shed_bytes': led.shed_bytes},
+        'rx_counters': {k: v for k, v in snap.items()
+                        if k.startswith(('bridge.rx', 'fabric.'))},
+        'tx_counters_second': tx['counters']})
+    log_crc('fabric xhost visibilities', sink.crcs)
+    log('fabric: stations child -> xhost over loopback, %d gulps of %d '
+        'MiB; killed after gulp %d (journal frontier %d frames), marked dead '
+        'in %.0f ms (deadline %s s); relaunched, resumed at frame %d '
+        '(%d frames replayed); K7 %d launches; every visibility equals the '
+        'FX chain\'s; delivered MB/s per session %s; produced %s = %d '
+        'delivered + %d shed bytes (%s)'
+        % (FNGULP, gulp_nbyte >> 20, FKILL_AFTER, frontier_before, dead_ms,
+           FDEADLINE, resumed, FNGULP * XT - resumed, counts['xcorr_herm'],
+           ['%.1f' % r for r in rates], produced, delivered, shed, smi))
+    return out
+
+
+def free_ports(kind, n):
+    """``n`` free loopback ports of ``kind`` ('udp' or 'tcp')."""
+    import socket
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM
+                          if kind == 'udp' else socket.SOCK_STREAM)
+        s.bind(('127.0.0.1', 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+# -- the scheduler phase ----------------------------------------------------
+
+def sched_blocks(bt):
+    """The scheduler phase's host blocks: float32 pairs to ci8 spectrometer
+    gulps, and a sink that journals each delivered gulp to an AckLedger
+    and keeps its CRC-32 by absolute gulp index."""
+    from bifrost_tpu_torch import fabric
+
+    class ToCi8(bt.TransformBlock):
+        def on_sequence(self, iseq):
+            hdr = dict(iseq.header)
+            hdr['_tensor'] = spec_header(NFINE)['_tensor']
+            return hdr
+
+        def on_data(self, ispan, ospan):
+            x = ispan.data.as_numpy()
+            dst = ospan.data.as_numpy().view(np.int8)
+            dst[...] = np.clip(np.rint(x * 24), -128, 127) \
+                .astype(np.int8).reshape(dst.shape)
+
+    class LedgerSink(bt.SinkBlock):
+        def __init__(self, iring, fab, host, tid, store):
+            super(LedgerSink, self).__init__(iring)
+            self.ledger = fabric.AckLedger(fab, host, tid)
+            self.store = store
+
+        def on_sequence(self, iseq):
+            self.seq = iseq.header['name']
+            self.f0 = self.ledger.acked_frames(self.seq)
+
+        def on_data(self, ispan):
+            a = ispan.data.as_numpy()
+            off = self.f0 + ispan.frame_offset
+            self.store.append((off // SCH_T, zlib.crc32(memoryview(
+                a.reshape(-1).view(np.uint8))), time.perf_counter()))
+            self.ledger.note_acked(self.seq, off, ispan.nframe, a.nbytes)
+            self.ledger.save(force=True)
+    return ToCi8, LedgerSink
+
+
+def sched_tenant(TS, tid, **kw):
+    return TS.TenantSpec(tid, gulp_nframe=SCH_T, source={
+        'kind': 'synthetic', 'nframe_total': SCH_T * SCH_N,
+        'gulp_nframe': SCH_T, 'nchan': NPOL * NFINE * 2, 'seed': SCH_SEED,
+        'tick_s': SCH_TICK.get(tid, 0.0)}, **kw)
+
+
+def phase_scheduler(bt, spec, gpu_kernels, smi):
+    """The scheduler phase (item 15h of the module docstring)."""
+    import tempfile
+    import torch
+    from bifrost_tpu_torch import fabric, scheduler
+    from bifrost_tpu_torch import service as TS
+    from bifrost_tpu_torch.stages import (FftStage, DetectStage,
+                                          ReduceStage)
+    from bifrost_tpu_torch.telemetry import counters
+    ToCi8, LedgerSink = sched_blocks(bt)
+    out = {'gulp': [SCH_T, NPOL, NFINE], 'gulps': SCH_N, 'card': smi}
+    with tempfile.TemporaryDirectory() as tmp, environ(
+            BF_FABRIC_STATE=os.path.join(tmp, 'state')):
+        fspec = fabric.FabricSpec('smoke_sched', hosts={
+            'h1': {'control_port': 7001, 'cores': [0, 1, 2, 3]},
+            'h2': {'control_port': 7002, 'cores': [4, 5, 6, 7]}})
+        stores, fused = {}, {}
+
+        def build(tid, host):
+            def b(gate):
+                fb = bt.blocks.fused(
+                    bt.blocks.copy(ToCi8(gate), space='cuda'),
+                    [FftStage('fine_time', axis_labels='freq'),
+                     DetectStage('stokes', axis='pol'),
+                     ReduceStage('freq', RFACTOR)])
+                fused.setdefault(tid, []).append(fb)
+                LedgerSink(bt.blocks.copy(fb, space='system'),
+                           fspec.name, host, tid,
+                           stores.setdefault(tid, []))
+            return b
+        # the solo reference, on a warm-enabled manager: its plans are
+        # what the placed tenants (and the migrated one) start warm from
+        TS.reset_warm_registry()
+        counters.reset()
+        ref_mgr = TS.JobManager(max_tenants=1, warm=True)
+        job = ref_mgr.submit(sched_tenant(TS, 'ref'), build('ref', 'ref'))
+        ref_mgr.start()
+        require(job.wait(FXTIMEOUT) == 'DONE', 'scheduler: the solo run '
+                'ended %s (%s)' % (job.state, job.error))
+        ref_mgr.shutdown()
+        ref = [c for _i, c, _t in sorted(stores.pop('ref'))]
+        require(len(ref) == SCH_N and len(set(ref)) == SCH_N,
+                'scheduler: the solo run gave %d gulps, %d distinct'
+                % (len(ref), len(set(ref))))
+        fused.pop('ref')
+        mgrs = {h: TS.JobManager(max_tenants=4, warm=True)
+                for h in ('h1', 'h2')}
+        sched = scheduler.Scheduler(
+            fspec, managers=mgrs,
+            resume_of=lambda tid, dead: scheduler.ledger_frontier(
+                fspec.name, dead, tid))
+        tenants = [sched_tenant(TS, 'sa', priority=3, slo_ms=1,
+                                quota_bytes_per_s=1e12),
+                   sched_tenant(TS, 'sb', priority=1,
+                                quota_bytes_per_s=1e12),
+                   sched_tenant(TS, 'sc', priority=2)]
+        pins = {'sa': 'h1', 'sb': 'h2', 'sc': 'h1'}
+        zero_counts(spec, gpu_kernels)
+        try:
+            placement = sched.place(tenants, pinned=pins)
+            require(dict(placement.assignments) == pins and
+                    not placement.displaced and not [
+                        d for d in placement.diagnostics if d.is_error],
+                    'scheduler: placement %r, diagnostics %s'
+                    % (placement, placement.diagnostics))
+            jobs = sched.apply(build={t: build(t, h)
+                                      for t, h in pins.items()})
+            require(all(j.warm for j in jobs.values()), 'scheduler: the '
+                    'placed tenants did not start warm')
+
+            def frontier(tid, host='h1'):
+                return scheduler.ledger_frontier(fspec.name, host, tid)
+            # migrate sc from h1 to h2 once it delivered a few gulps
+            wait_for(lambda: frontier('sc') >= SCH_MIGRATE_AT * SCH_T,
+                     'scheduler: sc delivered no %d gulps' % SCH_MIGRATE_AT,
+                     timeout=FXTIMEOUT)
+            t0 = time.perf_counter()
+            mgrs['h1'].job('sc').stop(FXTIMEOUT)
+            f_sc = frontier('sc')
+            n_sc = len(stores['sc'])
+            moved = sched.migrate('sc', 'h2', resume_frame=f_sc)
+            wait_for(lambda: len(stores['sc']) > n_sc, 'scheduler: the '
+                     'migrated sc delivered nothing', timeout=FXTIMEOUT)
+            migrate_ms = (stores['sc'][n_sc][2] - t0) * 1e3
+            require(moved.warm and sched.placement.assignments['sc'] ==
+                    'h2', 'scheduler: the migration was not warm on h2')
+            # h1 dies: its manager's tenants stop, then the re-placement
+            wait_for(lambda: frontier('sa') >= SCH_KILL_AT * SCH_T,
+                     'scheduler: sa delivered no %d gulps' % SCH_KILL_AT,
+                     timeout=FXTIMEOUT)
+            t0 = time.perf_counter()
+            mgrs['h1'].shutdown(FXTIMEOUT)
+            f_sa = frontier('sa')
+            n_sa = len(stores['sa'])
+            require(f_sa < SCH_N * SCH_T, 'scheduler: sa ended before h1 '
+                    'died')
+            replaced = sched.handle_host_death('h1')
+            require(sorted(replaced) == ['sa'] and replaced['sa'].warm,
+                    'scheduler: the host death moved %s' % sorted(replaced))
+            wait_for(lambda: len(stores['sa']) > n_sa, 'scheduler: the '
+                     're-placed sa delivered nothing', timeout=FXTIMEOUT)
+            replace_ms = (stores['sa'][n_sa][2] - t0) * 1e3
+            # one arbiter pass: sa (priority 3) misses its 1 ms budget, sb
+            # (priority 1) holds quota
+            wait_for(lambda: (replaced['sa'].slo_rollup().get('ok') is
+                              False), 'scheduler: sa recorded no exit age',
+                     timeout=FXTIMEOUT)
+            require(mgrs['h2'].job('sb').state == 'RUNNING',
+                    'scheduler: sb ended before the arbiter pass')
+            transfers = sched.arbitrate(frac=0.5)
+            require(transfers == [('sa', 'sb', 0.5e12)], 'scheduler: the '
+                    'arbiter moved %s' % transfers)
+            gates = {t: scheduler.Scheduler._quota_gate(
+                mgrs['h2'].job(t)).quota_bytes_per_s for t in ('sa', 'sb')}
+            require(gates == {'sa': 1.5e12, 'sb': 0.5e12},
+                    'scheduler: quotas after the arbiter %s' % gates)
+            states = mgrs['h2'].wait(FXTIMEOUT)
+            require(states == {'sb': 'DONE', 'sc': 'DONE', 'sa': 'DONE'},
+                    'scheduler: h2 ended %s' % states)
+        finally:
+            sched.shutdown()
+        counts = read_counts(spec, gpu_kernels)
+        snap = counters.snapshot()
+    for tid, store in stores.items():
+        idx = sorted(i for i, _c, _t in store)
+        require(idx == list(range(SCH_N)), 'scheduler: %s delivered gulps '
+                '%s' % (tid, idx))
+        for i, c, _t in store:
+            require(c == ref[i], 'scheduler: %s gulp %d differs from the '
+                    'solo run' % (tid, i))
+    require(snap.get('scheduler.resume.skipped_frames') == f_sc + f_sa and
+            snap.get('scheduler.migrations') == 2 and
+            snap.get('scheduler.replacements') == 1 and
+            snap.get('scheduler.arbiter.retunes') == 1,
+            'scheduler: counters %s' % {k: v for k, v in snap.items()
+                                        if k.startswith('scheduler.')})
+    prewarm = sum(fb.prewarm_runs for fbs in fused.values() for fb in fbs)
+    delivered = sum(len(s) for s in stores.values())
+    k1 = counts['fused_spectrometer']
+    require(k1 >= delivered + prewarm and
+            counts['fused_spectrometer_radix16'] == k1,
+            'scheduler: K1 launched %d times (radix16 %s) for %d delivered '
+            'gulps and %d prewarm runs' % (
+                k1, counts['fused_spectrometer_radix16'], delivered,
+                prewarm))
+    log_crc('scheduler solo outputs', ref)
+    out.update({
+        'migrate_ms': migrate_ms, 'replace_ms': replace_ms,
+        'resume_frames': {'sc': f_sc, 'sa': f_sa},
+        'assignments': dict(sched.placement.assignments),
+        'arbiter': [list(t) for t in transfers],
+        'k1_launches': k1, 'k1_prewarm_runs': prewarm,
+        'k1_launches_gulps': k1 - prewarm,
+        'counters': {k: v for k, v in snap.items()
+                     if k.startswith(('scheduler.', 'service.warm',
+                                      'fused.plan'))}})
+    log('scheduler: 3 K1 tenants of %d x %d x %d ci8 on h1/h2; sc migrated '
+        'h1 -> h2 warm at frame %d in %.0f ms (stop to its first gulp); h1 '
+        'died, sa re-placed warm at frame %d in %.0f ms; arbiter moved %s; '
+        'every gulp delivered once and equal to the solo run; K1 %d launches '
+        '(%d gulps, %d prewarm) (%s)'
+        % (SCH_T, NPOL, NFINE, f_sc, migrate_ms, f_sa, replace_ms,
+           transfers, k1, k1 - prewarm, prewarm, smi))
+    torch.cuda.empty_cache()
+    return out
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -6766,6 +7725,8 @@ def main():
         return capture_blaster(*sys.argv[2:4])
     if sys.argv[1:2] == ['--bridge-sender']:
         return bridge_sender(sys.argv[2])
+    if sys.argv[1:2] == ['--fabric-stations']:
+        return fabric_stations(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke: no CUDA device is available\n')
@@ -6847,6 +7808,9 @@ def main():
     brg = run('bridge', phase_bridge, bt, spec, gpu_kernels, smi)
     tune = run('autotune', phase_autotune, bt, spec, smi)
     flt = run('fleet', phase_fleet, bt, spec, gpu_kernels, smi)
+    svc = run('service', phase_service, bt, spec, gpu_kernels, smi)
+    fab = run('fabric', phase_fabric, bt, spec, gpu_kernels, smi)
+    sch = run('scheduler', phase_scheduler, bt, spec, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
@@ -6862,6 +7826,15 @@ def main():
         "the fleet phase: this process's arm (%d gulps) and the child's two "
         '(%d and %d gulps), prewarm runs included; each equal to its '
         "process's K1 counter" % (FGULPS, FCHILD_GULPS, FCHILD2_GULPS))
+    k1['launches_service'] = svc['k1_launches']
+    k1['launches_service_of'] = (
+        'the service phase\'s three tenants together (%d gulps and %d '
+        'prewarm runs)' % (svc['k1_launches_gulps'], svc['k1_prewarm_runs']))
+    k1['launches_scheduler'] = sch['k1_launches']
+    k1['launches_scheduler_of'] = (
+        'the scheduler phase\'s tenants, migrated and re-placed ones '
+        'included (%d gulps and %d prewarm runs)'
+        % (sch['k1_launches_gulps'], sch['k1_prewarm_runs']))
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k2['launches_detect_block'] = dk2['launches']
     k2['launches_detect_block_of'] = \
@@ -6881,6 +7854,10 @@ def main():
     k7['launches_x_stateful'] = fx['launches']['x-stateful']['xcorr_herm']
     k7['launches_vec16'] = fx['launches']['fx-K7']['xcorr_herm_vec16']
     k7['launches_capture'] = capt['launches']
+    k7['launches_fabric'] = {
+        'xhost drill': fab['k7_launches'],
+        'fx_correlator_torch --fabric':
+            fab['examples']['fx_example']['k7_launches']}
     k7['launches_x_stateful_vec16'] = \
         fx['launches']['x-stateful']['xcorr_herm_vec16']
     k8['launches'] = n8['xcorr_cross']
@@ -6893,6 +7870,9 @@ def main():
     k3['launches'] = fdmt['launches']['frb-K3']['fdmt_step']
     k3['launches_per_gulp'] = k3['launches'] / float(FWARM + FTIMED)
     k3['launches_fdmt_file'] = fdmt['launches']['fdmt-file']['fdmt_step']
+    k3['launches_fabric'] = fab['examples']['fdmt_example']['k3_launches']
+    k3['launches_fabric_of'] = \
+        "the search host of fdmt_search_torch.py --fabric"
     k9['launches'] = mesh['launches']['mesh-corner-K9']['ring_permute']
     k9['launches_per_gulp'] = k9['launches'] / float(MWARM + MTIMED)
     k9['launches_of'] = 'the mesh-corner-K9 arm (%d ranks, %d hops a gulp)' \
@@ -6962,6 +7942,9 @@ def main():
     log(json.dumps({'autotune': tune}))
     flt['phase_s'] = phase_s['fleet']
     log(json.dumps({'fleet': flt}))
+    for rec, key in ((svc, 'service'), (fab, 'fabric'), (sch, 'scheduler')):
+        rec['phase_s'] = phase_s[key]
+        log(json.dumps({key: rec}))
     log(json.dumps({'kernels': kernels}))
     log(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -13,16 +13,20 @@ chain runs as one compiled segment with the halo carried inside it.
 The chain runs on the first CUDA device (cuda:0); a caller that wants
 the CPU calls bifrost_tpu_torch.device.set_device('cpu') first.
 
+With ``--fabric`` the same chain is split over a two-host loopback
+fabric (bifrost_tpu_torch.fabric): the 'capture' host streams the
+filterbank over the 'filterbank' link into the 'search' host, which
+dedisperses on the card; the peak equals the single-host run's.
+
 Usage:
     python examples/fdmt_search_torch.py             # single host
-    python examples/fdmt_search_torch.py --fabric    # not ported yet:
-                                                     # the fabric tier
-                                                     # of the port is
-                                                     # still to come
+    python examples/fdmt_search_torch.py --fabric    # two-host fabric
 """
 
 import os
+import socket
 import sys
+import threading
 
 try:
     import bifrost_tpu_torch  # noqa: F401
@@ -132,12 +136,80 @@ def run_single():
     return peak
 
 
+def _free_port():
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def build_fabric(port=None):
+    """The chain split over a two-host loopback fabric: the 'capture'
+    host streams the filterbank into the 'filterbank' link (host rings,
+    as the bridge carries them); the 'search' host copies it to the card
+    and dedisperses.  Returns ({host: FabricHost}, peaks): the search
+    host's PeakFinder is ``peaks[0]`` once built."""
+    from bifrost_tpu_torch import fabric
+
+    spec = fabric.FabricSpec('fdmt_demo', hosts={
+        'capture': {'address': '127.0.0.1', 'role': 'capture'},
+        'search': {'address': '127.0.0.1', 'role': 'reduce'},
+    }, links={
+        'filterbank': {'kind': 'pipe', 'src': 'capture', 'dst': 'search',
+                       'port': port or _free_port(), 'window': 2,
+                       'gulp_nbyte': NCHAN * GULP * 4},
+    })
+    peaks = []
+
+    def build_capture(ctx):
+        ctx.sink('filterbank', DispersedPulseSource())
+
+    def build_search(ctx):
+        peaks.append(PeakFinder(
+            build_search_chain(ctx.source('filterbank'))))
+
+    hosts = {}
+    # the receiving host first: its listener exists before the sender
+    # dials
+    for name, builder in (('search', build_search),
+                          ('capture', build_capture)):
+        hosts[name] = fabric.FabricHost(spec, name, builder, jitter=False)
+        hosts[name].build()
+    return hosts, peaks
+
+
+def run_fabric(timeout=120.):
+    """Run both hosts, each on its own thread; raise what a host raised,
+    or if a host is still running after ``timeout`` seconds."""
+    hosts, peaks = build_fabric()
+    errors = {}
+
+    def run(name, fh):
+        try:
+            fh.run(install_signals=False)
+        except BaseException as exc:
+            errors[name] = exc
+
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in hosts.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        for fh in hosts.values():
+            fh.pipeline.shutdown()
+        raise RuntimeError('fabric hosts still running after %g s'
+                           % timeout)
+    for name, exc in errors.items():
+        raise RuntimeError('fabric host %r failed: %s' % (name, exc)) \
+            from exc
+    return peaks[0]
+
+
 def main(argv):
-    if '--fabric' in argv[1:]:
-        sys.stderr.write('fdmt_search_torch: --fabric needs the fabric '
-                         'tier, which the port does not have yet\n')
-        return 2
-    peak = run_single()
+    peak = run_fabric() if '--fabric' in argv[1:] else run_single()
     snr, row, t = peak.best
     print("%d candidate samples above %.1f; peak %.1f at DM row %d "
           "(true %d), t=%d (true %d), DM = %.3f pc/cm^3"

@@ -12,16 +12,20 @@ kernel), so the visibilities equal the int64 oracle's.  The chain runs
 on the first CUDA device (cuda:0); a caller that wants the CPU calls
 bifrost_tpu_torch.device.set_device('cpu') before run_single().
 
+With ``--fabric`` the same chain is split over a two-host loopback
+fabric (bifrost_tpu_torch.fabric): the 'stations' host ships the ci8
+voltages over the 'voltages' link into the 'xhost' host, which runs the
+F/X chain; the visibilities equal the single-host run's.
+
 Usage:
     python examples/fx_correlator_torch.py             # single host
-    python examples/fx_correlator_torch.py --fabric    # not ported yet:
-                                                       # the fabric tier
-                                                       # of the port is
-                                                       # still to come
+    python examples/fx_correlator_torch.py --fabric    # two-host fabric
 """
 
 import os
+import socket
 import sys
+import threading
 
 import numpy as np
 
@@ -146,12 +150,89 @@ def run_single(quiet=False):
     return sink
 
 
+def _free_port():
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def build_fabric(quiet=False, port=None):
+    """The chain split over a two-host loopback fabric: the 'stations'
+    host captures ci8 voltages into the 'voltages' link (host rings, as
+    the bridge carries them); the 'xhost' host copies them to the card
+    and runs the F/X chain.  Returns ({host: FabricHost}, sinks): the
+    xhost's PrintVisibilities is ``sinks[0]`` once built."""
+    from bifrost_tpu_torch import fabric
+
+    spec = fabric.FabricSpec('fxcorr_demo', hosts={
+        'stations': {'address': '127.0.0.1', 'role': 'capture'},
+        'xhost': {'address': '127.0.0.1', 'role': 'reduce'},
+    }, links={
+        'voltages': {'kind': 'pipe', 'src': 'stations', 'dst': 'xhost',
+                     'port': port or _free_port(), 'window': 2,
+                     'gulp_nbyte': NT * NW * NS * NP * 2},
+    })
+    sinks = []
+
+    def build_stations(ctx):
+        ctx.sink('voltages', StationSource())
+
+    def build_xhost(ctx):
+        sinks.append(PrintVisibilities(
+            build_xchain(ctx.source('voltages')), quiet=quiet))
+
+    hosts = {}
+    # the receiving host first: its listener exists before the sender
+    # dials
+    for name, builder in (('xhost', build_xhost),
+                          ('stations', build_stations)):
+        hosts[name] = fabric.FabricHost(spec, name, builder, jitter=False)
+        hosts[name].build()
+    return hosts, sinks
+
+
+def run_hosts(hosts, timeout=120.):
+    """Run each FabricHost on its own thread; raise what a host raised,
+    or if a host is still running after ``timeout`` seconds."""
+    errors = {}
+
+    def run(name, fh):
+        try:
+            fh.run(install_signals=False)
+        except BaseException as exc:
+            errors[name] = exc
+
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in hosts.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    alive = [t for t in threads if t.is_alive()]
+    if alive:
+        for fh in hosts.values():
+            if fh.pipeline is not None:
+                fh.pipeline.shutdown()
+        raise RuntimeError('fabric hosts still running after %g s'
+                           % timeout)
+    for name, exc in errors.items():
+        raise RuntimeError('fabric host %r failed: %s' % (name, exc)) \
+            from exc
+
+
+def run_fabric(quiet=False):
+    hosts, sinks = build_fabric(quiet)
+    run_hosts(hosts)
+    return sinks[0]
+
+
 def main(argv):
     if '--fabric' in argv[1:]:
-        sys.stderr.write('fx_correlator_torch: --fabric needs the fabric '
-                         'tier, which the port does not have yet\n')
-        return 2
-    run_single()
+        run_fabric()
+    else:
+        run_single()
     return 0
 
 

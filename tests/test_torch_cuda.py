@@ -2509,3 +2509,86 @@ def test_fleet_full_snapshot_carries_the_card_memory_section():
     finally:
         pub._sock.close()
         coll._sock.close()
+
+
+def test_service_tenants_share_the_default_stream_and_one_engine(tmp_path):
+    """By design: the service's tenants share the process's CUDA context,
+    its default stream and its transfer engine.  Two tenants replaying
+    one recording through copy('cuda') -> fused K1 -> copy('system')
+    record, from their own sink threads, the same current stream (the
+    default) and the same engine, and deliver the same bytes as K1 on
+    the recorded gulps."""
+    import contextlib
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch import service, xfer
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    rng = np.random.RandomState(31)
+    gulps = [rng.randint(-64, 64, (1024, 2, 1024, 2)).astype(np.int8)
+             for _ in range(3)]
+
+    class Src(bt.SourceBlock):
+        def __init__(self):
+            super(Src, self).__init__(['rec'], 1024, space='system')
+            self.n = 0
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'rec', 'time_tag': 0,
+                     '_tensor': {'shape': [-1, 2, 1024], 'dtype': 'ci8',
+                                 'labels': ['time', 'pol', 'fine_time'],
+                                 'scales': [[0, 1]] * 3,
+                                 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            if self.n == len(gulps):
+                return [0]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = gulps[self.n].reshape(dst.shape)
+            self.n += 1
+            return [1024]
+
+    with bt.Pipeline() as p:
+        bt.blocks.serialize(Src(), path=str(tmp_path))
+    _run_bounded(p)
+    seen = {}
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring, tid):
+            super(Sink, self).__init__(iring)
+            self.tid, self.out = tid, []
+
+        def on_sequence(self, iseq):
+            seen[self.tid] = (torch.cuda.current_stream().cuda_stream,
+                              xfer.engine())
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    sinks = {}
+
+    def build(tid):
+        def b(gate):
+            fb = bt.blocks.fused(bt.blocks.copy(gate, space='cuda'), [
+                FftStage('fine_time', axis_labels='freq'),
+                DetectStage('stokes', axis='pol'), ReduceStage('freq', 4)])
+            sinks[tid] = Sink(bt.blocks.copy(fb, space='system'), tid)
+        return b
+    service.reset_registry()
+    mgr = service.JobManager(max_tenants=2, warm=False)
+    for tid in ('t0', 't1'):
+        mgr.submit(service.TenantSpec(tid, gulp_nframe=1024, source={
+            'kind': 'replay', 'basenames': [str(tmp_path / 'rec')],
+            'gulp_nframe': 1024}), build(tid))
+    mgr.start()
+    assert mgr.wait(120) == {'t0': 'DONE', 't1': 'DONE'}
+    assert seen['t0'] == seen['t1']
+    assert seen['t0'][0] == torch.cuda.default_stream().cuda_stream
+    assert seen['t0'][1] is xfer.engine()
+    for tid in ('t0', 't1'):
+        assert len(sinks[tid].out) == len(gulps)
+        for got, g in zip(sinks[tid].out, gulps):
+            want = spec.fused_spectrometer(torch.from_numpy(g).cuda(),
+                                           rfactor=4).cpu().numpy()
+            assert got.tobytes() == want.tobytes()

@@ -360,3 +360,35 @@ def test_capture_spectrometer_example_equals_jax():
     assert got.shape == want.shape == (tex.NTIME,)
     assert int(np.argmax(got)) == int(np.argmax(want)) == tex.TONE_BIN
     assert np.abs(got - want).max() / np.abs(want).max() < GATE
+
+
+def test_fx_correlator_fabric_equals_single_host_and_jax(capsys):
+    """``examples/fx_correlator_torch.py --fabric`` (the two-host loopback
+    fabric) delivers the single-host run's visibilities byte for byte,
+    and prints what the JAX example's ``--fabric`` run prints."""
+    from bifrost_tpu import proclog as jproclog
+    from bifrost_tpu_torch import proclog as tproclog
+    device.set_device('cpu')
+    tex, jex = _load('fx_correlator_torch'), _load('fx_correlator')
+    p, single = tex.build_single(quiet=True)
+    run_bounded(p)
+    capsys.readouterr()
+    saved = sys.argv
+    try:
+        assert tex.main(['fx_correlator_torch.py', '--fabric']) == 0
+        got = capsys.readouterr().out.splitlines()
+        hosts, sinks = tex.build_fabric(quiet=True)
+        tex.run_hosts(hosts)
+        sys.argv = ['fx_correlator.py', '--fabric']
+        jex.main()
+    finally:
+        sys.argv = saved
+        # a fabric host names the process (proclog.set_identity)
+        tproclog.set_identity(None)
+        jproclog.set_identity(None)
+    want = capsys.readouterr().out.splitlines()
+    assert len(sinks[0].visibilities) == tex.NGULP
+    for a, b in zip(sinks[0].visibilities, single.visibilities):
+        assert a.tobytes() == b.tobytes()
+    assert got == want and len(got) == 1 + tex.NGULP * tex.NT // (
+        tex.R * tex.A)

@@ -68,12 +68,13 @@ PKG = {'port': (TF, tcounters, thistograms, tspans),
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
     device.set_device('cpu')
-    # the JAX publisher's tenant and scheduler sections as they are when
-    # its service tier is not imported (another test in this process may
-    # have imported it); the port's stay empty until item 13b
+    # both publishers' tenant and scheduler sections as they are when the
+    # service tier and the scheduler are not imported (another test in
+    # this process may have imported them)
     from bifrost_tpu.telemetry import exporter as jexporter
-    monkeypatch.setattr(jexporter, '_tenant_section', lambda: {})
-    monkeypatch.setattr(jexporter, '_scheduler_section', lambda: {})
+    for mod in (jexporter, texporter):
+        monkeypatch.setattr(mod, '_tenant_section', lambda: {})
+        monkeypatch.setattr(mod, '_scheduler_section', lambda: {})
     for var in ('BF_FLEET_COLLECTOR', 'BF_FLEET_HOST', 'BF_FLEET_INTERVAL',
                 'BF_FLEET_FULL_EVERY', 'BF_FLEET_DEADLINE',
                 'BF_FLEET_HISTORY', 'BF_FLEET_ROLLUP_FILE',

@@ -2,6 +2,7 @@
 the JAX package, and it never moves to the CPU on its own."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -20,28 +21,28 @@ def _run(code):
 
 
 def _sources():
-    out = [os.path.join(ROOT, f) for f in ('chip_smoke.py',
-                                            'chip_k1_variants.py',
-                                            'chip_k6_variants.py',
-                                            'chip_k8_variants.py',
-                                            'examples/'
-                                            'gpuspec_simple_torch.py',
-                                            'examples/'
-                                            'fx_correlator_torch.py',
-                                            'examples/'
-                                            'romein_grid_torch.py',
-                                            'examples/'
-                                            'your_first_block_torch.py',
-                                            'examples/'
-                                            'file_roundtrip_torch.py',
-                                            'examples/'
-                                            'serialize_replay_torch.py',
-                                            'examples/'
-                                            'fdmt_search_torch.py')]
+    """Every file of the port: the package, the root ``chip_*.py``
+    scripts and every ``examples/*_torch.py``, found by glob so that a
+    new one cannot escape the check."""
+    out = sorted(glob.glob(os.path.join(ROOT, 'chip_*.py')))
+    out += sorted(glob.glob(os.path.join(ROOT, 'examples', '*_torch.py')))
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files
                 if f.endswith('.py')]
     return out
+
+
+def test_sources_cover_the_scripts_and_the_control_tiers():
+    rel = {os.path.relpath(p, ROOT) for p in _sources()}
+    for want in ('chip_smoke.py', 'examples/capture_spectrometer_torch.py',
+                 'examples/fx_correlator_torch.py',
+                 'bifrost_tpu_torch/service.py',
+                 'bifrost_tpu_torch/fabric.py',
+                 'bifrost_tpu_torch/scheduler.py',
+                 'bifrost_tpu_torch/tools/bf_serve.py',
+                 'bifrost_tpu_torch/tools/bf_fabric.py',
+                 'bifrost_tpu_torch/tools/bf_sched.py'):
+        assert want in rel, want
 
 
 def _top(name):
@@ -273,6 +274,28 @@ def test_tuner_fleet_and_monitors_import_without_a_device():
              "print(sorted(_build._libs), torch.cuda.is_initialized())\n")
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == '[] False'
+
+
+def test_control_tiers_import_without_a_device():
+    """The service, fabric and scheduler tiers and their tools import and
+    build their specs without a device: no kernel built, no CUDA
+    context, and a telemetry snapshot that imports none of them."""
+    p = _run("import sys, torch, bifrost_tpu_torch as bt\n"
+             "snap = bt.telemetry.snapshot()\n"
+             "print(sorted(m for m in ('service', 'fabric', 'scheduler') if "
+             "'bifrost_tpu_torch.' + m in sys.modules), snap['tenants'], "
+             "snap['scheduler'])\n"
+             "from bifrost_tpu_torch import service, fabric, scheduler\n"
+             "from bifrost_tpu_torch.tools import bf_serve, bf_fabric, "
+             "bf_sched\n"
+             "service.TenantSpec('t', source={'kind': 'synthetic'})\n"
+             "spec = fabric.FabricSpec('f', hosts={'a': {}, 'b': {}})\n"
+             "print(scheduler.plan_placement(spec, [{'id': 't'}]))\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), torch.cuda.is_initialized())\n")
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip().split('\n') == [
+        '[] {} {}', "Placement({'t': 'a'}, displaced=[])", '[] False']
 
 
 def test_default_mesh_needs_the_card_or_a_cpu_request():

@@ -318,9 +318,25 @@ def test_fdmt_search_equals_jax():
 
 
 def test_fdmt_search_fabric_waits_for_the_fabric_tier(capsys):
-    tex = _load('fdmt_search_torch')
-    assert tex.main(['fdmt_search_torch.py', '--fabric']) == 2
-    assert 'fabric' in capsys.readouterr().err
+    """``--fabric`` used to exit 2 while the port had no fabric tier;
+    now it runs the two-host loopback fabric, exits 0 and prints the peak
+    that the JAX example's ``--fabric`` run prints."""
+    from bifrost_tpu import proclog as jproclog
+    from bifrost_tpu_torch import proclog as tproclog
+    tex, jex = _load('fdmt_search_torch'), _load('fdmt_search')
+    saved = sys.argv
+    try:
+        assert tex.main(['fdmt_search_torch.py', '--fabric']) == 0
+        got = capsys.readouterr().out.strip().splitlines()[-1]
+        sys.argv = ['fdmt_search.py', '--fabric']
+        jex.main()
+    finally:
+        sys.argv = saved
+        # a fabric host names the process (proclog.set_identity)
+        tproclog.set_identity(None)
+        jproclog.set_identity(None)
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got == want and 'peak' in got
 
 
 @pytest.mark.parametrize('name', NEW_EXAMPLES)

@@ -57,6 +57,39 @@ def rehome(fn, modules, **overrides):
     resources, say); the module's helper functions are rebound to the
     same new globals.  Returns a callable that runs with the mapped
     module names aliased in ``sys.modules``."""
+    new = _port_globals(fn, modules, overrides)[fn.__name__]
+
+    def run(*args, **kwargs):
+        with _aliased(modules):
+            return new(*args, **kwargs)
+    return run
+
+
+def rehome_method(cls, name, modules, **overrides):
+    """Method ``name`` of a JAX test class, as :func:`rehome` binds a
+    test function: a fresh instance of the class with every plain method
+    rebound to the port's globals.  Returns a callable that runs it with
+    the mapped module names aliased."""
+    g = _port_globals(getattr(cls, name), modules, overrides)
+    ns = {}
+    for key, val in vars(cls).items():
+        if isinstance(val, types.FunctionType):
+            val = types.FunctionType(val.__code__, g, key, val.__defaults__,
+                                     val.__closure__)
+        ns[key] = val
+    inst = type(cls.__name__, (object,), ns)()
+    bound = getattr(inst, name)
+
+    def run(*args, **kwargs):
+        with _aliased(modules):
+            return bound(*args, **kwargs)
+    return run
+
+
+def _port_globals(fn, modules, overrides):
+    """The globals of ``fn``'s module with mapped modules, the objects
+    defined in them and ``overrides`` replaced, and the module's own
+    functions rebound to them."""
     g = dict(fn.__globals__)
     for name, val in list(g.items()):
         if isinstance(val, types.ModuleType):
@@ -72,12 +105,7 @@ def rehome(fn, modules, **overrides):
                 val.__module__ == fn.__module__:
             g[name] = types.FunctionType(val.__code__, g, name,
                                          val.__defaults__, val.__closure__)
-    new = g[fn.__name__]
-
-    def run(*args, **kwargs):
-        with _aliased(modules):
-            return new(*args, **kwargs)
-    return run
+    return g
 
 
 FORMATS_MAP = {'bifrost_tpu.io.packet_formats': TF}
