@@ -7,8 +7,9 @@ chain (``blocks.fused([BeamformStage, DetectStage, ReduceStage])``,
 where the whole-chain K6 substitution applies,
 ``stages.match_beamformer``).  Under a macro batch K the block runs its
 stage on K-gulp spans, so the engine is prewarmed at T and at T * K
-frames.  The JAX block's mesh branch (a per-shard prewarm) is not
-ported.
+frames.  Under a mesh scope the block runs the stage's frame-local plan
+(each rank beamforms its time shard), so the engine is prewarmed at the
+shard's T / D and T * K / D frames, where they divide.
 """
 
 from __future__ import annotations
@@ -47,9 +48,10 @@ class BeamformBlock(_StageBlock):
     def _prewarm_engine(self, ihdr):
         """Gate and race the engine's candidates at the shapes on_data
         will present, T and, under a macro batch K, T * K frames
-        (``bifrost_tpu/blocks/beamform.py:60-75``), so the winner is
-        chosen at sequence start and the probe cost never lands on a
-        gulp."""
+        (``bifrost_tpu/blocks/beamform.py:43-88``), per rank's shard under
+        a mesh, so the winner is chosen at sequence start and the probe
+        cost never lands on a gulp.  Unlike the JAX block's, an error
+        here raises."""
         from ..macro import resolve_gulp_batch
         t = ihdr['_tensor']
         gulp = self.gulp_nframe or ihdr.get('gulp_nframe')
@@ -63,6 +65,11 @@ class BeamformBlock(_StageBlock):
         k = resolve_gulp_batch(self)
         for t_shape in ([int(gulp)] if k <= 1 else
                         [int(gulp), int(gulp) * k]):
+            if self.mesh is not None:
+                from ..parallel.scope import (shardable_nframe,
+                                              time_axis_size)
+                if shardable_nframe(self.mesh, t_shape):
+                    t_shape //= time_axis_size(self.mesh)
             stage.engine.prewarm(t_shape, nfreq, npol=npol,
                                  int_input=int_input)
         self._gemm_ops = stage.engine.ops_per_frame(nfreq, npol) * \

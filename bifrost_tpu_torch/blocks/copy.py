@@ -20,6 +20,14 @@ Both directions ride the transfer engine (:mod:`bifrost_tpu_torch.xfer`):
 ``sync_strict=True`` (scope tunable) or ``BF_SYNC_STRICT=1`` makes every
 D2H complete before its span commits.
 
+Under a mesh scope an H2D copy places each gulp per rank
+(``xfer.TransferEngine.to_device_sharded``: each rank's frames staged
+and copied to its rank's device, or copied straight from a pinned
+``cuda_host`` span) and commits the per-rank value, advertised in the
+output header's ``_sharding`` so that a mesh block downstream reads it
+with no relayout (``bifrost_tpu/blocks/copy.py:66-104``).  A gulp whose
+frame count does not divide the mesh lands whole.
+
 A device-to-device copy republishes the same tensor, which is safe
 because no block writes into a tensor it has put in a ring.
 
@@ -67,7 +75,33 @@ class CopyBlock(TransformBlock):
         return ohdr
 
     def on_sequence(self, iseq):
-        return deepcopy(iseq.header)
+        ohdr = deepcopy(iseq.header)
+        self._h2d_taxis = None
+        if not self.orings[0].is_device:
+            # host rings have no device layout: a D2H copy gathers
+            ohdr.pop('_sharding', None)
+        if self.mesh is not None and self.orings[0].is_device and \
+                not self.irings[0].is_device:
+            from ..parallel.scope import sharding_descriptor
+            try:
+                taxis = ohdr['_tensor']['shape'].index(-1)
+            except (KeyError, ValueError):
+                taxis = None
+            if taxis is not None:
+                self._h2d_taxis = taxis
+                ohdr['_sharding'] = sharding_descriptor(self.mesh, taxis)
+        return ohdr
+
+    def _h2d_sharding(self, ispan, arr):
+        """The time sharding of this gulp's device representation
+        ``arr``, or None: no mesh, or a frame count that does not divide
+        the mesh (the partial tail of a sequence lands whole)."""
+        if self._h2d_taxis is None:
+            return None
+        from ..parallel.scope import time_axis_size, time_sharding
+        if ispan.nframe % time_axis_size(self.mesh):
+            return None
+        return time_sharding(self.mesh, arr.ndim, self._h2d_taxis)
 
     def _d2h_strict(self):
         """Synchronous D2H required?  The scope's ``sync_strict`` wins;
@@ -80,6 +114,9 @@ class CopyBlock(TransformBlock):
         buf = ispan.data.as_numpy()
         arr, post = to_device_plan(buf, ispan.dtype)
         eng = xfer.engine()
+        sharding = self._h2d_sharding(ispan, arr)
+        if sharding is not None:
+            return self._h2d_sharded(ispan, buf, arr, post, sharding)
         if ispan.ring._storage.pinned and arr.flags.c_contiguous and \
                 np.may_share_memory(arr, buf):
             t, ev = eng.to_device_direct(arr)
@@ -91,6 +128,25 @@ class CopyBlock(TransformBlock):
         else:
             t = eng.to_device(arr)
         return t if post is None else post(t)
+
+    def _h2d_sharded(self, ispan, buf, arr, post, sharding):
+        """The per-rank placement of one gulp (or macro span): straight
+        from a pinned span whose frame axis leads, else staged per rank;
+        a packed type is unpacked per rank on the device."""
+        eng = xfer.engine()
+        direct = ispan.ring._storage.pinned and arr.flags.c_contiguous \
+            and np.may_share_memory(arr, buf) and self._h2d_taxis == 0
+        if direct:
+            out, events = eng.to_device_sharded(arr, sharding, direct=True)
+            for ev in events:
+                ispan.hold(ev)
+        else:
+            out = eng.to_device_sharded(arr, sharding)
+        if post is not None:
+            from ..parallel.scope import ShardedTensor
+            out = ShardedTensor([post(t) for t in out.shards], out.mesh,
+                                out.taxis)
+        return out
 
     def _macro_gulps(self, ispan):
         """The whole gulps K of a macro span whose frame axis leads (no

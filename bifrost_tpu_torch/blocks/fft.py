@@ -14,8 +14,10 @@ equivariant (``Stage.batch_safe``): its plan for the K-gulp shape takes
 the stacked span in one call, and with a lookahead the span carries the
 overlap once (the halo carry).  Under ``donate`` it claims its input
 chunk out of the ring (``TransformBlock._take_donatable``) and drops it
-once the stage has read it.  Mesh sharding of the stage blocks is not
-ported (the JAX block's GSPMD plans).
+once the stage has read it.  Under a mesh scope an equivariant stage
+with no lookahead runs a frame-local plan (one body per rank on its time
+shard) and any other runs on the gathered gulp
+(:func:`bifrost_tpu_torch.parallel.scope.mesh_plan_or_gathered`).
 """
 
 from __future__ import annotations
@@ -67,7 +69,10 @@ class _StageBlock(TransformBlock):
         self._ihdr = iseq.header
         self._plans = {}
         self._donate_on = None
-        return self._stage.transform_header(iseq.header)
+        ohdr = self._stage.transform_header(iseq.header)
+        from ..parallel.scope import advertise_sharding
+        advertise_sharding(iseq.header, ohdr, self.mesh)
+        return ohdr
 
     def define_output_nframes(self, input_nframe):
         return self._stage.output_nframe(input_nframe)
@@ -77,16 +82,39 @@ class _StageBlock(TransformBlock):
         fn = self._plans.get(key)
         if fn is None:
             idt = DataType(self._ihdr['_tensor']['dtype'])
-            fn = self._plans[key] = self._stage.build(
-                {'shape': list(x.shape), 'dtype': idt,
-                 'reim': idt.kind == 'ci'})
+            meta = {'shape': list(x.shape), 'dtype': idt,
+                    'reim': idt.kind == 'ci'}
+            fn = self._stage.build(meta) if self.mesh is None \
+                else self._mesh_plan(meta)
+            self._plans[key] = fn
         return fn
 
+    def _mesh_plan(self, meta):
+        """The mesh plan (``bifrost_tpu/blocks/fft.py:99-140``):
+        frame-local for an equivariant stage with no lookahead whose frame
+        count divides the mesh, else the stage on the gathered gulp."""
+        from ..parallel.scope import mesh_plan_or_gathered
+        try:
+            taxis = self._ihdr['_tensor']['shape'].index(-1)
+            taxis_out = self._stage.transform_header(
+                self._ihdr)['_tensor']['shape'].index(-1)
+        except (KeyError, ValueError):
+            taxis = taxis_out = None
+        plan, _info = mesh_plan_or_gathered(
+            self.mesh,
+            lambda local: self._stage.build(dict(meta, shape=list(local))),
+            lambda: self._stage.build(meta), meta['shape'], taxis,
+            taxis_out, local_ok=taxis is not None and
+            getattr(self._stage, 'batch_safe', False) and
+            not getattr(self._stage, 'overlap_nframe', 0))
+        return plan
+
     def on_data(self, ispan, ospan):
-        x = self._take_donatable(ispan)
+        sharded = self.mesh is not None
+        x = self._take_donatable(ispan, sharded=sharded)
         donate = x is not None
         if not donate:
-            x = ispan.data
+            x = ispan.sharded_data() if sharded else ispan.data
         # a donated chunk's last reference is ``x``: it goes when this
         # call returns, after the stage has queued its work on it
         ospan.set(self._plan_for(x, donate)(x), owned=True)

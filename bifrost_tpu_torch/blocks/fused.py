@@ -24,8 +24,19 @@ dtype, donate, G, mode).
   tiling it, joined by one ``torch.cat``) and drops it once the plan has
   read it; ``impl_info['donate_argnums']`` records it.
 
-Mesh plans (the JAX block's ``frame_local_plan`` and GSPMD shardings)
-are not ported.
+- **Mesh plans** (``bifrost_tpu/blocks/fused.py:267-381``): under a
+  mesh scope a 'block'-mode chain with no lookahead runs as a
+  frame-local plan (:func:`bifrost_tpu_torch.parallel.scope.
+  frame_local_plan`): one body per rank on its time shard, composed at
+  the shard's shape, so a whole-chain kernel substitutes per rank (the
+  Guppi chain launches K1 once per rank a gulp) and no collective runs.
+  The plan reads a ring-resident per-rank input as it lies and commits
+  its output per rank, advertised in the output header's ``_sharding``.
+  A macro span of one part takes the same plan at the K-gulp shape.
+  Where the JAX block partitions with GSPMD (a lookahead or 'sliced'
+  chain, a multi-part span) or the frame count does not divide the mesh,
+  the port runs the whole-gulp plan on the gathered input
+  (``mesh.whole_gulp_plans``).
 """
 
 from __future__ import annotations
@@ -160,6 +171,8 @@ class FusedBlock(TransformBlock):
         self._published_impl = None
         self._published_key = None
         self._donate_on = None
+        from ..parallel.scope import advertise_sharding
+        advertise_sharding(iseq.header, self._headers[-1], self.mesh)
         self._prewarm(iseq.header)
         return self._headers[-1]
 
@@ -217,10 +230,35 @@ class FusedBlock(TransformBlock):
         # every plan build is counted (a warm tenant of the service tier
         # builds none)
         _counters.inc('fused.plan_builds')
-        fn, info = self._compose(shape, dtype)
+        if self.mesh is None:
+            fn, info = self._compose(shape, dtype)
+        else:
+            fn, info = self._mesh_plan(shape, dtype)
         self._last_built_impl = dict(info, donate_argnums=[0]) \
             if donate else dict(info)
         return fn
+
+    def _mesh_plan(self, shape, dtype):
+        """The mesh plan of a gulp of ``shape`` and its info: frame-local
+        where the chain is 'block' mode with no lookahead and the frame
+        count divides the mesh, else the whole-gulp plan
+        (:func:`bifrost_tpu_torch.parallel.scope.mesh_plan_or_gathered`)."""
+        from ..macro import chain_batch_mode
+        from ..parallel.scope import mesh_plan_or_gathered
+        from ..stages import chain_overlap_nframe
+        box = {}
+
+        def build(local_shape):
+            fn, info = self._compose(local_shape, dtype)
+            box.update(info)
+            return fn
+        plan, mesh_info = mesh_plan_or_gathered(
+            self.mesh, build, lambda: build(shape), shape,
+            self._headers[0]['_tensor']['shape'].index(-1),
+            self._headers[-1]['_tensor']['shape'].index(-1),
+            local_ok=chain_batch_mode(self.stages) == 'block' and
+            not chain_overlap_nframe(self.stages))
+        return plan, dict(box, **mesh_info)
 
     def _publish_impl(self, info, key):
         """Publish the configuration of the plan about to run, whenever
@@ -249,8 +287,22 @@ class FusedBlock(TransformBlock):
         """Run the gulp plan for ``x``'s shape (built on a miss) and
         publish what ran; shared by on_data and _prewarm."""
         key, plan = self._plan_for(x, donate)
-        self._publish_impl(self._plan_impls[key], key)
-        return plan(x)
+        return self._run_plan(key, plan, (x,))
+
+    def _run_plan(self, key, plan, args):
+        """Publish the plan's info and run it.  A mesh plan's first run
+        records the collective calls it made (``mesh.collectives.<kind>``)
+        in its info, where the JAX block reads them from compiled HLO."""
+        info = self._plan_impls[key]
+        if getattr(plan, 'mesh', None) is None or 'collectives' in info:
+            self._publish_impl(info, key)
+            return plan(*args)
+        from ..parallel.scope import collective_counts, record_collectives
+        since = collective_counts()
+        out = plan(*args)
+        info['collectives'] = record_collectives(since)
+        self._publish_impl(info, key)
+        return out
 
     def _macro_plan(self, parts, donate, gulp_nframe):
         """The macro-span plan for ``parts`` (built on a miss): the
@@ -288,6 +340,17 @@ class FusedBlock(TransformBlock):
                     batch_mode=mode)
         if donate:
             info['donate_argnums'] = list(range(len(parts)))
+        if self.mesh is not None:
+            # macro x mesh (bifrost_tpu/blocks/fused.py:509-575): a
+            # single-part 'block' span with no lookahead runs frame-local
+            # at the K-gulp shape, K * G / D frames a rank
+            from ..parallel.scope import mesh_plan_or_gathered
+            whole = plan
+            plan, mesh_info = mesh_plan_or_gathered(
+                self.mesh, per_shape, lambda: whole, part_shapes[0],
+                taxis_in, taxis_out, local_ok=mode == 'block' and
+                len(part_shapes) == 1 and not overlap)
+            info.update(mesh_info)
         self._plans[key] = plan
         self._plan_impls[key] = info
         self._depot_store(key)
@@ -298,21 +361,24 @@ class FusedBlock(TransformBlock):
         as one tensor or as the owned chunks tiling it (joined inside
         the plan)."""
         key, plan = self._macro_plan(parts, donate, gulp_nframe)
-        self._publish_impl(self._plan_impls[key], key)
-        return plan(*parts)
+        return self._run_plan(key, plan, parts)
 
     def on_data(self, ispan, ospan):
+        # a mesh plan reads a per-rank input as it lies
+        sharded = self.mesh is not None
+        data = ispan.sharded_data if sharded else (lambda: ispan.data)
         if self._gulp_batch_active > 1 and self._macro_gulp_in:
-            x = self._take_donatable(ispan, allow_parts=True)
+            x = self._take_donatable(ispan, allow_parts=True,
+                                     sharded=sharded)
             if x is None:
-                parts, donate = [ispan.data], False
+                parts, donate = [data()], False
             else:
                 parts, donate = (x if isinstance(x, list) else [x]), True
             out = self._execute_macro(parts, donate, self._macro_gulp_in)
         else:
-            x = self._take_donatable(ispan)
+            x = self._take_donatable(ispan, sharded=sharded)
             donate = x is not None
-            out = self._execute_plan(x if donate else ispan.data, donate)
+            out = self._execute_plan(x if donate else data(), donate)
         # a donated chunk's last references are the locals above: they go
         # when this call returns, after the plan has queued its work
         ospan.set(out, owned=True)

@@ -936,6 +936,16 @@ class RingSender(object):
         return (self.shutdown_event is not None
                 and self.shutdown_event.is_set())
 
+    def _check_source_end(self):
+        """At the end of data, before the clean MSG_END: a source ring
+        poisoned by then (its producer failed right after ending the
+        stream) fails the stream, so the receiver poisons its ring.  A
+        poison that lands after this check follows a stream that ended
+        cleanly, and the stream stays complete.  Pipeline shutdown is a
+        clean end."""
+        if not self._stop_requested():
+            self.ring._check_poison()
+
     def _run_naive(self):
         """The seed implementation: per-span ``ascontiguousarray`` +
         ``tobytes`` copies and a blocking ``sendall`` per message —
@@ -957,6 +967,7 @@ class RingSender(object):
                 _send_msg(sock, MSG_END_SEQ)
                 if self._stop_requested():
                     break
+            self._check_source_end()
             ok = True
         finally:
             # Only a CLEAN end of pump sends MSG_END: on failure the
@@ -1002,6 +1013,7 @@ class RingSender(object):
                 _send_msg(sock, MSG_END_SEQ)
                 if self._stop_requested():
                     break
+            self._check_source_end()
             ok = True
         finally:
             # clean end only — see _run_naive's finally
@@ -1549,6 +1561,7 @@ class RingSender(object):
                 self._emit(MSG_END_SEQ)
                 if self._stop_requested():
                     break
+            self._check_source_end()
         except RingPoisonedError:
             if not self._stop_requested():
                 # upstream failure: abort WITHOUT a clean MSG_END so

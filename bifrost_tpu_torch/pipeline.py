@@ -1268,14 +1268,15 @@ class TransformBlock(MultiTransformBlock):
             self._donate_on = resolve_donate(self)
         return self._donate_on
 
-    def _take_donatable(self, ispan, allow_parts=False):
+    def _take_donatable(self, ispan, allow_parts=False, sharded=False):
         """The input span's chunk claimed for donation
         (:meth:`bifrost_tpu_torch.ring.ReadSpan.take_data`), a list of
         the chunks tiling a macro span with ``allow_parts``, or None:
         donation off, an overlapped read (the next span re-reads the
         history frames; ``bifrost_tpu/pipeline.py:1822-1827``), or no
         proof of exclusivity.  Callers read ``ispan.data`` on None.
-        Counts ``donation.hits`` / ``donation.misses``.
+        Counts ``donation.hits`` / ``donation.misses``.  A mesh plan
+        passes ``sharded`` to take a per-rank chunk as it lies.
 
         In the port, donation is a transfer of ownership, not an XLA
         buffer alias: the chunk leaves the ring, the block's function
@@ -1287,7 +1288,7 @@ class TransformBlock(MultiTransformBlock):
         if self._macro_overlap_in:
             _counters.inc('donation.misses')
             return None
-        x = ispan.take_data(allow_parts=allow_parts)
+        x = ispan.take_data(allow_parts=allow_parts, sharded=sharded)
         _counters.inc('donation.hits' if x is not None
                       else 'donation.misses')
         return x

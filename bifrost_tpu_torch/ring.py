@@ -466,6 +466,9 @@ class Ring(object):
         self.overload_policy = 'block'
         self._shed_gulps = 0
         self._shed_bytes = 0
+        #: the stream offset up to which the shed ledger has charged (or
+        #: a guaranteed reader passed) every overwritten byte
+        self._shed_frontier = 0
         self._scratch = {}            # drop_newest scratch, by shape
         self._h_reserve = None
         self._h_acquire = None
@@ -534,6 +537,22 @@ class Ring(object):
         self._size, self._ghost, self._nringlet = size, ghost, nringlet
         self._write_cond.notify_all()
         self._read_cond.notify_all()
+        self._write_ring_proclog(size, ghost, nringlet)
+
+    def _write_ring_proclog(self, size, ghost, nringlet):
+        """Record this ring's geometry under ``rings/<name>`` for the
+        monitors (``like_ps``, ``like_pmap``; ``bifrost_tpu/ring.py:702``):
+        space, binding (-1, unbound), ghost, span, stride, nringlet."""
+        try:
+            from .proclog import ProcLog
+            if getattr(self, '_geom_proclog', None) is None:
+                self._geom_proclog = ProcLog('rings/%s' % self.name)
+            self._geom_proclog.update({
+                'space': self.space, 'core': -1, 'ghost': ghost,
+                'span': ghost, 'stride': size, 'nringlet': nringlet},
+                force=True)
+        except Exception:
+            pass            # monitors never break a resize
 
     def request_resize(self, contiguous_bytes, total_bytes=None,
                        nringlet=1):
@@ -860,6 +879,9 @@ class Ring(object):
                         continue        # re-check the limit
                 self._write_cond.wait()
                 self._check_poison()
+            if self._guarantees:
+                self._shed_frontier = max(self._shed_frontier,
+                                          new_reserve - self._size)
             self._grant_locked(span, begin, nbyte)
         return shed
 
@@ -961,6 +983,30 @@ class Ring(object):
             if rseq.guarantee:
                 self._guarantees[id(rseq)] = max(rseq._seq.begin,
                                                  self._tail)
+                self._charge_late_reader(rseq, self._tail)
+
+    def _charge_late_reader(self, rseq, tail):
+        """A guaranteed reader that opens a drop_oldest sequence after its
+        oldest committed bytes were overwritten (no guaranteed reader held
+        them) will see them as skipped frames: charge them to the shed
+        ledger once, so it still equals the slowest reader's skips.  The
+        caller excludes drop_oldest reserves while it runs."""
+        if self.overload_policy != 'drop_oldest':
+            return
+        seq = rseq._seq
+        lost = tail - max(seq.begin, self._shed_frontier)
+        self._shed_frontier = max(self._shed_frontier, tail)
+        if lost <= 0:
+            return
+        header = seq.header
+        try:
+            fb = _tensor_info(header)['frame_nbyte']
+            gulp_nbyte = int(header.get('gulp_nframe', 0) or 0) * fb
+        except (KeyError, TypeError, ValueError):
+            fb, gulp_nbyte = 1, 0
+        self._note_shed(lost, max(1, -(-lost // (gulp_nbyte or lost))),
+                        header=header,
+                        frame_end=max((tail - seq.begin) // max(fb, 1), 0))
 
     def _reader_moved(self, rseq, new_seq):
         if rseq.guarantee:
@@ -1650,13 +1696,35 @@ class WriteSpan(_SpanAPI):
             nframe_c = commit_nbyte // t['frame_nbyte']
             if nframe_c < self.nframe:
                 x = x.narrow(taxis, 0, nframe_c)
+            elif hasattr(x, 'shards'):
+                # a mesh plan's output stays per rank in the ring
+                _note_sharded(self._ring, x)
             self._ring._storage.put(self._begin, commit_nbyte, x, taxis,
                                     self._event, self._owned)
 
 
+def _note_sharded(ring, x):
+    """Count a per-rank commit (``parallel.scope.ShardedTensor``) on
+    ``ring.<name>.sharded_gulps`` / ``.shard_bytes`` and
+    ``mesh.sharded_commits``."""
+    c = _observability()[0]
+    c.inc('ring.%s.sharded_gulps' % ring.name)
+    c.inc('ring.%s.shard_bytes' % ring.name, int(x.shard_nbytes))
+    c.inc('mesh.sharded_commits')
+
+
+def _gathered(x):
+    """A per-rank value (``ShardedTensor``) gathered for a reader that
+    does not take the layout; any other value as it is."""
+    return x.gather() if hasattr(x, 'shards') else x
+
+
 class ReadSpan(_SpanAPI):
     """Acquired input region (reference: ring2.py:478-503).  On a device
-    ring ``.data`` is a tensor the reader must not write into."""
+    ring ``.data`` is a tensor the reader must not write into; a span a
+    mesh plan committed per rank reads as the gathered tensor there, and
+    as the per-rank ``parallel.scope.ShardedTensor`` through
+    :meth:`sharded_data`."""
 
     def __init__(self, sequence, frame_offset, nframe):
         faults.fire('ring.acquire', sequence.ring.name)
@@ -1717,15 +1785,7 @@ class ReadSpan(_SpanAPI):
         if self._data is None:
             if self._ring.is_device:
                 t = self.tensor
-
-                def zeros_fn(nframe):
-                    from .devrep import device_rep_zeros
-                    return device_rep_zeros(
-                        t['ringlet_shape'] + [nframe] + t['frame_shape'],
-                        t['dtype'])
-
-                x = self._ring._storage.get(
-                    self._begin, self._nbyte, t['frame_nbyte'], zeros_fn)
+                x = _gathered(self._raw_device_data())
                 if self._sequence.header_transform is not None:
                     x = _as_view_layout(x, self.device_shape, t['dtype'])
                 self._data = x
@@ -1733,7 +1793,30 @@ class ReadSpan(_SpanAPI):
                 self._data = self._host_view(writeable=False)
         return self._data
 
-    def take_data(self, allow_parts=False):
+    def _raw_device_data(self):
+        t = self.tensor
+
+        def zeros_fn(nframe):
+            from .devrep import device_rep_zeros
+            return device_rep_zeros(
+                t['ringlet_shape'] + [nframe] + t['frame_shape'],
+                t['dtype'])
+
+        return self._ring._storage.get(self._begin, self._nbyte,
+                                       t['frame_nbyte'], zeros_fn)
+
+    def sharded_data(self):
+        """Device rings: the span's committed value as it lies in the
+        ring, a per-rank ``ShardedTensor`` where a mesh plan committed
+        one (else the tensor ``.data`` gives).  Mesh plans read their
+        input through this, so a layout that matches theirs is never
+        gathered."""
+        if self._data is not None or not self._ring.is_device or \
+                self._sequence.header_transform is not None:
+            return self.data
+        return self._raw_device_data()
+
+    def take_data(self, allow_parts=False, sharded=False):
         """Device rings: claim this span's committed chunk for donation
         (``bifrost_tpu/ring.py:2047``).  The chunk leaves the ring, so the
         caller holds the only reference and the caching allocator can
@@ -1749,7 +1832,13 @@ class ReadSpan(_SpanAPI):
             return None
         got = self._ring._take_exclusive(self._sequence, self._begin,
                                          self._nbyte, allow_parts)
-        if got is not None and not isinstance(got, list):
+        if got is not None and not sharded:
+            # a reader that does not take per-rank values (``sharded``)
+            # gets them gathered
+            got = [_gathered(x) for x in got] if isinstance(got, list) \
+                else _gathered(got)
+        if got is not None and not isinstance(got, list) and \
+                not hasattr(got, 'shards'):
             self._data = got
         return got
 

@@ -153,6 +153,12 @@ class NativeRing(Ring):
         #: live native reader ids: poison releases their guarantees so
         #: writers blocked in bft_ring_reserve wake
         self._native_reader_ids = set()
+        #: drop_oldest reserves and guaranteed-reader registrations take
+        #: turns, so a late reader's charge and the core's shed count
+        #: never cover the same bytes; ``_nguaranteed`` counts the
+        #: guaranteed readers
+        self._shed_reg_lock = threading.Lock()
+        self._nguaranteed = 0
         #: deferred fills holding a C-side resize hold (their numpy view
         #: of the buffer would dangle under a re-layout)
         self._fill_holds = []
@@ -204,6 +210,7 @@ class NativeRing(Ring):
             self._handle, contiguous_bytes,
             -1 if total_bytes is None else total_bytes, nringlet),
             'resize')
+        self._write_ring_proclog(*self._geometry())
 
     def request_resize(self, contiguous_bytes, total_bytes=None,
                        nringlet=1):
@@ -225,6 +232,8 @@ class NativeRing(Ring):
             self._handle, contiguous_bytes,
             -1 if total_bytes is None else total_bytes, int(nringlet),
             ctypes.byref(applied)), 'request_resize')
+        if applied.value:
+            self._write_ring_proclog(*self._geometry())
         return bool(applied.value)
 
     @property
@@ -380,9 +389,14 @@ class NativeRing(Ring):
         begin = ctypes.c_longlong()
         sid = ctypes.c_longlong()
         shed = ctypes.c_longlong()
-        rc = self._lib.bft_ring_reserve_shed(
-            self._handle, span._nbyte, int(max(frame_nbyte or 1, 1)),
-            ctypes.byref(begin), ctypes.byref(sid), ctypes.byref(shed))
+        with self._shed_reg_lock:
+            rc = self._lib.bft_ring_reserve_shed(
+                self._handle, span._nbyte, int(max(frame_nbyte or 1, 1)),
+                ctypes.byref(begin), ctypes.byref(sid), ctypes.byref(shed))
+            if rc == native.BFT_OK and self._nguaranteed:
+                with self._lock:
+                    self._shed_frontier = max(self._shed_frontier,
+                                              self._tail_head()[0])
         self._check_reserve_rc(rc)
         self._granted(span, begin.value, sid.value)
         return shed.value
@@ -428,6 +442,20 @@ class NativeRing(Ring):
         return self._wrap_seq(out.value)
 
     def _register_reader(self, rseq):
+        if not rseq.guarantee:
+            self._create_reader(rseq)
+            return
+        with self._shed_reg_lock:
+            rid = self._create_reader(rseq)
+            # forward only: bft_reader_create put the guarantee at the
+            # tail, and below the tail it would pin unreadable bytes
+            native.check(self._lib.bft_reader_set_guarantee(
+                self._handle, rid, rseq._seq.begin, 1))
+            with self._lock:
+                self._nguaranteed += 1
+                self._charge_late_reader(rseq, self._tail_head()[0])
+
+    def _create_reader(self, rseq):
         rid = ctypes.c_longlong()
         native.check(self._lib.bft_reader_create(
             self._handle, 1 if rseq.guarantee else 0, ctypes.byref(rid)),
@@ -436,11 +464,7 @@ class NativeRing(Ring):
         with self._lock:
             self._native_reader_ids.add(rid.value)
             self._readers.add(id(rseq))
-        if rseq.guarantee:
-            # forward only: bft_reader_create put the guarantee at the
-            # tail, and below the tail it would pin unreadable bytes
-            native.check(self._lib.bft_reader_set_guarantee(
-                self._handle, rid.value, rseq._seq.begin, 1))
+        return rid.value
 
     def _reader_moved(self, rseq, new_seq):
         if rseq.guarantee:
@@ -494,6 +518,8 @@ class NativeRing(Ring):
             with self._lock:
                 self._native_reader_ids.discard(rid)
                 self._readers.discard(id(rseq))
+                if rseq.guarantee:
+                    self._nguaranteed -= 1
             native.check(self._lib.bft_reader_destroy(self._handle, rid))
             rseq._native_reader_id = None
 

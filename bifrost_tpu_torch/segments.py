@@ -172,19 +172,12 @@ def _pins_supervision(block):
 
 
 def _meshes_ok(a, b):
-    """Both blocks outside a mesh, or under meshes of the same axes and
-    ranks (mesh boundaries beyond this wait for the mesh tier's segment
-    plans)."""
-    ma, mb = getattr(a, 'mesh', None), getattr(b, 'mesh', None)
-    if ma is None or mb is None:
-        return ma is mb
-    if ma is mb:
-        return True
-    try:
-        return (ma.axis_names == mb.axis_names and ma.shape == mb.shape
-                and ma.devices.tolist() == mb.devices.tolist())
-    except Exception:
-        return False
+    """Both blocks outside a mesh, or under meshes that lay ring-resident
+    gulps out alike (``parallel.scope.meshes_equivalent``): the segment
+    then runs the members' chain as one frame-local mesh plan."""
+    from .parallel.scope import meshes_equivalent
+    return meshes_equivalent(getattr(a, 'mesh', None),
+                             getattr(b, 'mesh', None))
 
 
 def _is_bridge(block):
@@ -404,7 +397,11 @@ def _segment_block_cls():
             """The split count of the next sequence: the knob clamped to
             the member boundaries.  A split composes with a carried halo:
             every part is 'block' mode and computes the whole span, the
-            ghost frames only reaching frames that go uncommitted."""
+            ghost frames only reaching frames that go uncommitted.  A
+            mesh segment never splits: its parts would each need their
+            own per-rank layouts, and the whole-segment mesh plan exists."""
+            if self.mesh is not None:
+                return 0
             try:
                 n = int(self._segment_split)
             except (TypeError, ValueError):

@@ -579,11 +579,15 @@ class TransferEngine(object):
         hist.observe('xfer.h2d_nbytes', int(nbytes))
         spans.record_elapsed('h2d', 'xfer', dt, bytes=int(nbytes))
 
-    def to_device(self, arr, device=None):
+    def to_device(self, arr, device=None, sharding=None):
         """numpy -> tensor on ``device`` (default: the port's), with
         exactly one host copy.  Safe against the caller mutating or
-        recycling ``arr`` after the call returns."""
+        recycling ``arr`` after the call returns.  With ``sharding`` (a
+        ``parallel.scope`` time sharding) the gulp lands per rank
+        (:meth:`to_device_sharded`)."""
         arr = np.asarray(arr)
+        if sharding is not None:
+            return self.to_device_sharded(arr, sharding)
         dev = self._device(device)
         t0 = time.perf_counter()
         faults.fire('xfer.h2d')
@@ -613,6 +617,115 @@ class TransferEngine(object):
         c.inc('xfer.h2d_bytes', int(arr.nbytes))
         self._observe_h2d(t0, arr.nbytes)
         return out, ev
+
+    # -- sharded H2D (mesh-resident pipelines) ------------------------------
+    @staticmethod
+    def _shard_plan(shape, sharding):
+        """Per-rank (device, index) placement of a gulp of ``shape``
+        laid out by ``sharding`` (``bifrost_tpu/xfer.py:533``): one entry
+        a rank, ranks that share a card included."""
+        import torch
+        mesh, spec = sharding.mesh, tuple(sharding.spec)
+        spec = spec + (None,) * (len(shape) - len(spec))
+        out = []
+        for r, dev in enumerate(mesh.rank_devices):
+            c = mesh.coords(r)
+            idx = []
+            for d, name in enumerate(spec):
+                if name is None:
+                    idx.append(slice(None))
+                    continue
+                n = mesh.shape[name]
+                if shape[d] % n:
+                    raise ValueError("axis %d of %s does not divide over "
+                                     "mesh axis %r of size %d"
+                                     % (d, tuple(shape), name, n))
+                m = shape[d] // n
+                k = c[mesh.axis_names.index(name)]
+                idx.append(slice(k * m, (k + 1) * m))
+            out.append((torch.device(dev), tuple(idx)))
+        return out
+
+    def to_device_sharded(self, arr, sharding, direct=False):
+        """Ship a host gulp laid out by a time ``sharding``: each rank's
+        block is staged into its own slot and copied to its rank's device
+        (``bifrost_tpu/xfer.py:688-736``), so no rank's card receives
+        more than its bytes and no copy of the whole gulp is made there.
+        Complex crosses as (re, im) planes, recombined per rank.  With
+        ``direct`` (a C-contiguous gulp in pinned memory whose frame
+        axis leads) each block is copied from the gulp itself; returns
+        (ShardedTensor, [events]) then, and the caller holds the gulp
+        until the events complete.  ``BF_MESH_H2D=0`` ships the gulp
+        whole and cuts it on the device (``xfer.h2d_sharded_fallback``).
+        Counted on ``xfer.h2d_sharded`` (one a real plane) and
+        ``xfer.h2d_shard_bytes`` (one rank's bytes)."""
+        import torch
+        from .parallel.scope import (ShardedTensor, as_layout,
+                                     mesh_h2d_enabled)
+        arr = np.asarray(arr)
+        mesh = sharding.mesh
+        taxis = [i for i, n in enumerate(tuple(sharding.spec))
+                 if n is not None]
+        if len(taxis) != 1:
+            raise ValueError("sharded H2D takes a time sharding, got %r"
+                             % (sharding,))
+        taxis = taxis[0]
+        t0 = time.perf_counter()
+        faults.fire('xfer.h2d')
+        c = _counters()
+        events = []
+        if not mesh_h2d_enabled():
+            c.inc('xfer.h2d_sharded_fallback')
+            whole = self._stage_ship(
+                arr.shape, arr.dtype, int(arr.nbytes),
+                lambda host: np.copyto(host, arr, casting='no'),
+                mesh.rank_devices[0])
+            out = as_layout(whole, mesh, taxis)
+        elif np.iscomplexobj(arr):
+            ft = np.float64 if arr.dtype == np.complex128 else np.float32
+            re = self._ship_shards(np.ascontiguousarray(arr.real, ft),
+                                   sharding, False, events)
+            im = self._ship_shards(np.ascontiguousarray(arr.imag, ft),
+                                   sharding, False, events)
+            out = ShardedTensor([torch.complex(a, b) for a, b in
+                                 zip(re, im)], mesh, taxis)
+        else:
+            out = ShardedTensor(self._ship_shards(arr, sharding, direct,
+                                                  events), mesh, taxis)
+        hist, spans = _obs()
+        dt = time.perf_counter() - t0
+        hist.observe('xfer.h2d_s', dt)
+        hist.observe('xfer.h2d_nbytes', int(arr.nbytes))
+        spans.record_elapsed('h2d', 'xfer', dt, bytes=int(arr.nbytes),
+                             shards=len(mesh.rank_devices))
+        return (out, events) if direct else out
+
+    def _ship_shards(self, arr, sharding, direct, events):
+        """One real plane, block by block: staged into a slot each, or
+        copied from the pinned gulp itself (``direct``, events appended
+        to ``events``)."""
+        c = _counters()
+        out, shard_bytes = [], 0
+        for dev, idx in self._shard_plan(arr.shape, sharding):
+            piece = arr[idx]
+            shard_bytes = int(piece.nbytes)
+            if direct and dev.type == 'cuda' and \
+                    piece.flags.c_contiguous and _pinned(piece):
+                t, ev = self._upload(_as_tensor(piece), dev, False)
+                events.append(ev)
+                c.inc('xfer.h2d_direct')
+                c.inc('xfer.h2d_issued')
+                c.inc('xfer.h2d_bytes', shard_bytes)
+            else:
+                t = self._stage_ship(
+                    piece.shape, piece.dtype, shard_bytes,
+                    lambda host, piece=piece: np.copyto(host, piece,
+                                                        casting='no'),
+                    dev)
+            out.append(t)
+        c.inc('xfer.h2d_sharded')
+        c.inc('xfer.h2d_shard_bytes', shard_bytes)
+        return out
 
     def prefetch(self, arr, device=None):
         """Issue the H2D copy of ``arr`` now and return the tensor at
@@ -896,10 +1009,11 @@ def reset_engine():
         _engine = None
 
 
-def to_device(arr, device=None):
+def to_device(arr, device=None, sharding=None):
     """numpy -> tensor through the transfer engine (module docstring).
-    The caller may mutate or recycle ``arr`` at once."""
-    return engine().to_device(arr, device)
+    The caller may mutate or recycle ``arr`` at once.  With ``sharding``
+    the gulp lands per rank as a ``parallel.scope.ShardedTensor``."""
+    return engine().to_device(arr, device, sharding)
 
 
 def to_host(arr, out=None):

@@ -371,10 +371,48 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    delivered once and equals the solo run's, and the resumes are
    counted (scheduler.resume.skipped_frames).  Prints the migration's and
    the re-placement's ms;
+15i. runs the seven tools of bifrost_tpu_torch/tools against live
+   pipelines (the monitors phase): a child on the card (``chip_smoke.py
+   --monitor-rx JSON``) runs bridge_source -> copy('cuda') -> fused[FFT,
+   Stokes, reduce(4)] (K1) fed by a host-only ``--bridge-sender`` child
+   with MONGULPS flagship gulps, both writing BF_TRACE_FILE under one
+   BF_PROCLOG_DIR.  While the stream runs, ``like_bmon --once`` shows the
+   bridge's rx and tx rows moving and ``like_pmap <rx pid>`` maps the
+   receiver's rings; afterwards ``trace_merge`` joins the two traces on
+   shared (trace, seq, gulp) identities that include K1 compute spans.
+   This process then runs the device K1 chain hand-tuned (K 4, sync 4)
+   and detuned (K 1, sync 1), MONDIFF gulps each, publishing to a
+   ``bf_console`` child whose rollup's K1 counter must equal the launches
+   measured, and ``telemetry_diff --strict`` must flag the detuned arm
+   (exit 3: its ``pipeline.sync_waits``, a host stall on the card a
+   gulp, are several times the hand arm's, whatever the rates do) and
+   pass identical snapshots.  ``bf_lint --strict`` lints
+   every examples/*_torch.py (no BF-E), and ``mprobe_report`` lists the
+   winners of every race this process ran, the beamformer's among them:
+   in process, and through ``--json`` children over the cache directory
+   of each arm that raced from an empty cache (RACE_CACHES), every
+   persisted winner equal to this process's;
+15j. runs the mesh tier's frame-local plans on MPD ranks of cuda:0 (the
+   mesh_plans phase): the device K1 chain (16384 x 2 x 4096 ci8, r 4,
+   MPGULPS gulps) single-rank, then under the mesh (each rank launches
+   K1 on its time shard), at gulp_batch MPK, fed from a pinned
+   'cuda_host' source through the sharded H2D (each rank's frames copied
+   straight from the span): every arm's output digests equal the
+   single-rank run's, no collective runs, and K1 launches MPD x
+   (dispatches + prewarm runs).  As two fused blocks that a mesh segment
+   fuses (its interior ring elided, the members' own FFT and Stokes, no
+   K1 across their boundary) the chain stays within 1e-5 of K1's.  The
+   beamformer block (K4 forced) and
+   the fused beamform-detect chain (K6) under the mesh equal their
+   single-rank runs bit for bit, the engine prewarmed at the shard's
+   frames and K4's beams equal to the int64 oracle; ``sharded_fft`` and
+   ``freq_sharded_dft`` of MPFFTB x 2^20 points stay within 1e-4 of
+   torch.fft (three all_to_all calls and none);
 16. prints a JSON line of pipeline rates per chain, one of the DSP
    library phases' numbers, one of the xfer phase's, one of the analysis,
    capture, bridge, autotune, fleet, service, fabric and scheduler
-   phases', one JSON line of per-kernel numbers
+   phases' and of the monitors and mesh_plans phases', one JSON line of
+   per-kernel numbers
    ({"kernels": [...]}, K0-K9), the nvidia-smi line, and as the last
    line {"ok": true, "device": {...}}.
 
@@ -1557,7 +1595,6 @@ def run_beam_arm(bt, gulps, w, arm, **kw):
 
 
 def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
-    import tempfile
     gulps = beam_gulps()
     w = beam_weights()
     ngulp = NWARM + NTIMED
@@ -1568,8 +1605,7 @@ def phase_beamform_pipeline(bt, spec, gpu_kernels, beam, smi):
         with contextlib.ExitStack() as stack:
             if arm == 'race':
                 # the engine's own race, from an empty probe cache
-                tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                stack.enter_context(environ(BF_CACHE_DIR=tmp))
+                stack.enter_context(race_cache())
             zero_counts(spec, gpu_kernels)
             out, secs, per_gulp, blk = run_beam_arm(bt, gulps, w, arm)
             counts = read_counts(spec, gpu_kernels)
@@ -2086,7 +2122,6 @@ def engine_info(blocks):
 
 
 def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
-    import tempfile
     import torch
     gulps = fx_gulps()
     oracle = [fx_oracle(gv) for gv in gulps]
@@ -2101,8 +2136,7 @@ def phase_fx_pipeline(bt, spec, gpu_kernels, smi):
             if arm == 'fx-race':
                 # the engine's own gate and race from an empty probe
                 # cache, asking the capability probe K0 afresh
-                tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                stack.enter_context(environ(BF_CACHE_DIR=tmp))
+                stack.enter_context(race_cache())
                 gpu_kernels._available_on.clear()
             torch.cuda.reset_peak_memory_stats()
             zero_counts(spec, gpu_kernels)
@@ -2396,6 +2430,27 @@ def environ(**values):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+#: the probe-cache directories of the arms that race from an empty cache,
+#: in the order they ran; kept until the script ends so that the monitors
+#: phase reads the winners they persisted back through mprobe_report
+RACE_CACHES = []
+
+
+@contextlib.contextmanager
+def race_cache(**values):
+    """An empty ``BF_CACHE_DIR`` for an arm that races from scratch (and
+    any other variables, as :func:`environ` sets them), recorded in
+    :data:`RACE_CACHES` and removed when the script exits."""
+    import atexit
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix='bf_race_')
+    atexit.register(shutil.rmtree, d, True)
+    RACE_CACHES.append(d)
+    with environ(BF_CACHE_DIR=d, **values):
+        yield d
 
 
 def pulse_delays(d):
@@ -2813,9 +2868,7 @@ def phase_fdmt_pipeline(bt, spec, gpu_kernels, F, smi):
 
         with contextlib.ExitStack() as stack:
             if arm == 'frb-race':
-                tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                stack.enter_context(environ(BF_CACHE_DIR=tmp,
-                                            BF_FDMT_IMPL=None))
+                stack.enter_context(race_cache(BF_FDMT_IMPL=None))
             else:
                 stack.enter_context(environ(BF_FDMT_IMPL=impl))
             torch.cuda.reset_peak_memory_stats()
@@ -3035,7 +3088,6 @@ def phase_mesh_correlator(bt, spec, gpu_kernels, par, smi):
     under block_scope(mesh=...) -> copy('system'), in the arms of
     MESH_ARMS: each byte-identical to the single-device run, which equals
     the float64 products and the int64 oracle."""
-    import tempfile
     import torch
     gulps = fx_gulps(seed=17)
     oracle = [mesh_oracle(gv) for gv in gulps]
@@ -3049,8 +3101,7 @@ def phase_mesh_correlator(bt, spec, gpu_kernels, par, smi):
                 **env)))
             if arm == 'mesh-race':
                 # the plans and the engine race from an empty probe cache
-                tmp = stack.enter_context(tempfile.TemporaryDirectory())
-                stack.enter_context(environ(BF_CACHE_DIR=tmp))
+                stack.enter_context(race_cache())
             torch.cuda.reset_peak_memory_stats()
             zero_counts(spec, gpu_kernels)
             for k in par.collectives:
@@ -3999,7 +4050,6 @@ def phase_linalg(bt, L, ab=LA_AB, aah=LA_AAH, calls=4, runs=3, seed=37):
     array's a @ a^H (complex64 and ci8), each raced from an empty probe
     cache and held to a float64 oracle made on the card; every candidate
     timed queued beside the complex64 torch.matmul of the same product."""
-    import tempfile
     import torch
     from bifrost_tpu_torch.dtype import DataType
     from bifrost_tpu_torch.ndarray import ndarray
@@ -4015,8 +4065,7 @@ def phase_linalg(bt, L, ab=LA_AB, aah=LA_AAH, calls=4, runs=3, seed=37):
     unset = dict.fromkeys(('BF_LINALG_PROBE', 'BF_LINALG_AB_IMPL',
                            'BF_LINALG_AAH_IMPL', 'BF_LINALG_I8_IMPL',
                            'BF_LINALG_GATE_RTOL'))
-    with tempfile.TemporaryDirectory() as cache, \
-            environ(BF_CACHE_DIR=cache, **unset):
+    with race_cache(**unset):
         # a @ b: weights @ data
         w, x = crandn(ab[0]), crandn(ab[1])
         want = torch.matmul(w.to(c128), x.to(c128))
@@ -5840,9 +5889,9 @@ BK1SEED = 43
 BTIMEOUT = 300             # seconds an arm's sender or receiver may take
 
 
-def k1_source_class(bt, gulps, ngulp, name):
+def k1_source_class(bt, gulps, ngulp, name, pace_s=0.0):
     """A source of ``ngulp`` spectrometer gulps (T, 2, nfft ci8), cycling
-    through ``gulps``."""
+    through ``gulps``, one each ``pace_s`` seconds at most."""
     ntime = gulps[0].shape[0]
 
     class Source(bt.SourceBlock):
@@ -5861,6 +5910,8 @@ def k1_source_class(bt, gulps, ngulp, name):
         def on_data(self, reader, ospans):
             if self.count == ngulp:
                 return [0]
+            if pace_s:
+                time.sleep(pace_s)
             dst = ospans[0].data.as_numpy().view(np.int8)
             dst[...] = gulps[self.count % len(gulps)].reshape(dst.shape)
             self.count += 1
@@ -5888,10 +5939,14 @@ def bridge_sender(args):
             src = bt.blocks.read_guppi_raw([a['raw']], gulp_nframe=1)
         else:
             gulps = make_gulps(BK1SEED)
-            src = k1_source_class(bt, gulps, BK1GULPS, 'k1')()
+            src = k1_source_class(bt, gulps, a.get('ngulp', BK1GULPS),
+                                  'k1', a.get('pace_s', 0.0))()
+        # ``span_nframe`` ships each gulp as several spans
+        span = {'gulp_nframe': a['span_nframe']} \
+            if a.get('span_nframe') else {}
         sink = bt.blocks.bridge_sink(src, '127.0.0.1', a['port'],
                                      window=window, nstreams=a['nstreams'],
-                                     crc=a['crc'])
+                                     crc=a['crc'], **span)
     # the native core clears its buffer at each growth: allocate the
     # window's depth (RingSender resizes to window + 2 spans) once
     src.orings[0].resize(a['gulp_nbyte'], (window + 2) * a['gulp_nbyte'])
@@ -6270,7 +6325,7 @@ def device_gulps(n, seed=14):
 
 
 def device_k1_chain(bt, gulps, nseq, ngulp, nwarm, hold=None, scope=None,
-                    name='tune'):
+                    name='tune', split=False, source=None):
     """The device-resident K1 chain of bench.py: a 'cuda' source that
     publishes ``ngulp`` gulps in each of ``nseq`` sequences, gulp i being
     the pre-staged ``gulps[i % len(gulps)]``
@@ -6278,7 +6333,11 @@ def device_k1_chain(bt, gulps, nseq, ngulp, nwarm, hold=None, scope=None,
     match_spectrometer) -> a device sink that digests every output gulp
     on the card (no D2H but gulp 0's) and forces completion after
     ``nwarm`` gulps and at the last.  ``hold(count)`` runs before each
-    gulp is published.  Returns (pipeline, fused block, sink)."""
+    gulp is published.  With ``split`` the chain is two fused blocks,
+    [FFT] and [Stokes, reduce(4)] (a segment fuses them back); with
+    ``source(bt)`` that block feeds the chain instead (its output is
+    copied to 'cuda' inside ``scope``).  Returns (pipeline, fused block,
+    sink)."""
     import torch
     from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
     total = nseq * ngulp
@@ -6346,10 +6405,18 @@ def device_k1_chain(bt, gulps, nseq, ngulp, nwarm, hold=None, scope=None,
                 self.t1 = time.perf_counter()
 
     with bt.Pipeline(**(scope or {})) as p:
-        fb = bt.blocks.fused(Source(), [
-            FftStage('fine_time', axis_labels='freq'),
-            DetectStage('stokes', axis='pol'),
-            ReduceStage('freq', RFACTOR)])
+        src = Source() if source is None else \
+            bt.blocks.copy(source(bt), space='cuda')
+        if split:
+            fb = bt.blocks.fused(bt.blocks.fused(src, [
+                FftStage('fine_time', axis_labels='freq')]), [
+                    DetectStage('stokes', axis='pol'),
+                    ReduceStage('freq', RFACTOR)])
+        else:
+            fb = bt.blocks.fused(src, [
+                FftStage('fine_time', axis_labels='freq'),
+                DetectStage('stokes', axis='pol'),
+                ReduceStage('freq', RFACTOR)])
         sink = DeviceSink(fb)
     return p, fb, sink
 
@@ -7707,6 +7774,685 @@ def phase_scheduler(bt, spec, gpu_kernels, smi):
     return out
 
 
+# -- the monitors phase -----------------------------------------------------
+
+#: gulps the monitors phase bridges (256 MiB each), and the gulps of each
+#: of its two telemetry_diff arms (hand: K = 4, sync depth 4; detuned:
+#: K = 1, sync depth 1)
+MONGULPS, MONDIFF = 8, 32
+#: frames of each span the monitors phase's sender ships (16 a gulp), and
+#: the seconds its source waits before each gulp (so that the monitors,
+#: each a fresh Python process, see the stream move)
+MONSPAN, MONPACE = 1024, 0.5
+MONTIMEOUT = 300           # seconds the monitors phase's children may take
+#: the arguments an example needs to build its pipeline (the output
+#: directory follows them)
+LINT_ARGS = {'gpuspec_simple_torch.py': ['--demo']}
+
+
+def port_examples(root):
+    """Every examples/*_torch.py of the checkout at ``root``."""
+    return sorted(f for f in os.listdir(os.path.join(root, 'examples'))
+                  if f.endswith('_torch.py'))
+
+
+def monitor_rx(args):
+    """``chip_smoke.py --monitor-rx JSON``: the receiving host of the
+    monitors phase, on the card: bridge_source(port) -> copy('cuda') ->
+    fused[FFT, Stokes, reduce(4)] (K1) -> a sink that keeps each output's
+    CRC-32.  Its ProcLogs go under the caller's BF_PROCLOG_DIR and its
+    trace to BF_TRACE_FILE; it writes the file ``ready`` once its
+    listener is bound.  Prints one MONITOR_RX line of JSON: the
+    gulps, CRCs, K1 launches and the fused block's name."""
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.ops import spectrometer as spec
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    a = json.loads(args)
+    bt.device.set_device(a.get('device', 'cuda:0'))
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.crcs = []
+            self.frames = 0
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.crcs.append(crc32(ispan.data.as_numpy()))
+            self.frames += ispan.nframe
+
+    l0 = spec.launches
+    with bt.Pipeline() as p:
+        src = bt.blocks.bridge_source('127.0.0.1', a['port'])
+        fb = bt.blocks.fused(bt.blocks.copy(src, space='cuda'), [
+            FftStage('fine_time', axis_labels='freq'),
+            DetectStage('stokes', axis='pol'),
+            ReduceStage('freq', RFACTOR)])
+        sink = Sink(bt.blocks.copy(fb, space='system'))
+    # the listener is bound: the sender may dial
+    with open(a['ready'], 'w') as f:
+        f.write(str(src.port))
+    run_with_timeout(p, MONTIMEOUT)
+    print('MONITOR_RX ' + json.dumps({
+        'gulps': len(sink.crcs), 'crcs': sink.crcs,
+        'frames': sink.frames,
+        'launches': spec.launches - l0, 'prewarm_runs': fb.prewarm_runs,
+        'fused': fb.name}), flush=True)
+    return 0
+
+
+def tail_file(f, n=4000):
+    """The last ``n`` characters written to the open file ``f``."""
+    f.flush()
+    f.seek(0)
+    return f.read()[-n:]
+
+
+def run_tool(name, *args, env=None, timeout=120):
+    """``python -m bifrost_tpu_torch.tools.<name> args``; returns the
+    completed process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run(
+        [sys.executable, '-m', 'bifrost_tpu_torch.tools.' + name] +
+        [str(x) for x in args], capture_output=True, text=True, cwd=here,
+        env=dict(os.environ, **(env or {})), timeout=timeout)
+
+
+def bmon_rates(text):
+    """{pid: (RX B/s, TX B/s)} of like_bmon's summary table."""
+    scale = {'B/s': 1.0, 'kB/s': 1024.0, 'MB/s': 1024.0 ** 2,
+             'GB/s': 1024.0 ** 3}
+    out = {}
+    for line in text.splitlines():
+        f = line.split()
+        if len(f) == 7 and f[2] in scale and f[5] in scale:
+            out[f[0]] = (float(f[1]) * scale[f[2]],
+                         float(f[4]) * scale[f[5]])
+    return out
+
+
+def trace_identities(merged):
+    """{pid: {(trace, seq, gulp): [span names]}} of a merged trace's
+    complete events."""
+    out = {}
+    for e in merged['traceEvents']:
+        a = e.get('args') or {}
+        if e.get('ph') == 'X' and a.get('trace') and 'gulp' in a:
+            key = (a['trace'], a.get('seq'), a['gulp'])
+            out.setdefault(e['pid'], {}).setdefault(key, []).append(
+                e.get('name', ''))
+    return out
+
+
+def diff_arm(bt, spec, gulps, arm, gulp_batch, sync_depth):
+    """One telemetry_diff arm: the device K1 chain over MONDIFF gulps;
+    returns its snapshot record (gulps_per_s, Msamples/s, the
+    pipeline.sync_waits it made, K1 launches)."""
+    from bifrost_tpu_torch.telemetry import counters
+    p, fb, sink = device_k1_chain(
+        bt, gulps, 1, MONDIFF, 4, name='diff_' + arm,
+        scope={'gulp_batch': gulp_batch, 'sync_depth': sync_depth})
+    l0 = spec.launches
+    w0 = counters.get('pipeline.sync_waits')
+    run_with_timeout(p)
+    require(sink.n == MONDIFF, 'monitors %s: the sink saw %d of %d gulps'
+            % (arm, sink.n, MONDIFF))
+    secs = sink.t1 - sink.t0
+    return {'arm': arm, 'gulp_batch': gulp_batch, 'sync_depth': sync_depth,
+            'gulps_per_s': (MONDIFF - 4) / secs,
+            'sync_waits': counters.get('pipeline.sync_waits') - w0,
+            'Msamples_per_s': (MONDIFF - 4) * NTIME * NPOL * NFINE / secs
+            / 1e6, 'launches': spec.launches - l0,
+            'digests': [int(d) for d in sink.digests]}
+
+
+def phase_monitors(bt, spec, gpu_kernels, smi):
+    """The monitors phase (item 15i of the module docstring)."""
+    import tempfile
+    import signal
+    from bifrost_tpu_torch.ops import mprobe
+    from bifrost_tpu_torch.telemetry import counters, fleet
+    from bifrost_tpu_torch.tools import mprobe_report
+    out = {'card': smi}
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pl = os.path.join(tmp, 'proclog')
+        env = {'BF_PROCLOG_DIR': pl}
+        port, = free_ports('tcp', 1)
+        # the bridged K1 stream: a receiving child on the card, a sending
+        # child on the host, both tracing
+        t = time.perf_counter()
+        here = os.path.abspath(__file__)
+        with environ(BF_PROCLOG_DIR=pl,
+                     BF_TRACE_FILE=os.path.join(tmp, 'rx.json')):
+            ready = os.path.join(tmp, 'rx.ready')
+            from bifrost_tpu_torch.device import get_device
+            # the children's output goes to files: a full pipe would
+            # stall them
+            rx_log = open(os.path.join(tmp, 'rx.log'), 'w+')
+            rx = subprocess.Popen(
+                [sys.executable, here, '--monitor-rx',
+                 json.dumps({'port': port, 'ready': ready,
+                             'device': str(get_device())})],
+                stdin=subprocess.DEVNULL, stdout=rx_log,
+                stderr=subprocess.STDOUT, text=True)
+        try:
+            # while the receiver starts: this process's K1 arms, published
+            # to a bf_console child; telemetry_diff --strict flags the
+            # detuned arm against the hand one
+            t_arms = time.perf_counter()
+            cport, = free_ports('udp', 1)
+            rollup_path = os.path.join(tmp, 'rollup.json')
+            c_log = open(os.path.join(tmp, 'console.log'), 'w+')
+            console = subprocess.Popen(
+                [sys.executable, '-m', 'bifrost_tpu_torch.tools.bf_console',
+                 '--bind', '127.0.0.1:%d' % cport, '--interval', '0.5',
+                 '--rollup-file', rollup_path],
+                cwd=os.path.dirname(here), stdin=subprocess.DEVNULL,
+                stdout=c_log, stderr=subprocess.STDOUT, text=True)
+            counters.reset()
+            l0 = spec.launches
+            arms = {}
+            try:
+                with environ(BF_FLEET_COLLECTOR='127.0.0.1:%d' % cport,
+                             BF_FLEET_HOST='smoke-monitors',
+                             BF_FLEET_INTERVAL='0.25'):
+                    pub = fleet.acquire_publisher()
+                    try:
+                        gulps, _h = device_gulps(2, seed=16)
+                        for arm, k, depth in (('hand', 4, 4),
+                                              ('detuned', 1, 1)):
+                            arms[arm] = diff_arm(bt, spec, gulps, arm, k,
+                                                 depth)
+                        launches = spec.launches - l0
+
+                        def rolled():
+                            try:
+                                with open(rollup_path) as f:
+                                    r = json.load(f)
+                            except (OSError, ValueError):
+                                return False
+                            h = r.get('hosts', {}).get('smoke-monitors',
+                                                       {})
+                            return h.get('counters', {}).get(
+                                K1_COUNTER) == launches
+                        wait_for(rolled, 'monitors: the console rollup '
+                                 'never showed %d K1 launches' % launches,
+                                 timeout=30)
+                    finally:
+                        fleet.release_publisher(pub)
+            finally:
+                console.send_signal(signal.SIGINT)
+                try:
+                    console.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    console.kill()
+                    console.wait()
+                c_log.seek(0)
+                c_out = c_log.read()
+                c_log.close()
+            require(console.returncode == 0 and 'smoke-monitors' in c_out,
+                    'monitors: bf_console rc %s, no host row: %s'
+                    % (console.returncode, c_out[-2000:]))
+            frames = c_out.split('fleet - ')
+            log('bf_console (last frame):\nfleet - ' + frames[-1].strip())
+            require(arms['hand']['digests'][:2] ==
+                    arms['detuned']['digests'][:2],
+                    'monitors: the detuned arm computed other bytes')
+            snaps = {}
+            for arm, rec in arms.items():
+                snaps[arm] = os.path.join(tmp, arm + '.json')
+                with open(snaps[arm], 'w') as f:
+                    json.dump({'k1': {k: rec[k] for k in
+                                      ('gulps_per_s', 'Msamples_per_s')},
+                               'counters': {'pipeline.sync_waits':
+                                            rec['sync_waits']}}, f)
+            r = run_tool('telemetry_diff', snaps['hand'],
+                         snaps['detuned'], '--strict')
+            log('telemetry_diff --strict hand -> detuned: rc %d\n%s'
+                % (r.returncode, r.stdout.strip()))
+            require(r.returncode == 3, 'monitors: telemetry_diff --strict '
+                    'did not flag the detuned K1 arm (rc %d)'
+                    % r.returncode)
+            r2 = run_tool('telemetry_diff', snaps['hand'], snaps['hand'],
+                          '--strict')
+            require(r2.returncode == 0, 'monitors: telemetry_diff flagged '
+                    'identical snapshots')
+            out.update({'k1_counter_rollup': launches,
+                        'launches_k1_local': launches, 'diff_arms': {
+                            a: {k: v for k, v in rec.items()
+                                if k != 'digests'}
+                            for a, rec in arms.items()},
+                        'telemetry_diff_rc': r.returncode})
+            steps['console_and_diff'] = time.perf_counter() - t_arms
+            t = time.perf_counter()
+            wait_for(lambda: rx.poll() is not None or
+                     os.path.exists(ready),
+                     'monitors: the receiver never listened', timeout=120)
+            require(rx.poll() is None, 'monitors: the receiver exited '
+                    'before it listened: %s' % tail_file(rx_log))
+            with environ(BF_PROCLOG_DIR=pl,
+                         BF_TRACE_FILE=os.path.join(tmp, 'tx.json')):
+                tx = bridge_child({
+                    'stream': 'k1', 'port': port, 'window': 4,
+                    'nstreams': 1, 'crc': False, 'cut': 0,
+                    'ngulp': MONGULPS, 'span_nframe': MONSPAN,
+                    'pace_s': MONPACE,
+                    'gulp_nbyte': NTIME * NPOL * NFINE * 2})
+            # while the stream runs: like_bmon sees the bridge's two ends
+            # move, like_pmap maps the receiver's rings, each polled on a
+            # thread of its own until it has or the sender ends
+            import threading
+            seen = {'bmon': None, 'pmap': None, 'rx': None, 'tx': None,
+                    'last': None}
+
+            def poll_bmon():
+                while tx.poll() is None and seen['bmon'] is None:
+                    r = run_tool('like_bmon', '--once', env=env)
+                    seen['last'] = (r.returncode, r.stdout, r.stderr)
+                    rates = bmon_rates(r.stdout)
+                    if r.returncode == 0 and '[bridge]' in r.stdout:
+                        for end, pid, i in (('rx', rx.pid, 0),
+                                            ('tx', tx.pid, 1)):
+                            rate = rates.get(str(pid), (0, 0))[i]
+                            if rate > 0 and seen[end] is None:
+                                seen[end] = rate
+                                log('like_bmon --once, the %s end moving:'
+                                    '\n%s' % (end, r.stdout))
+                        if seen['rx'] and seen['tx']:
+                            seen['bmon'] = rates
+
+            def poll_pmap():
+                while tx.poll() is None and seen['pmap'] is None:
+                    r = run_tool('like_pmap', rx.pid, env=env)
+                    if r.returncode == 0 and 'Ring Mappings:' in r.stdout \
+                            and 'Rings: 0' not in r.stdout:
+                        seen['pmap'] = r.stdout
+            pollers = [threading.Thread(target=f, daemon=True)
+                       for f in (poll_bmon, poll_pmap)]
+            for th in pollers:
+                th.start()
+            for th in pollers:
+                th.join(MONTIMEOUT)
+            sent = bridge_child_result('monitors', tx, MONTIMEOUT)
+            rx.wait(timeout=MONTIMEOUT)
+        except BaseException:
+            if rx.poll() is None:
+                rx.kill()
+                rx.wait()
+            log('monitors: the receiver\'s output:\n%s' % tail_file(rx_log))
+            raise
+        rx_log.seek(0)
+        rx_out = rx_log.read()
+        rx_log.close()
+        require(rx.returncode == 0, 'monitors: the receiver exited %s: %s'
+                % (rx.returncode, rx_out[-3000:]))
+        lines = [ln for ln in rx_out.splitlines()
+                 if ln.startswith('MONITOR_RX ')]
+        require(len(lines) == 1, 'monitors: the receiver printed no result')
+        got = json.loads(lines[0][len('MONITOR_RX '):])
+        out['stream_s'] = time.perf_counter() - t
+        require(seen['bmon'] is not None,
+                'monitors: like_bmon never showed both bridge ends moving '
+                '(%s); its last run: %s' % (
+                    {k: seen[k] for k in ('rx', 'tx')}, seen['last']))
+        require(seen['pmap'] is not None,
+                'monitors: like_pmap never mapped the receiver\'s rings')
+        log('like_pmap %d (head):\n%s' % (
+            rx.pid, '\n'.join(seen['pmap'].splitlines()[:12])))
+        require(got['frames'] == MONGULPS * NTIME and
+                got['launches'] == got['gulps'] + got['prewarm_runs'],
+                'monitors: the receiver ran %d gulps (%d frames), %d K1 '
+                'launches' % (got['gulps'], got['frames'], got['launches']))
+        out.update({'bridged_gulps': got['gulps'],
+                    'launches_k1_rx': got['launches'],
+                    'bmon_rates': {'rx': seen['rx'], 'tx': seen['tx']},
+                    'bridge_tx_bytes': sent['counters'].get(
+                        'bridge.tx.bytes')})
+        # trace_merge joins the two hosts' traces
+        merged_path = os.path.join(tmp, 'merged.json')
+        r = run_tool('trace_merge', '-o', merged_path,
+                     os.path.join(tmp, 'tx.json'),
+                     os.path.join(tmp, 'rx.json'))
+        require(r.returncode == 0 and 'WARNING' not in r.stderr,
+                'monitors: trace_merge rc %d: %s' % (r.returncode,
+                                                     r.stderr[-2000:]))
+        with open(merged_path) as f:
+            merged = json.load(f)
+        ids = trace_identities(merged)
+        require(len(ids) == 2, 'monitors: merged trace has %d hosts'
+                % len(ids))
+        (pa, ia), (pb, ib) = sorted(ids.items())
+        shared = set(ia) & set(ib)
+        k1_shared = [k for k in shared
+                     if any(got['fused'] in n for n in ia[k] + ib[k])]
+        require(len(k1_shared) >= MONGULPS // 2,
+                'monitors: %d shared (trace, seq, gulp) identities, %d '
+                'with a K1 compute span' % (len(shared), len(k1_shared)))
+        steps['stream'] = time.perf_counter() - t
+        out['trace_merge'] = {
+            'shared_identities': len(shared),
+            'with_k1_compute_span': len(k1_shared),
+            'shift_us': {os.path.basename(k): v['shift_us'] for k, v in
+                         merged['otherData']['bf_merged_from'].items()}}
+        log('trace_merge: %s' % json.dumps(out['trace_merge']))
+        t = time.perf_counter()
+        # bf_lint --strict over every port example, all at once
+        here_dir = os.path.dirname(here)
+        procs = {ex: subprocess.Popen(
+            [sys.executable, '-m', 'bifrost_tpu_torch.tools.bf_lint',
+             '--strict', os.path.join('examples', ex)] +
+            LINT_ARGS.get(ex, []) + ([os.path.join(tmp, 'demo')]
+                                     if ex in LINT_ARGS else []),
+            cwd=here_dir, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for ex in port_examples(here_dir)}
+        lint = {}
+        for ex, proc in procs.items():
+            o, e = proc.communicate(timeout=300)
+            lint[ex] = proc.returncode
+            log('bf_lint --strict examples/%s: rc %d; %s'
+                % (ex, proc.returncode, (o.strip().splitlines() or
+                                          [e.strip()[-300:]])[-1]))
+            require(proc.returncode == 0 and 'BF-E' not in o,
+                    'monitors: bf_lint --strict failed on %s: %s%s'
+                    % (ex, o[-1500:], e[-1500:]))
+        out['bf_lint'] = lint
+        steps['bf_lint'] = time.perf_counter() - t
+        out['steps_s'] = steps
+        out['mprobe'] = mprobe_winners(mprobe, mprobe_report)
+    return out
+
+
+def mprobe_winners(mprobe, mprobe_report):
+    """``mprobe_report`` over the races the earlier phases ran: in this
+    process, every winner of the in-process cache; through ``--json``
+    children, one over each race arm's cache directory, every winner
+    those arms persisted, each equal to this process's winner.  The
+    beamformer's race (its pipeline arm and K4-K6) must be among them.
+    Returns {family: (keys in process, keys persisted)}."""
+    races = {fam: dict(e) for fam, e in mprobe._cache.items() if e}
+    require('beamform' in races, 'monitors: no beamform race in this '
+            'process (families %s)' % sorted(races))
+    rep = mprobe_report.report()
+    log('mprobe_report (in process):\n' +
+        '\n'.join(mprobe_report.render(rep)))
+    for fam, entries in races.items():
+        for key, (winner, _ms, _e) in entries.items():
+            require(rep.get(fam, {}).get(key, {}).get('winner') == winner,
+                    'monitors: mprobe_report lost %s %s' % (fam, key))
+    disk = {}
+    for d in RACE_CACHES:
+        r = run_tool('mprobe_report', '--json', env={'BF_CACHE_DIR': d})
+        require(r.returncode == 0, 'monitors: mprobe_report --json rc %d '
+                'over %s: %s' % (r.returncode, d, r.stderr[-500:]))
+        for fam, entries in json.loads(r.stdout).items():
+            disk.setdefault(fam, {}).update(entries)
+    for fam, entries in disk.items():
+        for key, e in entries.items():
+            want = races.get(fam, {}).get(key, (None,))[0]
+            require(e.get('winner') == want, 'monitors: mprobe_report '
+                    '--json lists %s %s -> %s, this process raced %s'
+                    % (fam, key, e.get('winner'), want))
+    require(disk.get('beamform'), 'monitors: mprobe_report --json lists '
+            'no beamform winner over the race arms\' caches %s'
+            % RACE_CACHES)
+    counts = {fam: (len(races.get(fam, {})), len(disk.get(fam, {})))
+              for fam in sorted(set(races) | set(disk))}
+    for fam, (n_in, n_disk) in counts.items():
+        log('mprobe_report %s: %d key(s) in process, %d persisted and '
+            'listed by --json' % (fam, n_in, n_disk))
+    return counts
+
+
+# -- the mesh_plans phase ---------------------------------------------------
+
+#: ranks on cuda:0 and gulps of each arm of the mesh_plans phase; the
+#: macro arm's K; the sharded FFT's length and batch
+MPD, MPGULPS, MPK = 4, 8, 4
+MPFFT, MPFFTB = 1 << 20, 4
+
+
+def mesh_k1_arm(bt, spec, gulps, arm, scope, split=False, source=None):
+    """One arm of the mesh_plans phase: the device K1 chain over MPGULPS
+    gulps under ``scope``; returns its record and the fused block."""
+    from bifrost_tpu_torch import parallel
+    from bifrost_tpu_torch.telemetry import counters
+    settle_memory()
+    counters.reset()
+    p, fb, sink = device_k1_chain(bt, gulps, 1, MPGULPS, 1, name=arm,
+                                  scope=scope, split=split, source=source)
+    l0 = spec.launches
+    since = parallel.collective_counts()
+    t = time.perf_counter()
+    run_with_timeout(p)
+    secs = time.perf_counter() - t
+    require(sink.n == MPGULPS, 'mesh_plans %s: the sink saw %d of %d '
+            'gulps' % (arm, sink.n, MPGULPS))
+    blk = [b for b in p.blocks if getattr(b, 'prewarm_runs', None)
+           is not None]
+    snap = counters.snapshot()
+    rec = {'arm': arm, 'seconds': secs,
+           'Msamples_per_s': (MPGULPS - 1) * NTIME * NPOL * NFINE /
+           (sink.t1 - sink.t0) / 1e6,
+           'launches': spec.launches - l0,
+           'dispatches': sum(block_gulps(snap, b)[0] for b in blk),
+           'prewarm_runs': prewarm_runs(blk),
+           'collectives': parallel.collective_counts(since),
+           'impl': [dict(b.impl_info or {}) for b in blk],
+           'digests': [int(d) for d in sink.digests], 'first': sink.first,
+           'counters': {k: v for k, v in snap.items() if
+                        k.startswith(('mesh.', 'segment.', 'xfer.h2d'))}}
+    return rec
+
+
+def pinned_source(hosts):
+    """A factory of a 'cuda_host' source publishing MPGULPS flagship
+    gulps, gulp i being ``hosts[i % len(hosts)]``."""
+    def make(bt):
+        class Pinned(bt.SourceBlock):
+            def __init__(self):
+                super(Pinned, self).__init__(['pinned'], NTIME,
+                                             space='cuda_host')
+                self.count = 0
+
+            def create_reader(self, name):
+                return contextlib.nullcontext()
+
+            def on_sequence(self, reader, name):
+                return [spec_header(NFINE)]
+
+            def on_data(self, reader, ospans):
+                if self.count == MPGULPS:
+                    return [0]
+                dst = ospans[0].data.as_numpy().view(np.int8)
+                dst[...] = hosts[self.count % len(hosts)].reshape(dst.shape)
+                self.count += 1
+                return [NTIME]
+        return Pinned()
+    return make
+
+
+def mesh_beam_arm(bt, gulps, w, arm, mesh):
+    """The beamformer block (K4 forced) or the fused beamform-detect chain
+    (K6) over the beamformer cells' gulps, under ``mesh``; returns (the
+    outputs, the beam block, its launches)."""
+    from bifrost_tpu_torch.ops import gpu_kernels
+    from bifrost_tpu_torch.stages import (BeamformStage, DetectStage,
+                                          ReduceStage)
+    header = {'name': 'beams', 'time_tag': 0,
+              '_tensor': {'shape': [-1, BF, BS, BP], 'dtype': 'ci8',
+                          'labels': ['time', 'freq', 'station', 'pol'],
+                          'scales': [[0, 1]] * 4, 'units': [None] * 4}}
+    blocks = []
+
+    def chain(h2d):
+        with bt.block_scope(mesh=mesh):
+            if arm == 'K6':
+                blocks.append(('beam', bt.blocks.fused(h2d, [
+                    BeamformStage(w, accuracy='int8'),
+                    DetectStage('stokes', axis='pol'),
+                    ReduceStage('time', BR)])))
+            else:
+                blocks.append(('beam', bt.blocks.beamform(
+                    h2d, w, accuracy='int8', impl='pallas')))
+        return blocks
+    n0 = dict(gpu_kernels.launches)
+    with environ(BF_BEAM_FUSED='force'):
+        outs, _secs, _pg = drive(bt, gulps, header, chain, nwarm=1,
+                                 ntimed=2)
+    launches = {k: gpu_kernels.launches[k] - n0.get(k, 0) for k in
+                ('beamform_int8', 'beamform_detect_int8')}
+    return outs, blocks[0][1], launches
+
+
+def phase_mesh_plans(bt, spec, gpu_kernels, beam, par, smi):
+    """The mesh_plans phase (item 15j of the module docstring)."""
+    import torch
+    from bifrost_tpu_torch.device import get_device
+    dev = get_device()
+    mesh = par.create_mesh({'sp': MPD}, devices=[str(dev)] * MPD)
+    gulps, hosts = device_gulps(3, seed=17)
+    out = {'card': smi, 'ranks_on_one_card': MPD}
+    runs = {}
+    arms = (('single', {}, False, None),
+            ('mesh', {'mesh': mesh}, False, None),
+            ('mesh-macro', {'mesh': mesh, 'gulp_batch': MPK}, False, None),
+            ('mesh-pinned', {'mesh': mesh}, False, pinned_source(hosts)),
+            ('mesh-segment', {'mesh': mesh, 'segments': 'force'}, True,
+             None))
+    for arm, scope, split, source in arms:
+        rec = runs[arm] = mesh_k1_arm(bt, spec, gulps, arm, scope, split,
+                                      source)
+        log('mesh_plans %s: %.1f Msamples/s, %.2f s, K1 launches %d '
+            '(%d dispatches, %d prewarm runs), collectives %s, impl %s, '
+            '%s (%s)' % (arm, rec['Msamples_per_s'], rec['seconds'],
+                         rec['launches'], rec['dispatches'],
+                         rec['prewarm_runs'], rec['collectives'],
+                         rec['impl'], rec['counters'], smi))
+        if arm == 'mesh-segment':
+            # the segment runs its members' own functions (no K1 across
+            # a former block boundary): held to K1's output at the gate
+            r = rel_err(rec['first'], runs['single']['first'])
+            require(r < GATE, 'mesh_plans %s: rel %.3g of the single-rank '
+                    'K1 run' % (arm, r))
+        else:
+            require(rec['digests'] == runs['single']['digests'],
+                    'mesh_plans %s: outputs differ from the single-rank '
+                    'run' % arm)
+        if arm == 'single':
+            continue
+        require(rec['collectives'] == {},
+                'mesh_plans %s: collectives %s' % (arm, rec['collectives']))
+        require(any(i.get('mesh') == 'shard_map[%d]' % MPD and
+                    i.get('impl') == ('segment' if arm == 'mesh-segment'
+                                      else 'cuda-spectrometer')
+                    for i in rec['impl']),
+                'mesh_plans %s: no frame-local plan: %s'
+                % (arm, rec['impl']))
+        require(rec['launches'] == (0 if arm == 'mesh-segment' else MPD) *
+                (rec['dispatches'] + rec['prewarm_runs']),
+                'mesh_plans %s: %d K1 launches, %d ranks x (%d dispatches '
+                '+ %d prewarm runs)' % (arm, rec['launches'], MPD,
+                                        rec['dispatches'],
+                                        rec['prewarm_runs']))
+    c = runs['mesh-pinned']['counters']
+    require(c.get('xfer.h2d_sharded') == MPGULPS and
+            (dev.type != 'cuda' or
+             c.get('xfer.h2d_direct') == MPGULPS * MPD),
+            'mesh_plans: the pinned arm did not copy each rank\'s frames '
+            'straight from its span: %s' % c)
+    require(runs['mesh-segment']['counters'].get('segment.elided_rings')
+            == 1, 'mesh_plans: the mesh segment elided no ring: %s'
+            % runs['mesh-segment']['counters'])
+    require(runs['mesh-macro']['dispatches'] == MPGULPS // MPK,
+            'mesh_plans: the macro arm made %d dispatches'
+            % runs['mesh-macro']['dispatches'])
+    out['arms'] = {a: {k: v for k, v in r.items()
+                       if k not in ('digests', 'first')}
+                   for a, r in runs.items()}
+    del gulps
+    # the beamformer under the mesh: K4 per shard, exact against the
+    # single-rank run and the int64 oracle; K6 through the fused chain
+    bg = beam_gulps(n=3)
+    w = beam_weights()
+    beams = {}
+    for arm in ('K4', 'K6'):
+        for m in (None, mesh):
+            key = '%s-%s' % (arm, 'mesh' if m else 'single')
+            settle_memory()
+            beams[key] = mesh_beam_arm(bt, bg, w, arm, m)
+            log('mesh_plans beamformer %s: launches %s, info %s' % (
+                key, beams[key][2], getattr(beams[key][1], 'impl_info',
+                                            None)))
+        for k in beams[arm + '-single'][0]:
+            a, b = beams[arm + '-single'][0][k], beams[arm + '-mesh'][0][k]
+            require(a.shape == b.shape and a.tobytes() == b.tobytes(),
+                    'mesh_plans %s gulp %d: mesh and single-rank outputs '
+                    'differ' % (arm, k))
+    blk = beams['K4-mesh'][1]
+    shard_t = BT // MPD
+    require(any(' v=(%d,' % shard_t in k for k in blk.engine.chosen),
+            'mesh_plans: the beamformer engine was not prewarmed at the '
+            'shard\'s %d frames: %s' % (shard_t, sorted(blk.engine.chosen)))
+    eng = blk.engine
+    x = bg[0]
+    got = beams['K4-mesh'][0][0]
+    s32 = np.float32(eng.wscale)
+    for p in range(BP):
+        for f in (0, BF // 2, BF - 1):
+            wr, wi = int64_beams(eng.wr8[p] if eng.wr8.ndim == 3
+                                 else eng.wr8, eng.wi8[p]
+                                 if eng.wi8.ndim == 3 else eng.wi8,
+                                 x[:, f:f + 1, :, p, 0],
+                                 x[:, f:f + 1, :, p, 1])
+            want = (wr.astype(np.float32) * s32) + \
+                1j * (wi.astype(np.float32) * s32)
+            require(np.array_equal(got[:, f:f + 1, p, :], want.astype(
+                np.complex64)), 'mesh_plans: K4 under the mesh differs '
+                'from the int64 oracle on pol %d channel %d' % (p, f))
+    n4 = beams['K4-mesh'][2]['beamform_int8']
+    n6 = beams['K6-mesh'][2]['beamform_detect_int8']
+    require(n4 > 0 and n6 > 0, 'mesh_plans: K4 %d / K6 %d launches under '
+            'the mesh' % (n4, n6))
+    out['beamformer'] = {'launches': {k: v[2] for k, v in beams.items()},
+                         'shard_frames': shard_t}
+    del beams, bg
+    # the distributed FFT and the frequency-sharded channelizer against
+    # torch.fft at 2^20 channels
+    settle_memory()
+    g = torch.Generator(device=dev).manual_seed(23)
+    xr = torch.randn(MPFFTB, MPFFT, device=dev, generator=g)
+    xi = torch.randn(MPFFTB, MPFFT, device=dev, generator=g)
+    xc = torch.complex(xr, xi)
+    ref = torch.fft.fft(xc.to(torch.complex128))
+    fft_rec = {}
+    for name, fn in (('sharded_fft', par.sharded_fft(mesh, MPFFT,
+                                                     nbatch=1)),
+                     ('freq_sharded_dft', par.freq_sharded_dft(
+                         mesh, MPFFT, nbatch=1))):
+        since = par.collective_counts()
+        y = fn(xc)
+        calls = par.collective_counts(since)
+        rel = float((y.to(torch.complex128) - ref).abs().max() /
+                    ref.abs().max())
+        ms = cuda_ms(lambda: fn(xc), runs=5)
+        fft_rec[name] = {'rel': rel, 'ms': ms, 'collectives': calls}
+        require(rel < 1e-4, 'mesh_plans: %s rel %.3g of torch.fft'
+                % (name, rel))
+    fft_rec['torch_fft_ms'] = cuda_ms(lambda: torch.fft.fft(xc), runs=5)
+    log('mesh_plans FFT at %d points x %d, %d ranks: %s (%s)'
+        % (MPFFT, MPFFTB, MPD, json.dumps(fft_rec), smi))
+    require(fft_rec['freq_sharded_dft']['collectives'] == {} and
+            fft_rec['sharded_fft']['collectives'] == {'all_to_all': 3},
+            'mesh_plans: FFT collectives %s' % fft_rec)
+    out['fft'] = fft_rec
+    out['launches_k1'] = {a: r['launches'] for a, r in runs.items()}
+    return out
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -7735,6 +8481,8 @@ def main():
         return guppi_child(*sys.argv[2:4])
     if sys.argv[1:2] == ['--fleet-child']:
         return fleet_child(sys.argv[2])
+    if sys.argv[1:2] == ['--monitor-rx']:
+        return monitor_rx(sys.argv[2])
     import bifrost_tpu_torch as bt
     from bifrost_tpu_torch import _build
     from bifrost_tpu_torch.ops import gpu_kernels
@@ -7811,6 +8559,9 @@ def main():
     svc = run('service', phase_service, bt, spec, gpu_kernels, smi)
     fab = run('fabric', phase_fabric, bt, spec, gpu_kernels, smi)
     sch = run('scheduler', phase_scheduler, bt, spec, gpu_kernels, smi)
+    mon = run('monitors', phase_monitors, bt, spec, gpu_kernels, smi)
+    mpl = run('mesh_plans', phase_mesh_plans, bt, spec, gpu_kernels, beam,
+              par, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
@@ -7835,6 +8586,26 @@ def main():
         'the scheduler phase\'s tenants, migrated and re-placed ones '
         'included (%d gulps and %d prewarm runs)'
         % (sch['k1_launches_gulps'], sch['k1_prewarm_runs']))
+    k1['launches_monitors'] = {
+        'bridged receiver child': mon['launches_k1_rx'],
+        'telemetry_diff arms': mon['launches_k1_local']}
+    k1['launches_monitors_of'] = (
+        'the monitors phase: the bridged receiver (%d gulps, prewarm '
+        'included) and the hand and detuned arms (%d gulps each)'
+        % (MONGULPS, MONDIFF))
+    k1['launches_mesh_plans'] = mpl['launches_k1']
+    k1['launches_mesh_plans_of'] = (
+        'the mesh_plans phase, %d gulps an arm; under the mesh each of %d '
+        'ranks launches K1 a dispatch and a prewarm run' % (MPGULPS, MPD))
+    bl = mpl['beamformer']['launches']
+    k4['launches_mesh_plans'] = {a: bl[a]['beamform_int8']
+                                 for a in ('K4-single', 'K4-mesh')}
+    k6['launches_mesh_plans'] = {a: bl[a]['beamform_detect_int8']
+                                 for a in ('K6-single', 'K6-mesh')}
+    for k in (k4, k6):
+        k['launches_mesh_plans_of'] = (
+            'the mesh_plans phase\'s beamformer arms, 3 gulps each, '
+            'single-rank and under %d ranks' % MPD)
     k2['launches'] = pipe['launches_k2_run']['stokes_detect']
     k2['launches_detect_block'] = dk2['launches']
     k2['launches_detect_block_of'] = \
@@ -7942,7 +8713,8 @@ def main():
     log(json.dumps({'autotune': tune}))
     flt['phase_s'] = phase_s['fleet']
     log(json.dumps({'fleet': flt}))
-    for rec, key in ((svc, 'service'), (fab, 'fabric'), (sch, 'scheduler')):
+    for rec, key in ((svc, 'service'), (fab, 'fabric'), (sch, 'scheduler'),
+                     (mon, 'monitors'), (mpl, 'mesh_plans')):
         rec['phase_s'] = phase_s[key]
         log(json.dumps({key: rec}))
     log(json.dumps({'kernels': kernels}))

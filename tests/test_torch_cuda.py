@@ -2592,3 +2592,102 @@ def test_service_tenants_share_the_default_stream_and_one_engine(tmp_path):
             want = spec.fused_spectrometer(torch.from_numpy(g).cuda(),
                                            rfactor=4).cpu().numpy()
             assert got.tobytes() == want.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the mesh tier's frame-local plans, 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+def _k1_mesh_chain(mesh, k=1, first='system', ngulp=8, T=1024, nfft=1024):
+    """source (``first`` space) -> [mesh] copy('cuda') -> fused[FFT,
+    Stokes, reduce(4)] (K1) -> copy('system') -> sink; returns (the
+    output bytes, K1 launches, the fused block, counters)."""
+    import contextlib
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    from bifrost_tpu_torch.telemetry import counters
+    rng = np.random.RandomState(71)
+    gulps = [rng.randint(-128, 128, (T, 2, nfft, 2)).astype(np.int8)
+             for _ in range(ngulp)]
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['k1'], T, space=first)
+            self.it = iter(gulps)
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'k1', 'time_tag': 0, '_tensor': {
+                'shape': [-1, 2, nfft], 'dtype': 'ci8',
+                'labels': ['time', 'pol', 'fine_time'],
+                'scales': [[0, 1]] * 3, 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(self.it, None)
+            if g is None:
+                return [0]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = g.reshape(dst.shape)
+            return [T]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    counters.reset()
+    n0 = spec.launches
+    with bt.Pipeline(gulp_batch=k) as p:
+        src = Source()
+        with bt.block_scope(mesh=mesh):
+            b = bt.blocks.copy(src, space='cuda')
+            fb = bt.blocks.fused(b, [
+                FftStage('fine_time', axis_labels='freq'),
+                DetectStage('stokes', axis='pol'), ReduceStage('freq', 4)])
+        sink = Sink(bt.blocks.copy(fb, space='system'))
+    _run_bounded(p)
+    return (np.concatenate(sink.out), spec.launches - n0, fb,
+            counters.snapshot())
+
+
+@pytest.mark.parametrize('k', [1, 4])
+def test_mesh_frame_local_k1_plan_equals_single_rank(k):
+    """The K1 chain under {'sp': 4} on one card: each rank launches K1 on
+    its shard (4 launches a dispatch, prewarm runs included), no
+    collective runs, and the bytes equal the single-rank run's."""
+    from bifrost_tpu_torch import parallel
+    base, n1, _fb, _s = _k1_mesh_chain(None)
+    mesh = parallel.create_mesh({'sp': 4}, devices=['cuda:0'] * 4)
+    since = parallel.collective_counts()
+    got, n4, fb, snap = _k1_mesh_chain(mesh, k=k)
+    assert got.tobytes() == base.tobytes()
+    assert parallel.collective_counts(since) == {}
+    assert fb.impl_info['impl'] == 'cuda-spectrometer'
+    assert fb.impl_info['mesh'] == 'shard_map[4]'
+    assert n4 == 4 * (8 // k + fb.prewarm_runs)
+    assert snap.get('mesh.sharded_commits') == 2 * 8 // k
+
+
+def test_mesh_sharded_h2d_from_cuda_host_equals_single_rank():
+    """A pinned cuda_host source feeds the mesh's H2D copy: each rank's
+    frames are copied straight from the pinned span (no staging), and the
+    K1 chain's bytes equal the single-rank run's."""
+    from bifrost_tpu_torch import parallel, xfer
+    base, _n, _fb, _s = _k1_mesh_chain(None)
+    xfer.reset_engine()
+    mesh = parallel.create_mesh({'sp': 4}, devices=['cuda:0'] * 4)
+    got, n4, fb, snap = _k1_mesh_chain(mesh, first='cuda_host')
+    assert got.tobytes() == base.tobytes()
+    assert snap.get('xfer.h2d_sharded') == 8
+    assert snap.get('xfer.h2d_direct') == 8 * 4
+    assert snap.get('xfer.h2d_staged', 0) + \
+        snap.get('xfer.h2d_unstaged', 0) == 0
+    assert n4 == 4 * (8 + fb.prewarm_runs)

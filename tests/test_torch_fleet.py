@@ -2,9 +2,9 @@
 the JAX package's (``bifrost_tpu.telemetry.fleet``).
 
 - The JAX package's own fleet tests (``tests/test_fleet.py``) run against
-  the port's modules (:func:`rehome`), but for the two that drive JAX
-  tools the port does not have (``trace_merge``, ``telemetry_diff``);
-  the ``like_top --fleet`` test runs against the port's monitor.
+  the port's modules (:func:`rehome`); the ``like_top --fleet``,
+  ``trace_merge`` and ``telemetry_diff`` tests run against the port's
+  tools.
 - The ``BFT1`` wire: both packages write the same datagrams for the same
   message, chunked or not, and each reassembles the other's in any order.
 - A JAX publisher feeds a port collector and the reverse: the rollups
@@ -45,9 +45,11 @@ from bifrost_tpu_torch.telemetry import fleet as TF
 from bifrost_tpu_torch.telemetry import histograms as thistograms
 from bifrost_tpu_torch.telemetry import spans as tspans
 from bifrost_tpu_torch.tools import like_top as tlike_top
+from bifrost_tpu_torch.tools import telemetry_diff as ttelemetry_diff
 
 from tests import test_fleet as JT
 from tests.test_torch_bounded import run_bounded
+from tests.test_torch_monitors import port_tools_dir
 from tests.test_torch_supervision import TorchGatherSink, TorchNumpySourceBlock
 from tests.test_torch_wire_formats import rehome
 from tests.util import simple_header
@@ -59,7 +61,8 @@ FLEET_MAP = {'bifrost_tpu.telemetry': bt.telemetry,
              'bifrost_tpu.telemetry.counters': tcounters,
              'bifrost_tpu.telemetry.histograms': thistograms,
              'bifrost_tpu.telemetry.fleet': TF,
-             'like_top': tlike_top}
+             'like_top': tlike_top,
+             'telemetry_diff': ttelemetry_diff}
 
 PKG = {'port': (TF, tcounters, thistograms, tspans),
        'jax': (JF, jcounters, jhistograms, jspans)}
@@ -93,9 +96,7 @@ def _clean(monkeypatch):
 # the JAX package's fleet tests, on the port
 # ---------------------------------------------------------------------------
 
-JT_TESTS = sorted(n for n in dir(JT) if n.startswith('test_') and n not in
-                  ('test_trace_merge_consumes_bundle',
-                   'test_telemetry_diff_watches_fleet_counters'))
+JT_TESTS = sorted(n for n in dir(JT) if n.startswith('test_'))
 
 
 @pytest.mark.parametrize('name', JT_TESTS)
@@ -103,7 +104,7 @@ def test_jax_fleet_test_on_the_port(name, monkeypatch, tmp_path):
     fn = getattr(JT, name)
     fixtures = {'monkeypatch': monkeypatch, 'tmp_path': tmp_path}
     args = [fixtures[a] for a in inspect.signature(fn).parameters]
-    rehome(fn, FLEET_MAP)(*args)
+    rehome(fn, FLEET_MAP, TOOLS=port_tools_dir(tmp_path / 'port'))(*args)
 
 
 def test_rehome_reaches_the_port_fleet():

@@ -41,8 +41,36 @@ def test_sources_cover_the_scripts_and_the_control_tiers():
                  'bifrost_tpu_torch/scheduler.py',
                  'bifrost_tpu_torch/tools/bf_serve.py',
                  'bifrost_tpu_torch/tools/bf_fabric.py',
-                 'bifrost_tpu_torch/tools/bf_sched.py'):
+                 'bifrost_tpu_torch/tools/bf_sched.py',
+                 'bifrost_tpu_torch/parallel/fft.py') + tuple(
+                     'bifrost_tpu_torch/tools/%s.py' % t for t in MONITORS):
         assert want in rel, want
+
+
+#: the seven tools of the last slice
+MONITORS = ('like_bmon', 'like_pmap', 'bf_console', 'trace_merge',
+            'telemetry_diff', 'bf_lint', 'mprobe_report')
+
+
+def test_monitors_and_mesh_plans_import_without_a_device():
+    """The seven tools and the mesh tier's frame-local plans, sharded
+    FFTs and sharded H2D import without a device, bring in no JAX, build
+    no kernel and open no CUDA context."""
+    p = _run("import sys, torch\n"
+             "from bifrost_tpu_torch.tools import " + ", ".join(MONITORS) +
+             "\n"
+             "from bifrost_tpu_torch.parallel import fft, scope\n"
+             "from bifrost_tpu_torch import parallel, xfer\n"
+             "for n in ('sharded_fft', 'freq_sharded_dft', "
+             "'frame_local_plan', 'time_sharding', 'mesh_h2d_enabled'):\n"
+             "    assert hasattr(parallel, n), n\n"
+             "print(sorted(m for m in sys.modules if _top(m) == 'jax' or "
+             "m.split('.')[0] == 'bifrost_tpu'))\n"
+             "from bifrost_tpu_torch import _build\n"
+             "print(sorted(_build._libs), torch.cuda.is_initialized())\n"
+             .replace('_top(m)', "m.split('.')[0]"))
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip().split('\n') == ['[]', '[] False']
 
 
 def _top(name):
