@@ -18,7 +18,7 @@ import os
 __all__ = ['get_core', 'set_core',
            'numa_node_of_core', 'bind_memory_to_node',
            'bind_memory_to_core', 'available_cores',
-           'partition_cores', 'spread_cores']
+           'partition_cores', 'spread_cores', 'set_openmp_cores']
 
 _MBIND_SYSCALL = {'x86_64': 237, 'aarch64': 235}
 _MPOL_BIND = 2
@@ -49,6 +49,14 @@ def set_core(core):
     if core is None or core < 0:
         return
     os.sched_setaffinity(0, {int(core)})
+
+
+def set_openmp_cores(cores):
+    """Size the OpenMP pool: ``OMP_NUM_THREADS`` becomes the number of
+    ``cores`` (a list) or ``cores`` itself (an int), as
+    ``bifrost_tpu/affinity.py:68-70`` sets it."""
+    os.environ['OMP_NUM_THREADS'] = str(len(cores)) \
+        if not isinstance(cores, int) else str(cores)
 
 
 def partition_cores(weights, cores=None):

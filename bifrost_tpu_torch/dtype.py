@@ -47,20 +47,25 @@ _TO_NUMPY = {v: k for k, v in _FROM_NUMPY.items()}
 
 
 class DataType(object):
-    """kind + nbits type tag.  Construct from a string ('ci8', 'f32',
+    """kind + nbits type tag, with a vector length (``'f32_x2'`` is two
+    f32 a element).  Construct from a string ('ci8', 'f32', 'f32_x2',
     ...), a numpy dtype, a python scalar type or another DataType."""
 
-    __slots__ = ('kind', 'nbits')
+    __slots__ = ('kind', 'nbits', 'veclen')
 
-    def __init__(self, t='f32'):
+    def __init__(self, t='f32', veclen=1):
         if isinstance(t, DataType):
-            self.kind, self.nbits = t.kind, t.nbits
+            self.kind, self.nbits, self.veclen = t.kind, t.nbits, t.veclen
             return
         if isinstance(t, str):
-            kind = t.rstrip('0123456789')
-            bits = t[len(kind):]
+            s = t
+            if '_x' in s:
+                s, _, v = s.partition('_x')
+                veclen = int(v)
+            kind = s.rstrip('0123456789')
+            bits = s[len(kind):]
             if kind in _KINDS and bits.isdigit():
-                self.kind, self.nbits = kind, int(bits)
+                self.kind, self.nbits, self.veclen = kind, int(bits), veclen
                 return
         try:
             npt = np.dtype(t)
@@ -69,9 +74,13 @@ class DataType(object):
         if npt not in _FROM_NUMPY:
             raise TypeError("Unsupported dtype: %r" % (t,))
         self.kind, self.nbits = _FROM_NUMPY[npt]
+        self.veclen = veclen
 
     def __str__(self):
-        return '%s%d' % (self.kind, self.nbits)
+        s = '%s%d' % (self.kind, self.nbits)
+        if self.veclen != 1:
+            s += '_x%d' % self.veclen
+        return s
 
     def __repr__(self):
         return "DataType('%s')" % (self,)
@@ -81,13 +90,14 @@ class DataType(object):
             other = DataType(other)
         except (TypeError, ValueError):
             return NotImplemented
-        return (self.kind, self.nbits) == (other.kind, other.nbits)
+        return (self.kind, self.nbits, self.veclen) == \
+            (other.kind, other.nbits, other.veclen)
 
     def __ne__(self, other):
         return not self == other
 
     def __hash__(self):
-        return hash((self.kind, self.nbits))
+        return hash((self.kind, self.nbits, self.veclen))
 
     @property
     def is_complex(self):
@@ -102,9 +112,18 @@ class DataType(object):
         return self.kind in ('f', 'cf')
 
     @property
+    def is_integer(self):
+        return self.kind in ('i', 'u', 'ci')
+
+    @property
+    def is_signed(self):
+        return self.kind in ('i', 'ci', 'f', 'cf')
+
+    @property
     def itemsize_bits(self):
-        """Total bits per element (both components of a complex)."""
-        return self.nbits * (2 if self.is_complex else 1)
+        """Total bits per element (both components of a complex, every
+        lane of a vector)."""
+        return self.nbits * (2 if self.is_complex else 1) * self.veclen
 
     @property
     def itemsize(self):
@@ -121,7 +140,10 @@ class DataType(object):
 
     def as_numpy_dtype(self):
         """Host storage dtype; packed types report their byte storage,
-        uint8."""
+        uint8, and a vector type a subarray dtype of its lanes."""
+        if self.veclen != 1:
+            base = DataType('%s%d' % (self.kind, self.nbits))
+            return np.dtype((base.as_numpy_dtype(), (self.veclen,)))
         key = (self.kind, self.nbits)
         if key in _TO_NUMPY:
             return _TO_NUMPY[key]
@@ -133,7 +155,8 @@ class DataType(object):
         """The torch dtype of this type's device representation: complex
         integers keep their component type (the (re, im) pair becomes a
         trailing axis; ci1/ci2/ci4 widen to int8), packed integers widen
-        to int8/uint8, cf16 widens to complex64."""
+        to int8/uint8, cf16 widens to complex64.  A vector type gives its
+        lane's type, as the JAX package's ``as_jax_dtype`` does."""
         import torch
         if self.kind == 'ci':
             if self.nbits <= 8:
@@ -173,3 +196,9 @@ class DataType(object):
         if self.kind == 'u':
             raise TypeError("No complex-unsigned types")
         return DataType('c%s%d' % (self.kind, self.nbits))
+
+    def as_vector(self, veclen):
+        return DataType('%s%d' % (self.kind, self.nbits), veclen)
+
+    def as_nbit(self, nbits):
+        return DataType('%s%d' % (self.kind, nbits), self.veclen)

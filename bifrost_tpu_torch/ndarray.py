@@ -22,18 +22,27 @@ __all__ = ['ndarray', 'asarray', 'empty', 'zeros', 'empty_like',
 
 
 class ndarray(object):
-    """A numpy array in a host space, with its bifrost dtype.  A packed
-    sub-byte type's buffer is its uint8 storage; ``shape`` is then the
-    logical shape (the last axis counts samples, not bytes)."""
+    """A numpy array in a host space, with its bifrost dtype and the
+    reference's ``native`` / ``conjugated`` flags.  A packed sub-byte
+    type's buffer is its uint8 storage; ``shape`` is then the logical
+    shape (the last axis counts samples, not bytes), and ``size`` and
+    ``nbytes`` count logical samples.  The members are those of the JAX
+    package's ndarray (``bifrost_tpu/ndarray.py:55-184``) for host
+    spaces; a copy to ``'cuda'`` is a tensor in the device
+    representation, as :func:`asarray` gives."""
 
-    __slots__ = ('_buf', '_space', '_dtype', '_shape')
+    __slots__ = ('_buf', '_space', '_dtype', '_shape', 'native',
+                 'conjugated')
 
-    def __init__(self, buf, dtype=None, space='system', shape=None):
+    def __init__(self, buf, dtype=None, space='system', shape=None,
+                 native=True, conjugated=False):
         buf = np.asarray(buf)
         self._buf = buf
         self._dtype = DataType(dtype if dtype is not None else buf.dtype)
         self._space = canonical(space)
         self._shape = tuple(shape) if shape is not None else None
+        self.native = native
+        self.conjugated = conjugated
 
     @property
     def space(self):
@@ -44,11 +53,66 @@ class ndarray(object):
         return self._dtype
 
     @property
+    def bf_dtype(self):
+        return self._dtype
+
+    @property
     def shape(self):
         return self._shape if self._shape is not None else self._buf.shape
 
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def size(self):
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    @property
+    def nbytes(self):
+        return self.size * self._dtype.itemsize_bits // 8
+
+    @property
+    def data(self):
+        """The underlying numpy array (a packed type's bytes)."""
+        return self._buf
+
     def as_numpy(self):
         return self._buf
+
+    def __array__(self, dtype=None, copy=None):
+        return self._buf.astype(dtype) if dtype is not None else self._buf
+
+    def copy(self, space=None):
+        """A copy in ``space`` (this array's by default): a host
+        :class:`ndarray` with the same flags, or for ``'cuda'`` a tensor
+        in the device representation on the process's device."""
+        space = self._space if space is None else canonical(space)
+        if space == 'cuda':
+            from .devrep import to_device_rep
+            return to_device_rep(self._buf, self._dtype)
+        return ndarray(np.array(self._buf, copy=True), dtype=self._dtype,
+                       space=space, shape=self.shape, native=self.native,
+                       conjugated=self.conjugated)
+
+    def astype(self, dtype):
+        """A host ndarray of ``dtype`` (:func:`ops.common.astype`)."""
+        from .ops.common import astype
+        return astype(self, dtype)
+
+    def __getitem__(self, idx):
+        if self._dtype.is_packed:
+            raise TypeError("Indexing packed arrays is not supported; "
+                            "unpack first (ops.unpack)")
+        return self._buf[idx]
+
+    def __setitem__(self, idx, value):
+        if isinstance(value, ndarray):
+            value = value.as_numpy()
+        self._buf[idx] = value
+
+    def __len__(self):
+        return self.shape[0]
 
     def __repr__(self):
         return "ndarray(space=%r, dtype=%s, shape=%s)" % (

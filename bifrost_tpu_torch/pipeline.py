@@ -6,8 +6,9 @@ python/bifrost/pipeline.py:84-779), as ``bifrost_tpu/pipeline.py``
 implements them: a Pipeline collects the Blocks built under it;
 ``run()`` starts one thread per block; blocks talk through rings; a
 two-phase init barrier aborts cleanly when a block fails to open its
-sequences; unguaranteed readers that fall behind zero-fill the skipped
-frames.
+sequences; unguaranteed readers that fall behind hand the frames lost to
+overwriting to the block's ``on_skip`` (zero-fill by default) and skip
+the next gulp too.
 
 On the card, a block's per-gulp work is asynchronous.  Each gulp that
 commits device tensors records a CUDA event, and once ``sync_depth``
@@ -59,7 +60,11 @@ the ring (:meth:`TransformBlock._take_donatable`, counted on
 ``donation.hits`` / ``.misses``).  ``Pipeline(segments=...)`` (or
 ``BF_SEGMENTS``) runs the segment compiler
 (:mod:`bifrost_tpu_torch.segments`) in :meth:`Pipeline._prepare_graph`
-before any thread starts.
+before any thread starts, after ``Pipeline(auto_fuse=True)`` (or
+``BF_AUTO_FUSE=1``) has replaced each chain of single-stage device blocks
+by one FusedBlock (:meth:`Pipeline._auto_fuse`).  Blocks under
+``block_scope(fuse=True)`` give the rings between them one gulp of
+buffering; a block's ``device`` tunable binds its thread to that card.
 
 Then ``run()`` checks the graph that will run with the static verifier
 (:mod:`bifrost_tpu_torch.analysis.verify`, :meth:`Pipeline.validate`):
@@ -69,8 +74,7 @@ and returns without starting a thread.  It re-reads ``BF_RINGCHECK``
 (the ring-protocol checker) before the threads start.  Under
 ``BF_TORCH_PROFILE=<dir>`` the first dispatch of a device block (a fused
 block, segment or stage block) runs inside a one-shot ``torch.profiler``
-capture (:mod:`bifrost_tpu_torch.telemetry.profiling`).  The JAX
-package's auto-tuner is not part of this runtime yet.
+capture (:mod:`bifrost_tpu_torch.telemetry.profiling`).
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ __all__ = ['Pipeline', 'BlockScope', 'Block', 'SourceBlock',
            'block_scope', 'block_view', 'get_ring', 'izip',
            'PipelineInitError', 'PipelineRuntimeError',
            'PipelineStallError', 'resolve_sync_depth',
-           'resolve_overload_policy', 'resolve_donate']
+           'resolve_overload_policy', 'resolve_donate', 'join_all']
 
 
 def izip(*iterables):
@@ -211,15 +215,23 @@ class BlockScope(object):
     'drop_oldest' | 'drop_newest', for the block's output rings),
     shed_tolerant (a consumer's declaration that it accepts gapped input
     from a drop-policy ring), gulp_batch (the macro-gulp batch K,
-    :func:`bifrost_tpu_torch.macro.resolve_gulp_batch`) and donate
-    (buffer donation, :func:`resolve_donate`)."""
+    :func:`bifrost_tpu_torch.macro.resolve_gulp_batch`), donate (buffer
+    donation, :func:`resolve_donate`) and device (the index of the card a
+    block's thread binds before it runs, :func:`device.bind_device`;
+    ``gpu=`` is its alias, as in the reference).
+
+    ``fuse=True`` makes the scope a fused scope
+    (``bifrost_tpu/pipeline.py:264-274``): a ring written by one block of
+    the scope and read by another gets one gulp of buffering
+    (``buffer_factor`` 1), so that producer and consumer alternate
+    (reference: pipeline.py:558-568)."""
 
     DEFAULT_SYNC_DEPTH = 4
 
     instance_count = 0
 
     _TUNABLES = ('gulp_nframe', 'buffer_nframe', 'buffer_factor',
-                 'sync_depth', 'sync_strict', 'mesh', 'core',
+                 'sync_depth', 'sync_strict', 'mesh', 'core', 'device',
                  'share_temp_storage', 'on_failure', 'max_restarts',
                  'restart_backoff', 'overload_policy', 'shed_tolerant',
                  'donate', 'gulp_batch')
@@ -229,7 +241,7 @@ class BlockScope(object):
                  mesh=None, core=None, share_temp_storage=False,
                  on_failure=None, max_restarts=None, restart_backoff=None,
                  overload_policy=None, shed_tolerant=None, donate=None,
-                 gulp_batch=None):
+                 gulp_batch=None, fuse=False, device=None, gpu=None):
         if name is None:
             name = 'BlockScope_%i' % BlockScope.instance_count
             BlockScope.instance_count += 1
@@ -249,6 +261,8 @@ class BlockScope(object):
         self._shed_tolerant = shed_tolerant
         self._donate = donate
         self._gulp_batch = gulp_batch
+        self._device = device if device is not None else gpu
+        self._fused = fuse
         self._temp_storage = {}
         self._parent_scope = get_current_block_scope() \
             if not isinstance(self, Pipeline) else None
@@ -274,6 +288,11 @@ class BlockScope(object):
         parent = self.__dict__.get('_parent_scope')
         return getattr(parent, name) if parent is not None else None
 
+    @property
+    def gpu(self):
+        """The reference's name of the ``device`` tunable."""
+        return self.device
+
     def _scope_hierarchy(self):
         """The enclosing scopes, outermost first."""
         out, parent = [], self._parent_scope
@@ -281,6 +300,23 @@ class BlockScope(object):
             out.append(parent)
             parent = parent._parent_scope
         return list(reversed(out))
+
+    def cache_scope_hierarchy(self):
+        """Record the enclosing scopes and the outermost fused one
+        (``fused_ancestor``, None when no enclosing scope fuses)."""
+        self.scope_hierarchy = self._scope_hierarchy()
+        self.fused_ancestor = None
+        for ancestor in self.scope_hierarchy:
+            if ancestor._fused:
+                self.fused_ancestor = ancestor
+                break
+
+    def is_fused_with(self, other):
+        """Whether this scope and ``other`` lie under the same fused
+        scope (both must have cached their hierarchy)."""
+        return (self.fused_ancestor is not None and
+                self.fused_ancestor is getattr(other, 'fused_ancestor',
+                                               None))
 
     def _own_temp_storage(self, space):
         if space not in self._temp_storage:
@@ -291,14 +327,64 @@ class BlockScope(object):
         """Scratch storage for ``space``: that of the outermost enclosing
         scope with ``share_temp_storage`` set, else this scope's own
         (``bifrost_tpu/pipeline.py:277-286``)."""
-        for scope in self._scope_hierarchy():
+        for scope in getattr(self, 'scope_hierarchy',
+                             self._scope_hierarchy()):
             if scope.share_temp_storage:
                 return scope._own_temp_storage(space)
         return self._own_temp_storage(space)
 
+    def dot_graph(self):
+        """Graphviz DOT source of the block and ring graph under this
+        scope (reference: pipeline.py:163-201), ring nodes coloured by
+        space."""
+        lines = ['digraph "%s" {' % self.name]
+        space_colors = {'system': 'orange', 'cuda': 'limegreen',
+                        'cuda_host': 'deepskyblue'}
+
+        def walk(scope):
+            for child in scope._children:
+                if isinstance(child, Block):
+                    lines.append('  "%s" [shape=box,style=filled,'
+                                 'fillcolor=white];' % child.name)
+                    for oring in child.orings:
+                        lines.append('  "%s" [shape=ellipse,style=filled,'
+                                     'fillcolor=%s];'
+                                     % (oring.name,
+                                        space_colors.get(oring.space,
+                                                         'white')))
+                        lines.append('  "%s" -> "%s";'
+                                     % (child.name, oring.name))
+                    for iring in child.irings:
+                        lines.append('  "%s" -> "%s";'
+                                     % (iring.name, child.name))
+                else:
+                    walk(child)
+
+        walk(self)
+        lines.append('}')
+        return '\n'.join(lines)
+
 
 class PipelineInitError(Exception):
     pass
+
+
+def join_all(threads, timeout):
+    """Join ``threads`` within ``timeout`` seconds in all; returns those
+    still alive."""
+    deadline = time.time() + timeout
+    alive = list(threads)
+    while True:
+        alive = [t for t in alive if not _try_join(t)]
+        remaining = max(deadline - time.time(), 0)
+        if not alive or remaining == 0:
+            return alive
+        alive[0].join(min(remaining, 0.5))
+
+
+def _try_join(thread, timeout=0.):
+    thread.join(timeout)
+    return not thread.is_alive()
 
 
 class Pipeline(BlockScope):
@@ -307,12 +393,17 @@ class Pipeline(BlockScope):
 
     instance_count = 0
 
-    def __init__(self, name=None, watchdog_secs=None, segments=None,
-                 **kwargs):
+    def __init__(self, name=None, auto_fuse=None, watchdog_secs=None,
+                 segments=None, **kwargs):
         if name is None:
             name = 'Pipeline_%i' % Pipeline.instance_count
             Pipeline.instance_count += 1
         super(Pipeline, self).__init__(name=name, **kwargs)
+        if auto_fuse is None:
+            auto_fuse = os.environ.get('BF_AUTO_FUSE',
+                                       '0').strip() == '1'
+        #: pipeline auto-fusion (:meth:`_auto_fuse`), run by run()
+        self.auto_fuse = auto_fuse
         #: segment-compiler mode (:mod:`bifrost_tpu_torch.segments`):
         #: None defers to BF_SEGMENTS (off by default); 'auto' replaces
         #: every provably safe chain of stage blocks by one SegmentBlock
@@ -332,6 +423,12 @@ class Pipeline(BlockScope):
         self._shutting_down = False
         self.all_blocks_finished_initializing_event = threading.Event()
         self.block_init_queue = queue_mod.Queue()
+
+    def as_default(self):
+        """Make this pipeline the default one of the calling thread (and
+        its outermost scope), without a ``with`` block."""
+        _stacks.pipelines.append(self)
+        _stacks.scopes.append(self)
 
     def synchronize_block_initializations(self):
         """Init barrier: every block opens its output sequences before
@@ -354,13 +451,126 @@ class Pipeline(BlockScope):
         self.all_blocks_finished_initializing_event.set()
 
     def _prepare_graph(self):
-        """Rewrite the block graph before any thread starts: the segment
-        compiler runs unless its mode is 'off'
-        (``bifrost_tpu/pipeline.py:541-551``), before the verifier, so
-        that it judges the graph that will run."""
+        """Rewrite the block graph before any thread starts, in the JAX
+        package's order (``bifrost_tpu/pipeline.py:539-551``): auto-fusion
+        when ``auto_fuse`` is on, then the segment compiler unless its
+        mode is 'off', both before the verifier, so that it judges the
+        graph that will run."""
+        if self.auto_fuse:
+            self._auto_fuse()
         from . import segments as _segments
         if _segments.resolve_mode(self.segments) != 'off':
             _segments.compile_pipeline(self)
+
+    def _auto_fuse(self):
+        """Replace each chain of adjacent single-stage device blocks by
+        one FusedBlock (``bifrost_tpu/pipeline.py:401-505``), so that a
+        reference-style pipeline written as separate fft / detect /
+        reduce blocks runs the fused chain, and the whole-chain kernel
+        where the chain matches one (K1 for the Guppi spectrometer).
+
+        On with ``Pipeline(auto_fuse=True)`` or ``BF_AUTO_FUSE=1``.  A
+        block joins a chain when it is a :class:`_StageBlock` with one
+        input on a ``'cuda'`` ring and a guarantee; an interior ring must
+        have exactly one consumer, reading it directly (a ``block_view``
+        tap counts as a consumer), and every block of a chain must
+        resolve the same core, device, mesh, gulp and buffering
+        tunables.  The FusedBlock, named ``AutoFused_x<n>_<head>``, is
+        built under the head's scope with the chain's resolved tunables
+        and writes into the tail's output ring, whose owner it becomes;
+        the replaced blocks leave the pipeline and start no thread."""
+        from .blocks.fft import _StageBlock
+        from .blocks.fused import FusedBlock
+
+        def fusable(b):
+            # device rings only: a stage block on a host ring runs a host
+            # path that does not fuse
+            return (isinstance(b, _StageBlock)
+                    and len(b.irings) == 1 and len(b.orings) == 1
+                    and b.irings[0].space == 'cuda'
+                    and getattr(b, 'guarantee', True))
+
+        tunables = ('core', 'device', 'mesh', 'gulp_nframe',
+                    'buffer_factor', 'buffer_nframe', 'sync_depth',
+                    'sync_strict')
+
+        def compatible(a, b):
+            for t in tunables:
+                va, vb = getattr(a, t), getattr(b, t)
+                if va is not vb and va != vb:
+                    return False
+            return True
+
+        # keyed by the underlying ring: a view tap reads through a
+        # RingView whose identity differs from the producer's ring
+        def base_ring(r):
+            return getattr(r, '_base_ring', r)
+
+        consumers = {}
+        for b in self.blocks:
+            for r in getattr(b, 'irings', ()):
+                consumers.setdefault(id(base_ring(r)), []).append(b)
+
+        def sole_consumer(prod):
+            lst = consumers.get(id(base_ring(prod.orings[0])), [])
+            if len(lst) != 1:
+                return None
+            # read directly: a view carries a header transform that the
+            # fused chain would drop
+            nxt = lst[0]
+            direct = any(r is prod.orings[0] for r in nxt.irings)
+            return nxt if direct else None
+
+        chains = []
+        in_chain = set()
+        for b in self.blocks:
+            if not fusable(b) or id(b) in in_chain:
+                continue
+            prod = getattr(b.irings[0], 'owner', None)
+            if (prod is not None and fusable(prod)
+                    and sole_consumer(prod) is b
+                    and compatible(prod, b)):
+                continue                  # inside another chain
+            chain = [b]
+            while True:
+                nxt = sole_consumer(chain[-1])
+                if (nxt is not None and fusable(nxt)
+                        and id(nxt) not in in_chain
+                        and compatible(chain[-1], nxt)):
+                    chain.append(nxt)
+                else:
+                    break
+            if len(chain) >= 2:
+                chains.append(chain)
+                in_chain.update(id(x) for x in chain)
+
+        for chain in chains:
+            head, tail = chain[0], chain[-1]
+            # built under the head's scope, into this pipeline whatever
+            # the thread's default, with the chain's resolved tunables
+            # (settings made on the blocks themselves are not visible
+            # through the parent scope)
+            _stacks.pipelines.append(self)
+            _stacks.scopes.append(head._parent_scope or self)
+            try:
+                fb = FusedBlock(
+                    head.irings[0], [blk._stage for blk in chain],
+                    name='AutoFused_x%d_%s'
+                         % (len(chain), head.name.split('/')[-1]),
+                    **{t: getattr(head, t) for t in tunables})
+            finally:
+                _stacks.scopes.pop()
+                _stacks.pipelines.pop()
+            # the tail's output ring becomes the FusedBlock's, and its
+            # owner follows (fused-scope buffering reads ring.owner); the
+            # ring fb made for itself is never written
+            fb.orings = [tail.orings[0]]
+            tail.orings[0].owner = fb
+            for blk in chain:
+                self.blocks.remove(blk)
+                parent = blk._parent_scope
+                if parent is not None and blk in parent._children:
+                    parent._children.remove(blk)
 
     def run(self, autotune=None):
         """Start every block thread and supervise them to the end
@@ -396,6 +606,11 @@ class Pipeline(BlockScope):
         mode = _verify.validate_mode()
         if mode != 'off':
             _verify.gate_run(self, mode)
+        # a device pipeline initialises CUDA from this thread, before any
+        # block thread touches the card
+        if any(r.space != 'system' for b in self.blocks
+               for r in list(b.irings) + list(b.orings)):
+            device.ensure_backend()
         faults.arm_from_env()
         _ringcheck.reconfigure()
         # honour BF_TRACE_FILE / BF_SPAN_BUFFER / BF_SLO_MS changes since
@@ -483,9 +698,10 @@ class Pipeline(BlockScope):
     def validate(self):
         """The static verifier's diagnostics for the graph as built,
         without running anything (``bifrost_tpu/pipeline.py:675-689``).
-        ``run()`` rewrites the graph with the segment compiler before its
-        own check, so this sees the graph before fusion, with a BF-I190
-        for each boundary the compiler would not fuse."""
+        ``run()`` rewrites the graph with auto-fusion and the segment
+        compiler before its own check, so this sees the graph before
+        fusion, with a BF-I190 for each boundary the compiler would not
+        fuse."""
         from .analysis import verify
         return verify.verify_pipeline(self)
 
@@ -512,9 +728,7 @@ class Pipeline(BlockScope):
             for ring in list(block.orings) + list(block.irings):
                 ring.poison(cause)
         self.all_blocks_finished_initializing_event.set()
-        deadline = time.monotonic() + self.shutdown_timeout
-        for thread in self.threads:
-            thread.join(max(deadline - time.monotonic(), 0))
+        join_all(self.threads, timeout=self.shutdown_timeout)
         for thread in self.threads:
             if thread.is_alive():
                 warnings.warn("Thread %s did not shut down in time"
@@ -642,6 +856,7 @@ class Block(BlockScope):
                               else self.core[0])
         self.bind_proclog.update({'ncore': 1, 'core0': affinity.get_core()},
                                  force=True)
+        self.cache_scope_hierarchy()
         # the output rings take the block's overload policy
         policy = resolve_overload_policy(self)
         if policy is not None:
@@ -652,9 +867,17 @@ class Block(BlockScope):
         with ExitStack() as oring_stack:
             # the writing session stays open across restarts: ending it
             # between attempts would hand downstream an end of data
-            orings = [oring_stack.enter_context(oring.begin_writing())
-                      for oring in self.orings]
+            orings = self.begin_writing(oring_stack, self.orings)
             self._supervised_main(orings)
+
+    def num_outputs(self):
+        return len(self.orings)
+
+    def begin_writing(self, exit_stack, orings):
+        """Open the writing session of each of ``orings`` on
+        ``exit_stack``; returns the rings."""
+        return [exit_stack.enter_context(oring.begin_writing())
+                for oring in orings]
 
     def _supervised_main(self, orings):
         """``main`` under the pipeline's failure policies
@@ -664,12 +887,16 @@ class Block(BlockScope):
         which restarts the block after a backoff or aborts the pipeline.
         Before a restart the device events of the failed attempt are
         waited on and dropped, so the new attempt's run-ahead bound
-        starts empty."""
+        starts empty.  A block with a ``device`` tunable binds its thread
+        to that card first (:func:`device.bind_device`); an index with no
+        card fails the block like any error, before the init barrier."""
         supervisor = self.pipeline.supervisor
         restarts = 0
         while True:
             try:
                 faults.fire('block.run', self.name)
+                if self.device is not None:
+                    device.bind_device(self.device)
                 self.main(orings)
                 # a block can finish without opening a sequence (empty
                 # input, every sequence skipped): release the barrier
@@ -852,7 +1079,8 @@ class Block(BlockScope):
         """Bound device run-ahead: record an event behind each gulp that
         committed device tensors and, once more than ``sync_depth`` are
         outstanding, wait on the newest of the older ones (the stream
-        runs in order, so that implies all of them; counted in
+        runs in order, so that implies all of them; under
+        ``BF_ASSUME_IN_ORDER=0`` it waits on each; counted in
         ``pipeline.sync_waits``).  Then retire the transfer engine's
         completed D2H transfers without blocking."""
         _counters.inc('pipeline.gulps')
@@ -864,10 +1092,14 @@ class Block(BlockScope):
                 pend = self._pending_events
                 pend.append(ev)
                 if len(pend) > resolve_sync_depth(self):
-                    while len(pend) > 1:
-                        last = pend.popleft()
-                    _counters.inc('pipeline.sync_waits')
-                    device.stream_synchronize(last)
+                    popped = [pend.popleft() for _ in range(len(pend) - 1)]
+                    # in order, the newest retired event implies the
+                    # others; BF_ASSUME_IN_ORDER=0 waits on each
+                    if device.execution_in_order():
+                        popped = popped[-1:]
+                    for ev in popped:
+                        _counters.inc('pipeline.sync_waits')
+                        device.stream_synchronize(ev)
         xfer.engine().drain()
 
     def _define_output_nframes(self, input_nframes):
@@ -957,7 +1189,7 @@ class SourceBlock(Block):
                     self._observe_dispatch(1)
 
     def define_output_nframes(self, _):
-        return [self.gulp_nframe] * len(self.orings)
+        return [self.gulp_nframe] * self.num_outputs()
 
     def define_valid_input_spaces(self):
         return []
@@ -1132,9 +1364,19 @@ class MultiTransformBlock(Block):
                          in zip(istride_nframes, igulp_overlaps)]
 
         for iseq, igulp in zip(iseqs, igulp_nframes):
+            buffer_factor = self.buffer_factor
+            if buffer_factor is None:
+                # blocks of one fused scope share one gulp of buffering,
+                # so that producer and consumer alternate (reference:
+                # pipeline.py:558-568; bifrost_tpu/pipeline.py:1564-1577)
+                src_block = iseq.ring.owner
+                if src_block is not None and self.is_fused_with(src_block):
+                    buffer_factor = 1
             iseq.resize(gulp_nframe=igulp, buf_nframe=self.buffer_nframe,
-                        buffer_factor=self.buffer_factor)
+                        buffer_factor=buffer_factor)
 
+        iframe0s = [0 for _ in igulp_nframes]
+        force_skip = False
         with ExitStack() as oseq_stack:
             oseqs, ogulp_overlaps = self.begin_sequences(
                 oseq_stack, orings, oheaders, igulp_nframes,
@@ -1142,26 +1384,36 @@ class MultiTransformBlock(Block):
             if self.shutdown_event.is_set():
                 return False
             prev_time = time.time()
-            for ispans in izip(*[iseq.read(igulp, istride)
-                                 for iseq, igulp, istride
+            for ispans in izip(*[iseq.read(igulp, istride, iframe0)
+                                 for iseq, igulp, istride, iframe0
                                  in zip(iseqs, igulp_nframes,
-                                        istride_nframes)]):
+                                        istride_nframes, iframe0s)]):
                 if self.shutdown_event.is_set():
                     return False
                 if any(ispan.nframe_skipped for ispan in ispans):
-                    # zero-fill frames lost to overwriting
-                    # (reference: pipeline.py:590-606)
+                    # frames lost to overwriting go to on_skip, zero-fill
+                    # by default (reference: pipeline.py:590-606); its
+                    # spans commit whole unless it returns strides: lost
+                    # frames carry no overlap history to hold back
                     with ExitStack() as ospan_stack:
+                        iskip_slices = [
+                            slice(f0, f0 + ispan.nframe_skipped, istride)
+                            for f0, istride, ispan
+                            in zip(iframe0s, istride_nframes, ispans)]
                         iskip_nframes = [ispan.nframe_skipped
                                          for ispan in ispans]
                         ospans = self.reserve_spans(ospan_stack, oseqs,
                                                     iskip_nframes)
-                        self._on_skip(ospans)
+                        ostrides = self._on_skip(iskip_slices, ospans)
+                        if ostrides is None:
+                            ostrides = [None] * len(ospans)
+                        ostrides = [osp.nframe if st is None else st
+                                    for st, osp in zip(ostrides, ospans)]
                         self._sync_gulp(ospans)
-                        self._set_span_gulps(ospans, iskip_nframes[0], 0)
-                        self.commit_spans(
-                            ospans, [o.nframe for o in ospans],
-                            ogulp_overlaps)
+                        ng = self._set_span_gulps(ospans, iskip_nframes[0],
+                                                  0)
+                        self.commit_spans(ospans, ostrides, ogulp_overlaps)
+                        self._observe_dispatch(ng)
                 if all(ispan.nframe == 0 for ispan in ispans):
                     continue
                 cur_time = time.time()
@@ -1174,14 +1426,27 @@ class MultiTransformBlock(Block):
                     cur_time = time.time()
                     reserve_time = cur_time - prev_time
                     prev_time = cur_time
-                    ostrides = self._dispatch(self._on_data, seq_id, gulp,
-                                              ispans, ospans)
+                    if not force_skip:
+                        ostrides = self._dispatch(self._on_data, seq_id,
+                                                  gulp, ispans, ospans)
+                        self._sync_gulp(ospans)
                     gulp += 1
-                    if any(ispan.nframe_overwritten for ispan in ispans):
-                        # the input changed under us: publish zeros
-                        # (reference: pipeline.py:630-644)
-                        self._on_skip(ospans)
-                    self._sync_gulp(ospans)
+                    any_overwritten = any(ispan.nframe_overwritten
+                                          for ispan in ispans)
+                    if force_skip or any_overwritten:
+                        # the input changed under us: on_skip publishes
+                        # the gulp instead, and the next gulp is skipped
+                        # too so that the reader catches up (reference:
+                        # pipeline.py:630-644)
+                        force_skip = any_overwritten
+                        iskip_slices = [
+                            slice(ispan.frame_offset,
+                                  ispan.frame_offset +
+                                  ispan.nframe_overwritten, istride)
+                            for ispan, istride
+                            in zip(ispans, istride_nframes)]
+                        ostrides = self._on_skip(iskip_slices, ospans)
+                        self._sync_gulp(ospans)
                     ngulps = self._set_span_gulps(
                         ospans, ispans[0].nframe if ispans else 0,
                         self._macro_overlap_in)
@@ -1211,14 +1476,8 @@ class MultiTransformBlock(Block):
             ospan._ngulps = ngulps
         return ngulps
 
-    def _on_skip(self, ospans):
-        """Publish zeros into every output span."""
-        from .devrep import device_rep_zeros
-        for ospan in ospans:
-            if ospan.ring.is_device:
-                ospan.set(device_rep_zeros(ospan.shape, ospan.dtype))
-            else:
-                memset_array(ospan.data, 0)
+    def _on_skip(self, islices, ospans):
+        return self.on_skip(islices, ospans)
 
     def _on_sequence(self, iseqs):
         return self.on_sequence(iseqs)
@@ -1250,6 +1509,24 @@ class MultiTransformBlock(Block):
         """Process ispans into ospans; return frames to commit per
         output (or None to commit whole spans)."""
         raise NotImplementedError
+
+    def on_skip(self, islices, ospans):
+        """Fill ``ospans`` for input frames lost to overwriting:
+        ``islices`` holds one slice of input frames per input, as the
+        JAX package gives them (``bifrost_tpu/pipeline.py:1613-1640``,
+        ``:1680-1694``).  Return frames to commit per output, or None.
+        The default publishes zeros into every output span."""
+        for ospan in ospans:
+            _zero_span(ospan)
+
+
+def _zero_span(ospan):
+    """Publish zeros into ``ospan``."""
+    if ospan.ring.is_device:
+        from .devrep import device_rep_zeros
+        ospan.set(device_rep_zeros(ospan.shape, ospan.dtype))
+    else:
+        memset_array(ospan.data, 0)
 
 
 class TransformBlock(MultiTransformBlock):
@@ -1329,6 +1606,15 @@ class TransformBlock(MultiTransformBlock):
     def on_data(self, ispan, ospan):
         raise NotImplementedError
 
+    def _on_skip(self, islices, ospans):
+        return [self.on_skip(islices[0], ospans[0])]
+
+    def on_skip(self, islice, ospan):
+        """Fill ``ospan`` for the input frames ``islice`` lost to
+        overwriting; return the frames to commit, or None.  The default
+        publishes zeros."""
+        _zero_span(ospan)
+
 
 class SinkBlock(MultiTransformBlock):
     """1-in/0-out specialization (reference: pipeline.py:744-779)."""
@@ -1372,3 +1658,6 @@ class SinkBlock(MultiTransformBlock):
 
     def on_data(self, ispan):
         raise NotImplementedError
+
+    def _on_skip(self, islices, ospans):
+        return []

@@ -223,10 +223,12 @@ def _resolve_instance(pid):
     return entry
 
 
-def load_by_pid(pid):
+def load_by_pid(pid, include_rings=False):
     """Every proclog of a process as {block: {log: {key: value}}}
     (reference: proclog.py:93-143); ``pid`` may be a bare PID or a full
-    ``<pid>@<host>.<role>`` entry."""
+    ``<pid>@<host>.<role>`` entry.  ``include_rings`` is the reference's
+    keyword and changes nothing, as in ``bifrost_tpu/proclog.py:250``:
+    the rings' logs are entries of the walk like any block's."""
     root = os.path.join(proclog_dir(), _resolve_instance(pid))
     contents = {}
     for dirpath, _, filenames in os.walk(root):

@@ -451,6 +451,7 @@ class Ring(object):
         self._head = 0
         self._reserve_head = 0
         self._sequences = []
+        self._seq_by_name = {}
         self._open_wspans = []        # in reserve order
         self._guarantees = {}         # id(ReadSequence) -> abs offset
         self._open_reads = {}         # id(ReadSequence) -> open begins
@@ -771,6 +772,11 @@ class Ring(object):
             self._read_cond.notify_all()
             self._seq_cond.notify_all()
 
+    @property
+    def writing_ended(self):
+        """Whether the writer has ended its writing session."""
+        return self._eod
+
     def _begin_sequence(self, name, time_tag, header, nringlet):
         with self._lock:
             self._check_poison()
@@ -783,6 +789,7 @@ class Ring(object):
                         "is still open" % (name, prev.name))
                 prev.next = seq
             self._sequences.append(seq)
+            self._seq_by_name[name] = seq
             self._seq_cond.notify_all()
             return seq
 
@@ -945,24 +952,61 @@ class Ring(object):
             pass                     # the SLO feed never breaks commits
 
     # -- reader side ------------------------------------------------------
-    def open_earliest_sequence(self, guarantee=True):
-        """The earliest sequence that still holds unread data."""
-        return ReadSequence(self, guarantee=guarantee,
+    def open_sequence(self, name, guarantee=True):
+        """The sequence called ``name``; waits until it is begun."""
+        return ReadSequence(self, 'specific', name=name,
+                            guarantee=guarantee,
                             header_transform=self.header_transform)
 
-    def read(self, guarantee=True):
-        """Generator over sequences as they appear, from the earliest
-        (reference: ring2.py:140-148)."""
-        return _read_sequences(self, self.header_transform, guarantee)
+    def open_sequence_at(self, time_tag, guarantee=True):
+        """The first sequence whose ``time_tag`` is ``time_tag``; waits
+        until one is begun."""
+        return ReadSequence(self, 'at', time_tag=time_tag,
+                            guarantee=guarantee,
+                            header_transform=self.header_transform)
 
-    def _open_earliest(self):
+    def open_latest_sequence(self, guarantee=True):
+        """The newest sequence begun; waits for a first one."""
+        return ReadSequence(self, 'latest', guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def open_earliest_sequence(self, guarantee=True):
+        """The earliest sequence that still holds unread data."""
+        return ReadSequence(self, 'earliest', guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def read(self, whence='earliest', guarantee=True):
+        """Generator over sequences as they appear, from the one
+        ``whence`` opens ('earliest', 'latest'; reference:
+        ring2.py:140-148)."""
+        return _read_sequences(self, self.header_transform, guarantee,
+                               whence)
+
+    def _open_seq(self, which, name=None, time_tag=None):
+        """The sequence ``which`` names ('specific' by name, 'at' by time
+        tag, 'latest', 'earliest'), waiting until it exists
+        (``bifrost_tpu/ring.py:1134-1160``): EndOfDataStop once writing
+        has ended without it, RingPoisonedError on a poisoned ring."""
         with self._lock:
             while True:
-                for seq in self._sequences:
-                    if not seq.finished or seq.end > self._tail:
-                        return seq
-                if self._sequences:
-                    return self._sequences[-1]
+                if which == 'specific':
+                    if name in self._seq_by_name:
+                        return self._seq_by_name[name]
+                elif which == 'at':
+                    for seq in self._sequences:
+                        if seq.time_tag == time_tag:
+                            return seq
+                elif which == 'latest':
+                    if self._sequences:
+                        return self._sequences[-1]
+                elif which == 'earliest':
+                    for seq in self._sequences:
+                        if not seq.finished or seq.end > self._tail:
+                            return seq
+                    if self._sequences:
+                        return self._sequences[-1]
+                else:
+                    raise ValueError("Invalid 'which': %r" % which)
                 self._check_poison()
                 if self._eod:
                     raise EndOfDataStop("No sequence available")
@@ -1184,19 +1228,34 @@ class RingView(object):
     def __getattr__(self, name):
         return getattr(self._base_ring, name)
 
-    def open_earliest_sequence(self, guarantee=True):
-        return ReadSequence(self._base_ring, guarantee=guarantee,
+    def open_sequence(self, name, guarantee=True):
+        return ReadSequence(self._base_ring, 'specific', name=name,
+                            guarantee=guarantee,
                             header_transform=self.header_transform)
 
-    def read(self, guarantee=True):
+    def open_sequence_at(self, time_tag, guarantee=True):
+        return ReadSequence(self._base_ring, 'at', time_tag=time_tag,
+                            guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def open_latest_sequence(self, guarantee=True):
+        return ReadSequence(self._base_ring, 'latest', guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def open_earliest_sequence(self, guarantee=True):
+        return ReadSequence(self._base_ring, 'earliest',
+                            guarantee=guarantee,
+                            header_transform=self.header_transform)
+
+    def read(self, whence='earliest', guarantee=True):
         return _read_sequences(self._base_ring, self.header_transform,
-                               guarantee)
+                               guarantee, whence)
 
 
-def _read_sequences(ring, header_transform, guarantee):
-    """The sequences of ``ring`` as they appear, from the earliest, with
-    headers through ``header_transform``."""
-    with ReadSequence(ring, guarantee=guarantee,
+def _read_sequences(ring, header_transform, guarantee, whence='earliest'):
+    """The sequences of ``ring`` as they appear, from the one ``whence``
+    opens, with headers through ``header_transform``."""
+    with ReadSequence(ring, whence, guarantee=guarantee,
                       header_transform=header_transform) as cur:
         while True:
             try:
@@ -1238,6 +1297,10 @@ class _SequenceAPI(object):
         return self._seq.time_tag
 
     @property
+    def nringlet(self):
+        return self._seq.nringlet
+
+    @property
     def header(self):
         return self._seq.header
 
@@ -1274,6 +1337,10 @@ class WriteSequence(_SequenceAPI):
             header.get('name', ''), header.get('time_tag', -1),
             self._stored_header, tensor['nringlet'])
 
+    @property
+    def header(self):
+        return self._stored_header
+
     def __enter__(self):
         return self
 
@@ -1288,12 +1355,17 @@ class WriteSequence(_SequenceAPI):
 
 
 class ReadSequence(_SequenceAPI):
-    def __init__(self, ring, guarantee=True, header_transform=None):
+    """A reader of one sequence of ``ring`` at a time: the one ``which``
+    names ('specific' with ``name``, 'at' with ``time_tag``, 'latest',
+    'earliest'), then the ones after it (:meth:`increment`)."""
+
+    def __init__(self, ring, which='specific', name='', time_tag=None,
+                 guarantee=True, header_transform=None):
         self._ring = ring
         self._tensor = None
         self.guarantee = guarantee
         self.header_transform = header_transform
-        self._seq = ring._open_earliest()
+        self._seq = ring._open_seq(which, name=name, time_tag=time_tag)
         ring._register_reader(self)
         rc = _rc.hook(ring) if _rc._enabled else None
         if rc is not None:

@@ -31,8 +31,8 @@ from .testing import faults
 
 __all__ = ['NativeRing']
 
-#: bft_ring_open_sequence's 'earliest'
-_EARLIEST = 3
+#: bft_ring_open_sequence's ``which`` codes
+_WHICH = {'specific': 0, 'at': 1, 'latest': 2, 'earliest': 3}
 
 
 class _NativeSeq(object):
@@ -419,11 +419,14 @@ class NativeRing(Ring):
             self._note_commit(wspan, commit_nbyte)
 
     # -- reader side ------------------------------------------------------
-    def _open_earliest(self):
+    def _open_seq(self, which, name=None, time_tag=None):
+        if which not in _WHICH:
+            raise ValueError("Invalid 'which': %r" % which)
         self._check_poison()
         out = ctypes.c_void_p()
         rc = self._lib.bft_ring_open_sequence(
-            self._handle, _EARLIEST, b'', 0, ctypes.byref(out))
+            self._handle, _WHICH[which], (name or '').encode(),
+            int(time_tag or 0), ctypes.byref(out))
         self._check_poison()
         if rc == native.BFT_END_OF_DATA:
             raise EndOfDataStop("No sequence available")

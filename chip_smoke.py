@@ -421,6 +421,7 @@ CUDA device it exits 1 at once.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -8453,6 +8454,290 @@ def phase_mesh_plans(bt, spec, gpu_kernels, beam, par, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the runtime surface: auto-fusion, fused scopes, placement, ring readers
+# ---------------------------------------------------------------------------
+
+#: gulps an arm of the surface phase (the first is warm-up)
+SURFACE_GULPS = 8
+#: the surface phase's arms
+SURFACE_ARMS = ('auto-fused', 'unfused', 'explicit', 'fused-scope',
+                'tapped')
+
+
+def surface_chain(bt, arm, tap_blocks):
+    """The device blocks of one surface arm, for ``drive``: the reference
+    style fft -> detect('stokes') -> reduce('freq', 4) as three stage
+    blocks (``explicit``: one ``blocks.fused`` block; ``fused-scope``:
+    the three under ``block_scope(fuse=True, gpu=0)``; ``tapped``: a
+    second reader on the fft ring, appended to ``tap_blocks``)."""
+    import torch
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+
+    class DeviceTap(bt.SinkBlock):
+        """A second reader of the FFT ring that only counts its spans."""
+
+        def __init__(self, iring):
+            super(DeviceTap, self).__init__(iring)
+            self.n = 0
+
+        def define_valid_input_spaces(self):
+            return ('cuda',)
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            require(isinstance(ispan.data, torch.Tensor),
+                    'tapped: the tap read no device span')
+            self.n += 1
+
+    def stage_blocks(h2d):
+        f = bt.blocks.fft(h2d, axes='fine_time', axis_labels='freq')
+        d = bt.blocks.detect(f, mode='stokes')
+        r = bt.blocks.reduce(d, 'freq', RFACTOR)
+        return [('fft', f), ('detect', d), ('reduce', r)]
+
+    def chain(h2d):
+        if arm == 'explicit':
+            return [('fused', bt.blocks.fused(h2d, [
+                FftStage('fine_time', axis_labels='freq'),
+                DetectStage('stokes', axis='pol'),
+                ReduceStage('freq', RFACTOR)]))]
+        if arm == 'fused-scope':
+            with bt.block_scope(fuse=True, gpu=0):
+                return stage_blocks(h2d)
+        blocks = stage_blocks(h2d)
+        if arm == 'tapped':
+            tap_blocks.append(DeviceTap(blocks[0][1]))
+        return blocks
+    return chain
+
+
+def surface_arm(bt, spec, gpu_kernels, arm, volts, smi):
+    """One arm of the surface phase over SURFACE_GULPS full-width gulps;
+    returns its record (rate, K1 and K2 launches, blocks, interior ring sizes,
+    output CRCs and gulp 0's output)."""
+    settle_memory()
+    zero_counts(spec, gpu_kernels)
+    taps, built = [], {}
+    chain = surface_chain(bt, arm, taps)
+
+    def keep(h2d):
+        built['h2d'] = h2d
+        built['blocks'] = chain(h2d)
+        return built['blocks']
+    t = time.perf_counter()
+    out, secs, per_gulp = drive(
+        bt, volts, spec_header(NFINE), keep, nwarm=1,
+        ntimed=SURFACE_GULPS - 1,
+        scope={'auto_fuse': arm in ('auto-fused', 'tapped')}, digest=True,
+        keep_first=True)
+    wall = time.perf_counter() - t
+    counts = read_counts(spec, gpu_kernels)
+    p = built['h2d'].pipeline
+    chain_blocks = [b for b in p.blocks if b.type in (
+        'FftBlock', 'DetectBlock', 'ReduceBlock', 'FusedBlock')]
+    rec = {'arm': arm, 'seconds': wall,
+           'Msamples_per_s':
+           (SURFACE_GULPS - 1) * NTIME * NPOL * NFINE / secs / 1e6,
+           'k1_launches': counts['fused_spectrometer'],
+           'k2_launches': counts['stokes_detect'],
+           'prewarm_runs': prewarm_runs(chain_blocks),
+           'nblocks': len(p.blocks),
+           'blocks': [b.name.split('/')[-1] for b in p.blocks],
+           'ring_bytes': {b.name.split('/')[-1]: b.orings[0].total_span
+                          for b in chain_blocks},
+           'impl': [dict(b.impl_info or {}) for b in chain_blocks
+                    if hasattr(b, 'impl_info')],
+           'crc': [out[k] for k in range(SURFACE_GULPS)],
+           'first': out['first'],
+           'tap_spans': [tp.n for tp in taps]}
+    log('surface %s: %.1f Msamples/s, K1 %d, K2 %d launches, %d blocks '
+        '%s, ring bytes %s (%s)'
+        % (arm, rec['Msamples_per_s'], rec['k1_launches'],
+           rec['k2_launches'], rec['nblocks'], rec['blocks'],
+           rec['ring_bytes'], smi))
+    log_per_gulp(per_gulp)
+    return rec
+
+
+def surface_ring_readers(bt, space):
+    """Write 3 sequences into a ``space`` ring, then check that
+    ``open_sequence``, ``open_sequence_at``, ``open_latest_sequence`` and
+    ``read(whence='latest')`` each open the right one, its data included;
+    returns the names they opened."""
+    import torch
+    from bifrost_tpu_torch.device import get_device
+    seqs = (('alpha', 10), ('beta', 20), ('gamma', 30))
+    ring = bt.Ring(space=space)
+    with ring.begin_writing() as w:
+        for k, (name, ttag) in enumerate(seqs):
+            hdr = {'name': name, 'time_tag': ttag,
+                   '_tensor': {'shape': [-1, 1024], 'dtype': 'f32',
+                               'labels': ['time', 'x'],
+                               'scales': [[0, 1]] * 2, 'units': [None] * 2}}
+            with w.begin_sequence(hdr, 4, 16) as ws:
+                with ws.reserve(4) as span:
+                    if space == 'cuda':
+                        span.set(torch.full((4, 1024), k + 1.0,
+                                            device=get_device()))
+                    else:
+                        span.data.as_numpy()[...] = k + 1.0
+                    span.commit(4)
+    require(ring.writing_ended, '%s ring: writing_ended is False' % space)
+
+    def value(rseq):
+        with rseq:
+            vals = set()
+            for sp in rseq.read(4):
+                x = sp.data
+                x = x.cpu().numpy() if isinstance(x, torch.Tensor) \
+                    else x.as_numpy()
+                vals.update(np.unique(x).tolist())
+            return rseq.name, rseq.time_tag, sorted(vals)
+    got = {'open_sequence': value(ring.open_sequence('beta')),
+           'open_sequence_at': value(ring.open_sequence_at(30)),
+           'open_latest_sequence': value(ring.open_latest_sequence()),
+           'read_latest': [sq.name for sq in ring.read(whence='latest')]}
+    want = {'open_sequence': ('beta', 20, [2.0]),
+            'open_sequence_at': ('gamma', 30, [3.0]),
+            'open_latest_sequence': ('gamma', 30, [3.0]),
+            'read_latest': ['gamma']}
+    require(got == want, '%s ring readers: %s, want %s'
+            % (space, got, want))
+    log('ring readers on %s (%s core): %s' % (space, type(ring).__name__,
+                                              got))
+    return {'core': type(ring).__name__, 'opened': got}
+
+
+def surface_bad_device(bt):
+    """``block_scope(device=torch.cuda.device_count())`` must fail the
+    run before its init barrier; returns the error's first line."""
+    import torch
+    n = torch.cuda.device_count()
+
+    class Source(bt.SourceBlock):
+        def __init__(self):
+            super(Source, self).__init__(['one'], 4, space='system')
+
+        def create_reader(self, name):
+            return contextlib.nullcontext()
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'one', 'time_tag': 0, '_tensor': {
+                'shape': [-1, 8], 'dtype': 'f32', 'labels': ['time', 'x'],
+                'scales': [[0, 1]] * 2, 'units': [None] * 2}}]
+
+        def on_data(self, reader, ospans):
+            return [0]
+
+    class Sink(bt.SinkBlock):
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            pass
+
+    with bt.Pipeline() as p:
+        src = Source()
+        with bt.block_scope(device=n):
+            Sink(bt.blocks.copy(src, space='cuda'))
+    err = None
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            run_with_timeout(p, secs=60)
+    except bt.PipelineInitError as exc:
+        err = str(exc)
+    require(err is not None and 'device index %d' % n in err,
+            'block_scope(device=%d) did not raise: %r' % (n, err))
+    first = err.splitlines()[0]
+    log('block_scope(device=%d) on %d card(s) raised: %s'
+        % (n, n, [ln for ln in err.splitlines() if 'device index' in ln]))
+    return first
+
+
+def phase_surface(bt, spec, gpu_kernels, smi):
+    """The runtime surface on the card at the flagship's full width: the
+    reference-style chain through ``Pipeline(auto_fuse=True)`` (one
+    AutoFused_x3 block running K1), unfused (cuFFT and K2), as one
+    explicit ``blocks.fused`` block (K1), under ``block_scope(fuse=True,
+    gpu=0)`` (cuFFT and K2 with one gulp of buffering inside) and with a
+    second reader on the fft ring (which must not fuse); then placement
+    past the last card, and the ring's readers on a 'cuda' ring and a
+    native 'system' ring."""
+    volts = make_gulps(seed=31, n=2)
+    runs = {arm: surface_arm(bt, spec, gpu_kernels, arm, volts, smi)
+            for arm in SURFACE_ARMS}
+    rows = [0, 1, NTIME // 2, NTIME - 1]
+    want = spec.spectrometer_oracle(volts[0][rows], RFACTOR)
+    for arm, rec in runs.items():
+        first = rec.pop('first')
+        require(first.shape == (NTIME, 4, NFINE // RFACTOR) and
+                np.isfinite(first).all(),
+                'surface %s: bad output shape or non-finite values' % arm)
+        rec['rel_err_oracle'] = rel_err(first[rows], want)
+        require(rec['rel_err_oracle'] < GATE,
+                'surface %s: gulp 0 against the oracle: %.3g'
+                % (arm, rec['rel_err_oracle']))
+    fused, explicit, unfused = (runs['auto-fused'], runs['explicit'],
+                                runs['unfused'])
+    for rec in (fused, explicit):
+        require(rec['k1_launches'] == SURFACE_GULPS + 1 and
+                rec['k2_launches'] == 0,
+                'surface %s: K1 %d (want %d gulps + 1 prewarm run), K2 %d '
+                '(want 0)' % (rec['arm'], rec['k1_launches'], SURFACE_GULPS,
+                              rec['k2_launches']))
+    require(unfused['k2_launches'] == SURFACE_GULPS and
+            unfused['k1_launches'] == 0,
+            'surface unfused: K2 %d (want %d), K1 %d (want 0)'
+            % (unfused['k2_launches'], SURFACE_GULPS,
+               unfused['k1_launches']))
+    require(fused['crc'] == explicit['crc'],
+            'surface: auto-fused output differs from the explicit fused '
+            'block\'s: %s vs %s' % (fused['crc'], explicit['crc']))
+    auto = [n for n in fused['blocks'] if n.startswith('AutoFused_x3_')]
+    require(len(auto) == 1 and
+            fused['nblocks'] == unfused['nblocks'] - 2,
+            'surface auto-fused: blocks %s against unfused %s'
+            % (fused['blocks'], unfused['blocks']))
+    require(fused['impl'][0].get('impl') == 'cuda-spectrometer' and
+            fused['impl'][0].get('kernel') == 'cuda',
+            'surface auto-fused: planned %s' % fused['impl'])
+    scope, tapped = runs['fused-scope'], runs['tapped']
+    require(scope['k2_launches'] == SURFACE_GULPS and
+            scope['k1_launches'] == 0,
+            'surface fused-scope: K2 %d, K1 %d' % (scope['k2_launches'],
+                                                   scope['k1_launches']))
+    for name in ('FftBlock', 'DetectBlock'):
+        inside = [v for k, v in scope['ring_bytes'].items()
+                  if k.startswith(name)]
+        outside = [v for k, v in unfused['ring_bytes'].items()
+                   if k.startswith(name)]
+        require(inside and outside and inside[0] < outside[0],
+                'surface fused-scope: %s ring %s bytes, unfused %s'
+                % (name, inside, outside))
+    require(not any(n.startswith('AutoFused_x3_') for n in tapped['blocks'])
+            and any(n.startswith('FftBlock') for n in tapped['blocks'])
+            and tapped['k1_launches'] == 0
+            and tapped['tap_spans'] == [SURFACE_GULPS],
+            'surface tapped: blocks %s, K1 %d, tap spans %s'
+            % (tapped['blocks'], tapped['k1_launches'],
+               tapped['tap_spans']))
+    ref = explicit['crc']
+    for rec in runs.values():
+        rec['crc_equals_explicit'] = rec.pop('crc') == ref
+    out = {'gulp': [NTIME, NPOL, NFINE], 'rfactor': RFACTOR,
+           'gulps_per_arm': SURFACE_GULPS, 'arms': runs,
+           'bad_device': surface_bad_device(bt),
+           'ring_readers': {space: surface_ring_readers(bt, space)
+                            for space in ('cuda', 'system')},
+           'card': smi}
+    out['launches_k1'] = {a: r['k1_launches'] for a, r in runs.items()}
+    out['launches_k2'] = {a: r['k2_launches'] for a, r in runs.items()}
+    return out
+
+
 def spec_header(nfine):
     """The spectrometer chain's input header (ci8, time x pol x
     fine_time)."""
@@ -8562,6 +8847,7 @@ def main():
     mon = run('monitors', phase_monitors, bt, spec, gpu_kernels, smi)
     mpl = run('mesh_plans', phase_mesh_plans, bt, spec, gpu_kernels, beam,
               par, smi)
+    srf = run('surface', phase_surface, bt, spec, gpu_kernels, smi)
     k1['launches'] = pipe['launches_k1_run']['fused_spectrometer']
     k1['launches_radix16'] = \
         pipe['launches_k1_run']['fused_spectrometer_radix16']
@@ -8593,6 +8879,12 @@ def main():
         'the monitors phase: the bridged receiver (%d gulps, prewarm '
         'included) and the hand and detuned arms (%d gulps each)'
         % (MONGULPS, MONDIFF))
+    k1['launches_surface'] = srf['launches_k1']
+    k2['launches_surface'] = srf['launches_k2']
+    for k in (k1, k2):
+        k['launches_surface_of'] = (
+            'each arm of the surface phase, %d gulps (auto-fused and '
+            'explicit: gulps + 1 prewarm run)' % SURFACE_GULPS)
     k1['launches_mesh_plans'] = mpl['launches_k1']
     k1['launches_mesh_plans_of'] = (
         'the mesh_plans phase, %d gulps an arm; under the mesh each of %d '
@@ -8714,7 +9006,8 @@ def main():
     flt['phase_s'] = phase_s['fleet']
     log(json.dumps({'fleet': flt}))
     for rec, key in ((svc, 'service'), (fab, 'fabric'), (sch, 'scheduler'),
-                     (mon, 'monitors'), (mpl, 'mesh_plans')):
+                     (mon, 'monitors'), (mpl, 'mesh_plans'),
+                     (srf, 'surface')):
         rec['phase_s'] = phase_s[key]
         log(json.dumps({key: rec}))
     log(json.dumps({'kernels': kernels}))

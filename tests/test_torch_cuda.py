@@ -2691,3 +2691,102 @@ def test_mesh_sharded_h2d_from_cuda_host_equals_single_rank():
     assert snap.get('xfer.h2d_staged', 0) + \
         snap.get('xfer.h2d_unstaged', 0) == 0
     assert n4 == 4 * (8 + fb.prewarm_runs)
+
+
+# ---------------------------------------------------------------------------
+# the runtime surface: auto-fusion and force_completion
+# ---------------------------------------------------------------------------
+
+def _flagship_chain(auto_fuse, explicit, gulps):
+    """source -> copy('cuda') -> fft -> detect('stokes') -> reduce('freq',
+    4) -> copy('system') -> sink on ``gulps`` of (1024, 2, 4096) ci8, as
+    three stage blocks (under ``auto_fuse``) or one ``blocks.fused``
+    block; returns (output bytes, K1 launches, pipeline)."""
+    import contextlib
+    import bifrost_tpu_torch as bt
+    from bifrost_tpu_torch.stages import FftStage, DetectStage, ReduceStage
+    nt, nfft = gulps[0].shape[0], gulps[0].shape[2]
+
+    class Src(bt.SourceBlock):
+        def __init__(self):
+            super(Src, self).__init__(['v'], nt, space='system')
+
+        def create_reader(self, name):
+            return contextlib.nullcontext(iter(gulps))
+
+        def on_sequence(self, reader, name):
+            return [{'name': 'v', 'time_tag': 0,
+                     '_tensor': {'shape': [-1, 2, nfft], 'dtype': 'ci8',
+                                 'labels': ['time', 'pol', 'fine_time'],
+                                 'scales': [[0, 1]] * 3,
+                                 'units': [None] * 3}}]
+
+        def on_data(self, reader, ospans):
+            g = next(reader, None)
+            if g is None:
+                return [0]
+            dst = ospans[0].data.as_numpy().view(np.int8)
+            dst[...] = g.reshape(dst.shape)
+            return [nt]
+
+    class Sink(bt.SinkBlock):
+        def __init__(self, iring):
+            super(Sink, self).__init__(iring)
+            self.out = []
+
+        def on_sequence(self, iseq):
+            pass
+
+        def on_data(self, ispan):
+            self.out.append(np.array(ispan.data.as_numpy(), copy=True))
+
+    with bt.Pipeline(auto_fuse=auto_fuse) as p:
+        b = bt.blocks.copy(Src(), space='cuda')
+        if explicit:
+            b = bt.blocks.fused(b, [FftStage('fine_time', axis_labels='freq'),
+                                    DetectStage('stokes', axis='pol'),
+                                    ReduceStage('freq', 4)])
+        else:
+            b = bt.blocks.fft(b, axes='fine_time', axis_labels='freq')
+            b = bt.blocks.detect(b, mode='stokes')
+            b = bt.blocks.reduce(b, 'freq', 4)
+        sink = Sink(bt.blocks.copy(b, space='system'))
+    before = spec.launches
+    _run_bounded(p, timeout=120)
+    return np.concatenate(sink.out).tobytes(), spec.launches - before, p
+
+
+def test_auto_fused_flagship_chain_launches_k1_as_the_explicit_block():
+    """``Pipeline(auto_fuse=True)`` over the three stage blocks leaves one
+    AutoFused_x3 block that launches K1 once a gulp and once to prewarm,
+    and its output is byte for byte the explicit ``fused`` chain's."""
+    rng = np.random.RandomState(25)
+    gulps = [rng.randint(-64, 64, (1024, 2, 4096, 2)).astype(np.int8)
+             for _ in range(3)]
+    fused, n_fused, p = _flagship_chain(True, False, gulps)
+    want, n_explicit, _ = _flagship_chain(False, True, gulps)
+    auto = [b for b in p.blocks
+            if b.name.split('/')[-1].startswith('AutoFused_x3_')]
+    assert len(auto) == 1 and len(p.blocks) == 5
+    assert auto[0].impl_info['impl'] == 'cuda-spectrometer'
+    assert auto[0].impl_info['kernel'] == 'cuda'
+    assert n_fused == 3 + auto[0].prewarm_runs == n_explicit
+    assert fused == want
+
+
+def test_force_completion_waits_on_a_kernels_tensor():
+    """``force_completion`` returns only once the kernel writing its
+    tensor has completed: an event recorded just after the launch has
+    completed by then, with no readback."""
+    x = torch.zeros(1, device='cuda')
+    torch.cuda._sleep(1000)                # load both kernels first
+    y = x + 1
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))            # ~0.5 s of spinning
+    y = x + 1
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query()
+    device.force_completion(y)
+    assert done.query()
+    assert float(y.cpu()[0]) == 1.0

@@ -11,6 +11,7 @@ retry case (``:565``) waits for the port's I/O tier.
 
 import contextlib
 import io
+import sys
 import threading
 import time
 
@@ -215,16 +216,57 @@ def _both(drill):
 # failure propagation
 # ---------------------------------------------------------------------------
 
+#: the ring-core functions a block thread waits in while its ring is full
+#: (writer), empty (reader) or has no next sequence yet; both packages'
+#: Python and native cores wait inside these
+_RING_WAITS = ('_reserve_span', '_reserve_span_shed', '_acquire_span',
+               '_open_seq', '_next_seq')
+
+
+def _blocked_in_ring(thread):
+    """Whether ``thread`` is parked in a ring wait: a ring span function
+    on its stack whose innermost frame is a condition wait (the Python
+    core) or the span function itself (the native core, blocked in C)."""
+    frame = sys._current_frames().get(thread.ident)
+    if frame is None:
+        return False
+    inner = frame.f_code.co_name
+    while frame is not None:
+        if frame.f_code.co_name in _RING_WAITS:
+            return inner in ('wait',) + _RING_WAITS
+        frame = frame.f_back
+    return False
+
+
+def _fault_once_blocked(exc_class, blocks, timeout=10.0):
+    """A fault factory that returns its ``exc_class`` only once every
+    block of ``blocks`` is parked in a ring wait, so that the abort finds
+    each of them there (a thread between gulps would see the shutdown
+    event and leave without a poison record)."""
+    def make(site, name):
+        deadline = time.monotonic() + timeout
+        while not all(_blocked_in_ring(b._thread) for b in blocks):
+            if time.monotonic() > deadline:
+                raise AssertionError('peers never blocked:\n%s'
+                                     % thread_stacks())
+            time.sleep(0.001)
+        return exc_class('injected fault at %s (%s)' % (site, name))
+    return make
+
+
 def test_abort_midstream_no_hang():
     """A mid-stream exception ends the run within shutdown_timeout and
     raises PipelineRuntimeError with the original traceback."""
     def drill(k):
-        with k['faults'].injected('block.on_data', match='Ident', after=1):
-            with k['mod'].Pipeline() as p:
-                p.shutdown_timeout = 2.0
-                src = k['source'](_gulps(50), _hdr(), gulp_nframe=4)
-                blk = k['ident'](src)
-                sink = k['sink'](blk)
+        with k['mod'].Pipeline() as p:
+            p.shutdown_timeout = 2.0
+            src = k['source'](_gulps(50), _hdr(), gulp_nframe=4)
+            blk = k['ident'](src)
+            sink = k['sink'](blk)
+            fault = _fault_once_blocked(k['faults'].FaultInjected,
+                                        [src, sink])
+            with k['faults'].injected('block.on_data', match='Ident',
+                                      after=1, exc=fault):
                 t0 = time.monotonic()
                 exc = _run(p, timeout=20.0)
                 elapsed = time.monotonic() - t0
@@ -243,19 +285,25 @@ def test_abort_midstream_no_hang():
 
 
 def test_abort_poisons_upstream_source():
-    """The failed block's upstream source stops too."""
+    """The failed block's upstream source stops too.  The fault fires
+    once the source is blocked on its full ring and the sink on its empty
+    one, so each package's run records the poison cascade."""
     def drill(k):
-        with k['faults'].injected('block.on_data', match='Ident', after=1):
-            with k['mod'].Pipeline() as p:
-                p.shutdown_timeout = 2.0
-                src = k['source'](_gulps(500), _hdr(), gulp_nframe=4)
-                k['sink'](k['ident'](src))
+        with k['mod'].Pipeline() as p:
+            p.shutdown_timeout = 2.0
+            src = k['source'](_gulps(500), _hdr(), gulp_nframe=4)
+            sink = k['sink'](k['ident'](src))
+            fault = _fault_once_blocked(k['faults'].FaultInjected,
+                                        [src, sink])
+            with k['faults'].injected('block.on_data', match='Ident',
+                                      after=1, exc=fault):
                 exc = _run(p, timeout=20.0)
         assert isinstance(exc, k['runtime'])
         assert not any(t.is_alive() for t in p.threads)
         return _outcome(k, p, exc)
     got = _both(drill)
     assert got['port'] == got['jax']
+    assert got['port']['poisoned'] is True
 
 
 def test_restart_source_survives_transient_failures():
@@ -313,16 +361,18 @@ def test_restart_storm_budget_exhaustion_mid_chain(monkeypatch):
     hdr['gulp_nframe'] = nt
 
     def drill(k):
-        with k['faults'].injected('block.on_data', match='NumpySourceBlock',
-                                  count=3, after=2):
-            with k['mod'].Pipeline() as p:
-                p.shutdown_timeout = 5.0
-                src = k['source'](gulps, hdr, gulp_nframe=nt,
-                                  on_failure='restart',
-                                  restart_backoff=0.01)
-                dev = k['mod'].blocks.copy(src, space=k['space'])
-                host = k['mod'].blocks.copy(dev, space='system')
-                k['sink'](host)
+        with k['mod'].Pipeline() as p:
+            p.shutdown_timeout = 5.0
+            src = k['source'](gulps, hdr, gulp_nframe=nt,
+                              on_failure='restart', restart_backoff=0.01)
+            dev = k['mod'].blocks.copy(src, space=k['space'])
+            host = k['mod'].blocks.copy(dev, space='system')
+            sink = k['sink'](host)
+            fault = _fault_once_blocked(k['faults'].FaultInjected,
+                                        [dev, host, sink])
+            with k['faults'].injected('block.on_data',
+                                      match='NumpySourceBlock', count=3,
+                                      after=2, exc=fault):
                 exc = _run(p)
         assert isinstance(exc, k['runtime']), repr(exc)
         assert k['counters'].get('ring_poisoned') >= 3
@@ -348,16 +398,18 @@ def test_restart_storm_budget_exhaustion_mid_macro_gulp(monkeypatch):
     hdr['gulp_nframe'] = nt
 
     def drill(k):
-        with k['faults'].injected('block.on_data', match='NumpySourceBlock',
-                                  count=3, after=2):
-            with k['mod'].Pipeline(gulp_batch=4) as p:
-                p.shutdown_timeout = 5.0
-                src = k['source'](gulps, hdr, gulp_nframe=nt,
-                                  on_failure='restart',
-                                  restart_backoff=0.01)
-                dev = k['mod'].blocks.copy(src, space=k['space'])
-                host = k['mod'].blocks.copy(dev, space='system')
-                k['sink'](host)
+        with k['mod'].Pipeline(gulp_batch=4) as p:
+            p.shutdown_timeout = 5.0
+            src = k['source'](gulps, hdr, gulp_nframe=nt,
+                              on_failure='restart', restart_backoff=0.01)
+            dev = k['mod'].blocks.copy(src, space=k['space'])
+            host = k['mod'].blocks.copy(dev, space='system')
+            sink = k['sink'](host)
+            fault = _fault_once_blocked(k['faults'].FaultInjected,
+                                        [dev, host, sink])
+            with k['faults'].injected('block.on_data',
+                                      match='NumpySourceBlock', count=3,
+                                      after=2, exc=fault):
                 exc = _run(p)
         assert isinstance(exc, k['runtime']), repr(exc)
         assert k['counters'].get('ring_poisoned') >= 3
