@@ -557,7 +557,7 @@ class _PacketCapture(object):
         self.end()
 
 
-#: wire formats with a native C++ decoder (native/capture.cpp);
+#: wire formats with a native C++ decoder (csrc/native/capture.cpp);
 #: ids must match the FMT_* enum there
 NATIVE_FMT_IDS = {'simple': 0, 'chips': 1, 'tbn': 2, 'drx': 3,
                   'drx8': 4, 'ibeam': 5, 'cor': 6, 'pbeam': 7,
@@ -608,7 +608,7 @@ class UDPCapture(_PacketCapture):
 
     Dispatch: when the ring is native and the format has a C++ decoder,
     construction returns a :class:`NativeUDPCapture` — the whole
-    recv/decode/scatter loop runs in native/capture.cpp like the
+    recv/decode/scatter loop runs in csrc/native/capture.cpp like the
     reference engine, and a library that cannot be had raises
     (BF_NO_NATIVE_CAPTURE=1 selects Python; module docstring).
     The Python engine uses recvmmsg batching + vectorized decode when
@@ -681,7 +681,7 @@ class UDPCapture(_PacketCapture):
 
 
 class _BftPktDesc(ctypes.Structure):
-    # mirrors bft_pkt_desc in native/capture.cpp
+    # mirrors bft_pkt_desc in csrc/native/capture.cpp
     _fields_ = [('seq', ctypes.c_longlong),
                 ('time_tag', ctypes.c_longlong),
                 ('src', ctypes.c_int),
@@ -702,7 +702,7 @@ class _BftPktDesc(ctypes.Structure):
 
 class NativeUDPCapture(UDPCapture):
     """UDP capture driven end-to-end by the native engine
-    (native/capture.cpp): recvmmsg batches, C++ header decode, scatter
+    (csrc/native/capture.cpp): recvmmsg batches, C++ header decode, scatter
     straight into the native ring's buffer, loss accounting and
     blanking — the reference's capture-thread architecture
     (src/packet_capture.hpp:150-607).  Python is entered only once per

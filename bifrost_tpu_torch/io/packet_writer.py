@@ -155,7 +155,7 @@ def _native_tx_usable(fmt, sock):
 
 class UDPTransmit(_WriterBase):
     """UDP packet transmitter.  When the format has a native filler
-    (native/capture.cpp transmit engine) the whole header-fill +
+    (csrc/native/capture.cpp's transmit engine) the whole header-fill +
     sendmmsg loop runs in C++ (module docstring for the switches)."""
 
     def __new__(cls, fmt=None, sock=None, *args, **kwargs):

@@ -1,19 +1,21 @@
-"""ctypes bindings of the native ring runtime (``native/ring.cpp`` and its
-companions), the port of ``bifrost_tpu/native.py``.
+"""ctypes bindings of the native ring runtime, the port of
+``bifrost_tpu/native.py``.
 
-The library is built from the C++ sources in the repository's
-``native/`` directory at first use, with ``g++ -O2 -std=c++17 -fPIC
--pthread -shared``, into ``bifrost_tpu_torch/_build/native/``.  The
-library's name carries a hash of the sources and flags, so an edited
-source builds a new library.  Several processes may build at once (the
-tests run in parallel workers): the build runs under an exclusive file
-lock and writes to a temporary name that ``os.replace`` moves into place,
-so no process loads a half-written library.
+The port keeps its own copy of the C++ ring core and the capture and
+transmit engines in ``bifrost_tpu_torch/csrc/native/`` (``ring.cpp``,
+``capture.cpp``, ``selftest.cpp``, ``util.cpp``), and builds it at first
+use with ``g++ -O2 -std=c++17 -fPIC -pthread -shared`` into
+``bifrost_tpu_torch/_build/native/``: the package needs nothing beside
+it.  The library's name carries a hash of the sources and flags, so an
+edited source builds a new library.  Several processes may build at
+once (the tests run in parallel workers): the build runs under an
+exclusive file lock and writes to a temporary name that ``os.replace``
+moves into place, so no process loads a half-written library.
 
-There is no silent fallback: a build or load that fails raises
-:class:`NativeError` with the compiler's output.  ``BF_NO_NATIVE=1`` is
-the one switch to the Python ring core; it is read at every ring
-construction.
+There is no silent fallback: a missing source, or a build or load that
+fails, raises :class:`NativeError` (with the path, or the compiler's
+output).  ``BF_NO_NATIVE=1`` is the one switch to the Python ring core;
+it is read at every ring construction.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ BFT_WOULD_BLOCK = 2
 
 SOURCES = ('ring.cpp', 'capture.cpp', 'selftest.cpp', 'util.cpp')
 CXX_FLAGS = ('-O2', '-std=c++17', '-fPIC', '-pthread', '-shared')
+#: the sources' and the library's directories, inside the package
+SOURCE_SUBDIR = 'csrc/native'
+BUILD_SUBDIR = '_build/native'
 
 _lock = threading.Lock()
 _lib = None
@@ -43,17 +48,16 @@ class NativeError(RuntimeError):
     pass
 
 
-def _repo_root():
-    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+def _package_dir():
+    return os.path.dirname(os.path.abspath(__file__))
 
 
 def _source_dir():
-    return os.path.join(_repo_root(), 'native')
+    return os.path.join(_package_dir(), SOURCE_SUBDIR)
 
 
 def _build_dir():
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        '_build', 'native')
+    return os.path.join(_package_dir(), BUILD_SUBDIR)
 
 
 def disabled():
@@ -67,8 +71,15 @@ def library_path():
     h = hashlib.sha256()
     h.update(' '.join(('g++',) + CXX_FLAGS).encode())
     for name in SOURCES:
-        with open(os.path.join(_source_dir(), name), 'rb') as f:
-            h.update(name.encode() + b'\0' + f.read())
+        path = os.path.join(_source_dir(), name)
+        try:
+            with open(path, 'rb') as f:
+                text = f.read()
+        except OSError as exc:
+            raise NativeError("native source %s cannot be read: %s"
+                              % (path, exc))
+        h.update(('%s/%s' % (SOURCE_SUBDIR, name)).encode() + b'\0'
+                 + text)
     return os.path.join(_build_dir(),
                         'libbifrost_native-%s.so' % h.hexdigest()[:16])
 
@@ -228,8 +239,9 @@ _io_engine_supported = None
 
 def io_engine_supported():
     """Whether the native capture and transmit engines are compiled in
-    (the library builds stubs that return errors off Linux).  The port
-    queries them only: its I/O tier does not run them yet."""
+    (the library builds stubs that return errors off Linux).  Where they
+    are, ``io.packet_capture.UDPCapture`` on a native ``system`` ring and
+    ``io.packet_writer.UDPTransmit`` run them."""
     global _io_engine_supported
     if _io_engine_supported is None:
         lib = load()

@@ -73,7 +73,7 @@ checker (``analysis.ringcheck``, ``BF_RINGCHECK=1``) and its
 
 ``Ring(space='system')`` returns a :class:`~bifrost_tpu_torch.ring_native.
 NativeRing`, whose state machine and buffer live in the C++ core of
-``native/`` (built at first use), unless ``BF_NO_NATIVE`` is set.
+``csrc/native/`` (built at first use), unless ``BF_NO_NATIVE`` is set.
 'cuda_host' rings stay on this core (their buffer is torch's page-locked
 memory) and 'cuda' rings keep the chunk map.  Both cores share the
 sequence and span wrappers below.

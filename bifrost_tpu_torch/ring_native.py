@@ -1,5 +1,6 @@
-"""NativeRing: the 'system' ring on the C++ core of ``native/ring.cpp``
-(the port of ``bifrost_tpu/ring_native.py``).
+"""NativeRing: the 'system' ring on the C++ core of
+``bifrost_tpu_torch/csrc/native/ring.cpp`` (the port of
+``bifrost_tpu/ring_native.py``).
 
 It keeps the internal protocol of :class:`bifrost_tpu_torch.ring.Ring`,
 so the ``WriteSequence`` / ``ReadSequence`` / span wrappers of

@@ -248,8 +248,11 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of bifrost_tpu.  It:
    2 gulps) under the gate and the checker; the flagship fused K1 chain
    (1 warm-up and 2 timed gulps) with BF_TORCH_PROFILE armed: one
    capture, its five kernels with the most device time (K1 among them) and the device's
-   busy share of the window; each ring.corrupt.* seam on a cuda ring and
-   a native system ring raising RingProtocolError with its invariant;
+   busy share of the window; the native library's path and its source
+   directory, both inside the package (bifrost_tpu_torch/_build/native/,
+   built from bifrost_tpu_torch/csrc/native/); each ring.corrupt.* seam
+   on a cuda ring and a native system ring raising RingProtocolError
+   with its invariant;
    the drop_oldest card test's scenario 20 times, the ledger equal to
    the skipped frames every time; and the codes the verifier gave every
    pipeline this script ran (main() records each run's gate), none BF-E
@@ -5359,10 +5362,20 @@ def phase_analysis(bt, spec, gpu_kernels, smi):
                100 * out['profile']['busy_share'],
                json.dumps(out['profile']['top_kernels']), smi))
     # the corruption drills on a cuda ring and a native system ring
+    from bifrost_tpu_torch import native
     from bifrost_tpu_torch.ring import Ring
     from bifrost_tpu_torch.ring_native import NativeRing
     require(isinstance(Ring(space='system'), NativeRing),
             'analysis: a system ring is not native')
+    pkg = os.path.dirname(os.path.abspath(native.__file__)) + os.sep
+    lib, src = native.load()._name, native._source_dir()
+    out['native'] = {'library': lib, 'sources': src}
+    log('analysis native core: library %s, built from %s' % (lib, src))
+    require(lib.startswith(os.path.join(pkg, native.BUILD_SUBDIR, '')) and
+            lib == native.library_path() and
+            src.startswith(pkg) and os.path.isdir(src),
+            'analysis: the native library %s or its sources %s lie '
+            'outside the package %s' % (lib, src, pkg))
     drills = {}
     with environ(BF_RINGCHECK_WAKE_SECS='0.2'):
         ringcheck.set_enabled(True)

@@ -1,5 +1,5 @@
-"""The port's native ring core (``ring_native.NativeRing`` over
-``native/ring.cpp``, built by ``bifrost_tpu_torch.native``) against the
+"""The port's native ring core (``ring_native.NativeRing`` over its own
+``csrc/native/ring.cpp``, built by ``bifrost_tpu_torch.native``) against the
 port's Python core and the JAX package's ``NativeRing``: the same script
 of reserves, commits, acquires and releases gives the same bytes, offsets
 and shed ledgers on all three; chains give the same bytes on both port
@@ -219,7 +219,7 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     src = tmp_path / 'src'
     src.mkdir()
     for name in native.SOURCES:
-        text = open(os.path.join(ROOT, 'native', name)).read()
+        text = open(os.path.join(native._source_dir(), name)).read()
         if name == 'ring.cpp':
             text += '\nthis is not C++;\n'
         (src / name).write_text(text)

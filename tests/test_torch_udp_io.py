@@ -499,9 +499,8 @@ def test_failed_native_build_raises_from_capture_and_transmit(
         assert isinstance(ring, NativeRing)
         src = tmp_path / 'src'
         src.mkdir()
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         for name in native.SOURCES:
-            text = open(os.path.join(root, 'native', name)).read()
+            text = open(os.path.join(native._source_dir(), name)).read()
             if name == 'capture.cpp':
                 text += '\nthis is not C++;\n'
             (src / name).write_text(text)
